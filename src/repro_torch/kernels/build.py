@@ -1,0 +1,96 @@
+"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them.
+
+Each ``csrc/<name>.cu`` becomes a shared library with a plain ``extern "C"``
+interface, compiled for Hopper::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
+
+The build directory sits at the root of the checkout and is listed in
+``.gitignore``. A library is built at first use and named by a hash of its
+source and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. ``ptxas``' report of registers, shared memory and spills is
+kept beside each library as ``<name>-<hash>.log``.
+
+Nothing here runs when the module is imported: the CPU tests import it on
+machines that have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built to (named by its content hash)."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Build every named source that is not built yet, all ``nvcc`` runs at
+    once, and wait for them. Raises with the compiler's output if one
+    fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs = {name: library_path(name) for name in names}
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs
+    nvcc = nvcc_path()
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        lib = todo[name]
+        lib.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, lib)          # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _LOADED[name] = lib
+        return lib

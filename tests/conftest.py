@@ -61,6 +61,12 @@ settings.register_profile("ci", max_examples=12, deadline=None,
 settings.load_profile("ci")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; decides inside the test and "
+        "skips where there is none")
+
+
 def run_with_devices(code: str, n: int = 8, timeout: int = 420) -> str:
     """Run ``code`` in a subprocess with n fake host devices (the main test
     process must keep its single real device, so multi-device sharding tests

@@ -1,0 +1,209 @@
+"""The port's ``layer_fused`` (self-term epilogue) against the JAX package.
+
+On the CPU the port's wrapper runs its plain PyTorch version; it is held
+against the JAX Pallas kernel run in interpret mode and against the JAX
+oracle ``layer_fused_ref``, on the same numpy-seeded inputs and with the
+reference's own tolerances (2e-4 for the GIN form's kernel, 2e-5 else).
+The CUDA kernel is held against the plain version in a test that needs
+the card.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import layer_fused as tlf  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def jops():
+    """The JAX package's kernel ops (absent where JAX is not installed, as
+    on a machine that only runs the CUDA tests)."""
+    pytest.importorskip("jax")
+    return pytest.importorskip("repro.kernels.ops")
+
+
+def _problem(e=200, d=8, n=30, seed=0, mask_p=0.8):
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(n, d)).astype(np.float32)
+    snd = r.integers(0, n, size=e).astype(np.int32)
+    rcv = r.integers(0, max(n - 4, 1), size=e).astype(np.int32)
+    mask = r.random(e) < mask_p
+    return x, snd, rcv, mask
+
+
+def _port(x, snd, rcv, mask, n, kw, fn=tops.layer_fused, device="cpu",
+          **extra):
+    to_t = {k: (torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
+                else v) for k, v in kw.items()}
+    return fn(torch.from_numpy(x).to(device),
+              torch.from_numpy(snd.astype(np.int64)).to(device),
+              torch.from_numpy(rcv.astype(np.int64)).to(device),
+              torch.from_numpy(mask).to(device), n, **to_t, **extra)
+
+
+def _both(x, snd, rcv, mask, n, kw):
+    """The port's output on the CPU, and the JAX side's args and kwargs."""
+    out = _port(x, snd, rcv, mask, n, kw)
+    import jax.numpy as jnp
+    to_j = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+            for k, v in kw.items()}
+    jargs = (jnp.asarray(x), jnp.asarray(snd), jnp.asarray(rcv),
+             jnp.asarray(mask), n)
+    return out.cpu().numpy(), jargs, to_j
+
+
+def _gin_kw(r, e, d):
+    return dict(w1=r.normal(size=(d, 2 * d)).astype(np.float32),
+                b1=r.normal(size=(2 * d,)).astype(np.float32),
+                w2=r.normal(size=(2 * d, d)).astype(np.float32),
+                b2=r.normal(size=(d,)).astype(np.float32),
+                edge_term=r.normal(size=(e, d)).astype(np.float32),
+                phi_activation="relu", self_coeff=np.float32(1.25))
+
+
+@pytest.mark.parametrize("e,d,n,edge_tile,banks", [
+    (128, 16, 32, 32, 2),
+    (200, 8, 30, 64, 4),         # uneven: E % tile != 0, N % banks != 0
+    (96, 24, 17, 32, 5),         # uneven bank sizes
+])
+def test_gin_form_matches_reference(jops, e, d, n, edge_tile, banks):
+    """GIN form: phi=relu(src+e), scalar self term, 2-layer MLP."""
+    r = np.random.default_rng(e + n)
+    x, snd, rcv, mask = _problem(e, d, n, seed=e + n)
+    kw = _gin_kw(r, e, d)
+    kw["self_coeff"] = 1.25
+    ours, jargs, jkw = _both(x, snd, rcv, mask, n, kw)
+    kern = jops.layer_fused(*jargs, edge_tile=edge_tile, num_banks=banks,
+                            **jkw)
+    ref = jops.layer_fused_ref(*jargs, **jkw)
+    np.testing.assert_allclose(ours, kern, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(ours, ref, atol=2e-5, rtol=2e-5)
+    assert ours.shape == (n, d)
+
+
+def test_gcn_form_matches_reference(jops):
+    """GCN form: phi=src*norm, per-node self term, single dense, out relu,
+    D_out != D."""
+    e, d, n = 200, 8, 30
+    r = np.random.default_rng(1)
+    x, snd, rcv, mask = _problem(e, d, n, seed=2)
+    kw = dict(w1=r.normal(size=(d, 5)).astype(np.float32),
+              b1=r.normal(size=(5,)).astype(np.float32),
+              src_weight=r.normal(size=(e,)).astype(np.float32),
+              self_coeff=r.normal(size=(n,)).astype(np.float32),
+              out_activation="relu")
+    ours, jargs, jkw = _both(x, snd, rcv, mask, n, kw)
+    kern = jops.layer_fused(*jargs, edge_tile=64, num_banks=3, **jkw)
+    ref = jops.layer_fused_ref(*jargs, **jkw)
+    np.testing.assert_allclose(ours, kern, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(ours, ref, atol=2e-5, rtol=2e-5)
+    assert ours.shape == (n, 5)
+
+
+def test_no_self_term_bias_and_full_src_weight_match_reference(jops):
+    e, d, n = 128, 8, 24
+    r = np.random.default_rng(3)
+    x, snd, rcv, mask = _problem(e, d, n, seed=5)
+    kw = dict(w1=r.normal(size=(d, d)).astype(np.float32),
+              b1=r.normal(size=(d,)).astype(np.float32),
+              phi_bias=r.normal(size=(d,)).astype(np.float32),
+              src_weight=r.normal(size=(e, d)).astype(np.float32))
+    ours, jargs, jkw = _both(x, snd, rcv, mask, n, kw)
+    kern = jops.layer_fused(*jargs, edge_tile=32, num_banks=4, **jkw)
+    ref = jops.layer_fused_ref(*jargs, **jkw)
+    np.testing.assert_allclose(ours, kern, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(ours, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_head_broadcast_src_weight_and_node_input_match_reference(jops):
+    """(E, H) per-head lanes broadcast over D/H lanes; a separate gather
+    buffer (node_input) with the self term on x."""
+    e, d, n, h = 128, 16, 24, 4
+    r = np.random.default_rng(4)
+    x, snd, rcv, mask = _problem(e, d, n, seed=7)
+    kw = dict(w1=r.normal(size=(d, d)).astype(np.float32),
+              b1=r.normal(size=(d,)).astype(np.float32),
+              src_weight=r.normal(size=(e, h)).astype(np.float32),
+              node_input=r.normal(size=(n, d)).astype(np.float32),
+              self_coeff=np.float32(0.5))
+    ours, jargs, jkw = _both(x, snd, rcv, mask, n, kw)
+    kern = jops.layer_fused(*jargs, edge_tile=32, num_banks=4, **jkw)
+    ref = jops.layer_fused_ref(*jargs, **jkw)
+    np.testing.assert_allclose(ours, kern, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(ours, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_layer_fused_rejects_bad_input():
+    x, snd, rcv, mask = (torch.from_numpy(a) for a in _problem())
+    snd, rcv = snd.long(), rcv.long()
+    w1 = torch.zeros((8, 8))
+    b1 = torch.zeros((8,))
+    with pytest.raises(ValueError):
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
+                         phi_activation="gelu")
+    with pytest.raises(ValueError):
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
+                         out_activation="tanh")
+    with pytest.raises(ValueError):
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
+                         w2=torch.zeros((8, 8)))       # w2 without b2
+    with pytest.raises(ValueError):
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=torch.zeros((4, 8)),
+                         b1=b1)
+    with pytest.raises(ValueError):
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
+                         self_coeff=torch.zeros((7,)))
+    with pytest.raises(ValueError):
+        tops.layer_fused(x, snd, rcv, mask, 29, w1=w1, b1=b1)
+    with pytest.raises(ValueError):                  # width must divide D
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
+                         src_weight=torch.zeros((200, 3)))
+    with pytest.raises(ValueError):
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
+                         self_coeff=1.0, scalers=torch.zeros((30, 3)),
+                         degrees=torch.zeros((30,)))
+    with pytest.raises(NotImplementedError):         # PNA / DGN slices
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
+                         scalers=torch.zeros((30, 3)),
+                         degrees=torch.zeros((30,)))
+
+
+def test_cpu_path_takes_the_plain_version_and_launches_nothing():
+    e, d, n = 64, 8, 16
+    r = np.random.default_rng(9)
+    x, snd, rcv, mask = _problem(e, d, n, seed=9)
+    kw = _gin_kw(r, e, d)
+    before = tlf.layer_fused.launches
+    ours = _port(x, snd, rcv, mask, n, kw)
+    plain = _port(x, snd, rcv, mask, n, kw, fn=tlf.layer_fused_ref)
+    assert torch.equal(ours, plain)
+    assert tlf.layer_fused.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,d,n", [(4096, 100, 1024), (1000, 100, 61),
+                                   (333, 300, 45)])
+def test_cuda_kernel_matches_plain_version(e, d, n):
+    """The CUDA kernel vs its plain version on the card, bitwise equal
+    across rows-per-block and runs. Both are fp32 with sums in another
+    order, so they agree to 1e-4 of the output's scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = np.random.default_rng(e)
+    x, snd, rcv, mask = _problem(e, d, n, seed=e)
+    kw = _gin_kw(r, e, d)
+    before = tlf.layer_fused.launches
+    outs = [_port(x, snd, rcv, mask, n, kw, device="cuda",
+                  rows_per_block=rpb) for rpb in (None, None, 1, 3, 16)]
+    plain = _port(x, snd, rcv, mask, n, kw, fn=tlf.layer_fused_ref,
+                  device="cuda")
+    torch.cuda.synchronize()
+    assert tlf.layer_fused.launches == before + len(outs)
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(outs[0], plain, atol=1e-4 * scale, rtol=1e-4)
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
