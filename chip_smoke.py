@@ -65,12 +65,12 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def close(a, b, scale_floor: float = 1.0):
-    """Max abs error, max error relative to the plain version's largest
-    magnitude, and whether |a - b| <= ATOL_OF_SCALE*scale + RTOL*|b|."""
+def close(a, b):
+    """Max abs error, max error relative to max(1, max|b|) (the scale), and
+    whether |a - b| <= ATOL_OF_SCALE*scale + RTOL*|b| with ``a`` finite."""
     import torch
     diff = (a - b).abs()
-    scale = max(scale_floor, float(b.abs().max()))
+    scale = max(1.0, float(b.abs().max()))
     ok = bool((diff <= ATOL_OF_SCALE * scale + RTOL * b.abs()).all())
     return float(diff.max()), float(diff.max()) / scale, ok and bool(
         torch.isfinite(a).all())
@@ -229,9 +229,7 @@ def to_numpy(kw):
 def kernel_phase(card: str, main_inputs, dev="cuda"):
     """Phase 3: layer_fused against layer_fused_ref on the card."""
     import torch
-    from repro_torch.kernels.layer_fused import (default_rows_per_block,
-                                                 layer_fused,
-                                                 layer_fused_ref)
+    from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
     cases = {
         "a_gin_paper_width": lf_case(1, 1024, 4096, 100, 200, 100,
                                      empty_tail=64),
@@ -262,8 +260,6 @@ def kernel_phase(card: str, main_inputs, dev="cuda"):
             raise AssertionError(f"layer_fused {name} disagrees with its "
                                  f"plain version")
         if name.startswith("a_"):
-            n, d = kw_np["x"].shape
-            rpb = default_rows_per_block(n, d, kw_np["w1"].shape[1], True)
             runs = [out, lf_call(layer_fused, kw),
                     lf_call(layer_fused, kw, rows_per_block=3),
                     lf_call(layer_fused, kw, rows_per_block=16)]
@@ -272,7 +268,7 @@ def kernel_phase(card: str, main_inputs, dev="cuda"):
                 raise AssertionError("layer_fused is not bitwise stable "
                                      "across runs and rows-per-block")
             log("kernels", f"layer_fused {name}: bitwise equal across 2 runs "
-                f"at {rpb} rows/block (default) and at 3 and 16 rows/block")
+                f"at the kernel's own rows/block and at 3 and 16 rows/block")
         bound, bound_by, nbytes, flops = lf_bound(kw_np)
         ms, call_ms = time_ms(lambda: lf_call(layer_fused, kw))
         plain_ms, plain_call_ms = time_ms(lambda: lf_call(layer_fused_ref,

@@ -243,8 +243,8 @@ class FusableUpdate:
 def segment_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
                       num_nodes: int, *, kind: str = "sum",
                       edge_mask: Optional[torch.Tensor] = None,
-                      dataflow: DataflowConfig = DEFAULT_DATAFLOW,
-                      degrees: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      dataflow: DataflowConfig = DEFAULT_DATAFLOW
+                      ) -> torch.Tensor:
     """Sum per-edge messages ``msg`` (E, D) into per-node rows (N, D);
     masked edges contribute nothing. Works on raw (unsorted) COO."""
     if kind != "sum":

@@ -240,11 +240,3 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, *, w1, b1,
     layer_fused.launches += 1
     return out
 
-
-def default_rows_per_block(num_nodes: int, d: int, d_ff: int,
-                           two_layer: bool) -> int:
-    """The rows one CUDA block owns when the kernel chooses (needs a GPU)."""
-    fn = build.load("layer_fused").layer_fused_default_rows
-    fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
-    return fn(num_nodes, d, d_ff, int(two_layer))
