@@ -32,10 +32,8 @@
 //     exactly one thread, which adds its edges in stream order: no atomics,
 //     and the result is bitwise the same for any R and from run to run.
 //   * Epilogue in the same launch: the self term, then each dense layer as
-//     fp32 FMAs with k in order (weights read through L2, kKStep of them
-//     loaded ahead, kRowChunk rows per weight load); the hidden layer
-//     (R x D_ff floats) stays in shared memory. At the serving buckets the
-//     layer is bound by the latency of these L2 reads, not by their bytes.
+//     fp32 FMAs with k in order (weights read through L2, kRowChunk rows per
+//     weight load); the hidden layer (R x D_ff floats) stays in shared memory.
 //     No TF32 anywhere. Shared memory above 48 KB is opted into per launch.
 //   * The launcher returns cudaGetLastError(); it allocates nothing and does
 //     not synchronise.
@@ -50,8 +48,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kEdgesPerThread = 4;
 constexpr int kEdgeTile = kThreads * kEdgesPerThread;
 constexpr int kRowChunk = 8;      // rows sharing one weight load in the MLP
-constexpr int kKStep = 16;        // weights of one column loaded ahead
-constexpr int kUnroll = 8;        // edges whose loads are issued together
+constexpr int kUnroll = 4;        // edges whose loads are issued together
 
 enum SrcWeightMode { kSwNone = 0, kSwScalar = 1, kSwFull = 2, kSwHead = 3 };
 enum SelfMode { kSelfNone = 0, kSelfScalar = 1, kSelfNode = 2 };
@@ -116,21 +113,12 @@ __device__ void dense_rows(const float* src, int k_dim, int rows,
       float a[kRowChunk];
 #pragma unroll
       for (int q = 0; q < kRowChunk; ++q) a[q] = 0.f;
-      for (int k0 = 0; k0 < k_dim; k0 += kKStep) {
-        // the L2 latency of one weight is paid once per kKStep of k
-        float wk[kKStep];
+#pragma unroll 4
+      for (int k = 0; k < k_dim; ++k) {
+        const float wk = w[(size_t)k * n_dim + j];
 #pragma unroll
-        for (int u = 0; u < kKStep; ++u) {
-          wk[u] = k0 + u < k_dim ? w[(size_t)(k0 + u) * n_dim + j] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < kKStep; ++u) {
-          if (k0 + u < k_dim) {
-#pragma unroll
-            for (int q = 0; q < kRowChunk; ++q) {
-              a[q] = fmaf(src[(r0 + q) * k_dim + k0 + u], wk[u], a[q]);
-            }
-          }
+        for (int q = 0; q < kRowChunk; ++q) {
+          a[q] = fmaf(src[(r0 + q) * k_dim + k], wk, a[q]);
         }
       }
 #pragma unroll
