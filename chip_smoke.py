@@ -37,7 +37,6 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-OUT_DIR = REPO / "chiprun_out"
 
 # Published H100 SXM peaks (NVIDIA's data sheet) at the 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -493,11 +492,6 @@ def main() -> int:
         "shape": "GIN layer at the hep bucket: N=64, E=1024, D=100, "
                  "D_ff=200",
     }]
-    OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "kernels": kernels, "layer_fused_cases": rows,
-         "slice": slice_result}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
