@@ -225,7 +225,7 @@ def to_numpy(kw):
             else v for k, v in kw.items()}
 
 
-def kernel_phase(card: str, main_inputs, dev="cuda"):
+def kernel_phase(card: str, main_inputs):
     """Phase 3: layer_fused against layer_fused_ref on the card."""
     import torch
     from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
@@ -245,7 +245,7 @@ def kernel_phase(card: str, main_inputs, dev="cuda"):
         cases[name] = to_numpy(kw)
     rows = {}
     for name, kw_np in cases.items():
-        kw = on_device(kw_np, dev)
+        kw = on_device(kw_np, "cuda")
         out = lf_call(layer_fused, kw)
         plain = lf_call(layer_fused_ref, kw)
         torch.cuda.synchronize()
@@ -289,7 +289,7 @@ def kernel_phase(card: str, main_inputs, dev="cuda"):
 # the slice, end to end
 # ---------------------------------------------------------------------------
 
-def slice_phase(card: str, dev="cuda"):
+def slice_phase(card: str):
     import torch
     from repro_torch.core.engine import GraphStreamEngine
     from repro_torch.core.message_passing import DataflowConfig
@@ -298,7 +298,7 @@ def slice_phase(card: str, dev="cuda"):
     from repro_torch.kernels.layer_fused import layer_fused
 
     cfg = PAPER_GNN_CONFIGS["gin"]
-    params = gin_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    params = gin_init(torch.Generator().manual_seed(0), cfg, device="cuda")
     graphs = (list(molhiv_like(seed=0, n_graphs=64))
               + list(hep_like(seed=2, n_graphs=8)))
     warm = [graphs[0], graphs[-1]]             # one graph per kind of bucket
@@ -307,7 +307,7 @@ def slice_phase(card: str, dev="cuda"):
         return g.node_feat, g.senders, g.receivers, g.edge_feat, g.node_pos
 
     engine = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused_layer"),
-                               device=dev)
+                               device="cuda")
     layer_fused.launches = 0
     for g in warm:
         engine.warmup(*args(g))
@@ -327,7 +327,7 @@ def slice_phase(card: str, dev="cuda"):
         raise AssertionError("expected one pass over the edges per layer")
 
     plain = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused"),
-                              device=dev)
+                              device="cuda")
     ref = [plain.process(*args(g)) for g in graphs]
     cpu = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused_layer"),
                             device="cpu")
@@ -362,8 +362,7 @@ def slice_phase(card: str, dev="cuda"):
               "plain_summary": plain_summary, "wall_s": wall,
               "edge_passes": {str(k): v for k, v in
                               engine.edge_passes.items()}}
-    if dev == "cuda":
-        result["profile"] = profile_serving(engine, graphs[:16], args, card)
+    result["profile"] = profile_serving(engine, graphs[:16], args, card)
     return result
 
 
