@@ -175,18 +175,28 @@ def lf_call(fn, kw, **extra):
     return fn(*args, **kw, **extra)
 
 
+# layer_fused's per-edge streams: a masked edge contributes nothing, so the
+# function needs these only for the edges whose mask is set
+LF_EDGE_STREAMS = ("senders", "receivers", "src_weight", "edge_term")
+
+
 def lf_bound(kw):
-    """The least time (ms) the card could take for this call: each input
-    read once and the output written once at the memory rate, or the fp32
-    operations this run's data needs at the fp32 rate; the larger."""
+    """The least time (ms) the card could take for this call, the larger of
+    two. Bytes at the memory rate: the edge mask once, the per-edge streams
+    of the unmasked edges once, every node-side input and weight once, the
+    output written once. Operations at the fp32 rate: those this run's
+    data needs (the unmasked edges' phi, then the epilogue)."""
     n, d = kw["x"].shape
     e = kw["senders"].shape[0]
     valid = int(kw["edge_mask"].sum())
     d_ff = kw["w1"].shape[1]
     two = "w2" in kw
     d_out = kw["w2"].shape[1] if two else d_ff
-    nbytes = sum(kw[k].nbytes for k in kw if isinstance(kw[k], np.ndarray))
-    nbytes += n * d_out * 4                                   # the output
+    nbytes = n * d_out * 4                                    # the output
+    for k, v in kw.items():
+        if isinstance(v, np.ndarray):
+            nbytes += (v.nbytes // e * valid if k in LF_EDGE_STREAMS
+                       else v.nbytes)
     per_edge = 1 + ("src_weight" in kw) + ("edge_term" in kw) + (
         "phi_bias" in kw) + (kw["phi_activation"] == "relu")
     flops = valid * d * per_edge
@@ -351,12 +361,13 @@ def slice_phase(card: str):
     summary = engine.stats.summary()
     log("slice", "GIN paper config, fused_layer, batch 1: p50 "
         f"{summary['p50_ms']:.3f} ms, p90 {summary['p90_ms']:.3f} ms, p99 "
-        f"{summary['p99_ms']:.3f} ms, device {summary['device_mean_ms']:.3f} "
-        f"ms/graph, {summary['throughput_gps']:.1f} graphs/s of device time, "
-        f"{len(graphs) / wall:.1f} graphs/s wall, on {card}")
+        f"{summary['p99_ms']:.3f} ms; forward span (CUDA events around the "
+        f"forward, host launch gaps included) {summary['device_mean_ms']:.3f} "
+        f"ms/graph, {summary['throughput_gps']:.1f} graphs/s of forward "
+        f"span; {len(graphs) / wall:.1f} graphs/s wall, on {card}")
     plain_summary = plain.stats.summary()
     log("slice", "same graphs, impl='fused' (plain PyTorch): p50 "
-        f"{plain_summary['p50_ms']:.3f} ms, device "
+        f"{plain_summary['p50_ms']:.3f} ms, forward span "
         f"{plain_summary['device_mean_ms']:.3f} ms/graph, on {card}")
     result = {"launches": launches, "summary": summary,
               "plain_summary": plain_summary, "wall_s": wall,
@@ -410,11 +421,17 @@ def profile_serving(engine, graphs, args, card: str):
     out = {"graphs": len(graphs), "wall_ms": wall * 1e3,
            "build_ms_per_graph": build_ms, "device_busy_us": busy_us,
            "device_busy_share": busy_us / (wall * 1e6),
+           # graphs per second of the card's own busy time: what one card
+           # would serve if the host kept it fed
+           "busy_throughput_gps": len(graphs) / (busy_us * 1e-6),
            "host_self_us": sum(t for t, _ in on_host.values()),
            "top_device": top(on_device, 10), "top_host": top(on_host, 10)}
     log("profile", f"{len(graphs)} graphs in {wall * 1e3:.2f} ms wall "
         f"(profiler on); device busy {busy_us:.1f} us "
-        f"({out['device_busy_share']:.1%} of wall) on {card}")
+        f"({out['device_busy_share']:.1%} of wall), "
+        f"{busy_us / len(graphs):.1f} us/graph, "
+        f"{out['busy_throughput_gps']:.1f} graphs/s of device-busy time, "
+        f"on {card}")
     for side in ("top_device", "top_host"):
         for row in out[side]:
             log("profile", f"  {side[4:]:6} {row['us']:10.1f} us "

@@ -38,12 +38,16 @@ BucketKey = Tuple[int, int, int]        # (node_pad, edge_pad, graph_pad)
 
 @dataclass
 class StreamStats:
-    """Per-graph latency and per-batch device time.
+    """Per-graph latency and per-batch forward span.
 
     ``latencies_s`` holds one host-clock time per graph, from ``submit`` to
-    its answer on the host. ``device_s`` holds one device time per batch:
-    CUDA events around the forward on a GPU, the host clock around it on
-    the CPU. ``batch_sizes`` holds the graphs per batch (1 here).
+    its answer on the host. ``device_s`` holds one forward span per batch:
+    CUDA events recorded around the forward on a GPU, so the host's launch
+    gaps between the forward's kernels count in it; the host clock around
+    the forward on the CPU. ``batch_sizes`` holds the graphs per batch (1
+    here). ``device_mean_ms`` and ``throughput_gps`` in ``summary()`` read
+    these spans: they measure the card's work plus the host's dispatch,
+    not the card alone.
     """
 
     latencies_s: List[float] = field(default_factory=list)
@@ -62,7 +66,7 @@ class StreamStats:
             "p99_ms": float(np.percentile(arr, 99) * 1e3),
         }
         if self.device_s and sum(self.device_s) > 0:
-            # graphs per second of device-busy time
+            # graphs per second of forward span, host launch gaps included
             out["device_mean_ms"] = float(np.mean(self.device_s) * 1e3)
             out["throughput_gps"] = float(
                 sum(self.batch_sizes) / sum(self.device_s))
@@ -125,10 +129,9 @@ class GraphStreamEngine:
                 raise InvalidGraph(reason, request_ids=(req_id,))
         n = int(np.asarray(node_feat).shape[0])
         e = int(np.asarray(senders).shape[0])
-        node_budget = max(self.buckets)
-        if n > node_budget:
-            raise GraphTooLarge(check_budget(n, e, node_budget=node_budget),
-                                request_ids=(req_id,))
+        reason = check_budget(n, node_budget=max(self.buckets))
+        if reason is not None:
+            raise GraphTooLarge(reason, request_ids=(req_id,))
         key = (pad_bucket(max(n, 1), self.buckets),
                pad_bucket(max(e, 1), self.buckets), 1)
         fut: Future = Future()

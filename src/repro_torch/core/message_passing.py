@@ -114,28 +114,19 @@ def precompute_graph_stats(
     *,
     with_degrees: bool = True,
     with_self_loop_norm: bool = False,
-    pna_delta: Optional[float] = None,
-    with_dgn_field: bool = False,
     with_graph_counts: bool = False,
-    degrees: Optional[torch.Tensor] = None,
 ) -> PrecomputedGraphStats:
     """Compute the per-graph statistics bundle (one sweep per family).
 
     The degree sweep is a real pass over the edge stream and is counted.
-    ``degrees`` may be supplied to skip it.
+    PNA's and DGN's statistics are not ported yet: ROADMAP queue 1 item 3.
     """
-    if pna_delta is not None:
-        raise NotImplementedError(f"PNA scalers: {_TODO_MP}")
-    if with_dgn_field:
-        raise NotImplementedError(f"DGN field weights: {_TODO_MP}")
-    need_deg = with_degrees or with_self_loop_norm
-    if need_deg and degrees is None:
+    degrees = None
+    if with_degrees or with_self_loop_norm:
         _count_pass()
         degrees = torch.zeros(graph.n_node_pad, dtype=torch.float32,
                               device=graph.device).index_add_(
             0, graph.receivers, graph.edge_mask.to(torch.float32))
-    elif not need_deg:
-        degrees = None
     inv_sqrt_deg = torch.rsqrt(degrees + 1.0) if with_self_loop_norm else None
     graph_node_counts = None
     if with_graph_counts:
@@ -295,8 +286,8 @@ def propagate(
                 f"the mp_pipeline edge phase: {_TODO_PIPELINE}")
         _count_pass()                 # the whole layer is one launch
         with _uncounted():
-            from repro_torch.kernels import ops as kops
-            out = kops.layer_fused(
+            from repro_torch.kernels.ops import layer_fused
+            out = layer_fused(
                 x, graph.senders, graph.receivers, graph.edge_mask,
                 graph.n_node_pad, w1=fu.w1, b1=fu.b1,
                 node_input=fusable.node_input,

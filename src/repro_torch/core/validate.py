@@ -83,23 +83,13 @@ def check_graph(node_feat, senders, receivers, edge_feat=None,
     return None
 
 
-def check_budget(num_nodes: int, num_edges: int, *,
-                 node_budget: Optional[int] = None,
-                 edge_budget: Optional[int] = None,
-                 wide_enabled: bool = False) -> Optional[str]:
+def check_budget(num_nodes: int, *, node_budget: int) -> Optional[str]:
     """Why this graph exceeds the single-device serving budget, or ``None``.
 
     The budget is the largest bucket the engine serves. Wide placement (one
     graph split across devices) is not ported yet: ROADMAP queue 1 item 8.
     """
-    if node_budget is not None and num_nodes > node_budget:
+    if num_nodes > node_budget:
         return (f"graph has {num_nodes} nodes > largest single-device "
-                f"bucket {node_budget}"
-                + ("" if wide_enabled else
-                   " and wide placement is disabled"))
-    if edge_budget is not None and num_edges > edge_budget:
-        return (f"graph has {num_edges} edges > single-device edge "
-                f"budget {edge_budget}"
-                + ("" if wide_enabled else
-                   " and wide placement is disabled"))
+                f"bucket {node_budget}")
     return None

@@ -1,33 +1,12 @@
-"""Dispatch wrappers for the port's kernels.
+"""The port's kernel entry points, under the twin name of
+``repro/kernels/ops.py``.
 
-The twin of ``repro/kernels/ops.py``. A wrapper launches its hand-written
-CUDA kernel for CUDA tensors (or raises) and runs the kernel's plain
-PyTorch version for CPU tensors. Only ``layer_fused`` is ported so far; the
-other TPU kernels are listed in ROADMAP queue 2.
+Each wrapper launches its hand-written CUDA kernel for CUDA tensors (or
+raises) and runs the kernel's plain PyTorch version for CPU tensors; the
+dispatch lives in the kernel's own module. Only ``layer_fused`` is ported
+so far; the other TPU kernels are listed in ROADMAP queue 2.
 """
 
-from __future__ import annotations
-
-from repro_torch.kernels.layer_fused import layer_fused as _layer_fused
-from repro_torch.kernels.layer_fused import layer_fused_ref
-
-
-def layer_fused(x, senders, receivers, edge_mask, num_nodes, *, w1, b1,
-                node_input=None, src_weight=None, edge_term=None,
-                phi_bias=None, phi_activation="none", self_coeff=None,
-                scalers=None, degrees=None, field_wsum=None,
-                w2=None, b2=None, out_activation="none",
-                rows_per_block=None):
-    """One-launch NT+MP layer step (gather + phi + aggregate + update MLP),
-    self-term epilogue (GIN / GCN)."""
-    return _layer_fused(x, senders, receivers, edge_mask, num_nodes,
-                        w1=w1, b1=b1, node_input=node_input,
-                        src_weight=src_weight, edge_term=edge_term,
-                        phi_bias=phi_bias, phi_activation=phi_activation,
-                        self_coeff=self_coeff, scalers=scalers,
-                        degrees=degrees, field_wsum=field_wsum,
-                        w2=w2, b2=b2, out_activation=out_activation,
-                        rows_per_block=rows_per_block)
-
+from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
 
 __all__ = ["layer_fused", "layer_fused_ref"]

@@ -23,6 +23,7 @@ from repro.data.graphs import hep_like, molhiv_like  # noqa: E402
 from repro_torch.checkpoint.convert import (params_from_numpy,  # noqa: E402
                                             params_to_numpy)
 from repro_torch.core.graph import build_graph_batch as tbuild  # noqa: E402
+from repro_torch.core import message_passing as tmp  # noqa: E402
 from repro_torch.core.graph import permute_edges  # noqa: E402
 from repro_torch.core.message_passing import (DataflowConfig,  # noqa: E402
                                               count_edge_passes)
@@ -146,6 +147,31 @@ def test_edge_passes_per_layer(impl, per_layer):
             p, g, jcfg, jmp.DataflowConfig(impl=impl, scan_layers=False)),
             _jax_params(jcfg)[0], _graphs(packed=False)[0])
     assert ps.passes == pj.passes
+
+
+@pytest.mark.parametrize("flags", [
+    dict(),
+    dict(with_degrees=False, with_graph_counts=True),
+    dict(with_degrees=False, with_self_loop_norm=True),
+    dict(with_self_loop_norm=True, with_graph_counts=True),
+])
+def test_precompute_graph_stats_matches_reference(flags):
+    """The port's statistics equal the reference's: in-degrees and node
+    counts bitwise (small integers in f32), 1/sqrt(deg + 1) to 1e-6; and
+    each sweep over the edge stream is counted as the reference counts it."""
+    jg, tg = _graphs(packed=True)
+    with count_edge_passes() as ps:
+        ours = tmp.precompute_graph_stats(tg, **flags)
+    with jmp.count_edge_passes() as pj:
+        ref = jmp.precompute_graph_stats(jg, **flags)
+    assert ps.passes == pj.passes
+    for name in ("degrees", "inv_sqrt_deg", "graph_node_counts"):
+        a, b = getattr(ours, name), getattr(ref, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_allclose(
+                a.numpy(), np.asarray(b), atol=0,
+                rtol=1e-6 if name == "inv_sqrt_deg" else 0, err_msg=name)
 
 
 def test_gin_init_shapes_match_reference():
