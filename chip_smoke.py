@@ -10,14 +10,20 @@ Phases, each printing its own lines:
   2. build   — builds every CUDA kernel of the path from ``src/repro_torch/
                kernels/csrc`` with nvcc (all sources at once).
   3. kernels — each kernel against its plain PyTorch version on the card,
-               at stated tolerances, bitwise across runs and launch shapes;
-               kernel, plain and bound times.
-  4. slice   — GIN at the paper's width served end to end through
-               ``GraphStreamEngine.process`` (impl='fused_layer'): launch
-               counts, passes over the edges, agreement with the plain
-               ``impl='fused'`` path on the card and with the CPU; then
-               16 graphs again under ``torch.profiler``: device-busy share,
-               top device and host ops, and the host's batch build alone.
+               at stated tolerances, bitwise across runs and launch shapes,
+               empty destinations exact; kernel, plain and bound times. The
+               cases: synthetic ones at N=1024 (997), and the inputs every
+               path of phase 4 hands its kernel in its first two layers at
+               both serving buckets, recorded at the wrapper.
+  4. slice   — the paper configs served end to end through
+               ``GraphStreamEngine.process``, each path with the launch
+               counts set to 0 just before it and read just after: GIN and
+               GAT under impl='fused_layer' (then 16 graphs of each again
+               under ``torch.profiler``: device-busy share, top device and
+               host ops, the host's batch build alone), GCN under
+               'fused_layer', GIN and GCN under 'pipeline'. Each checks its
+               launches, its passes over the edges, and agreement with the
+               plain ``impl='fused'`` path on the card and with the CPU.
   5. result  — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
@@ -125,11 +131,10 @@ def glorot(r, d_in, d_out):
             ).astype(np.float32)
 
 
-def lf_case(seed, n, e, d, d_ff, d_out=None, *, self_coeff="scalar",
-            sw=None, edge_term=True, phi_bias=False, relu_phi=True,
-            out_relu=False, empty_tail=0, mask_p=0.8):
-    """Numpy inputs of one layer_fused call (a dict of keyword args)."""
-    r = np.random.default_rng(seed)
+def random_inputs(r, n, e, d, *, sw=None, edge_term=False, bias=None,
+                  empty_tail=0, mask_p=0.8):
+    """Numpy node buffer, edge stream and phi terms of one random call (a
+    dict of keyword args); ``bias`` names the bias's keyword, if any."""
     kw = {
         "x": r.normal(size=(n, d)).astype(np.float32),
         "senders": r.integers(0, n, size=e).astype(np.int64),
@@ -137,18 +142,7 @@ def lf_case(seed, n, e, d, d_ff, d_out=None, *, self_coeff="scalar",
         "receivers": r.integers(0, n - empty_tail, size=e).astype(np.int64),
         "edge_mask": r.random(e) < mask_p,
         "num_nodes": n,
-        "w1": glorot(r, d, d_ff),
-        "b1": (0.1 * r.normal(size=(d_ff,))).astype(np.float32),
-        "phi_activation": "relu" if relu_phi else "none",
-        "out_activation": "relu" if out_relu else "none",
     }
-    if d_out is not None:
-        kw["w2"] = glorot(r, d_ff, d_out)
-        kw["b2"] = (0.1 * r.normal(size=(d_out,))).astype(np.float32)
-    if self_coeff == "scalar":
-        kw["self_coeff"] = np.array([1.1], np.float32)
-    elif self_coeff == "node":
-        kw["self_coeff"] = r.random(n).astype(np.float32)
     if sw == "scalar":
         kw["src_weight"] = r.normal(size=(e,)).astype(np.float32)
     elif sw == "full":
@@ -157,8 +151,30 @@ def lf_case(seed, n, e, d, d_ff, d_out=None, *, self_coeff="scalar",
         kw["src_weight"] = r.normal(size=(e, 4)).astype(np.float32)
     if edge_term:
         kw["edge_term"] = r.normal(size=(e, d)).astype(np.float32)
-    if phi_bias:
-        kw["phi_bias"] = r.normal(size=(d,)).astype(np.float32)
+    if bias:
+        kw[bias] = r.normal(size=(d,)).astype(np.float32)
+    return kw
+
+
+def lf_case(seed, n, e, d, d_ff, d_out=None, *, self_coeff="scalar",
+            sw=None, edge_term=True, phi_bias=False, relu_phi=True,
+            out_relu=False, empty_tail=0):
+    """Numpy inputs of one layer_fused call (a dict of keyword args)."""
+    r = np.random.default_rng(seed)
+    kw = random_inputs(r, n, e, d, sw=sw, edge_term=edge_term,
+                       bias="phi_bias" if phi_bias else None,
+                       empty_tail=empty_tail)
+    kw["w1"] = glorot(r, d, d_ff)
+    kw["b1"] = (0.1 * r.normal(size=(d_ff,))).astype(np.float32)
+    kw["phi_activation"] = "relu" if relu_phi else "none"
+    kw["out_activation"] = "relu" if out_relu else "none"
+    if d_out is not None:
+        kw["w2"] = glorot(r, d_ff, d_out)
+        kw["b2"] = (0.1 * r.normal(size=(d_out,))).astype(np.float32)
+    if self_coeff == "scalar":
+        kw["self_coeff"] = np.array([1.1], np.float32)
+    elif self_coeff == "node":
+        kw["self_coeff"] = r.random(n).astype(np.float32)
     return kw
 
 
@@ -168,35 +184,53 @@ def on_device(kw, dev):
             else v for k, v in kw.items()}
 
 
-def lf_call(fn, kw, **extra):
-    kw = dict(kw)
-    args = [kw.pop(k) for k in ("x", "senders", "receivers", "edge_mask",
-                                "num_nodes")]
-    return fn(*args, **kw, **extra)
+POSITIONAL = ("x", "senders", "receivers", "edge_mask", "num_nodes")
 
 
-# layer_fused's per-edge streams: a masked edge contributes nothing, so the
+def call(fn, kw, **extra):
+    """``fn`` (a kernel wrapper or its plain version) on a dict of inputs."""
+    kw = dict(kw, **extra)
+    return fn(*[kw.pop(k) for k in POSITIONAL], **kw)
+
+
+# the kernels' per-edge streams: a masked edge contributes nothing, so the
 # function needs these only for the edges whose mask is set
-LF_EDGE_STREAMS = ("senders", "receivers", "src_weight", "edge_term")
+EDGE_STREAMS = ("senders", "receivers", "src_weight", "edge_term")
+# the function needs int32 indices (the wrappers refuse E or N*D >= 2^31);
+# the port's graphs hold int64, which the bound does not charge
+INDEX_BYTES = 4
+
+
+def input_bytes(kw):
+    """Bytes the function must read: the edge mask once, the per-edge
+    streams of the unmasked edges once (indices at INDEX_BYTES), every
+    node-side input and weight once."""
+    e = kw["senders"].shape[0]
+    valid = int(kw["edge_mask"].sum())
+    nbytes = 0
+    for k, v in kw.items():
+        if not isinstance(v, np.ndarray):
+            continue
+        if k in ("senders", "receivers"):
+            nbytes += INDEX_BYTES * valid
+        elif k in EDGE_STREAMS:
+            nbytes += v.nbytes // e * valid
+        else:
+            nbytes += v.nbytes
+    return nbytes
 
 
 def lf_bound(kw):
     """The least time (ms) the card could take for this call, the larger of
-    two. Bytes at the memory rate: the edge mask once, the per-edge streams
-    of the unmasked edges once, every node-side input and weight once, the
-    output written once. Operations at the fp32 rate: those this run's
-    data needs (the unmasked edges' phi, then the epilogue)."""
+    two. Bytes at the memory rate: ``input_bytes``, then the output written
+    once. Operations at the fp32 rate: those this run's data needs (the
+    unmasked edges' phi, then the epilogue)."""
     n, d = kw["x"].shape
-    e = kw["senders"].shape[0]
     valid = int(kw["edge_mask"].sum())
     d_ff = kw["w1"].shape[1]
     two = "w2" in kw
     d_out = kw["w2"].shape[1] if two else d_ff
-    nbytes = n * d_out * 4                                    # the output
-    for k, v in kw.items():
-        if isinstance(v, np.ndarray):
-            nbytes += (v.nbytes // e * valid if k in LF_EDGE_STREAMS
-                       else v.nbytes)
+    nbytes = input_bytes(kw) + n * d_out * 4                 # + the output
     per_edge = 1 + ("src_weight" in kw) + ("edge_term" in kw) + (
         "phi_bias" in kw) + (kw["phi_activation"] == "relu")
     flops = valid * d * per_edge
@@ -209,24 +243,6 @@ def lf_bound(kw):
     t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, flops
-
-
-def gin_layer_inputs(cfg, params, graph):
-    """layer_fused's inputs for GIN's first layer on one padded graph: what
-    the main path hands the kernel in that bucket."""
-    import torch
-    from repro_torch.core.models import _dense
-    p = params["layers"][0]
-    m0, m1 = p["mlp"]
-    x = torch.relu(_dense(params["node_enc"], graph.node_feat))
-    return {
-        "x": x, "senders": graph.senders, "receivers": graph.receivers,
-        "edge_mask": graph.edge_mask, "num_nodes": graph.n_node_pad,
-        "w1": m0["w"], "b1": m0["b"], "w2": m1["w"], "b2": m1["b"],
-        "edge_term": _dense(p["edge_enc"], graph.edge_feat),
-        "phi_activation": "relu", "out_activation": "none",
-        "self_coeff": (1.0 + p["eps"]).reshape(1),
-    }
 
 
 def to_numpy(kw):
@@ -256,8 +272,8 @@ def kernel_phase(card: str, main_inputs):
     rows = {}
     for name, kw_np in cases.items():
         kw = on_device(kw_np, "cuda")
-        out = lf_call(layer_fused, kw)
-        plain = lf_call(layer_fused_ref, kw)
+        out = call(layer_fused, kw)
+        plain = call(layer_fused_ref, kw)
         torch.cuda.synchronize()
         err, rel, ok = close(out, plain)
         tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
@@ -268,25 +284,21 @@ def kernel_phase(card: str, main_inputs):
         if not ok:
             raise AssertionError(f"layer_fused {name} disagrees with its "
                                  f"plain version")
-        if name.startswith("a_"):
-            runs = [out, lf_call(layer_fused, kw),
-                    lf_call(layer_fused, kw, rows_per_block=3),
-                    lf_call(layer_fused, kw, rows_per_block=16)]
-            torch.cuda.synchronize()
-            if not all(torch.equal(r, out) for r in runs[1:]):
-                raise AssertionError("layer_fused is not bitwise stable "
-                                     "across runs and rows-per-block")
-            log("kernels", f"layer_fused {name}: bitwise equal across 2 runs "
-                f"at the kernel's own rows/block and at 3 and 16 rows/block")
+        runs = [call(layer_fused, kw)] + [
+            call(layer_fused, kw, rows_per_block=rpb) for rpb in (3, 16)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(r, out) for r in runs):
+            raise AssertionError(f"layer_fused {name} is not bitwise stable "
+                                 f"across runs and rows-per-block")
         bound, bound_by, nbytes, flops = lf_bound(kw_np)
-        ms, call_ms = time_ms(lambda: lf_call(layer_fused, kw))
-        plain_ms, plain_call_ms = time_ms(lambda: lf_call(layer_fused_ref,
-                                                          kw))
+        ms, call_ms = time_ms(lambda: call(layer_fused, kw))
+        plain_ms, plain_call_ms = time_ms(lambda: call(layer_fused_ref, kw))
         rows[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
                       "plain_ms": plain_ms, "call_ms": call_ms,
                       "plain_call_ms": plain_call_ms, "bound_ms": bound,
                       "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-        log("kernels", f"layer_fused {name}: device time kernel "
+        log("kernels", f"layer_fused {name}: bitwise equal across 2 runs "
+            f"and at 3 and 16 rows/block; device time kernel "
             f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; one call "
             f"with host dispatch kernel {call_ms * 1e3:.1f} us, plain "
             f"{plain_call_ms * 1e3:.1f} us; bound {bound * 1e3:.2f} us "
@@ -296,55 +308,235 @@ def kernel_phase(card: str, main_inputs):
 
 
 # ---------------------------------------------------------------------------
+# mp_pipeline cases
+# ---------------------------------------------------------------------------
+
+BIG = 1e30
+# what an empty destination must hold, exactly, per output
+MP_EMPTY = {"sum": 0.0, "sumsq": 0.0, "count": 0.0, "max": -BIG, "min": BIG,
+            "att_max": -BIG, "att_denom": 0.0}
+
+
+def mp_case(seed, n, e, d, *, stats, sw=None, edge_term=False, bias=False,
+            relu=False, heads=0, empty_tail=0):
+    """Numpy inputs of one mp_pipeline call (a dict of keyword args)."""
+    r = np.random.default_rng(seed)
+    kw = random_inputs(r, n, e, d, sw=sw, edge_term=edge_term,
+                       bias="bias" if bias else None, empty_tail=empty_tail)
+    kw["stats"] = stats
+    kw["activation"] = "relu" if relu else "none"
+    if heads:
+        kw["att_src"] = r.normal(size=(n, heads)).astype(np.float32)
+        kw["att_dst"] = r.normal(size=(n, heads)).astype(np.float32)
+    return kw
+
+
+def mp_bound(kw):
+    """The least time (ms) the card could take for this call, the larger of
+    two. Bytes at the memory rate: ``input_bytes``, then each output
+    written once. Operations at the fp32 rate: those this run's data needs
+    (per unmasked edge the phi terms and each statistic on every lane; with
+    attention per edge and head the logit, its leaky_relu, the running max,
+    two exponentials with their differences and the denominator update,
+    and per lane the rescale and the weighted add; the normalisation)."""
+    n, d = kw["x"].shape
+    valid = int(kw["edge_mask"].sum())
+    heads = kw["att_src"].shape[1] if "att_src" in kw else 0
+    widths = {"sum": d, "sumsq": d, "count": 1, "max": d, "min": d}
+    nbytes = input_bytes(kw) + sum(n * widths[s] * 4 for s in kw["stats"])
+    nbytes += 2 * n * heads * 4                    # att_max, att_denom
+    flops = 0
+    lane_ops = (sum(k in kw for k in ("src_weight", "edge_term", "bias"))
+                + (kw["activation"] == "relu"))
+    if heads:
+        lane_ops += 3
+        flops += valid * heads * 9 + n * d + n * heads
+    else:
+        lane_ops += sum({"sum": 1, "sumsq": 2, "max": 1, "min": 1}.get(s, 0)
+                        for s in kw["stats"])
+    flops += valid * d * lane_ops + valid * ("count" in kw["stats"])
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def mp_kernel_phase(card: str, main_inputs):
+    """Phase 3: mp_pipeline against mp_pipeline_ref on the card."""
+    import torch
+    from repro_torch.kernels.mp_pipeline import mp_pipeline, mp_pipeline_ref
+    all_stats = ("sum", "sumsq", "count", "max", "min")
+    cases = {
+        "a_all_stats_full_src_weight": mp_case(
+            11, 1024, 4096, 100, stats=all_stats, sw="full", edge_term=True,
+            bias=True, relu=True, empty_tail=64),
+        "b_gcn_scalar_src_weight": mp_case(12, 1024, 4096, 100,
+                                           stats=("sum",), sw="scalar",
+                                           empty_tail=32),
+        "c_ragged_head_src_weight": mp_case(13, 997, 3001, 64,
+                                            stats=all_stats, sw="head",
+                                            empty_tail=5),
+        "d_attention_gat_width": mp_case(14, 1024, 4096, 64,
+                                         stats=("sum", "count"), heads=4,
+                                         empty_tail=64),
+    }
+    for name, kw in main_inputs.items():
+        cases[name] = to_numpy(kw)
+    tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
+    rows = {}
+    for name, kw_np in cases.items():
+        kw = on_device(kw_np, "cuda")
+        out = call(mp_pipeline, kw)
+        plain = call(mp_pipeline_ref, kw)
+        torch.cuda.synchronize()
+        if tuple(out) != tuple(plain):
+            raise AssertionError(f"mp_pipeline {name}: outputs {tuple(out)} "
+                                 f"!= plain {tuple(plain)}")
+        n = kw_np["x"].shape[0]
+        reached = np.zeros(n, bool)
+        reached[kw_np["receivers"][kw_np["edge_mask"]]] = True
+        reached = torch.from_numpy(reached).cuda()
+        err, rel = 0.0, 0.0
+        for stat, want in plain.items():
+            got = out[stat]
+            empty = MP_EMPTY[stat]
+            if not (bool((got[~reached] == empty).all())
+                    and bool((want[~reached] == empty).all())):
+                raise AssertionError(f"mp_pipeline {name}: {stat} of empty "
+                                     f"destinations is not {empty:g}")
+            e_abs, e_rel, ok = close(got[reached], want[reached])
+            err, rel = max(err, e_abs), max(rel, e_rel)
+            if not ok:
+                raise AssertionError(f"mp_pipeline {name}: {stat} disagrees "
+                                     f"with its plain version ({e_abs:.3e})")
+        n_empty = int((~reached).sum())
+        log("kernels", f"mp_pipeline {name}: N={n} "
+            f"E={kw_np['senders'].shape[0]} D={kw_np['x'].shape[1]} "
+            f"stats {'+'.join(out)}; max_abs_err={err:.3e} "
+            f"max_rel_err={rel:.3e} tol: {tol}; {n_empty} empty "
+            f"destinations exact; ok")
+        runs = [call(mp_pipeline, kw)] + [
+            call(mp_pipeline, kw, rows_per_block=rpb) for rpb in (1, 3, 16)]
+        torch.cuda.synchronize()
+        for r in runs:
+            if not all(torch.equal(r[k], out[k]) for k in out):
+                raise AssertionError(f"mp_pipeline {name} is not bitwise "
+                                     f"stable across runs and rows-per-block")
+        bound, bound_by, nbytes, flops = mp_bound(kw_np)
+        ms, call_ms = time_ms(lambda: call(mp_pipeline, kw))
+        plain_ms, plain_call_ms = time_ms(lambda: call(mp_pipeline_ref, kw))
+        rows[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                      "plain_ms": plain_ms, "call_ms": call_ms,
+                      "plain_call_ms": plain_call_ms, "bound_ms": bound,
+                      "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+        log("kernels", f"mp_pipeline {name}: bitwise equal across 2 runs and "
+            f"at 1, 3 and 16 rows/block; device time kernel "
+            f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; one call "
+            f"with host dispatch kernel {call_ms * 1e3:.1f} us, plain "
+            f"{plain_call_ms * 1e3:.1f} us; bound {bound * 1e3:.3f} us "
+            f"({bound_by}: {nbytes / 1e6:.3f} MB, {flops / 1e6:.3f} MFLOP) "
+            f"on {card}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the slice, end to end
 # ---------------------------------------------------------------------------
 
-def slice_phase(card: str):
+def init_params(name: str, device: str):
+    import torch
+    from repro_torch.core.models import (PAPER_GNN_CONFIGS, gat_init,
+                                         gcn_init, gin_init)
+    init = {"gin": gin_init, "gcn": gcn_init, "gat": gat_init}[name]
+    cfg = PAPER_GNN_CONFIGS[name]
+    return cfg, init(torch.Generator().manual_seed(0), cfg, device=device)
+
+
+def main_path_inputs(name: str, impl: str, kernel: str, batch):
+    """What the main path of ``name`` under ``impl`` hands the ``kernel``
+    wrapper in its first two layers on one padded graph on the card: the
+    arguments of each call, recorded at the wrapper as the model code calls
+    it (terms it leaves out dropped)."""
+    import torch
+    from repro_torch.core.message_passing import DataflowConfig
+    from repro_torch.core.models import make_gnn
+    from repro_torch.kernels import ops
+    cfg, params = init_params(name, "cuda")
+    real = getattr(ops, kernel)
+    seen = []
+
+    def record(*args, **kw):
+        seen.append({**dict(zip(POSITIONAL, args)),
+                     **{k: v for k, v in kw.items() if v is not None}})
+        return real(*args, **kw)
+
+    setattr(ops, kernel, record)
+    try:
+        with torch.inference_mode():
+            make_gnn(cfg).apply(params, batch, cfg, DataflowConfig(impl=impl))
+    finally:
+        setattr(ops, kernel, real)
+    if len(seen) != cfg.num_layers:
+        raise AssertionError(f"{name} {impl}: {len(seen)} {kernel} calls, "
+                             f"expected one per layer ({cfg.num_layers})")
+    return seen[:2]
+
+
+def serve_path(card: str, name: str, impl: str, graphs, *,
+               per_graph: dict, passes: int, profile: bool = False):
+    """Serve ``graphs`` (after one warmup graph per kind of bucket) with the
+    paper config of ``name`` under ``impl``: the launch counts are set to 0
+    just before and read just after, and must be ``per_graph`` times the
+    graphs served for each kernel (0 for a kernel not named); every bucket
+    must show ``passes`` passes over the edges; the predictions must be
+    finite, match the plain ``impl='fused'`` path on the card and, for a
+    sample, the CPU path."""
     import torch
     from repro_torch.core.engine import GraphStreamEngine
     from repro_torch.core.message_passing import DataflowConfig
-    from repro_torch.core.models import PAPER_GNN_CONFIGS, gin_init
-    from repro_torch.data.graphs import hep_like, molhiv_like
     from repro_torch.kernels.layer_fused import layer_fused
+    from repro_torch.kernels.mp_pipeline import mp_pipeline
 
-    cfg = PAPER_GNN_CONFIGS["gin"]
-    params = gin_init(torch.Generator().manual_seed(0), cfg, device="cuda")
-    graphs = (list(molhiv_like(seed=0, n_graphs=64))
-              + list(hep_like(seed=2, n_graphs=8)))
+    cfg, params = init_params(name, "cuda")
     warm = [graphs[0], graphs[-1]]             # one graph per kind of bucket
+    label = f"{name.upper()} paper config, {impl}"
 
     def args(g):
         return g.node_feat, g.senders, g.receivers, g.edge_feat, g.node_pos
 
-    engine = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused_layer"),
+    engine = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
                                device="cuda")
-    layer_fused.launches = 0
+    kernels = {"layer_fused": layer_fused, "mp_pipeline": mp_pipeline}
+    for fn in kernels.values():
+        fn.launches = 0
     for g in warm:
         engine.warmup(*args(g))
     t0 = time.perf_counter()
     preds = [engine.process(*args(g)) for g in graphs]
     wall = time.perf_counter() - t0
-    launches = layer_fused.launches
+    launches = {k: fn.launches for k, fn in kernels.items()}
     served = len(graphs) + len(warm)
-    log("slice", f"served {len(graphs)} graphs (+{len(warm)} warmup) in "
-        f"{wall:.3f} s; layer_fused launches {launches} "
-        f"(expected {cfg.num_layers} x {served} = {cfg.num_layers * served})")
-    if launches != cfg.num_layers * served:
-        raise AssertionError("the main path did not run one layer_fused "
-                             "launch per GIN layer")
-    log("slice", f"edge passes per bucket: {engine.edge_passes}")
-    if set(engine.edge_passes.values()) != {cfg.num_layers}:
-        raise AssertionError("expected one pass over the edges per layer")
+    expected = {k: per_graph.get(k, 0) * served for k in kernels}
+    log("slice", f"{label}: served {len(graphs)} graphs (+{len(warm)} "
+        f"warmup) in {wall:.3f} s; launches {launches} (expected "
+        f"{expected}: {per_graph} per graph x {served})")
+    if launches != expected:
+        raise AssertionError(f"{label}: the main path did not run the "
+                             f"expected kernel launches")
+    log("slice", f"{label}: edge passes per bucket {engine.edge_passes}")
+    if set(engine.edge_passes.values()) != {passes}:
+        raise AssertionError(f"{label}: expected {passes} passes over the "
+                             f"edges per forward")
 
     plain = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused"),
                               device="cuda")
     ref = [plain.process(*args(g)) for g in graphs]
-    cpu = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused_layer"),
+    cpu = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
                             device="cpu")
     worst = 0.0
     for i, (p, r) in enumerate(zip(preds, ref)):
         if p.shape != (cfg.out_dim,) or not np.isfinite(p).all():
-            raise AssertionError(f"graph {i}: bad prediction {p}")
+            raise AssertionError(f"{label}: graph {i}: bad prediction {p}")
         worst = max(worst, float(np.abs(p - r).max()
                                  / max(1.0, float(np.abs(r).max()))))
         if i % 9 == 0:                         # a sample against the CPU
@@ -352,32 +544,63 @@ def slice_phase(card: str):
             np.testing.assert_allclose(p, c, rtol=SLICE_RTOL,
                                        atol=SLICE_RTOL * max(1.0, float(
                                            np.abs(c).max())))
-    log("slice", f"predictions finite, shape ({cfg.out_dim},); worst error "
-        f"vs impl='fused' on the card {worst:.3e} relative to max(1, |ref|) "
-        f"(tol {SLICE_RTOL:g}); a sample of 8 matches the CPU path")
+    n_cpu = len(range(0, len(graphs), 9))
+    log("slice", f"{label}: predictions finite, shape ({cfg.out_dim},); "
+        f"worst error vs impl='fused' on the card {worst:.3e} relative to "
+        f"max(1, |ref|) (tol {SLICE_RTOL:g}); a sample of {n_cpu} matches "
+        f"the CPU path")
     if worst > SLICE_RTOL:
-        raise AssertionError("served predictions disagree with the plain "
-                             "path")
+        raise AssertionError(f"{label}: served predictions disagree with "
+                             f"the plain path")
     summary = engine.stats.summary()
-    log("slice", "GIN paper config, fused_layer, batch 1: p50 "
-        f"{summary['p50_ms']:.3f} ms, p90 {summary['p90_ms']:.3f} ms, p99 "
-        f"{summary['p99_ms']:.3f} ms; forward span (CUDA events around the "
-        f"forward, host launch gaps included) {summary['device_mean_ms']:.3f} "
-        f"ms/graph, {summary['throughput_gps']:.1f} graphs/s of forward "
-        f"span; {len(graphs) / wall:.1f} graphs/s wall, on {card}")
     plain_summary = plain.stats.summary()
-    log("slice", "same graphs, impl='fused' (plain PyTorch): p50 "
-        f"{plain_summary['p50_ms']:.3f} ms, forward span "
-        f"{plain_summary['device_mean_ms']:.3f} ms/graph, on {card}")
-    result = {"launches": launches, "summary": summary,
+    log("slice", f"{label}, batch 1: p50 {summary['p50_ms']:.3f} ms, p90 "
+        f"{summary['p90_ms']:.3f} ms, p99 {summary['p99_ms']:.3f} ms; "
+        f"forward span (CUDA events around the forward, host launch gaps "
+        f"included) {summary['device_mean_ms']:.3f} ms/graph, "
+        f"{summary['throughput_gps']:.1f} graphs/s of forward span; "
+        f"{len(graphs) / wall:.1f} graphs/s wall; same graphs under "
+        f"impl='fused' (plain PyTorch): p50 {plain_summary['p50_ms']:.3f} "
+        f"ms, forward span {plain_summary['device_mean_ms']:.3f} ms/graph; "
+        f"on {card}")
+    result = {"model": name, "impl": impl, "graphs": len(graphs),
+              "launches": launches, "summary": summary,
               "plain_summary": plain_summary, "wall_s": wall,
+              "worst_rel_err_vs_fused": worst,
               "edge_passes": {str(k): v for k, v in
                               engine.edge_passes.items()}}
-    result["profile"] = profile_serving(engine, graphs[:16], args, card)
+    if profile:
+        result["profile"] = profile_serving(engine, graphs[:16], args, card,
+                                            label)
+    torch.cuda.synchronize()
     return result
 
 
-def profile_serving(engine, graphs, args, card: str):
+def slice_phase(card: str):
+    """Phase 4: every path of the slice, each with its own counts."""
+    from repro_torch.data.graphs import hep_like, molhiv_like
+    graphs = (list(molhiv_like(seed=0, n_graphs=64))
+              + list(hep_like(seed=2, n_graphs=8)))
+    # the pipeline runs are shorter: 16 molecules and 4 kNN graphs
+    short = graphs[:16] + graphs[64:68]
+    return {
+        "gin_fused_layer": serve_path(card, "gin", "fused_layer", graphs,
+                                      per_graph={"layer_fused": 5},
+                                      passes=5, profile=True),
+        "gat_fused_layer": serve_path(card, "gat", "fused_layer", graphs,
+                                      per_graph={"mp_pipeline": 5},
+                                      passes=5, profile=True),
+        "gcn_fused_layer": serve_path(card, "gcn", "fused_layer", graphs,
+                                      per_graph={"layer_fused": 5},
+                                      passes=6),
+        "gin_pipeline": serve_path(card, "gin", "pipeline", short,
+                                   per_graph={"mp_pipeline": 5}, passes=5),
+        "gcn_pipeline": serve_path(card, "gcn", "pipeline", short,
+                                   per_graph={"mp_pipeline": 5}, passes=6),
+    }
+
+
+def profile_serving(engine, graphs, args, card: str, label: str):
     """Device-busy share, the top device and host ops while serving
     ``graphs``, and the host's batch build (padding + copies) alone."""
     import torch
@@ -395,8 +618,8 @@ def profile_serving(engine, graphs, args, card: str):
             device=engine.device)
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3 / len(graphs)
-    log("profile", f"build_graph_batch alone (pad + copies to the card): "
-        f"{build_ms:.3f} ms/graph on {card}")
+    log("profile", f"{label}: build_graph_batch alone (pad + copies to the "
+        f"card): {build_ms:.3f} ms/graph on {card}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -426,7 +649,8 @@ def profile_serving(engine, graphs, args, card: str):
            "busy_throughput_gps": len(graphs) / (busy_us * 1e-6),
            "host_self_us": sum(t for t, _ in on_host.values()),
            "top_device": top(on_device, 10), "top_host": top(on_host, 10)}
-    log("profile", f"{len(graphs)} graphs in {wall * 1e3:.2f} ms wall "
+    log("profile", f"{label}: {len(graphs)} graphs in {wall * 1e3:.2f} ms "
+        f"wall "
         f"(profiler on); device busy {busy_us:.1f} us "
         f"({out['device_busy_share']:.1%} of wall), "
         f"{busy_us / len(graphs):.1f} us/graph, "
@@ -459,7 +683,7 @@ def main() -> int:
     # 2. build
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build(["layer_fused"])
+    libs = build.build(["layer_fused", "mp_pipeline"])
     log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -468,46 +692,67 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("build", line.strip())
 
-    # 4 needs phase 3's main-path inputs first: build them from the slice's
-    # own model and buckets
+    # 3 needs the main path's inputs first: record what each path of phase 4
+    # hands its kernel in its first two layers (the first reads the raw
+    # features or their encoding, the second the hidden width), with the
+    # slice's own models and seeds, at both buckets
     from repro_torch.core.graph import build_graph_batch, pad_bucket
-    from repro_torch.core.models import PAPER_GNN_CONFIGS, gin_init
     from repro_torch.data.graphs import hep_like, molhiv_like
-    cfg = PAPER_GNN_CONFIGS["gin"]
-    params = gin_init(torch.Generator().manual_seed(0), cfg, device="cuda")
-    main_inputs = {}
-    for name, g in (("e_main_path_molhiv_bucket",
-                     next(molhiv_like(seed=0, n_graphs=1))),
-                    ("f_main_path_hep_bucket",
-                     next(hep_like(seed=2, n_graphs=1)))):
+    users = {"layer_fused": (("gin", "fused_layer"), ("gcn", "fused_layer")),
+             "mp_pipeline": (("gat", "fused_layer"), ("gin", "pipeline"),
+                             ("gcn", "pipeline"))}
+    main_inputs = {kernel: {} for kernel in users}
+    for key, bucket, g in (
+            ("e", "molhiv_bucket", next(molhiv_like(seed=0, n_graphs=1))),
+            ("f", "hep_bucket", next(hep_like(seed=2, n_graphs=1)))):
         batch = build_graph_batch(
             g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
             node_pos=g.node_pos, node_pad=pad_bucket(g.node_feat.shape[0]),
             edge_pad=pad_bucket(g.senders.shape[0]), device="cuda")
-        with torch.inference_mode():
-            main_inputs[name] = gin_layer_inputs(cfg, params, batch)
+        for kernel, runs in users.items():
+            for name, impl in runs:
+                for l, kw in enumerate(main_path_inputs(name, impl, kernel,
+                                                        batch)):
+                    main_inputs[kernel][
+                        f"{key}_{name}_{impl}_L{l}_{bucket}"] = kw
 
     # 3. kernels against their plain versions
-    rows = kernel_phase(card, main_inputs)
+    lf_rows = kernel_phase(card, main_inputs["layer_fused"])
+    mp_rows = mp_kernel_phase(card, main_inputs["mp_pipeline"])
 
     # 4. the slice end to end
-    slice_result = slice_phase(card)
+    paths = slice_phase(card)
 
-    # 5. result
-    main_row = rows["f_main_path_hep_bucket"]
-    kernels = [{
-        "name": "layer_fused", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/layer_fused.cu",
-        "replaces": "src/repro/kernels/layer_fused.py:203",
-        "launches": slice_result["launches"],
-        "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": None,
-        "call_ms": main_row["call_ms"],
-        "plain_call_ms": main_row["plain_call_ms"],
-        "shape": "GIN layer at the hep bucket: N=64, E=1024, D=100, "
-                 "D_ff=200",
-    }]
+    # 5. result: each kernel's row at the hep bucket, the largest shape the
+    # main path gives it, and its launches in its main path's run
+    def row(name, source, replaces, cases, main, path, shape):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": paths[path]["launches"][name],
+                "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None,
+                "call_ms": main["call_ms"],
+                "plain_call_ms": main["plain_call_ms"], "shape": shape,
+                "main_path": path,
+                "launches_by_path": {k: v["launches"][name]
+                                     for k, v in paths.items()},
+                "cases": {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms",
+                                                "max_abs_err")}
+                          for k, v in cases.items()}}
+
+    kernels = [
+        row("layer_fused", "src/repro_torch/kernels/csrc/layer_fused.cu",
+            "src/repro/kernels/layer_fused.py:203",
+            lf_rows, lf_rows["f_gin_fused_layer_L0_hep_bucket"],
+            "gin_fused_layer",
+            "GIN layer at the hep bucket: N=64, E=1024, D=100, D_ff=200"),
+        row("mp_pipeline", "src/repro_torch/kernels/csrc/mp_pipeline.cu",
+            "src/repro/kernels/mp_pipeline.py:238",
+            mp_rows, mp_rows["f_gat_fused_layer_L0_hep_bucket"],
+            "gat_fused_layer",
+            "GAT's first layer at the hep bucket: N=64, E=1024, D=64, H=4"),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

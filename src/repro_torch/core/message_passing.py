@@ -2,24 +2,32 @@
 
     x_i^{l+1} = gamma( x_i^l,  A_{j in N(i)}  phi(x_i^l, x_j^l, e_{j,i}^l) )
 
-The twin of ``repro/core/message_passing.py``, holding what GIN needs:
+The twin of ``repro/core/message_passing.py``, holding what GIN, GCN and GAT
+need:
 
-  * ``propagate`` with two arms: ``impl='fused'`` (gather, ``message_fn``,
-    masked ``index_add_``, ``update_fn``) and the ``impl='fused_layer'``
-    self form, where the whole layer is one launch of the ``layer_fused``
-    kernel (``kernels/layer_fused.py``);
-  * ``segment_aggregate`` for ``'sum'``;
+  * ``propagate`` with three arms: ``impl='fused'`` (gather, ``message_fn``,
+    masked ``index_add_``, ``update_fn``); ``impl='pipeline'``, where a
+    ``FusableMessage`` runs the whole edge phase as one launch of the
+    ``mp_pipeline`` kernel (``fused_edge_aggregate``) before ``update_fn``;
+    and ``impl='fused_layer'``, where the self form runs the whole layer as
+    one launch of the ``layer_fused`` kernel and any other fusable layer
+    keeps the ``mp_pipeline`` edge phase;
+  * ``fused_edge_aggregate``, GAT's in-sweep softmax (``FusableAttention``)
+    included, with ``_derive_kinds`` for the statistics derived from the
+    kernel's raw accumulators (mean / var / std, empty max / min at 0);
+  * ``segment_aggregate`` for ``'sum'`` and ``segment_softmax`` (the plain
+    three-sweep arm);
   * ``PrecomputedGraphStats`` / ``precompute_graph_stats`` for degrees,
     GCN's self-loop norm and the per-graph node counts of the readout;
-  * ``DataflowConfig``, ``FusableMessage`` and ``FusableUpdate`` with the
-    reference's field names;
+  * ``DataflowConfig``, ``FusableMessage``, ``FusableAttention`` and
+    ``FusableUpdate`` with the reference's field names;
   * ``count_edge_passes``: the paper's passes-over-the-edge-stream figure.
     PyTorch runs eagerly, so a pass is counted each time a sweep is issued.
 
-The other implementations (``twopass``, ``banked``, ``kernel``,
-``pipeline``), the multi-statistic aggregation, attention, PNA's scalers and
-DGN's field are not ported yet; they raise ``NotImplementedError`` naming
-their ROADMAP item.
+The other implementations (``twopass``, ``banked``, ``kernel``), the
+unfused multi-statistic aggregation and PNA's scalers and DGN's field are
+not ported yet; they raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -27,14 +35,19 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 
 from repro_torch.core.graph import GraphBatch
 
-_TODO_MP = "ROADMAP queue 1 item 3 (message_passing beyond GIN)"
-_TODO_PIPELINE = "ROADMAP queue 2 item 2 (mp_pipeline)"
+_TODO_MP = ("ROADMAP queue 1 item 3 (message_passing beyond GIN, GCN and "
+            "GAT)")
+_TODO_KERNEL = ("ROADMAP queue 2 items 3-5 (the impl='kernel' kernels "
+                "mp_scatter_multi, mp_scatter and seg_softmax)")
+
+# The aggregation kinds of the reference, in its order.
+AGG_KINDS = ("sum", "mean", "max", "min", "std", "var")
 
 
 # ---------------------------------------------------------------------------
@@ -143,9 +156,10 @@ def precompute_graph_stats(
 class DataflowConfig:
     """The reference's dataflow knobs, with its field names and defaults.
 
-    ``impl`` selects the layer implementation; this slice runs ``'fused'``
-    (plain PyTorch) and ``'fused_layer'`` (one ``layer_fused`` launch per
-    layer). ``scan_layers`` is accepted for parity and means a plain Python
+    ``impl`` selects the layer implementation; the port runs ``'fused'``
+    (plain PyTorch), ``'pipeline'`` (one ``mp_pipeline`` launch per fusable
+    edge phase) and ``'fused_layer'`` (one ``layer_fused`` launch per
+    self-form layer, else the ``mp_pipeline`` edge phase). ``scan_layers`` is accepted for parity and means a plain Python
     loop over the layers either way. The tile knobs (``node_tile``,
     ``num_banks``, ``apply_tile``, ``scatter_tile``, ``edge_tile``) describe
     the TPU kernels' grids; the CUDA kernel picks its own launch shape.
@@ -170,6 +184,24 @@ DEFAULT_DATAFLOW = DataflowConfig()
 
 
 @dataclass(frozen=True)
+class FusableAttention:
+    """GAT's edge softmax, folded into the ``mp_pipeline`` sweep:
+
+        logit_e = leaky_relu( src_logits[senders[e]]
+                              + dst_logits[receivers[e]], slope )   # (H,)
+        weight  = softmax over each destination's incoming edges, per head
+
+      src_logits  (N, H)  per-node source attention half
+      dst_logits  (N, H)  per-node destination attention half
+      slope       float   leaky_relu negative slope (GAT uses 0.2)
+    """
+
+    src_logits: torch.Tensor
+    dst_logits: torch.Tensor
+    slope: float = 0.2
+
+
+@dataclass(frozen=True)
 class FusableMessage:
     """A phi the fused kernels apply in-register:
 
@@ -181,7 +213,9 @@ class FusableMessage:
       edge_term   (E, D)   additive per-edge term (edge embeddings)
       bias        (D,)     additive bias
       activation  'none' | 'relu'
-      attention   GAT's in-sweep softmax (not ported yet)
+      attention   ``FusableAttention``: the in-sweep softmax weighting of
+                  phi (GAT); aggregation ``('sum',)`` only, and not with
+                  ``src_weight``
     """
 
     node_input: Optional[torch.Tensor] = None
@@ -189,12 +223,7 @@ class FusableMessage:
     edge_term: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
     activation: str = "none"
-    attention: Optional[object] = None
-
-    def __post_init__(self):
-        if self.attention is not None:
-            raise NotImplementedError(
-                f"attention-fused messages (GAT): {_TODO_PIPELINE}")
+    attention: Optional[FusableAttention] = None
 
 
 @dataclass(frozen=True)
@@ -240,15 +269,160 @@ def segment_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
     masked edges contribute nothing. Works on raw (unsorted) COO."""
     if kind != "sum":
         raise NotImplementedError(f"aggregation '{kind}': {_TODO_MP}")
-    if dataflow.impl != "fused":
+    if dataflow.impl == "kernel":
         raise NotImplementedError(
-            f"segment_aggregate under impl='{dataflow.impl}': {_TODO_MP}")
+            f"segment_aggregate under impl='kernel': {_TODO_KERNEL}")
+    if dataflow.impl == "banked":
+        raise NotImplementedError(
+            f"segment_aggregate under impl='banked': {_TODO_MP}")
     if edge_mask is not None:
         msg = torch.where(edge_mask[:, None], msg, 0.0)
     _count_pass()
     out = torch.zeros((num_nodes,) + tuple(msg.shape[1:]), dtype=msg.dtype,
                       device=msg.device)
     return out.index_add_(0, receivers, msg)
+
+
+def segment_softmax(logits: torch.Tensor, receivers: torch.Tensor,
+                    num_nodes: int, *,
+                    edge_mask: Optional[torch.Tensor] = None,
+                    dataflow: Optional[DataflowConfig] = None
+                    ) -> torch.Tensor:
+    """Per-destination softmax over incoming edges (GAT attention weights).
+
+    logits: (E,) or (E, H); returns normalised weights of the same shape,
+    0 for masked edges. Three sweeps (segment max, segment sum of the
+    exponentials, the normalising gathers), counted as three passes.
+    """
+    if dataflow is not None and dataflow.impl == "kernel":
+        raise NotImplementedError(
+            f"segment_softmax under impl='kernel': {_TODO_KERNEL}")
+    if edge_mask is None:
+        edge_mask = torch.ones(logits.shape[0], dtype=torch.bool,
+                               device=logits.device)
+    m = edge_mask if logits.ndim == 1 else edge_mask[:, None]
+    idx = receivers if logits.ndim == 1 else receivers[:, None].expand_as(
+        logits)
+    neg = torch.where(m, logits, -torch.inf)
+    _count_pass()
+    seg_max = torch.full((num_nodes,) + tuple(logits.shape[1:]), -torch.inf,
+                         dtype=logits.dtype, device=logits.device
+                         ).scatter_reduce(0, idx, neg, "amax",
+                                          include_self=False)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    shifted = torch.where(m, logits - seg_max[receivers], -torch.inf)
+    e = torch.where(m, torch.exp(shifted), 0.0)
+    _count_pass()
+    denom = torch.zeros((num_nodes,) + tuple(logits.shape[1:]),
+                        dtype=logits.dtype,
+                        device=logits.device).index_add_(0, receivers, e)
+    denom = torch.clamp(denom, min=1e-16)
+    _count_pass()
+    return e / denom[receivers]
+
+
+def fused_edge_aggregate(
+    graph: GraphBatch,
+    x: torch.Tensor,
+    fusable: FusableMessage,
+    *,
+    kinds: Sequence[str],
+    stats: Optional[PrecomputedGraphStats] = None,
+) -> Dict[str, torch.Tensor]:
+    """The fused gather-phi-scatter edge phase: one pass, no (E, D) buffer.
+
+    One ``mp_pipeline`` launch on the card (its plain version for CPU
+    tensors); the requested kinds are derived from its raw accumulators.
+    Returns ``{kind: (N, D) tensor}``.
+    """
+    kinds = tuple(kinds)
+    if not kinds:
+        raise ValueError("kinds must be non-empty")
+    for k in kinds:
+        if k not in AGG_KINDS:
+            raise ValueError(f"unknown aggregation '{k}'")
+    if fusable.attention is not None:
+        if kinds != ("sum",):
+            raise ValueError(
+                f"attention-fused aggregation requires kinds=('sum',), "
+                f"got {kinds}")
+        if fusable.src_weight is not None:
+            raise ValueError(
+                "attention and src_weight are mutually exclusive")
+    y = x if fusable.node_input is None else fusable.node_input
+    degrees = stats.degrees if stats is not None else None
+    _count_pass()                 # the whole edge phase is one launch
+    with _uncounted():
+        return _pipeline_kernel_stats(graph, y, fusable, kinds, degrees,
+                                      y.dtype)
+
+
+def _pipeline_kernel_stats(graph, y, fusable, kinds, degrees,
+                           out_dtype) -> Dict[str, torch.Tensor]:
+    """Run mp_pipeline and derive the requested kinds from its raw
+    accumulators."""
+    from repro_torch.kernels.mp_pipeline import BIG
+    from repro_torch.kernels.ops import mp_pipeline
+
+    want_moments = any(k in ("mean", "var", "std") for k in kinds)
+    want = {
+        "sum": "sum" in kinds or want_moments,
+        "sumsq": any(k in ("var", "std") for k in kinds),
+        "max": "max" in kinds,
+        "min": "min" in kinds,
+        # count doubles as empty-destination validity for max/min when no
+        # precomputed degrees are shared
+        "count": degrees is None and (want_moments or "max" in kinds
+                                      or "min" in kinds),
+    }
+    att = fusable.attention
+    raw = mp_pipeline(
+        y, graph.senders, graph.receivers, graph.edge_mask,
+        graph.n_node_pad, stats=tuple(s for s, w in want.items() if w),
+        src_weight=fusable.src_weight, edge_term=fusable.edge_term,
+        bias=fusable.bias, activation=fusable.activation,
+        att_src=None if att is None else att.src_logits,
+        att_dst=None if att is None else att.dst_logits,
+        att_slope=0.2 if att is None else att.slope)
+    deg = degrees if degrees is not None else raw.get("count")
+    if deg is not None and deg.ndim == 2:
+        deg = deg[:, 0]
+    mx, mn = raw.get("max"), raw.get("min")
+    # keyed accumulators are finite: empty destinations sit at the -+BIG
+    # neutral and validity comes from the count/degrees stream
+    nonempty = None if deg is None else (deg > 0)[:, None]
+    return _derive_kinds(
+        kinds, s1=raw.get("sum"), s2=raw.get("sumsq"), deg=deg, mx=mx, mn=mn,
+        mx_valid=None if mx is None else nonempty & (mx > -BIG),
+        mn_valid=None if mn is None else nonempty & (mn < BIG),
+        out_dtype=out_dtype)
+
+
+def _derive_kinds(kinds, *, s1, s2, deg, mx, mn, mx_valid, mn_valid,
+                  out_dtype) -> Dict[str, torch.Tensor]:
+    """Derive the requested statistics from raw f32 accumulators: the
+    reference's moment algebra (mean/var/std epsilon) and its
+    empty-destination rule (``mx_valid`` / ``mn_valid`` false gives 0)."""
+    out: Dict[str, torch.Tensor] = {}
+    if any(k in ("mean", "var", "std") for k in kinds):
+        rdenom = (1.0 / torch.clamp(deg, min=1.0).to(torch.float32))[:, None]
+        mean = s1 * rdenom
+    if any(k in ("var", "std") for k in kinds):
+        var = torch.clamp(s2 * rdenom - mean * mean, min=0.0)
+    for k in kinds:
+        if k == "sum":
+            out[k] = s1.to(out_dtype)
+        elif k == "mean":
+            out[k] = mean.to(out_dtype)
+        elif k == "var":
+            out[k] = var.to(out_dtype)
+        elif k == "std":
+            out[k] = torch.sqrt(var + 1e-5).to(out_dtype)
+        elif k == "max":
+            out[k] = torch.where(mx_valid, mx, 0.0).to(out_dtype)
+        elif k == "min":
+            out[k] = torch.where(mn_valid, mn, 0.0).to(out_dtype)
+    return out
 
 
 def propagate(
@@ -268,37 +442,47 @@ def propagate(
     """One message-passing layer.
 
     message_fn(x_src, x_dst, e)  -> (E, D)      # phi
-    aggregate                    -> 'sum'       # A
+    aggregate                    -> kind(s)     # A
     update_fn(x, m)              -> (N, D_out)  # gamma
 
-    ``impl='fused_layer'`` with a ``FusableMessage`` and a self-form
-    ``FusableUpdate`` runs the whole layer as one ``layer_fused`` launch
-    (its plain PyTorch version for CPU tensors). ``impl='fused'`` runs the
-    plain gather / phi / masked ``index_add_`` / update sequence. Both end
-    with the ``node_mask`` gate.
+    With a ``FusableMessage`` under ``impl='pipeline'`` the edge phase is
+    one ``mp_pipeline`` launch (``fused_edge_aggregate``), then
+    ``update_fn``. Under ``impl='fused_layer'`` a self-form
+    ``FusableUpdate`` makes the whole layer one ``layer_fused`` launch; a
+    layer without one keeps the ``mp_pipeline`` edge phase. Each is its
+    plain PyTorch version for CPU tensors. Without a fusable description,
+    or under ``impl='fused'``, the plain gather / phi / masked
+    ``index_add_`` / update sequence runs. All end with the ``node_mask``
+    gate.
     """
     kinds = (aggregate,) if isinstance(aggregate, str) else tuple(aggregate)
-    if dataflow.impl == "fused_layer":
+    if dataflow.impl in ("pipeline", "fused_layer") and fusable is not None:
         fu = fusable_update
-        if (fusable is None or fu is None or kinds != ("sum",)):
-            raise NotImplementedError(
-                "impl='fused_layer' without a self-form fusable layer runs "
-                f"the mp_pipeline edge phase: {_TODO_PIPELINE}")
-        _count_pass()                 # the whole layer is one launch
-        with _uncounted():
-            from repro_torch.kernels.ops import layer_fused
-            out = layer_fused(
-                x, graph.senders, graph.receivers, graph.edge_mask,
-                graph.n_node_pad, w1=fu.w1, b1=fu.b1,
-                node_input=fusable.node_input,
-                src_weight=fusable.src_weight,
-                edge_term=fusable.edge_term, phi_bias=fusable.bias,
-                phi_activation=fusable.activation,
-                self_coeff=fu.self_coeff, w2=fu.w2, b2=fu.b2,
-                out_activation=fu.out_activation)
+        if (dataflow.impl == "fused_layer" and fu is not None
+                and kinds == ("sum",) and fusable.attention is None):
+            _count_pass()                 # the whole layer is one launch
+            with _uncounted():
+                from repro_torch.kernels.ops import layer_fused
+                out = layer_fused(
+                    x, graph.senders, graph.receivers, graph.edge_mask,
+                    graph.n_node_pad, w1=fu.w1, b1=fu.b1,
+                    node_input=fusable.node_input,
+                    src_weight=fusable.src_weight,
+                    edge_term=fusable.edge_term, phi_bias=fusable.bias,
+                    phi_activation=fusable.activation,
+                    self_coeff=fu.self_coeff, w2=fu.w2, b2=fu.b2,
+                    out_activation=fu.out_activation)
+            return torch.where(graph.node_mask[:, None], out, 0.0)
+        agg = fused_edge_aggregate(graph, x, fusable, kinds=kinds,
+                                   stats=stats)
+        m = (agg[kinds[0]] if len(kinds) == 1 else
+             torch.cat([agg[k] for k in kinds], dim=-1))
+        out = update_fn(x, m)
         return torch.where(graph.node_mask[:, None], out, 0.0)
-    if dataflow.impl != "fused":
+    if dataflow.impl in ("twopass", "unfused", "banked"):
         raise NotImplementedError(f"impl='{dataflow.impl}': {_TODO_MP}")
+    if dataflow.impl == "kernel":
+        raise NotImplementedError(f"impl='kernel': {_TODO_KERNEL}")
 
     ef = graph.edge_feat if edge_feat is None else edge_feat
     src = x[graph.senders]

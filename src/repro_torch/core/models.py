@@ -1,11 +1,11 @@
-"""The FlowGNN model zoo in PyTorch; this slice ports GIN (paper Eq. 1).
+"""The FlowGNN model zoo in PyTorch: GCN, GIN (paper Eq. 1) and GAT.
 
 The twin of ``repro/core/models.py``. Parameters are plain nested dicts and
 lists of tensors with the JAX layout: a dense layer is ``{"w": (d_in,
 d_out), "b": (d_out,)}`` applied as ``x @ w + b``, so weights move between
 the two sides without a transpose (``checkpoint/convert.py``).
 
-GCN, GIN-VN, GAT, PNA and DGN are not ported yet: ``make_gnn`` raises
+GIN-VN, PNA and DGN are not ported yet: ``make_gnn`` raises
 ``NotImplementedError`` for them (ROADMAP queue 1 item 4).
 """
 
@@ -20,12 +20,16 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.graph import GraphBatch
 from repro_torch.core.message_passing import (DEFAULT_DATAFLOW,
-                                              DataflowConfig, FusableMessage,
-                                              FusableUpdate,
+                                              DataflowConfig,
+                                              FusableAttention,
+                                              FusableMessage, FusableUpdate,
                                               PrecomputedGraphStats,
+                                              _count_pass,
+                                              fused_edge_aggregate,
                                               global_pool,
                                               precompute_graph_stats,
-                                              propagate)
+                                              propagate, segment_aggregate,
+                                              segment_softmax)
 
 Params = Dict[str, Any]
 
@@ -113,6 +117,69 @@ def _readout(head, cfg: GNNConfig, graph: GraphBatch, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# GCN (symmetric norm, analytic self loop)
+# ---------------------------------------------------------------------------
+
+def gcn_init(gen: torch.Generator, cfg: GNNConfig,
+             device: DeviceLike = None) -> Params:
+    """Random GCN weights from ``gen`` with the reference's shapes and
+    scales: one dense layer per GNN layer (node features to hidden first)."""
+    dev = resolve_device(device)
+    d = cfg.hidden_dim
+    layers = [_dense_init(gen, cfg.node_feat_dim if l == 0 else d, d,
+                          cfg.dtype, dev) for l in range(cfg.num_layers)]
+    return {"layers": layers, "head": _head_init(gen, cfg, d, dev)}
+
+
+def gcn_layer(p, graph: GraphBatch, x: torch.Tensor,
+              dataflow: DataflowConfig, stats: PrecomputedGraphStats, *,
+              last: bool, fusable: Optional[FusableMessage]) -> torch.Tensor:
+    """One GCN layer. ``stats`` must carry ``inv_sqrt_deg``; ``fusable``
+    holds the per-edge norm stream that every layer shares (None under
+    ``impl='fused'``)."""
+    inv_sqrt = stats.inv_sqrt_deg
+    self_coeff = inv_sqrt * inv_sqrt        # analytic self-loop weight
+
+    def message(src, dst, e, _inv=inv_sqrt, _g=graph):
+        norm = _inv[_g.senders] * _inv[_g.receivers]
+        return src * norm[:, None]
+
+    def update(xv, m, _p=p):
+        m = m + xv * self_coeff[:, None]      # analytic self loop
+        return _dense(_p, m)
+
+    fu = (FusableUpdate(w1=p["w"], b1=p["b"], self_coeff=self_coeff)
+          if dataflow.impl == "fused_layer" else None)
+    h = propagate(graph, x, message_fn=message, update_fn=update,
+                  aggregate="sum", dataflow=dataflow, stats=stats,
+                  fusable=fusable, fusable_update=fu)
+    # relu on every layer but the last; relu(0) == 0 keeps the node mask
+    return h if last else torch.relu(h)
+
+
+def gcn_apply(params, graph: GraphBatch, cfg: GNNConfig,
+              dataflow: DataflowConfig = DEFAULT_DATAFLOW,
+              stats: Optional[PrecomputedGraphStats] = None) -> torch.Tensor:
+    """GCN forward; ``dataflow.scan_layers`` either way runs a Python loop."""
+    x = graph.node_feat.to(cfg.dtype)
+    if stats is None or stats.inv_sqrt_deg is None:
+        stats = precompute_graph_stats(graph, with_self_loop_norm=True,
+                                       with_graph_counts=cfg.task == "graph")
+    inv_sqrt = stats.inv_sqrt_deg           # 1/sqrt(deg+1), once per graph
+    # fusable phi: the symmetric norm is a per-edge scalar stream, shared
+    # by every layer
+    fusable = None
+    if dataflow.impl in _FUSABLE_IMPLS:
+        fusable = FusableMessage(
+            src_weight=inv_sqrt[graph.senders] * inv_sqrt[graph.receivers])
+    n_layers = cfg.num_layers
+    for l, p in enumerate(params["layers"]):
+        x = gcn_layer(p, graph, x, dataflow, stats, last=l == n_layers - 1,
+                      fusable=fusable)
+    return _readout(params["head"], cfg, graph, x, stats)
+
+
+# ---------------------------------------------------------------------------
 # GIN (+ edge embeddings, Eq. 1)
 # ---------------------------------------------------------------------------
 
@@ -175,6 +242,82 @@ def gin_apply(params, graph: GraphBatch, cfg: GNNConfig,
 
 
 # ---------------------------------------------------------------------------
+# GAT (anisotropic; gather, then transform)
+# ---------------------------------------------------------------------------
+
+def gat_init(gen: torch.Generator, cfg: GNNConfig,
+             device: DeviceLike = None) -> Params:
+    """Random GAT weights from ``gen`` with the reference's shapes and
+    scales: per layer a dense node transform to heads x head_dim and the
+    two attention halves (heads, head_dim)."""
+    dev = resolve_device(device)
+    d_hid = cfg.heads * cfg.head_dim
+    layers = []
+    for l in range(cfg.num_layers):
+        d_in = cfg.node_feat_dim if l == 0 else d_hid
+        w = _dense_init(gen, d_in, d_hid, cfg.dtype, dev)
+        halves = [torch.randn((cfg.heads, cfg.head_dim), generator=gen,
+                              dtype=cfg.dtype) * 0.1 for _ in range(2)]
+        layers.append({"w": w, "a_src": halves[0].to(dev),
+                       "a_dst": halves[1].to(dev)})
+    return {"layers": layers, "head": _head_init(gen, cfg, d_hid, dev)}
+
+
+def gat_layer(p, graph: GraphBatch, x: torch.Tensor,
+              dataflow: DataflowConfig,
+              stats: Optional[PrecomputedGraphStats], *,
+              last: bool) -> torch.Tensor:
+    """One GAT layer; heads and head_dim come from the attention halves.
+
+    The per-node attention halves are a multiply-reduce over the head dim,
+    not an einsum, as in the reference: the reduction's order then does not
+    depend on the number of rows.
+    """
+    heads, hd = p["a_src"].shape
+    n = graph.n_node_pad
+    h = _dense(p["w"], x).reshape(n, heads, hd)
+    # per-node attention halves (once per node)
+    alpha_src = (h * p["a_src"][None]).sum(-1)
+    alpha_dst = (h * p["a_dst"][None]).sum(-1)
+    if dataflow.impl in _FUSABLE_IMPLS:
+        # one launch: logits, the online softmax and the weighted sum all
+        # fold into the mp_pipeline edge sweep
+        agg = fused_edge_aggregate(
+            graph, h.reshape(n, heads * hd),
+            FusableMessage(attention=FusableAttention(
+                src_logits=alpha_src, dst_logits=alpha_dst)),
+            kinds=("sum",), stats=stats)["sum"]
+    else:
+        logits = torch.nn.functional.leaky_relu(
+            alpha_src[graph.senders] + alpha_dst[graph.receivers],
+            negative_slope=0.2)                               # (E, H)
+        att = segment_softmax(logits, graph.receivers, n,
+                              edge_mask=graph.edge_mask,
+                              dataflow=dataflow)              # (E, H)
+        msg = h[graph.senders] * att[..., None]               # (E, H, Dh)
+        _count_pass()         # the gather + weight message rewrite
+        agg = segment_aggregate(
+            msg.reshape(-1, heads * hd), graph.receivers, n, kind="sum",
+            edge_mask=graph.edge_mask, dataflow=dataflow)
+    out = agg if last else torch.nn.functional.elu(agg)
+    return torch.where(graph.node_mask[:, None], out, 0.0)
+
+
+def gat_apply(params, graph: GraphBatch, cfg: GNNConfig,
+              dataflow: DataflowConfig = DEFAULT_DATAFLOW,
+              stats: Optional[PrecomputedGraphStats] = None) -> torch.Tensor:
+    """GAT forward; ``dataflow.scan_layers`` either way runs a Python loop."""
+    x = graph.node_feat.to(cfg.dtype)
+    if stats is None and cfg.task == "graph":
+        stats = precompute_graph_stats(graph, with_degrees=False,
+                                       with_graph_counts=True)
+    n_layers = cfg.num_layers
+    for l, p in enumerate(params["layers"]):
+        x = gat_layer(p, graph, x, dataflow, stats, last=l == n_layers - 1)
+    return _readout(params["head"], cfg, graph, x, stats)
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -183,8 +326,12 @@ class GNNModel(NamedTuple):
     apply: Callable[..., torch.Tensor]
 
 
-GNN_MODELS: Dict[str, GNNModel] = {"gin": GNNModel(gin_init, gin_apply)}
-_NOT_PORTED = ("gcn", "gin_vn", "gat", "pna", "dgn")
+GNN_MODELS: Dict[str, GNNModel] = {
+    "gcn": GNNModel(gcn_init, gcn_apply),
+    "gin": GNNModel(gin_init, gin_apply),
+    "gat": GNNModel(gat_init, gat_apply),
+}
+_NOT_PORTED = ("gin_vn", "pna", "dgn")
 
 
 def make_gnn(cfg: GNNConfig) -> GNNModel:

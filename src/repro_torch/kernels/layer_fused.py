@@ -26,9 +26,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mp_pipeline import apply_fusable_phi, src_weight_mode
+from repro_torch.kernels.mp_pipeline import (_SW_MODES, apply_fusable_phi,
+                                             src_weight_mode)
 
-_SW_MODES = {"none": 0, "scalar": 1, "full": 2, "head": 3}
 _TODO_EPILOGUES = ("the scalers (PNA) and field (DGN) epilogues: ROADMAP "
                    "queue 2 item 1 (layer_fused scalers and field epilogues)")
 
@@ -135,8 +135,8 @@ def layer_fused(x: torch.Tensor, senders: torch.Tensor,
                     field_wsum=field_wsum, w2=w2, b2=b2,
                     phi_activation=phi_activation,
                     out_activation=out_activation)
-    if src_weight is not None:
-        src_weight_mode(src_weight, d)          # raises on a bad width
+    sw_mode, head_dim = ("none", 0) if src_weight is None else (
+        src_weight_mode(src_weight, d))      # raises on a bad width
     if x.device.type == "cpu":
         return layer_fused_ref(
             x, senders, receivers, edge_mask, num_nodes, w1=w1, b1=b1,
@@ -146,11 +146,12 @@ def layer_fused(x: torch.Tensor, senders: torch.Tensor,
             w2=w2, b2=b2, out_activation=out_activation)
     if x.device.type != "cuda":
         raise ValueError(f"layer_fused runs on cpu or cuda, not {x.device}")
-    return _launch(x, senders, receivers, edge_mask, num_nodes, d, w1=w1,
-                   b1=b1, node_input=node_input, src_weight=src_weight,
-                   edge_term=edge_term, phi_bias=phi_bias,
-                   phi_activation=phi_activation, self_coeff=self_coeff,
-                   w2=w2, b2=b2, out_activation=out_activation,
+    return _launch(x, senders, receivers, edge_mask, num_nodes, d, sw_mode,
+                   head_dim, w1=w1, b1=b1, node_input=node_input,
+                   src_weight=src_weight, edge_term=edge_term,
+                   phi_bias=phi_bias, phi_activation=phi_activation,
+                   self_coeff=self_coeff, w2=w2, b2=b2,
+                   out_activation=out_activation,
                    rows_per_block=rows_per_block)
 
 
@@ -168,9 +169,10 @@ def _kernel():
     return fn
 
 
-def _launch(x, senders, receivers, edge_mask, num_nodes, d, *, w1, b1,
-            node_input, src_weight, edge_term, phi_bias, phi_activation,
-            self_coeff, w2, b2, out_activation, rows_per_block):
+def _launch(x, senders, receivers, edge_mask, num_nodes, d, sw_mode,
+            head_dim, *, w1, b1, node_input, src_weight, edge_term,
+            phi_bias, phi_activation, self_coeff, w2, b2, out_activation,
+            rows_per_block):
     dev = x.device
     e = senders.shape[0]
 
@@ -196,9 +198,8 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, *, w1, b1,
     if rows_per_block is not None and rows_per_block < 1:
         raise ValueError("rows_per_block must be >= 1")
 
-    sw_mode, sw_cols, head_dim, sw_ptr = "none", 0, 0, None
+    sw_cols, sw_ptr = 0, None
     if src_weight is not None:
-        sw_mode, head_dim = src_weight_mode(src_weight, d)
         sw_cols = 1 if sw_mode == "scalar" else src_weight.shape[1]
         sw_ptr = need(src_weight, "src_weight", f32,
                       (e,) if sw_mode == "scalar" else (e, sw_cols))

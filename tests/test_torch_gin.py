@@ -79,7 +79,7 @@ def test_params_round_trip():
     assert tp["node_enc"]["w"].shape == (cfg.node_feat_dim, cfg.hidden_dim)
 
 
-@pytest.mark.parametrize("impl", ["fused", "fused_layer"])
+@pytest.mark.parametrize("impl", ["fused", "pipeline", "fused_layer"])
 @pytest.mark.parametrize("packed", [False, True])
 def test_small_gin_matches_reference(impl, packed):
     """small_cfg (3 layers, hidden 16): against the JAX jnp forward and,
@@ -119,7 +119,7 @@ def test_paper_gin_matches_reference(impl, packed, hep):
     assert np.isfinite(ours).all()
 
 
-@pytest.mark.parametrize("impl", ["fused", "fused_layer"])
+@pytest.mark.parametrize("impl", ["fused", "pipeline", "fused_layer"])
 def test_edge_permutation_invariance(impl):
     cfg = _small(TCFG)
     _, tp = _jax_params(_small(JCFG), seed=3)
@@ -131,10 +131,12 @@ def test_edge_permutation_invariance(impl):
 
 
 @pytest.mark.parametrize("impl,per_layer", [("fused_layer", 1),
+                                            ("pipeline", 1),
                                             ("fused", 2)])
 def test_edge_passes_per_layer(impl, per_layer):
-    """One pass over the edge stream per layer under fused_layer (the
-    reference's figure); gather/phi and the scatter apart under fused."""
+    """One pass over the edge stream per layer under fused_layer and
+    pipeline (the reference's figure); gather/phi and the scatter apart
+    under fused."""
     cfg = TCFG["gin"]
     tp = gin_init(torch.Generator().manual_seed(0), cfg, device="cpu")
     _, tg = _graphs(packed=False)
@@ -188,7 +190,7 @@ def test_gin_init_shapes_match_reference():
 
 
 def test_unported_models_and_impls_raise():
-    for name in ("gcn", "gin_vn", "gat", "pna", "dgn"):
+    for name in ("gin_vn", "pna", "dgn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmake(TCFG[name])
     with pytest.raises(KeyError):
@@ -196,6 +198,6 @@ def test_unported_models_and_impls_raise():
     cfg = _small(TCFG)
     _, tp = _jax_params(_small(JCFG))
     _, tg = _graphs(packed=False)
-    for impl in ("pipeline", "kernel", "twopass", "banked"):
+    for impl in ("kernel", "twopass", "banked"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmake(cfg).apply(tp, tg, cfg, DataflowConfig(impl=impl))
