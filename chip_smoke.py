@@ -14,16 +14,20 @@ Phases, each printing its own lines:
                empty destinations exact; kernel, plain and bound times. The
                cases: synthetic ones at N=1024 (997), and the inputs every
                path of phase 4 hands its kernel in its first two layers at
-               both serving buckets, recorded at the wrapper.
+               both serving buckets, recorded at the wrapper. For
+               layer_fused's scalers (PNA) and field (DGN) forms an identity
+               first layer also reads out the epilogue's input row, whose
+               empty destinations must equal the plain version's exactly.
   4. slice   — the paper configs served end to end through
                ``GraphStreamEngine.process``, each path with the launch
-               counts set to 0 just before it and read just after: GIN and
-               GAT under impl='fused_layer' (then 16 graphs of each again
-               under ``torch.profiler``: device-busy share, top device and
-               host ops, the host's batch build alone), GCN under
-               'fused_layer', GIN and GCN under 'pipeline'. Each checks its
-               launches, its passes over the edges, and agreement with the
-               plain ``impl='fused'`` path on the card and with the CPU.
+               counts set to 0 just before it and read just after: GIN,
+               GAT, PNA and DGN under impl='fused_layer' (then 16 graphs of
+               each again under ``torch.profiler``: device-busy share, top
+               device and host ops, the host's batch build alone), GCN and
+               GIN-VN under 'fused_layer', GIN, GCN, PNA and DGN under
+               'pipeline'. Each checks its launches, its passes over the
+               edges, and agreement with the plain ``impl='fused'`` path on
+               the card and with the CPU.
   5. result  — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
@@ -159,7 +163,8 @@ def random_inputs(r, n, e, d, *, sw=None, edge_term=False, bias=None,
 def lf_case(seed, n, e, d, d_ff, d_out=None, *, self_coeff="scalar",
             sw=None, edge_term=True, phi_bias=False, relu_phi=True,
             out_relu=False, empty_tail=0):
-    """Numpy inputs of one layer_fused call (a dict of keyword args)."""
+    """Numpy inputs of one layer_fused call in the self form (a dict of
+    keyword args)."""
     r = np.random.default_rng(seed)
     kw = random_inputs(r, n, e, d, sw=sw, edge_term=edge_term,
                        bias="phi_bias" if phi_bias else None,
@@ -175,6 +180,52 @@ def lf_case(seed, n, e, d, d_ff, d_out=None, *, self_coeff="scalar",
         kw["self_coeff"] = np.array([1.1], np.float32)
     elif self_coeff == "node":
         kw["self_coeff"] = r.random(n).astype(np.float32)
+    return kw
+
+
+def degrees_of(kw):
+    """Masked in-degrees of a case's edge stream, as float32."""
+    return np.bincount(kw["receivers"][kw["edge_mask"]],
+                       minlength=kw["num_nodes"]).astype(np.float32)
+
+
+def lf_scalers_case(seed, n, e, d, *, empty_tail=0, delta=1.3):
+    """PNA's form: node_input and edge_term of width d, relu phi, PNA's
+    three degree scalers, w1 over d + 12d, out relu."""
+    r = np.random.default_rng(seed)
+    kw = random_inputs(r, n, e, d, edge_term=True, bias="phi_bias",
+                       empty_tail=empty_tail)
+    kw["node_input"] = r.normal(size=(n, d)).astype(np.float32)
+    kw["degrees"] = degrees_of(kw)
+    log_deg = np.log(kw["degrees"] + 1.0)
+    kw["scalers"] = np.stack([np.ones_like(log_deg), log_deg / delta,
+                              delta / np.maximum(log_deg, 1e-3)],
+                             axis=-1).astype(np.float32)
+    kw["w1"] = glorot(r, 13 * d, d)
+    kw["b1"] = (0.1 * r.normal(size=(d,))).astype(np.float32)
+    kw["phi_activation"] = "relu"
+    kw["out_activation"] = "relu"
+    return kw
+
+
+def lf_field_case(seed, n, e, d, *, empty_tail=0):
+    """DGN's form: the stacked [x | x] gather buffer, the full (E, 2d)
+    [1 | w] src_weight of a random field, its sums, w1 over 3d, out relu."""
+    r = np.random.default_rng(seed)
+    kw = random_inputs(r, n, e, d, empty_tail=empty_tail)
+    w = r.normal(size=(e,)).astype(np.float32)
+    kw["node_input"] = np.concatenate([kw["x"], kw["x"]], axis=-1)
+    kw["src_weight"] = np.concatenate(
+        [np.ones((e, d), np.float32), np.repeat(w[:, None], d, axis=1)],
+        axis=-1)
+    kw["degrees"] = degrees_of(kw)
+    wsum = np.zeros(n, np.float32)
+    np.add.at(wsum, kw["receivers"][kw["edge_mask"]], w[kw["edge_mask"]])
+    kw["field_wsum"] = wsum
+    kw["w1"] = glorot(r, 3 * d, d)
+    kw["b1"] = (0.1 * r.normal(size=(d,))).astype(np.float32)
+    kw["phi_activation"] = "none"
+    kw["out_activation"] = "relu"
     return kw
 
 
@@ -223,19 +274,34 @@ def input_bytes(kw):
 def lf_bound(kw):
     """The least time (ms) the card could take for this call, the larger of
     two. Bytes at the memory rate: ``input_bytes``, then the output written
-    once. Operations at the fp32 rate: those this run's data needs (the
-    unmasked edges' phi, then the epilogue)."""
-    n, d = kw["x"].shape
+    once. Operations at the fp32 rate: those this run's data needs: the
+    unmasked edges' phi and accumulation at the message width (sum; with
+    degree scalers also the square and its sum, max and min), then the
+    epilogue (the self term; or the scalers form's mean, variance, std and
+    scaled copies; or the field form's mean and |s1 - x*wsum|) and the
+    dense layers over the first layer's input width."""
+    n, d_x = kw["x"].shape
+    d = kw["node_input"].shape[1] if "node_input" in kw else d_x
     valid = int(kw["edge_mask"].sum())
-    d_ff = kw["w1"].shape[1]
+    d_in, d_ff = kw["w1"].shape
     two = "w2" in kw
     d_out = kw["w2"].shape[1] if two else d_ff
     nbytes = input_bytes(kw) + n * d_out * 4                 # + the output
     per_edge = 1 + ("src_weight" in kw) + ("edge_term" in kw) + (
         "phi_bias" in kw) + (kw["phi_activation"] == "relu")
+    if "scalers" in kw:
+        per_edge += 4                      # square, its sum, max, min
     flops = valid * d * per_edge
-    flops += 2 * n * d if "self_coeff" in kw else 0
-    flops += 2 * n * d * d_ff + n * d_ff
+    if "scalers" in kw:
+        # per row 1/max(deg, 1); per lane mean 1, variance 4, std 2, and
+        # the four statistics times each scaler
+        flops += 2 * n + n * d * (7 + 4 * kw["scalers"].shape[1])
+    elif "field_wsum" in kw:
+        # per row 1/max(deg, 1); per lane of x the mean 1, |s1 - x*wsum| 3
+        flops += 2 * n + 4 * n * d_x
+    elif "self_coeff" in kw:
+        flops += 2 * n * d
+    flops += 2 * n * d_in * d_ff + n * d_ff
     if two:
         flops += n * d_ff + 2 * n * d_ff * d_out + n * d_out
     flops += n * d_out if kw["out_activation"] == "relu" else 0
@@ -249,6 +315,36 @@ def to_numpy(kw):
     import torch
     return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
             else v for k, v in kw.items()}
+
+
+def epilogue_rows_check(name, kw, kw_np, layer_fused, layer_fused_ref):
+    """The scalers or field epilogue's input row z, read out through an
+    identity first layer (each output one product by 1 among zeros, exact
+    on both sides): equal to the plain version's on the empty
+    destinations, within tolerance elsewhere. These launches are not on
+    the main path."""
+    import torch
+    d_in = kw_np["w1"].shape[0]
+    probe = {k: v for k, v in kw.items() if k not in ("w2", "b2")}
+    dev = kw["x"].device
+    probe.update(w1=torch.eye(d_in, device=dev),
+                 b1=torch.zeros(d_in, device=dev), out_activation="none")
+    z = call(layer_fused, probe)
+    z_plain = call(layer_fused_ref, probe)
+    torch.cuda.synchronize()
+    empty = torch.from_numpy(degrees_of(kw_np) == 0).to(dev)
+    n_empty = int(empty.sum())
+    if not torch.equal(z[empty], z_plain[empty]):
+        raise AssertionError(f"layer_fused {name}: the epilogue's input on "
+                             f"the {n_empty} empty destinations is not "
+                             f"exactly the plain version's")
+    err, _, ok = close(z, z_plain)
+    log("kernels", f"layer_fused {name}: epilogue input z (width {d_in}) "
+        f"exact on {n_empty} empty destinations, max_abs_err={err:.3e} "
+        f"elsewhere {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"layer_fused {name}: the epilogue's input "
+                             f"disagrees with the plain version's")
 
 
 def kernel_phase(card: str, main_inputs):
@@ -266,24 +362,34 @@ def kernel_phase(card: str, main_inputs):
             phi_bias=True, relu_phi=False),
         "d_ragged_head_src_weight": lf_case(4, 997, 3001, 100, 200, 100,
                                             sw="head", empty_tail=5),
+        "d_pna_scalers_form": lf_scalers_case(5, 1024, 4096, 80,
+                                              empty_tail=64),
+        "d_dgn_field_form": lf_field_case(6, 1024, 4096, 100,
+                                          empty_tail=64),
     }
     for name, kw in main_inputs.items():
         cases[name] = to_numpy(kw)
     rows = {}
+    tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
     for name, kw_np in cases.items():
         kw = on_device(kw_np, "cuda")
         out = call(layer_fused, kw)
         plain = call(layer_fused_ref, kw)
         torch.cuda.synchronize()
         err, rel, ok = close(out, plain)
-        tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
-        log("kernels", f"layer_fused {name}: N={kw_np['x'].shape[0]} "
-            f"E={kw_np['senders'].shape[0]} D={kw_np['x'].shape[1]} "
-            f"max_abs_err={err:.3e} max_rel_err={rel:.3e} tol: {tol} "
-            f"{'ok' if ok else 'FAIL'}")
+        form = ("scalers" if "scalers" in kw_np else "field"
+                if "field_wsum" in kw_np else "self")
+        log("kernels", f"layer_fused {name}: {form} form, "
+            f"N={kw_np['x'].shape[0]} E={kw_np['senders'].shape[0]} "
+            f"D_x={kw_np['x'].shape[1]} "
+            f"D_in={kw_np['w1'].shape[0]} max_abs_err={err:.3e} "
+            f"max_rel_err={rel:.3e} tol: {tol} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"layer_fused {name} disagrees with its "
                                  f"plain version")
+        if form != "self":
+            epilogue_rows_check(name, kw, kw_np, layer_fused,
+                                layer_fused_ref)
         runs = [call(layer_fused, kw)] + [
             call(layer_fused, kw, rows_per_block=rpb) for rpb in (3, 16)]
         torch.cuda.synchronize()
@@ -444,12 +550,13 @@ def mp_kernel_phase(card: str, main_inputs):
 # ---------------------------------------------------------------------------
 
 def init_params(name: str, device: str):
+    """The paper config of any of the six models and random weights from
+    ``torch.Generator().manual_seed(0)``."""
     import torch
-    from repro_torch.core.models import (PAPER_GNN_CONFIGS, gat_init,
-                                         gcn_init, gin_init)
-    init = {"gin": gin_init, "gcn": gcn_init, "gat": gat_init}[name]
+    from repro_torch.core.models import PAPER_GNN_CONFIGS, make_gnn
     cfg = PAPER_GNN_CONFIGS[name]
-    return cfg, init(torch.Generator().manual_seed(0), cfg, device=device)
+    return cfg, make_gnn(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                   device=device)
 
 
 def main_path_inputs(name: str, impl: str, kernel: str, batch):
@@ -583,21 +690,24 @@ def slice_phase(card: str):
               + list(hep_like(seed=2, n_graphs=8)))
     # the pipeline runs are shorter: 16 molecules and 4 kNN graphs
     short = graphs[:16] + graphs[64:68]
-    return {
-        "gin_fused_layer": serve_path(card, "gin", "fused_layer", graphs,
-                                      per_graph={"layer_fused": 5},
-                                      passes=5, profile=True),
-        "gat_fused_layer": serve_path(card, "gat", "fused_layer", graphs,
-                                      per_graph={"mp_pipeline": 5},
-                                      passes=5, profile=True),
-        "gcn_fused_layer": serve_path(card, "gcn", "fused_layer", graphs,
-                                      per_graph={"layer_fused": 5},
-                                      passes=6),
-        "gin_pipeline": serve_path(card, "gin", "pipeline", short,
-                                   per_graph={"mp_pipeline": 5}, passes=5),
-        "gcn_pipeline": serve_path(card, "gcn", "pipeline", short,
-                                   per_graph={"mp_pipeline": 5}, passes=6),
-    }
+    lf, mp = "layer_fused", "mp_pipeline"
+    # (model, impl, graphs, launches per graph, passes per bucket, profiled)
+    paths = [
+        ("gin", "fused_layer", graphs, {lf: 5}, 5, True),
+        ("gat", "fused_layer", graphs, {mp: 5}, 5, True),
+        ("gcn", "fused_layer", graphs, {lf: 5}, 6, False),
+        ("pna", "fused_layer", graphs, {lf: 4}, 5, True),
+        ("dgn", "fused_layer", graphs, {lf: 4}, 7, True),
+        ("gin_vn", "fused_layer", graphs, {lf: 5}, 5, False),
+        ("gin", "pipeline", short, {mp: 5}, 5, False),
+        ("gcn", "pipeline", short, {mp: 5}, 6, False),
+        ("pna", "pipeline", short, {mp: 4}, 5, False),
+        ("dgn", "pipeline", short, {mp: 4}, 7, False),
+    ]
+    return {f"{name}_{impl}": serve_path(card, name, impl, gs,
+                                         per_graph=per_graph, passes=passes,
+                                         profile=profile)
+            for name, impl, gs, per_graph, passes, profile in paths}
 
 
 def profile_serving(engine, graphs, args, card: str, label: str):
@@ -698,9 +808,12 @@ def main() -> int:
     # slice's own models and seeds, at both buckets
     from repro_torch.core.graph import build_graph_batch, pad_bucket
     from repro_torch.data.graphs import hep_like, molhiv_like
-    users = {"layer_fused": (("gin", "fused_layer"), ("gcn", "fused_layer")),
+    users = {"layer_fused": (("gin", "fused_layer"), ("gcn", "fused_layer"),
+                             ("pna", "fused_layer"), ("dgn", "fused_layer"),
+                             ("gin_vn", "fused_layer")),
              "mp_pipeline": (("gat", "fused_layer"), ("gin", "pipeline"),
-                             ("gcn", "pipeline"))}
+                             ("gcn", "pipeline"), ("pna", "pipeline"),
+                             ("dgn", "pipeline"))}
     main_inputs = {kernel: {} for kernel in users}
     for key, bucket, g in (
             ("e", "molhiv_bucket", next(molhiv_like(seed=0, n_graphs=1))),

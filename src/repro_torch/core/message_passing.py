@@ -2,32 +2,36 @@
 
     x_i^{l+1} = gamma( x_i^l,  A_{j in N(i)}  phi(x_i^l, x_j^l, e_{j,i}^l) )
 
-The twin of ``repro/core/message_passing.py``, holding what GIN, GCN and GAT
-need:
+The twin of ``repro/core/message_passing.py``, holding what the six models
+of the zoo need:
 
   * ``propagate`` with three arms: ``impl='fused'`` (gather, ``message_fn``,
-    masked ``index_add_``, ``update_fn``); ``impl='pipeline'``, where a
+    the plain aggregation, ``update_fn``); ``impl='pipeline'``, where a
     ``FusableMessage`` runs the whole edge phase as one launch of the
     ``mp_pipeline`` kernel (``fused_edge_aggregate``) before ``update_fn``;
-    and ``impl='fused_layer'``, where the self form runs the whole layer as
-    one launch of the ``layer_fused`` kernel and any other fusable layer
-    keeps the ``mp_pipeline`` edge phase;
+    and ``impl='fused_layer'``, where a ``FusableUpdate`` runs the whole
+    layer as one launch of the ``layer_fused`` kernel in one of its three
+    epilogues (self term: GIN, GIN-VN, GCN; degree scalers: PNA;
+    directional field: DGN) and any other fusable layer keeps the
+    ``mp_pipeline`` edge phase;
   * ``fused_edge_aggregate``, GAT's in-sweep softmax (``FusableAttention``)
     included, with ``_derive_kinds`` for the statistics derived from the
     kernel's raw accumulators (mean / var / std, empty max / min at 0);
-  * ``segment_aggregate`` for ``'sum'`` and ``segment_softmax`` (the plain
-    three-sweep arm);
+  * the plain aggregation unit: ``segment_aggregate`` for every kind of
+    ``AGG_KINDS``, ``segment_multi_aggregate`` (the single-pass stacked
+    moment sweep, max and min one sweep each) and ``segment_softmax`` (three
+    sweeps);
   * ``PrecomputedGraphStats`` / ``precompute_graph_stats`` for degrees,
-    GCN's self-loop norm and the per-graph node counts of the readout;
+    GCN's self-loop norm, PNA's degree scalers, DGN's directional field and
+    the per-graph node counts of the readout;
   * ``DataflowConfig``, ``FusableMessage``, ``FusableAttention`` and
     ``FusableUpdate`` with the reference's field names;
   * ``count_edge_passes``: the paper's passes-over-the-edge-stream figure.
     PyTorch runs eagerly, so a pass is counted each time a sweep is issued.
 
-The other implementations (``twopass``, ``banked``, ``kernel``), the
-unfused multi-statistic aggregation and PNA's scalers and DGN's field are
-not ported yet; they raise ``NotImplementedError`` naming their ROADMAP
-item.
+The other implementations (``twopass``, ``unfused``, ``banked``,
+``kernel``) and ``banked_segment_sum`` are not ported yet; they raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,13 +45,27 @@ import torch
 
 from repro_torch.core.graph import GraphBatch
 
-_TODO_MP = ("ROADMAP queue 1 item 3 (message_passing beyond GIN, GCN and "
-            "GAT)")
+_TODO_MP = ("ROADMAP queue 1 item 3 (the twopass, unfused and banked impls "
+            "and banked_segment_sum)")
 _TODO_KERNEL = ("ROADMAP queue 2 items 3-5 (the impl='kernel' kernels "
                 "mp_scatter_multi, mp_scatter and seg_softmax)")
 
+# The neutral fill of a masked edge per aggregation kind.
+_NEUTRAL = {
+    "sum": 0.0,
+    "mean": 0.0,
+    "max": -float("inf"),
+    "min": float("inf"),
+    "std": 0.0,
+    "var": 0.0,
+}
+
 # The aggregation kinds of the reference, in its order.
-AGG_KINDS = ("sum", "mean", "max", "min", "std", "var")
+AGG_KINDS = tuple(_NEUTRAL)
+
+# The multi-statistic bundle the scalers epilogue consumes, in the concat
+# order PNA's update expects (Eq. 3).
+PNA_STAT_KINDS = ("mean", "std", "max", "min")
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +132,29 @@ class PrecomputedGraphStats:
 
       degrees            (N,)     masked in-degree per destination node
       inv_sqrt_deg       (N,)     1/sqrt(degree + 1), GCN's self-loop norm
+      pna_scalers        (N, 3)   PNA's [identity, amplification,
+                                  attenuation] degree scalers (Eq. 3)
+      dgn_weights        (E,)     DGN's normalised directional field weight
+                                  per edge
+      dgn_wsum           (N,)     per-destination sum of ``dgn_weights``
+                                  (the layer-invariant part of |B_dx X|)
       graph_node_counts  (G_pad,) valid nodes per packed graph (mean readout)
     """
 
     degrees: Optional[torch.Tensor] = None
     inv_sqrt_deg: Optional[torch.Tensor] = None
+    pna_scalers: Optional[torch.Tensor] = None
+    dgn_weights: Optional[torch.Tensor] = None
+    dgn_wsum: Optional[torch.Tensor] = None
     graph_node_counts: Optional[torch.Tensor] = None
+
+
+def _seg_sum(v: torch.Tensor, index: torch.Tensor,
+             num_segments: int) -> torch.Tensor:
+    """Sum the rows of ``v`` into ``num_segments`` rows by ``index``."""
+    out = torch.zeros((num_segments,) + tuple(v.shape[1:]), dtype=v.dtype,
+                      device=v.device)
+    return out.index_add_(0, index, v)
 
 
 def precompute_graph_stats(
@@ -127,29 +162,51 @@ def precompute_graph_stats(
     *,
     with_degrees: bool = True,
     with_self_loop_norm: bool = False,
+    pna_delta: Optional[float] = None,
+    with_dgn_field: bool = False,
     with_graph_counts: bool = False,
 ) -> PrecomputedGraphStats:
     """Compute the per-graph statistics bundle (one sweep per family).
 
-    The degree sweep is a real pass over the edge stream and is counted.
-    PNA's and DGN's statistics are not ported yet: ROADMAP queue 1 item 3.
+    ``pna_delta`` is PNA's normalisation constant (``cfg.avg_log_degree``).
+    The sweeps over the edge stream are counted: one for the degrees, two
+    for DGN's field (the |dpos| normaliser, then the weight sums).
     """
+    n = graph.n_node_pad
+    emask = graph.edge_mask
     degrees = None
-    if with_degrees or with_self_loop_norm:
+    if with_degrees or with_self_loop_norm or pna_delta is not None:
         _count_pass()
-        degrees = torch.zeros(graph.n_node_pad, dtype=torch.float32,
-                              device=graph.device).index_add_(
-            0, graph.receivers, graph.edge_mask.to(torch.float32))
+        degrees = _seg_sum(emask.to(torch.float32), graph.receivers, n)
     inv_sqrt_deg = torch.rsqrt(degrees + 1.0) if with_self_loop_norm else None
+    pna_scalers = None
+    if pna_delta is not None:
+        log_deg = torch.log(degrees + 1.0)
+        pna_scalers = torch.stack([
+            torch.ones_like(log_deg),
+            log_deg / pna_delta,
+            pna_delta / torch.clamp(log_deg, min=1e-3),
+        ], dim=-1)
+    dgn_weights = dgn_wsum = None
+    if with_dgn_field:
+        pos = graph.node_pos[:, 0]
+        dpos = pos[graph.senders] - pos[graph.receivers]
+        _count_pass()
+        absnorm = _seg_sum(torch.where(emask, dpos.abs(), 0.0),
+                           graph.receivers, n)
+        dgn_weights = dpos / torch.clamp(absnorm[graph.receivers], min=1e-6)
+        _count_pass()
+        dgn_wsum = _seg_sum(torch.where(emask, dgn_weights, 0.0),
+                            graph.receivers, n)
     graph_node_counts = None
     if with_graph_counts:
         # node-stream sweep (not an edge pass): valid nodes per packed graph
-        graph_node_counts = torch.zeros(
-            graph.n_graph_pad, dtype=torch.float32,
-            device=graph.device).index_add_(
-            0, graph.graph_ids, graph.node_mask.to(torch.float32))
-    return PrecomputedGraphStats(degrees=degrees, inv_sqrt_deg=inv_sqrt_deg,
-                                 graph_node_counts=graph_node_counts)
+        graph_node_counts = _seg_sum(graph.node_mask.to(torch.float32),
+                                     graph.graph_ids, graph.n_graph_pad)
+    return PrecomputedGraphStats(
+        degrees=degrees, inv_sqrt_deg=inv_sqrt_deg, pna_scalers=pna_scalers,
+        dgn_weights=dgn_weights, dgn_wsum=dgn_wsum,
+        graph_node_counts=graph_node_counts)
 
 
 @dataclass(frozen=True)
@@ -158,9 +215,12 @@ class DataflowConfig:
 
     ``impl`` selects the layer implementation; the port runs ``'fused'``
     (plain PyTorch), ``'pipeline'`` (one ``mp_pipeline`` launch per fusable
-    edge phase) and ``'fused_layer'`` (one ``layer_fused`` launch per
-    self-form layer, else the ``mp_pipeline`` edge phase). ``scan_layers`` is accepted for parity and means a plain Python
-    loop over the layers either way. The tile knobs (``node_tile``,
+    edge phase) and ``'fused_layer'`` (one ``layer_fused`` launch per layer
+    with a ``FusableUpdate``, else the ``mp_pipeline`` edge phase).
+    ``single_pass`` picks the multi-kind aggregation of ``'fused'``: one
+    stacked moment sweep (True) or one sweep family per kind (False).
+    ``scan_layers`` is accepted for parity and means a plain Python loop
+    over the layers either way. The tile knobs (``node_tile``,
     ``num_banks``, ``apply_tile``, ``scatter_tile``, ``edge_tile``) describe
     the TPU kernels' grids; the CUDA kernel picks its own launch shape.
     """
@@ -228,16 +288,34 @@ class FusableMessage:
 
 @dataclass(frozen=True)
 class FusableUpdate:
-    """A gamma the ``layer_fused`` kernel runs in its epilogue:
+    """A gamma the ``layer_fused`` kernel runs in its epilogue, in one of
+    three forms. The self term (GIN, GIN-VN, GCN):
 
         x' = act_out( mlp( m + self_coeff * x ) )
 
+    the degree scalers (``scalers`` set; PNA's Eq. 3), with ``m`` the four
+    statistics ``PNA_STAT_KINDS`` derived from the kernel's accumulators:
+
+        x' = act_out( mlp( concat(x, s_0 * m, ..., s_{S-1} * m) ) )
+
+    and the directional field (``field_wsum`` set; DGN), over the stacked
+    [x | x·w] gather buffer of width 2·D_x:
+
+        x' = act_out( mlp( concat(x, s1[:, :D_x] / deg,
+                                  |s1[:, D_x:] - x * field_wsum|) ) )
+
       self_coeff  scalar tensor or (N,)  weight on the self term (None drops
                                         it): GIN's 1+eps, GCN's self-loop norm
-      w1, b1      (D, D_ff), (D_ff,)    first dense layer
+      scalers     (N, S)    per-node degree scalers; the aggregation kinds
+                            must be ``PNA_STAT_KINDS`` and ``stats.degrees``
+                            present
+      field_wsum  (N,)      per-destination field-weight sums; the kinds
+                            must be ('sum', 'mean'), ``stats.degrees``
+                            present and the phi must gather ``node_input``
+      w1, b1      (D_in, D_ff), (D_ff,)  first dense layer: D_in = D (self),
+                            D_x + S·4·D (scalers) or 3·D_x (field)
       w2, b2      (D_ff, D_out), (D_out,)  optional second layer, ReLU between
       out_activation  'none' | 'relu'
-      scalers, field_wsum  PNA's and DGN's epilogues (not ported yet)
     """
 
     w1: torch.Tensor
@@ -249,38 +327,146 @@ class FusableUpdate:
     b2: Optional[torch.Tensor] = None
     out_activation: str = "none"
 
-    def __post_init__(self):
-        if self.scalers is not None:
-            raise NotImplementedError(
-                "the scalers epilogue (PNA): ROADMAP queue 2 item 1 "
-                "(layer_fused scalers epilogue)")
-        if self.field_wsum is not None:
-            raise NotImplementedError(
-                "the field epilogue (DGN): ROADMAP queue 2 item 1 "
-                "(layer_fused field epilogue)")
+
+# ---------------------------------------------------------------------------
+# The plain aggregation unit over raw COO destinations
+# ---------------------------------------------------------------------------
+
+def _check_plain_arm(dataflow: DataflowConfig, what: str) -> None:
+    if dataflow.impl == "kernel":
+        raise NotImplementedError(
+            f"{what} under impl='kernel': {_TODO_KERNEL}")
+    if dataflow.impl == "banked":
+        raise NotImplementedError(f"{what} under impl='banked': {_TODO_MP}")
+
+
+def _masked(msg: torch.Tensor, edge_mask: torch.Tensor,
+            kind: str) -> torch.Tensor:
+    m = edge_mask[:, None] if msg.ndim == 2 else edge_mask
+    return torch.where(m, msg, _NEUTRAL[kind])
+
+
+def _seg_extreme(v: torch.Tensor, index: torch.Tensor, num_segments: int,
+                 reduce: str) -> torch.Tensor:
+    """Segment max (``reduce='amax'``) or min (``'amin'``) of the rows of
+    ``v``; segments no row reaches hold -inf / +inf."""
+    fill = _NEUTRAL["max" if reduce == "amax" else "min"]
+    out = torch.full((num_segments,) + tuple(v.shape[1:]), fill,
+                     dtype=v.dtype, device=v.device)
+    idx = index if v.ndim == 1 else index[:, None].expand_as(v)
+    return out.scatter_reduce(0, idx, v, reduce, include_self=False)
 
 
 def segment_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
                       num_nodes: int, *, kind: str = "sum",
                       edge_mask: Optional[torch.Tensor] = None,
-                      dataflow: DataflowConfig = DEFAULT_DATAFLOW
+                      dataflow: DataflowConfig = DEFAULT_DATAFLOW,
+                      degrees: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """Sum per-edge messages ``msg`` (E, D) into per-node rows (N, D);
-    masked edges contribute nothing. Works on raw (unsorted) COO."""
-    if kind != "sum":
-        raise NotImplementedError(f"aggregation '{kind}': {_TODO_MP}")
-    if dataflow.impl == "kernel":
-        raise NotImplementedError(
-            f"segment_aggregate under impl='kernel': {_TODO_KERNEL}")
-    if dataflow.impl == "banked":
-        raise NotImplementedError(
-            f"segment_aggregate under impl='banked': {_TODO_MP}")
-    if edge_mask is not None:
-        msg = torch.where(edge_mask[:, None], msg, 0.0)
+    """Aggregate per-edge messages ``msg`` (E, D) into per-node rows (N, D)
+    by ``kind``; masked edges contribute nothing and empty destinations
+    give 0. Works on raw (unsorted) COO.
+
+    mean / var / std divide by ``degrees`` (masked in-degrees) when given,
+    else by a count swept here.
+    """
+    if kind not in AGG_KINDS:
+        raise ValueError(f"unknown aggregation '{kind}'")
+    _check_plain_arm(dataflow, "segment_aggregate")
+    if edge_mask is None:
+        edge_mask = torch.ones(msg.shape[0], dtype=torch.bool,
+                               device=msg.device)
+    msgm = _masked(msg, edge_mask, kind)
+    if kind == "sum":
+        _count_pass()
+        return _seg_sum(msgm, receivers, num_nodes)
+    if kind in ("max", "min"):
+        _count_pass()
+        out = _seg_extreme(msgm, receivers, num_nodes,
+                           "amax" if kind == "max" else "amin")
+        return torch.where(torch.isfinite(out), out, 0.0)
+
+    # mean / var / std need degrees
+    if degrees is None:
+        _count_pass()
+        degrees = _seg_sum(edge_mask.to(msg.dtype), receivers, num_nodes)
+    denom = torch.clamp(degrees, min=1.0)[:, None]
     _count_pass()
-    out = torch.zeros((num_nodes,) + tuple(msg.shape[1:]), dtype=msg.dtype,
-                      device=msg.device)
-    return out.index_add_(0, receivers, msg)
+    s1 = _seg_sum(msgm, receivers, num_nodes)
+    mean = s1 / denom
+    if kind == "mean":
+        return mean
+    _count_pass()
+    s2 = _seg_sum(msgm * msgm, receivers, num_nodes)
+    var = torch.clamp(s2 / denom - mean * mean, min=0.0)
+    if kind == "var":
+        return var
+    return torch.sqrt(var + 1e-5)
+
+
+def segment_multi_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
+                            num_nodes: int, *, kinds: Sequence[str],
+                            edge_mask: Optional[torch.Tensor] = None,
+                            dataflow: DataflowConfig = DEFAULT_DATAFLOW,
+                            degrees: Optional[torch.Tensor] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """All requested statistics with one sweep for the moments.
+
+    The moment statistics are stacked into one widened sum,
+    ``[msg | msg*msg | 1 1] -> [s1 | s2 | count]``, and mean / var / std
+    derived from it (``_derive_kinds``); max and min take one sweep each.
+    Masked edges go to an extra segment past the last row, which is then
+    dropped. Accumulates in float32 and returns ``{kind: (N, D)}`` in
+    ``msg.dtype``; ``degrees`` (masked in-degrees) replaces the count.
+    """
+    kinds = tuple(kinds)
+    if not kinds:
+        raise ValueError("kinds must be non-empty")
+    for k in kinds:
+        if k not in AGG_KINDS:
+            raise ValueError(f"unknown aggregation '{k}'")
+    if msg.ndim != 2:
+        raise ValueError(f"segment_multi_aggregate expects 2-D messages, "
+                         f"got {tuple(msg.shape)}")
+    _check_plain_arm(dataflow, "segment_multi_aggregate")
+    if edge_mask is None:
+        edge_mask = torch.ones(msg.shape[0], dtype=torch.bool,
+                               device=msg.device)
+    want_moments = any(k in ("mean", "var", "std") for k in kinds)
+    need_count = want_moments and degrees is None
+    msgf = msg.to(torch.float32)
+    # masked edges land in segment num_nodes, dropped below
+    recv_m = torch.where(edge_mask, receivers, num_nodes)
+    parts = {}
+    if "sum" in kinds or want_moments:
+        parts["s1"] = msgf
+    if any(k in ("var", "std") for k in kinds):
+        parts["s2"] = msgf * msgf
+    if need_count:
+        # two count columns keep the stacked width even, as the reference
+        parts["cnt"] = torch.ones((msg.shape[0], 2), dtype=torch.float32,
+                                  device=msg.device)
+    got = {}
+    if parts:
+        agg = _seg_sum(torch.cat(list(parts.values()), dim=-1), recv_m,
+                       num_nodes + 1)[:num_nodes]
+        _count_pass()                  # the single moment sweep
+        got = dict(zip(parts, torch.split(
+            agg, [p.shape[1] for p in parts.values()], dim=-1)))
+    mx = mn = None
+    if "max" in kinds:
+        _count_pass()
+        mx = _seg_extreme(msgf, recv_m, num_nodes + 1, "amax")[:num_nodes]
+    if "min" in kinds:
+        _count_pass()
+        mn = _seg_extreme(msgf, recv_m, num_nodes + 1, "amin")[:num_nodes]
+    deg = degrees if degrees is not None else (
+        got["cnt"][:, 0] if need_count else None)
+    return _derive_kinds(
+        kinds, s1=got.get("s1"), s2=got.get("s2"), deg=deg, mx=mx, mn=mn,
+        mx_valid=None if mx is None else torch.isfinite(mx),
+        mn_valid=None if mn is None else torch.isfinite(mn),
+        out_dtype=msg.dtype)
 
 
 def segment_softmax(logits: torch.Tensor, receivers: torch.Tensor,
@@ -301,22 +487,14 @@ def segment_softmax(logits: torch.Tensor, receivers: torch.Tensor,
         edge_mask = torch.ones(logits.shape[0], dtype=torch.bool,
                                device=logits.device)
     m = edge_mask if logits.ndim == 1 else edge_mask[:, None]
-    idx = receivers if logits.ndim == 1 else receivers[:, None].expand_as(
-        logits)
     neg = torch.where(m, logits, -torch.inf)
     _count_pass()
-    seg_max = torch.full((num_nodes,) + tuple(logits.shape[1:]), -torch.inf,
-                         dtype=logits.dtype, device=logits.device
-                         ).scatter_reduce(0, idx, neg, "amax",
-                                          include_self=False)
+    seg_max = _seg_extreme(neg, receivers, num_nodes, "amax")
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
     shifted = torch.where(m, logits - seg_max[receivers], -torch.inf)
     e = torch.where(m, torch.exp(shifted), 0.0)
     _count_pass()
-    denom = torch.zeros((num_nodes,) + tuple(logits.shape[1:]),
-                        dtype=logits.dtype,
-                        device=logits.device).index_add_(0, receivers, e)
-    denom = torch.clamp(denom, min=1e-16)
+    denom = torch.clamp(_seg_sum(e, receivers, num_nodes), min=1e-16)
     _count_pass()
     return e / denom[receivers]
 
@@ -447,19 +625,22 @@ def propagate(
 
     With a ``FusableMessage`` under ``impl='pipeline'`` the edge phase is
     one ``mp_pipeline`` launch (``fused_edge_aggregate``), then
-    ``update_fn``. Under ``impl='fused_layer'`` a self-form
-    ``FusableUpdate`` makes the whole layer one ``layer_fused`` launch; a
-    layer without one keeps the ``mp_pipeline`` edge phase. Each is its
+    ``update_fn``. Under ``impl='fused_layer'`` a ``FusableUpdate`` makes
+    the whole layer one ``layer_fused`` launch, under the reference's
+    guards: the self form with kinds ('sum',) and no attention, the
+    scalers form with ``PNA_STAT_KINDS`` and shared degrees, the field
+    form with ('sum', 'mean'), shared degrees and a ``node_input``. Any
+    other fusable layer keeps the ``mp_pipeline`` edge phase. Each is its
     plain PyTorch version for CPU tensors. Without a fusable description,
-    or under ``impl='fused'``, the plain gather / phi / masked
-    ``index_add_`` / update sequence runs. All end with the ``node_mask``
-    gate.
+    or under ``impl='fused'``, the plain gather / phi / aggregation /
+    update sequence runs; several kinds go through
+    ``segment_multi_aggregate`` (``single_pass``) or one
+    ``segment_aggregate`` each. All end with the ``node_mask`` gate.
     """
     kinds = (aggregate,) if isinstance(aggregate, str) else tuple(aggregate)
     if dataflow.impl in ("pipeline", "fused_layer") and fusable is not None:
         fu = fusable_update
-        if (dataflow.impl == "fused_layer" and fu is not None
-                and kinds == ("sum",) and fusable.attention is None):
+        if _one_launch_layer(dataflow, fusable, fu, kinds, stats):
             _count_pass()                 # the whole layer is one launch
             with _uncounted():
                 from repro_torch.kernels.ops import layer_fused
@@ -470,8 +651,11 @@ def propagate(
                     src_weight=fusable.src_weight,
                     edge_term=fusable.edge_term, phi_bias=fusable.bias,
                     phi_activation=fusable.activation,
-                    self_coeff=fu.self_coeff, w2=fu.w2, b2=fu.b2,
-                    out_activation=fu.out_activation)
+                    self_coeff=fu.self_coeff, scalers=fu.scalers,
+                    field_wsum=fu.field_wsum,
+                    degrees=(None if fu.scalers is None
+                             and fu.field_wsum is None else stats.degrees),
+                    w2=fu.w2, b2=fu.b2, out_activation=fu.out_activation)
             return torch.where(graph.node_mask[:, None], out, 0.0)
         agg = fused_edge_aggregate(graph, x, fusable, kinds=kinds,
                                    stats=stats)
@@ -489,13 +673,41 @@ def propagate(
     dst = x[graph.receivers]
     msg = message_fn(src, dst, ef)
     _count_pass()                 # the gather + phi (E, D) message rewrite
-    if len(kinds) != 1:
-        raise NotImplementedError(f"multi-kind aggregation: {_TODO_MP}")
-    m = segment_aggregate(msg, graph.receivers, graph.n_node_pad,
-                          kind=kinds[0], edge_mask=graph.edge_mask,
-                          dataflow=dataflow)
+    degrees = stats.degrees if stats is not None else None
+    if len(kinds) == 1:
+        m = segment_aggregate(msg, graph.receivers, graph.n_node_pad,
+                              kind=kinds[0], edge_mask=graph.edge_mask,
+                              dataflow=dataflow, degrees=degrees)
+    elif dataflow.single_pass:
+        agg = segment_multi_aggregate(
+            msg, graph.receivers, graph.n_node_pad, kinds=kinds,
+            edge_mask=graph.edge_mask, dataflow=dataflow, degrees=degrees)
+        m = torch.cat([agg[k] for k in kinds], dim=-1)
+    else:
+        # one sweep family per kind (the reference's Fig. 9 ablation)
+        m = torch.cat([
+            segment_aggregate(msg, graph.receivers, graph.n_node_pad,
+                              kind=k, edge_mask=graph.edge_mask,
+                              dataflow=dataflow, degrees=degrees)
+            for k in kinds], dim=-1)
     out = update_fn(x, m)
     return torch.where(graph.node_mask[:, None], out, 0.0)
+
+
+def _one_launch_layer(dataflow: DataflowConfig, fusable: FusableMessage,
+                      fu: Optional[FusableUpdate], kinds,
+                      stats: Optional[PrecomputedGraphStats]) -> bool:
+    """Whether ``propagate`` runs the layer as one ``layer_fused`` launch:
+    the guards of the reference's three ``fused_layer`` arms."""
+    if dataflow.impl != "fused_layer" or fu is None:
+        return False
+    has_degrees = stats is not None and stats.degrees is not None
+    if fu.scalers is not None:
+        return kinds == PNA_STAT_KINDS and has_degrees
+    if fu.field_wsum is not None:
+        return (kinds == ("sum", "mean") and has_degrees
+                and fusable.node_input is not None)
+    return kinds == ("sum",) and fusable.attention is None
 
 
 def global_pool(graph: GraphBatch, x: torch.Tensor, *, kind: str = "mean",
@@ -503,14 +715,12 @@ def global_pool(graph: GraphBatch, x: torch.Tensor, *, kind: str = "mean",
                 ) -> torch.Tensor:
     """Graph-level readout: pool node rows per packed graph, (G_pad, D)."""
     xm = torch.where(graph.node_mask[:, None], x, 0.0)
-    s = torch.zeros((graph.n_graph_pad, x.shape[1]), dtype=x.dtype,
-                    device=x.device).index_add_(0, graph.graph_ids, xm)
+    s = _seg_sum(xm, graph.graph_ids, graph.n_graph_pad)
     if kind == "sum":
         return s
     if stats is not None and stats.graph_node_counts is not None:
         cnt = stats.graph_node_counts.to(x.dtype)
     else:
-        cnt = torch.zeros(graph.n_graph_pad, dtype=x.dtype,
-                          device=x.device).index_add_(
-            0, graph.graph_ids, graph.node_mask.to(x.dtype))
+        cnt = _seg_sum(graph.node_mask.to(x.dtype), graph.graph_ids,
+                       graph.n_graph_pad)
     return s / torch.clamp(cnt, min=1.0)[:, None]

@@ -1,12 +1,11 @@
-"""The FlowGNN model zoo in PyTorch: GCN, GIN (paper Eq. 1) and GAT.
+"""The FlowGNN model zoo in PyTorch: GCN, GIN (paper Eq. 1), GIN with a
+virtual node, GAT, PNA and DGN (paper Table II).
 
 The twin of ``repro/core/models.py``. Parameters are plain nested dicts and
 lists of tensors with the JAX layout: a dense layer is ``{"w": (d_in,
 d_out), "b": (d_out,)}`` applied as ``x @ w + b``, so weights move between
-the two sides without a transpose (``checkpoint/convert.py``).
-
-GIN-VN, PNA and DGN are not ported yet: ``make_gnn`` raises
-``NotImplementedError`` for them (ROADMAP queue 1 item 4).
+the two sides without a transpose (``checkpoint/convert.py``). Every
+forward is a plain Python loop over the layers.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.graph import GraphBatch
 from repro_torch.core.message_passing import (DEFAULT_DATAFLOW,
+                                              PNA_STAT_KINDS,
                                               DataflowConfig,
                                               FusableAttention,
                                               FusableMessage, FusableUpdate,
@@ -190,16 +190,18 @@ def gin_init(gen: torch.Generator, cfg: GNNConfig,
     JAX weights across instead)."""
     dev = resolve_device(device)
     d = cfg.hidden_dim
-    layers = []
     node_enc = _dense_init(gen, cfg.node_feat_dim, d, cfg.dtype, dev)
-    for _ in range(cfg.num_layers):
-        layers.append({
-            "edge_enc": _dense_init(gen, cfg.edge_feat_dim, d, cfg.dtype, dev),
-            "mlp": _mlp_init(gen, (d, 2 * d, d), cfg.dtype, dev),
-            "eps": torch.tensor(cfg.eps_init, dtype=cfg.dtype, device=dev),
-        })
-    return {"node_enc": node_enc, "layers": layers,
+    return {"node_enc": node_enc, "layers": _gin_layers_init(gen, cfg, dev),
             "head": _head_init(gen, cfg, d, dev)}
+
+
+def _gin_layers_init(gen, cfg: GNNConfig, dev) -> list:
+    d = cfg.hidden_dim
+    return [{
+        "edge_enc": _dense_init(gen, cfg.edge_feat_dim, d, cfg.dtype, dev),
+        "mlp": _mlp_init(gen, (d, 2 * d, d), cfg.dtype, dev),
+        "eps": torch.tensor(cfg.eps_init, dtype=cfg.dtype, device=dev),
+    } for _ in range(cfg.num_layers)]
 
 
 def _gin_layer(p, graph: GraphBatch, x: torch.Tensor,
@@ -238,6 +240,58 @@ def gin_apply(params, graph: GraphBatch, cfg: GNNConfig,
                                        with_graph_counts=True)
     for p in params["layers"]:
         x = _gin_layer(p, graph, x, dataflow, stats)
+    return _readout(params["head"], cfg, graph, x, stats)
+
+
+def gin_vn_init(gen: torch.Generator, cfg: GNNConfig,
+                device: DeviceLike = None) -> Params:
+    """Random GIN-VN weights from ``gen`` with the reference's shapes: GIN's,
+    plus one (d, 2d, d) virtual-node MLP between each pair of layers."""
+    dev = resolve_device(device)
+    d = cfg.hidden_dim
+    return {
+        "node_enc": _dense_init(gen, cfg.node_feat_dim, d, cfg.dtype, dev),
+        "layers": _gin_layers_init(gen, cfg, dev),
+        "head": _head_init(gen, cfg, d, dev),
+        "vn_mlps": [_mlp_init(gen, (d, 2 * d, d), cfg.dtype, dev)
+                    for _ in range(cfg.num_layers - 1)],
+    }
+
+
+def gin_vn_broadcast(graph: GraphBatch, x: torch.Tensor,
+                     vn: torch.Tensor) -> torch.Tensor:
+    """The virtual node to all nodes of its graph."""
+    x = x + vn[graph.graph_ids]
+    return torch.where(graph.node_mask[:, None], x, 0.0)
+
+
+def gin_vn_update(p_vn, graph: GraphBatch, x: torch.Tensor,
+                  vn: torch.Tensor) -> torch.Tensor:
+    """All nodes to the virtual node: the per-graph sum pool, then the MLP."""
+    pooled = global_pool(graph, x, kind="sum")
+    vn = _mlp(p_vn, vn + pooled)
+    return torch.where(graph.graph_mask[:, None], vn, 0.0)
+
+
+def gin_vn_apply(params, graph: GraphBatch, cfg: GNNConfig,
+                 dataflow: DataflowConfig = DEFAULT_DATAFLOW,
+                 stats: Optional[PrecomputedGraphStats] = None
+                 ) -> torch.Tensor:
+    """GIN with a virtual node per packed graph. Its O(N) edges are never
+    built: the pool is its incoming aggregation and the broadcast its
+    outgoing messages. The last layer has no virtual-node update."""
+    x = torch.relu(_dense(params["node_enc"], graph.node_feat.to(cfg.dtype)))
+    if stats is None and cfg.task == "graph":
+        stats = precompute_graph_stats(graph, with_degrees=False,
+                                       with_graph_counts=True)
+    vn = torch.zeros((graph.n_graph_pad, cfg.hidden_dim), dtype=cfg.dtype,
+                     device=x.device)
+    n_layers = len(params["layers"])
+    for l, p in enumerate(params["layers"]):
+        x = _gin_layer(p, graph, gin_vn_broadcast(graph, x, vn), dataflow,
+                       stats)
+        if l < n_layers - 1:
+            vn = gin_vn_update(params["vn_mlps"][l], graph, x, vn)
     return _readout(params["head"], cfg, graph, x, stats)
 
 
@@ -318,6 +372,157 @@ def gat_apply(params, graph: GraphBatch, cfg: GNNConfig,
 
 
 # ---------------------------------------------------------------------------
+# PNA (mean / std / max / min times the degree scalers, Eq. 3)
+# ---------------------------------------------------------------------------
+
+def pna_init(gen: torch.Generator, cfg: GNNConfig,
+             device: DeviceLike = None) -> Params:
+    """Random PNA weights from ``gen`` with the reference's shapes: per layer
+    an edge encoder, the pre-linear over [x_j | e] and the post layer over
+    [x | 4 aggregators x 3 scalers]."""
+    dev = resolve_device(device)
+    d = cfg.hidden_dim
+    layers = [{
+        "edge_enc": _dense_init(gen, cfg.edge_feat_dim, d, cfg.dtype, dev),
+        "pre": _dense_init(gen, 2 * d, d, cfg.dtype, dev),
+        "post": _dense_init(gen, 12 * d + d, d, cfg.dtype, dev),
+    } for _ in range(cfg.num_layers)]
+    return {"node_enc": _dense_init(gen, cfg.node_feat_dim, d, cfg.dtype,
+                                    dev),
+            "layers": layers, "head": _head_init(gen, cfg, d, dev)}
+
+
+def pna_layer(p, graph: GraphBatch, x: torch.Tensor,
+              dataflow: DataflowConfig,
+              stats: PrecomputedGraphStats) -> torch.Tensor:
+    """One PNA layer; ``stats`` must carry ``pna_scalers`` and ``degrees``."""
+    n = graph.n_node_pad
+    d = p["pre"]["w"].shape[1]
+    scalers = stats.pna_scalers                               # (N, 3)
+    e = _dense(p["edge_enc"], graph.edge_feat)
+
+    def message(src, dst, ee, _e=e, _p=p):
+        return torch.relu(_dense(_p["pre"], torch.cat([src, _e], -1)))
+
+    def update(xv, m, _p=p):
+        # m: the 4 aggregators (N, 4D); times the 3 scalers: (N, 12D)
+        scaled = (m[:, None, :] * scalers[:, :, None]).reshape(n, -1)
+        return torch.relu(_dense(_p["post"], torch.cat([xv, scaled], -1)))
+
+    # fusable phi: the pre-linear splits into a node-side transform (N rows,
+    # not E) and an edge-side term, phi = relu(x@Ws[snd] + e@We + b).
+    # fusable gamma: the scalers epilogue, one launch per layer.
+    fusable = fu = None
+    if dataflow.impl in _FUSABLE_IMPLS:
+        w_pre, b_pre = p["pre"]["w"], p["pre"]["b"]
+        fusable = FusableMessage(node_input=x @ w_pre[:d],
+                                 edge_term=e @ w_pre[d:], bias=b_pre,
+                                 activation="relu")
+        if dataflow.impl == "fused_layer":
+            fu = FusableUpdate(w1=p["post"]["w"], b1=p["post"]["b"],
+                               scalers=scalers, out_activation="relu")
+    return propagate(graph, x, message_fn=message, update_fn=update,
+                     aggregate=PNA_STAT_KINDS, dataflow=dataflow,
+                     stats=stats, fusable=fusable, fusable_update=fu)
+
+
+def pna_apply(params, graph: GraphBatch, cfg: GNNConfig,
+              dataflow: DataflowConfig = DEFAULT_DATAFLOW,
+              stats: Optional[PrecomputedGraphStats] = None) -> torch.Tensor:
+    """PNA forward. One degree sweep serves the scalers and every layer's
+    mean and std."""
+    x = torch.relu(_dense(params["node_enc"], graph.node_feat.to(cfg.dtype)))
+    if stats is None or stats.pna_scalers is None:
+        stats = precompute_graph_stats(graph, pna_delta=cfg.avg_log_degree,
+                                       with_graph_counts=cfg.task == "graph")
+    for p in params["layers"]:
+        x = pna_layer(p, graph, x, dataflow, stats)
+    return _readout(params["head"], cfg, graph, x, stats)
+
+
+# ---------------------------------------------------------------------------
+# DGN (mean and the directional derivative along a node field)
+# ---------------------------------------------------------------------------
+
+def dgn_init(gen: torch.Generator, cfg: GNNConfig,
+             device: DeviceLike = None) -> Params:
+    """Random DGN weights from ``gen`` with the reference's shapes: per layer
+    one post layer over [x | mean | |B_dx X|]."""
+    dev = resolve_device(device)
+    d = cfg.hidden_dim
+    layers = [{"post": _dense_init(gen, 3 * d, d, cfg.dtype, dev)}
+              for _ in range(cfg.num_layers)]
+    return {"node_enc": _dense_init(gen, cfg.node_feat_dim, d, cfg.dtype,
+                                    dev),
+            "layers": layers, "head": _head_init(gen, cfg, d, dev)}
+
+
+def dgn_lane_weights(graph: GraphBatch, stats: PrecomputedGraphStats, d: int,
+                     dtype) -> torch.Tensor:
+    """The layer-invariant [1 | w] per-lane weight stream (E, 2D) of DGN's
+    phi."""
+    e_pad = graph.n_edge_pad
+    ones = torch.ones((e_pad, d), dtype=dtype, device=graph.device)
+    return torch.cat([ones, stats.dgn_weights[:, None].expand(e_pad, d)
+                      .to(dtype)], dim=-1)
+
+
+def dgn_layer(p, graph: GraphBatch, x: torch.Tensor,
+              dataflow: DataflowConfig, stats: PrecomputedGraphStats, *,
+              lane_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One DGN layer; ``stats`` must carry ``dgn_weights``, ``dgn_wsum`` and
+    ``degrees``. ``lane_w`` shares the per-forward [1 | w] stream (built
+    here when absent)."""
+    d = p["post"]["w"].shape[1]
+    w = stats.dgn_weights                                      # (E,)
+    w_sum = stats.dgn_wsum                                     # (N,)
+    if lane_w is None and dataflow.impl in _FUSABLE_IMPLS:
+        lane_w = dgn_lane_weights(graph, stats, d, x.dtype)
+
+    # the mean and the directional sum come out of one sweep over
+    # [x_src | x_src * w]
+    def message(src, dst, ee):
+        return torch.cat([src, src * w[:, None]], dim=-1)
+
+    def update(xv, m, _p=p):
+        # m = [sum | mean] over the stacked lanes: (N, 4D)
+        m_mean = m[:, 2 * d:3 * d]
+        m_dx = torch.abs(m[:, d:2 * d] - xv * w_sum[:, None])  # |B_dx X|
+        return torch.relu(_dense(_p["post"],
+                                 torch.cat([xv, m_mean, m_dx], -1)))
+
+    # fusable gamma: the field epilogue, one launch per layer
+    fusable = fu = None
+    if dataflow.impl in _FUSABLE_IMPLS:
+        fusable = FusableMessage(node_input=torch.cat([x, x], dim=-1),
+                                 src_weight=lane_w)
+        if dataflow.impl == "fused_layer":
+            fu = FusableUpdate(w1=p["post"]["w"], b1=p["post"]["b"],
+                               field_wsum=w_sum, out_activation="relu")
+    return propagate(graph, x, message_fn=message, update_fn=update,
+                     aggregate=("sum", "mean"), dataflow=dataflow,
+                     stats=stats, fusable=fusable, fusable_update=fu)
+
+
+def dgn_apply(params, graph: GraphBatch, cfg: GNNConfig,
+              dataflow: DataflowConfig = DEFAULT_DATAFLOW,
+              stats: Optional[PrecomputedGraphStats] = None) -> torch.Tensor:
+    """DGN forward: Y = [D^-1 A X ; |B_dx X|], B_dx built from each node's
+    field ``node_pos``. The field weights, their sums and the degrees are
+    layer-invariant and computed once."""
+    x = torch.relu(_dense(params["node_enc"], graph.node_feat.to(cfg.dtype)))
+    if stats is None or stats.dgn_weights is None:
+        stats = precompute_graph_stats(graph, with_dgn_field=True,
+                                       with_graph_counts=cfg.task == "graph")
+    lane_w = None
+    if dataflow.impl in _FUSABLE_IMPLS:
+        lane_w = dgn_lane_weights(graph, stats, cfg.hidden_dim, x.dtype)
+    for p in params["layers"]:
+        x = dgn_layer(p, graph, x, dataflow, stats, lane_w=lane_w)
+    return _readout(params["head"], cfg, graph, x, stats)
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -329,17 +534,14 @@ class GNNModel(NamedTuple):
 GNN_MODELS: Dict[str, GNNModel] = {
     "gcn": GNNModel(gcn_init, gcn_apply),
     "gin": GNNModel(gin_init, gin_apply),
+    "gin_vn": GNNModel(gin_vn_init, gin_vn_apply),
     "gat": GNNModel(gat_init, gat_apply),
+    "pna": GNNModel(pna_init, pna_apply),
+    "dgn": GNNModel(dgn_init, dgn_apply),
 }
-_NOT_PORTED = ("gin_vn", "pna", "dgn")
 
 
 def make_gnn(cfg: GNNConfig) -> GNNModel:
-    if cfg.model in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model '{cfg.model}' is not ported yet: ROADMAP queue 1 item 4 "
-            f"(models, one per slice)")
     if cfg.model not in GNN_MODELS:
-        raise KeyError(f"unknown GNN '{cfg.model}'; have "
-                       f"{sorted(GNN_MODELS) + list(_NOT_PORTED)}")
+        raise KeyError(f"unknown GNN '{cfg.model}'; have {sorted(GNN_MODELS)}")
     return GNN_MODELS[cfg.model]

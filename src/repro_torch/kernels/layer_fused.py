@@ -1,21 +1,29 @@
-"""One GNN layer in one launch: gather, phi, sum, update MLP.
+"""One GNN layer in one launch: gather, phi, aggregate, update MLP.
 
-The twin of ``repro/kernels/layer_fused.py`` in its self-term epilogue (GIN,
-GCN). Per edge, phi is the fusable form ``act(y[snd] * src_weight +
-edge_term + phi_bias)`` with ``y`` the gather buffer (``node_input`` or
-``x``); per node the update is
+The twin of ``repro/kernels/layer_fused.py``. Per edge, phi is the fusable
+form ``act(y[snd] * src_weight + edge_term + phi_bias)`` with ``y`` the
+gather buffer (``node_input`` or ``x``, width D); per node the update is
+one of three epilogues:
 
-    out = act_out( mlp( sum_agg + self_coeff * x ) )
+  * self term (GIN, GIN-VN, GCN): ``z = sum_agg + self_coeff * x`` with
+    ``self_coeff`` None, a scalar (GIN's 1+eps, a 0-d or one-element
+    tensor) or a per-node (N,) vector (GCN's self-loop norm);
+  * degree scalers (PNA; ``scalers`` (N, S) and ``degrees`` (N,)): mean,
+    std, max and min derived from the sum, sum of squares and keyed max /
+    min, ``m = [mean | std | max | min]`` and
+    ``z = [x | s_0 * m | ... | s_{S-1} * m]`` (width D_x + S·4·D);
+  * directional field (DGN; ``field_wsum`` (N,) and ``degrees``): the gather
+    buffer is the stacked [x | x·w] pair (D = 2·D_x) and
+    ``z = [x | s1[:, :D_x] / deg | |s1[:, D_x:] - x * field_wsum|]``
+    (width 3·D_x);
 
-with ``self_coeff`` None, a scalar (GIN's 1+eps, a 0-d or one-element
-tensor) or a per-node (N,) vector (GCN's self-loop norm), and ``mlp`` one
-dense layer (w1, b1) or two with a ReLU between (w1, b1, w2, b2).
+then ``out = act_out(mlp(z))`` with ``mlp`` one dense layer (w1, b1) or two
+with a ReLU between (w1, b1, w2, b2).
 
 ``layer_fused`` takes its plain PyTorch version ``layer_fused_ref`` for
 tensors on the CPU. For CUDA tensors it launches the hand-written kernel
 ``csrc/layer_fused.cu`` or raises; ``layer_fused.launches`` counts those
-launches. PNA's scalers and DGN's field epilogues are not ported yet
-(ROADMAP queue 2 item 1).
+launches.
 """
 
 from __future__ import annotations
@@ -26,17 +34,18 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mp_pipeline import (_SW_MODES, apply_fusable_phi,
+from repro_torch.kernels.mp_pipeline import (_SW_MODES, BIG,
+                                             apply_fusable_phi,
+                                             seg_extreme_rows, seg_sum_rows,
                                              src_weight_mode)
 
-_TODO_EPILOGUES = ("the scalers (PNA) and field (DGN) epilogues: ROADMAP "
-                   "queue 2 item 1 (layer_fused scalers and field epilogues)")
+_EPILOGUES = {"self_mlp": 0, "scalers": 1, "field": 2}
 
 
 def _check_args(x, num_nodes, *, w1, node_input, self_coeff, scalers,
                 degrees, field_wsum, w2, b2, phi_activation, out_activation):
-    """The reference's argument checks (``ValueError``); returns the message
-    width D."""
+    """The reference's argument checks (``ValueError``), in its order;
+    returns the message width D and the epilogue's name."""
     if phi_activation not in ("none", "relu"):
         raise ValueError(f"unsupported activation '{phi_activation}'")
     if out_activation not in ("none", "relu"):
@@ -56,11 +65,21 @@ def _check_args(x, num_nodes, *, w1, node_input, self_coeff, scalers,
         raise ValueError(
             f"node_input has {y.shape[0]} rows, expected {num_nodes}")
     d = y.shape[1]
-    if scalers is not None or field_wsum is not None:
-        raise NotImplementedError(_TODO_EPILOGUES)
-    if w1.shape[0] != d:
+    epilogue = ("scalers" if scalers is not None
+                else "field" if field_wsum is not None else "self_mlp")
+    if epilogue == "scalers":
+        d_in = d_x + scalers.shape[1] * 4 * d
+    elif epilogue == "field":
+        if d != 2 * d_x:
+            raise ValueError(
+                f"the field epilogue expects a stacked gather buffer of "
+                f"width 2·{d_x}, got {d}")
+        d_in = d_x + d
+    else:
+        d_in = d
+    if w1.shape[0] != d_in:
         raise ValueError(f"w1 contracts over {w1.shape[0]}, epilogue "
-                         f"'self_mlp' expects {d}")
+                         f"'{epilogue}' expects {d_in}")
     if self_coeff is not None:
         sc_shape = tuple(torch.as_tensor(self_coeff).shape)
         if sc_shape not in ((), (1,), (num_nodes,)):
@@ -69,7 +88,10 @@ def _check_args(x, num_nodes, *, w1, node_input, self_coeff, scalers,
         if d_x != d:
             raise ValueError(f"the self term adds x of width {d_x} to "
                              f"messages of width {d}")
-    return d
+    if scalers is not None and scalers.shape[0] != num_nodes:
+        raise ValueError(
+            f"scalers has {scalers.shape[0]} rows, expected {num_nodes}")
+    return d, epilogue
 
 
 def layer_fused_ref(x: torch.Tensor, senders: torch.Tensor,
@@ -87,22 +109,48 @@ def layer_fused_ref(x: torch.Tensor, senders: torch.Tensor,
                     b2: Optional[torch.Tensor] = None,
                     out_activation: str = "none") -> torch.Tensor:
     """Plain PyTorch version of ``layer_fused`` (same contract)."""
-    if scalers is not None or field_wsum is not None:
-        raise NotImplementedError(_TODO_EPILOGUES)
+    f32 = torch.float32
     y = x if node_input is None else node_input
     msg = apply_fusable_phi(y, senders, src_weight=src_weight,
                             edge_term=edge_term, bias=phi_bias,
                             activation=phi_activation)
-    z = torch.zeros((num_nodes, msg.shape[1]), dtype=torch.float32,
-                    device=msg.device).index_add_(
-        0, receivers, torch.where(edge_mask[:, None], msg, 0.0))
-    if self_coeff is not None:
-        sc = torch.as_tensor(self_coeff, dtype=torch.float32,
-                             device=x.device)
-        z = z + x.to(torch.float32) * (sc if sc.ndim == 0 else sc[:, None])
-    h = z @ w1.to(torch.float32) + b1.to(torch.float32)
+    own = edge_mask[:, None]
+    m0 = torch.where(own, msg, 0.0)
+    s1 = seg_sum_rows(m0, receivers, num_nodes)
+    xf = x.to(f32)
+    if field_wsum is not None or scalers is not None:
+        if degrees is None:
+            raise ValueError(
+                "the scalers/field epilogues need the shared degrees")
+        deg = degrees.to(f32)[:, None]
+        rdenom = 1.0 / torch.clamp(deg, min=1.0)
+    if field_wsum is not None:
+        d_x = x.shape[1]
+        mean = s1[:, :d_x] * rdenom
+        dx = torch.abs(s1[:, d_x:] - xf * field_wsum.to(f32)[:, None])
+        z = torch.cat([xf, mean, dx], dim=-1)
+    elif scalers is not None:
+        s2 = seg_sum_rows(m0 * m0, receivers, num_nodes)
+        mx = seg_extreme_rows(msg, own, receivers, num_nodes, -BIG, "amax")
+        mn = seg_extreme_rows(msg, own, receivers, num_nodes, BIG, "amin")
+        mean = s1 * rdenom
+        var = torch.clamp(s2 * rdenom - mean * mean, min=0.0)
+        std = torch.sqrt(var + 1e-5)
+        nonempty = deg > 0.0
+        mx = torch.where(nonempty & (mx > -BIG), mx, 0.0)
+        mn = torch.where(nonempty & (mn < BIG), mn, 0.0)
+        m = torch.cat([mean, std, mx, mn], dim=-1)
+        sc = scalers.to(f32)
+        z = torch.cat([xf] + [m * sc[:, k:k + 1]
+                              for k in range(sc.shape[1])], dim=-1)
+    else:
+        z = s1
+        if self_coeff is not None:
+            sc = torch.as_tensor(self_coeff, dtype=f32, device=x.device)
+            z = z + xf * (sc if sc.ndim == 0 else sc[:, None])
+    h = z @ w1.to(f32) + b1.to(f32)
     if w2 is not None:
-        h = torch.relu(h) @ w2.to(torch.float32) + b2.to(torch.float32)
+        h = torch.relu(h) @ w2.to(f32) + b2.to(f32)
     if out_activation == "relu":
         h = torch.relu(h)
     return h.to(x.dtype)
@@ -127,14 +175,13 @@ def layer_fused(x: torch.Tensor, senders: torch.Tensor,
 
     CPU tensors run ``layer_fused_ref``; CUDA tensors launch the kernel.
     ``rows_per_block`` overrides how many destination rows one CUDA block
-    owns (the kernel's own choice by default; the result does not depend
-    on it).
+    owns, as far as shared memory allows (the kernel's own choice by
+    default; the result does not depend on it).
     """
-    d = _check_args(x, num_nodes, w1=w1, node_input=node_input,
-                    self_coeff=self_coeff, scalers=scalers, degrees=degrees,
-                    field_wsum=field_wsum, w2=w2, b2=b2,
-                    phi_activation=phi_activation,
-                    out_activation=out_activation)
+    d, epilogue = _check_args(
+        x, num_nodes, w1=w1, node_input=node_input, self_coeff=self_coeff,
+        scalers=scalers, degrees=degrees, field_wsum=field_wsum, w2=w2,
+        b2=b2, phi_activation=phi_activation, out_activation=out_activation)
     sw_mode, head_dim = ("none", 0) if src_weight is None else (
         src_weight_mode(src_weight, d))      # raises on a bad width
     if x.device.type == "cpu":
@@ -143,14 +190,16 @@ def layer_fused(x: torch.Tensor, senders: torch.Tensor,
             node_input=node_input, src_weight=src_weight,
             edge_term=edge_term, phi_bias=phi_bias,
             phi_activation=phi_activation, self_coeff=self_coeff,
+            scalers=scalers, degrees=degrees, field_wsum=field_wsum,
             w2=w2, b2=b2, out_activation=out_activation)
     if x.device.type != "cuda":
         raise ValueError(f"layer_fused runs on cpu or cuda, not {x.device}")
-    return _launch(x, senders, receivers, edge_mask, num_nodes, d, sw_mode,
-                   head_dim, w1=w1, b1=b1, node_input=node_input,
+    return _launch(x, senders, receivers, edge_mask, num_nodes, d, epilogue,
+                   sw_mode, head_dim, w1=w1, b1=b1, node_input=node_input,
                    src_weight=src_weight, edge_term=edge_term,
                    phi_bias=phi_bias, phi_activation=phi_activation,
-                   self_coeff=self_coeff, w2=w2, b2=b2,
+                   self_coeff=self_coeff, scalers=scalers, degrees=degrees,
+                   field_wsum=field_wsum, w2=w2, b2=b2,
                    out_activation=out_activation,
                    rows_per_block=rows_per_block)
 
@@ -163,18 +212,20 @@ def _kernel():
     if fn.argtypes is None:
         # without argtypes ctypes passes every int as a 32-bit C int:
         # pointers are cut and the stream slot holds garbage
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 16 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x, senders, receivers, edge_mask, num_nodes, d, sw_mode,
-            head_dim, *, w1, b1, node_input, src_weight, edge_term,
-            phi_bias, phi_activation, self_coeff, w2, b2, out_activation,
-            rows_per_block):
+def _launch(x, senders, receivers, edge_mask, num_nodes, d, epilogue,
+            sw_mode, head_dim, *, w1, b1, node_input, src_weight, edge_term,
+            phi_bias, phi_activation, self_coeff, scalers, degrees,
+            field_wsum, w2, b2, out_activation, rows_per_block):
     dev = x.device
     e = senders.shape[0]
+    d_x = x.shape[1]
+    f32 = torch.float32
 
     def need(t, name, dtype, shape):
         if t.device != dev:
@@ -188,9 +239,11 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, sw_mode,
             raise ValueError(f"{name} must be contiguous")
         return t.data_ptr()
 
-    f32 = torch.float32
+    def node_vec(t, name):
+        return None if t is None else need(t, name, f32, (num_nodes,))
+
     y = x if node_input is None else node_input
-    d_ff = w1.shape[1]
+    d_in, d_ff = w1.shape
     two_layer = w2 is not None
     d_out = w2.shape[1] if two_layer else d_ff
     if e >= 2 ** 31 or num_nodes >= 2 ** 31:
@@ -211,10 +264,11 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, sw_mode,
         sc = sc.reshape(-1)
         self_mode = 1 if sc.numel() == 1 else 2     # scalar | per node
         sc_ptr = need(sc, "self_coeff", f32, sc.shape)
+    n_scalers = 0 if scalers is None else scalers.shape[1]
 
     out = torch.empty((num_nodes, d_out), dtype=f32, device=dev)
     args = (
-        need(x, "x", f32, (num_nodes, x.shape[1])),
+        need(x, "x", f32, (num_nodes, d_x)),
         need(y, "node_input", f32, (num_nodes, d)),
         need(senders, "senders", torch.int64, (e,)),
         need(receivers, "receivers", torch.int64, (e,)),
@@ -224,13 +278,18 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, sw_mode,
                                             (e, d)),
         None if phi_bias is None else need(phi_bias, "phi_bias", f32, (d,)),
         sc_ptr,
-        need(w1, "w1", f32, (d, d_ff)),
+        None if scalers is None else need(scalers, "scalers", f32,
+                                          (num_nodes, n_scalers)),
+        node_vec(degrees if epilogue != "self_mlp" else None, "degrees"),
+        node_vec(field_wsum, "field_wsum"),
+        need(w1, "w1", f32, (d_in, d_ff)),
         need(b1, "b1", f32, (d_ff,)),
         None if w2 is None else need(w2, "w2", f32, (d_ff, d_out)),
         None if b2 is None else need(b2, "b2", f32, (d_out,)),
         out.data_ptr(),
-        num_nodes, e, d, d_ff, d_out,
+        num_nodes, e, d, d_x, d_in, d_ff, d_out,
         _SW_MODES[sw_mode], sw_cols, head_dim, self_mode,
+        _EPILOGUES[epilogue], n_scalers,
         int(phi_activation == "relu"), int(out_activation == "relu"),
         rows_per_block or 0,
         torch.cuda.current_stream(dev).cuda_stream,
@@ -240,4 +299,3 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, sw_mode,
         raise RuntimeError(f"layer_fused launch failed with CUDA error {err}")
     layer_fused.launches += 1
     return out
-

@@ -89,6 +89,26 @@ def apply_fusable_phi(x: torch.Tensor, senders: torch.Tensor, *,
     return msg
 
 
+def seg_sum_rows(v: torch.Tensor, receivers: torch.Tensor,
+                 num_nodes: int) -> torch.Tensor:
+    """f32 per-destination sums of the (E, W) rows ``v``."""
+    return torch.zeros((num_nodes, v.shape[1]), dtype=torch.float32,
+                       device=v.device).index_add_(0, receivers, v)
+
+
+def seg_extreme_rows(v: torch.Tensor, own: torch.Tensor,
+                     receivers: torch.Tensor, num_nodes: int, fill: float,
+                     reduce: str) -> torch.Tensor:
+    """Per-destination max (``reduce='amax'``) or min (``'amin'``) of the
+    (E, W) rows ``v`` where ``own`` (E, 1) is set, seeded with the finite
+    neutral ``fill``: rows no edge reaches keep it."""
+    seed = torch.full((num_nodes, v.shape[1]), fill, dtype=torch.float32,
+                      device=v.device)
+    return seed.scatter_reduce(0, receivers[:, None].expand(-1, v.shape[1]),
+                               torch.where(own, v, fill), reduce,
+                               include_self=False)
+
+
 def _check_args(x, num_nodes, stats, activation, att_src, att_dst):
     """The reference's argument checks (``ValueError``); returns the stats
     in ``MULTI_STATS`` order and the attention head count (0 when off)."""
@@ -142,19 +162,12 @@ def mp_pipeline_ref(x: torch.Tensor, senders: torch.Tensor,
                             activation=activation)
     e_n, d = msg.shape
     own = edge_mask[:, None]
-    rows = receivers[:, None]
 
     def seg_sum(v):
-        return torch.zeros((num_nodes, v.shape[1]), dtype=torch.float32,
-                           device=v.device).index_add_(0, receivers, v)
+        return seg_sum_rows(v, receivers, num_nodes)
 
     def seg_ext(v, fill, reduce):
-        # seeded with the finite neutral: rows no edge reaches keep it
-        seed = torch.full((num_nodes, v.shape[1]), fill, dtype=torch.float32,
-                          device=v.device)
-        return seed.scatter_reduce(0, rows.expand(-1, v.shape[1]),
-                                   torch.where(own, v, fill), reduce,
-                                   include_self=False)
+        return seg_extreme_rows(v, own, receivers, num_nodes, fill, reduce)
 
     out: Dict[str, torch.Tensor] = {}
     att = {}

@@ -1,11 +1,13 @@
-"""The port's ``layer_fused`` (self-term epilogue) against the JAX package.
+"""The port's ``layer_fused`` (self, scalers and field epilogues) against
+the JAX package.
 
 On the CPU the port's wrapper runs its plain PyTorch version; it is held
 against the JAX Pallas kernel run in interpret mode and against the JAX
 oracle ``layer_fused_ref``, on the same numpy-seeded inputs and with the
-reference's own tolerances (2e-4 for the GIN form's kernel, 2e-5 else).
-The CUDA kernel is held against the plain version in a test that needs
-the card.
+reference's own tolerances (2e-4 for the GIN form's kernel and for the
+scalers and field forms, as ``tests/test_scheduler_executor.py`` holds
+them; 2e-5 else). The CUDA kernel is held against the plain version in a
+test that needs the card.
 """
 
 import numpy as np
@@ -62,6 +64,49 @@ def _gin_kw(r, e, d):
                 b2=r.normal(size=(d,)).astype(np.float32),
                 edge_term=r.normal(size=(e, d)).astype(np.float32),
                 phi_activation="relu", self_coeff=np.float32(1.25))
+
+
+def _degrees(rcv, mask, n):
+    return np.bincount(rcv[mask], minlength=n).astype(np.float32)
+
+
+def _pna_kw(r, x, rcv, mask, n, e, n_scalers=3, d_ff=None):
+    """PNA's scalers form: node_input and edge_term of width D, relu phi,
+    the degree scalers and the shared degrees, w1 over D + S·4·D."""
+    d = x.shape[1]
+    kw = dict(node_input=r.normal(size=(n, d)).astype(np.float32),
+              edge_term=r.normal(size=(e, d)).astype(np.float32),
+              phi_activation="relu",
+              scalers=r.normal(size=(n, n_scalers)).astype(np.float32),
+              degrees=_degrees(rcv, mask, n),
+              w1=r.normal(size=(d + n_scalers * 4 * d, d_ff or d)
+                          ).astype(np.float32),
+              b1=r.normal(size=(d_ff or d,)).astype(np.float32))
+    if d_ff is None:
+        kw["out_activation"] = "relu"
+    else:
+        kw["w2"] = r.normal(size=(d_ff, d)).astype(np.float32)
+        kw["b2"] = r.normal(size=(d,)).astype(np.float32)
+    return kw
+
+
+def _dgn_kw(r, x, snd, rcv, mask, n, e):
+    """DGN's field form: the stacked [x | x] gather buffer, the full
+    (E, 2·D_x) [1 | w] src_weight from a random field, its per-destination
+    sums, the shared degrees, w1 over 3·D_x."""
+    d_x = x.shape[1]
+    w = r.normal(size=(e,)).astype(np.float32)
+    lane_w = np.concatenate(
+        [np.ones((e, d_x), np.float32),
+         np.broadcast_to(w[:, None], (e, d_x))], axis=-1)
+    wsum = np.zeros(n, np.float32)
+    np.add.at(wsum, rcv[mask], w[mask])
+    return dict(node_input=np.concatenate([x, x], axis=-1),
+                src_weight=np.ascontiguousarray(lane_w),
+                field_wsum=wsum, degrees=_degrees(rcv, mask, n),
+                w1=r.normal(size=(3 * d_x, d_x)).astype(np.float32),
+                b1=r.normal(size=(d_x,)).astype(np.float32),
+                out_activation="relu")
 
 
 @pytest.mark.parametrize("e,d,n,edge_tile,banks", [
@@ -136,6 +181,60 @@ def test_head_broadcast_src_weight_and_node_input_match_reference(jops):
     np.testing.assert_allclose(ours, ref, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("e,d,n,edge_tile,banks", [
+    (128, 16, 32, 32, 2),
+    (200, 8, 30, 64, 4),         # uneven: E % tile != 0, N % banks != 0
+    (96, 8, 17, 32, 5),          # uneven bank sizes + empty destinations
+])
+def test_pna_form_matches_reference(jops, e, d, n, edge_tile, banks):
+    """PNA's scalers form: mean, std, max and min from the sum, sum of
+    squares and keyed extrema, the degree scalers, one dense layer with
+    out relu; the last four destinations get no edge."""
+    r = np.random.default_rng(e + 1)
+    x, snd, rcv, mask = _problem(e, d, n, seed=e)
+    kw = _pna_kw(r, x, rcv, mask, n, e)
+    ours, jargs, jkw = _both(x, snd, rcv, mask, n, kw)
+    kern = jops.layer_fused(*jargs, edge_tile=edge_tile, num_banks=banks,
+                            **jkw)
+    ref = jops.layer_fused_ref(*jargs, **jkw)
+    np.testing.assert_allclose(ours, kern, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=2e-4)
+    assert ours.shape == (n, d)
+
+
+def test_pna_form_two_layer_mlp_matches_reference(jops):
+    e, d, n = 160, 8, 24
+    r = np.random.default_rng(9)
+    x, snd, rcv, mask = _problem(e, d, n, seed=3)
+    kw = _pna_kw(r, x, rcv, mask, n, e, d_ff=2 * d)
+    ours, jargs, jkw = _both(x, snd, rcv, mask, n, kw)
+    kern = jops.layer_fused(*jargs, edge_tile=32, num_banks=4, **jkw)
+    ref = jops.layer_fused_ref(*jargs, **jkw)
+    np.testing.assert_allclose(ours, kern, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("e,d,n,edge_tile,banks", [
+    (128, 16, 32, 32, 2),
+    (200, 8, 30, 64, 4),
+    (96, 8, 17, 32, 5),
+])
+def test_dgn_form_matches_reference(jops, e, d, n, edge_tile, banks):
+    """DGN's field form: one sum over the stacked [x | x·w] buffer with a
+    full src_weight, the mean half and |s1 - x·wsum|, one dense layer with
+    out relu; the last four destinations get no edge."""
+    r = np.random.default_rng(e + 2)
+    x, snd, rcv, mask = _problem(e, d, n, seed=e + 5)
+    kw = _dgn_kw(r, x, snd, rcv, mask, n, e)
+    ours, jargs, jkw = _both(x, snd, rcv, mask, n, kw)
+    kern = jops.layer_fused(*jargs, edge_tile=edge_tile, num_banks=banks,
+                            **jkw)
+    ref = jops.layer_fused_ref(*jargs, **jkw)
+    np.testing.assert_allclose(ours, kern, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=2e-4)
+    assert ours.shape == (n, d)
+
+
 def test_layer_fused_rejects_bad_input():
     x, snd, rcv, mask = (torch.from_numpy(a) for a in _problem())
     snd, rcv = snd.long(), rcv.long()
@@ -165,10 +264,32 @@ def test_layer_fused_rejects_bad_input():
         tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
                          self_coeff=1.0, scalers=torch.zeros((30, 3)),
                          degrees=torch.zeros((30,)))
-    with pytest.raises(NotImplementedError):         # PNA / DGN slices
+    deg = torch.zeros((30,))
+    wide = torch.zeros((8 + 3 * 4 * 8, 8))
+    with pytest.raises(ValueError):                  # scalers need degrees
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=wide, b1=b1,
+                         scalers=torch.zeros((30, 3)))
+    with pytest.raises(ValueError):                  # field needs degrees
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=torch.zeros((24, 8)),
+                         b1=b1, node_input=torch.cat([x, x], -1),
+                         field_wsum=deg)
+    with pytest.raises(ValueError):                  # wrong contraction
         tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
-                         scalers=torch.zeros((30, 3)),
-                         degrees=torch.zeros((30,)))
+                         scalers=torch.zeros((30, 3)), degrees=deg)
+    with pytest.raises(ValueError):
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=w1, b1=b1,
+                         node_input=torch.cat([x, x], -1), field_wsum=deg,
+                         degrees=deg)
+    with pytest.raises(ValueError):                  # field buffer not 2·D_x
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=torch.zeros((24, 8)),
+                         b1=b1, field_wsum=deg, degrees=deg)
+    with pytest.raises(ValueError):                  # scalers rows
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=wide, b1=b1,
+                         scalers=torch.zeros((29, 3)), degrees=deg)
+    with pytest.raises(ValueError):                  # mutually exclusive
+        tops.layer_fused(x, snd, rcv, mask, 30, w1=wide, b1=b1,
+                         scalers=torch.zeros((30, 3)), degrees=deg,
+                         field_wsum=deg)
 
 
 def test_cpu_path_takes_the_plain_version_and_launches_nothing():
@@ -184,18 +305,28 @@ def test_cpu_path_takes_the_plain_version_and_launches_nothing():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["gin", "pna", "dgn"])
 @pytest.mark.parametrize("e,d,n", [(4096, 100, 1024), (1000, 100, 61),
                                    (333, 300, 45)])
-def test_cuda_kernel_matches_plain_version(e, d, n):
-    """The CUDA kernel vs its plain version on the card, bitwise equal
-    across rows-per-block and runs. Both are fp32 with sums in another
-    order, so they agree to 1e-4 of the output's scale."""
+def test_cuda_kernel_matches_plain_version(e, d, n, form):
+    """The CUDA kernel vs its plain version on the card, in GIN's self
+    form, PNA's scalers form and DGN's field form (at D = 300 the field's
+    stacked buffer is 600 wide), bitwise equal across rows-per-block and
+    runs. Both are fp32 with sums in another order, so they agree to 1e-4
+    of the output's scale. With an identity w1 (every output one product
+    by 1 among zeros, exact on both sides) the output is the epilogue's
+    input row z itself: the empty destinations' z must be equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     r = np.random.default_rng(e)
     x, snd, rcv, mask = _problem(e, d, n, seed=e)
-    kw = _gin_kw(r, e, d)
+    if form == "gin":
+        kw = _gin_kw(r, e, d)
+    elif form == "pna":
+        kw = _pna_kw(r, x, rcv, mask, n, e)
+    else:
+        kw = _dgn_kw(r, x, snd, rcv, mask, n, e)
     before = tlf.layer_fused.launches
     outs = [_port(x, snd, rcv, mask, n, kw, device="cuda",
                   rows_per_block=rpb) for rpb in (None, None, 1, 3, 16)]
@@ -207,3 +338,16 @@ def test_cuda_kernel_matches_plain_version(e, d, n):
     torch.testing.assert_close(outs[0], plain, atol=1e-4 * scale, rtol=1e-4)
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
+    if form != "gin":
+        d_in = kw["w1"].shape[0]
+        probe = {k: v for k, v in kw.items() if k not in ("w2", "b2")}
+        probe.update(w1=np.eye(d_in, dtype=np.float32),
+                     b1=np.zeros(d_in, np.float32), out_activation="none")
+        z = _port(x, snd, rcv, mask, n, probe, device="cuda")
+        z_plain = _port(x, snd, rcv, mask, n, probe, fn=tlf.layer_fused_ref,
+                        device="cuda")
+        empty = torch.from_numpy(_degrees(rcv, mask, n) == 0).cuda()
+        assert bool(empty.any())
+        assert torch.equal(z[empty], z_plain[empty])
+        torch.testing.assert_close(z, z_plain, rtol=1e-4,
+                                   atol=1e-4 * float(z_plain.abs().max()))
