@@ -7,8 +7,8 @@ Phases, each printing its own lines:
 
   1. device  — a CUDA device must be present; prints ``nvidia-smi``'s name
                and power limit; TF32 off for every fp32 product.
-  2. build   — builds every CUDA kernel of the path from ``src/repro_torch/
-               kernels/csrc`` with nvcc (all sources at once).
+  2. build   — builds every CUDA kernel of the paths from ``src/
+               repro_torch/kernels/csrc`` with nvcc (all sources at once).
   3. kernels — each kernel against its plain PyTorch version on the card,
                at stated tolerances, bitwise across runs and launch shapes,
                empty destinations exact; kernel, plain and bound times. The
@@ -18,6 +18,10 @@ Phases, each printing its own lines:
                layer_fused's scalers (PNA) and field (DGN) forms an identity
                first layer also reads out the epilogue's input row, whose
                empty destinations must equal the plain version's exactly.
+               The scatter kernels of impl='kernel' (mp_scatter,
+               mp_scatter_multi, seg_softmax) also on an empty-destination
+               tail and a fully masked stream, with one PyTorch call's time
+               beside mp_scatter's (``index_add_``).
   4. slice   — the paper configs served end to end through
                ``GraphStreamEngine.process``, each path with the launch
                counts set to 0 just before it and read just after: GIN,
@@ -25,9 +29,10 @@ Phases, each printing its own lines:
                each again under ``torch.profiler``: device-busy share, top
                device and host ops, the host's batch build alone), GCN and
                GIN-VN under 'fused_layer', GIN, GCN, PNA and DGN under
-               'pipeline'. Each checks its launches, its passes over the
-               edges, and agreement with the plain ``impl='fused'`` path on
-               the card and with the CPU.
+               'pipeline', all six under 'kernel' (GAT's profiled too).
+               Each checks its launches, its passes over the edges, and
+               agreement with the plain ``impl='fused'`` path on the card
+               and with the CPU.
   5. result  — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
@@ -74,13 +79,13 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def close(a, b):
+def close(a, b, rtol=RTOL, atol_of_scale=ATOL_OF_SCALE):
     """Max abs error, max error relative to max(1, max|b|) (the scale), and
-    whether |a - b| <= ATOL_OF_SCALE*scale + RTOL*|b| with ``a`` finite."""
+    whether |a - b| <= atol_of_scale*scale + rtol*|b| with ``a`` finite."""
     import torch
     diff = (a - b).abs()
     scale = max(1.0, float(b.abs().max()))
-    ok = bool((diff <= ATOL_OF_SCALE * scale + RTOL * b.abs()).all())
+    ok = bool((diff <= atol_of_scale * scale + rtol * b.abs()).all())
     return float(diff.max()), float(diff.max()) / scale, ok and bool(
         torch.isfinite(a).all())
 
@@ -236,12 +241,19 @@ def on_device(kw, dev):
 
 
 POSITIONAL = ("x", "senders", "receivers", "edge_mask", "num_nodes")
+# the positional arguments of each kernel wrapper, in order
+KERNEL_POSITIONAL = {
+    "layer_fused": POSITIONAL, "mp_pipeline": POSITIONAL,
+    "mp_scatter": ("msg", "receivers", "edge_mask", "num_nodes"),
+    "mp_scatter_multi": ("msg", "receivers", "edge_mask", "num_nodes"),
+    "seg_softmax": ("logits", "receivers", "edge_mask", "num_nodes"),
+}
 
 
-def call(fn, kw, **extra):
+def call(fn, kw, positional=POSITIONAL, **extra):
     """``fn`` (a kernel wrapper or its plain version) on a dict of inputs."""
     kw = dict(kw, **extra)
-    return fn(*[kw.pop(k) for k in POSITIONAL], **kw)
+    return fn(*[kw.pop(k) for k in positional], **kw)
 
 
 # the kernels' per-edge streams: a masked edge contributes nothing, so the
@@ -546,6 +558,231 @@ def mp_kernel_phase(card: str, main_inputs):
 
 
 # ---------------------------------------------------------------------------
+# the scatter kernels of impl='kernel': mp_scatter, mp_scatter_multi,
+# seg_softmax
+# ---------------------------------------------------------------------------
+
+ALL_STATS = ("sum", "sumsq", "count", "max", "min")
+# what an empty destination must hold, exactly, per mp_scatter_multi output
+SCATTER_EMPTY = {"sum": 0.0, "sumsq": 0.0, "count": 0.0,
+                 "max": -float("inf"), "min": float("inf")}
+# seg_softmax vs its plain version: weights <= 1, exponentials and sums in
+# another order (online rescale vs max first): the reference's 1e-5
+SOFTMAX_TOL = 1e-5
+
+
+def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
+                 mask_p=0.8):
+    """Numpy inputs of one mp_scatter / mp_scatter_multi / seg_softmax call
+    (a dict of keyword args, as the model code passes them); ``d`` is the
+    message width or the head count (0: (E,) logits)."""
+    r = np.random.default_rng(seed)
+    softmax = kernel == "seg_softmax"
+    stream = r.normal(size=(e, d) if d else (e,)) * (3 if softmax else 1)
+    kw = {
+        "logits" if softmax else "msg": stream.astype(np.float32),
+        "receivers": r.integers(0, n - empty_tail, size=e).astype(np.int64),
+        "edge_mask": r.random(e) < mask_p,
+        "num_nodes": n,
+    }
+    if stats is not None:
+        kw.update({f"want_{s}": s in stats for s in ALL_STATS})
+    return kw
+
+
+SCATTER_CASES = {
+    "mp_scatter": {
+        "a_gin_width": dict(n=1024, e=4096, d=100, empty_tail=64),
+        "b_ragged_gcn_width": dict(n=997, e=3001, d=9, empty_tail=5),
+        "c_fully_masked": dict(n=64, e=1024, d=100, mask_p=0.0),
+    },
+    "mp_scatter_multi": {
+        "a_all_stats": dict(n=1024, e=4096, d=80, stats=ALL_STATS,
+                            empty_tail=64),
+        "b_pna_four_stats": dict(n=1024, e=4096, d=80,
+                                 stats=("sum", "sumsq", "max", "min"),
+                                 empty_tail=64),
+        "c_dgn_sum_only": dict(n=1024, e=4096, d=200, stats=("sum",),
+                               empty_tail=64),
+        "d_fully_masked": dict(n=64, e=1024, d=80, stats=ALL_STATS,
+                               mask_p=0.0),
+    },
+    "seg_softmax": {
+        "a_gat_heads": dict(n=1024, e=4096, d=4, empty_tail=64),
+        "b_ragged_1d": dict(n=997, e=3001, d=0, empty_tail=5),
+        "c_fully_masked": dict(n=64, e=1024, d=4, mask_p=0.0),
+    },
+}
+
+
+def stats_of(kw):
+    return tuple(s for s in ALL_STATS if kw.get(f"want_{s}"))
+
+
+def scatter_plain(kernel, kw):
+    """The plain version's outputs as a dict of named tensors."""
+    from repro_torch.kernels import ops
+    pos = KERNEL_POSITIONAL[kernel]
+    args = [kw[k] for k in pos]
+    if kernel == "mp_scatter":
+        return {"sum": ops.mp_scatter_ref(*args)}
+    if kernel == "mp_scatter_multi":
+        return ops.mp_scatter_multi_ref(*args, stats_of(kw))
+    return {"weights": ops.segment_softmax_ref(*args)}
+
+
+def scatter_kernel(kernel, kw, **extra):
+    """The kernel wrapper's outputs as a dict of named tensors."""
+    from repro_torch.kernels import ops
+    out = call(getattr(ops, kernel), kw, KERNEL_POSITIONAL[kernel], **extra)
+    if kernel == "mp_scatter":
+        return {"sum": out}
+    if kernel == "seg_softmax":
+        return {"weights": out}
+    return out
+
+
+def scatter_bound(kernel, kw):
+    """The least time (ms) the card could take for this call, the larger of
+    two. Bytes at the memory rate: the edge mask once, the unmasked edges'
+    message rows (or logits) and receivers (at INDEX_BYTES) once, each
+    output written once (the node statistics; seg_softmax's (E, H)
+    weights). Operations at the fp32 rate: per unmasked edge and lane the
+    statistics (sum 1, sumsq 2, max 1, min 1; count 1 per edge); for
+    seg_softmax per unmasked edge and head the running max, two
+    differences, two exponentials and the rescaled sum (7), then the
+    normalisation's difference, exponential, clamp and division (4)."""
+    x = kw["logits" if kernel == "seg_softmax" else "msg"]
+    e = x.shape[0]
+    width = x.shape[1] if x.ndim == 2 else 1
+    n = kw["num_nodes"]
+    valid = int(kw["edge_mask"].sum())
+    nbytes = e + valid * (INDEX_BYTES + 4 * width)
+    if kernel == "seg_softmax":
+        nbytes += 4 * e * width
+        flops = 11 * valid * width
+    else:
+        stats = ("sum",) if kernel == "mp_scatter" else stats_of(kw)
+        nbytes += sum(4 * n * (1 if s == "count" else width) for s in stats)
+        flops = valid * (width * sum({"sum": 1, "sumsq": 2, "max": 1,
+                                      "min": 1}.get(s, 0) for s in stats)
+                         + ("count" in stats))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def library_call(kernel, kw, plain):
+    """One PyTorch call that computes the kernel's function, where there is
+    one: ``index_add_`` of the stream into an (N+1, D) buffer, masked edges
+    routed to row N (mp_scatter, and mp_scatter_multi asked for the sum
+    alone). It accumulates with atomics, in no fixed order. None where no
+    one call computes the function."""
+    import torch
+    if kernel == "seg_softmax" or (kernel == "mp_scatter_multi"
+                                   and stats_of(kw) != ("sum",)):
+        return None
+    msg, n = kw["msg"], kw["num_nodes"]
+    rcv = torch.where(kw["edge_mask"], kw["receivers"], n)
+    buf = torch.zeros((n + 1, msg.shape[1]), dtype=msg.dtype,
+                      device=msg.device)
+    check = buf.clone().index_add_(0, rcv, msg)[:n]
+    _, _, ok = close(check, plain["sum"])
+    if not ok:
+        raise AssertionError(f"{kernel}: index_add_ disagrees with the "
+                             f"plain version")
+    return lambda: buf.index_add_(0, rcv, msg)
+
+
+def scatter_kernel_phase(card: str, kernel: str, main_inputs):
+    """Phase 3: one scatter kernel of impl='kernel' against its plain
+    version on the card, on synthetic cases and the main path's inputs."""
+    import torch
+    cases = {name: scatter_case(11 + i, kernel=kernel, **spec)
+             for i, (name, spec) in enumerate(SCATTER_CASES[kernel].items())}
+    for name, kw in main_inputs.items():
+        cases[name] = to_numpy(kw)
+    if kernel == "seg_softmax":
+        rtol, atol = SOFTMAX_TOL, SOFTMAX_TOL
+    else:
+        rtol, atol = RTOL, ATOL_OF_SCALE
+    tol = f"|k-p| <= {atol:g}*max(1,max|p|) + {rtol:g}*|p|"
+    rows = {}
+    for name, kw_np in cases.items():
+        kw = on_device(kw_np, "cuda")
+        out = scatter_kernel(kernel, kw)
+        plain = scatter_plain(kernel, kw)
+        torch.cuda.synchronize()
+        if tuple(out) != tuple(plain):
+            raise AssertionError(f"{kernel} {name}: outputs {tuple(out)} != "
+                                 f"plain {tuple(plain)}")
+        mask = kw["edge_mask"]
+        n = kw_np["num_nodes"]
+        if kernel == "seg_softmax":
+            # a masked edge, and so every edge of an empty destination,
+            # weighs exactly 0 on both sides
+            empty = ~mask
+            what = f"{int(empty.sum())} masked edges exactly 0"
+        else:
+            reached = np.zeros(n, bool)
+            reached[kw_np["receivers"][kw_np["edge_mask"]]] = True
+            empty = ~torch.from_numpy(reached).cuda()
+            what = (f"{int(empty.sum())} empty destinations exactly "
+                    + ", ".join(f"{s} {SCATTER_EMPTY[s]:g}" for s in out))
+        err, rel = 0.0, 0.0
+        for stat, want in plain.items():
+            got = out[stat]
+            neutral = SCATTER_EMPTY.get(stat, 0.0)
+            if not (bool((got[empty] == neutral).all())
+                    and bool((want[empty] == neutral).all())):
+                raise AssertionError(f"{kernel} {name}: {stat} is not "
+                                     f"{neutral:g} where it must be")
+            keep = ~empty
+            if bool(keep.any()):
+                e_abs, e_rel, ok = close(got[keep], want[keep], rtol, atol)
+                err, rel = max(err, e_abs), max(rel, e_rel)
+                if not ok:
+                    raise AssertionError(f"{kernel} {name}: {stat} disagrees "
+                                         f"with its plain version "
+                                         f"({e_abs:.3e})")
+        shape = tuple(kw_np["logits" if kernel == "seg_softmax"
+                            else "msg"].shape)
+        log("kernels", f"{kernel} {name}: N={n} E x width={shape} "
+            f"outputs {'+'.join(out)}; max_abs_err={err:.3e} "
+            f"max_rel_err={rel:.3e} tol: {tol}; {what}; ok")
+        runs = [scatter_kernel(kernel, kw)] + [
+            scatter_kernel(kernel, kw, rows_per_block=rpb)
+            for rpb in (1, 3, 16)]
+        torch.cuda.synchronize()
+        for r in runs:
+            if not all(torch.equal(r[k], out[k]) for k in out):
+                raise AssertionError(f"{kernel} {name} is not bitwise stable "
+                                     f"across runs and rows-per-block")
+        bound, bound_by, nbytes, flops = scatter_bound(kernel, kw_np)
+        ms, call_ms = time_ms(lambda: scatter_kernel(kernel, kw))
+        plain_ms, plain_call_ms = time_ms(lambda: scatter_plain(kernel, kw))
+        lib = library_call(kernel, kw, plain)
+        lib_ms = None if lib is None else time_ms(lib)[0]
+        rows[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                      "plain_ms": plain_ms, "call_ms": call_ms,
+                      "plain_call_ms": plain_call_ms, "bound_ms": bound,
+                      "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                      "library_ms": lib_ms}
+        lib_txt = ("" if lib_ms is None else
+                   f"; library index_add_ (atomics, order not fixed) "
+                   f"{lib_ms * 1e3:.2f} us")
+        log("kernels", f"{kernel} {name}: bitwise equal across 2 runs and at "
+            f"1, 3 and 16 rows/block; device time kernel {ms * 1e3:.2f} us, "
+            f"plain {plain_ms * 1e3:.2f} us{lib_txt}; one call with host "
+            f"dispatch kernel {call_ms * 1e3:.1f} us, plain "
+            f"{plain_call_ms * 1e3:.1f} us; bound {bound * 1e3:.3f} us "
+            f"({bound_by}: {nbytes / 1e6:.3f} MB, {flops / 1e6:.3f} MFLOP) "
+            f"on {card}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the slice, end to end
 # ---------------------------------------------------------------------------
 
@@ -573,7 +810,7 @@ def main_path_inputs(name: str, impl: str, kernel: str, batch):
     seen = []
 
     def record(*args, **kw):
-        seen.append({**dict(zip(POSITIONAL, args)),
+        seen.append({**dict(zip(KERNEL_POSITIONAL[kernel], args)),
                      **{k: v for k, v in kw.items() if v is not None}})
         return real(*args, **kw)
 
@@ -603,6 +840,8 @@ def serve_path(card: str, name: str, impl: str, graphs, *,
     from repro_torch.core.message_passing import DataflowConfig
     from repro_torch.kernels.layer_fused import layer_fused
     from repro_torch.kernels.mp_pipeline import mp_pipeline
+    from repro_torch.kernels.mp_scatter import mp_scatter, mp_scatter_multi
+    from repro_torch.kernels.seg_softmax import seg_softmax
 
     cfg, params = init_params(name, "cuda")
     warm = [graphs[0], graphs[-1]]             # one graph per kind of bucket
@@ -613,7 +852,9 @@ def serve_path(card: str, name: str, impl: str, graphs, *,
 
     engine = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
                                device="cuda")
-    kernels = {"layer_fused": layer_fused, "mp_pipeline": mp_pipeline}
+    kernels = {"layer_fused": layer_fused, "mp_pipeline": mp_pipeline,
+               "mp_scatter": mp_scatter, "mp_scatter_multi": mp_scatter_multi,
+               "seg_softmax": seg_softmax}
     for fn in kernels.values():
         fn.launches = 0
     for g in warm:
@@ -688,9 +929,10 @@ def slice_phase(card: str):
     from repro_torch.data.graphs import hep_like, molhiv_like
     graphs = (list(molhiv_like(seed=0, n_graphs=64))
               + list(hep_like(seed=2, n_graphs=8)))
-    # the pipeline runs are shorter: 16 molecules and 4 kNN graphs
+    # the pipeline and kernel runs are shorter: 16 molecules and 4 kNN graphs
     short = graphs[:16] + graphs[64:68]
     lf, mp = "layer_fused", "mp_pipeline"
+    sc, scm, ss = "mp_scatter", "mp_scatter_multi", "seg_softmax"
     # (model, impl, graphs, launches per graph, passes per bucket, profiled)
     paths = [
         ("gin", "fused_layer", graphs, {lf: 5}, 5, True),
@@ -703,6 +945,14 @@ def slice_phase(card: str):
         ("gcn", "pipeline", short, {mp: 5}, 6, False),
         ("pna", "pipeline", short, {mp: 4}, 5, False),
         ("dgn", "pipeline", short, {mp: 4}, 7, False),
+        # impl='kernel': the message is built by PyTorch ops, then every
+        # aggregation is one scatter launch (seg_softmax launches twice)
+        ("gin", "kernel", short, {sc: 5}, 10, False),
+        ("gcn", "kernel", short, {sc: 5}, 11, False),
+        ("gin_vn", "kernel", short, {sc: 5}, 10, False),
+        ("gat", "kernel", short, {sc: 5, ss: 10}, 20, True),
+        ("pna", "kernel", short, {scm: 4}, 9, False),
+        ("dgn", "kernel", short, {scm: 4}, 11, False),
     ]
     return {f"{name}_{impl}": serve_path(card, name, impl, gs,
                                          per_graph=per_graph, passes=passes,
@@ -793,7 +1043,8 @@ def main() -> int:
     # 2. build
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build(["layer_fused", "mp_pipeline"])
+    libs = build.build(["layer_fused", "mp_pipeline", "mp_scatter",
+                        "seg_softmax"])
     log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -813,7 +1064,11 @@ def main() -> int:
                              ("gin_vn", "fused_layer")),
              "mp_pipeline": (("gat", "fused_layer"), ("gin", "pipeline"),
                              ("gcn", "pipeline"), ("pna", "pipeline"),
-                             ("dgn", "pipeline"))}
+                             ("dgn", "pipeline")),
+             "mp_scatter": (("gin", "kernel"), ("gcn", "kernel"),
+                            ("gin_vn", "kernel"), ("gat", "kernel")),
+             "mp_scatter_multi": (("pna", "kernel"), ("dgn", "kernel")),
+             "seg_softmax": (("gat", "kernel"),)}
     main_inputs = {kernel: {} for kernel in users}
     for key, bucket, g in (
             ("e", "molhiv_bucket", next(molhiv_like(seed=0, n_graphs=1))),
@@ -832,6 +1087,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     lf_rows = kernel_phase(card, main_inputs["layer_fused"])
     mp_rows = mp_kernel_phase(card, main_inputs["mp_pipeline"])
+    scatter_rows = {k: scatter_kernel_phase(card, k, main_inputs[k])
+                    for k in SCATTER_CASES}
 
     # 4. the slice end to end
     paths = slice_phase(card)
@@ -844,15 +1101,16 @@ def main() -> int:
                 "launches": paths[path]["launches"][name],
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                "bound_by": main["bound_by"], "library_ms": None,
+                "bound_by": main["bound_by"],
+                "library_ms": main.get("library_ms"),
                 "call_ms": main["call_ms"],
                 "plain_call_ms": main["plain_call_ms"], "shape": shape,
                 "main_path": path,
                 "launches_by_path": {k: v["launches"][name]
                                      for k, v in paths.items()},
-                "cases": {k: {m: v[m] for m in ("ms", "plain_ms", "bound_ms",
-                                                "max_abs_err")}
-                          for k, v in cases.items()}}
+                "cases": {k: {m: v.get(m) for m in (
+                    "ms", "plain_ms", "bound_ms", "library_ms",
+                    "max_abs_err")} for k, v in cases.items()}}
 
     kernels = [
         row("layer_fused", "src/repro_torch/kernels/csrc/layer_fused.cu",
@@ -865,6 +1123,26 @@ def main() -> int:
             mp_rows, mp_rows["f_gat_fused_layer_L0_hep_bucket"],
             "gat_fused_layer",
             "GAT's first layer at the hep bucket: N=64, E=1024, D=64, H=4"),
+        row("mp_scatter", "src/repro_torch/kernels/csrc/mp_scatter.cu",
+            "src/repro/kernels/mp_scatter.py:116",
+            scatter_rows["mp_scatter"],
+            scatter_rows["mp_scatter"]["f_gin_kernel_L0_hep_bucket"],
+            "gin_kernel",
+            "GIN's first layer at the hep bucket: N=64, E=1024, D=100"),
+        row("mp_scatter_multi", "src/repro_torch/kernels/csrc/mp_scatter.cu",
+            "src/repro/kernels/mp_scatter.py:204",
+            scatter_rows["mp_scatter_multi"],
+            scatter_rows["mp_scatter_multi"]["f_pna_kernel_L0_hep_bucket"],
+            "pna_kernel",
+            "PNA's first layer at the hep bucket: N=64, E=1024, D=80, "
+            "sum+sumsq+max+min"),
+        row("seg_softmax", "src/repro_torch/kernels/csrc/seg_softmax.cu",
+            "src/repro/kernels/seg_softmax.py:98",
+            scatter_rows["seg_softmax"],
+            scatter_rows["seg_softmax"]["f_gat_kernel_L0_hep_bucket"],
+            "gat_kernel",
+            "GAT's first layer at the hep bucket: E=1024, H=4, N=64; "
+            "both launches"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,22 +5,29 @@
 The twin of ``repro/core/message_passing.py``, holding what the six models
 of the zoo need:
 
-  * ``propagate`` with three arms: ``impl='fused'`` (gather, ``message_fn``,
-    the plain aggregation, ``update_fn``); ``impl='pipeline'``, where a
+  * ``propagate`` with every arm of the reference: ``impl='fused'``,
+    ``'twopass'`` and ``'unfused'`` (gather, ``message_fn``, the plain
+    aggregation, ``update_fn``; PyTorch runs eagerly, so the (E, D) message
+    is materialised under all three, which is what the reference's
+    ``twopass`` forces and its ``unfused`` ladder floor does); ``'banked'``
+    (the same, with ``banked_segment_sum`` for the sums); ``'kernel'`` (the
+    same, with every aggregation one launch of the ``mp_scatter``,
+    ``mp_scatter_multi`` or ``seg_softmax`` kernel); ``'pipeline'``, where a
     ``FusableMessage`` runs the whole edge phase as one launch of the
     ``mp_pipeline`` kernel (``fused_edge_aggregate``) before ``update_fn``;
-    and ``impl='fused_layer'``, where a ``FusableUpdate`` runs the whole
-    layer as one launch of the ``layer_fused`` kernel in one of its three
+    and ``'fused_layer'``, where a ``FusableUpdate`` runs the whole layer
+    as one launch of the ``layer_fused`` kernel in one of its three
     epilogues (self term: GIN, GIN-VN, GCN; degree scalers: PNA;
     directional field: DGN) and any other fusable layer keeps the
     ``mp_pipeline`` edge phase;
   * ``fused_edge_aggregate``, GAT's in-sweep softmax (``FusableAttention``)
     included, with ``_derive_kinds`` for the statistics derived from the
-    kernel's raw accumulators (mean / var / std, empty max / min at 0);
-  * the plain aggregation unit: ``segment_aggregate`` for every kind of
+    kernels' raw accumulators (mean / var / std, empty max / min at 0);
+  * the aggregation unit: ``segment_aggregate`` for every kind of
     ``AGG_KINDS``, ``segment_multi_aggregate`` (the single-pass stacked
-    moment sweep, max and min one sweep each) and ``segment_softmax`` (three
-    sweeps);
+    moment sweep, max and min one sweep each; one kernel launch for all
+    under ``'kernel'``), ``segment_softmax`` (three sweeps; two under
+    ``'kernel'``) and ``banked_segment_sum``;
   * ``PrecomputedGraphStats`` / ``precompute_graph_stats`` for degrees,
     GCN's self-loop norm, PNA's degree scalers, DGN's directional field and
     the per-graph node counts of the readout;
@@ -29,9 +36,8 @@ of the zoo need:
   * ``count_edge_passes``: the paper's passes-over-the-edge-stream figure.
     PyTorch runs eagerly, so a pass is counted each time a sweep is issued.
 
-The other implementations (``twopass``, ``unfused``, ``banked``,
-``kernel``) and ``banked_segment_sum`` are not ported yet; they raise
-``NotImplementedError`` naming their ROADMAP item.
+Every kernel is called as an attribute of ``repro_torch.kernels.ops`` at
+call time, so a caller may wrap it there.
 """
 
 from __future__ import annotations
@@ -44,11 +50,7 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import torch
 
 from repro_torch.core.graph import GraphBatch
-
-_TODO_MP = ("ROADMAP queue 1 item 3 (the twopass, unfused and banked impls "
-            "and banked_segment_sum)")
-_TODO_KERNEL = ("ROADMAP queue 2 items 3-5 (the impl='kernel' kernels "
-                "mp_scatter_multi, mp_scatter and seg_softmax)")
+from repro_torch.kernels import ops as kops
 
 # The neutral fill of a masked edge per aggregation kind.
 _NEUTRAL = {
@@ -213,12 +215,15 @@ def precompute_graph_stats(
 class DataflowConfig:
     """The reference's dataflow knobs, with its field names and defaults.
 
-    ``impl`` selects the layer implementation; the port runs ``'fused'``
-    (plain PyTorch), ``'pipeline'`` (one ``mp_pipeline`` launch per fusable
-    edge phase) and ``'fused_layer'`` (one ``layer_fused`` launch per layer
-    with a ``FusableUpdate``, else the ``mp_pipeline`` edge phase).
-    ``single_pass`` picks the multi-kind aggregation of ``'fused'``: one
-    stacked moment sweep (True) or one sweep family per kind (False).
+    ``impl`` selects the layer implementation (see ``propagate``): the
+    plain arms ``'fused'``, ``'twopass'``, ``'unfused'`` and ``'banked'``,
+    ``'kernel'`` (one ``mp_scatter`` / ``mp_scatter_multi`` /
+    ``seg_softmax`` launch per aggregation), ``'pipeline'`` (one
+    ``mp_pipeline`` launch per fusable edge phase) and ``'fused_layer'``
+    (one ``layer_fused`` launch per layer with a ``FusableUpdate``, else
+    the ``mp_pipeline`` edge phase). ``single_pass`` picks the multi-kind
+    aggregation of the arms that materialise the message: one multi-kind
+    sweep (True) or one sweep family per kind (False).
     ``scan_layers`` is accepted for parity and means a plain Python loop
     over the layers either way. The tile knobs (``node_tile``,
     ``num_banks``, ``apply_tile``, ``scatter_tile``, ``edge_tile``) describe
@@ -332,14 +337,6 @@ class FusableUpdate:
 # The plain aggregation unit over raw COO destinations
 # ---------------------------------------------------------------------------
 
-def _check_plain_arm(dataflow: DataflowConfig, what: str) -> None:
-    if dataflow.impl == "kernel":
-        raise NotImplementedError(
-            f"{what} under impl='kernel': {_TODO_KERNEL}")
-    if dataflow.impl == "banked":
-        raise NotImplementedError(f"{what} under impl='banked': {_TODO_MP}")
-
-
 def _masked(msg: torch.Tensor, edge_mask: torch.Tensor,
             kind: str) -> torch.Tensor:
     m = edge_mask[:, None] if msg.ndim == 2 else edge_mask
@@ -368,14 +365,30 @@ def segment_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
     give 0. Works on raw (unsorted) COO.
 
     mean / var / std divide by ``degrees`` (masked in-degrees) when given,
-    else by a count swept here.
+    else by a count swept here. Under ``impl='kernel'`` a sum is one
+    ``mp_scatter`` launch and every other kind one ``mp_scatter_multi``
+    launch (through ``segment_multi_aggregate``); under ``'banked'`` a sum
+    is ``banked_segment_sum``.
     """
     if kind not in AGG_KINDS:
         raise ValueError(f"unknown aggregation '{kind}'")
-    _check_plain_arm(dataflow, "segment_aggregate")
     if edge_mask is None:
         edge_mask = torch.ones(msg.shape[0], dtype=torch.bool,
                                device=msg.device)
+    if dataflow.impl in ("kernel", "banked") and kind == "sum":
+        _count_pass()
+        if dataflow.impl == "kernel":
+            return kops.mp_scatter(
+                msg, receivers, edge_mask, num_nodes,
+                node_tile=dataflow.node_tile, edge_tile=dataflow.edge_tile,
+                num_banks=dataflow.num_banks)
+        return banked_segment_sum(msg, receivers, num_nodes,
+                                  num_banks=dataflow.num_banks,
+                                  edge_mask=edge_mask)
+    if dataflow.impl == "kernel":
+        return segment_multi_aggregate(
+            msg, receivers, num_nodes, kinds=(kind,), edge_mask=edge_mask,
+            dataflow=dataflow, degrees=degrees)[kind]
     msgm = _masked(msg, edge_mask, kind)
     if kind == "sum":
         _count_pass()
@@ -416,8 +429,11 @@ def segment_multi_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
     ``[msg | msg*msg | 1 1] -> [s1 | s2 | count]``, and mean / var / std
     derived from it (``_derive_kinds``); max and min take one sweep each.
     Masked edges go to an extra segment past the last row, which is then
-    dropped. Accumulates in float32 and returns ``{kind: (N, D)}`` in
-    ``msg.dtype``; ``degrees`` (masked in-degrees) replaces the count.
+    dropped (under ``'banked'`` they are zeroed and the sum is
+    ``banked_segment_sum``). Under ``impl='kernel'`` every statistic comes
+    out of one ``mp_scatter_multi`` launch. Accumulates in float32 and
+    returns ``{kind: (N, D)}`` in ``msg.dtype``; ``degrees`` (masked
+    in-degrees) replaces the count.
     """
     kinds = tuple(kinds)
     if not kinds:
@@ -428,19 +444,54 @@ def segment_multi_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
     if msg.ndim != 2:
         raise ValueError(f"segment_multi_aggregate expects 2-D messages, "
                          f"got {tuple(msg.shape)}")
-    _check_plain_arm(dataflow, "segment_multi_aggregate")
     if edge_mask is None:
         edge_mask = torch.ones(msg.shape[0], dtype=torch.bool,
                                device=msg.device)
     want_moments = any(k in ("mean", "var", "std") for k in kinds)
+    want_sumsq = any(k in ("var", "std") for k in kinds)
     need_count = want_moments and degrees is None
+    if dataflow.impl == "kernel":
+        got = kops.mp_scatter_multi(
+            msg, receivers, edge_mask, num_nodes,
+            want_sum="sum" in kinds or want_moments, want_sumsq=want_sumsq,
+            want_count=need_count, want_max="max" in kinds,
+            want_min="min" in kinds, node_tile=dataflow.node_tile,
+            edge_tile=dataflow.edge_tile, num_banks=dataflow.num_banks)
+        _count_pass()                  # one edge stream, all statistics
+        s1, s2 = got.get("sum"), got.get("sumsq")
+        cnt = got["count"][:, 0] if need_count else None
+        mx, mn = got.get("max"), got.get("min")
+    else:
+        s1, s2, cnt, mx, mn = _plain_multi(
+            msg, receivers, num_nodes, kinds, edge_mask, dataflow,
+            want_moments=want_moments, want_sumsq=want_sumsq,
+            need_count=need_count)
+    deg = degrees if degrees is not None else cnt
+    return _derive_kinds(
+        kinds, s1=s1, s2=s2, deg=deg, mx=mx, mn=mn,
+        mx_valid=None if mx is None else torch.isfinite(mx),
+        mn_valid=None if mn is None else torch.isfinite(mn),
+        out_dtype=msg.dtype)
+
+
+def _plain_multi(msg, receivers, num_nodes, kinds, edge_mask, dataflow, *,
+                 want_moments, want_sumsq, need_count):
+    """The raw accumulators of ``segment_multi_aggregate``'s plain arms:
+    (s1, s2, count, max, min), each None when not asked for."""
     msgf = msg.to(torch.float32)
-    # masked edges land in segment num_nodes, dropped below
-    recv_m = torch.where(edge_mask, receivers, num_nodes)
+    banked = dataflow.impl == "banked"
+    if banked:
+        # banks route edges by their bank-local row; masked edges are zeroed
+        recv_m, n_seg = receivers, num_nodes
+        msgf = torch.where(edge_mask[:, None], msgf, 0.0)
+    else:
+        # masked edges land in segment num_nodes, dropped below
+        recv_m = torch.where(edge_mask, receivers, num_nodes)
+        n_seg = num_nodes + 1
     parts = {}
     if "sum" in kinds or want_moments:
         parts["s1"] = msgf
-    if any(k in ("var", "std") for k in kinds):
+    if want_sumsq:
         parts["s2"] = msgf * msgf
     if need_count:
         # two count columns keep the stacked width even, as the reference
@@ -448,25 +499,56 @@ def segment_multi_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
                                   device=msg.device)
     got = {}
     if parts:
-        agg = _seg_sum(torch.cat(list(parts.values()), dim=-1), recv_m,
-                       num_nodes + 1)[:num_nodes]
+        stacked = torch.cat(list(parts.values()), dim=-1)
+        if banked:
+            agg = banked_segment_sum(stacked, recv_m, num_nodes,
+                                     num_banks=dataflow.num_banks,
+                                     edge_mask=edge_mask)
+        else:
+            agg = _seg_sum(stacked, recv_m, n_seg)[:num_nodes]
         _count_pass()                  # the single moment sweep
         got = dict(zip(parts, torch.split(
             agg, [p.shape[1] for p in parts.values()], dim=-1)))
-    mx = mn = None
-    if "max" in kinds:
-        _count_pass()
-        mx = _seg_extreme(msgf, recv_m, num_nodes + 1, "amax")[:num_nodes]
-    if "min" in kinds:
-        _count_pass()
-        mn = _seg_extreme(msgf, recv_m, num_nodes + 1, "amin")[:num_nodes]
-    deg = degrees if degrees is not None else (
-        got["cnt"][:, 0] if need_count else None)
-    return _derive_kinds(
-        kinds, s1=got.get("s1"), s2=got.get("s2"), deg=deg, mx=mx, mn=mn,
-        mx_valid=None if mx is None else torch.isfinite(mx),
-        mn_valid=None if mn is None else torch.isfinite(mn),
-        out_dtype=msg.dtype)
+    ext = {}
+    for kind, reduce in (("max", "amax"), ("min", "amin")):
+        if kind in kinds:
+            _count_pass()
+            v = _masked(msgf, edge_mask, kind) if banked else msgf
+            ext[kind] = _seg_extreme(v, recv_m, n_seg, reduce)[:num_nodes]
+    cnt = got["cnt"][:, 0] if need_count else None
+    return got.get("s1"), got.get("s2"), cnt, ext.get("max"), ext.get("min")
+
+
+def banked_segment_sum(msg: torch.Tensor, receivers: torch.Tensor,
+                       num_nodes: int, *, num_banks: int,
+                       edge_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The dest-banked MP-unit layout: destination rows split into
+    ``num_banks`` contiguous banks, each summing only the unmasked edges it
+    owns into its own rows (the reference's kernel oracle). ``msg`` is
+    (E, D), or (E,) and then the result is (N,). Raises ``ValueError`` when
+    ``num_nodes`` does not divide into the banks."""
+    if msg.ndim not in (1, 2):
+        raise ValueError(f"banked_segment_sum expects (E,) or (E, D) "
+                         f"messages, got shape {tuple(msg.shape)}")
+    squeeze = msg.ndim == 1
+    if squeeze:
+        msg = msg[:, None]
+    if edge_mask is None:
+        edge_mask = torch.ones(msg.shape[0], dtype=torch.bool,
+                               device=msg.device)
+    if num_nodes % num_banks != 0:
+        raise ValueError("num_nodes must divide into banks (pad the batch)")
+    bank = num_nodes // num_banks
+    msgm = torch.where(edge_mask[:, None], msg, 0.0)
+    banks = []
+    for b in range(num_banks):
+        local = receivers - b * bank
+        own = (local >= 0) & (local < bank) & edge_mask
+        banks.append(_seg_sum(torch.where(own[:, None], msgm, 0.0),
+                              torch.clamp(local, 0, bank - 1), bank))
+    out = torch.cat(banks, dim=0)
+    return out[:, 0] if squeeze else out
 
 
 def segment_softmax(logits: torch.Tensor, receivers: torch.Tensor,
@@ -478,14 +560,18 @@ def segment_softmax(logits: torch.Tensor, receivers: torch.Tensor,
 
     logits: (E,) or (E, H); returns normalised weights of the same shape,
     0 for masked edges. Three sweeps (segment max, segment sum of the
-    exponentials, the normalising gathers), counted as three passes.
+    exponentials, the normalising gathers), counted as three passes; under
+    ``impl='kernel'`` the two launches of ``seg_softmax`` (statistics with
+    an online-rescaled denominator, then normalisation), two passes.
     """
-    if dataflow is not None and dataflow.impl == "kernel":
-        raise NotImplementedError(
-            f"segment_softmax under impl='kernel': {_TODO_KERNEL}")
     if edge_mask is None:
         edge_mask = torch.ones(logits.shape[0], dtype=torch.bool,
                                device=logits.device)
+    if dataflow is not None and dataflow.impl == "kernel":
+        _count_pass(2)
+        return kops.seg_softmax(logits, receivers, edge_mask, num_nodes,
+                                edge_tile=dataflow.edge_tile,
+                                num_banks=dataflow.num_banks)
     m = edge_mask if logits.ndim == 1 else edge_mask[:, None]
     neg = torch.where(m, logits, -torch.inf)
     _count_pass()
@@ -540,7 +626,6 @@ def _pipeline_kernel_stats(graph, y, fusable, kinds, degrees,
     """Run mp_pipeline and derive the requested kinds from its raw
     accumulators."""
     from repro_torch.kernels.mp_pipeline import BIG
-    from repro_torch.kernels.ops import mp_pipeline
 
     want_moments = any(k in ("mean", "var", "std") for k in kinds)
     want = {
@@ -554,7 +639,7 @@ def _pipeline_kernel_stats(graph, y, fusable, kinds, degrees,
                                       or "min" in kinds),
     }
     att = fusable.attention
-    raw = mp_pipeline(
+    raw = kops.mp_pipeline(
         y, graph.senders, graph.receivers, graph.edge_mask,
         graph.n_node_pad, stats=tuple(s for s, w in want.items() if w),
         src_weight=fusable.src_weight, edge_term=fusable.edge_term,
@@ -632,10 +717,14 @@ def propagate(
     form with ('sum', 'mean'), shared degrees and a ``node_input``. Any
     other fusable layer keeps the ``mp_pipeline`` edge phase. Each is its
     plain PyTorch version for CPU tensors. Without a fusable description,
-    or under ``impl='fused'``, the plain gather / phi / aggregation /
-    update sequence runs; several kinds go through
-    ``segment_multi_aggregate`` (``single_pass``) or one
-    ``segment_aggregate`` each. All end with the ``node_mask`` gate.
+    or under any other impl, the gather / phi / aggregation / update
+    sequence runs; several kinds go through ``segment_multi_aggregate``
+    (``single_pass``) or one ``segment_aggregate`` each, which launch the
+    scatter kernels under ``'kernel'`` and bank the sums under
+    ``'banked'``. ``'twopass'`` and ``'unfused'`` are this sequence as it
+    is: PyTorch runs eagerly, so the (E, D) message is materialised before
+    the aggregation under every impl here, which is all the reference's
+    ``twopass`` barrier forces. All end with the ``node_mask`` gate.
     """
     kinds = (aggregate,) if isinstance(aggregate, str) else tuple(aggregate)
     if dataflow.impl in ("pipeline", "fused_layer") and fusable is not None:
@@ -643,8 +732,7 @@ def propagate(
         if _one_launch_layer(dataflow, fusable, fu, kinds, stats):
             _count_pass()                 # the whole layer is one launch
             with _uncounted():
-                from repro_torch.kernels.ops import layer_fused
-                out = layer_fused(
+                out = kops.layer_fused(
                     x, graph.senders, graph.receivers, graph.edge_mask,
                     graph.n_node_pad, w1=fu.w1, b1=fu.b1,
                     node_input=fusable.node_input,
@@ -663,11 +751,6 @@ def propagate(
              torch.cat([agg[k] for k in kinds], dim=-1))
         out = update_fn(x, m)
         return torch.where(graph.node_mask[:, None], out, 0.0)
-    if dataflow.impl in ("twopass", "unfused", "banked"):
-        raise NotImplementedError(f"impl='{dataflow.impl}': {_TODO_MP}")
-    if dataflow.impl == "kernel":
-        raise NotImplementedError(f"impl='kernel': {_TODO_KERNEL}")
-
     ef = graph.edge_feat if edge_feat is None else edge_feat
     src = x[graph.senders]
     dst = x[graph.receivers]

@@ -9,7 +9,8 @@ interface, compiled for Hopper::
 The build directory sits at the root of the checkout and is listed in
 ``.gitignore``. A library is built at first use and named by a hash of its
 source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. ``ptxas``' report of registers, shared memory and spills is
+loaded as it is; the shared headers ``csrc/*.cuh`` count in every hash.
+``ptxas``' report of registers, shared memory and spills is
 kept beside each library as ``<name>-<hash>.log``.
 
 Nothing here runs when the module is imported: the CPU tests import it on
@@ -51,6 +52,8 @@ def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` is built to (named by its content hash)."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):       # what the sources include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

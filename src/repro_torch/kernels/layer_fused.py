@@ -29,13 +29,14 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mp_pipeline import (_SW_MODES, BIG,
-                                             apply_fusable_phi,
+                                             apply_fusable_phi, launch_ptr,
                                              seg_extreme_rows, seg_sum_rows,
                                              src_weight_mode)
 
@@ -226,18 +227,7 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, epilogue,
     e = senders.shape[0]
     d_x = x.shape[1]
     f32 = torch.float32
-
-    def need(t, name, dtype, shape):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        return t.data_ptr()
+    need = functools.partial(launch_ptr, dev)
 
     def node_vec(t, name):
         return None if t is None else need(t, name, f32, (num_nodes,))

@@ -26,6 +26,7 @@ launches. ``apply_fusable_phi`` is shared with ``layer_fused``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -107,6 +108,23 @@ def seg_extreme_rows(v: torch.Tensor, own: torch.Tensor,
     return seed.scatter_reduce(0, receivers[:, None].expand(-1, v.shape[1]),
                                torch.where(own, v, fill), reduce,
                                include_self=False)
+
+
+def launch_ptr(dev: torch.device, t: torch.Tensor, name: str, dtype,
+               shape) -> int:
+    """The data pointer of ``t`` for a kernel launch on ``dev``, after the
+    checks the kernel cannot make: device, dtype, shape and contiguity,
+    each a ``ValueError``."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t.data_ptr()
 
 
 def _check_args(x, num_nodes, stats, activation, att_src, att_dst):
@@ -262,18 +280,7 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, stats, heads,
     dev = x.device
     n, d = x.shape
     e = senders.shape[0]
-
-    def need(t, name, dtype, shape):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        return t.data_ptr()
+    need = functools.partial(launch_ptr, dev)
 
     f32 = torch.float32
     if e >= 2 ** 31 or n * max(d, 1) >= 2 ** 31:

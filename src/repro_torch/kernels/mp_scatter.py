@@ -1,0 +1,166 @@
+"""The scatter of a materialised edge stream, with its plain PyTorch versions.
+
+The twin of ``repro/kernels/mp_scatter.py``. Given per-edge messages
+``msg`` (E, D), destinations ``receivers`` (E,) and ``edge_mask`` (E,):
+
+  * ``mp_scatter`` sums the unmasked edges' rows per destination,
+    accumulating in float32 and returning (N, D) in ``msg.dtype``;
+  * ``mp_scatter_multi`` feeds several float32 accumulators from one sweep
+    (``MULTI_STATS``): ``sum``, ``sumsq``, ``count`` (N, 1), ``max`` and
+    ``min``, whose empty destinations hold -inf and +inf.
+
+The tile knobs (``node_tile``, ``edge_tile``, ``num_banks``) describe the
+TPU kernels' grids; they are accepted and the result does not depend on
+them. Each wrapper takes its plain version (``mp_scatter_ref``,
+``mp_scatter_multi_ref``) for tensors on the CPU. For CUDA tensors it
+launches the hand-written kernel ``csrc/mp_scatter.cu`` or raises; its
+``.launches`` counts those launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.mp_pipeline import (launch_ptr, seg_extreme_rows,
+                                             seg_sum_rows)
+
+# Statistic names in the fixed output order of mp_scatter_multi.
+MULTI_STATS = ("sum", "sumsq", "count", "max", "min")
+
+
+def mp_scatter_ref(msg: torch.Tensor, receivers: torch.Tensor,
+                   edge_mask: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """Masked scatter-sum of per-edge messages into per-node rows (f32)."""
+    return seg_sum_rows(
+        torch.where(edge_mask[:, None], msg, 0.0).to(torch.float32),
+        receivers, num_nodes)
+
+
+def mp_scatter_multi_ref(msg: torch.Tensor, receivers: torch.Tensor,
+                         edge_mask: torch.Tensor, num_nodes: int,
+                         stats) -> Dict[str, torch.Tensor]:
+    """Plain version of the multi-statistic sweep: raw f32 accumulators
+    keyed by name in ``MULTI_STATS`` order; max / min of empty destinations
+    are -inf / +inf, as the kernel's."""
+    m32 = msg.to(torch.float32)
+    own = edge_mask[:, None]
+    zero = torch.where(own, m32, 0.0)
+    out = {}
+    if "sum" in stats:
+        out["sum"] = seg_sum_rows(zero, receivers, num_nodes)
+    if "sumsq" in stats:
+        out["sumsq"] = seg_sum_rows(zero * zero, receivers, num_nodes)
+    if "count" in stats:
+        out["count"] = seg_sum_rows(own.to(torch.float32), receivers,
+                                    num_nodes)
+    if "max" in stats:
+        out["max"] = seg_extreme_rows(m32, own, receivers, num_nodes,
+                                      -torch.inf, "amax")
+    if "min" in stats:
+        out["min"] = seg_extreme_rows(m32, own, receivers, num_nodes,
+                                      torch.inf, "amin")
+    return out
+
+
+def _check_msg(msg: torch.Tensor, what: str) -> None:
+    if msg.ndim != 2:
+        raise ValueError(f"{what} expects (E, D) messages, got "
+                         f"{tuple(msg.shape)}")
+    if msg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {msg.device}")
+
+
+def mp_scatter(msg: torch.Tensor, receivers: torch.Tensor,
+               edge_mask: torch.Tensor, num_nodes: int, *,
+               node_tile: int = 8, edge_tile: int = 128, num_banks: int = 4,
+               rows_per_block: Optional[int] = None) -> torch.Tensor:
+    """Scatter-sum ``msg`` (E, D) into (num_nodes, D) over the unmasked
+    edges; f32 accumulation, the result in ``msg.dtype``. CPU tensors run
+    ``mp_scatter_ref``; CUDA tensors launch the kernel. ``rows_per_block``
+    overrides how many destination rows one CUDA block owns (the kernel's
+    own choice by default; the result does not depend on it)."""
+    _check_msg(msg, "mp_scatter")
+    if msg.device.type == "cpu":
+        return mp_scatter_ref(msg, receivers, edge_mask,
+                              num_nodes).to(msg.dtype)
+    out = _launch(msg, receivers, edge_mask, num_nodes, ("sum",),
+                  rows_per_block, multi=False)["sum"]
+    mp_scatter.launches += int(num_nodes > 0)
+    return out
+
+
+mp_scatter.launches = 0
+
+
+def mp_scatter_multi(msg: torch.Tensor, receivers: torch.Tensor,
+                     edge_mask: torch.Tensor, num_nodes: int, *, stats,
+                     node_tile: int = 8, edge_tile: int = 128,
+                     num_banks: int = 4,
+                     rows_per_block: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """One sweep over the edge stream feeding the ``stats`` accumulators (a
+    subset of ``MULTI_STATS``). Returns ``{name: f32 tensor}`` in
+    ``MULTI_STATS`` order: sum / sumsq / max / min (num_nodes, D), count
+    (num_nodes, 1); max / min of empty destinations are -inf / +inf. CPU
+    tensors run ``mp_scatter_multi_ref``; CUDA tensors launch the
+    kernel."""
+    stats = tuple(s for s in MULTI_STATS if s in stats)
+    if not stats:
+        raise ValueError("stats must name at least one accumulator")
+    _check_msg(msg, "mp_scatter_multi")
+    if msg.device.type == "cpu":
+        return mp_scatter_multi_ref(msg, receivers, edge_mask, num_nodes,
+                                    stats)
+    out = _launch(msg, receivers, edge_mask, num_nodes, stats,
+                  rows_per_block, multi=True)
+    mp_scatter_multi.launches += int(num_nodes > 0)
+    return out
+
+
+mp_scatter_multi.launches = 0
+
+
+def _kernel(multi: bool):
+    lib = build.load("mp_scatter")
+    fn = lib.mp_scatter_multi_launch if multi else lib.mp_scatter_launch
+    if fn.argtypes is None:
+        # without argtypes ctypes passes every int as a 32-bit C int:
+        # pointers are cut and the stream slot holds garbage
+        outs = 5 if multi else 1
+        fn.argtypes = ([ctypes.c_void_p] * (3 + outs) + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(msg, receivers, edge_mask, num_nodes, stats, rows_per_block, *,
+            multi):
+    dev = msg.device
+    e, d = msg.shape
+    if d == 0:
+        raise ValueError("messages must have at least one lane")
+    if e >= 2 ** 31 or num_nodes * d >= 2 ** 31:
+        raise ValueError("mp_scatter indexes edges and node rows with int32")
+    if rows_per_block is not None and rows_per_block < 1:
+        raise ValueError("rows_per_block must be >= 1")
+    f32 = torch.float32
+    need = functools.partial(launch_ptr, dev)
+    ptrs = (need(msg, "msg", f32, (e, d)),
+            need(receivers, "receivers", torch.int64, (e,)),
+            need(edge_mask, "edge_mask", torch.bool, (e,)))
+    widths = {"sum": d, "sumsq": d, "count": 1, "max": d, "min": d}
+    out = {s: torch.empty((num_nodes, widths[s]), dtype=f32, device=dev)
+           for s in stats}
+    outs = ([out[s].data_ptr() if s in out else None for s in MULTI_STATS]
+            if multi else [out["sum"].data_ptr()])
+    err = _kernel(multi)(*ptrs, *outs, num_nodes, e, d, rows_per_block or 0,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        name = "mp_scatter_multi" if multi else "mp_scatter"
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    return out

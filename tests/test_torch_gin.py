@@ -190,11 +190,30 @@ def test_gin_init_shapes_match_reference():
 
 
 def test_unported_models_and_impls_raise():
+    """An unknown model raises KeyError. The impls once unported here
+    (kernel, twopass, banked) now run and agree with the reference under
+    the same impl, with the same passes; banked raises ValueError on both
+    sides when the padded nodes do not divide into the banks."""
     with pytest.raises(KeyError):
         tmake(GNNConfig(model="nope"))
-    cfg = _small(TCFG)
-    _, tp = _jax_params(_small(JCFG))
-    _, tg = _graphs(packed=False)
+    cfg, jcfg = _small(TCFG), _small(JCFG)
+    jp, tp = _jax_params(jcfg)
+    jg, tg = _graphs(packed=False)
     for impl in ("kernel", "twopass", "banked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmake(cfg).apply(tp, tg, cfg, DataflowConfig(impl=impl))
+        with count_edge_passes() as ps:
+            ours = _port_apply(cfg, tp, tg, impl)
+        with jmp.count_edge_passes() as pj:
+            ref = np.asarray(jmake(jcfg).apply(
+                jp, jg, jcfg,
+                jmp.DataflowConfig(impl=impl, scan_layers=False)))
+        assert ps.passes == pj.passes, impl
+        # the reference's kernel arm runs its interpret-mode Pallas kernels
+        np.testing.assert_allclose(
+            ours, ref, **(dict(atol=1e-4, rtol=1e-4) if impl == "kernel"
+                          else TOL), err_msg=impl)
+    with pytest.raises(ValueError):
+        tmake(cfg).apply(tp, tg, cfg, DataflowConfig(impl="banked",
+                                                     num_banks=3))
+    with pytest.raises(ValueError):
+        jmake(jcfg).apply(jp, jg, jcfg, jmp.DataflowConfig(
+            impl="banked", num_banks=3, scan_layers=False))

@@ -323,8 +323,9 @@ def test_segment_multi_aggregate_matches_reference(kinds, with_degrees):
 
 def test_aggregation_rejects_what_the_reference_rejects():
     """Unknown or empty kinds and 1-D messages raise ValueError on both
-    sides; the impl='kernel' and 'banked' arms are not ported and name
-    their ROADMAP items."""
+    sides. The impl='kernel' and 'banked' arms run and agree with the
+    reference's; banked raises ValueError on both sides when the nodes do
+    not divide into the banks."""
     jg, tg, msg = _messages(packed=False)
     tm, jm = torch.from_numpy(msg), jnp.asarray(msg)
     n = tg.n_node_pad
@@ -344,10 +345,32 @@ def test_aggregation_rejects_what_the_reference_rejects():
         with pytest.raises(ValueError):
             call()
     for impl in ("kernel", "banked"):
-        df = DataflowConfig(impl=impl)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmpass.segment_aggregate(tm, tg.receivers, n, kind="mean",
-                                     dataflow=df)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmpass.segment_multi_aggregate(tm, tg.receivers, n,
-                                           kinds=("sum", "max"), dataflow=df)
+        df, jdf = DataflowConfig(impl=impl), jmp.DataflowConfig(impl=impl)
+        ours = tmpass.segment_aggregate(tm, tg.receivers, n, kind="mean",
+                                        edge_mask=tg.edge_mask, dataflow=df)
+        ref = jmp.segment_aggregate(jm, jg.receivers, n, kind="mean",
+                                    edge_mask=jg.edge_mask, dataflow=jdf)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref),
+                                   err_msg=impl, **TOL)
+        ours = tmpass.segment_multi_aggregate(
+            tm, tg.receivers, n, kinds=("sum", "max"),
+            edge_mask=tg.edge_mask, dataflow=df)
+        ref = jmp.segment_multi_aggregate(
+            jm, jg.receivers, n, kinds=("sum", "max"),
+            edge_mask=jg.edge_mask, dataflow=jdf)
+        for k in ("sum", "max"):
+            np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]),
+                                       err_msg=f"{impl} {k}", **TOL)
+    df = DataflowConfig(impl="banked", num_banks=3)
+    jdf = jmp.DataflowConfig(impl="banked", num_banks=3)
+    for call in (
+            lambda: tmpass.segment_aggregate(tm, tg.receivers, n, kind="sum",
+                                             dataflow=df),
+            lambda: tmpass.segment_multi_aggregate(
+                tm, tg.receivers, n, kinds=("sum", "max"), dataflow=df),
+            lambda: jmp.segment_aggregate(jm, jg.receivers, n, kind="sum",
+                                          dataflow=jdf),
+            lambda: jmp.segment_multi_aggregate(
+                jm, jg.receivers, n, kinds=("sum", "max"), dataflow=jdf)):
+        with pytest.raises(ValueError):
+            call()
