@@ -8,7 +8,8 @@ Phases, each printing its own lines:
   1. device  — a CUDA device must be present; prints ``nvidia-smi``'s name
                and power limit; TF32 off for every fp32 product.
   2. build   — builds every CUDA kernel of the paths from ``src/
-               repro_torch/kernels/csrc`` with nvcc (all sources at once).
+               repro_torch/kernels/csrc`` with nvcc (all seven sources at
+               once).
   3. kernels — each kernel against its plain PyTorch version on the card,
                at stated tolerances, bitwise across runs and launch shapes,
                empty destinations exact; kernel, plain and bound times. The
@@ -20,8 +21,9 @@ Phases, each printing its own lines:
                empty destinations must equal the plain version's exactly.
                The scatter kernels of impl='kernel' (mp_scatter,
                mp_scatter_multi, seg_softmax) also on an empty-destination
-               tail and a fully masked stream, with one PyTorch call's time
-               beside mp_scatter's (``index_add_``).
+               tail, a fully masked stream and receivers outside [0, N)
+               (masked and not), with one PyTorch call's time beside
+               mp_scatter's (``index_add_``).
   4. slice   — the paper configs served end to end through
                ``GraphStreamEngine.process``, each path with the launch
                counts set to 0 just before it and read just after: GIN,
@@ -33,7 +35,23 @@ Phases, each printing its own lines:
                Each checks its launches, its passes over the edges, and
                agreement with the plain ``impl='fused'`` path on the card
                and with the CPU.
-  5. result  — one JSON line with every kernel's numbers, the card's
+  5. nt      — ``ops.nt_mlp`` and ``ops.fused_nt_scatter`` driven at GIN's
+               MLP (100->200->100) on the serving buckets' graphs and at
+               the standard point (N=1024, E=4096, MLP 64->128->64), counts
+               from 0; each against its plain version, fused_nt_scatter
+               also against nt_mlp + mp_pipeline, bitwise across runs and
+               rows per block; times beside the bound (and, for nt_mlp,
+               cuBLAS's addmm -> relu -> addmm).
+  6. moe     — the MoE data path at olmoe-1b-7b's full width (d_model 2048,
+               64 experts, top-8, moe_d_ff 1024, capacity factor 1.25,
+               bf16, one group of 1,024 tokens): routing, ``moe_dispatch``
+               (bf16 mp_scatter), the SwiGLU experts (``torch.bmm``),
+               ``moe_combine`` (gather_rows, f32 mp_scatter), counts from
+               0; the dispatch bitwise against the plain path and under a
+               permutation, gather_rows bitwise, the combine against the
+               plain path and a float64 sum on the host; the three calls
+               timed beside ``index_add_`` / ``index_select``.
+  7. result  — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -43,6 +61,7 @@ exits non-zero before printing any result. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -129,6 +148,91 @@ def time_ms(fn, reps: int = 21, inner: int = 20):
         end.synchronize()
         call.append(start.elapsed_time(end))
     return statistics.median(dev), statistics.median(call)
+
+
+def bitwise_stable(phase: str, label: str, run, out,
+                   rows_per_block=(1, 3, 16)) -> None:
+    """Call ``run()`` again and ``run(rows_per_block=r)`` for each ``r``;
+    raise unless every output is bitwise ``out`` (a tensor, or a dict of
+    tensors)."""
+    import torch
+    runs = [run()] + [run(rows_per_block=r) for r in rows_per_block]
+    torch.cuda.synchronize()
+    for r in runs:
+        same = (all(torch.equal(r[k], out[k]) for k in out)
+                if isinstance(out, dict) else torch.equal(r, out))
+        if not same:
+            raise AssertionError(f"{label} is not bitwise stable across runs "
+                                 f"and rows per block")
+    log(phase, f"{label}: bitwise equal across 2 runs and at "
+        f"{', '.join(map(str, rows_per_block))} rows/block")
+
+
+def timed_row(card: str, phase: str, label: str, kernel_fn, plain_fn, bound,
+              *, err: float, rel=None, library=None, library_txt: str = "",
+              library_key: str = "library_ms") -> dict:
+    """Time one case: the kernel call ``kernel_fn``, its plain version
+    ``plain_fn`` and, where there is one, the ``library`` call (stored
+    under ``library_key``); log them beside ``bound`` (ms, what bounds it,
+    bytes, operations) and return the case's row."""
+    bound_ms, bound_by, nbytes, flops = bound
+    ms, call_ms = time_ms(kernel_fn)
+    plain_ms, plain_call_ms = time_ms(plain_fn)
+    lib_ms = None if library is None else time_ms(library)[0]
+    row = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+           "plain_ms": plain_ms, "call_ms": call_ms,
+           "plain_call_ms": plain_call_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+           "library_ms": None}
+    lib_txt = ""
+    if lib_ms is not None:
+        row[library_key] = lib_ms
+        lib_txt = f"; {library_txt} {lib_ms * 1e3:.2f} us"
+    log(phase, f"{label}: device time kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us{lib_txt}; one call with host dispatch "
+        f"kernel {call_ms * 1e3:.1f} us, plain {plain_call_ms * 1e3:.1f} us; "
+        f"bound {bound_ms * 1e3:.3f} us ({bound_by}: {nbytes / 1e6:.3f} MB, "
+        f"{flops / 1e6:.3f} MFLOP) on {card}")
+    return row
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by name; each counts the CUDA
+    launches it makes in ``.launches``."""
+    from repro_torch.kernels.fused_nt_scatter import fused_nt_scatter
+    from repro_torch.kernels.gather_rows import gather_rows
+    from repro_torch.kernels.layer_fused import layer_fused
+    from repro_torch.kernels.mp_pipeline import mp_pipeline
+    from repro_torch.kernels.mp_scatter import mp_scatter, mp_scatter_multi
+    from repro_torch.kernels.nt_mlp import nt_mlp
+    from repro_torch.kernels.seg_softmax import seg_softmax
+    return {"layer_fused": layer_fused, "mp_pipeline": mp_pipeline,
+            "mp_scatter": mp_scatter, "mp_scatter_multi": mp_scatter_multi,
+            "seg_softmax": seg_softmax, "gather_rows": gather_rows,
+            "nt_mlp": nt_mlp, "fused_nt_scatter": fused_nt_scatter}
+
+
+def counted(run):
+    """``run()`` with every kernel's launch count set to 0 just before it
+    and read just after: (what it returned, the counts by kernel)."""
+    import torch
+    kernels = kernel_wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    result = run()
+    torch.cuda.synchronize()
+    return result, {k: fn.launches for k, fn in kernels.items()}
+
+
+def check_launches(phase: str, label: str, launches: dict, expected: dict,
+                   why: str) -> None:
+    """Raise unless every kernel launched as often as ``expected`` says (0
+    for a kernel it does not name)."""
+    want = {k: expected.get(k, 0) for k in launches}
+    log(phase, f"{label}: launches {launches} (expected {want}: {why})")
+    if launches != want:
+        raise AssertionError(f"{label}: the path did not run the expected "
+                             f"kernel launches")
 
 
 # ---------------------------------------------------------------------------
@@ -402,26 +506,14 @@ def kernel_phase(card: str, main_inputs):
         if form != "self":
             epilogue_rows_check(name, kw, kw_np, layer_fused,
                                 layer_fused_ref)
-        runs = [call(layer_fused, kw)] + [
-            call(layer_fused, kw, rows_per_block=rpb) for rpb in (3, 16)]
-        torch.cuda.synchronize()
-        if not all(torch.equal(r, out) for r in runs):
-            raise AssertionError(f"layer_fused {name} is not bitwise stable "
-                                 f"across runs and rows-per-block")
-        bound, bound_by, nbytes, flops = lf_bound(kw_np)
-        ms, call_ms = time_ms(lambda: call(layer_fused, kw))
-        plain_ms, plain_call_ms = time_ms(lambda: call(layer_fused_ref, kw))
-        rows[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
-                      "plain_ms": plain_ms, "call_ms": call_ms,
-                      "plain_call_ms": plain_call_ms, "bound_ms": bound,
-                      "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-        log("kernels", f"layer_fused {name}: bitwise equal across 2 runs "
-            f"and at 3 and 16 rows/block; device time kernel "
-            f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; one call "
-            f"with host dispatch kernel {call_ms * 1e3:.1f} us, plain "
-            f"{plain_call_ms * 1e3:.1f} us; bound {bound * 1e3:.2f} us "
-            f"({bound_by}: {nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP) "
-            f"on {card}")
+        label = f"layer_fused {name}"
+        bitwise_stable("kernels", label,
+                       lambda **extra: call(layer_fused, kw, **extra), out,
+                       (3, 16))
+        rows[name] = timed_row(card, "kernels", label,
+                               lambda: call(layer_fused, kw),
+                               lambda: call(layer_fused_ref, kw),
+                               lf_bound(kw_np), err=err, rel=rel)
     return rows
 
 
@@ -533,27 +625,13 @@ def mp_kernel_phase(card: str, main_inputs):
             f"stats {'+'.join(out)}; max_abs_err={err:.3e} "
             f"max_rel_err={rel:.3e} tol: {tol}; {n_empty} empty "
             f"destinations exact; ok")
-        runs = [call(mp_pipeline, kw)] + [
-            call(mp_pipeline, kw, rows_per_block=rpb) for rpb in (1, 3, 16)]
-        torch.cuda.synchronize()
-        for r in runs:
-            if not all(torch.equal(r[k], out[k]) for k in out):
-                raise AssertionError(f"mp_pipeline {name} is not bitwise "
-                                     f"stable across runs and rows-per-block")
-        bound, bound_by, nbytes, flops = mp_bound(kw_np)
-        ms, call_ms = time_ms(lambda: call(mp_pipeline, kw))
-        plain_ms, plain_call_ms = time_ms(lambda: call(mp_pipeline_ref, kw))
-        rows[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
-                      "plain_ms": plain_ms, "call_ms": call_ms,
-                      "plain_call_ms": plain_call_ms, "bound_ms": bound,
-                      "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-        log("kernels", f"mp_pipeline {name}: bitwise equal across 2 runs and "
-            f"at 1, 3 and 16 rows/block; device time kernel "
-            f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; one call "
-            f"with host dispatch kernel {call_ms * 1e3:.1f} us, plain "
-            f"{plain_call_ms * 1e3:.1f} us; bound {bound * 1e3:.3f} us "
-            f"({bound_by}: {nbytes / 1e6:.3f} MB, {flops / 1e6:.3f} MFLOP) "
-            f"on {card}")
+        label = f"mp_pipeline {name}"
+        bitwise_stable("kernels", label,
+                       lambda **extra: call(mp_pipeline, kw, **extra), out)
+        rows[name] = timed_row(card, "kernels", label,
+                               lambda: call(mp_pipeline, kw),
+                               lambda: call(mp_pipeline_ref, kw),
+                               mp_bound(kw_np), err=err, rel=rel)
     return rows
 
 
@@ -572,16 +650,19 @@ SOFTMAX_TOL = 1e-5
 
 
 def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
-                 mask_p=0.8):
+                 mask_p=0.8, out_of_range=False):
     """Numpy inputs of one mp_scatter / mp_scatter_multi / seg_softmax call
     (a dict of keyword args, as the model code passes them); ``d`` is the
-    message width or the head count (0: (E,) logits)."""
+    message width or the head count (0: (E,) logits). ``out_of_range``
+    draws receivers from [-4, N + 12): edges outside [0, N), masked and
+    unmasked, which must add nothing."""
     r = np.random.default_rng(seed)
     softmax = kernel == "seg_softmax"
     stream = r.normal(size=(e, d) if d else (e,)) * (3 if softmax else 1)
+    lo, hi = (-4, n + 12) if out_of_range else (0, n - empty_tail)
     kw = {
         "logits" if softmax else "msg": stream.astype(np.float32),
-        "receivers": r.integers(0, n - empty_tail, size=e).astype(np.int64),
+        "receivers": r.integers(lo, hi, size=e).astype(np.int64),
         "edge_mask": r.random(e) < mask_p,
         "num_nodes": n,
     }
@@ -595,6 +676,8 @@ SCATTER_CASES = {
         "a_gin_width": dict(n=1024, e=4096, d=100, empty_tail=64),
         "b_ragged_gcn_width": dict(n=997, e=3001, d=9, empty_tail=5),
         "c_fully_masked": dict(n=64, e=1024, d=100, mask_p=0.0),
+        "d_out_of_range_receivers": dict(n=1024, e=4096, d=100,
+                                         out_of_range=True),
     },
     "mp_scatter_multi": {
         "a_all_stats": dict(n=1024, e=4096, d=80, stats=ALL_STATS,
@@ -606,13 +689,23 @@ SCATTER_CASES = {
                                empty_tail=64),
         "d_fully_masked": dict(n=64, e=1024, d=80, stats=ALL_STATS,
                                mask_p=0.0),
+        "e_out_of_range_receivers": dict(n=1024, e=4096, d=80,
+                                         stats=ALL_STATS, out_of_range=True),
     },
     "seg_softmax": {
         "a_gat_heads": dict(n=1024, e=4096, d=4, empty_tail=64),
         "b_ragged_1d": dict(n=997, e=3001, d=0, empty_tail=5),
         "c_fully_masked": dict(n=64, e=1024, d=4, mask_p=0.0),
+        "d_out_of_range_receivers": dict(n=1024, e=4096, d=4,
+                                         out_of_range=True),
     },
 }
+
+
+def owned(kw_np):
+    """The edges a scatter keeps: unmasked, with a receiver in [0, N)."""
+    rcv = kw_np["receivers"]
+    return kw_np["edge_mask"] & (rcv >= 0) & (rcv < kw_np["num_nodes"])
 
 
 def stats_of(kw):
@@ -656,14 +749,18 @@ def scatter_bound(kernel, kw):
     e = x.shape[0]
     width = x.shape[1] if x.ndim == 2 else 1
     n = kw["num_nodes"]
-    valid = int(kw["edge_mask"].sum())
-    nbytes = e + valid * (INDEX_BYTES + 4 * width)
+    valid = int(owned(kw).sum())
+    item = x.dtype.itemsize
+    nbytes = e + valid * (INDEX_BYTES + item * width)
     if kernel == "seg_softmax":
         nbytes += 4 * e * width
         flops = 11 * valid * width
     else:
         stats = ("sum",) if kernel == "mp_scatter" else stats_of(kw)
-        nbytes += sum(4 * n * (1 if s == "count" else width) for s in stats)
+        # mp_scatter writes the messages' dtype, the multi sweep f32
+        out_item = item if kernel == "mp_scatter" else 4
+        nbytes += sum(out_item * n * (1 if s == "count" else width)
+                      for s in stats)
         flops = valid * (width * sum({"sum": 1, "sumsq": 2, "max": 1,
                                       "min": 1}.get(s, 0) for s in stats)
                          + ("count" in stats))
@@ -673,22 +770,28 @@ def scatter_bound(kernel, kw):
                                  else "operations"), nbytes, flops
 
 
+INDEX_ADD_TXT = "library index_add_ (atomics, order not fixed)"
+
+
 def library_call(kernel, kw, plain):
     """One PyTorch call that computes the kernel's function, where there is
-    one: ``index_add_`` of the stream into an (N+1, D) buffer, masked edges
-    routed to row N (mp_scatter, and mp_scatter_multi asked for the sum
-    alone). It accumulates with atomics, in no fixed order. None where no
-    one call computes the function."""
+    one: ``index_add_`` of the stream into an (N+1, D) buffer of the
+    messages' dtype, masked and out-of-range edges routed to row N
+    (mp_scatter, and mp_scatter_multi asked for the sum alone). It
+    accumulates with atomics, in no fixed order, and in bf16 for bf16
+    messages (exact where each row takes one message, as in the MoE
+    dispatch). None where no one call computes the function."""
     import torch
     if kernel == "seg_softmax" or (kernel == "mp_scatter_multi"
                                    and stats_of(kw) != ("sum",)):
         return None
     msg, n = kw["msg"], kw["num_nodes"]
-    rcv = torch.where(kw["edge_mask"], kw["receivers"], n)
+    rcv = kw["receivers"]
+    rcv = torch.where(kw["edge_mask"] & (rcv >= 0) & (rcv < n), rcv, n)
     buf = torch.zeros((n + 1, msg.shape[1]), dtype=msg.dtype,
                       device=msg.device)
     check = buf.clone().index_add_(0, rcv, msg)[:n]
-    _, _, ok = close(check, plain["sum"])
+    _, _, ok = close(check.float(), plain["sum"].float())
     if not ok:
         raise AssertionError(f"{kernel}: index_add_ disagrees with the "
                              f"plain version")
@@ -717,16 +820,17 @@ def scatter_kernel_phase(card: str, kernel: str, main_inputs):
         if tuple(out) != tuple(plain):
             raise AssertionError(f"{kernel} {name}: outputs {tuple(out)} != "
                                  f"plain {tuple(plain)}")
-        mask = kw["edge_mask"]
+        keep_np = owned(kw_np)
         n = kw_np["num_nodes"]
         if kernel == "seg_softmax":
-            # a masked edge, and so every edge of an empty destination,
-            # weighs exactly 0 on both sides
-            empty = ~mask
-            what = f"{int(empty.sum())} masked edges exactly 0"
+            # a masked or out-of-range edge, and so every edge of an empty
+            # destination, weighs exactly 0 on both sides
+            empty = ~torch.from_numpy(keep_np).cuda()
+            what = (f"{int(empty.sum())} masked or out-of-range edges "
+                    f"exactly 0")
         else:
             reached = np.zeros(n, bool)
-            reached[kw_np["receivers"][kw_np["edge_mask"]]] = True
+            reached[kw_np["receivers"][keep_np]] = True
             empty = ~torch.from_numpy(reached).cuda()
             what = (f"{int(empty.sum())} empty destinations exactly "
                     + ", ".join(f"{s} {SCATTER_EMPTY[s]:g}" for s in out))
@@ -751,35 +855,383 @@ def scatter_kernel_phase(card: str, kernel: str, main_inputs):
         log("kernels", f"{kernel} {name}: N={n} E x width={shape} "
             f"outputs {'+'.join(out)}; max_abs_err={err:.3e} "
             f"max_rel_err={rel:.3e} tol: {tol}; {what}; ok")
-        runs = [scatter_kernel(kernel, kw)] + [
-            scatter_kernel(kernel, kw, rows_per_block=rpb)
-            for rpb in (1, 3, 16)]
-        torch.cuda.synchronize()
-        for r in runs:
-            if not all(torch.equal(r[k], out[k]) for k in out):
-                raise AssertionError(f"{kernel} {name} is not bitwise stable "
-                                     f"across runs and rows-per-block")
-        bound, bound_by, nbytes, flops = scatter_bound(kernel, kw_np)
-        ms, call_ms = time_ms(lambda: scatter_kernel(kernel, kw))
-        plain_ms, plain_call_ms = time_ms(lambda: scatter_plain(kernel, kw))
-        lib = library_call(kernel, kw, plain)
-        lib_ms = None if lib is None else time_ms(lib)[0]
-        rows[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
-                      "plain_ms": plain_ms, "call_ms": call_ms,
-                      "plain_call_ms": plain_call_ms, "bound_ms": bound,
-                      "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-                      "library_ms": lib_ms}
-        lib_txt = ("" if lib_ms is None else
-                   f"; library index_add_ (atomics, order not fixed) "
-                   f"{lib_ms * 1e3:.2f} us")
-        log("kernels", f"{kernel} {name}: bitwise equal across 2 runs and at "
-            f"1, 3 and 16 rows/block; device time kernel {ms * 1e3:.2f} us, "
-            f"plain {plain_ms * 1e3:.2f} us{lib_txt}; one call with host "
-            f"dispatch kernel {call_ms * 1e3:.1f} us, plain "
-            f"{plain_call_ms * 1e3:.1f} us; bound {bound * 1e3:.3f} us "
-            f"({bound_by}: {nbytes / 1e6:.3f} MB, {flops / 1e6:.3f} MFLOP) "
-            f"on {card}")
+        label = f"{kernel} {name}"
+        bitwise_stable("kernels", label,
+                       lambda **extra: scatter_kernel(kernel, kw, **extra),
+                       out)
+        rows[name] = timed_row(card, "kernels", label,
+                               lambda: scatter_kernel(kernel, kw),
+                               lambda: scatter_plain(kernel, kw),
+                               scatter_bound(kernel, kw_np), err=err, rel=rel,
+                               library=library_call(kernel, kw, plain),
+                               library_txt=INDEX_ADD_TXT)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the NT kernels: nt_mlp and fused_nt_scatter
+# ---------------------------------------------------------------------------
+
+GIN_MLP = (100, 200, 100)          # the paper's GIN update MLP
+STD_MLP = (64, 128, 64)            # the standard point's MLP
+MLP_POSITIONAL = ("x", "w1", "b1", "w2", "b2")
+FUSED_POSITIONAL = MLP_POSITIONAL + ("senders", "receivers", "edge_mask",
+                                     "edge_feat")
+
+
+def nt_case(seed, n, mlp, edges=None):
+    """Numpy inputs of one nt_mlp call and, given an edge stream (senders,
+    receivers, edge_mask), of one fused_nt_scatter call: x, glorot weights,
+    small biases, and random edge features."""
+    r = np.random.default_rng(seed)
+    d_in, d_ff, d = mlp
+    kw = {"x": r.normal(size=(n, d_in)).astype(np.float32),
+          "w1": glorot(r, d_in, d_ff),
+          "b1": (0.1 * r.normal(size=(d_ff,))).astype(np.float32),
+          "w2": glorot(r, d_ff, d),
+          "b2": (0.1 * r.normal(size=(d,))).astype(np.float32)}
+    if edges is not None:
+        kw["senders"], kw["receivers"], kw["edge_mask"] = edges
+        kw["edge_feat"] = r.normal(size=(len(edges[0]), d)).astype(
+            np.float32)
+    return kw
+
+
+def mlp_flops(kw):
+    """The MLP's operations: both products, the two biases and the relu."""
+    n = kw["x"].shape[0]
+    d_in, d_ff = kw["w1"].shape
+    d = kw["w2"].shape[1]
+    return 2 * n * (d_in * d_ff + d_ff * d) + 2 * n * d_ff + n * d
+
+
+def nt_bound(kw):
+    """The least time (ms) the card could take for this call, the larger of
+    two. Bytes at the memory rate: x and the weights read once, the edge
+    mask once, the unmasked in-range edges' indices (at INDEX_BYTES) and
+    features once, the f32 output written once. Operations at the fp32
+    rate: the MLP's (``mlp_flops``), then per such edge and lane the add,
+    the relu and the sum."""
+    n = kw["x"].shape[0]
+    d = kw["w2"].shape[1]
+    nbytes = sum(kw[k].nbytes for k in MLP_POSITIONAL) + 4 * n * d
+    flops = mlp_flops(kw)
+    if "senders" in kw:
+        keep = (kw["edge_mask"] & (kw["senders"] >= 0) & (kw["senders"] < n)
+                & (kw["receivers"] >= 0) & (kw["receivers"] < n))
+        valid = int(keep.sum())
+        nbytes += kw["edge_mask"].nbytes + valid * (2 * INDEX_BYTES + 4 * d)
+        flops += 3 * valid * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def nt_phase(card: str, graphs):
+    """nt_mlp and fused_nt_scatter driven through their ``ops`` entry
+    points at GIN's widths on the serving buckets' graphs and at the
+    standard point, with the launch counts set to 0 just before and read
+    just after; then each against its plain version, fused_nt_scatter also
+    against nt_mlp followed by mp_pipeline's relu(y[src] + edge_term) sum,
+    both bitwise across runs and rows per block, and timed. ``graphs``
+    maps a bucket's name to its padded graph's (senders, receivers,
+    edge_mask) in numpy."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mp_pipeline import mp_pipeline
+    r = np.random.default_rng(21)
+    n_std, e_std = 1024, 4096
+    standard = (r.integers(0, n_std, size=e_std).astype(np.int64),
+                r.integers(0, n_std - 64, size=e_std).astype(np.int64),
+                r.random(e_std) < 0.8)
+    cases = {
+        "nt_mlp": {
+            "a_gin_molhiv_bucket": nt_case(31, 32, GIN_MLP),
+            "b_gin_hep_bucket": nt_case(32, 64, GIN_MLP),
+            "c_gin_n1024": nt_case(33, 1024, GIN_MLP),
+            "d_standard_point": nt_case(34, 1024, STD_MLP),
+        },
+        "fused_nt_scatter": {
+            "a_gin_molhiv_bucket": nt_case(35, 32, GIN_MLP,
+                                           graphs["molhiv_bucket"]),
+            "b_gin_hep_bucket": nt_case(36, 64, GIN_MLP,
+                                        graphs["hep_bucket"]),
+            "c_standard_point": nt_case(37, n_std, STD_MLP, standard),
+        },
+    }
+    dev = {k: {name: on_device(kw, "cuda") for name, kw in c.items()}
+           for k, c in cases.items()}
+
+    def run(kernel, kw, **extra):
+        if kernel == "nt_mlp":
+            return call(ops.nt_mlp, kw, MLP_POSITIONAL, node_tile=32,
+                        k_tile=kw["x"].shape[1], **extra)
+        return call(ops.fused_nt_scatter, kw, FUSED_POSITIONAL,
+                    node_tile=32, **extra)
+
+    def plain(kernel, kw):
+        if kernel == "nt_mlp":
+            return call(ops.nt_mlp_ref, kw, MLP_POSITIONAL)
+        # the oracle's order: edge_feat before edge_mask
+        return call(ops.fused_nt_scatter_ref, kw, MLP_POSITIONAL + (
+            "senders", "receivers", "edge_feat", "edge_mask"))
+
+    # the path: every case once through the entry points
+    outs, launches = counted(lambda: {
+        k: {name: run(k, kw) for name, kw in c.items()}
+        for k, c in dev.items()})
+    check_launches("nt", "ops.nt_mlp and ops.fused_nt_scatter on every case",
+                   launches, {"nt_mlp": len(cases["nt_mlp"]),
+                              "fused_nt_scatter":
+                                  2 * len(cases["fused_nt_scatter"])},
+                   "one a call, two a call")
+
+    tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
+    rows = {k: {} for k in cases}
+    for kernel, kcases in dev.items():
+        for name, kw in kcases.items():
+            kw_np = cases[kernel][name]
+            out = outs[kernel][name]
+            want = plain(kernel, kw)
+            torch.cuda.synchronize()
+            n, d = out.shape
+            if out.dtype != torch.float32 or tuple(want.shape) != (n, d):
+                raise AssertionError(f"{kernel} {name}: output {out.dtype} "
+                                     f"{tuple(out.shape)}")
+            err, rel, ok = close(out, want)
+            if not ok:
+                raise AssertionError(f"{kernel} {name} disagrees with its "
+                                     f"plain version ({err:.3e})")
+            extra = ""
+            if kernel == "fused_nt_scatter":
+                # the same function through the two kernels' own wrappers
+                y = run("nt_mlp", {k_: kw[k_] for k_ in MLP_POSITIONAL})
+                two = mp_pipeline(y, kw["senders"], kw["receivers"],
+                                  kw["edge_mask"], n, stats=("sum",),
+                                  edge_term=kw["edge_feat"],
+                                  activation="relu")["sum"]
+                torch.cuda.synchronize()
+                e2, _, ok2 = close(out, two)
+                if not ok2:
+                    raise AssertionError(f"fused_nt_scatter {name} disagrees "
+                                         f"with nt_mlp + mp_pipeline "
+                                         f"({e2:.3e})")
+                extra = (f"; vs nt_mlp + mp_pipeline max_abs_err={e2:.3e}"
+                         f"{' (bitwise equal)' if torch.equal(out, two) else ''}")
+            e_txt = (f" E={kw_np['senders'].shape[0]}"
+                     if "senders" in kw_np else "")
+            label = f"{kernel} {name}"
+            log("nt", f"{label}: N={n}{e_txt} MLP "
+                f"{kw_np['w1'].shape[0]}->{kw_np['w1'].shape[1]}->{d}; "
+                f"max_abs_err={err:.3e} max_rel_err={rel:.3e} tol: {tol}"
+                f"{extra}; ok")
+            bitwise_stable("nt", label,
+                           lambda **extra: run(kernel, kw, **extra), out)
+            chain = None
+            if kernel == "nt_mlp":
+                # no one PyTorch call computes it: cuBLAS's three calls
+                x, w1, b1, w2, b2 = (kw[k] for k in MLP_POSITIONAL)
+
+                def chain():
+                    return torch.addmm(b2, torch.addmm(b1, x, w1).relu_(),
+                                       w2)
+                c = chain()
+                torch.cuda.synchronize()
+                if not close(c, want)[2]:
+                    raise AssertionError(f"nt_mlp {name}: the addmm chain "
+                                         f"disagrees with the plain version")
+            rows[kernel][name] = timed_row(
+                card, "nt", label, lambda: run(kernel, kw),
+                lambda: plain(kernel, kw), nt_bound(kw_np), err=err, rel=rel,
+                library=chain, library_key="three_calls_ms",
+                library_txt="three calls addmm -> relu_ -> addmm (cuBLAS, "
+                            "TF32 off)")
+    return rows, {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# the MoE data path at olmoe-1b-7b's width
+# ---------------------------------------------------------------------------
+
+# olmoe-1b-7b (repro/configs/archs.py, arXiv:2409.02060): 64 experts,
+# top-8, moe_d_ff 1024, silu, at d_model 2048; nn/moe.py's capacity factor
+# 1.25 and bf16 activations; one token group of 1,024 tokens
+OLMOE = {"d_model": 2048, "experts": 64, "top_k": 8, "moe_d_ff": 1024,
+         "capacity_factor": 1.25, "tokens": 1024, "shared_direction": 0.2}
+
+
+def capacity(tokens: int, k: int, experts: int, cf: float) -> int:
+    """Slots per expert, as ``nn/moe.py::_capacity``."""
+    c = int(math.ceil(tokens * k / experts * cf))
+    return max(8, (c + 7) // 8 * 8)
+
+
+def route(x, rw, k: int, cap: int):
+    """Top-k routing binned as ``nn/moe.py`` bins it, every expert local
+    (bank_start 0): the assignments sorted by expert (stable), each one's
+    rank in its expert, owned while the rank is under capacity; an
+    assignment that is not owned points at the trash slot E * cap, one past
+    the buffer. Returns (token_ids, slot, own, weights), each (T*k,)."""
+    import torch
+    t, e_total = x.shape[0], rw.shape[1]
+    probs = torch.softmax(x.float() @ rw, dim=-1)
+    top_w, top_i = torch.topk(probs, k)
+    flat_e = top_i.reshape(-1)
+    flat_t = torch.arange(t, device=x.device).repeat_interleave(k)
+    order = torch.sort(flat_e, stable=True).indices
+    se, st, sw = flat_e[order], flat_t[order], top_w.reshape(-1)[order]
+    starts = torch.searchsorted(se, torch.arange(e_total, device=x.device))
+    rank = torch.arange(t * k, device=x.device) - starts[se]
+    own = rank < cap
+    slot = torch.where(own, se * cap + rank, e_total * cap)
+    return st, slot, own, sw
+
+
+def expert_ffn(buf, wg, wu, wd):
+    """The SwiGLU expert FFN over the (E * cap, d) buffer, batched by
+    expert in bf16 (``torch.bmm``; JAX computes it outside any kernel)."""
+    import torch
+    e, d = wg.shape[0], buf.shape[1]
+    b = buf.reshape(e, -1, d)
+    h = torch.nn.functional.silu(torch.bmm(b, wg)) * torch.bmm(b, wu)
+    return torch.bmm(h, wd).reshape(-1, d)
+
+
+def moe_phase(card: str):
+    """The MoE data path at olmoe-1b-7b's full width: one token group
+    routed, dispatched, through the experts and combined, with the launch
+    counts set to 0 just before and read just after; then its kernels
+    against their plain versions, the combine against a float64 sum on the
+    host, the dispatch under a permutation of the assignments, and the
+    three kernel calls timed."""
+    import torch
+    from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+    from repro_torch.kernels.mp_scatter import mp_scatter_ref
+    t, d, e_total = OLMOE["tokens"], OLMOE["d_model"], OLMOE["experts"]
+    k, ff = OLMOE["top_k"], OLMOE["moe_d_ff"]
+    cap = capacity(t, k, e_total, OLMOE["capacity_factor"])
+    slots = e_total * cap
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=dtype) * scale
+
+    # the tokens share a direction (a fifth of their scale), as hidden
+    # states do, so the router loads the experts unevenly and some
+    # assignments pass capacity
+    x = (randn(t, d) + randn(d, scale=OLMOE["shared_direction"])).to(bf16)
+    rw = randn(d, e_total, scale=d ** -0.5)
+    wg = randn(e_total, d, ff, scale=d ** -0.5, dtype=bf16)
+    wu = randn(e_total, d, ff, scale=d ** -0.5, dtype=bf16)
+    wd = randn(e_total, ff, d, scale=ff ** -0.5, dtype=bf16)
+    st, slot, own, sw = route(x, rw, k, cap)
+    s = st.shape[0]
+    dropped = float((~own).float().mean())
+    log("moe", f"olmoe-1b-7b width: T={t} tokens, d_model={d}, "
+        f"{e_total} experts, top-{k}, moe_d_ff={ff}, capacity {cap} "
+        f"(factor {OLMOE['capacity_factor']}): {slots} slots, S={s} "
+        f"assignments, {int((~own).sum())} past capacity "
+        f"(drop share {dropped:.4f}) pointing at the trash slot {slots}; "
+        f"expert weights {3 * wg.numel() * 2 / 1e9:.3f} GB bf16")
+    if not bool((~own).any()):
+        raise AssertionError("no assignment passed capacity: the trash slot "
+                             "is not exercised")
+
+    # the path, once, with the counts from 0
+    def path():
+        buf = moe_dispatch(x, st, slot, own, slots)
+        y = expert_ffn(buf, wg, wu, wd)
+        return buf, y, moe_combine(y, st, slot, own, sw, t)
+    (buf, y, out), launches = counted(path)
+    check_launches("moe", "dispatch -> expert FFN -> combine", launches,
+                   {"mp_scatter": 2, "gather_rows": 1},
+                   "one mp_scatter a dispatch, one gather_rows and one "
+                   "mp_scatter a combine")
+    if (buf.dtype != bf16 or tuple(buf.shape) != (slots, d)
+            or out.dtype != torch.float32 or tuple(out.shape) != (t, d)
+            or not bool(torch.isfinite(out).all())):
+        raise AssertionError(f"MoE path: buffer {buf.dtype} "
+                             f"{tuple(buf.shape)}, output {out.dtype} "
+                             f"{tuple(out.shape)}")
+
+    # the checks; these launches are not the path's
+    msg = x[st]
+    plain_buf = mp_scatter_ref(msg, slot, own, slots).to(bf16)
+    gathered = gather_rows(y, slot, own)
+    plain_gathered = gather_rows_ref(y, slot, own)
+    cmsg = plain_gathered * sw[:, None]
+    plain_out = mp_scatter_ref(cmsg, st, own, t)
+    perm = torch.randperm(s, generator=torch.Generator().manual_seed(1))
+    perm = perm.to("cuda")
+    buf_perm = moe_dispatch(x, st[perm], slot[perm], own[perm], slots)
+    torch.cuda.synchronize()
+    if not torch.equal(buf, plain_buf):
+        raise AssertionError("MoE dispatch: the buffer is not bitwise the "
+                             "plain path's")
+    if not torch.equal(buf, buf_perm):
+        raise AssertionError("MoE dispatch: the buffer changed under a "
+                             "permutation of the assignments")
+    if not torch.equal(gathered, plain_gathered):
+        raise AssertionError("gather_rows: not bitwise its plain version")
+    err, rel, ok = close(out, plain_out)
+    keep = own.cpu()
+    f64 = torch.float64
+    host = torch.zeros((t, d), dtype=f64).index_add_(
+        0, st.cpu()[keep], sw.cpu().to(f64)[keep, None]
+        * y.cpu().to(f64)[slot.cpu()[keep]])
+    err64, rel64, ok64 = close(out.cpu().to(f64), host)
+    tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
+    log("moe", f"dispatch buffer bitwise equal to the plain path and under "
+        f"a permutation of the {s} assignments; gather_rows bitwise equal "
+        f"to its plain version; combine max_abs_err={err:.3e} "
+        f"(max_rel_err={rel:.3e}) vs the plain path, {err64:.3e} "
+        f"({rel64:.3e}) vs a float64 sum of w * y[slot] on the host, tol: "
+        f"{tol}; {'ok' if ok and ok64 else 'FAIL'}")
+    if not (ok and ok64):
+        raise AssertionError("MoE combine disagrees with its references")
+
+    # the three kernel calls of the path, timed at its shapes
+    idx_safe = slot.clamp(max=slots - 1)
+    dispatch_kw = dict(msg=msg, receivers=slot, edge_mask=own,
+                       num_nodes=slots)
+    combine_kw = dict(msg=cmsg, receivers=st, edge_mask=own, num_nodes=t)
+    valid = int(own.sum())
+    gather_bytes = s + valid * (INDEX_BYTES + d * y.element_size()) + s * d * 4
+    rows = {
+        "moe_dispatch_bf16": timed_row(
+            card, "moe", "mp_scatter moe_dispatch_bf16",
+            lambda: scatter_kernel("mp_scatter", dispatch_kw),
+            lambda: scatter_plain("mp_scatter", dispatch_kw),
+            scatter_bound("mp_scatter", dispatch_kw),
+            err=float((buf.float() - plain_buf.float()).abs().max()),
+            library=library_call("mp_scatter", dispatch_kw,
+                                 {"sum": plain_buf}),
+            library_txt=INDEX_ADD_TXT),
+        "moe_gather": timed_row(
+            card, "moe", "gather_rows moe_gather",
+            lambda: gather_rows(y, slot, own),
+            lambda: gather_rows_ref(y, slot, own),
+            (gather_bytes / PEAK_BYTES_PER_S * 1e3, "bytes", gather_bytes, 0),
+            err=float((gathered - plain_gathered).abs().max()),
+            library=lambda: torch.index_select(y, 0, idx_safe),
+            library_txt="library torch.index_select (bf16 rows out, no "
+                        "mask, indices clamped)"),
+        "moe_combine_f32": timed_row(
+            card, "moe", "mp_scatter moe_combine_f32",
+            lambda: scatter_kernel("mp_scatter", combine_kw),
+            lambda: scatter_plain("mp_scatter", combine_kw),
+            scatter_bound("mp_scatter", combine_kw), err=err, rel=rel,
+            library=library_call("mp_scatter", combine_kw,
+                                 {"sum": plain_out}),
+            library_txt=INDEX_ADD_TXT),
+    }
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return rows, {"launches": launches, "drop_share": dropped}
 
 
 # ---------------------------------------------------------------------------
@@ -838,10 +1290,6 @@ def serve_path(card: str, name: str, impl: str, graphs, *,
     import torch
     from repro_torch.core.engine import GraphStreamEngine
     from repro_torch.core.message_passing import DataflowConfig
-    from repro_torch.kernels.layer_fused import layer_fused
-    from repro_torch.kernels.mp_pipeline import mp_pipeline
-    from repro_torch.kernels.mp_scatter import mp_scatter, mp_scatter_multi
-    from repro_torch.kernels.seg_softmax import seg_softmax
 
     cfg, params = init_params(name, "cuda")
     warm = [graphs[0], graphs[-1]]             # one graph per kind of bucket
@@ -852,25 +1300,20 @@ def serve_path(card: str, name: str, impl: str, graphs, *,
 
     engine = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
                                device="cuda")
-    kernels = {"layer_fused": layer_fused, "mp_pipeline": mp_pipeline,
-               "mp_scatter": mp_scatter, "mp_scatter_multi": mp_scatter_multi,
-               "seg_softmax": seg_softmax}
-    for fn in kernels.values():
-        fn.launches = 0
-    for g in warm:
-        engine.warmup(*args(g))
-    t0 = time.perf_counter()
-    preds = [engine.process(*args(g)) for g in graphs]
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+
+    def serve():
+        for g in warm:
+            engine.warmup(*args(g))
+        t0 = time.perf_counter()
+        preds = [engine.process(*args(g)) for g in graphs]
+        return preds, time.perf_counter() - t0
+    (preds, wall), launches = counted(serve)
     served = len(graphs) + len(warm)
-    expected = {k: per_graph.get(k, 0) * served for k in kernels}
     log("slice", f"{label}: served {len(graphs)} graphs (+{len(warm)} "
-        f"warmup) in {wall:.3f} s; launches {launches} (expected "
-        f"{expected}: {per_graph} per graph x {served})")
-    if launches != expected:
-        raise AssertionError(f"{label}: the main path did not run the "
-                             f"expected kernel launches")
+        f"warmup) in {wall:.3f} s")
+    check_launches("slice", label, launches,
+                   {k: v * served for k, v in per_graph.items()},
+                   f"{per_graph} per graph x {served}")
     log("slice", f"{label}: edge passes per bucket {engine.edge_passes}")
     if set(engine.edge_passes.values()) != {passes}:
         raise AssertionError(f"{label}: expected {passes} passes over the "
@@ -1044,7 +1487,8 @@ def main() -> int:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build(["layer_fused", "mp_pipeline", "mp_scatter",
-                        "seg_softmax"])
+                        "seg_softmax", "gather_rows", "nt_mlp",
+                        "fused_nt_scatter"])
     log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1070,6 +1514,7 @@ def main() -> int:
              "mp_scatter_multi": (("pna", "kernel"), ("dgn", "kernel")),
              "seg_softmax": (("gat", "kernel"),)}
     main_inputs = {kernel: {} for kernel in users}
+    bucket_edges = {}
     for key, bucket, g in (
             ("e", "molhiv_bucket", next(molhiv_like(seed=0, n_graphs=1))),
             ("f", "hep_bucket", next(hep_like(seed=2, n_graphs=1)))):
@@ -1077,6 +1522,9 @@ def main() -> int:
             g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
             node_pos=g.node_pos, node_pad=pad_bucket(g.node_feat.shape[0]),
             edge_pad=pad_bucket(g.senders.shape[0]), device="cuda")
+        bucket_edges[bucket] = tuple(
+            t.cpu().numpy() for t in (batch.senders, batch.receivers,
+                                      batch.edge_mask))
         for kernel, runs in users.items():
             for name, impl in runs:
                 for l, kw in enumerate(main_path_inputs(name, impl, kernel,
@@ -1093,8 +1541,15 @@ def main() -> int:
     # 4. the slice end to end
     paths = slice_phase(card)
 
-    # 5. result: each kernel's row at the hep bucket, the largest shape the
-    # main path gives it, and its launches in its main path's run
+    # 5. the NT kernels through their entry points, 6. the MoE data path
+    nt_rows, paths["nt"] = nt_phase(card, bucket_edges)
+    moe_rows, paths["moe_olmoe"] = moe_phase(card)
+    scatter_rows["mp_scatter"].update(
+        {k: v for k, v in moe_rows.items() if k != "moe_gather"})
+
+    # 7. result: each kernel's row at the largest shape its main path gives
+    # it (the hep bucket for the GNN kernels), and its launches in its main
+    # path's run
     def row(name, source, replaces, cases, main, path, shape):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -1103,6 +1558,8 @@ def main() -> int:
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],
                 "library_ms": main.get("library_ms"),
+                **({"three_calls_ms": main["three_calls_ms"]}
+                   if main.get("three_calls_ms") is not None else {}),
                 "call_ms": main["call_ms"],
                 "plain_call_ms": main["plain_call_ms"], "shape": shape,
                 "main_path": path,
@@ -1110,7 +1567,8 @@ def main() -> int:
                                      for k, v in paths.items()},
                 "cases": {k: {m: v.get(m) for m in (
                     "ms", "plain_ms", "bound_ms", "library_ms",
-                    "max_abs_err")} for k, v in cases.items()}}
+                    "three_calls_ms", "max_abs_err") if m in v}
+                          for k, v in cases.items()}}
 
     kernels = [
         row("layer_fused", "src/repro_torch/kernels/csrc/layer_fused.cu",
@@ -1143,6 +1601,22 @@ def main() -> int:
             "gat_kernel",
             "GAT's first layer at the hep bucket: E=1024, H=4, N=64; "
             "both launches"),
+        row("nt_mlp", "src/repro_torch/kernels/csrc/nt_mlp.cu",
+            "src/repro/kernels/nt_mlp.py:49", nt_rows["nt_mlp"],
+            nt_rows["nt_mlp"]["c_gin_n1024"], "nt",
+            "GIN's MLP 100->200->100 at N=1024"),
+        row("fused_nt_scatter",
+            "src/repro_torch/kernels/csrc/fused_nt_scatter.cu",
+            "src/repro/kernels/fused_nt_scatter.py:74",
+            nt_rows["fused_nt_scatter"],
+            nt_rows["fused_nt_scatter"]["c_standard_point"], "nt",
+            "N=1024, E=4096, MLP 64->128->64; both launches"),
+        row("gather_rows", "src/repro_torch/kernels/csrc/gather_rows.cu",
+            "src/repro/kernels/gather_rows.py:48",
+            {"moe_gather": moe_rows["moe_gather"]},
+            moe_rows["moe_gather"], "moe_olmoe",
+            "olmoe-1b-7b combine: S=8192 rows of y (10240, 2048) bf16, "
+            "f32 out"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,6 +14,14 @@
 // a null output pointer switching its statistic off. Empty destinations
 // keep the accumulators' neutrals: 0, -inf and +inf (mp_pipeline's keyed
 // extrema use the finite -+1e30 instead; this contract is the reference's).
+// Receivers outside [0, n) are never owned and add nothing.
+//
+// Messages are float32 or bfloat16 (the MoE dispatch's tokens). Either is
+// widened on load and accumulated in float32. mp_scatter_launch returns
+// the messages' dtype, as the reference (which accumulates in f32 and casts
+// with astype, round to nearest even): bfloat16 sums are rounded here with
+// __float2bfloat16_rn, not written as f32 for a cast to finish. The multi
+// sweep's outputs are always the raw f32 accumulators.
 //
 // The Pallas kernels route each edge tile through a one-hot matrix on the
 // TPU's matrix unit (_route_matrix) and take max / min by an (edge_tile,
@@ -26,7 +34,10 @@
 // mask, the outputs. At the hep serving bucket (N = 64, E = 1024, ~800
 // unmasked) GIN's D = 100 sum is ~0.35 MB, ~0.10 us at 3.35 TB/s; PNA's
 // four statistics at D = 80 ~0.10 us; DGN's D = 200 sum ~0.21 us. All far
-// below a launch: launch latency and the serial sweep rule.
+// below a launch: launch latency and the serial sweep rule. The MoE
+// dispatch (olmoe-1b-7b, 8,192 bf16 rows of D = 2048 into 10,240 slots) is
+// bound by bytes at ~22 us; there shared memory holds ~20 rows a block, so
+// 512 blocks each sweep all 8,192 receivers.
 //
 // Design (simple and right first; speed is later work), as mp_pipeline.cu:
 //   * Owner computes. Block b owns destination rows [b*R, b*R + R) and sweeps
@@ -42,6 +53,7 @@
 //   * The launchers return cudaGetLastError(); they allocate nothing and do
 //     not synchronise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -54,17 +66,24 @@ using owned::kEdgeTile;
 using owned::kThreads;
 constexpr int kUnroll = 4;        // edges whose loads are issued together
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 struct Args {
-  const float* msg;      // (e, d)
+  const void* msg;       // (e, d) float or __nv_bfloat16
   const int64_t* rcv;    // (e,)
   const uint8_t* mask;   // (e,) bool
-  float* sum;            // (n, d) or null; each output null when not asked
+  void* sum;             // (n, d) float, or __nv_bfloat16 when sum_bf16;
+                         // each output null when not asked
   float* sumsq;          // (n, d)
   float* count;          // (n, 1)
   float* mx;             // (n, d)
   float* mn;             // (n, d)
   int n, e, d;
   int rows;              // destination rows one block owns
+  int sum_bf16;          // write sum as bfloat16 (round to nearest even)
 };
 
 size_t smem_bytes(const Args& p, int rows) {
@@ -75,9 +94,11 @@ size_t smem_bytes(const Args& p, int rows) {
   return floats * sizeof(float) + owned::kListBytes;
 }
 
+template <typename In>
 __global__ void __launch_bounds__(kThreads)
     mp_scatter_kernel(const __grid_constant__ Args p) {
   extern __shared__ float smem[];
+  const In* msg = static_cast<const In*>(p.msg);
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * p.rows;
   const int rows_here = min(p.rows, p.n - row0);
@@ -132,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
             v[u] = 0.f;
             if (i + u < total && list_r[i + u] % groups == group) {
               rr[u] = list_r[i + u];
-              v[u] = p.msg[(size_t)list_e[i + u] * p.d + dd];
+              v[u] = widen(msg[(size_t)list_e[i + u] * p.d + dd]);
             }
           }
 #pragma unroll
@@ -157,7 +178,14 @@ __global__ void __launch_bounds__(kThreads)
   // write the block's rows
   const size_t out0 = (size_t)row0 * p.d;
   for (int i = tid; i < rows_here * p.d; i += kThreads) {
-    if (a_sum) p.sum[out0 + i] = a_sum[i];
+    if (a_sum) {
+      if (p.sum_bf16) {
+        static_cast<__nv_bfloat16*>(p.sum)[out0 + i] =
+            __float2bfloat16_rn(a_sum[i]);
+      } else {
+        static_cast<float*>(p.sum)[out0 + i] = a_sum[i];
+      }
+    }
     if (a_sumsq) p.sumsq[out0 + i] = a_sumsq[i];
     if (a_max) p.mx[out0 + i] = a_max[i];
     if (a_min) p.mn[out0 + i] = a_min[i];
@@ -167,58 +195,67 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int launch(Args& p, int rows, void* stream) {
+template <typename In>
+int launch_as(const Args& p, size_t smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mp_scatter_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (p.n + p.rows - 1) / p.rows;
+  mp_scatter_kernel<In><<<blocks, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(Args& p, int rows, int bf16, void* stream) {
   if (p.d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (p.n <= 0) return 0;
   p.rows = rows > 0 ? rows : owned::default_rows(
                                  p.n, [&](int r) { return smem_bytes(p, r); });
   const size_t smem = smem_bytes(p, p.rows);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mp_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (p.n + p.rows - 1) / p.rows;
-  mp_scatter_kernel<<<blocks, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? launch_as<__nv_bfloat16>(p, smem, stream)
+              : launch_as<float>(p, smem, stream);
 }
 
 }  // namespace
 
-// Scatter-sum msg (e, d) f32 into out (n, d) f32 over the unmasked edges,
-// on `stream`. rows <= 0 lets the kernel choose the rows a block owns.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Scatter-sum msg (e, d) into out (n, d) over the unmasked edges, on
+// `stream`: both f32, or both bf16 when bf16 != 0 (f32 accumulation). rows
+// <= 0 lets the kernel choose the rows a block owns. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int mp_scatter_launch(const void* msg, const void* rcv,
                                  const void* mask, void* out, int n, int e,
-                                 int d, int rows, void* stream) {
+                                 int d, int rows, int bf16, void* stream) {
   Args p = {};
-  p.msg = static_cast<const float*>(msg);
+  p.msg = msg;
   p.rcv = static_cast<const int64_t*>(rcv);
   p.mask = static_cast<const uint8_t*>(mask);
-  p.sum = static_cast<float*>(out);
+  p.sum = out;
+  p.sum_bf16 = bf16 != 0;
   p.n = n;
   p.e = e;
   p.d = d;
   if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(p, rows, stream);
+  return launch(p, rows, bf16, stream);
 }
 
 // The multi-statistic sweep on `stream`: each non-null output gets its
-// statistic (sum, sumsq, max, min of (n, d); count of (n, 1)), all f32.
-// rows <= 0 lets the kernel choose. Returns cudaGetLastError() after the
-// launch (0 on success).
+// statistic (sum, sumsq, max, min of (n, d); count of (n, 1)), all f32,
+// from f32 messages, or bf16 ones when bf16 != 0. rows <= 0 lets the
+// kernel choose. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int mp_scatter_multi_launch(const void* msg, const void* rcv,
                                        const void* mask, void* sum,
                                        void* sumsq, void* count, void* mx,
                                        void* mn, int n, int e, int d,
-                                       int rows, void* stream) {
+                                       int rows, int bf16, void* stream) {
   Args p = {};
-  p.msg = static_cast<const float*>(msg);
+  p.msg = msg;
   p.rcv = static_cast<const int64_t*>(rcv);
   p.mask = static_cast<const uint8_t*>(mask);
-  p.sum = static_cast<float*>(sum);
+  p.sum = sum;
   p.sumsq = static_cast<float*>(sumsq);
   p.count = static_cast<float*>(count);
   p.mx = static_cast<float*>(mx);
@@ -229,5 +266,5 @@ extern "C" int mp_scatter_multi_launch(const void* msg, const void* rcv,
   if (!sum && !sumsq && !count && !mx && !mn) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch(p, rows, stream);
+  return launch(p, rows, bf16, stream);
 }

@@ -9,12 +9,18 @@ The twin of ``repro/kernels/mp_scatter.py``. Given per-edge messages
     (``MULTI_STATS``): ``sum``, ``sumsq``, ``count`` (N, 1), ``max`` and
     ``min``, whose empty destinations hold -inf and +inf.
 
+Edges whose receiver lies outside [0, N) add nothing, masked or not, as
+in the JAX kernels and oracles (the MoE dispatch points its dropped
+assignments one past the buffer).
+
 The tile knobs (``node_tile``, ``edge_tile``, ``num_banks``) describe the
 TPU kernels' grids; they are accepted and the result does not depend on
 them. Each wrapper takes its plain version (``mp_scatter_ref``,
 ``mp_scatter_multi_ref``) for tensors on the CPU. For CUDA tensors it
 launches the hand-written kernel ``csrc/mp_scatter.cu`` or raises; its
-``.launches`` counts those launches.
+``.launches`` counts those launches. On the card the messages are float32
+or bfloat16 (read as such, accumulated in float32); ``mp_scatter`` writes
+bfloat16 sums itself, rounded to nearest even.
 """
 
 from __future__ import annotations
@@ -33,12 +39,26 @@ from repro_torch.kernels.mp_pipeline import (launch_ptr, seg_extreme_rows,
 MULTI_STATS = ("sum", "sumsq", "count", "max", "min")
 
 
+# the dtypes the CUDA kernels read messages in
+CUDA_MSG_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def owned_stream(receivers: torch.Tensor, edge_mask: torch.Tensor,
+                 num_nodes: int):
+    """The edges that count, ``edge_mask`` and a receiver in [0, N), and
+    the receivers with every other edge sent to row 0 (where the caller
+    adds its neutral), so that the scatter ops stay in bounds."""
+    own = edge_mask & (receivers >= 0) & (receivers < num_nodes)
+    return own, torch.where(own, receivers, 0)
+
+
 def mp_scatter_ref(msg: torch.Tensor, receivers: torch.Tensor,
                    edge_mask: torch.Tensor, num_nodes: int) -> torch.Tensor:
     """Masked scatter-sum of per-edge messages into per-node rows (f32)."""
+    own, rcv = owned_stream(receivers, edge_mask, num_nodes)
     return seg_sum_rows(
-        torch.where(edge_mask[:, None], msg, 0.0).to(torch.float32),
-        receivers, num_nodes)
+        torch.where(own[:, None], msg, 0.0).to(torch.float32), rcv,
+        num_nodes)
 
 
 def mp_scatter_multi_ref(msg: torch.Tensor, receivers: torch.Tensor,
@@ -48,7 +68,8 @@ def mp_scatter_multi_ref(msg: torch.Tensor, receivers: torch.Tensor,
     keyed by name in ``MULTI_STATS`` order; max / min of empty destinations
     are -inf / +inf, as the kernel's."""
     m32 = msg.to(torch.float32)
-    own = edge_mask[:, None]
+    own, receivers = owned_stream(receivers, edge_mask, num_nodes)
+    own = own[:, None]
     zero = torch.where(own, m32, 0.0)
     out = {}
     if "sum" in stats:
@@ -132,7 +153,7 @@ def _kernel(multi: bool):
         # without argtypes ctypes passes every int as a 32-bit C int:
         # pointers are cut and the stream slot holds garbage
         outs = 5 if multi else 1
-        fn.argtypes = ([ctypes.c_void_p] * (3 + outs) + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * (3 + outs) + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -148,17 +169,24 @@ def _launch(msg, receivers, edge_mask, num_nodes, stats, rows_per_block, *,
         raise ValueError("mp_scatter indexes edges and node rows with int32")
     if rows_per_block is not None and rows_per_block < 1:
         raise ValueError("rows_per_block must be >= 1")
+    if msg.dtype not in CUDA_MSG_DTYPES:
+        raise ValueError(f"msg must be one of {CUDA_MSG_DTYPES} on the card, "
+                         f"got {msg.dtype}")
     f32 = torch.float32
     need = functools.partial(launch_ptr, dev)
-    ptrs = (need(msg, "msg", f32, (e, d)),
+    ptrs = (need(msg, "msg", msg.dtype, (e, d)),
             need(receivers, "receivers", torch.int64, (e,)),
             need(edge_mask, "edge_mask", torch.bool, (e,)))
     widths = {"sum": d, "sumsq": d, "count": 1, "max": d, "min": d}
-    out = {s: torch.empty((num_nodes, widths[s]), dtype=f32, device=dev)
+    # the multi sweep returns raw f32 accumulators; the sum alone comes
+    # back in the messages' dtype, as the reference's mp_scatter
+    out = {s: torch.empty((num_nodes, widths[s]),
+                          dtype=f32 if multi else msg.dtype, device=dev)
            for s in stats}
     outs = ([out[s].data_ptr() if s in out else None for s in MULTI_STATS]
             if multi else [out["sum"].data_ptr()])
     err = _kernel(multi)(*ptrs, *outs, num_nodes, e, d, rows_per_block or 0,
+                         int(msg.dtype == torch.bfloat16),
                          torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         name = "mp_scatter_multi" if multi else "mp_scatter"

@@ -5,9 +5,12 @@ Each wrapper launches its hand-written CUDA kernel for CUDA tensors (or
 raises) and runs the kernel's plain PyTorch version for CPU tensors; the
 dispatch lives in the kernel's own module. Ported: ``layer_fused`` (self
 term, degree scalers and directional field epilogues), ``mp_pipeline``,
-``mp_scatter``, ``mp_scatter_multi`` and ``seg_softmax``; the other TPU
-kernels are listed in ROADMAP queue 2. The plain versions are re-exported
-beside them for tests and ``chip_smoke.py``.
+``mp_scatter`` (float32 and bfloat16 messages), ``mp_scatter_multi``,
+``seg_softmax``, ``nt_mlp``, ``fused_nt_scatter`` and, in their own
+modules, ``gather_rows`` and the MoE path that composes it with
+``mp_scatter`` (``moe_dispatch.py``). ``flash_attention`` is left (ROADMAP
+queue 2). The plain versions are re-exported beside them for tests and
+``chip_smoke.py``.
 """
 
 from typing import Dict, Optional
@@ -15,10 +18,13 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import mp_scatter as _mp_scatter
+from repro_torch.kernels.fused_nt_scatter import (fused_nt_scatter,
+                                                  fused_nt_scatter_ref)
 from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
 from repro_torch.kernels.mp_pipeline import mp_pipeline, mp_pipeline_ref
 from repro_torch.kernels.mp_scatter import (mp_scatter, mp_scatter_multi_ref,
                                             mp_scatter_ref)
+from repro_torch.kernels.nt_mlp import nt_mlp, nt_mlp_ref
 from repro_torch.kernels.seg_softmax import seg_softmax, segment_softmax_ref
 
 
@@ -39,7 +45,7 @@ def mp_scatter_multi(msg, receivers, edge_mask, num_nodes, *,
         rows_per_block=rows_per_block)
 
 
-__all__ = ["layer_fused", "layer_fused_ref", "mp_pipeline",
-           "mp_pipeline_ref", "mp_scatter", "mp_scatter_multi",
-           "mp_scatter_multi_ref", "mp_scatter_ref", "seg_softmax",
-           "segment_softmax_ref"]
+__all__ = ["fused_nt_scatter", "fused_nt_scatter_ref", "layer_fused",
+           "layer_fused_ref", "mp_pipeline", "mp_pipeline_ref", "mp_scatter",
+           "mp_scatter_multi", "mp_scatter_multi_ref", "mp_scatter_ref",
+           "nt_mlp", "nt_mlp_ref", "seg_softmax", "segment_softmax_ref"]

@@ -4,8 +4,9 @@ version.
 The twin of ``repro/kernels/seg_softmax.py``: for logits (E,) or (E, H),
 each destination's unmasked incoming edges are normalised per head,
 ``exp(l - max) / sum exp(l - max)``, with the statistics in float32 and the
-result in ``logits.dtype``. Masked edges and the edges of destinations no
-unmasked edge reaches get exactly 0.
+result in ``logits.dtype``. Masked edges, edges whose receiver lies
+outside [0, N), and the edges of destinations no unmasked edge reaches get
+exactly 0.
 
 ``seg_softmax`` takes its plain version ``segment_softmax_ref`` for tensors
 on the CPU. For CUDA tensors it runs the hand-written kernels of
@@ -26,13 +27,17 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mp_pipeline import launch_ptr
+from repro_torch.kernels.mp_scatter import owned_stream
 
 
 def segment_softmax_ref(logits: torch.Tensor, receivers: torch.Tensor,
                         edge_mask: torch.Tensor,
                         num_nodes: int) -> torch.Tensor:
-    """Per-destination softmax, plain version. logits: (E,) or (E, H)."""
-    m = edge_mask if logits.ndim == 1 else edge_mask[:, None]
+    """Per-destination softmax, plain version. logits: (E,) or (E, H).
+    An edge whose receiver lies outside [0, N) weighs 0, as in the JAX
+    kernel (whose oracle gathers a clipped row's statistics instead)."""
+    own, receivers = owned_stream(receivers, edge_mask, num_nodes)
+    m = own if logits.ndim == 1 else own[:, None]
     l32 = logits.to(torch.float32)
     neg = torch.where(m, l32, -torch.inf)
     idx = receivers if l32.ndim == 1 else receivers[:, None].expand_as(l32)

@@ -228,3 +228,55 @@ def test_cuda_kernel_matches_plain_version(case):
     assert (sums[0][n - 32:] == 0).all()
     for a, b in itertools.pairwise(sums):
         assert torch.equal(a, b)
+
+
+OUT_OF_RANGE_KERNELS = ("mp_scatter", "mp_scatter_multi", "seg_softmax")
+
+
+def _out_of_range_problem(e=160, d=6, n=32, seed=5, mask_p=0.8):
+    """Receivers spread over [-4, N + 12): edges outside [0, N), masked or
+    not, as the MoE dispatch's trash slot ``E_loc * capacity`` is. N is a
+    multiple of every bank count used, so no receiver lands in the JAX
+    kernels' padding rows."""
+    r = np.random.default_rng(seed)
+    return {"msg": r.normal(size=(e, d)).astype(np.float32),
+            "receivers": r.integers(-4, n + 12, size=e).astype(np.int64),
+            "edge_mask": r.random(e) < mask_p}
+
+
+@pytest.mark.parametrize("masked", [True, False],
+                         ids=["masked", "unmasked"])
+@pytest.mark.parametrize("kernel", OUT_OF_RANGE_KERNELS)
+def test_out_of_range_receivers_are_dropped(jops, kernel, masked):
+    """Edges whose receiver lies outside [0, N) add nothing, as in the
+    interpret-mode JAX kernels; the plain versions used to raise on them
+    (``index_add_`` / ``scatter_reduce``: index out of bounds)."""
+    n = 32
+    p = _out_of_range_problem(n=n)
+    outside = (p["receivers"] < 0) | (p["receivers"] >= n)
+    assert outside.sum() > 10
+    p["edge_mask"][outside] = not masked
+    msg, rcv, mask = _torch(p)
+    jm, jr, jk = _jnp(p)
+    if kernel == "mp_scatter":
+        ours = {"sum": tops.mp_scatter(msg, rcv, mask, n)}
+        kern = {"sum": jops.mp_scatter(jm, jr, jk, n, edge_tile=32,
+                                       num_banks=4)}
+    elif kernel == "mp_scatter_multi":
+        ours = tops.mp_scatter_multi(msg, rcv, mask, n, **_flags(ALL_STATS))
+        kern = jops.mp_scatter_multi(jm, jr, jk, n, **_flags(ALL_STATS),
+                                     edge_tile=32, num_banks=4)
+    else:
+        ours = {"w": tops.seg_softmax(msg[:, :2], rcv, mask, n)}
+        kern = {"w": jops.seg_softmax(jm[:, :2], jr, jk, n, edge_tile=32,
+                                      num_banks=4)}
+        assert (ours["w"].numpy()[outside] == 0.0).all()
+    for name, v in ours.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(kern[name]),
+                                   err_msg=name, **TOL)
+    if kernel != "seg_softmax":
+        # the same as the in-range edges alone
+        keep = ~outside
+        q = {k: v[keep] for k, v in p.items()}
+        inside = tops.mp_scatter(*_torch(q), n)
+        np.testing.assert_array_equal(ours["sum"].numpy(), inside.numpy())
