@@ -6,24 +6,30 @@
 Phases, each printing its own lines:
 
   1. device  — a CUDA device must be present; prints ``nvidia-smi``'s name
-               and power limit; TF32 off for every fp32 product.
+               and power limit; TF32 off for every fp32 product, and no
+               reduced-precision reductions in bf16 products.
   2. build   — builds every CUDA kernel of the paths from ``src/
-               repro_torch/kernels/csrc`` with nvcc (all seven sources at
+               repro_torch/kernels/csrc`` with nvcc (all eight sources at
                once).
   3. kernels — each kernel against its plain PyTorch version on the card,
                at stated tolerances, bitwise across runs and launch shapes,
                empty destinations exact; kernel, plain and bound times. The
                cases: synthetic ones at N=1024 (997), and the inputs every
                path of phase 4 hands its kernel in its first two layers at
-               both serving buckets, recorded at the wrapper. For
-               layer_fused's scalers (PNA) and field (DGN) forms an identity
-               first layer also reads out the epilogue's input row, whose
-               empty destinations must equal the plain version's exactly.
+               both serving buckets, recorded at the wrapper. For every
+               layer_fused case an identity first layer also reads out the
+               dense layer's input row (the self term's sum; the scalers or
+               field row), whose empty destinations must equal the plain
+               version's exactly.
                The scatter kernels of impl='kernel' (mp_scatter,
                mp_scatter_multi, seg_softmax) also on an empty-destination
                tail, a fully masked stream and receivers outside [0, N)
                (masked and not), with one PyTorch call's time beside
-               mp_scatter's (``index_add_``).
+               mp_scatter's (``index_add_``). ``mp_pipeline`` (five
+               statistics; attention) and ``layer_fused`` (self form) also
+               on receivers and senders outside [0, N) (ROADMAP queue 3's
+               input): a receiver there adds nothing, a sender there
+               gathers a zero row.
   4. slice   — the paper configs served end to end through
                ``GraphStreamEngine.process``, each path with the launch
                counts set to 0 just before it and read just after: GIN,
@@ -51,7 +57,23 @@ Phases, each printing its own lines:
                permutation, gather_rows bitwise, the combine against the
                plain path and a float64 sum on the host; the three calls
                timed beside ``index_add_`` / ``index_select``.
-  7. result  — one JSON line with every kernel's numbers, the card's
+  7. flash   — ``flash_attention`` against its plain version at llama3-8b's
+               prefill (B=1 in bf16 and float32; the LM path's B=2 in
+               bf16), gemma2-27b's local layer (8192 tokens, window 4096,
+               softcap 50 reached by scaled queries, bf16 and float32) and
+               causal Sq > Sk (rows that see no key are 0): bf16 within one
+               bf16 unit, float32 within 2e-5; at each shape the tolerance
+               fails planted faults (a skipped kv tile, the window or the
+               softcap ignored); bitwise across two runs; times beside the
+               bound and ``scaled_dot_product_attention`` where it computes
+               the same.
+  8. lm      — llama3-8b at full width: depth 2 in float32 against the plain
+               attention path; then ``serve_lm(full=True)``, all 32 layers in
+               bf16, B=2 prompts of 2048 tokens and 32 generated tokens each,
+               counts from 0 (prefill 32 ``flash_attention`` launches, decode
+               none), the last-position logits against the plain attention
+               path's, prefill ms and decode tokens/s.
+  9. result  — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -75,6 +97,7 @@ REPO = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA's data sheet) at the 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12        # dense, on the tensor cores
 
 # kernel vs plain version on the card: both fp32, sums in another order
 # (atomics in index_add_, blocked products in cuBLAS), so agreement to a
@@ -170,15 +193,17 @@ def bitwise_stable(phase: str, label: str, run, out,
 
 def timed_row(card: str, phase: str, label: str, kernel_fn, plain_fn, bound,
               *, err: float, rel=None, library=None, library_txt: str = "",
-              library_key: str = "library_ms") -> dict:
+              library_key: str = "library_ms", reps: int = 21,
+              inner: int = 20) -> dict:
     """Time one case: the kernel call ``kernel_fn``, its plain version
     ``plain_fn`` and, where there is one, the ``library`` call (stored
-    under ``library_key``); log them beside ``bound`` (ms, what bounds it,
-    bytes, operations) and return the case's row."""
+    under ``library_key``), each by ``time_ms(fn, reps, inner)``; log them
+    beside ``bound`` (ms, what bounds it, bytes, operations) and return the
+    case's row."""
     bound_ms, bound_by, nbytes, flops = bound
-    ms, call_ms = time_ms(kernel_fn)
-    plain_ms, plain_call_ms = time_ms(plain_fn)
-    lib_ms = None if library is None else time_ms(library)[0]
+    ms, call_ms = time_ms(kernel_fn, reps, inner)
+    plain_ms, plain_call_ms = time_ms(plain_fn, reps, inner)
+    lib_ms = None if library is None else time_ms(library, reps, inner)[0]
     row = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
            "plain_ms": plain_ms, "call_ms": call_ms,
            "plain_call_ms": plain_call_ms, "bound_ms": bound_ms,
@@ -199,6 +224,7 @@ def timed_row(card: str, phase: str, label: str, kernel_fn, plain_fn, bound,
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts the CUDA
     launches it makes in ``.launches``."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_nt_scatter import fused_nt_scatter
     from repro_torch.kernels.gather_rows import gather_rows
     from repro_torch.kernels.layer_fused import layer_fused
@@ -209,7 +235,8 @@ def kernel_wrappers() -> dict:
     return {"layer_fused": layer_fused, "mp_pipeline": mp_pipeline,
             "mp_scatter": mp_scatter, "mp_scatter_multi": mp_scatter_multi,
             "seg_softmax": seg_softmax, "gather_rows": gather_rows,
-            "nt_mlp": nt_mlp, "fused_nt_scatter": fused_nt_scatter}
+            "nt_mlp": nt_mlp, "fused_nt_scatter": fused_nt_scatter,
+            "flash_attention": flash_attention}
 
 
 def counted(run):
@@ -292,9 +319,48 @@ def lf_case(seed, n, e, d, d_ff, d_out=None, *, self_coeff="scalar",
     return kw
 
 
+def out_of_range_case(kernel: str, *, heads: int = 0):
+    """ROADMAP queue 3's input: ``default_rng(5)``, N=32, E=160, D=8, 80% of
+    the edges unmasked; a quarter of the receivers redrawn from [-4, 0) or
+    [N, N+12) and a quarter of the senders from [-4, 0) or [N, N+8). A
+    receiver outside [0, N) adds nothing; a sender there gathers a zero row
+    and still counts. ``mp_pipeline``: all five statistics, edge term,
+    bias and relu (or GAT's attention with ``heads``); ``layer_fused``: the
+    self form, self_coeff 1.5, w1 8 -> 16."""
+    r = np.random.default_rng(5)
+    n, e, d = 32, 160, 8
+    mp = kernel == "mp_pipeline"
+    kw = random_inputs(r, n, e, d, edge_term=not heads,
+                       bias=None if heads else ("bias" if mp else "phi_bias"))
+    for stream, past in (("receivers", 12), ("senders", 8)):
+        pick = r.random(e) < 0.25
+        draw = np.where(r.random(e) < 0.5, r.integers(-4, 0, size=e),
+                        r.integers(n, n + past, size=e))
+        kw[stream] = np.where(pick, draw, kw[stream]).astype(np.int64)
+    if mp:
+        kw["stats"] = ("sum", "count") if heads else ALL_STATS
+        kw["activation"] = "none" if heads else "relu"
+        if heads:
+            kw["att_src"] = r.normal(size=(n, heads)).astype(np.float32)
+            kw["att_dst"] = r.normal(size=(n, heads)).astype(np.float32)
+    else:
+        kw["w1"] = glorot(r, d, 16)
+        kw["b1"] = (0.1 * r.normal(size=(16,))).astype(np.float32)
+        kw["phi_activation"] = "relu"
+        kw["out_activation"] = "none"
+        kw["self_coeff"] = np.array([1.5], np.float32)
+    return kw
+
+
+def owned_edges(kw_np):
+    """The edges that count: unmasked, with a receiver in [0, N)."""
+    rcv = kw_np["receivers"]
+    return kw_np["edge_mask"] & (rcv >= 0) & (rcv < kw_np["num_nodes"])
+
+
 def degrees_of(kw):
-    """Masked in-degrees of a case's edge stream, as float32."""
-    return np.bincount(kw["receivers"][kw["edge_mask"]],
+    """In-degrees over a case's owned edges, as float32."""
+    return np.bincount(kw["receivers"][owned_edges(kw)],
                        minlength=kw["num_nodes"]).astype(np.float32)
 
 
@@ -434,11 +500,11 @@ def to_numpy(kw):
 
 
 def epilogue_rows_check(name, kw, kw_np, layer_fused, layer_fused_ref):
-    """The scalers or field epilogue's input row z, read out through an
-    identity first layer (each output one product by 1 among zeros, exact
-    on both sides): equal to the plain version's on the empty
-    destinations, within tolerance elsewhere. These launches are not on
-    the main path."""
+    """The first dense layer's input row z (the self term's sum, or the
+    scalers or field epilogue's row), read out through an identity first
+    layer (each output one product by 1 among zeros, exact on both sides):
+    equal to the plain version's on the empty destinations, within
+    tolerance elsewhere. These launches are not on the main path."""
     import torch
     d_in = kw_np["w1"].shape[0]
     probe = {k: v for k, v in kw.items() if k not in ("w2", "b2")}
@@ -482,6 +548,7 @@ def kernel_phase(card: str, main_inputs):
                                               empty_tail=64),
         "d_dgn_field_form": lf_field_case(6, 1024, 4096, 100,
                                           empty_tail=64),
+        "g_out_of_range_self_form": out_of_range_case("layer_fused"),
     }
     for name, kw in main_inputs.items():
         cases[name] = to_numpy(kw)
@@ -503,9 +570,7 @@ def kernel_phase(card: str, main_inputs):
         if not ok:
             raise AssertionError(f"layer_fused {name} disagrees with its "
                                  f"plain version")
-        if form != "self":
-            epilogue_rows_check(name, kw, kw_np, layer_fused,
-                                layer_fused_ref)
+        epilogue_rows_check(name, kw, kw_np, layer_fused, layer_fused_ref)
         label = f"layer_fused {name}"
         bitwise_stable("kernels", label,
                        lambda **extra: call(layer_fused, kw, **extra), out,
@@ -513,7 +578,9 @@ def kernel_phase(card: str, main_inputs):
         rows[name] = timed_row(card, "kernels", label,
                                lambda: call(layer_fused, kw),
                                lambda: call(layer_fused_ref, kw),
-                               lf_bound(kw_np), err=err, rel=rel)
+                               lf_bound(dict(kw_np,
+                                             edge_mask=owned_edges(kw_np))),
+                               err=err, rel=rel)
     return rows
 
 
@@ -589,6 +656,9 @@ def mp_kernel_phase(card: str, main_inputs):
         "d_attention_gat_width": mp_case(14, 1024, 4096, 64,
                                          stats=("sum", "count"), heads=4,
                                          empty_tail=64),
+        "g_out_of_range_all_stats": out_of_range_case("mp_pipeline"),
+        "h_out_of_range_attention": out_of_range_case("mp_pipeline",
+                                                      heads=2),
     }
     for name, kw in main_inputs.items():
         cases[name] = to_numpy(kw)
@@ -603,9 +673,7 @@ def mp_kernel_phase(card: str, main_inputs):
             raise AssertionError(f"mp_pipeline {name}: outputs {tuple(out)} "
                                  f"!= plain {tuple(plain)}")
         n = kw_np["x"].shape[0]
-        reached = np.zeros(n, bool)
-        reached[kw_np["receivers"][kw_np["edge_mask"]]] = True
-        reached = torch.from_numpy(reached).cuda()
+        reached = torch.from_numpy(degrees_of(kw_np) > 0).cuda()
         err, rel = 0.0, 0.0
         for stat, want in plain.items():
             got = out[stat]
@@ -631,7 +699,9 @@ def mp_kernel_phase(card: str, main_inputs):
         rows[name] = timed_row(card, "kernels", label,
                                lambda: call(mp_pipeline, kw),
                                lambda: call(mp_pipeline_ref, kw),
-                               mp_bound(kw_np), err=err, rel=rel)
+                               mp_bound(dict(kw_np,
+                                             edge_mask=owned_edges(kw_np))),
+                               err=err, rel=rel)
     return rows
 
 
@@ -1235,6 +1305,447 @@ def moe_phase(card: str):
 
 
 # ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# kernel vs plain version, |k - p| <= atol + rtol |p|. Both sides compute
+# in float32 and round the output once to q's dtype. In float32 they sum
+# in another order: the reference's 2e-5 (tests/test_kernels.py). In
+# bfloat16 the two float32 results (~1e-6 apart, relative) round to the
+# same value or, where they straddle a rounding point, to neighbours: one
+# bf16 unit, at most 2^-7 |p| (8 significant bits). The atol of 1e-5 is
+# for outputs so near 0 that float32's ~1e-7 absolute difference is a
+# large share of them; typical outputs are 0.03-0.07 at these shapes
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
+# (B, H, Sq, Sk, D, causal, window, softcap, q scale, dtype, library
+# call): llama3-8b's prefill (repro/configs/archs.py:50: 32 heads of 128,
+# the KV heads repeated) at B=1 and at the LM path's B=2; gemma2-27b's
+# local layer at 8192 tokens (archs.py:40: 32 heads of 128, window 4096,
+# attention softcap 50), where the window binds, with q scaled by 50 so
+# that the scores' spread (50) reaches the cap and tanh bends them (on
+# N(0, 1) scores a cap of 50 is close to the identity); causal Sq > Sk,
+# whose first Sq - Sk rows see no key
+FLASH_CASES = {
+    "a_llama3_8b_prefill_bf16": (1, 32, 2048, 2048, 128, True, None, None,
+                                 1.0, "bfloat16", "sdpa"),
+    "b_llama3_8b_prefill_f32": (1, 32, 2048, 2048, 128, True, None, None,
+                                1.0, "float32", "sdpa"),
+    "c_gemma2_27b_local_bf16": (1, 32, 8192, 8192, 128, True, 4096, 50.0,
+                                50.0, "bfloat16", None),
+    "d_rows_seeing_no_key_f32": (1, 2, 256, 128, 128, True, None, None,
+                                 1.0, "float32", None),
+    "e_lm_path_llama3_8b_b2_bf16": (2, 32, 2048, 2048, 128, True, None, None,
+                                    1.0, "bfloat16", "sdpa"),
+    "f_gemma2_27b_local_f32": (1, 32, 8192, 8192, 128, True, 4096, 50.0,
+                               50.0, "float32", None),
+}
+# the kernel's query rows per block and keys per staged tile
+# (csrc/flash_attention.cu kBlockQ, kBlockK)
+FLASH_BLOCK_Q, FLASH_BLOCK_K = 64, 64
+
+
+def flash_close(a, b, dtype: str):
+    """(max |a - b|, whether |a - b| <= atol + rtol |b| with ``a``
+    finite) under ``FLASH_TOL[dtype]``."""
+    import torch
+    rtol, atol = FLASH_TOL[dtype]
+    diff = (a.float() - b.float()).abs()
+    ok = bool((diff <= atol + rtol * b.float().abs()).all()
+              and torch.isfinite(a).all())
+    return float(diff.max()), ok
+
+
+def dense_attention(q, k, v, mask, softcap):
+    """One head's attention, q (Sq, D) over k, v (Sk, D) under an explicit
+    (Sq, Sk) ``mask``, by the plain version's rules (scale q first, float32
+    softmax, 0 for a row that sees no key), in q's dtype."""
+    import torch
+    f32 = torch.float32
+    s = (q.to(f32) / math.sqrt(q.shape[-1])) @ k.to(f32).T
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(mask, s, -1e30)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return ((p @ v.to(f32)) / l).to(q.dtype)
+
+
+def planted_faults(sq, sk, causal, window, softcap, device):
+    """{label: (mask, softcap)} of the faults the tolerance must see, as one
+    head's mask and softcap: the last query block skips one kv tile in the
+    middle of the keys every one of its rows sees; the window ignored; the
+    softcap ignored."""
+    from repro_torch.kernels.flash_attention import visible
+    mask = visible(sq, sk, causal=causal, window=window, device=device)
+    rows = slice(max(0, sq - FLASH_BLOCK_Q), sq)
+    seen = mask[rows].all(0)
+    tiles = [t for t in range(0, sk - FLASH_BLOCK_K + 1, FLASH_BLOCK_K)
+             if bool(seen[t:t + FLASH_BLOCK_K].all())]
+    faults = {}
+    if tiles:
+        mid = tiles[len(tiles) // 2]
+        skipped = mask.clone()
+        skipped[rows, mid:mid + FLASH_BLOCK_K] = False
+        faults[f"the last query block skips keys [{mid}, "
+               f"{mid + FLASH_BLOCK_K})"] = (skipped, softcap)
+    if window is not None:
+        faults["the window ignored"] = (
+            visible(sq, sk, causal=causal, window=None, device=device),
+            softcap)
+    if softcap is not None:
+        faults["the softcap ignored"] = (mask, None)
+    return mask, faults
+
+
+def check_planted_faults(name, q, k, v, out, ref, *, causal, window,
+                         softcap, dtype):
+    """The tolerance's own check on head (0, 0): the plain rules under the
+    true mask hold against the kernel's output, and each planted fault,
+    taken as if it were the kernel's output, fails against the plain
+    version's. Raise otherwise."""
+    sq, sk = q.shape[2], k.shape[2]
+    mask, faults = planted_faults(sq, sk, causal, window, softcap, q.device)
+    q0, k0, v0 = q[0, 0], k[0, 0], v[0, 0]
+    err, ok = flash_close(out[0, 0], dense_attention(q0, k0, v0, mask,
+                                                     softcap), dtype)
+    if not ok:
+        raise AssertionError(f"flash_attention {name}: head (0, 0) disagrees "
+                             f"with one head's plain rules ({err:.3e})")
+    seen = []
+    for label, (fmask, fcap) in faults.items():
+        err, ok = flash_close(dense_attention(q0, k0, v0, fmask, fcap),
+                              ref[0, 0], dtype)
+        if ok:
+            raise AssertionError(f"flash_attention {name}: the tolerance "
+                                 f"passes a planted fault, {label}")
+        seen.append(f"{label} ({err:.3e})")
+    log("flash", f"flash_attention {name}: the tolerance fails each planted "
+        f"fault on head (0, 0): {'; '.join(seen)}")
+
+
+SDPA_TXT = ("library torch.nn.functional.scaled_dot_product_attention "
+            "(is_causal; Sq = Sk, so its top-left alignment is the "
+            "kernel's end alignment)")
+
+
+def flash_bound(b, h, sq, sk, d, causal, window, dtype):
+    """The least time (ms): q, k, v and out once each at the memory rate,
+    or the two products (4 D operations per visible (query, key) pair,
+    the pairs this mask leaves) at the peak rate of the inputs' type
+    (bf16 on the tensor cores, float32 outside them); the softmax's few
+    operations per pair are left out (under 2% at D = 128)."""
+    import torch
+    from repro_torch.kernels.flash_attention import visible
+    pairs = int(visible(sq, sk, causal=causal, window=window,
+                        device="cuda").sum()) * b * h
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * size
+    flops = 4 * d * pairs
+    peak = PEAK_BF16_FLOP_PER_S if dtype == "bfloat16" else \
+        PEAK_FP32_FLOP_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    torch.cuda.synchronize()
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def flash_phase(card: str):
+    """``flash_attention`` against its plain version on the card at the LM
+    path's shapes, bitwise across two runs, timed beside its bound and,
+    where one call computes the same function, PyTorch's
+    ``scaled_dot_product_attention``. These launches are not the path's."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    rows = {}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for name, (b, h, sq, sk, d, causal, window, cap, q_scale, dtype,
+               lib) in FLASH_CASES.items():
+        dt = getattr(torch, dtype)
+        q = (torch.randn(b, h, sq, d, generator=g, device="cuda")
+             * q_scale).to(dt)
+        k = torch.randn(b, h, sk, d, generator=g, device="cuda").to(dt)
+        v = torch.randn(b, h, sk, d, generator=g, device="cuda").to(dt)
+        kw = dict(causal=causal, window=window, softcap=cap)
+
+        def kern():
+            return flash_attention(q, k, v, **kw, q_tile=sq, kv_tile=sk)
+
+        def plain():
+            return flash_attention_ref(q, k, v, **kw)
+
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        rtol, atol = FLASH_TOL[dtype]
+        err, ok = flash_close(out, ref, dtype)
+        zero_rows = ""
+        if sq > sk and causal:
+            blind = slice(0, sq - sk)
+            if not (bool((out[:, :, blind] == 0).all())
+                    and bool((ref[:, :, blind] == 0).all())):
+                raise AssertionError(f"flash_attention {name}: rows that "
+                                     f"see no key are not 0")
+            zero_rows = f"; the {sq - sk} rows that see no key are 0"
+        log("flash", f"flash_attention {name}: B={b} H={h} Sq={sq} Sk={sk} "
+            f"D={d} causal={causal} window={window} softcap={cap} "
+            f"q x{q_scale:g} {dtype}; max_abs_err={err:.3e} tol: |k-p| <= "
+            f"{atol:g} + {rtol:g}|p|{zero_rows}; {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention {name} disagrees with its "
+                                 f"plain version")
+        check_planted_faults(name, q, k, v, out, ref, causal=causal,
+                             window=window, softcap=cap, dtype=dtype)
+        again = kern()
+        torch.cuda.synchronize()
+        if not torch.equal(again, out):
+            raise AssertionError(f"flash_attention {name} is not bitwise "
+                                 f"stable across runs")
+        log("flash", f"flash_attention {name}: bitwise equal across 2 runs")
+        library = None
+        if lib == "sdpa":
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)
+        # calls over ~1 ms are timed with fewer repetitions
+        long = time_ms(plain, reps=1, inner=1)[0] > 1.0
+        rows[name] = timed_row(
+            card, "flash", f"flash_attention {name}", kern, plain,
+            flash_bound(b, h, sq, sk, d, causal, window, dtype), err=err,
+            library=library, library_txt=SDPA_TXT,
+            **(dict(reps=5, inner=3) if long else {}))
+        del q, k, v, out, ref, again
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the dense LM path: llama3-8b at full width
+# ---------------------------------------------------------------------------
+
+# the LM path's traffic: B prompts of S tokens from numpy's default_rng(0)
+# (serve_lm's own), then greedy decode to GEN tokens each
+LM_BATCH, LM_PROMPT, LM_GEN = 2, 2048, 32
+# the full path against the same path with attention through the plain
+# version, last-position logits, bf16 through 32 layers: each attention
+# output's bf16 rounding may differ by one unit (2^-8 relative) where the
+# two float32 results straddle a rounding point, and such differences
+# travel through 32 residual blocks and the unembedding. Held to 0.05 of
+# the logits' scale, the reference's bf16 kernel tolerance
+LM_BF16_TOL = 0.05
+# the same at depth 2 in float32, TF32 off: the kernel's and the plain
+# version's sums differ in order only (~1e-6 relative), through two blocks
+LM_F32_TOL = 2e-5
+
+
+def plain_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    q_tile=128, kv_tile=128):
+    """``ops.flash_attention`` routed to its plain version (tiles ignored):
+    the LM path's reference on the card."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+
+
+def with_attention(fn, run):
+    """``run()`` with ``ops.flash_attention`` replaced by ``fn``."""
+    from repro_torch.kernels import ops
+    real = ops.flash_attention
+    ops.flash_attention = fn
+    try:
+        return run()
+    finally:
+        ops.flash_attention = real
+
+
+def logits_close(label, a, b, tol):
+    """Raise unless ``a`` is finite and within ``tol`` of max(1, max|b|)
+    of ``b``; returns the error relative to that scale."""
+    err, rel, ok = close(a.float(), b.float(), rtol=0.0, atol_of_scale=tol)
+    log("lm", f"{label}: max_abs_err={err:.4e}, {rel:.3e} of the logits' "
+        f"scale (tol {tol:g}); {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the logits disagree")
+    return rel
+
+
+def profile_lm(card: str, label: str, cfg, *, prompt_len: int,
+               steps: int = 3):
+    """The LM path's prefill and ``steps`` decode steps under
+    ``torch.profiler`` (the weights drawn again from seed 0): wall time,
+    the card's busy time and share, kernels run, the top device and host
+    ops. Each decode step is timed again without the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+    caches = lm.init_caches(cfg, LM_BATCH, prompt_len + 2 * steps, "cuda")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, prompt_len))).cuda()
+    state = {"tok": None, "caches": caches, "pos": prompt_len}
+
+    def prefill():
+        logits, state["caches"] = lm.prefill(params, prompt, caches, cfg)
+        state["tok"] = torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None]
+
+    def decode():
+        for _ in range(steps):
+            logits, state["caches"] = lm.decode_step(
+                params, state["tok"], state["caches"], cfg,
+                position=state["pos"])
+            state["tok"] = torch.argmax(logits[:, :cfg.vocab_size],
+                                        -1)[:, None]
+            state["pos"] += 1
+
+    out = {}
+    for name, run, n in (("prefill", prefill, 1), ("decode", decode, steps)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_device, on_host = event_tables(prof)
+        busy_us = sum(t for t, _ in on_device.values())
+        kernels = sum(c for _, c in on_device.values())
+        out[name] = {"calls": n, "wall_ms": wall * 1e3,
+                     "device_busy_us": busy_us,
+                     "device_busy_share": busy_us / (wall * 1e6),
+                     "device_ops": kernels, "top_device": top(on_device, 8),
+                     "top_host": top(on_host, 6)}
+        log("profile", f"{label}: {name} ({n} call(s), profiler on) "
+            f"{wall * 1e3:.2f} ms wall, device busy {busy_us / 1e3:.2f} ms "
+            f"({out[name]['device_busy_share']:.1%}), {kernels / n:.0f} "
+            f"device ops a call, on {card}")
+        for side in ("top_device", "top_host"):
+            for row in out[name][side]:
+                log("profile", f"  {side[4:]:6} {row['us']:10.1f} us "
+                    f"x{row['count']:<5} {row['name']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    out["decode"]["step_ms_unprofiled"] = step_ms
+    log("profile", f"{label}: a decode step without the profiler "
+        f"{step_ms:.2f} ms")
+    return out
+
+
+def lm_phase(card: str):
+    """The dense LM path: llama3-8b (repro/configs/archs.py:50) at full
+    width. First a depth-2 float32 check of the kernel path against the
+    plain one; then ``serve_lm(full=True)`` in bf16, all 32 layers, with
+    the counts set to 0 just before and read just after (and per phase:
+    prefill, decode), and the same path with plain attention."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.distributed.sharding import param_bytes
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    # depth 2, float32, full width: the tight check
+    cfg = ARCHS["llama3-8b"].replace(num_layers=2, dtype=torch.float32)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).cuda()
+
+    def prefill32():
+        caches = lm.init_caches(cfg, LM_BATCH, LM_PROMPT + 1, "cuda")
+        return lm.prefill(params, prompt, caches, cfg)[0]
+    got = prefill32()
+    want = with_attention(plain_attention, prefill32)
+    f32_rel = logits_close("llama3-8b width, depth 2, float32: prefill's "
+                           "last-position logits, kernel vs plain attention",
+                           got, want, LM_F32_TOL)
+    del params, got, want
+    torch.cuda.empty_cache()
+
+    # the main path: full width and depth, bf16, counts per phase
+    per_phase = {"prefill": [], "decode": []}
+    real = {"prefill": lm.prefill, "decode": lm.decode_step}
+
+    def recording(phase):
+        wrappers = kernel_wrappers()
+
+        def run(*args, **kw):
+            before = {k: fn.launches for k, fn in wrappers.items()}
+            out = real[phase](*args, **kw)
+            per_phase[phase].append(
+                {k: fn.launches - before[k] for k, fn in wrappers.items()})
+            return out
+        return run
+
+    def serve_full():
+        return serve.serve_lm("llama3-8b", LM_GEN, batch=LM_BATCH,
+                              prompt_len=LM_PROMPT,
+                              max_len=LM_PROMPT + LM_GEN, full=True,
+                              device="cuda")
+
+    lm.prefill, lm.decode_step = recording("prefill"), recording("decode")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        stats, launches = counted(serve_full)
+    finally:
+        lm.prefill, lm.decode_step = real["prefill"], real["decode"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    full = ARCHS["llama3-8b"]
+    label = "llama3-8b full width and depth, bf16"
+    check_launches("lm", label, launches, {"flash_attention": full.num_layers},
+                   "one flash_attention per attention layer in the prefill, "
+                   "none in decode")
+
+    def summed(phase):
+        return {k: sum(c[k] for c in per_phase[phase])
+                for k in launches}
+    check_launches("lm", f"{label}: prefill", summed("prefill"),
+                   {"flash_attention": full.num_layers},
+                   "one per attention layer")
+    check_launches("lm", f"{label}: {len(per_phase['decode'])} decode steps",
+                   summed("decode"), {}, "dense decode attention, no kernel")
+    tokens, logits = stats["tokens"], stats["last_logits"]
+    if (tokens.shape != (LM_BATCH, LM_GEN)
+            or tuple(logits.shape) != (LM_BATCH, full.vocab_pad)):
+        raise AssertionError(f"{label}: tokens {tokens.shape}, logits "
+                             f"{tuple(logits.shape)}")
+    plain_stats = with_attention(plain_attention, serve_full)
+    bf16_rel = logits_close(f"{label}: prefill's last-position logits, "
+                            f"kernel vs plain attention", logits,
+                            plain_stats["last_logits"], LM_BF16_TOL)
+    agree = float((tokens == plain_stats["tokens"]).mean())
+    first = float((tokens[:, 0] == plain_stats["tokens"][:, 0]).mean())
+    kv_gb = (2 * full.num_layers * LM_BATCH * (LM_PROMPT + LM_GEN)
+             * full.num_kv_heads * full.head_dim * 2 / 1e9)
+    log("lm", f"{label}: B={LM_BATCH} prompts of {LM_PROMPT} tokens, "
+        f"{LM_GEN} generated each; greedy tokens equal to the plain path's: "
+        f"{agree:.3f} of all, {first:.3f} of the first (not gated: random "
+        f"weights give near-flat logits); weights "
+        f"{param_bytes(lm.lm_param_defs(full)) / 1e9:.2f} GB, "
+        f"KV cache {kv_gb:.3f} GB, peak allocated {peak_gb:.2f} GB")
+    log("lm", f"{label}: prefill {stats['prefill_s'] * 1e3:.2f} ms "
+        f"({LM_BATCH * LM_PROMPT} tokens), decode "
+        f"{stats['decode_tok_per_s']:.2f} tokens/s ({LM_GEN - 1} steps of "
+        f"B={LM_BATCH}, {stats['decode_s'] * 1e3:.2f} ms); plain attention: "
+        f"prefill {plain_stats['prefill_s'] * 1e3:.2f} ms, decode "
+        f"{plain_stats['decode_tok_per_s']:.2f} tokens/s; on {card}")
+    profiles = profile_lm(card, label, full, prompt_len=LM_PROMPT)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "profile": profiles,
+            "launches_prefill": summed("prefill"),
+            "launches_decode": summed("decode"),
+            "prefill_ms": stats["prefill_s"] * 1e3,
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "plain_prefill_ms": plain_stats["prefill_s"] * 1e3,
+            "plain_decode_tok_per_s": plain_stats["decode_tok_per_s"],
+            "logits_rel_err_bf16": bf16_rel, "logits_rel_err_f32": f32_rel,
+            "greedy_agreement": agree, "peak_allocated_gb": peak_gb}
+
+
+# ---------------------------------------------------------------------------
 # the slice, end to end
 # ---------------------------------------------------------------------------
 
@@ -1403,6 +1914,27 @@ def slice_phase(card: str):
             for name, impl, gs, per_graph, passes, profile in paths}
 
 
+def event_tables(prof):
+    """A profile's device events (kernel time) and host events (self CPU
+    time), each ``{name: (us, count)}``."""
+    import torch
+    on_device, on_host = {}, {}
+    for ev in prof.events():
+        cuda = ev.device_type == torch.autograd.DeviceType.CUDA
+        table = on_device if cuda else on_host
+        us = (ev.time_range.elapsed_us() if cuda
+              else ev.self_cpu_time_total)
+        t, c = table.get(ev.name, (0.0, 0))
+        table[ev.name] = (t + us, c + 1)
+    return on_device, on_host
+
+
+def top(table, k):
+    """The ``k`` entries of an event table with the most time."""
+    return [{"name": name[:70], "us": t, "count": c} for name, (t, c) in
+            sorted(table.items(), key=lambda kv: -kv[1][0])[:k]]
+
+
 def profile_serving(engine, graphs, args, card: str, label: str):
     """Device-busy share, the top device and host ops while serving
     ``graphs``, and the host's batch build (padding + copies) alone."""
@@ -1430,20 +1962,8 @@ def profile_serving(engine, graphs, args, card: str, label: str):
             engine.process(*args(g), record=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    on_device, on_host = {}, {}
-    for ev in prof.events():
-        cuda = ev.device_type == torch.autograd.DeviceType.CUDA
-        table = on_device if cuda else on_host
-        us = (ev.time_range.elapsed_us() if cuda
-              else ev.self_cpu_time_total)
-        t, c = table.get(ev.name, (0.0, 0))
-        table[ev.name] = (t + us, c + 1)
+    on_device, on_host = event_tables(prof)
     busy_us = sum(t for t, _ in on_device.values())
-
-    def top(table, k):
-        return [{"name": name[:70], "us": t, "count": c} for name, (t, c) in
-                sorted(table.items(), key=lambda kv: -kv[1][0])[:k]]
-
     out = {"graphs": len(graphs), "wall_ms": wall * 1e3,
            "build_ms_per_graph": build_ms, "device_busy_us": busy_us,
            "device_busy_share": busy_us / (wall * 1e6),
@@ -1482,13 +2002,14 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # 2. build
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build(["layer_fused", "mp_pipeline", "mp_scatter",
                         "seg_softmax", "gather_rows", "nt_mlp",
-                        "fused_nt_scatter"])
+                        "fused_nt_scatter", "flash_attention"])
     log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1547,7 +2068,12 @@ def main() -> int:
     scatter_rows["mp_scatter"].update(
         {k: v for k, v in moe_rows.items() if k != "moe_gather"})
 
-    # 7. result: each kernel's row at the largest shape its main path gives
+    # 7. flash_attention at the LM path's shapes, 8. the dense LM path at
+    # llama3-8b's full width
+    flash_rows = flash_phase(card)
+    paths["lm_llama3_8b"] = lm_phase(card)
+
+    # 9. result: each kernel's row at the largest shape its main path gives
     # it (the hep bucket for the GNN kernels), and its launches in its main
     # path's run
     def row(name, source, replaces, cases, main, path, shape):
@@ -1617,6 +2143,12 @@ def main() -> int:
             moe_rows["moe_gather"], "moe_olmoe",
             "olmoe-1b-7b combine: S=8192 rows of y (10240, 2048) bf16, "
             "f32 out"),
+        row("flash_attention",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:81", flash_rows,
+            flash_rows["e_lm_path_llama3_8b_b2_bf16"], "lm_llama3_8b",
+            "llama3-8b prefill attention: B=2, H=32 (KV heads repeated), "
+            "S=2048, D=128, causal, bf16"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

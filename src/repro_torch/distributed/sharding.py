@@ -1,0 +1,90 @@
+"""Parameter definitions and their initialisation.
+
+The twin of the single-device part of ``repro/distributed/sharding.py``:
+``ParamDef`` trees are the one source of parameter shapes, and
+``init_params`` fills them with ``_init_one``'s rule (normal with a fan-in
+scale unless the definition says zeros, ones or a constant). The logical
+axes, rule tables and meshes of the JAX module place tensors on a TPU mesh;
+one GPU has none, so a ``ParamDef`` here carries no axes.
+
+A tree is dicts, lists, tuples and ``NamedTuple``s of ``ParamDef`` leaves,
+with plain Python values (a cache's length) kept as they are.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"                   # normal | zeros | ones | constant
+    scale: Optional[float] = None          # stddev for normal (default fan-in)
+    constant: float = 0.0
+    dtype: Any = torch.bfloat16
+
+
+def map_defs(fn, tree: Any) -> Any:
+    """``fn`` on every ``ParamDef`` of ``tree`` in order (dict keys as
+    given, then sequences), the structure kept; other leaves unchanged."""
+    if isinstance(tree, ParamDef):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_defs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_defs(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_defs(fn, v) for v in tree)
+    return tree
+
+
+def init_one(generator: torch.Generator, d: ParamDef,
+             device: torch.device) -> torch.Tensor:
+    """One leaf by ``repro/distributed/sharding.py::_init_one``'s rule,
+    drawn in float32 from ``generator`` and cast to ``d.dtype``."""
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    if d.init == "constant":
+        return torch.full(d.shape, d.constant, dtype=d.dtype, device=device)
+    if d.scale is not None:
+        scale = d.scale
+    else:
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return w.mul_(scale).to(d.dtype)
+
+
+def init_params(generator: torch.Generator, defs: Any,
+                device: DeviceLike = None) -> Any:
+    """Every leaf of ``defs`` drawn from ``generator`` (which lives on
+    ``device``), in tree order. The numbers differ from ``jax.random``'s;
+    tests carry JAX weights over through numpy instead."""
+    dev = resolve_device(device)
+    return map_defs(lambda d: init_one(generator, d, dev), defs)
+
+
+def zeros_like_defs(defs: Any, device: DeviceLike = None) -> Any:
+    """Every leaf of ``defs`` as zeros on ``device`` (caches)."""
+    dev = resolve_device(device)
+    return map_defs(
+        lambda d: torch.zeros(d.shape, dtype=d.dtype, device=dev), defs)
+
+
+def param_bytes(defs: Any) -> int:
+    """Bytes the leaves of ``defs`` take in their dtypes."""
+    total = []
+    map_defs(lambda d: total.append(
+        math.prod(d.shape) * torch.empty((), dtype=d.dtype).element_size()),
+        defs)
+    return int(sum(total))

@@ -37,7 +37,10 @@
 //     time. Each thread classifies kEdgesPerThread consecutive edges; a
 //     block-wide scan compacts the owned, unmasked edges of the tile into a
 //     shared-memory list that keeps stream order. Masked edges never enter
-//     the list, so they contribute nothing, not even their edge_term.
+//     the list, so they contribute nothing, not even their edge_term; nor
+//     does an edge whose receiver lies outside [0, n) (no block owns it). A
+//     sender outside [0, n) enters as -1 and gathers a zero row (y is never
+//     read there), as the Pallas kernel's one-hot gather gives.
 //   * Threads run over the D lanes; with D <= blockDim there are
 //     blockDim / D groups of lanes and group g owns the rows r % groups == g;
 //     a wider D takes one group whose threads stride over the lanes. Every
@@ -123,8 +126,9 @@ size_t smem_bytes(int rows, int d, int d_in, int d_ff, bool two_layer,
          (kWarps + 1) * sizeof(int);
 }
 
+// s is -1 for a sender outside [0, n): its row reads as zeros
 __device__ __forceinline__ float phi(const Args& p, int e, int s, int dd) {
-  float v = p.y[(size_t)s * p.d + dd];
+  float v = s >= 0 ? p.y[(size_t)s * p.d + dd] : 0.f;
   if (p.sw_mode == kSwScalar) {
     v = __fmul_rn(v, p.sw[e]);
   } else if (p.sw_mode == kSwFull) {
@@ -264,7 +268,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < kEdgesPerThread; ++k) {
       if (local[k] >= 0) {
         list_e[slot] = e0 + k;
-        list_s[slot] = static_cast<int>(p.snd[e0 + k]);
+        // a sender outside [0, n) gathers a zero row (the Pallas kernel's
+        // one-hot gather); -1 marks it so that y is never read there
+        const int64_t s = p.snd[e0 + k];
+        list_s[slot] = (s >= 0 && s < p.n) ? static_cast<int>(s) : -1;
         list_r[slot] = local[k];
         ++slot;
       }

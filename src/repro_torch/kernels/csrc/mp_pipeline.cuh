@@ -41,7 +41,11 @@
 //     the whole edge stream in stream order, a tile of kEdgeTile edges at a
 //     time. A block-wide scan compacts the owned, unmasked edges of the tile
 //     into a shared-memory list that keeps stream order. Masked edges (the
-//     padding points at node 0) never enter the list.
+//     padding points at node 0) never enter the list, nor does an edge whose
+//     receiver lies outside [0, n): no block owns it. A sender outside
+//     [0, n) enters as -1 and gathers a zero row (y and att_src are never
+//     read there), so phi = act(edge_term + bias) still counts, as the
+//     Pallas kernel's one-hot gather gives; check_src drops it instead.
 //   * Threads run over the D lanes; with D <= blockDim there are
 //     blockDim / D groups of lanes and group g owns the rows r % groups == g.
 //     Every (row, lane) of each f32 shared-memory accumulator is written by
@@ -113,8 +117,9 @@ size_t smem_bytes(const Args& p, int rows) {
          (kWarps + 1) * sizeof(int);
 }
 
+// s is -1 for a sender outside [0, n): its row reads as zeros
 __device__ __forceinline__ float phi(const Args& p, int e, int s, int dd) {
-  float v = p.y[(size_t)s * p.d + dd];
+  float v = s >= 0 ? p.y[(size_t)s * p.d + dd] : 0.f;
   if (p.sw_mode == kSwScalar) {
     v = __fmul_rn(v, p.sw[e]);
   } else if (p.sw_mode == kSwFull) {
@@ -224,7 +229,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < kEdgesPerThread; ++k) {
       if (local[k] >= 0) {
         list_e[slot] = e0 + k;
-        list_s[slot] = static_cast<int>(p.snd[e0 + k]);
+        // a sender outside [0, n) gathers a zero row (the Pallas kernel's
+        // one-hot gather); -1 marks it so that y is never read there
+        const int64_t s = p.snd[e0 + k];
+        list_s[slot] = (s >= 0 && s < p.n) ? static_cast<int>(s) : -1;
         list_r[slot] = local[k];
         ++slot;
       }
@@ -251,7 +259,7 @@ __global__ void __launch_bounds__(kThreads)
               v[u] = phi(p, list_e[i + u], s, dd);
               if (att) {
                 const float z = __fadd_rn(
-                    p.att_src[(size_t)s * p.heads + h],
+                    s >= 0 ? p.att_src[(size_t)s * p.heads + h] : 0.f,
                     p.att_dst[(size_t)(row0 + rr[u]) * p.heads + h]);
                 logit[u] = z >= 0.f ? z : __fmul_rn(p.slope, z);
               }

@@ -20,6 +20,10 @@ one of three epilogues:
 then ``out = act_out(mlp(z))`` with ``mlp`` one dense layer (w1, b1) or two
 with a ReLU between (w1, b1, w2, b2).
 
+Out-of-range indices follow the Pallas kernel: an edge whose receiver lies
+outside [0, N) adds nothing, and one whose sender does gathers a zero row
+of ``y`` and still counts.
+
 ``layer_fused`` takes its plain PyTorch version ``layer_fused_ref`` for
 tensors on the CPU. For CUDA tensors it launches the hand-written kernel
 ``csrc/layer_fused.cu`` or raises; ``layer_fused.launches`` counts those
@@ -37,8 +41,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.mp_pipeline import (_SW_MODES, BIG,
                                              apply_fusable_phi, launch_ptr,
-                                             seg_extreme_rows, seg_sum_rows,
-                                             src_weight_mode)
+                                             owned_stream, seg_extreme_rows,
+                                             seg_sum_rows, src_weight_mode)
 
 _EPILOGUES = {"self_mlp": 0, "scalers": 1, "field": 2}
 
@@ -115,7 +119,8 @@ def layer_fused_ref(x: torch.Tensor, senders: torch.Tensor,
     msg = apply_fusable_phi(y, senders, src_weight=src_weight,
                             edge_term=edge_term, bias=phi_bias,
                             activation=phi_activation)
-    own = edge_mask[:, None]
+    own, receivers = owned_stream(receivers, edge_mask, num_nodes)
+    own = own[:, None]
     m0 = torch.where(own, msg, 0.0)
     s1 = seg_sum_rows(m0, receivers, num_nodes)
     xf = x.to(f32)
@@ -170,11 +175,15 @@ def layer_fused(x: torch.Tensor, senders: torch.Tensor,
                 field_wsum: Optional[torch.Tensor] = None,
                 w2: Optional[torch.Tensor] = None,
                 b2: Optional[torch.Tensor] = None,
-                out_activation: str = "none",
+                out_activation: str = "none", edge_tile: int = 128,
+                num_banks: int = 4,
                 rows_per_block: Optional[int] = None) -> torch.Tensor:
     """One-launch GNN layer; returns (num_nodes, D_out) in ``x.dtype``.
 
     CPU tensors run ``layer_fused_ref``; CUDA tensors launch the kernel.
+    ``edge_tile`` and ``num_banks`` are the reference's TPU grid; they do
+    not bind on Hopper, are accepted with the reference's defaults and
+    change nothing.
     ``rows_per_block`` overrides how many destination rows one CUDA block
     owns, as far as shared memory allows (the kernel's own choice by
     default; the result does not depend on it).

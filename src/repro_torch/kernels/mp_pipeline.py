@@ -17,6 +17,11 @@ att_dst[rcv_e], slope), a running max and a rescaled denominator per
 followed by the carries ``att_max`` (-BIG when empty) and ``att_denom``
 (0 when empty), both (N, H).
 
+Out-of-range indices follow the Pallas kernel: an edge whose receiver lies
+outside [0, N) adds nothing, and one whose sender does gathers a zero row
+and still counts (phi = act(edge_term + bias); its attention source half
+is 0).
+
 ``mp_pipeline`` takes its plain version ``mp_pipeline_ref`` for tensors on
 the CPU. For CUDA tensors it launches the hand-written kernel
 ``csrc/mp_pipeline.cu`` or raises; ``mp_pipeline.launches`` counts those
@@ -60,13 +65,31 @@ def src_weight_mode(src_weight: torch.Tensor, d: int):
         f"src_weight width {h} must equal D={d} or divide it (per-head)")
 
 
+def owned_stream(receivers: torch.Tensor, edge_mask: torch.Tensor,
+                 num_nodes: int):
+    """The edges that count, ``edge_mask`` and a receiver in [0, N), and
+    the receivers with every other edge sent to row 0 (where the caller
+    adds its neutral), so that the scatter ops stay in bounds."""
+    own = edge_mask & (receivers >= 0) & (receivers < num_nodes)
+    return own, torch.where(own, receivers, 0)
+
+
+def src_rows(x: torch.Tensor, senders: torch.Tensor) -> torch.Tensor:
+    """``x[senders]`` with a zero row for a sender outside [0, N), as the
+    Pallas kernels' one-hot gather gives (no wrap of negative indices)."""
+    ok = (senders >= 0) & (senders < x.shape[0])
+    rows = x[torch.where(ok, senders, 0)]
+    return torch.where(ok.reshape(-1, *([1] * (rows.ndim - 1))), rows, 0)
+
+
 def apply_fusable_phi(x: torch.Tensor, senders: torch.Tensor, *,
                       src_weight: Optional[torch.Tensor] = None,
                       edge_term: Optional[torch.Tensor] = None,
                       bias: Optional[torch.Tensor] = None,
                       activation: str = "none") -> torch.Tensor:
-    """act(x[snd] * sw + et + b) in float32, terms applied in that order."""
-    msg = x[senders].to(torch.float32)
+    """act(x[snd] * sw + et + b) in float32, terms applied in that order;
+    a sender outside [0, N) reads a zero row."""
+    msg = src_rows(x, senders).to(torch.float32)
     if src_weight is not None:
         sw = src_weight.to(torch.float32)
         if sw.ndim == 1:
@@ -172,14 +195,17 @@ def mp_pipeline_ref(x: torch.Tensor, senders: torch.Tensor,
 
     The same contract: the ∓BIG neutral of empty-destination max/min, the
     attention carries (``att_max`` -BIG / ``att_denom`` 0 when empty) and
-    the softmax-weighted, normalised ``sum``. The softmax is two-pass here
-    (segment max, then exp and sums) where the kernel rescales online.
+    the softmax-weighted, normalised ``sum``, and the out-of-range rules of
+    the module docstring. The softmax is two-pass here (segment max, then
+    exp and sums) where the kernel rescales online.
     """
     msg = apply_fusable_phi(x, senders, src_weight=src_weight,
                             edge_term=edge_term, bias=bias,
                             activation=activation)
     e_n, d = msg.shape
-    own = edge_mask[:, None]
+    own, receivers = owned_stream(receivers, edge_mask, num_nodes)
+    count = own.to(torch.float32)[:, None]
+    own = own[:, None]
 
     def seg_sum(v):
         return seg_sum_rows(v, receivers, num_nodes)
@@ -192,7 +218,8 @@ def mp_pipeline_ref(x: torch.Tensor, senders: torch.Tensor,
     if att_src is not None:
         heads = att_src.shape[1]
         hd = d // heads
-        logits = (att_src[senders] + att_dst[receivers]).to(torch.float32)
+        logits = (src_rows(att_src, senders)
+                  + att_dst[receivers]).to(torch.float32)
         logits = torch.where(logits >= 0.0, logits, att_slope * logits)
         m = seg_ext(logits, -BIG, "amax")
         p = torch.where(own, torch.exp(logits - m[receivers]), 0.0)
@@ -210,7 +237,7 @@ def mp_pipeline_ref(x: torch.Tensor, senders: torch.Tensor,
         m0 = torch.where(own, msg, 0.0)
         out["sumsq"] = seg_sum(m0 * m0)
     if "count" in stats:
-        out["count"] = seg_sum(edge_mask.to(torch.float32)[:, None])
+        out["count"] = seg_sum(count)
     if "max" in stats:
         out["max"] = seg_ext(msg, -BIG, "amax")
     if "min" in stats:
@@ -228,8 +255,8 @@ def mp_pipeline(x: torch.Tensor, senders: torch.Tensor,
                 activation: str = "none",
                 att_src: Optional[torch.Tensor] = None,
                 att_dst: Optional[torch.Tensor] = None,
-                att_slope: float = 0.2,
-                rows_per_block: Optional[int] = None
+                att_slope: float = 0.2, edge_tile: int = 128,
+                num_banks: int = 4, rows_per_block: Optional[int] = None
                 ) -> Dict[str, torch.Tensor]:
     """One-launch edge phase: gather, fusable phi, multi-stat scatter.
 
@@ -237,9 +264,11 @@ def mp_pipeline(x: torch.Tensor, senders: torch.Tensor,
     ``MULTI_STATS`` order, then ``ATT_STATS`` when attention is on.
     Attention restricts ``stats`` to ("sum",) plus an optional "count".
     CPU tensors run ``mp_pipeline_ref``; CUDA tensors launch the kernel.
-    ``rows_per_block`` overrides how many destination rows one CUDA block
-    owns (the kernel's own choice by default; the result does not depend
-    on it).
+    ``edge_tile`` and ``num_banks`` are the reference's TPU grid (edge tile
+    and destination banks); they do not bind on Hopper, are accepted with
+    the reference's defaults and change nothing. ``rows_per_block``
+    overrides how many destination rows one CUDA block owns (the kernel's
+    own choice by default; the result does not depend on it).
     """
     stats, heads = _check_args(x, num_nodes, stats, activation, att_src,
                                att_dst)

@@ -32,8 +32,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mp_pipeline import (launch_ptr, seg_extreme_rows,
-                                             seg_sum_rows)
+from repro_torch.kernels.mp_pipeline import (launch_ptr, owned_stream,
+                                             seg_extreme_rows, seg_sum_rows)
 
 # Statistic names in the fixed output order of mp_scatter_multi.
 MULTI_STATS = ("sum", "sumsq", "count", "max", "min")
@@ -41,15 +41,6 @@ MULTI_STATS = ("sum", "sumsq", "count", "max", "min")
 
 # the dtypes the CUDA kernels read messages in
 CUDA_MSG_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def owned_stream(receivers: torch.Tensor, edge_mask: torch.Tensor,
-                 num_nodes: int):
-    """The edges that count, ``edge_mask`` and a receiver in [0, N), and
-    the receivers with every other edge sent to row 0 (where the caller
-    adds its neutral), so that the scatter ops stay in bounds."""
-    own = edge_mask & (receivers >= 0) & (receivers < num_nodes)
-    return own, torch.where(own, receivers, 0)
 
 
 def mp_scatter_ref(msg: torch.Tensor, receivers: torch.Tensor,

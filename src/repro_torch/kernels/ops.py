@@ -6,10 +6,10 @@ raises) and runs the kernel's plain PyTorch version for CPU tensors; the
 dispatch lives in the kernel's own module. Ported: ``layer_fused`` (self
 term, degree scalers and directional field epilogues), ``mp_pipeline``,
 ``mp_scatter`` (float32 and bfloat16 messages), ``mp_scatter_multi``,
-``seg_softmax``, ``nt_mlp``, ``fused_nt_scatter`` and, in their own
-modules, ``gather_rows`` and the MoE path that composes it with
-``mp_scatter`` (``moe_dispatch.py``). ``flash_attention`` is left (ROADMAP
-queue 2). The plain versions are re-exported beside them for tests and
+``seg_softmax``, ``nt_mlp``, ``fused_nt_scatter``, ``flash_attention``
+and, in their own modules, ``gather_rows`` and the MoE path that composes
+it with ``mp_scatter`` (``moe_dispatch.py``): every TPU kernel of the
+reference. The plain versions are re-exported beside them for tests and
 ``chip_smoke.py``.
 """
 
@@ -18,6 +18,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import mp_scatter as _mp_scatter
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
 from repro_torch.kernels.fused_nt_scatter import (fused_nt_scatter,
                                                   fused_nt_scatter_ref)
 from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
@@ -45,7 +47,8 @@ def mp_scatter_multi(msg, receivers, edge_mask, num_nodes, *,
         rows_per_block=rows_per_block)
 
 
-__all__ = ["fused_nt_scatter", "fused_nt_scatter_ref", "layer_fused",
+__all__ = ["flash_attention", "flash_attention_ref", "fused_nt_scatter",
+           "fused_nt_scatter_ref", "layer_fused",
            "layer_fused_ref", "mp_pipeline", "mp_pipeline_ref", "mp_scatter",
            "mp_scatter_multi", "mp_scatter_multi_ref", "mp_scatter_ref",
            "nt_mlp", "nt_mlp_ref", "seg_softmax", "segment_softmax_ref"]

@@ -26,8 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mp_pipeline import launch_ptr
-from repro_torch.kernels.mp_scatter import owned_stream
+from repro_torch.kernels.mp_pipeline import launch_ptr, owned_stream
 
 
 def segment_softmax_ref(logits: torch.Tensor, receivers: torch.Tensor,

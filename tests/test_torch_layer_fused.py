@@ -235,6 +235,51 @@ def test_dgn_form_matches_reference(jops, e, d, n, edge_tile, banks):
     assert ours.shape == (n, d)
 
 
+def _out_of_range_problem(case):
+    """ROADMAP queue 3's input (default_rng(5), N=32, E=160, D=8, the self
+    form with self_coeff 1.5 and w1 8->16), with a quarter of the edges'
+    receivers, senders or both redrawn outside [0, N): half at [-4, 0),
+    half at [N, N + 12) (receivers) or [N, N + 8) (senders)."""
+    e, d, n = 160, 8, 32
+    r = np.random.default_rng(5)
+    x, snd, rcv, mask = _problem(e, d, n, seed=5)
+    streams = {"receivers": (rcv, 12), "senders": (snd, 8)}
+    for name in (("receivers", "senders") if case == "both" else (case,)):
+        idx, past = streams[name]
+        pick = r.random(e) < 0.25
+        draw = np.where(r.random(e) < 0.5, r.integers(-4, 0, size=e),
+                        r.integers(n, n + past, size=e))
+        idx[:] = np.where(pick, draw, idx)
+    kw = dict(w1=r.normal(size=(d, 16)).astype(np.float32),
+              b1=r.normal(size=(16,)).astype(np.float32),
+              edge_term=r.normal(size=(e, d)).astype(np.float32),
+              phi_activation="relu", self_coeff=np.float32(1.5))
+    return (x, snd, rcv, mask, n), kw
+
+
+@pytest.mark.parametrize("case", ["receivers", "senders", "both"])
+def test_out_of_range_indices_follow_the_kernel(jops, case):
+    """A receiver outside [0, N) adds nothing; a sender there gathers a
+    zero row of y and still counts, as the interpret-mode Pallas kernel
+    gives."""
+    args, kw = _out_of_range_problem(case)
+    out, jargs, jkw = _both(*args, kw)
+    kern = np.asarray(jops.layer_fused(*jargs, **jkw, edge_tile=32,
+                                       num_banks=4))
+    np.testing.assert_allclose(out, kern, atol=1e-5, rtol=1e-5)
+
+
+def test_tile_keywords_are_accepted_and_change_nothing():
+    """``ops.layer_fused`` takes the reference's ``edge_tile`` and
+    ``num_banks``; they describe the TPU grid and change nothing here."""
+    r = np.random.default_rng(7)
+    x, snd, rcv, mask = _problem(200, 8, 30, seed=7)
+    kw = _gin_kw(r, 200, 8)
+    a = _port(x, snd, rcv, mask, 30, kw)
+    b = _port(x, snd, rcv, mask, 30, kw, edge_tile=64, num_banks=2)
+    assert torch.equal(a, b)
+
+
 def test_layer_fused_rejects_bad_input():
     x, snd, rcv, mask = (torch.from_numpy(a) for a in _problem())
     snd, rcv = snd.long(), rcv.long()
@@ -351,3 +396,16 @@ def test_cuda_kernel_matches_plain_version(e, d, n, form):
         assert torch.equal(z[empty], z_plain[empty])
         torch.testing.assert_close(z, z_plain, rtol=1e-4,
                                    atol=1e-4 * float(z_plain.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_follows_the_out_of_range_rules():
+    """The CUDA kernel against its plain version on receivers and senders
+    outside [0, N): fp32 sums and products in another order, so 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    args, kw = _out_of_range_problem("both")
+    out = _port(*args, kw, device="cuda")
+    plain = _port(*args, kw, fn=tlf.layer_fused_ref, device="cuda")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain, atol=1e-5, rtol=1e-5)

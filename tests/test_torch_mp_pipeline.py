@@ -137,6 +137,58 @@ def test_attention_matches_reference(jops, e, d, n, heads, stats):
     assert ours["att_max"].shape == ours["att_denom"].shape == (n, heads)
 
 
+# Indices outside [0, N) (ROADMAP queue 3's faults 1 and 2): the streams each
+# case redraws, and how far past N each stream's bad indices reach.
+OUT_OF_RANGE = {"receivers": ("receivers",), "senders": ("senders",),
+                "both": ("receivers", "senders")}
+PAST_N = {"receivers": 12, "senders": 8}
+
+
+def out_of_range(p, r, case):
+    """Point a quarter of the edges of ``p`` outside [0, N) in each stream
+    the case names: half of them at [-4, 0), half at [N, N + PAST_N)."""
+    n = p["x"].shape[0]
+    e = p["senders"].shape[0]
+    for stream in OUT_OF_RANGE[case]:
+        pick = r.random(e) < 0.25
+        draw = np.where(r.random(e) < 0.5, r.integers(-4, 0, size=e),
+                        r.integers(n, n + PAST_N[stream], size=e))
+        p[stream] = np.where(pick, draw, p[stream]).astype(np.int32)
+
+
+@pytest.mark.parametrize("attention", [False, True])
+@pytest.mark.parametrize("case", sorted(OUT_OF_RANGE))
+def test_out_of_range_indices_follow_the_kernel(jops, case, attention):
+    """An edge whose receiver lies outside [0, N) adds nothing; one whose
+    sender does gathers a zero row and still counts (its attention source
+    half is 0), as the interpret-mode Pallas kernel gives. Its oracle wraps
+    or clips senders, so the port holds to the kernel alone."""
+    e, d, n = 160, 8, 32
+    p, r = _problem(e, d, n, seed=5, heads=2 if attention else 0)
+    out_of_range(p, r, case)
+    if attention:
+        kw, stats = {}, ("sum", "count")
+    else:
+        kw, stats = _phi(r, e, d, edge_term=True, bias=True, relu=True), \
+            ALL_STATS
+    ours = _port(p, kw, stats)
+    kern, _ = _jax(jops, p, kw, stats, edge_tile=32, num_banks=4)
+    assert set(ours) == set(kern)
+    for name, v in ours.items():
+        np.testing.assert_allclose(v.numpy(), kern[name], atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_tile_keywords_are_accepted_and_change_nothing():
+    """``ops.mp_pipeline`` takes the reference's ``edge_tile`` and
+    ``num_banks``; they describe the TPU grid and change nothing here."""
+    p, r = _problem(200, 8, 30, seed=4)
+    kw = _phi(r, 200, 8, sw="scalar", edge_term=True, relu=True)
+    a = _port(p, kw, ALL_STATS)
+    b = _port(p, kw, ALL_STATS, edge_tile=64, num_banks=2)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
 def test_empty_destinations_are_exact():
     """Rows no unmasked edge reaches: sum, sumsq and count 0, max -BIG,
     min +BIG; with attention sum 0, att_max -BIG, att_denom 0. Node 0 is
@@ -267,3 +319,26 @@ def test_cuda_kernel_matches_plain_version(case):
                                    atol=1e-4 * scale, rtol=1e-4, msg=name)
         for o in outs[1:]:
             assert torch.equal(o[name], got), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention", [False, True])
+def test_cuda_kernel_follows_the_out_of_range_rules(attention):
+    """The CUDA kernel against its plain version on receivers and senders
+    outside [0, N): fp32 sums in another order, so 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    e, d, n = 160, 8, 32
+    p, r = _problem(e, d, n, seed=5, heads=2 if attention else 0)
+    out_of_range(p, r, "both")
+    if attention:
+        kw, stats = {}, ("sum", "count")
+    else:
+        kw, stats = _phi(r, e, d, edge_term=True, bias=True, relu=True), \
+            ALL_STATS
+    out = _port(p, kw, stats, device="cuda")
+    plain = _port(p, kw, stats, fn=tmp.mp_pipeline_ref, device="cuda")
+    torch.cuda.synchronize()
+    for name, want in plain.items():
+        torch.testing.assert_close(out[name], want, atol=1e-5, rtol=1e-5,
+                                   msg=name)
