@@ -24,8 +24,11 @@ Phases, each printing its own lines:
                The scatter kernels of impl='kernel' (mp_scatter,
                mp_scatter_multi, seg_softmax) also on an empty-destination
                tail, a fully masked stream and receivers outside [0, N)
-               (masked and not), with one PyTorch call's time beside
-               mp_scatter's (``index_add_``). ``mp_pipeline`` (five
+               (masked and not), seg_softmax also on unmasked receivers
+               in the JAX kernel's padding rows [N, ceil(N, num_banks)),
+               normalised there as that kernel does, with one PyTorch
+               call's time beside mp_scatter's (``index_add_``).
+               ``mp_pipeline`` (five
                statistics; attention) and ``layer_fused`` (self form) also
                on receivers and senders outside [0, N) (ROADMAP queue 3's
                input): a receiver there adds nothing, a sender there
@@ -57,16 +60,23 @@ Phases, each printing its own lines:
                permutation, gather_rows bitwise, the combine against the
                plain path and a float64 sum on the host; the three calls
                timed beside ``index_add_`` / ``index_select``.
-  7. flash   — ``flash_attention`` against its plain version at llama3-8b's
-               prefill (B=1 in bf16 and float32; the LM path's B=2 in
-               bf16), gemma2-27b's local layer (8192 tokens, window 4096,
-               softcap 50 reached by scaled queries, bf16 and float32) and
-               causal Sq > Sk (rows that see no key are 0): bf16 within one
-               bf16 unit, float32 within 2e-5; at each shape the tolerance
-               fails planted faults (a skipped kv tile, the window or the
-               softcap ignored); bitwise across two runs; times beside the
-               bound and ``scaled_dot_product_attention`` where it computes
-               the same.
+  7. flash   — first, per instantiation of csrc/flash_attention.cu (bf16
+               on the tensor cores, float32 FMA, each head width): the
+               registers, shared memory and spill bytes of the build's
+               ``-Xptxas -v`` log and the HGMMA count of its SASS
+               (``cuobjdump -sass``); fails if a bf16 one holds no HGMMA.
+               Then ``flash_attention`` against its plain version at
+               llama3-8b's prefill (B=1 in bf16 and float32; the LM path's
+               B=2 in bf16), gemma2-27b's local layer (8192 tokens, window
+               4096, softcap 50 reached by scaled queries, bf16 and
+               float32), causal Sq > Sk (rows that see no key are 0), bf16
+               at D = 16, 32, 64 (window 128, softcap 30) and 256, and a
+               ragged Sq = Sk = 1000 at D=128 with window 300: bf16 within
+               one bf16 unit, float32 within 2e-5; at each shape the
+               tolerance fails planted faults (one of the kernel's own kv
+               tiles skipped, the window or the softcap ignored); bitwise
+               across two runs; times beside the bound and, at the LM
+               shapes, ``scaled_dot_product_attention``.
   8. lm      — llama3-8b at full width: depth 2 in float32 against the plain
                attention path; then ``serve_lm(full=True)``, all 32 layers in
                bf16, B=2 prompts of 2048 tokens and 32 generated tokens each,
@@ -720,12 +730,15 @@ SOFTMAX_TOL = 1e-5
 
 
 def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
-                 mask_p=0.8, out_of_range=False):
+                 mask_p=0.8, out_of_range=False, num_banks=None):
     """Numpy inputs of one mp_scatter / mp_scatter_multi / seg_softmax call
     (a dict of keyword args, as the model code passes them); ``d`` is the
     message width or the head count (0: (E,) logits). ``out_of_range``
     draws receivers from [-4, N + 12): edges outside [0, N), masked and
-    unmasked, which must add nothing."""
+    unmasked, which must add nothing. ``num_banks`` (seg_softmax) is
+    passed on, and the first five edges go unmasked to the padding rows
+    [N, n_pad) of the JAX kernel's banks (two to row N, three to row
+    n_pad - 1), the sixth to row n_pad, past them."""
     r = np.random.default_rng(seed)
     softmax = kernel == "seg_softmax"
     stream = r.normal(size=(e, d) if d else (e,)) * (3 if softmax else 1)
@@ -738,6 +751,11 @@ def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
     }
     if stats is not None:
         kw.update({f"want_{s}": s in stats for s in ALL_STATS})
+    if num_banks is not None:
+        n_pad = -(-n // num_banks) * num_banks
+        kw["receivers"][:6] = [n, n, n_pad - 1, n_pad - 1, n_pad - 1, n_pad]
+        kw["edge_mask"][:6] = True
+        kw["num_banks"] = num_banks
     return kw
 
 
@@ -768,14 +786,25 @@ SCATTER_CASES = {
         "c_fully_masked": dict(n=64, e=1024, d=4, mask_p=0.0),
         "d_out_of_range_receivers": dict(n=1024, e=4096, d=4,
                                          out_of_range=True),
+        # edges into the JAX kernel's padding rows [N, ceil(N, banks))
+        "e_padding_row_receivers": dict(n=30, e=40, d=2, mask_p=1.0,
+                                        num_banks=4),
+        "f_padding_row_receivers_1d": dict(n=29, e=40, d=0, mask_p=1.0,
+                                           num_banks=8),
     },
 }
 
 
 def owned(kw_np):
-    """The edges a scatter keeps: unmasked, with a receiver in [0, N)."""
+    """The edges a scatter keeps: unmasked, with a receiver in [0, N) (for
+    seg_softmax [0, n_pad), the JAX kernel's rows padded to a multiple of
+    ``num_banks``)."""
     rcv = kw_np["receivers"]
-    return kw_np["edge_mask"] & (rcv >= 0) & (rcv < kw_np["num_nodes"])
+    rows = kw_np["num_nodes"]
+    if "logits" in kw_np:
+        from repro_torch.kernels.seg_softmax import padded_rows
+        rows = padded_rows(rows, kw_np.get("num_banks", 4))
+    return kw_np["edge_mask"] & (rcv >= 0) & (rcv < rows)
 
 
 def stats_of(kw):
@@ -791,7 +820,8 @@ def scatter_plain(kernel, kw):
         return {"sum": ops.mp_scatter_ref(*args)}
     if kernel == "mp_scatter_multi":
         return ops.mp_scatter_multi_ref(*args, stats_of(kw))
-    return {"weights": ops.segment_softmax_ref(*args)}
+    return {"weights": ops.segment_softmax_ref(
+        *args, num_banks=kw.get("num_banks", 4))}
 
 
 def scatter_kernel(kernel, kw, **extra):
@@ -1338,10 +1368,39 @@ FLASH_CASES = {
                                     1.0, "bfloat16", "sdpa"),
     "f_gemma2_27b_local_f32": (1, 32, 8192, 8192, 128, True, 4096, 50.0,
                                50.0, "float32", None),
+    # every other head width the bf16 tensor-core kernel takes (B=1, H=4,
+    # S=512, causal; D=64 with window 128 and softcap 30, reached by q
+    # scaled by 30), and a ragged length with the window's edge inside
+    # the kv tiles; kernel checks, not timed against a library call
+    "g_d16_bf16": (1, 4, 512, 512, 16, True, None, None, 1.0, "bfloat16",
+                   None),
+    "h_d32_bf16": (1, 4, 512, 512, 32, True, None, None, 1.0, "bfloat16",
+                   None),
+    "i_d64_window_softcap_bf16": (1, 4, 512, 512, 64, True, 128, 30.0, 30.0,
+                                  "bfloat16", None),
+    "j_d256_bf16": (1, 4, 512, 512, 256, True, None, None, 1.0, "bfloat16",
+                    None),
+    "k_ragged_1000_window_bf16": (1, 4, 1000, 1000, 128, True, 300, None,
+                                  1.0, "bfloat16", None),
 }
-# the kernel's query rows per block and keys per staged tile
-# (csrc/flash_attention.cu kBlockQ, kBlockK)
-FLASH_BLOCK_Q, FLASH_BLOCK_K = 64, 64
+
+
+def flash_tiling(d: int, dtype: str):
+    """(query rows a block owns, keys per staged tile, dynamic shared memory
+    bytes a block asks for) of the kernel that takes ``dtype`` at head
+    width ``d``, as the built library reports them
+    (``flash_attention_tiling``)."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention").flash_attention_tiling
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(d, int(dtype == "bfloat16"), *(ctypes.byref(x) for x in out))
+    if err:
+        raise RuntimeError(f"flash_attention_tiling({d}, {dtype}): error "
+                           f"{err}")
+    return tuple(x.value for x in out)
 
 
 def flash_close(a, b, dtype: str):
@@ -1370,24 +1429,26 @@ def dense_attention(q, k, v, mask, softcap):
     return ((p @ v.to(f32)) / l).to(q.dtype)
 
 
-def planted_faults(sq, sk, causal, window, softcap, device):
+def planted_faults(sq, sk, causal, window, softcap, device, tiles):
     """{label: (mask, softcap)} of the faults the tolerance must see, as one
-    head's mask and softcap: the last query block skips one kv tile in the
-    middle of the keys every one of its rows sees; the window ignored; the
-    softcap ignored."""
+    head's mask and softcap: the kernel's last query block (``tiles`` =
+    its query rows per block, keys per tile) skips one of its kv tiles in
+    the middle of the keys every one of its rows sees; the window ignored;
+    the softcap ignored."""
     from repro_torch.kernels.flash_attention import visible
+    bq, bk = tiles
     mask = visible(sq, sk, causal=causal, window=window, device=device)
-    rows = slice(max(0, sq - FLASH_BLOCK_Q), sq)
+    rows = slice((sq - 1) // bq * bq, sq)
     seen = mask[rows].all(0)
-    tiles = [t for t in range(0, sk - FLASH_BLOCK_K + 1, FLASH_BLOCK_K)
-             if bool(seen[t:t + FLASH_BLOCK_K].all())]
+    full = [t for t in range(0, sk - bk + 1, bk)
+            if bool(seen[t:t + bk].all())]
     faults = {}
-    if tiles:
-        mid = tiles[len(tiles) // 2]
+    if full:
+        mid = full[len(full) // 2]
         skipped = mask.clone()
-        skipped[rows, mid:mid + FLASH_BLOCK_K] = False
+        skipped[rows, mid:mid + bk] = False
         faults[f"the last query block skips keys [{mid}, "
-               f"{mid + FLASH_BLOCK_K})"] = (skipped, softcap)
+               f"{mid + bk})"] = (skipped, softcap)
     if window is not None:
         faults["the window ignored"] = (
             visible(sq, sk, causal=causal, window=None, device=device),
@@ -1403,8 +1464,9 @@ def check_planted_faults(name, q, k, v, out, ref, *, causal, window,
     true mask hold against the kernel's output, and each planted fault,
     taken as if it were the kernel's output, fails against the plain
     version's. Raise otherwise."""
-    sq, sk = q.shape[2], k.shape[2]
-    mask, faults = planted_faults(sq, sk, causal, window, softcap, q.device)
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    mask, faults = planted_faults(sq, sk, causal, window, softcap, q.device,
+                                  flash_tiling(d, dtype)[:2])
     q0, k0, v0 = q[0, 0], k[0, 0], v[0, 0]
     err, ok = flash_close(out[0, 0], dense_attention(q0, k0, v0, mask,
                                                      softcap), dtype)
@@ -1450,14 +1512,85 @@ def flash_bound(b, h, sq, sk, d, causal, window, dtype):
                                  else "operations"), nbytes, flops
 
 
+def flash_instantiation(symbol: str):
+    """(dtype, D) of a mangled kernel name of csrc/flash_attention.cu, or
+    None: ``tc::flash_attention_wgmma<D>`` is bf16, ``flash_attention_
+    kernel<D>`` float32."""
+    import re
+    m = re.search(r"flash_attention_wgmmaILi(\d+)E", symbol)
+    if m:
+        return "bfloat16", int(m.group(1))
+    m = re.search(r"flash_attention_kernelILi(\d+)E", symbol)
+    return ("float32", int(m.group(1))) if m else None
+
+
+def flash_build_report() -> dict:
+    """Per instantiation of csrc/flash_attention.cu: registers, spill bytes
+    and static shared memory from the build's ``-Xptxas -v`` log, the
+    dynamic shared memory a block asks for, and the count of HGMMA (wgmma)
+    instructions in the library's SASS (``cuobjdump -sass`` of the toolkit
+    beside nvcc). Raises unless every bf16 instantiation holds HGMMA."""
+    import re
+    from repro_torch.kernels import build
+    lib = build.library_path("flash_attention")
+    report, cur = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = flash_instantiation(m.group(1))
+            if cur:
+                report[cur] = {"registers": None, "spill_stores": None,
+                               "spill_loads": None, "static_smem": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[cur]["spill_stores"] = int(m.group(1))
+            report[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            report[cur]["static_smem"] = int(m.group(1))
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for part in sass.split("Function : ")[1:]:
+        key = flash_instantiation(part.split(None, 1)[0])
+        if key in report:
+            report[key]["hgmma"] = part.count("HGMMA")
+    rows = {}
+    for (dtype, d), info in sorted(report.items()):
+        info["dynamic_smem"] = flash_tiling(d, dtype)[2]
+        log("flash", f"flash_attention {dtype} D={d}: {info['registers']} "
+            f"registers, spill stores/loads {info['spill_stores']}/"
+            f"{info['spill_loads']} bytes, shared memory "
+            f"{info['dynamic_smem']} bytes dynamic + {info['static_smem']} "
+            f"static, {info.get('hgmma', 0)} HGMMA in its SASS "
+            f"(ptxas -v log, cuobjdump -sass)")
+        rows[f"{dtype}_d{d}"] = info
+    missing = [f"bf16 D={d}" for (dtype, d) in report
+               if dtype == "bfloat16" and not report[(dtype, d)].get("hgmma")]
+    if missing or len(report) != 10:
+        raise AssertionError(f"flash_attention's SASS: {len(report)} "
+                             f"instantiations, without HGMMA: {missing}")
+    return rows
+
+
 def flash_phase(card: str):
     """``flash_attention`` against its plain version on the card at the LM
-    path's shapes, bitwise across two runs, timed beside its bound and,
-    where one call computes the same function, PyTorch's
-    ``scaled_dot_product_attention``. These launches are not the path's."""
+    path's shapes and every bf16 head width, bitwise across two runs,
+    timed beside its bound and, where one call computes the same function,
+    PyTorch's ``scaled_dot_product_attention``. These launches are not the
+    path's. Returns the cases' rows and ``flash_build_report()``."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
+    report = flash_build_report()
     rows = {}
     g = torch.Generator(device="cuda").manual_seed(3)
     for name, (b, h, sq, sk, d, causal, window, cap, q_scale, dtype,
@@ -1516,7 +1649,7 @@ def flash_phase(card: str):
             **(dict(reps=5, inner=3) if long else {}))
         del q, k, v, out, ref, again
         torch.cuda.empty_cache()
-    return rows
+    return rows, report
 
 
 # ---------------------------------------------------------------------------
@@ -2070,7 +2203,7 @@ def main() -> int:
 
     # 7. flash_attention at the LM path's shapes, 8. the dense LM path at
     # llama3-8b's full width
-    flash_rows = flash_phase(card)
+    flash_rows, flash_build = flash_phase(card)
     paths["lm_llama3_8b"] = lm_phase(card)
 
     # 9. result: each kernel's row at the largest shape its main path gives
@@ -2150,6 +2283,7 @@ def main() -> int:
             "llama3-8b prefill attention: B=2, H=32 (KV heads repeated), "
             "S=2048, D=128, causal, bf16"),
     ]
+    kernels[-1]["instantiations"] = flash_build
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -116,8 +116,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
-def _kernel():
-    fn = build.load("flash_attention").flash_attention_launch
+def bind_launch(lib):
+    """``lib``'s ``flash_attention_launch`` with its C signature set."""
+    fn = lib.flash_attention_launch
     if fn.argtypes is None:
         # without argtypes ctypes passes every int as a 32-bit C int:
         # pointers are cut and the stream slot holds garbage
@@ -125,6 +126,10 @@ def _kernel():
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _kernel():
+    return bind_launch(build.load("flash_attention"))
 
 
 def _launch(q, k, v, *, causal, window, softcap):

@@ -119,6 +119,9 @@ def test_cpu_path_takes_the_plain_version_and_launches_nothing():
     (1, 2, 200, 200, 128, True, 48, 50.0),      # ragged tiles, all options
     (1, 1, 96, 160, 256, False, None, None),
     (2, 4, 40, 40, 16, True, 16, None),         # the reduced configs' D
+    (1, 2, 320, 320, 64, True, 100, None),      # window edge inside a tile
+    (1, 2, 150, 333, 128, True, 90, 30.0),      # Sq < Sk, ragged kv tile
+    (1, 2, 260, 300, 256, True, None, None),    # D=256's 64-key tiles
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(b, h, sq, sk, d, causal, window,

@@ -105,6 +105,36 @@ def test_extreme_logits_stay_finite(jops):
     np.testing.assert_allclose(ours.numpy(), np.asarray(kern), **TOL)
 
 
+def _padding_row_problem(shape, n, banks, seed=0):
+    """``default_rng(seed)`` logits and receivers in [0, N), every edge
+    unmasked; the first five edges go to the padding rows [N, n_pad) (two
+    to row N, three to row n_pad - 1) and the sixth to row n_pad, past
+    them."""
+    r = np.random.default_rng(seed)
+    e = shape[0]
+    n_pad = -(-n // banks) * banks
+    rcv = r.integers(0, n, size=e).astype(np.int64)
+    rcv[:6] = [n, n, n_pad - 1, n_pad - 1, n_pad - 1, n_pad]
+    return {"logits": (r.normal(size=shape) * 3.0).astype(np.float32),
+            "receivers": rcv, "edge_mask": np.ones(e, bool)}
+
+
+@pytest.mark.parametrize("n,banks", [(30, 4), (29, 8)])
+@pytest.mark.parametrize("shape", [(40,), (40, 2)])
+def test_padding_row_receivers_follow_the_kernel(jops, shape, n, banks):
+    """The JAX kernel keeps statistics for ceil(N, num_banks) rows, so an
+    unmasked edge into a padding row [N, n_pad) is normalised with the
+    other edges there; an edge past n_pad weighs 0."""
+    p = _padding_row_problem(shape, n, banks)
+    ours = tops.seg_softmax(*_torch(p), n, edge_tile=8, num_banks=banks)
+    kern = np.asarray(jops.seg_softmax(*_jnp(p), n, edge_tile=8,
+                                       num_banks=banks))
+    np.testing.assert_allclose(ours.numpy(), kern, **TOL)
+    assert (ours.numpy()[:5] > 0).all() and (ours.numpy()[5] == 0).all()
+    plain = tss.segment_softmax_ref(*_torch(p), n, num_banks=banks)
+    assert torch.equal(ours, plain)
+
+
 def test_edge_permutation_invariance():
     n = 24
     p = _problem((128, 4), n, seed=9)
