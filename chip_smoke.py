@@ -28,6 +28,15 @@ Phases, each printing its own lines:
                in the JAX kernel's padding rows [N, ceil(N, num_banks)),
                normalised there as that kernel does, with one PyTorch
                call's time beside mp_scatter's (``index_add_``).
+               mp_scatter and mp_scatter_multi also torch.equal to the
+               float32 stream-order fold on the host (``np.add.at`` and
+               friends), on a hub row (5,000 of 8,192 edges, bf16 D=2048
+               and f32 D=100), every edge to one row, N > E, E off every
+               chunk, bf16 D=2047, message views off 16 bytes and rows of
+               33-128 edges, each
+               with its cooperative grid printed; first, each of
+               mp_scatter.cu's kernel instantiations' registers, shared
+               memory and spills from the ptxas log.
                ``mp_pipeline`` (five
                statistics; attention) and ``layer_fused`` (self form) also
                on receivers and senders outside [0, N) (ROADMAP queue 3's
@@ -58,7 +67,9 @@ Phases, each printing its own lines:
                ``moe_combine`` (gather_rows, f32 mp_scatter), counts from
                0; the dispatch bitwise against the plain path and under a
                permutation, gather_rows bitwise, the combine against the
-               plain path and a float64 sum on the host; the three calls
+               plain path and a float64 sum on the host, both mp_scatter
+               calls bitwise the stream-order fold, the dispatch captured
+               in a CUDA graph and replayed bitwise; the three calls
                timed beside ``index_add_`` / ``index_select``.
   7. flash   — first, per instantiation of csrc/flash_attention.cu (bf16
                on the tensor cores, float32 FMA, each head width): the
@@ -730,7 +741,8 @@ SOFTMAX_TOL = 1e-5
 
 
 def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
-                 mask_p=0.8, out_of_range=False, num_banks=None):
+                 mask_p=0.8, out_of_range=False, num_banks=None, hub=0,
+                 dtype="float32"):
     """Numpy inputs of one mp_scatter / mp_scatter_multi / seg_softmax call
     (a dict of keyword args, as the model code passes them); ``d`` is the
     message width or the head count (0: (E,) logits). ``out_of_range``
@@ -738,7 +750,9 @@ def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
     unmasked, which must add nothing. ``num_banks`` (seg_softmax) is
     passed on, and the first five edges go unmasked to the padding rows
     [N, n_pad) of the JAX kernel's banks (two to row N, three to row
-    n_pad - 1), the sixth to row n_pad, past them."""
+    n_pad - 1), the sixth to row n_pad, past them. ``hub`` edges, at
+    random places in the stream, go to row N // 3; with ``dtype``
+    bfloat16 the messages are float32 values a bfloat16 holds exactly."""
     r = np.random.default_rng(seed)
     softmax = kernel == "seg_softmax"
     stream = r.normal(size=(e, d) if d else (e,)) * (3 if softmax else 1)
@@ -749,6 +763,12 @@ def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
         "edge_mask": r.random(e) < mask_p,
         "num_nodes": n,
     }
+    if hub:
+        kw["receivers"][r.choice(e, size=hub, replace=False)] = n // 3
+    if dtype == "bfloat16":
+        import torch
+        kw["msg"] = torch.from_numpy(kw["msg"]).to(torch.bfloat16).float(
+            ).numpy()
     if stats is not None:
         kw.update({f"want_{s}": s in stats for s in ALL_STATS})
     if num_banks is not None:
@@ -766,6 +786,24 @@ SCATTER_CASES = {
         "c_fully_masked": dict(n=64, e=1024, d=100, mask_p=0.0),
         "d_out_of_range_receivers": dict(n=1024, e=4096, d=100,
                                          out_of_range=True),
+        # the owner buckets' edge cases: a hub row (5,000 of 8,192 unmasked
+        # edges; rows longer than 128 are folded by a sweep of the stream),
+        # every edge to one row, N > E with most rows empty, E off every
+        # chunk of the grid, bf16 rows that 16-byte loads cannot take
+        # (D = 2047), message views off 16 bytes (``offset`` elements into
+        # their buffer) and rows of 33-128 edges (sorted in four registers
+        # a lane)
+        "e_hub_row_bf16_d2048": dict(n=1024, e=8192, d=2048, mask_p=1.0,
+                                     hub=5000, dtype="bfloat16"),
+        "f_hub_row_d100": dict(n=1024, e=8192, d=100, mask_p=1.0, hub=5000),
+        "g_every_edge_to_one_row": dict(n=64, e=4096, d=100, hub=4096),
+        "h_more_rows_than_edges": dict(n=8192, e=1000, d=100),
+        "i_edges_off_the_chunk": dict(n=1000, e=8229, d=64),
+        "j_bf16_d2047": dict(n=512, e=4096, d=2047, dtype="bfloat16"),
+        "k_unaligned_view": dict(n=1024, e=4096, d=100, offset=1),
+        "l_unaligned_view_bf16": dict(n=1024, e=4096, d=2048, offset=1,
+                                      dtype="bfloat16"),
+        "m_rows_of_33_to_128_edges": dict(n=64, e=4096, d=100),
     },
     "mp_scatter_multi": {
         "a_all_stats": dict(n=1024, e=4096, d=80, stats=ALL_STATS,
@@ -779,6 +817,21 @@ SCATTER_CASES = {
                                mask_p=0.0),
         "e_out_of_range_receivers": dict(n=1024, e=4096, d=80,
                                          stats=ALL_STATS, out_of_range=True),
+        # the owner buckets' edge cases (see mp_scatter's below)
+        "f_hub_row_d100": dict(n=1024, e=8192, d=100, stats=ALL_STATS,
+                               mask_p=1.0, hub=5000),
+        "g_every_edge_to_one_row": dict(n=64, e=4096, d=80, stats=ALL_STATS,
+                                        hub=4096),
+        "h_more_rows_than_edges": dict(n=8192, e=1000, d=80,
+                                       stats=ALL_STATS),
+        "i_edges_off_the_chunk": dict(n=1000, e=8229, d=200,
+                                      stats=("sum", "count", "max")),
+        "j_bf16_d2047": dict(n=512, e=4096, d=2047, stats=("sum", "max"),
+                             dtype="bfloat16"),
+        "k_unaligned_view": dict(n=1024, e=4096, d=80, stats=ALL_STATS,
+                                 offset=1),
+        "l_rows_of_33_to_128_edges": dict(n=64, e=4096, d=80,
+                                          stats=ALL_STATS),
     },
     "seg_softmax": {
         "a_gat_heads": dict(n=1024, e=4096, d=4, empty_tail=64),
@@ -871,6 +924,10 @@ def scatter_bound(kernel, kw):
 
 
 INDEX_ADD_TXT = "library index_add_ (atomics, order not fixed)"
+# a bf16 sum against the plain version's f32 one: rounding to the nearest
+# bf16 moves a value by at most half a bf16 unit, 2^-8 of it (8 significant
+# bits), on top of the f32 sums' other order (the atol)
+BF16_SUM_RTOL = 2.0 ** -8
 
 
 def library_call(kernel, kw, plain):
@@ -879,15 +936,20 @@ def library_call(kernel, kw, plain):
     messages' dtype, masked and out-of-range edges routed to row N
     (mp_scatter, and mp_scatter_multi asked for the sum alone). It
     accumulates with atomics, in no fixed order, and in bf16 for bf16
-    messages (exact where each row takes one message, as in the MoE
-    dispatch). None where no one call computes the function."""
+    messages: the same function only where each row takes at most one
+    message, as in the MoE dispatch. None where no one call computes the
+    function."""
     import torch
     if kernel == "seg_softmax" or (kernel == "mp_scatter_multi"
                                    and stats_of(kw) != ("sum",)):
         return None
     msg, n = kw["msg"], kw["num_nodes"]
     rcv = kw["receivers"]
-    rcv = torch.where(kw["edge_mask"] & (rcv >= 0) & (rcv < n), rcv, n)
+    own = kw["edge_mask"] & (rcv >= 0) & (rcv < n)
+    if (msg.dtype == torch.bfloat16 and bool(own.any())
+            and int(torch.bincount(rcv[own]).max()) > 1):
+        return None
+    rcv = torch.where(own, rcv, n)
     buf = torch.zeros((n + 1, msg.shape[1]), dtype=msg.dtype,
                       device=msg.device)
     check = buf.clone().index_add_(0, rcv, msg)[:n]
@@ -898,22 +960,147 @@ def library_call(kernel, kw, plain):
     return lambda: buf.index_add_(0, rcv, msg)
 
 
+def placed(msg, dtype: str, offset: int):
+    """``msg`` on the card as ``dtype``; ``offset`` > 0 puts it that many
+    elements into a larger buffer, so that its data pointer is off 16
+    bytes."""
+    import torch
+    buf = torch.empty(msg.numel() + offset, dtype=getattr(torch, dtype),
+                      device="cuda")
+    view = buf[offset:].view(msg.shape)
+    view.copy_(msg)
+    return view
+
+
+STREAM_ORDER_TXT = ("torch.equal to the float32 stream-order fold on the "
+                    "host (np.add.at / maximum.at / minimum.at)")
+
+
+def stream_order_ref(kernel, kw_np, dtype: str = "float32"):
+    """What mp_scatter / mp_scatter_multi must return bitwise: each row's
+    owned edges folded in stream order in float32 on the host, from 0,
+    -inf and +inf (numpy's unbuffered ``ufunc.at``; squares taken in f32),
+    count by ones; mp_scatter's sum rounded to ``dtype`` (nearest even).
+    ``kw_np['msg']`` holds the messages' values as float32."""
+    import torch
+    msg = kw_np["msg"].astype(np.float32)
+    n, d = kw_np["num_nodes"], msg.shape[1]
+    keep = owned(kw_np)
+    idx, m = kw_np["receivers"][keep], msg[keep]
+    stats = ("sum",) if kernel == "mp_scatter" else stats_of(kw_np)
+    out = {}
+    for stat in stats:
+        if stat == "count":
+            a = np.zeros((n, 1), np.float32)
+            np.add.at(a, idx, np.float32(1.0))
+        elif stat in ("max", "min"):
+            a = np.full((n, d), -np.inf if stat == "max" else np.inf,
+                        np.float32)
+            (np.maximum if stat == "max" else np.minimum).at(a, idx, m)
+        else:
+            a = np.zeros((n, d), np.float32)
+            np.add.at(a, idx, m if stat == "sum" else m * m)
+        out[stat] = torch.from_numpy(a).cuda()
+    if kernel == "mp_scatter":
+        out["sum"] = out["sum"].to(getattr(torch, dtype))
+    return out
+
+
+def check_stream_order(label, out, ref) -> None:
+    """Raise unless every output is bitwise its stream-order reference."""
+    import torch
+    for stat, want in ref.items():
+        if not torch.equal(out[stat], want):
+            bad = int((out[stat] != want).sum())
+            raise AssertionError(f"{label}: {stat} is not bitwise the "
+                                 f"stream-order fold ({bad} values differ)")
+
+
+def scatter_grid(kernel, kw) -> str:
+    """How mp_scatter.cu launches this call: its cooperative grid, the rows
+    a block takes per step, where the edges are bucketed."""
+    from repro_torch.kernels.mp_scatter import launch_plan
+    msg = kw["msg"]
+    plan = launch_plan(kw["num_nodes"], msg.shape[0], msg.shape[1],
+                       msg.dtype, multi=kernel == "mp_scatter_multi")
+    return (f"grid {plan['grid']} blocks of {plan['rows']} rows, "
+            f"{plan['buckets']} buckets")
+
+
+def scatter_build_report() -> dict:
+    """Per instantiation of csrc/mp_scatter.cu's kernel (message type,
+    slices a lane, edges in flight, multi or sum alone): registers, spill
+    bytes and shared memory from the build's ``-Xptxas -v`` log."""
+    import re
+    from repro_torch.kernels import build
+    log_text = build.library_path("mp_scatter").with_suffix(
+        ".log").read_text()
+    report, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"mp_scatter_kernelI(\w+?)Li(\d)ELi(\d)ELb(\d)E"
+                          r"Lb(\d)E", m.group(1))
+            cur = None
+            if k:
+                cur = (f"{'bf16' if 'bfloat16' in k.group(1) else 'f32'} "
+                       f"S={k.group(2)} U={k.group(3)} "
+                       f"{'multi' if k.group(4) == '1' else 'sum'} "
+                       f"{'grid' if k.group(5) == '1' else 'block'}")
+                report[cur] = {"registers": None, "spill_stores": None,
+                               "spill_loads": None, "smem": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[cur]["spill_stores"] = int(m.group(1))
+            report[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            report[cur]["smem"] = int(m.group(1))
+    for name, info in sorted(report.items()):
+        log("kernels", f"mp_scatter.cu instantiation {name}: "
+            f"{info['registers']} registers, spill stores/loads "
+            f"{info['spill_stores']}/{info['spill_loads']} bytes, "
+            f"{info['smem']} bytes shared memory (ptxas -v log)")
+    if len(report) != 12:
+        raise AssertionError(f"mp_scatter.cu: {len(report)} kernel "
+                             f"instantiations in the ptxas log, expected 12")
+    return report
+
+
 def scatter_kernel_phase(card: str, kernel: str, main_inputs):
     """Phase 3: one scatter kernel of impl='kernel' against its plain
-    version on the card, on synthetic cases and the main path's inputs."""
+    version on the card, on synthetic cases and the main path's inputs;
+    mp_scatter and mp_scatter_multi also bitwise against the stream-order
+    fold, with their cooperative grid printed."""
     import torch
-    cases = {name: scatter_case(11 + i, kernel=kernel, **spec)
-             for i, (name, spec) in enumerate(SCATTER_CASES[kernel].items())}
+    cases, layout = {}, {}
+    for i, (name, spec) in enumerate(SCATTER_CASES[kernel].items()):
+        spec = dict(spec)
+        offset = spec.pop("offset", 0)
+        layout[name] = (spec.get("dtype", "float32"), offset)
+        cases[name] = scatter_case(11 + i, kernel=kernel, **spec)
     for name, kw in main_inputs.items():
         cases[name] = to_numpy(kw)
-    if kernel == "seg_softmax":
-        rtol, atol = SOFTMAX_TOL, SOFTMAX_TOL
-    else:
-        rtol, atol = RTOL, ATOL_OF_SCALE
-    tol = f"|k-p| <= {atol:g}*max(1,max|p|) + {rtol:g}*|p|"
     rows = {}
     for name, kw_np in cases.items():
+        dtype, offset = layout.get(name, ("float32", 0))
         kw = on_device(kw_np, "cuda")
+        if kernel != "seg_softmax":
+            kw["msg"] = placed(kw["msg"], dtype, offset)
+        if kernel == "seg_softmax":
+            rtol, atol = SOFTMAX_TOL, SOFTMAX_TOL
+        elif kernel == "mp_scatter" and dtype == "bfloat16":
+            rtol, atol = BF16_SUM_RTOL, ATOL_OF_SCALE
+        else:
+            rtol, atol = RTOL, ATOL_OF_SCALE
+        tol = f"|k-p| <= {atol:g}*max(1,max|p|) + {rtol:g}*|p|"
         out = scatter_kernel(kernel, kw)
         plain = scatter_plain(kernel, kw)
         torch.cuda.synchronize()
@@ -944,25 +1131,35 @@ def scatter_kernel_phase(card: str, kernel: str, main_inputs):
                                      f"{neutral:g} where it must be")
             keep = ~empty
             if bool(keep.any()):
-                e_abs, e_rel, ok = close(got[keep], want[keep], rtol, atol)
+                e_abs, e_rel, ok = close(got[keep].float(), want[keep],
+                                         rtol, atol)
                 err, rel = max(err, e_abs), max(rel, e_rel)
                 if not ok:
                     raise AssertionError(f"{kernel} {name}: {stat} disagrees "
                                          f"with its plain version "
                                          f"({e_abs:.3e})")
+        label = f"{kernel} {name}"
+        if kernel != "seg_softmax":
+            check_stream_order(label, out,
+                               stream_order_ref(kernel, kw_np, dtype))
+            longest = int(np.bincount(kw_np["receivers"][keep_np],
+                                      minlength=1).max()) if keep_np.any() \
+                else 0
+            what += (f"; {STREAM_ORDER_TXT} ({dtype}, data_ptr % 16 = "
+                     f"{kw['msg'].data_ptr() % 16}, longest row "
+                     f"{longest} edges); {scatter_grid(kernel, kw)}")
         shape = tuple(kw_np["logits" if kernel == "seg_softmax"
                             else "msg"].shape)
-        log("kernels", f"{kernel} {name}: N={n} E x width={shape} "
+        log("kernels", f"{label}: N={n} E x width={shape} "
             f"outputs {'+'.join(out)}; max_abs_err={err:.3e} "
             f"max_rel_err={rel:.3e} tol: {tol}; {what}; ok")
-        label = f"{kernel} {name}"
         bitwise_stable("kernels", label,
                        lambda **extra: scatter_kernel(kernel, kw, **extra),
                        out)
         rows[name] = timed_row(card, "kernels", label,
                                lambda: scatter_kernel(kernel, kw),
                                lambda: scatter_plain(kernel, kw),
-                               scatter_bound(kernel, kw_np), err=err, rel=rel,
+                               scatter_bound(kernel, kw), err=err, rel=rel,
                                library=library_call(kernel, kw, plain),
                                library_txt=INDEX_ADD_TXT)
     return rows
@@ -1198,6 +1395,26 @@ def expert_ffn(buf, wg, wu, wd):
     return torch.bmm(h, wd).reshape(-1, d)
 
 
+def captured_scatter(msg, receivers, edge_mask, num_nodes):
+    """One mp_scatter call captured in a ``torch.cuda.CUDAGraph`` (after a
+    warm-up call on the capture's side stream), replayed once; its
+    output."""
+    import torch
+    from repro_torch.kernels.mp_scatter import mp_scatter
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mp_scatter(msg, receivers, edge_mask, num_nodes)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mp_scatter(msg, receivers, edge_mask, num_nodes)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out.clone()
+
+
 def moe_phase(card: str):
     """The MoE data path at olmoe-1b-7b's full width: one token group
     routed, dispatched, through the experts and combined, with the launch
@@ -1293,6 +1510,27 @@ def moe_phase(card: str):
         f"{tol}; {'ok' if ok and ok64 else 'FAIL'}")
     if not (ok and ok64):
         raise AssertionError("MoE combine disagrees with its references")
+    # both mp_scatter calls bitwise the stream-order fold; the dispatch
+    # replayed from a CUDA graph bitwise its eager call
+    dispatch_np = {"msg": msg.float().cpu().numpy(),
+                   "receivers": slot.cpu().numpy(),
+                   "edge_mask": own.cpu().numpy(), "num_nodes": slots}
+    combine_np = {"msg": cmsg.cpu().numpy(), "receivers": st.cpu().numpy(),
+                  "edge_mask": own.cpu().numpy(), "num_nodes": t}
+    check_stream_order("MoE dispatch", {"sum": buf},
+                       stream_order_ref("mp_scatter", dispatch_np,
+                                        "bfloat16"))
+    check_stream_order("MoE combine", {"sum": out},
+                       stream_order_ref("mp_scatter", combine_np))
+    graph_buf = captured_scatter(msg, slot, own, slots)
+    if not torch.equal(graph_buf, buf):
+        raise AssertionError("MoE dispatch: the CUDA graph's replay is not "
+                             "bitwise the eager call")
+    grids = {k: scatter_grid("mp_scatter", {"msg": m, "num_nodes": nn})
+             for k, m, nn in (("dispatch", msg, slots), ("combine", cmsg, t))}
+    log("moe", f"dispatch and combine each {STREAM_ORDER_TXT}; the dispatch "
+        f"captured in a torch.cuda.CUDAGraph and replayed: bitwise equal; "
+        f"dispatch {grids['dispatch']}; combine {grids['combine']}")
 
     # the three kernel calls of the path, timed at its shapes
     idx_safe = slot.clamp(max=slots - 1)
@@ -2150,6 +2388,7 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log("build", line.strip())
+    scatter_build = scatter_build_report()
 
     # 3 needs the main path's inputs first: record what each path of phase 4
     # hands its kernel in its first two layers (the first reads the raw
@@ -2284,6 +2523,7 @@ def main() -> int:
             "S=2048, D=128, causal, bf16"),
     ]
     kernels[-1]["instantiations"] = flash_build
+    kernels[2]["instantiations"] = scatter_build
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

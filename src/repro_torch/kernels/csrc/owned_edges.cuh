@@ -1,5 +1,5 @@
-// Owner-computes edge compaction, shared by the scatter kernels that sweep a
-// materialised edge stream (mp_scatter.cu, seg_softmax.cu).
+// Owner-computes edge compaction, used by seg_softmax.cu alone (mp_scatter.cu
+// buckets the edges by owner instead, edge_buckets.cuh).
 //
 // A block owns the destination rows [row0, row0 + rows_here) and sweeps the
 // whole edge stream in stream order, kEdgeTile edges at a time. For each

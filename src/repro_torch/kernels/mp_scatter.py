@@ -18,9 +18,13 @@ TPU kernels' grids; they are accepted and the result does not depend on
 them. Each wrapper takes its plain version (``mp_scatter_ref``,
 ``mp_scatter_multi_ref``) for tensors on the CPU. For CUDA tensors it
 launches the hand-written kernel ``csrc/mp_scatter.cu`` or raises; its
-``.launches`` counts those launches. On the card the messages are float32
-or bfloat16 (read as such, accumulated in float32); ``mp_scatter`` writes
-bfloat16 sums itself, rounded to nearest even.
+``.launches`` counts those launches: one cooperative launch a call, which
+buckets the edges by owner and folds each row's edges in stream order
+(bitwise a float32 stream-order fold). On the card the messages are
+float32 or bfloat16 (read as such, accumulated in float32);
+``mp_scatter`` writes bfloat16 sums itself, rounded to nearest even. The
+wrapper allocates the kernel's int32 scratch (``counts`` (N), ``row_start``
+(N + 1), ``order`` (E), one ``torch.empty``); the kernel clears it.
 """
 
 from __future__ import annotations
@@ -94,8 +98,9 @@ def mp_scatter(msg: torch.Tensor, receivers: torch.Tensor,
     """Scatter-sum ``msg`` (E, D) into (num_nodes, D) over the unmasked
     edges; f32 accumulation, the result in ``msg.dtype``. CPU tensors run
     ``mp_scatter_ref``; CUDA tensors launch the kernel. ``rows_per_block``
-    overrides how many destination rows one CUDA block owns (the kernel's
-    own choice by default; the result does not depend on it)."""
+    overrides how many destination rows one CUDA block takes per step of
+    the accumulate phase (the kernel's own choice by default; the result
+    does not depend on it)."""
     _check_msg(msg, "mp_scatter")
     if msg.device.type == "cpu":
         return mp_scatter_ref(msg, receivers, edge_mask,
@@ -145,9 +150,31 @@ def _kernel(multi: bool):
         # pointers are cut and the stream slot holds garbage
         outs = 5 if multi else 1
         fn.argtypes = ([ctypes.c_void_p] * (3 + outs) + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch_plan(num_nodes: int, num_edges: int, d: int, dtype, *,
+                multi: bool, rows_per_block: Optional[int] = None) -> dict:
+    """How the kernel launches these sizes on the current CUDA device:
+    ``grid`` (blocks of the cooperative launch, chosen from E, N and D, at
+    most every block the card holds at once), ``rows`` (rows a block takes
+    per step) and ``buckets`` ("block" when each block buckets the edges
+    of its own rows in shared memory, "grid" when the grid buckets them
+    all in the scratch, between grid barriers)."""
+    fn = build.load("mp_scatter").mp_scatter_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = ctypes.c_int
+    grid, rows, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = fn(num_nodes, num_edges, d, rows_per_block or 0,
+             int(dtype == torch.bfloat16), int(multi), ctypes.byref(grid),
+             ctypes.byref(rows), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"mp_scatter_plan failed with CUDA error {err}")
+    return {"grid": grid.value, "rows": rows.value,
+            "buckets": "block" if local.value else "grid"}
 
 
 def _launch(msg, receivers, edge_mask, num_nodes, stats, rows_per_block, *,
@@ -176,8 +203,14 @@ def _launch(msg, receivers, edge_mask, num_nodes, stats, rows_per_block, *,
            for s in stats}
     outs = ([out[s].data_ptr() if s in out else None for s in MULTI_STATS]
             if multi else [out["sum"].data_ptr()])
+    # the owner buckets, in one allocation: per-row counts (N), their scan
+    # (N + 1), the edges by row (E)
+    scratch = torch.empty(2 * num_nodes + 1 + e, dtype=torch.int32,
+                          device=dev)
+    base = scratch.data_ptr()
     err = _kernel(multi)(*ptrs, *outs, num_nodes, e, d, rows_per_block or 0,
-                         int(msg.dtype == torch.bfloat16),
+                         int(msg.dtype == torch.bfloat16), base,
+                         base + 4 * num_nodes, base + 4 * (2 * num_nodes + 1),
                          torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         name = "mp_scatter_multi" if multi else "mp_scatter"

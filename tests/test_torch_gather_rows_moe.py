@@ -349,6 +349,42 @@ def test_cuda_mp_scatter_bf16_matches_plain_version(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hub_row", "unaligned_view"])
+def test_cuda_mp_scatter_bf16_is_the_stream_order_fold(case):
+    """bf16 messages at the MoE width (D = 2048): the kernel's bf16 sums
+    are bitwise the float32 stream-order fold of the widened messages on
+    the host (``np.add.at``), rounded to nearest even. On a hub row (5,000
+    of 8,192 unmasked edges), and on a message view 2 bytes off 16 (element
+    loads); bitwise across rows per block."""
+    _need_card()
+    e, d, n = 8192, 2048, 1024
+    r = np.random.default_rng(1 if case == "hub_row" else 2)
+    rcv = r.integers(0, n, size=e).astype(np.int64)
+    mask = np.ones(e, bool) if case == "hub_row" else r.random(e) < 0.8
+    if case == "hub_row":
+        rcv[r.choice(e, size=5000, replace=False)] = n // 3
+    msg32 = torch.from_numpy(r.normal(size=(e, d)).astype(np.float32))
+    msg = msg32.to(torch.bfloat16)
+    keep = mask & (rcv >= 0) & (rcv < n)
+    fold = np.zeros((n, d), np.float32)
+    np.add.at(fold, rcv[keep], msg.float().numpy()[keep])
+    want = torch.from_numpy(fold).to(torch.bfloat16)
+    if case == "unaligned_view":
+        buf = torch.empty(e * d + 1, dtype=torch.bfloat16, device="cuda")
+        dev_msg = buf[1:].view(e, d)
+        dev_msg.copy_(msg)
+        assert dev_msg.data_ptr() % 16 == 2
+    else:
+        dev_msg = msg.cuda()
+    rcv_d, mask_d = torch.from_numpy(rcv).cuda(), torch.from_numpy(mask).cuda()
+    for rpb in (None, 1, 16):
+        out = tms.mp_scatter(dev_msg, rcv_d, mask_d, n, rows_per_block=rpb)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_cuda_moe_path_matches_plain_version():
     """dispatch and combine on the card against the same path on the CPU:
     the buffer bitwise, the combined tokens within 1e-4 of the scale."""

@@ -230,6 +230,104 @@ def test_cuda_kernel_matches_plain_version(case):
         assert torch.equal(a, b)
 
 
+def _stream_order_fold(p, n, stats):
+    """What the CUDA kernels must return bitwise: each row's owned edges
+    folded in stream order in float32 on the host (numpy's unbuffered
+    ``ufunc.at``, squares taken in float32), from 0, -inf and +inf."""
+    rcv = p["receivers"]
+    keep = p["edge_mask"] & (rcv >= 0) & (rcv < n)
+    idx, m = rcv[keep], p["msg"][keep].astype(np.float32)
+    d = m.shape[1]
+    out = {}
+    for s in stats:
+        if s == "count":
+            a = np.zeros((n, 1), np.float32)
+            np.add.at(a, idx, np.float32(1.0))
+        elif s in ("max", "min"):
+            a = np.full((n, d), -np.inf if s == "max" else np.inf,
+                        np.float32)
+            (np.maximum if s == "max" else np.minimum).at(a, idx, m)
+        else:
+            a = np.zeros((n, d), np.float32)
+            np.add.at(a, idx, m if s == "sum" else m * m)
+        out[s] = a
+    return out
+
+
+# the owner buckets' edge cases: (E, D, N, hub edges to row N // 3, mask p)
+BUCKET_CASES = {
+    "hub_row": (8192, 100, 1024, 5000, 1.0),
+    "every_edge_to_one_row": (2048, 24, 64, 2048, 0.8),
+    "more_rows_than_edges": (500, 16, 4096, 0, 0.8),
+    "rows_of_33_to_128_edges": (4096, 24, 64, 0, 0.8),
+}
+
+
+def _bucket_problem(case, seed=7):
+    e, d, n, hub, mask_p = BUCKET_CASES[case]
+    p = _problem(e, d, n, seed=seed, mask_p=mask_p, empty_tail=0)
+    if hub:
+        r = np.random.default_rng(seed + 1)
+        p["receivers"][r.choice(e, size=hub, replace=False)] = n // 3
+    return p, n
+
+
+@pytest.mark.parametrize("case", sorted(BUCKET_CASES))
+def test_plain_versions_fold_in_stream_order(case):
+    """The plain versions against the float32 stream-order fold on the
+    owner buckets' edge cases: a hub row (5,000 of 8,192 unmasked edges),
+    every edge to one row, N > E with most rows empty, rows of 33-128
+    edges. Sums within the reference's 2e-5; count, max, min and the empty
+    rows exact."""
+    p, n = _bucket_problem(case)
+    ours = tops.mp_scatter_multi(*_torch(p), n, **_flags(ALL_STATS))
+    want = _stream_order_fold(p, n, ALL_STATS)
+    for name in ALL_STATS:
+        if name in ("count", "max", "min"):
+            np.testing.assert_array_equal(ours[name].numpy(), want[name],
+                                          err_msg=name)
+        else:
+            np.testing.assert_allclose(ours[name].numpy(), want[name],
+                                       err_msg=name, **TOL)
+    np.testing.assert_allclose(tops.mp_scatter(*_torch(p), n).numpy(),
+                               want["sum"], **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hub_row", "rows_of_33_to_128_edges",
+                                  "unaligned_view"])
+def test_cuda_kernel_is_the_stream_order_fold(case):
+    """The CUDA kernels are bitwise the float32 stream-order fold: on a hub
+    row (5,000 of 8,192 unmasked edges, longer than a warp sorts: swept),
+    on rows of 33-128 edges (sorted in four registers a lane), and on a
+    message view 4 bytes off 16 (element loads); every statistic, both
+    kernels, bitwise across rows per block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    if case in BUCKET_CASES:
+        p, n = _bucket_problem(case)
+        msg = torch.from_numpy(p["msg"]).cuda()
+    else:
+        n = 1024
+        p = _problem(4096, 100, n, seed=3, empty_tail=32)
+        buf = torch.empty(4096 * 100 + 1, device="cuda")
+        msg = buf[1:].view(4096, 100)
+        msg.copy_(torch.from_numpy(p["msg"]))
+        assert msg.data_ptr() % 16 == 4
+    rcv, mask = (torch.from_numpy(p[k]).cuda()
+                 for k in ("receivers", "edge_mask"))
+    want = _stream_order_fold(p, n, ALL_STATS)
+    for rpb in (None, 1, 16):
+        multi = tms.mp_scatter_multi(msg, rcv, mask, n, stats=ALL_STATS,
+                                     rows_per_block=rpb)
+        total = tms.mp_scatter(msg, rcv, mask, n, rows_per_block=rpb)
+        torch.cuda.synchronize()
+        for name in ALL_STATS:
+            assert torch.equal(multi[name].cpu(),
+                               torch.from_numpy(want[name])), name
+        assert torch.equal(total.cpu(), torch.from_numpy(want["sum"]))
+
+
 OUT_OF_RANGE_KERNELS = ("mp_scatter", "mp_scatter_multi", "seg_softmax")
 
 
