@@ -20,7 +20,13 @@ Phases, each printing its own lines:
                layer_fused case an identity first layer also reads out the
                dense layer's input row (the self term's sum; the scalers or
                field row), whose empty destinations must equal the plain
-               version's exactly.
+               version's exactly; every case bitwise at 1, 3, 8 and 16
+               rows per block. layer_fused also on a w1 larger than shared
+               memory (PNA's form at d_in 2080: the weight ring), ragged
+               widths (D=9, d_ff 25), weights and biases as views off 4
+               bytes, one layer replayed from a CUDA graph; first, its
+               kernel instantiations' registers, shared memory and spills
+               from the ptxas log.
                The scatter kernels of impl='kernel' (mp_scatter,
                mp_scatter_multi, seg_softmax) also on an empty-destination
                tail, a fully masked stream and receivers outside [0, N)
@@ -550,6 +556,47 @@ def epilogue_rows_check(name, kw, kw_np, layer_fused, layer_fused_ref):
                              f"disagrees with the plain version's")
 
 
+def lf_build_report() -> dict:
+    """Per instantiation of csrc/layer_fused.cu's kernel (the scalers form's
+    four accumulators, or one for the self and field forms): registers,
+    spill bytes and static shared memory from the build's ``-Xptxas -v``
+    log."""
+    import re
+
+    def instance(symbol):
+        m = re.search(r"layer_fused_kernelILb(\d)E", symbol)
+        return None if m is None else (
+            "scalers" if m.group(1) == "1" else "self_field")
+    report = ptxas_report("layer_fused", instance)
+    for name, info in sorted(report.items()):
+        log("kernels", f"layer_fused.cu instantiation {name}: "
+            f"{info['registers']} registers, spill stores/loads "
+            f"{info['spill_stores']}/{info['spill_loads']} bytes, "
+            f"{info['smem']} bytes static shared memory (ptxas -v log)")
+    if len(report) != 2:
+        raise AssertionError(f"layer_fused.cu: {len(report)} kernel "
+                             f"instantiations in the ptxas log, expected 2")
+    return report
+
+
+# the dense layers' weights and biases, which the kernel stages on chip
+LF_WEIGHTS = ("w1", "b1", "w2", "b2")
+
+
+def off_by_4_bytes(kw):
+    """``kw`` with each weight and bias a contiguous view that starts 4
+    bytes into a buffer of its own: off every 16-byte boundary, so the
+    kernel stages them 4 bytes a copy."""
+    import torch
+    out = dict(kw)
+    for k in LF_WEIGHTS:
+        if k in kw:
+            buf = torch.empty(kw[k].numel() + 1, device=kw[k].device)
+            buf[1:].copy_(kw[k].reshape(-1))
+            out[k] = buf[1:].view(kw[k].shape)
+    return out
+
+
 def kernel_phase(card: str, main_inputs):
     """Phase 3: layer_fused against layer_fused_ref on the card."""
     import torch
@@ -570,6 +617,14 @@ def kernel_phase(card: str, main_inputs):
         "d_dgn_field_form": lf_field_case(6, 1024, 4096, 100,
                                           empty_tail=64),
         "g_out_of_range_self_form": out_of_range_case("layer_fused"),
+        # w1 (2,080 x 160, 1.33 MB) larger than shared memory: the ring
+        "h_pna_ring_d_in_2080": lf_scalers_case(7, 256, 2048, 160,
+                                                empty_tail=16),
+        # k * n_dim and the biases off multiples of 4 floats
+        "h_ragged_d9_dff25": lf_case(8, 997, 3001, 9, 25, 9, empty_tail=5),
+        # GIN's paper width with weights and biases off 16 bytes
+        "h_weights_off_4_bytes": lf_case(9, 1024, 4096, 100, 200, 100,
+                                         empty_tail=64),
     }
     for name, kw in main_inputs.items():
         cases[name] = to_numpy(kw)
@@ -577,6 +632,8 @@ def kernel_phase(card: str, main_inputs):
     tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
     for name, kw_np in cases.items():
         kw = on_device(kw_np, "cuda")
+        if name == "h_weights_off_4_bytes":
+            kw = off_by_4_bytes(kw)
         out = call(layer_fused, kw)
         plain = call(layer_fused_ref, kw)
         torch.cuda.synchronize()
@@ -595,7 +652,14 @@ def kernel_phase(card: str, main_inputs):
         label = f"layer_fused {name}"
         bitwise_stable("kernels", label,
                        lambda **extra: call(layer_fused, kw, **extra), out,
-                       (3, 16))
+                       (1, 3, 8, 16))
+        if name == "a_gin_paper_width":
+            replay = captured(lambda: call(layer_fused, kw))
+            if not torch.equal(replay, out):
+                raise AssertionError(f"{label}: the CUDA graph's replay is "
+                                     f"not bitwise the eager call")
+            log("kernels", f"{label}: one layer captured in a CUDA graph, "
+                f"replayed bitwise equal to the eager call")
         rows[name] = timed_row(card, "kernels", label,
                                lambda: call(layer_fused, kw),
                                lambda: call(layer_fused_ref, kw),
@@ -1027,26 +1091,20 @@ def scatter_grid(kernel, kw) -> str:
             f"{plan['buckets']} buckets")
 
 
-def scatter_build_report() -> dict:
-    """Per instantiation of csrc/mp_scatter.cu's kernel (message type,
-    slices a lane, edges in flight, multi or sum alone): registers, spill
-    bytes and shared memory from the build's ``-Xptxas -v`` log."""
+def ptxas_report(name: str, instance) -> dict:
+    """Per kernel instantiation of ``csrc/<name>.cu``, under the key
+    ``instance(mangled entry name)`` gives (None skips the entry):
+    registers, spill bytes and shared memory from the build's ``-Xptxas
+    -v`` log."""
     import re
     from repro_torch.kernels import build
-    log_text = build.library_path("mp_scatter").with_suffix(
-        ".log").read_text()
+    log_text = build.library_path(name).with_suffix(".log").read_text()
     report, cur = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"mp_scatter_kernelI(\w+?)Li(\d)ELi(\d)ELb(\d)E"
-                          r"Lb(\d)E", m.group(1))
-            cur = None
-            if k:
-                cur = (f"{'bf16' if 'bfloat16' in k.group(1) else 'f32'} "
-                       f"S={k.group(2)} U={k.group(3)} "
-                       f"{'multi' if k.group(4) == '1' else 'sum'} "
-                       f"{'grid' if k.group(5) == '1' else 'block'}")
+            cur = instance(m.group(1))
+            if cur is not None:
                 report[cur] = {"registers": None, "spill_stores": None,
                                "spill_loads": None, "smem": 0}
             continue
@@ -1063,6 +1121,24 @@ def scatter_build_report() -> dict:
         m = re.search(r"(\d+) bytes smem", line)
         if m:
             report[cur]["smem"] = int(m.group(1))
+    return report
+
+
+def scatter_build_report() -> dict:
+    """Per instantiation of csrc/mp_scatter.cu's kernel (message type,
+    slices a lane, edges in flight, multi or sum alone): registers, spill
+    bytes and shared memory from the build's ``-Xptxas -v`` log."""
+    import re
+
+    def instance(symbol):
+        k = re.search(r"mp_scatter_kernelI(\w+?)Li(\d)ELi(\d)ELb(\d)E"
+                      r"Lb(\d)E", symbol)
+        return None if k is None else (
+            f"{'bf16' if 'bfloat16' in k.group(1) else 'f32'} "
+            f"S={k.group(2)} U={k.group(3)} "
+            f"{'multi' if k.group(4) == '1' else 'sum'} "
+            f"{'grid' if k.group(5) == '1' else 'block'}")
+    report = ptxas_report("mp_scatter", instance)
     for name, info in sorted(report.items()):
         log("kernels", f"mp_scatter.cu instantiation {name}: "
             f"{info['registers']} registers, spill stores/loads "
@@ -1395,20 +1471,19 @@ def expert_ffn(buf, wg, wu, wd):
     return torch.bmm(h, wd).reshape(-1, d)
 
 
-def captured_scatter(msg, receivers, edge_mask, num_nodes):
-    """One mp_scatter call captured in a ``torch.cuda.CUDAGraph`` (after a
-    warm-up call on the capture's side stream), replayed once; its
+def captured(run):
+    """``run()`` (one kernel call) captured in a ``torch.cuda.CUDAGraph``
+    (after a warm-up call on the capture's side stream), replayed once; its
     output."""
     import torch
-    from repro_torch.kernels.mp_scatter import mp_scatter
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        mp_scatter(msg, receivers, edge_mask, num_nodes)
+        run()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = mp_scatter(msg, receivers, edge_mask, num_nodes)
+        out = run()
     out.zero_()
     graph.replay()
     torch.cuda.synchronize()
@@ -1425,7 +1500,7 @@ def moe_phase(card: str):
     import torch
     from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
-    from repro_torch.kernels.mp_scatter import mp_scatter_ref
+    from repro_torch.kernels.mp_scatter import mp_scatter, mp_scatter_ref
     t, d, e_total = OLMOE["tokens"], OLMOE["d_model"], OLMOE["experts"]
     k, ff = OLMOE["top_k"], OLMOE["moe_d_ff"]
     cap = capacity(t, k, e_total, OLMOE["capacity_factor"])
@@ -1522,7 +1597,7 @@ def moe_phase(card: str):
                                         "bfloat16"))
     check_stream_order("MoE combine", {"sum": out},
                        stream_order_ref("mp_scatter", combine_np))
-    graph_buf = captured_scatter(msg, slot, own, slots)
+    graph_buf = captured(lambda: mp_scatter(msg, slot, own, slots))
     if not torch.equal(graph_buf, buf):
         raise AssertionError("MoE dispatch: the CUDA graph's replay is not "
                              "bitwise the eager call")
@@ -1768,31 +1843,11 @@ def flash_build_report() -> dict:
     dynamic shared memory a block asks for, and the count of HGMMA (wgmma)
     instructions in the library's SASS (``cuobjdump -sass`` of the toolkit
     beside nvcc). Raises unless every bf16 instantiation holds HGMMA."""
-    import re
     from repro_torch.kernels import build
     lib = build.library_path("flash_attention")
-    report, cur = {}, None
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            cur = flash_instantiation(m.group(1))
-            if cur:
-                report[cur] = {"registers": None, "spill_stores": None,
-                               "spill_loads": None, "static_smem": 0}
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            report[cur]["registers"] = int(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            report[cur]["spill_stores"] = int(m.group(1))
-            report[cur]["spill_loads"] = int(m.group(2))
-        m = re.search(r"(\d+) bytes smem", line)
-        if m:
-            report[cur]["static_smem"] = int(m.group(1))
+    report = ptxas_report("flash_attention", flash_instantiation)
+    for info in report.values():
+        info["static_smem"] = info.pop("smem")
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
@@ -2389,6 +2444,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("build", line.strip())
     scatter_build = scatter_build_report()
+    lf_build = lf_build_report()
 
     # 3 needs the main path's inputs first: record what each path of phase 4
     # hands its kernel in its first two layers (the first reads the raw
@@ -2523,6 +2579,7 @@ def main() -> int:
             "S=2048, D=128, causal, bf16"),
     ]
     kernels[-1]["instantiations"] = flash_build
+    kernels[0]["instantiations"] = lf_build
     kernels[2]["instantiations"] = scatter_build
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads through a tensor map, wgmma shared-memory descriptors and
+// TMA tile loads through a tensor map, 1-d bulk copies and 4-byte cp.async
+// copies that complete on an mbarrier, wgmma shared-memory descriptors and
 // the warpgroup matrix products themselves, plus the host's encoding of a
 // tensor map.
 //
@@ -47,6 +48,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
+// one plain arrival
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
 // spin until the barrier has completed the phase of parity ``parity``
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
@@ -72,6 +79,40 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from global ``src`` to shared ``dst``, both on
+// 16 bytes, in one bulk copy; the barrier counts its bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(__cvta_generic_to_global(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// order this thread's earlier generic-proxy accesses of shared memory before
+// its later async-proxy ones (a bulk copy into a slot that was just read)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --- cp.async (4 bytes a copy: sources off 16 bytes)
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+// the barrier's pending count gains one now and loses it when this thread's
+// earlier cp.async copies have landed, so the phase cannot complete before
+// them (its own arrivals are still needed)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 // --- wgmma

@@ -22,59 +22,94 @@
 // TPU and is not carried over; this kernel computes what layer_fused_ref does.
 //
 // What bounds it on an H100. At GIN's paper width (D = 100, D_ff = 200) and
-// N = 1024, E = 4096 the layer moves ~2.7 MB if each input is read once
-// (edge_term 1.6 MB, node rows 0.4 MB, output 0.4 MB, weights 0.16 MB, indices
-// 0.07 MB) and does ~82 MFLOP of epilogue in fp32 outside the tensor cores:
-// both floors are ~1 us (3.35 TB/s, 67 TFLOP/s fp32). PNA's first dense layer
-// contracts over D_x + 12 D = 1,040 inputs (w1 333 KB at D = 80) and DGN's
-// lane weights are a full (E, 2 D) stream: at the serving buckets (N = 32..64
-// nodes) every floor is well under 1 us and launch overhead and the serial
-// epilogue rule.
+// N = 1024, E = 4096 the layer moves ~2.7 MB if each input is read once and
+// does ~82 MFLOP of fp32 epilogue outside the tensor cores: both floors are
+// ~1 us (3.35 TB/s, 67 TFLOP/s fp32). At the serving buckets (N = 32..64)
+// every floor is well under 1 us: the time is latency. A block owns one row
+// there; its dense layers are ~40k FMAs over 160 KB of weights (GIN; PNA's
+// w1 alone is 333 KB). experiments/layer_fused_breakdown.py times the
+// parts: launch, edge sweep, weight copies, dense arithmetic.
 //
-// Design (simple and right first; speed is later work):
-//   * Owner computes. Block b owns destination rows [b*R, b*R + R) and sweeps
-//     the whole edge stream in stream order, a tile of kEdgeTile edges at a
-//     time. Each thread classifies kEdgesPerThread consecutive edges; a
-//     block-wide scan compacts the owned, unmasked edges of the tile into a
-//     shared-memory list that keeps stream order. Masked edges never enter
-//     the list, so they contribute nothing, not even their edge_term; nor
-//     does an edge whose receiver lies outside [0, n) (no block owns it). A
-//     sender outside [0, n) enters as -1 and gathers a zero row (y is never
-//     read there), as the Pallas kernel's one-hot gather gives.
-//   * Threads run over the D lanes; with D <= blockDim there are
-//     blockDim / D groups of lanes and group g owns the rows r % groups == g;
-//     a wider D takes one group whose threads stride over the lanes. Every
-//     (row, lane) of the f32 shared-memory accumulators (one, or four for
-//     the scalers form) is written by exactly one thread, which adds its
-//     edges in stream order: no atomics, and the result is bitwise the same
-//     for any R and from run to run.
+// Design:
+//   * Weights on chip while the edges are swept. Each dense layer's weight
+//     is one chunk where both fit in shared memory (GIN's 160 KB), else it
+//     is cut into chunks of whole k rows (<= 32 KB; each starts on a
+//     multiple of 4 S rows, S below); the chunks stream through a ring of
+//     shared-memory slots, one mbarrier a slot. At entry the block issues
+//     as many chunks as there are slots, and b1 / b2, then sweeps the edges
+//     while they land; the dense layers wait on each chunk's barrier. A
+//     chunk whose source is on a 16-byte boundary with a size a multiple of
+//     16 bytes is one cp.async.bulk by thread 0 (completing on the barrier's
+//     transaction count); any other (a view off 16 bytes, k * n_dim not a
+//     multiple of 4) is copied 4 bytes a thread by cp.async, tracked by the
+//     same barrier. When every chunk fits (GIN, DGN, GCN) nothing is
+//     refilled; otherwise (PNA's w1) a slot is refilled with the chunk
+//     `slots` ahead as soon as the block is done with it.
+//   * Split-k dense layers, every thread busy. Thread t of a dense layer
+//     with n_dim columns takes column j = t % n_dim and slice ks = t / n_dim
+//     of S = min(256 / n_dim, k quads) slices (at least 1): the k quads
+//     (4 consecutive k) q = ks, ks + S, ks + 2S, ..., summed in k order as
+//     fp32 FMAs from shared memory (z as one 16-byte load a quad and row).
+//     The slices' partial sums meet in shared memory and are added in the
+//     order ks = 0, 1, ..., S - 1, then the bias, then the relu. S and the
+//     slices depend only on k_dim and n_dim, never on the rows a block holds,
+//     the ring or the grid, so an output's arithmetic is the same for any
+//     rows per block and from run to run. No TF32 anywhere. No integer
+//     division runs per chunk: each is a long chain of dependent
+//     instructions.
+//   * No work on padding rows. A thread takes a group of 8 rows at once
+//     (each weight load shared by the group's FMAs) and the block's last
+//     rows in groups of 4, 2 and 1; every pass of the epilogue runs over
+//     rows_here alone.
+//   * Owner computes for the edges. Block b owns destination rows
+//     [b*R, b*R + R) and sweeps the whole edge stream in stream order, a tile
+//     of kEdgeTile edges at a time (mask, receiver and sender loaded
+//     together, the next tile's ahead); a block-wide scan appends the tile's
+//     owned, unmasked edges to a shared-memory list that keeps stream order
+//     across tiles, and the list is folded once (or whenever it would
+//     overflow). Masked edges never enter the list, nor does an edge whose
+//     receiver lies outside [0, n) (no block owns it). A sender outside
+//     [0, n) enters as -1 and gathers a zero row (y is never read there), as
+//     the Pallas kernel's one-hot gather gives. Threads run over the D lanes;
+//     every (row, lane) of the f32 accumulators (one, or four for the scalers
+//     form) is written by exactly one thread, in stream order: no atomics.
+//     A round's loads are all issued before its folds, which are branch
+//     free; where a group of lanes owns one row at most (one row a block at
+//     the buckets) the sums stay in registers.
 //   * Epilogue in the same launch: the self term in place, or the scalers /
 //     field input row z built in shared memory (rounded adds and products,
-//     no contraction, as the plain version rounds them), then each dense
-//     layer as fp32 FMAs with k in order (weights read through L2, kRowChunk
-//     rows per weight load, eight weight rows in flight); the hidden layer
-//     (R x D_ff floats) stays in shared memory. A dense layer names its
-//     input by its offset in shared memory: chosen as a pointer at run time
-//     (acc or z) its loads compiled as generic loads and the scalers form's
-//     1,040-deep first layer ran ~1.6x slower. No TF32 anywhere. Shared
-//     memory above 48 KB is opted into per launch.
+//     no contraction, as the plain version rounds them), then the dense
+//     layers; the hidden layer stays in shared memory. A dense layer names
+//     its shared-memory input by offset, so that its loads compile as
+//     shared-memory loads (a pointer chosen at run time compiled to generic
+//     loads and cost the scalers form ~1.6x).
+//   * Rows per block: one block per SM where the rows allow it (one row a
+//     block at the buckets, 8 at N = 1024), the best of 1-16 rows measured
+//     at both (PERF.md). No thread-block clusters: the weight
+//     copies are not what sets a layer's time (PERF.md).
 //   * The launcher returns cudaGetLastError(); it allocates nothing and does
 //     not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The block's dynamic shared memory: accumulators, z, hidden layer, lists.
-extern __shared__ float smem[];
+#include "hopper.cuh"
+
+// The block's dynamic shared memory: weight slots, biases, accumulators, z,
+// hidden layer, partial sums, edge lists, barriers.
+extern __shared__ __align__(128) float smem[];
 
 namespace {
+
+using hopper::mbar_init;
+using hopper::mbar_wait;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kEdgesPerThread = 4;
 constexpr int kEdgeTile = kThreads * kEdgesPerThread;
-constexpr int kRowChunk = 8;      // rows sharing one weight load in the MLP
-constexpr int kUnroll = 4;        // edges whose loads are issued together
+constexpr int kUnroll = 8;        // edges whose loads are issued together
+constexpr int kChunkBytes = 32 * 1024;
 constexpr float kBig = 1e30f;     // keyed max / min neutral (mp_pipeline's)
 
 enum SrcWeightMode { kSwNone = 0, kSwScalar = 1, kSwFull = 2, kSwHead = 3 };
@@ -103,6 +138,14 @@ struct Args {
   int sw_mode, sw_cols, head_dim;
   int self_mode, epilogue, n_scalers, phi_relu, out_relu;
   int rows;              // destination rows one block owns
+  // the weight ring: `slots` slots of slot_floats; per dense layer its k
+  // rows a chunk, its chunks and its split-k slices
+  int slots, slot_floats;
+  int kc[2], chunks[2], split[2];
+  // row strides (floats, multiples of 4) of the accumulators, z, hidden
+  int ds, zs, hs;
+  // offsets (in floats) of the regions after the slots
+  int o_b1, o_b2, o_acc, o_z, o_hid, o_part, o_list, o_bar;
 };
 
 __host__ __device__ inline int round_up(int a, int b) {
@@ -114,96 +157,256 @@ __host__ __device__ inline int n_acc(int epilogue) {
   return epilogue == kEpiScalers ? 4 : 1;
 }
 
-// rows_alloc x (n_acc * d [+ d_in: z] [+ d_ff: hidden]) floats, then the
-// edge list and the scan
-size_t smem_bytes(int rows, int d, int d_in, int d_ff, bool two_layer,
-                  int epilogue) {
-  const size_t rows_alloc = round_up(rows, kRowChunk);
-  const size_t per_row = static_cast<size_t>(n_acc(epilogue)) * d +
-                         (epilogue == kEpiSelf ? 0 : d_in) +
-                         (two_layer ? d_ff : 0);
-  return rows_alloc * per_row * sizeof(float) + 3 * kEdgeTile * sizeof(int) +
-         (kWarps + 1) * sizeof(int);
-}
+// --- staging the weights
 
-// s is -1 for a sender outside [0, n): its row reads as zeros
-__device__ __forceinline__ float phi(const Args& p, int e, int s, int dd) {
-  float v = s >= 0 ? p.y[(size_t)s * p.d + dd] : 0.f;
-  if (p.sw_mode == kSwScalar) {
-    v = __fmul_rn(v, p.sw[e]);
-  } else if (p.sw_mode == kSwFull) {
-    v = __fmul_rn(v, p.sw[(size_t)e * p.d + dd]);
-  } else if (p.sw_mode == kSwHead) {
-    v = __fmul_rn(v, p.sw[(size_t)e * p.sw_cols + dd / p.head_dim]);
+__device__ __forceinline__ void bulk_or_cp_async(float* dst, const float* src,
+                                                 int floats, uint64_t* bar,
+                                                 int tid) {
+  const bool bulk =
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0 && (floats & 3) == 0;
+  if (bulk) {
+    if (tid == 0) {
+      hopper::fence_proxy_async();   // after generic reads of the slot
+      hopper::mbar_expect_tx(bar, floats * 4);
+      hopper::bulk_load(dst, src, floats * 4, bar);
+    }
+  } else {
+    for (int i = tid; i < floats; i += kThreads) {
+      hopper::cp_async4(dst + i, src + i);
+    }
+    hopper::cp_async_arrive(bar);   // each thread's copies, counted
+    __syncthreads();                // before the one real arrival
+    if (tid == 0) hopper::mbar_arrive(bar);
   }
-  if (p.et != nullptr) v = __fadd_rn(v, p.et[(size_t)e * p.d + dd]);
-  if (p.pb != nullptr) v = __fadd_rn(v, p.pb[dd]);
-  if (p.phi_relu) v = fmaxf(v, 0.f);
-  return v;
 }
 
-// dst[r, j] = act(b[j] + sum_k src[r, k] * w[k, j]) for r < rows, summed over
-// k in order, so a row's result does not depend on how many rows a block has.
-// src = smem + src_off (named by its offset so that its loads always compile
-// as shared-memory loads) must hold round_up(rows, kRowChunk) rows.
-__device__ __forceinline__ void dense_rows(int src_off, int k_dim, int rows,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ b,
-                                           int n_dim, float* dst, int relu) {
-  for (int j = threadIdx.x; j < n_dim; j += kThreads) {
-    const float bj = b[j];
-    for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
-      float a[kRowChunk];
+// chunk c of the weight stream (layer 0's chunks, then layer 1's) into
+// `slot`; every thread calls it (the cp.async path needs them all)
+__device__ __forceinline__ void issue_chunk(const Args& p, int c, int slot,
+                                            int tid) {
+  const int layer = c < p.chunks[0] ? 0 : 1;
+  const int ci = layer ? c - p.chunks[0] : c;
+  const int k_dim = layer ? p.d_ff : p.d_in;
+  const int n_dim = layer ? p.d_out : p.d_ff;
+  const float* w = layer ? p.w2 : p.w1;
+  const int k0 = ci * p.kc[layer];
+  const int rows = min(p.kc[layer], k_dim - k0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
+  bulk_or_cp_async(smem + slot * p.slot_floats, w + (size_t)k0 * n_dim,
+                   rows * n_dim, &bars[slot], tid);
+}
+
+// the first `slots` chunks and the biases (barriers slots, slots + 1)
+__device__ __forceinline__ void issue_first(const Args& p, int tid) {
+  const int total = p.chunks[0] + p.chunks[1];
+  for (int c = 0; c < min(p.slots, total); ++c) issue_chunk(p, c, c, tid);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
+  bulk_or_cp_async(smem + p.o_b1, p.b1, p.d_ff, &bars[p.slots], tid);
+  if (p.w2 != nullptr) {
+    bulk_or_cp_async(smem + p.o_b2, p.b2, p.d_out, &bars[p.slots + 1], tid);
+  }
+}
+
+// --- the dense layers
+
+// Partial sums of slice ks for the T rows at src_off (row stride
+// src_stride) and column j: the k quads q = ks, ks + S, ... that lie in the
+// chunk [k0, k1), in order, added to part[t * n_dim] (or from 0 at the
+// layer's first chunk). w is the chunk: k rows k0.. of n_dim floats; k0 is a
+// multiple of 4 S. The short quad past k_dim's last multiple of 4 (slice
+// short_ks) comes last, in the layer's last chunk.
+template <int T>
+__device__ __forceinline__ void fma_rows(int src_off, int src_stride,
+                                         const float* w, int n_dim, int j,
+                                         int ks, int S, int k0, int k1,
+                                         int k_dim, int short_ks, float* part,
+                                         bool first) {
+  float a[T];
 #pragma unroll
-      for (int q = 0; q < kRowChunk; ++q) a[q] = 0.f;
-#pragma unroll 8  // weight rows whose loads are issued together
-      for (int k = 0; k < k_dim; ++k) {
-        const float wk = w[(size_t)k * n_dim + j];
+  for (int t = 0; t < T; ++t) a[t] = first ? 0.f : part[t * n_dim];
+  const int qe = min(k1, k_dim & ~3) >> 2;   // past the chunk's whole quads
+  for (int q = (k0 >> 2) + ks; q < qe; q += S) {
+    const int k = 4 * q;
+    const float* wk = w + (k - k0) * n_dim + j;
+    const float w0 = wk[0];
+    const float w1 = wk[n_dim];
+    const float w2 = wk[2 * n_dim];
+    const float w3 = wk[3 * n_dim];
 #pragma unroll
-        for (int q = 0; q < kRowChunk; ++q) {
-          a[q] = fmaf(smem[src_off + (r0 + q) * k_dim + k], wk, a[q]);
+    for (int t = 0; t < T; ++t) {
+      const float4 z = *reinterpret_cast<const float4*>(
+          smem + src_off + t * src_stride + k);
+      a[t] = fmaf(z.x, w0, a[t]);
+      a[t] = fmaf(z.y, w1, a[t]);
+      a[t] = fmaf(z.z, w2, a[t]);
+      a[t] = fmaf(z.w, w3, a[t]);
+    }
+  }
+  if (k1 == k_dim && (k_dim & 3) && ks == short_ks) {   // the short quad
+    for (int k = k_dim & ~3; k < k_dim; ++k) {
+      const float wv = w[(k - k0) * n_dim + j];
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        a[t] = fmaf(smem[src_off + t * src_stride + k], wv, a[t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < T; ++t) part[t * n_dim] = a[t];
+}
+
+// dst = act(src @ w + b) for the block's rows_here rows: src at src_off
+// (row stride src_stride, k_dim wide), w the weight stream's chunks of this
+// layer, b at bias_off; dst in shared memory at dst_off (row stride
+// dst_stride) or, with `global` set, p.out's rows from row0. Thread t <
+// S n_dim takes column t % n_dim and slice t / n_dim for every group of 8
+// rows, and the last rows in groups of 4, 2 and 1. No integer division in
+// the loops: the slot and phase of the ring advance by one a chunk.
+__device__ __forceinline__ void dense_layer(const Args& p, int layer,
+                                            int src_off, int src_stride,
+                                            int bias_off, int dst_off,
+                                            int dst_stride, bool global,
+                                            int row0, int rows_here,
+                                            bool relu, int tid) {
+  const int k_dim = layer ? p.d_ff : p.d_in;
+  const int n_dim = layer ? p.d_out : p.d_ff;
+  const int S = p.split[layer];
+  const int kc = p.kc[layer];
+  const int first_chunk = layer ? p.chunks[0] : 0;
+  const int total = p.chunks[0] + p.chunks[1];
+  const int per_row = S * n_dim;
+  const int short_ks = (k_dim >> 2) % S;
+  const int ks0 = tid / n_dim;                 // the thread's first (j, ks)
+  const int j0 = tid - ks0 * n_dim;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
+  int slot = first_chunk % p.slots;
+  uint32_t phase = (first_chunk / p.slots) & 1;
+  for (int ci = 0; ci < p.chunks[layer]; ++ci) {
+    const int c = first_chunk + ci;
+    mbar_wait(&bars[slot], phase);
+    const int k0 = ci * kc;
+    const int k1 = min(k0 + kc, k_dim);
+    const float* w = smem + slot * p.slot_floats;
+    int ks = ks0;
+    int j = j0;
+    for (int t = tid; t < per_row; t += kThreads) {
+      // groups of 8 rows, then the last rows as 4 + 2 + 1
+      for (int r0 = 0; r0 < rows_here;) {
+        const int left = rows_here - r0;
+        const int in = src_off + r0 * src_stride;
+        float* part =
+            smem + p.o_part + ((size_t)ks * p.rows + r0) * n_dim + j;
+        const bool first = ci == 0;
+        if (left >= 8) {
+          fma_rows<8>(in, src_stride, w, n_dim, j, ks, S, k0, k1, k_dim,
+                      short_ks, part, first);
+          r0 += 8;
+        } else if (left >= 4) {
+          fma_rows<4>(in, src_stride, w, n_dim, j, ks, S, k0, k1, k_dim,
+                      short_ks, part, first);
+          r0 += 4;
+        } else if (left >= 2) {
+          fma_rows<2>(in, src_stride, w, n_dim, j, ks, S, k0, k1, k_dim,
+                      short_ks, part, first);
+          r0 += 2;
+        } else {
+          fma_rows<1>(in, src_stride, w, n_dim, j, ks, S, k0, k1, k_dim,
+                      short_ks, part, first);
+          r0 += 1;
         }
       }
-#pragma unroll
-      for (int q = 0; q < kRowChunk; ++q) {
-        if (r0 + q < rows) {
-          float h = a[q] + bj;
-          if (relu) h = fmaxf(h, 0.f);
-          dst[(size_t)(r0 + q) * n_dim + j] = h;
-        }
+      if (t + kThreads < per_row) {   // the next t (n_dim > kThreads)
+        for (j += kThreads; j >= n_dim; j -= n_dim) ++ks;
+      }
+    }
+    if (c + p.slots < total) {   // the block is done with this slot
+      __syncthreads();
+      issue_chunk(p, c + p.slots, slot, tid);
+    }
+    if (++slot == p.slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  mbar_wait(&bars[p.slots + layer], 0);   // the bias
+  __syncthreads();
+  // the slices ks = 0, 1, ... in order, then the bias, then the relu
+  for (int r = 0; r < rows_here; ++r) {
+    for (int j = tid; j < n_dim; j += kThreads) {
+      const float* part = smem + p.o_part + (size_t)r * n_dim + j;
+      float h = part[0];
+      for (int ks = 1; ks < S; ++ks) {
+        h = __fadd_rn(h, part[(size_t)ks * p.rows * n_dim]);
+      }
+      h = __fadd_rn(h, smem[bias_off + j]);
+      if (relu) h = fmaxf(h, 0.f);
+      if (global) {
+        p.out[(size_t)(row0 + r) * n_dim + j] = h;
+      } else {
+        smem[dst_off + r * dst_stride + j] = h;
       }
     }
   }
 }
 
+// thread tid's kEdgesPerThread consecutive edges of the tile at `base`
+// (past the stream: masked, no receiver, no sender)
+__device__ __forceinline__ void load_tile(const Args& p, int base, int tid,
+                                          uint8_t (&m)[kEdgesPerThread],
+                                          int64_t (&r)[kEdgesPerThread],
+                                          int64_t (&s)[kEdgesPerThread]) {
+#pragma unroll
+  for (int k = 0; k < kEdgesPerThread; ++k) {
+    const int64_t e = (int64_t)base + tid * kEdgesPerThread + k;
+    const bool in = e < p.e;
+    m[k] = in ? __ldg(p.mask + e) : 0;
+    r[k] = in ? __ldg(p.rcv + e) : -1;
+    s[k] = in ? __ldg(p.snd + e) : -1;
+  }
+}
+
+// phi of one edge at one lane from its loaded terms: the gathered value y
+// (0 for a sender outside [0, n)), its src_weight w, edge term t and bias b
+__device__ __forceinline__ float phi(const Args& p, float y, float w, float t,
+                                     float b) {
+  float v = y;
+  if (p.sw_mode != kSwNone) v = __fmul_rn(v, w);
+  if (p.et != nullptr) v = __fadd_rn(v, t);
+  if (p.pb != nullptr) v = __fadd_rn(v, b);
+  if (p.phi_relu) v = fmaxf(v, 0.f);
+  return v;
+}
+
 // kScalers: the scalers form's four accumulators (a separate instance, so
 // that the other forms' edge loop keeps one accumulator and nothing else)
 template <bool kScalers>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     layer_fused_kernel(const __grid_constant__ Args p) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int row0 = blockIdx.x * p.rows;
   const int rows_here = min(p.rows, p.n - row0);
-  const int rows_alloc = round_up(p.rows, kRowChunk);
   const bool two_layer = p.w2 != nullptr;
 
   constexpr bool scalers = kScalers;
-  const size_t acc_len = (size_t)rows_alloc * p.d;
-  float* acc = smem;                                   // s1: rows_alloc x d
+  const int acc_len = (p.rows + 1) * p.ds;            // + the trash row
+  float* acc = smem + p.o_acc;                         // s1: rows x ds
   float* acc_sq = acc + acc_len;                       // scalers only: s2,
   float* acc_mx = acc_sq + acc_len;                    //   max,
   float* acc_mn = acc_mx + acc_len;                    //   min
-  float* z = acc + n_acc(p.epilogue) * acc_len;        // rows_alloc x d_in
-  float* hid = z + (p.epilogue == kEpiSelf ? 0 : (size_t)rows_alloc * p.d_in);
-  int* list_e = reinterpret_cast<int*>(
-      hid + (two_layer ? (size_t)rows_alloc * p.d_ff : 0));
+  float* z = smem + p.o_z;                             // rows x zs
+  int* list_e = reinterpret_cast<int*>(smem + p.o_list);
   int* list_s = list_e + kEdgeTile;
   int* list_r = list_s + kEdgeTile;
   int* scan = list_r + kEdgeTile;                      // kWarps + 1
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
 
-  for (int i = tid; i < rows_alloc * p.d; i += kThreads) {
+  if (tid == 0) {
+    for (int s = 0; s < p.slots + 2; ++s) mbar_init(&bars[s], 1);
+    hopper::fence_barrier_init();
+  }
+  for (int i = tid; i < rows_here * p.ds; i += kThreads) {
     acc[i] = 0.f;
     if constexpr (scalers) {
       acc_sq[i] = 0.f;
@@ -211,12 +414,8 @@ __global__ void __launch_bounds__(kThreads)
       acc_mn[i] = kBig;
     }
   }
-  if (p.epilogue != kEpiSelf) {
-    for (int i = tid; i < rows_alloc * p.d_in; i += kThreads) z[i] = 0.f;
-  }
-  if (two_layer) {
-    for (int i = tid; i < rows_alloc * p.d_ff; i += kThreads) hid[i] = 0.f;
-  }
+  __syncthreads();
+  issue_first(p, tid);   // land while the edges are swept
 
   // lanes of the accumulate phase (see the design note above)
   const bool narrow = p.d <= kThreads;
@@ -224,7 +423,97 @@ __global__ void __launch_bounds__(kThreads)
   const int group = narrow ? tid / p.d : 0;
   const int lane0 = narrow ? tid % p.d : tid;
   const int lane_step = narrow ? p.d : kThreads;
+  // where a lane's src_weight sits in an edge's row of it
+  const int sw_stride = p.sw_mode == kSwFull   ? p.d
+                        : p.sw_mode == kSwHead ? p.sw_cols
+                                               : 1;
 
+  // this thread's kEdgesPerThread consecutive edges of a tile: mask,
+  // receiver and sender, loaded together (the next tile's while this one is
+  // accumulated)
+  uint8_t m_own[kEdgesPerThread];
+  int64_t r_own[kEdgesPerThread], s_own[kEdgesPerThread];
+  // 3. each (row, lane) adds the listed edges' phi in stream order; a
+  //    round's loads are all issued before its first use. Where every group
+  //    of lanes owns one row at most (groups >= rows_here: the serving
+  //    buckets, one row a block), a lane's sums stay in registers for the
+  //    whole list; else each edge folds into its row in shared memory.
+  const bool one_row = groups >= rows_here;
+  auto accumulate = [&](int listed) {
+    if (group >= groups || (one_row && group >= rows_here)) return;
+    for (int dd = lane0; dd < p.d; dd += lane_step) {
+      const float pbv = p.pb != nullptr ? __ldg(p.pb + dd) : 0.f;
+      const int sw_lane = p.sw_mode == kSwFull   ? dd
+                          : p.sw_mode == kSwHead ? dd / p.head_dim
+                                                 : 0;
+      const int own = group * p.ds + dd;   // the one row's (one_row)
+      float s1 = acc[own];
+      float s2 = scalers ? acc_sq[own] : 0.f;
+      float mx = scalers ? acc_mx[own] : 0.f;
+      float mn = scalers ? acc_mn[own] : 0.f;
+      for (int i = 0; i < listed; i += kUnroll) {
+        int rr[kUnroll];
+        float yv[kUnroll], wv[kUnroll], tv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int rg = list_r[i + u];
+          const bool mine = i + u < listed && (rg & 255) == group;
+          rr[u] = mine ? rg >> 8 : -1;
+          const int e = mine ? list_e[i + u] : 0;
+          const int s = mine ? list_s[i + u] : -1;
+          yv[u] = s >= 0 ? __ldg(p.y + (s + dd)) : 0.f;
+          wv[u] = mine && p.sw_mode != kSwNone
+                      ? __ldg(p.sw + (e * sw_stride + sw_lane))
+                      : 1.f;
+          tv[u] = mine && p.et != nullptr ? __ldg(p.et + (e * p.d + dd))
+                                          : 0.f;
+        }
+        // no branch between the loads and the folds (one would let the
+        // compiler move each load to its fold: a round trip an edge)
+        if (one_row) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const float v = phi(p, yv[u], wv[u], tv[u], pbv);
+            const bool mine = rr[u] >= 0;
+            s1 = mine ? s1 + v : s1;
+            if constexpr (scalers) {
+              s2 = mine ? __fadd_rn(s2, __fmul_rn(v, v)) : s2;
+              mx = mine ? fmaxf(mx, v) : mx;
+              mn = mine ? fminf(mn, v) : mn;
+            }
+          }
+        } else {
+          // the edges of other rows fold into the trash row
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const float v = phi(p, yv[u], wv[u], tv[u], pbv);
+            const int a = (rr[u] >= 0 ? rr[u] : p.rows) * p.ds + dd;
+            acc[a] += v;
+            if constexpr (scalers) {
+              acc_sq[a] = __fadd_rn(acc_sq[a], __fmul_rn(v, v));
+              acc_mx[a] = fmaxf(acc_mx[a], v);
+              acc_mn[a] = fminf(acc_mn[a], v);
+            }
+          }
+        }
+      }
+      if (one_row) {
+        acc[own] = s1;
+        if constexpr (scalers) {
+          acc_sq[own] = s2;
+          acc_mx[own] = mx;
+          acc_mn[own] = mn;
+        }
+      }
+    }
+  };
+
+  // The owned edges of every tile are appended to one list in stream
+  // order, which is accumulated when the next tile would overflow it and
+  // at the end: one accumulate pass for the whole stream unless the block
+  // owns more than kEdgeTile edges.
+  int listed = 0;
+  load_tile(p, 0, tid, m_own, r_own, s_own);
   for (int base = 0; base < p.e; base += kEdgeTile) {
     // 1. which of this thread's consecutive edges does the block own?
     const int e0 = base + tid * kEdgesPerThread;
@@ -232,15 +521,10 @@ __global__ void __launch_bounds__(kThreads)
     int cnt = 0;
 #pragma unroll
     for (int k = 0; k < kEdgesPerThread; ++k) {
-      const int e = e0 + k;
-      local[k] = -1;
-      if (e < p.e && p.mask[e]) {
-        const int64_t r = p.rcv[e] - row0;
-        if (r >= 0 && r < rows_here) {
-          local[k] = static_cast<int>(r);
-          ++cnt;
-        }
-      }
+      const int64_t r = r_own[k] - row0;
+      local[k] = m_own[k] && r >= 0 && r < rows_here ? static_cast<int>(r)
+                                                      : -1;
+      cnt += local[k] >= 0;
     }
     // 2. block-wide exclusive scan of the counts: list slots in stream order
     int incl = cnt;
@@ -263,133 +547,179 @@ __global__ void __launch_bounds__(kThreads)
       if (lane == kWarps - 1) scan[kWarps] = s;
     }
     __syncthreads();
-    int slot = scan[warp] + incl - cnt;
+    const int owned = scan[kWarps];
+    if (listed + owned > kEdgeTile) {   // the list is full: fold it first
+      accumulate(listed);
+      __syncthreads();
+      listed = 0;
+    }
+    int slot = listed + scan[warp] + incl - cnt;
 #pragma unroll
     for (int k = 0; k < kEdgesPerThread; ++k) {
       if (local[k] >= 0) {
         list_e[slot] = e0 + k;
-        // a sender outside [0, n) gathers a zero row (the Pallas kernel's
-        // one-hot gather); -1 marks it so that y is never read there
-        const int64_t s = p.snd[e0 + k];
-        list_s[slot] = (s >= 0 && s < p.n) ? static_cast<int>(s) : -1;
-        list_r[slot] = local[k];
+        // its row's offset in y; a sender outside [0, n) gathers a zero row
+        // (the Pallas kernel's one-hot gather): -1 marks it so that y is
+        // never read there
+        const int64_t s = s_own[k];
+        list_s[slot] = (s >= 0 && s < p.n) ? static_cast<int>(s) * p.d : -1;
+        // the row and, in the low 8 bits, the group of lanes that owns it
+        list_r[slot] = local[k] << 8 | local[k] % groups;
         ++slot;
       }
     }
-    __syncthreads();
-    const int total = scan[kWarps];
-
-    // 3. each (row, lane) adds its edges' phi in stream order
-    if (group < groups) {
-      for (int dd = lane0; dd < p.d; dd += lane_step) {
-        for (int i = 0; i < total; i += kUnroll) {
-          float v[kUnroll];
-          int rr[kUnroll];
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            rr[u] = -1;
-            v[u] = 0.f;
-            if (i + u < total && list_r[i + u] % groups == group) {
-              rr[u] = list_r[i + u];
-              v[u] = phi(p, list_e[i + u], list_s[i + u], dd);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            if (rr[u] >= 0) {
-              const int a = rr[u] * p.d + dd;
-              acc[a] += v[u];
-              if constexpr (scalers) {
-                acc_sq[a] = __fadd_rn(acc_sq[a], __fmul_rn(v[u], v[u]));
-                acc_mx[a] = fmaxf(acc_mx[a], v[u]);
-                acc_mn[a] = fminf(acc_mn[a], v[u]);
-              }
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();   // the list is rewritten by the next tile
+    listed += owned;
+    load_tile(p, base + kEdgeTile, tid, m_own, r_own, s_own);
   }
+  __syncthreads();
+  accumulate(listed);
+  __syncthreads();
 
   // 4. the first dense layer's input row: the self term in place on acc,
-  //    or z from the accumulators (scalers, field)
-  if (p.epilogue == kEpiSelf && p.self_mode != kSelfNone) {
-    for (int i = tid; i < rows_here * p.d; i += kThreads) {
-      const int r = i / p.d;
-      const float c = p.self_mode == kSelfScalar ? p.sc[0] : p.sc[row0 + r];
-      acc[i] = __fadd_rn(acc[i], __fmul_rn(c, p.x[(size_t)row0 * p.d + i]));
+  //    or z from the accumulators (scalers, field); element (r, c) of the
+  //    rows_here x width rows goes to thread (r * width + c) % kThreads
+  auto rows_by_threads = [&](int width, auto&& f) {
+    int r = tid / width;
+    int c = tid - r * width;
+    const int dr = kThreads / width;
+    const int dc = kThreads - dr * width;
+    while (r < rows_here) {
+      f(r, c);
+      r += dr;
+      c += dc;
+      if (c >= width) {
+        c -= width;
+        ++r;
+      }
     }
-  } else if (p.epilogue != kEpiSelf) {
+  };
+  if (p.epilogue == kEpiSelf) {
+    if (p.self_mode != kSelfNone) {
+      rows_by_threads(p.d, [&](int r, int c) {
+        const float sc = __ldg(p.sc + (p.self_mode == kSelfScalar ? 0
+                                                                  : row0 + r));
+        const float xv = __ldg(p.x + (size_t)(row0 + r) * p.d + c);
+        float* a = acc + r * p.ds + c;
+        *a = __fadd_rn(*a, __fmul_rn(sc, xv));
+      });
+    }
+  } else {
     // z's first D_x columns: the carry rows
-    for (int i = tid; i < rows_here * p.d_x; i += kThreads) {
-      const int r = i / p.d_x;
-      z[(size_t)r * p.d_in + i % p.d_x] = p.x[(size_t)row0 * p.d_x + i];
-    }
+    rows_by_threads(p.d_x, [&](int r, int c) {
+      z[r * p.zs + c] = __ldg(p.x + (size_t)(row0 + r) * p.d_x + c);
+    });
   }
   if constexpr (scalers) {
     // m = [mean | std | max | min] at lane c, times each degree scaler
-    const int width = 4 * p.d;
-    for (int i = tid; i < rows_here * p.d; i += kThreads) {
-      const int r = i / p.d;
-      const int c = i % p.d;
-      const float deg = p.deg[row0 + r];
+    rows_by_threads(p.d, [&](int r, int c) {
+      const int a = r * p.ds + c;
+      const float deg = __ldg(p.deg + row0 + r);
       const float rdenom = __fdiv_rn(1.f, fmaxf(deg, 1.f));
-      const float mean = __fmul_rn(acc[i], rdenom);
+      const float mean = __fmul_rn(acc[a], rdenom);
       const float var = fmaxf(
-          __fsub_rn(__fmul_rn(acc_sq[i], rdenom), __fmul_rn(mean, mean)),
+          __fsub_rn(__fmul_rn(acc_sq[a], rdenom), __fmul_rn(mean, mean)),
           0.f);
       const float sd = __fsqrt_rn(__fadd_rn(var, 1e-5f));
       const bool nonempty = deg > 0.f;
-      const float mx = nonempty && acc_mx[i] > -kBig ? acc_mx[i] : 0.f;
-      const float mn = nonempty && acc_mn[i] < kBig ? acc_mn[i] : 0.f;
-      float* zr = z + (size_t)r * p.d_in + p.d_x + c;
-      const float* s = p.scal + (size_t)(row0 + r) * p.n_scalers;
+      const float mx = nonempty && acc_mx[a] > -kBig ? acc_mx[a] : 0.f;
+      const float mn = nonempty && acc_mn[a] < kBig ? acc_mn[a] : 0.f;
+      float* zc = z + r * p.zs + p.d_x + c;
+      const float* sr = p.scal + (size_t)(row0 + r) * p.n_scalers;
       for (int k = 0; k < p.n_scalers; ++k) {
-        const float sk = s[k];
-        float* zk = zr + k * width;
+        const float sk = __ldg(sr + k);
+        float* zk = zc + k * 4 * p.d;
         zk[0] = __fmul_rn(mean, sk);
         zk[p.d] = __fmul_rn(sd, sk);
         zk[2 * p.d] = __fmul_rn(mx, sk);
         zk[3 * p.d] = __fmul_rn(mn, sk);
       }
-    }
+    });
   } else if (p.epilogue == kEpiField) {
     // [mean of the plain half | |field half - x * wsum|]
-    for (int i = tid; i < rows_here * p.d_x; i += kThreads) {
-      const int r = i / p.d_x;
-      const int c = i % p.d_x;
-      const float rdenom = __fdiv_rn(1.f, fmaxf(p.deg[row0 + r], 1.f));
-      const float xv = p.x[(size_t)row0 * p.d_x + i];
-      const float* a = acc + (size_t)r * p.d;
-      float* zr = z + (size_t)r * p.d_in;
+    rows_by_threads(p.d_x, [&](int r, int c) {
+      const float rdenom =
+          __fdiv_rn(1.f, fmaxf(__ldg(p.deg + row0 + r), 1.f));
+      const float xv = __ldg(p.x + (size_t)(row0 + r) * p.d_x + c);
+      const float* a = acc + r * p.ds;
+      float* zr = z + r * p.zs;
       zr[p.d_x + c] = __fmul_rn(a[c], rdenom);
-      zr[2 * p.d_x + c] = fabsf(
-          __fsub_rn(a[p.d_x + c], __fmul_rn(xv, p.wsum[row0 + r])));
-    }
+      zr[2 * p.d_x + c] = fabsf(__fsub_rn(
+          a[p.d_x + c], __fmul_rn(xv, __ldg(p.wsum + row0 + r))));
+    });
   }
   __syncthreads();
 
   // 5. the update MLP, its first layer on acc (self) or z
-  const int in_off = static_cast<int>(
-      (p.epilogue == kEpiSelf ? acc : z) - smem);
-  const int hid_off = static_cast<int>(hid - smem);
-  float* out = p.out + (size_t)row0 * p.d_out;
+  const bool self = p.epilogue == kEpiSelf;
+  const int in_off = self ? p.o_acc : p.o_z;
+  const int in_stride = self ? p.ds : p.zs;
   if (two_layer) {
-    dense_rows(in_off, p.d_in, rows_here, p.w1, p.b1, p.d_ff, hid, 1);
+    dense_layer(p, 0, in_off, in_stride, p.o_b1, p.o_hid, p.hs, false, row0,
+                rows_here, true, tid);
     __syncthreads();
-    dense_rows(hid_off, p.d_ff, rows_here, p.w2, p.b2, p.d_out, out,
-               p.out_relu);
+    dense_layer(p, 1, p.o_hid, p.hs, p.o_b2, 0, 0, true, row0, rows_here,
+                p.out_relu, tid);
   } else {
-    dense_rows(in_off, p.d_in, rows_here, p.w1, p.b1, p.d_ff, out,
-               p.out_relu);
+    dense_layer(p, 0, in_off, in_stride, p.o_b1, 0, 0, true, row0,
+                rows_here, p.out_relu, tid);
   }
 }
 
-// Rows one block owns: `rows` if given (> 0), else one block per SM where
-// the rows allow it; then fewer while the shared memory would not fit.
-int block_rows(int rows, int n, int d, int d_in, int d_ff, bool two_layer,
-               int epilogue) {
+// --- the host's plan
+
+// split-k slices of a dense layer: every thread a (column, slice), at most
+// one slice per quad of k; a function of k_dim and n_dim alone
+int split_of(int k_dim, int n_dim) {
+  const int s = kThreads / n_dim;
+  const int quads = (k_dim + 3) / 4;
+  return s < 1 ? 1 : (s < quads ? s : quads);
+}
+
+// k rows a chunk: a multiple of 4 S (every slice starts a chunk on its own
+// quad), at most kChunkBytes where that allows one such step
+int chunk_rows(int k_dim, int n_dim, int split) {
+  const int step = 4 * split;
+  int kc = kChunkBytes / (4 * n_dim) / step * step;
+  if (kc < step) kc = step;
+  return kc < k_dim ? kc : k_dim;   // one chunk holds a short layer whole
+}
+
+// Lay out a block of `rows` rows; returns its bytes. Every region starts on
+// 16 bytes (the slots on 128).
+size_t layout(Args& p, int rows, int slots) {
+  const bool two = p.w2 != nullptr;
+  p.rows = rows;
+  p.slots = slots;
+  int o = slots * p.slot_floats;
+  p.o_b1 = o;
+  o += round_up(p.d_ff, 4);
+  p.o_b2 = o;
+  o += two ? round_up(p.d_out, 4) : 0;
+  p.o_acc = o;
+  o += n_acc(p.epilogue) * (rows + 1) * p.ds;   // + a trash row each
+  p.o_z = o;
+  o += p.epilogue == kEpiSelf ? 0 : rows * p.zs;
+  p.o_hid = o;
+  o += two ? rows * p.hs : 0;
+  p.o_part = o;
+  const int part0 = p.split[0] * p.d_ff;
+  const int part1 = two ? p.split[1] * p.d_out : 0;
+  o += round_up(rows * (part0 > part1 ? part0 : part1), 4);
+  p.o_list = o;
+  // the lists, the scan, and room for a round read past the list's end
+  o += round_up(3 * kEdgeTile + kWarps + 1 + 2 * kUnroll, 4);
+  p.o_bar = o;
+  o += 2 * (slots + 2);
+  return static_cast<size_t>(o) * sizeof(float);
+}
+
+// The rows a block owns (`rows` if given, > 0; else one block per SM where
+// the rows allow it) and the weight ring: each layer's weight whole in a
+// slot of its own where both fit beside the rows, else chunks of at most
+// kChunkBytes through as many slots as fit (at least two; rows are halved
+// until they do, and one block row takes one slot if it must). Returns the
+// block's bytes, or 0 if even that does not fit.
+size_t plan(Args& p, int rows) {
   int dev = 0;
   int sms = 132;
   int max_smem = 227 * 1024;
@@ -397,13 +727,42 @@ int block_rows(int rows, int n, int d, int d_in, int d_ff, bool two_layer,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  if (rows <= 0) rows = (n + sms - 1) / sms;
-  while (rows > 1 &&
-         smem_bytes(rows, d, d_in, d_ff, two_layer, epilogue) >
-             static_cast<size_t>(max_smem)) {
+  const bool two = p.w2 != nullptr;
+  p.ds = round_up(p.d, 4);
+  p.zs = round_up(p.d_in, 4);
+  p.hs = round_up(p.d_ff, 4);
+  p.split[0] = split_of(p.d_in, p.d_ff);
+  p.split[1] = two ? split_of(p.d_ff, p.d_out) : 1;
+  // chunks of whole layers (whole = true) or of at most kChunkBytes
+  auto chunking = [&](bool whole) {
+    p.kc[0] = whole ? p.d_in : chunk_rows(p.d_in, p.d_ff, p.split[0]);
+    p.kc[1] = !two ? 4 : whole ? p.d_ff : chunk_rows(p.d_ff, p.d_out,
+                                                     p.split[1]);
+    p.chunks[0] = (p.d_in + p.kc[0] - 1) / p.kc[0];
+    p.chunks[1] = two ? (p.d_ff + p.kc[1] - 1) / p.kc[1] : 0;
+    const int f0 = p.kc[0] * p.d_ff;
+    const int f1 = two ? p.kc[1] * p.d_out : 0;
+    p.slot_floats = round_up(f0 > f1 ? f0 : f1, 32);
+    return p.chunks[0] + p.chunks[1];
+  };
+  if (rows <= 0) rows = (p.n + sms - 1) / sms;
+  // each layer's weight in one slot where both fit beside the rows
+  int total = chunking(true);
+  size_t bytes = layout(p, rows, total);
+  if (bytes <= static_cast<size_t>(max_smem)) return bytes;
+  total = chunking(false);
+  for (;;) {
+    const size_t fixed = layout(p, rows, 0);
+    const size_t room = fixed < (size_t)max_smem ? max_smem - fixed : 0;
+    const size_t per_slot = 4 * (size_t)p.slot_floats + 8;
+    int slots = static_cast<int>(room / per_slot);
+    if (slots > total) slots = total;
+    if (slots >= (total < 2 ? total : 2) || (rows == 1 && slots >= 1)) {
+      return layout(p, rows, slots);
+    }
+    if (rows == 1) return 0;
     rows = (rows + 1) / 2;
   }
-  return rows < 1 ? 1 : rows;
 }
 
 }  // namespace
@@ -422,7 +781,7 @@ extern "C" int layer_fused_launch(
     void* out, int n, int e, int d, int d_x, int d_in, int d_ff, int d_out,
     int sw_mode, int sw_cols, int head_dim, int self_mode, int epilogue,
     int n_scalers, int phi_relu, int out_relu, int rows, void* stream) {
-  Args p;
+  Args p = {};
   p.x = static_cast<const float*>(x);
   p.y = static_cast<const float*>(y);
   p.snd = static_cast<const int64_t*>(snd);
@@ -465,13 +824,15 @@ extern "C" int layer_fused_launch(
                                                   : wsum != nullptr));
   if (d_in != want_in || (epilogue == kEpiField && d != 2 * d_x) ||
       (epilogue == kEpiSelf && self_mode != kSelfNone && d_x != d) ||
-      !inputs_ok) {
+      !inputs_ok || (w2 == nullptr) != (b2 == nullptr) || d_ff < 1 ||
+      d_out < 1 || d < 1 ||
+      // node and edge rows are indexed with 32-bit offsets
+      static_cast<int64_t>(n > e ? n : e) * d >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const bool two_layer = w2 != nullptr;
-  p.rows = block_rows(rows, n, d, d_in, d_ff, two_layer, epilogue);
-  const size_t bytes = smem_bytes(p.rows, d, d_in, d_ff, two_layer, epilogue);
+  const size_t bytes = plan(p, rows);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = epilogue == kEpiScalers ? layer_fused_kernel<true>
                                                : layer_fused_kernel<false>;
   if (bytes > 48 * 1024) {

@@ -245,8 +245,8 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, epilogue,
     d_in, d_ff = w1.shape
     two_layer = w2 is not None
     d_out = w2.shape[1] if two_layer else d_ff
-    if e >= 2 ** 31 or num_nodes >= 2 ** 31:
-        raise ValueError("layer_fused indexes edges and nodes with int32")
+    if max(e, num_nodes) * d >= 2 ** 31:
+        raise ValueError("layer_fused indexes edge and node rows with int32")
     if rows_per_block is not None and rows_per_block < 1:
         raise ValueError("rows_per_block must be >= 1")
 

@@ -36,10 +36,20 @@ def _problem(e=200, d=8, n=30, seed=0, mask_p=0.8):
     return x, snd, rcv, mask
 
 
+def _off_by_4_bytes(t):
+    """A contiguous copy of ``t`` that starts 4 bytes into its buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
 def _port(x, snd, rcv, mask, n, kw, fn=tops.layer_fused, device="cpu",
-          **extra):
+          weights_off_4_bytes=False, **extra):
     to_t = {k: (torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
                 else v) for k, v in kw.items()}
+    if weights_off_4_bytes:
+        to_t.update({k: _off_by_4_bytes(to_t[k])
+                     for k in ("w1", "b1", "w2", "b2") if k in to_t})
     return fn(torch.from_numpy(x).to(device),
               torch.from_numpy(snd.astype(np.int64)).to(device),
               torch.from_numpy(rcv.astype(np.int64)).to(device),
@@ -57,10 +67,11 @@ def _both(x, snd, rcv, mask, n, kw):
     return out.cpu().numpy(), jargs, to_j
 
 
-def _gin_kw(r, e, d):
-    return dict(w1=r.normal(size=(d, 2 * d)).astype(np.float32),
-                b1=r.normal(size=(2 * d,)).astype(np.float32),
-                w2=r.normal(size=(2 * d, d)).astype(np.float32),
+def _gin_kw(r, e, d, d_ff=None):
+    d_ff = d_ff or 2 * d
+    return dict(w1=r.normal(size=(d, d_ff)).astype(np.float32),
+                b1=r.normal(size=(d_ff,)).astype(np.float32),
+                w2=r.normal(size=(d_ff, d)).astype(np.float32),
                 b2=r.normal(size=(d,)).astype(np.float32),
                 edge_term=r.normal(size=(e, d)).astype(np.float32),
                 phi_activation="relu", self_coeff=np.float32(1.25))
@@ -235,12 +246,44 @@ def test_dgn_form_matches_reference(jops, e, d, n, edge_tile, banks):
     assert ours.shape == (n, d)
 
 
-def _out_of_range_problem(case):
+def _glorot(r, d_in, d_out):
+    return (r.normal(size=(d_in, d_out)) * np.sqrt(2.0 / (d_in + d_out))
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("form", ["gin", "pna", "dgn"])
+def test_paper_width_matches_the_kernel(jops, form):
+    """Each form at its paper width, at small N: GIN's self form with its
+    MLP 100 -> 200 -> 100, PNA's scalers form at D=80 (w1 over 1,040) and
+    DGN's field form at D_x=100 (w1 over 300), against the interpret-mode
+    Pallas kernel at 2e-4 (its sums and products run in another order);
+    weights scaled as the models initialise them."""
+    e, n = 96, 20
+    r = np.random.default_rng(11)
+    d = 80 if form == "pna" else 100
+    x, snd, rcv, mask = _problem(e, d, n, seed=12)
+    if form == "gin":
+        kw = _gin_kw(r, e, d)
+        kw.update(w1=_glorot(r, d, 2 * d), w2=_glorot(r, 2 * d, d))
+    elif form == "pna":
+        kw = _pna_kw(r, x, rcv, mask, n, e)
+        kw["w1"] = _glorot(r, 13 * d, d)
+    else:
+        kw = _dgn_kw(r, x, snd, rcv, mask, n, e)
+        kw["w1"] = _glorot(r, 3 * d, d)
+    ours, jargs, jkw = _both(x, snd, rcv, mask, n, kw)
+    kern = jops.layer_fused(*jargs, edge_tile=32, num_banks=4, **jkw)
+    np.testing.assert_allclose(ours, kern, atol=2e-4, rtol=2e-4)
+    assert ours.shape == (n, d)
+
+
+def _out_of_range_problem(case, d=8, d_ff=16, d_out=None):
     """ROADMAP queue 3's input (default_rng(5), N=32, E=160, D=8, the self
     form with self_coeff 1.5 and w1 8->16), with a quarter of the edges'
     receivers, senders or both redrawn outside [0, N): half at [-4, 0),
-    half at [N, N + 12) (receivers) or [N, N + 8) (senders)."""
-    e, d, n = 160, 8, 32
+    half at [N, N + 12) (receivers) or [N, N + 8) (senders). Other widths
+    (D, d_ff, and a second dense layer d_ff -> d_out) on request."""
+    e, n = 160, 32
     r = np.random.default_rng(5)
     x, snd, rcv, mask = _problem(e, d, n, seed=5)
     streams = {"receivers": (rcv, 12), "senders": (snd, 8)}
@@ -250,10 +293,14 @@ def _out_of_range_problem(case):
         draw = np.where(r.random(e) < 0.5, r.integers(-4, 0, size=e),
                         r.integers(n, n + past, size=e))
         idx[:] = np.where(pick, draw, idx)
-    kw = dict(w1=r.normal(size=(d, 16)).astype(np.float32),
-              b1=r.normal(size=(16,)).astype(np.float32),
+    kw = dict(w1=r.normal(size=(d, d_ff)).astype(np.float32),
+              b1=r.normal(size=(d_ff,)).astype(np.float32),
               edge_term=r.normal(size=(e, d)).astype(np.float32),
               phi_activation="relu", self_coeff=np.float32(1.5))
+    if d_out is not None:
+        kw["w1"] = _glorot(r, d, d_ff)
+        kw["w2"] = _glorot(r, d_ff, d_out)
+        kw["b2"] = r.normal(size=(d_out,)).astype(np.float32)
     return (x, snd, rcv, mask, n), kw
 
 
@@ -351,30 +398,37 @@ def test_cpu_path_takes_the_plain_version_and_launches_nothing():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["gin", "pna", "dgn"])
-@pytest.mark.parametrize("e,d,n", [(4096, 100, 1024), (1000, 100, 61),
-                                   (333, 300, 45)])
-def test_cuda_kernel_matches_plain_version(e, d, n, form):
+@pytest.mark.parametrize("e,d,n,d_ff", [
+    (4096, 100, 1024, None), (1000, 100, 61, None), (333, 300, 45, None),
+    (2048, 160, 256, None),      # PNA's w1 2,080 x 160 (1.33 MB): the ring
+    (3001, 9, 997, 25),          # ragged: k * n_dim and biases off 4 floats
+])
+def test_cuda_kernel_matches_plain_version(e, d, n, d_ff, form):
     """The CUDA kernel vs its plain version on the card, in GIN's self
     form, PNA's scalers form and DGN's field form (at D = 300 the field's
     stacked buffer is 600 wide), bitwise equal across rows-per-block and
-    runs. Both are fp32 with sums in another order, so they agree to 1e-4
-    of the output's scale. With an identity w1 (every output one product
-    by 1 among zeros, exact on both sides) the output is the epilogue's
-    input row z itself: the empty destinations' z must be equal."""
+    runs, and with the weights and biases as views off 4 bytes (staged 4
+    bytes a copy instead of in bulk). Both are fp32 with sums in another
+    order, so they agree to 1e-4 of the output's scale. With an identity w1
+    (every output one product by 1 among zeros, exact on both sides) the
+    output is the epilogue's input row z itself: the empty destinations' z
+    must be equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     r = np.random.default_rng(e)
     x, snd, rcv, mask = _problem(e, d, n, seed=e)
     if form == "gin":
-        kw = _gin_kw(r, e, d)
+        kw = _gin_kw(r, e, d, d_ff)
     elif form == "pna":
         kw = _pna_kw(r, x, rcv, mask, n, e)
     else:
         kw = _dgn_kw(r, x, snd, rcv, mask, n, e)
     before = tlf.layer_fused.launches
     outs = [_port(x, snd, rcv, mask, n, kw, device="cuda",
-                  rows_per_block=rpb) for rpb in (None, None, 1, 3, 16)]
+                  rows_per_block=rpb) for rpb in (None, None, 1, 3, 8, 16)]
+    outs.append(_port(x, snd, rcv, mask, n, kw, device="cuda",
+                      weights_off_4_bytes=True))
     plain = _port(x, snd, rcv, mask, n, kw, fn=tlf.layer_fused_ref,
                   device="cuda")
     torch.cuda.synchronize()
@@ -399,12 +453,18 @@ def test_cuda_kernel_matches_plain_version(e, d, n, form):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_follows_the_out_of_range_rules():
+@pytest.mark.parametrize("d,d_ff,d_out", [
+    (8, 16, None),
+    (9, 25, 9),                  # ragged widths, two dense layers
+    (8, 300, 200),               # w2 300 x 200 (240 KB): the ring
+])
+def test_cuda_kernel_follows_the_out_of_range_rules(d, d_ff, d_out):
     """The CUDA kernel against its plain version on receivers and senders
     outside [0, N): fp32 sums and products in another order, so 1e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    args, kw = _out_of_range_problem("both")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, kw = _out_of_range_problem("both", d, d_ff, d_out)
     out = _port(*args, kw, device="cuda")
     plain = _port(*args, kw, fn=tlf.layer_fused_ref, device="cuda")
     torch.cuda.synchronize()
