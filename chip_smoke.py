@@ -47,7 +47,14 @@ Phases, each printing its own lines:
                statistics; attention) and ``layer_fused`` (self form) also
                on receivers and senders outside [0, N) (ROADMAP queue 3's
                input): a receiver there adds nothing, a sender there
-               gathers a zero row.
+               gathers a zero row. The owner-bucketed kernels
+               (``mp_pipeline``, ``seg_softmax``) also on a hub row (5,000
+               of 8,192 edges), every edge into one row, N=8192 > E=1000,
+               an E past one bucketing (N=4096, E=65,536) and inputs off
+               16 bytes (mp_pipeline at D=64 with attention, H=4, and with
+               all five statistics and a full src_weight), every case of
+               both bitwise at 1, 3, 8 and 16 rows per block; first, the
+               registers and spills of each of their instantiations.
   4. slice   — the paper configs served end to end through
                ``GraphStreamEngine.process``, each path with the launch
                counts set to 0 just before it and read just after: GIN,
@@ -64,7 +71,8 @@ Phases, each printing its own lines:
                the standard point (N=1024, E=4096, MLP 64->128->64), counts
                from 0; each against its plain version, fused_nt_scatter
                also against nt_mlp + mp_pipeline, bitwise across runs and
-               rows per block; times beside the bound (and, for nt_mlp,
+               rows per block, fused_nt_scatter bitwise equal to nt_mlp +
+               mp_pipeline; times beside the bound (and, for nt_mlp,
                cuBLAS's addmm -> relu -> addmm).
   6. moe     — the MoE data path at olmoe-1b-7b's full width (d_model 2048,
                64 experts, top-8, moe_d_ff 1024, capacity factor 1.25,
@@ -680,11 +688,15 @@ MP_EMPTY = {"sum": 0.0, "sumsq": 0.0, "count": 0.0, "max": -BIG, "min": BIG,
 
 
 def mp_case(seed, n, e, d, *, stats, sw=None, edge_term=False, bias=False,
-            relu=False, heads=0, empty_tail=0):
-    """Numpy inputs of one mp_pipeline call (a dict of keyword args)."""
+            relu=False, heads=0, empty_tail=0, mask_p=0.8, hub=0):
+    """Numpy inputs of one mp_pipeline call (a dict of keyword args);
+    ``hub`` edges, at random places in the stream, go to row N // 3."""
     r = np.random.default_rng(seed)
     kw = random_inputs(r, n, e, d, sw=sw, edge_term=edge_term,
-                       bias="bias" if bias else None, empty_tail=empty_tail)
+                       bias="bias" if bias else None, empty_tail=empty_tail,
+                       mask_p=mask_p)
+    if hub:
+        kw["receivers"][r.choice(e, size=hub, replace=False)] = n // 3
     kw["stats"] = stats
     kw["activation"] = "relu" if relu else "none"
     if heads:
@@ -698,9 +710,9 @@ def mp_bound(kw):
     two. Bytes at the memory rate: ``input_bytes``, then each output
     written once. Operations at the fp32 rate: those this run's data needs
     (per unmasked edge the phi terms and each statistic on every lane; with
-    attention per edge and head the logit, its leaky_relu, the running max,
-    two exponentials with their differences and the denominator update,
-    and per lane the rescale and the weighted add; the normalisation)."""
+    attention per edge and head the logit's add, its leaky_relu (2), the
+    max, one exponential with its difference and the denominator's add, and
+    per lane the weight's product and add; the normalisation)."""
     n, d = kw["x"].shape
     valid = int(kw["edge_mask"].sum())
     heads = kw["att_src"].shape[1] if "att_src" in kw else 0
@@ -711,8 +723,8 @@ def mp_bound(kw):
     lane_ops = (sum(k in kw for k in ("src_weight", "edge_term", "bias"))
                 + (kw["activation"] == "relu"))
     if heads:
-        lane_ops += 3
-        flops += valid * heads * 9 + n * d + n * heads
+        lane_ops += 2
+        flops += valid * heads * 7 + n * d + n * heads
     else:
         lane_ops += sum({"sum": 1, "sumsq": 2, "max": 1, "min": 1}.get(s, 0)
                         for s in kw["stats"])
@@ -723,11 +735,22 @@ def mp_bound(kw):
                                  else "operations"), nbytes, flops
 
 
+# the rows per block every case of the owner-bucketed kernels must be
+# bitwise stable across
+ROWS_PER_BLOCK = (1, 3, 8, 16)
+# the mp_pipeline inputs placed off 16 bytes by the case ``n_views_off_16``
+MP_FLOAT_INPUTS = ("x", "src_weight", "edge_term", "bias", "att_src",
+                   "att_dst")
+
+
 def mp_kernel_phase(card: str, main_inputs):
     """Phase 3: mp_pipeline against mp_pipeline_ref on the card."""
     import torch
     from repro_torch.kernels.mp_pipeline import mp_pipeline, mp_pipeline_ref
     all_stats = ("sum", "sumsq", "count", "max", "min")
+    full = dict(stats=all_stats, sw="full", edge_term=True, bias=True,
+                relu=True)
+    att = dict(stats=("sum", "count"), heads=4)
     cases = {
         "a_all_stats_full_src_weight": mp_case(
             11, 1024, 4096, 100, stats=all_stats, sw="full", edge_term=True,
@@ -744,6 +767,28 @@ def mp_kernel_phase(card: str, main_inputs):
         "g_out_of_range_all_stats": out_of_range_case("mp_pipeline"),
         "h_out_of_range_attention": out_of_range_case("mp_pipeline",
                                                       heads=2),
+        # the owner buckets' edge cases: a hub row (5,000 of 8,192 edges;
+        # rows past 128 edges are put in stream order by a sweep of the
+        # tile), every edge into one row, N > E with most rows empty, an E
+        # past what a block buckets at once (16 tiles), inputs off 16 bytes
+        "i_hub_row_attention": mp_case(15, 1024, 8192, 64, mask_p=1.0,
+                                       hub=5000, **att),
+        "j_hub_row_all_stats_full_src_weight": mp_case(
+            16, 1024, 8192, 64, mask_p=1.0, hub=5000, **full),
+        "k_every_edge_to_one_row_attention": mp_case(17, 64, 4096, 64,
+                                                     hub=4096, **att),
+        "k_every_edge_to_one_row_all_stats": mp_case(18, 64, 4096, 64,
+                                                     hub=4096, **full),
+        "l_more_rows_than_edges": mp_case(19, 8192, 1000, 64, **full),
+        "l_more_rows_than_edges_attention": mp_case(20, 8192, 1000, 64,
+                                                    **att),
+        "m_edges_past_one_bucketing": mp_case(21, 4096, 65536, 64, **full),
+        "m_edges_past_one_bucketing_attention": mp_case(22, 4096, 65536,
+                                                        64, **att),
+        "n_views_off_16_all_stats": mp_case(23, 1024, 4096, 100,
+                                            empty_tail=64, **full),
+        "n_views_off_16_attention": mp_case(24, 1024, 4096, 64,
+                                            empty_tail=64, **att),
     }
     for name, kw in main_inputs.items():
         cases[name] = to_numpy(kw)
@@ -751,6 +796,9 @@ def mp_kernel_phase(card: str, main_inputs):
     rows = {}
     for name, kw_np in cases.items():
         kw = on_device(kw_np, "cuda")
+        if name.startswith("n_views_off_16"):
+            kw.update({k: placed(kw[k], "float32", 1)
+                       for k in MP_FLOAT_INPUTS if k in kw})
         out = call(mp_pipeline, kw)
         plain = call(mp_pipeline_ref, kw)
         torch.cuda.synchronize()
@@ -777,10 +825,13 @@ def mp_kernel_phase(card: str, main_inputs):
             f"E={kw_np['senders'].shape[0]} D={kw_np['x'].shape[1]} "
             f"stats {'+'.join(out)}; max_abs_err={err:.3e} "
             f"max_rel_err={rel:.3e} tol: {tol}; {n_empty} empty "
-            f"destinations exact; ok")
+            f"destinations exact; longest row "
+            f"{int(degrees_of(kw_np).max())} edges, x data_ptr % 16 = "
+            f"{kw['x'].data_ptr() % 16}; ok")
         label = f"mp_pipeline {name}"
         bitwise_stable("kernels", label,
-                       lambda **extra: call(mp_pipeline, kw, **extra), out)
+                       lambda **extra: call(mp_pipeline, kw, **extra), out,
+                       ROWS_PER_BLOCK)
         rows[name] = timed_row(card, "kernels", label,
                                lambda: call(mp_pipeline, kw),
                                lambda: call(mp_pipeline_ref, kw),
@@ -908,6 +959,14 @@ SCATTER_CASES = {
                                         num_banks=4),
         "f_padding_row_receivers_1d": dict(n=29, e=40, d=0, mask_p=1.0,
                                            num_banks=8),
+        # the owner buckets' edge cases (see mp_scatter's above; E=65,536
+        # is past what a block buckets at once: 16 tiles, swept twice)
+        "g_hub_row": dict(n=1024, e=8192, d=4, mask_p=1.0, hub=5000),
+        "h_every_edge_to_one_row": dict(n=64, e=4096, d=4, hub=4096),
+        "i_more_rows_than_edges": dict(n=8192, e=1000, d=4),
+        "j_edges_past_one_bucketing": dict(n=4096, e=65536, d=4),
+        "k_unaligned_view": dict(n=1024, e=4096, d=4, offset=1,
+                                 empty_tail=64),
     },
 }
 
@@ -959,9 +1018,9 @@ def scatter_bound(kernel, kw):
     output written once (the node statistics; seg_softmax's (E, H)
     weights). Operations at the fp32 rate: per unmasked edge and lane the
     statistics (sum 1, sumsq 2, max 1, min 1; count 1 per edge); for
-    seg_softmax per unmasked edge and head the running max, two
-    differences, two exponentials and the rescaled sum (7), then the
-    normalisation's difference, exponential, clamp and division (4)."""
+    seg_softmax per unmasked edge and head the max, the difference, the
+    exponential and the sum (4), then the weight's difference, exponential,
+    clamp and division (4)."""
     x = kw["logits" if kernel == "seg_softmax" else "msg"]
     e = x.shape[0]
     width = x.shape[1] if x.ndim == 2 else 1
@@ -971,7 +1030,7 @@ def scatter_bound(kernel, kw):
     nbytes = e + valid * (INDEX_BYTES + item * width)
     if kernel == "seg_softmax":
         nbytes += 4 * e * width
-        flops = 11 * valid * width
+        flops = 8 * valid * width
     else:
         stats = ("sum",) if kernel == "mp_scatter" else stats_of(kw)
         # mp_scatter writes the messages' dtype, the multi sweep f32
@@ -1150,6 +1209,52 @@ def scatter_build_report() -> dict:
     return report
 
 
+# mp_pipeline.cuh's forms by their template arguments (src_weight mode, edge
+# term, bias, relu, attention, statistics, check_src, generic)
+PIPELINE_FORMS = {
+    ("0", "0", "0", "0", "1", "1", "0", "0"): "GAT attention",
+    ("0", "1", "0", "1", "0", "1", "0", "0"): "GIN sum",
+    ("1", "0", "0", "0", "0", "1", "0", "0"): "GCN scalar src_weight",
+    ("0", "1", "1", "1", "0", "15", "0", "0"): "PNA four statistics",
+    ("2", "0", "0", "0", "0", "1", "0", "0"): "DGN full src_weight",
+    ("0", "1", "0", "1", "0", "1", "1", "0"): "fused_nt_scatter check_src",
+    ("n1", "1", "1", "1", "0", "15", "0", "1"): "generic",
+    ("n1", "1", "1", "1", "1", "1", "0", "1"): "generic attention",
+}
+
+
+def pipeline_build_report() -> dict:
+    """Per instantiation of the owner-bucketed kernels (mp_pipeline.cuh's
+    forms in mp_pipeline.cu and fused_nt_scatter.cu, seg_softmax.cu's
+    kernel): registers, spill bytes and static shared memory from the
+    builds' ``-Xptxas -v`` logs."""
+    import re
+
+    def form(symbol):
+        m = re.search(r"mp_pipeline_kernelI\w*?FormILi(n?\d+)ELb(\d)ELb(\d)"
+                      r"ELb(\d)ELb(\d)ELi(\d+)ELb(\d)ELb(\d)E", symbol)
+        return None if m is None else PIPELINE_FORMS.get(m.groups(),
+                                                         str(m.groups()))
+    report = {}
+    for source, instance, want in (
+            ("mp_pipeline", form, len(PIPELINE_FORMS)),
+            ("fused_nt_scatter", form, 1),
+            ("seg_softmax", lambda sym: "seg_softmax"
+             if "seg_softmax_kernel" in sym else None, 1)):
+        found = ptxas_report(source, instance)
+        for name, info in sorted(found.items()):
+            log("kernels", f"{source}.cu instantiation {name}: "
+                f"{info['registers']} registers, spill stores/loads "
+                f"{info['spill_stores']}/{info['spill_loads']} bytes, "
+                f"{info['smem']} bytes static shared memory (ptxas -v log)")
+        if len(found) != want:
+            raise AssertionError(f"{source}.cu: {len(found)} kernel "
+                                 f"instantiations in the ptxas log, expected "
+                                 f"{want}")
+        report.update({f"{source}: {k}": v for k, v in found.items()})
+    return report
+
+
 def scatter_kernel_phase(card: str, kernel: str, main_inputs):
     """Phase 3: one scatter kernel of impl='kernel' against its plain
     version on the card, on synthetic cases and the main path's inputs;
@@ -1168,8 +1273,8 @@ def scatter_kernel_phase(card: str, kernel: str, main_inputs):
     for name, kw_np in cases.items():
         dtype, offset = layout.get(name, ("float32", 0))
         kw = on_device(kw_np, "cuda")
-        if kernel != "seg_softmax":
-            kw["msg"] = placed(kw["msg"], dtype, offset)
+        stream = "logits" if kernel == "seg_softmax" else "msg"
+        kw[stream] = placed(kw[stream], dtype, offset)
         if kernel == "seg_softmax":
             rtol, atol = SOFTMAX_TOL, SOFTMAX_TOL
         elif kernel == "mp_scatter" and dtype == "bfloat16":
@@ -1215,15 +1320,17 @@ def scatter_kernel_phase(card: str, kernel: str, main_inputs):
                                          f"with its plain version "
                                          f"({e_abs:.3e})")
         label = f"{kernel} {name}"
-        if kernel != "seg_softmax":
+        longest = int(np.bincount(kw_np["receivers"][keep_np],
+                                  minlength=1).max()) if keep_np.any() else 0
+        layout_txt = (f"data_ptr % 16 = {kw[stream].data_ptr() % 16}, "
+                      f"longest row {longest} edges")
+        if kernel == "seg_softmax":
+            what += f" ({layout_txt})"
+        else:
             check_stream_order(label, out,
                                stream_order_ref(kernel, kw_np, dtype))
-            longest = int(np.bincount(kw_np["receivers"][keep_np],
-                                      minlength=1).max()) if keep_np.any() \
-                else 0
-            what += (f"; {STREAM_ORDER_TXT} ({dtype}, data_ptr % 16 = "
-                     f"{kw['msg'].data_ptr() % 16}, longest row "
-                     f"{longest} edges); {scatter_grid(kernel, kw)}")
+            what += (f"; {STREAM_ORDER_TXT} ({dtype}, {layout_txt}); "
+                     f"{scatter_grid(kernel, kw)}")
         shape = tuple(kw_np["logits" if kernel == "seg_softmax"
                             else "msg"].shape)
         log("kernels", f"{label}: N={n} E x width={shape} "
@@ -1231,7 +1338,8 @@ def scatter_kernel_phase(card: str, kernel: str, main_inputs):
             f"max_rel_err={rel:.3e} tol: {tol}; {what}; ok")
         bitwise_stable("kernels", label,
                        lambda **extra: scatter_kernel(kernel, kw, **extra),
-                       out)
+                       out, ROWS_PER_BLOCK if kernel == "seg_softmax"
+                       else (1, 3, 16))
         rows[name] = timed_row(card, "kernels", label,
                                lambda: scatter_kernel(kernel, kw),
                                lambda: scatter_plain(kernel, kw),
@@ -1385,13 +1493,14 @@ def nt_phase(card: str, graphs):
                                   edge_term=kw["edge_feat"],
                                   activation="relu")["sum"]
                 torch.cuda.synchronize()
-                e2, _, ok2 = close(out, two)
-                if not ok2:
-                    raise AssertionError(f"fused_nt_scatter {name} disagrees "
-                                         f"with nt_mlp + mp_pipeline "
+                # the same NT tile and the same edge fold (slices fixed by
+                # D, stream order): bitwise equal for in-range senders
+                if not torch.equal(out, two):
+                    e2 = close(out, two)[0]
+                    raise AssertionError(f"fused_nt_scatter {name} is not "
+                                         f"bitwise nt_mlp + mp_pipeline "
                                          f"({e2:.3e})")
-                extra = (f"; vs nt_mlp + mp_pipeline max_abs_err={e2:.3e}"
-                         f"{' (bitwise equal)' if torch.equal(out, two) else ''}")
+                extra = "; bitwise equal to nt_mlp + mp_pipeline"
             e_txt = (f" E={kw_np['senders'].shape[0]}"
                      if "senders" in kw_np else "")
             label = f"{kernel} {name}"
@@ -2326,11 +2435,11 @@ def slice_phase(card: str):
         ("pna", "pipeline", short, {mp: 4}, 5, False),
         ("dgn", "pipeline", short, {mp: 4}, 7, False),
         # impl='kernel': the message is built by PyTorch ops, then every
-        # aggregation is one scatter launch (seg_softmax launches twice)
+        # aggregation is one scatter launch
         ("gin", "kernel", short, {sc: 5}, 10, False),
         ("gcn", "kernel", short, {sc: 5}, 11, False),
         ("gin_vn", "kernel", short, {sc: 5}, 10, False),
-        ("gat", "kernel", short, {sc: 5, ss: 10}, 20, True),
+        ("gat", "kernel", short, {sc: 5, ss: 5}, 20, True),
         ("pna", "kernel", short, {scm: 4}, 9, False),
         ("dgn", "kernel", short, {scm: 4}, 11, False),
     ]
@@ -2445,6 +2554,7 @@ def main() -> int:
                 log("build", line.strip())
     scatter_build = scatter_build_report()
     lf_build = lf_build_report()
+    pipeline_build = pipeline_build_report()
 
     # 3 needs the main path's inputs first: record what each path of phase 4
     # hands its kernel in its first two layers (the first reads the raw
@@ -2554,7 +2664,7 @@ def main() -> int:
             scatter_rows["seg_softmax"]["f_gat_kernel_L0_hep_bucket"],
             "gat_kernel",
             "GAT's first layer at the hep bucket: E=1024, H=4, N=64; "
-            "both launches"),
+            "one launch"),
         row("nt_mlp", "src/repro_torch/kernels/csrc/nt_mlp.cu",
             "src/repro/kernels/nt_mlp.py:49", nt_rows["nt_mlp"],
             nt_rows["nt_mlp"]["c_gin_n1024"], "nt",
@@ -2581,6 +2691,12 @@ def main() -> int:
     kernels[-1]["instantiations"] = flash_build
     kernels[0]["instantiations"] = lf_build
     kernels[2]["instantiations"] = scatter_build
+    kernels[1]["instantiations"] = {
+        k: v for k, v in pipeline_build.items()
+        if not k.startswith("seg_softmax")}
+    kernels[4]["instantiations"] = {
+        k: v for k, v in pipeline_build.items()
+        if k.startswith("seg_softmax")}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

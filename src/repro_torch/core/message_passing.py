@@ -561,8 +561,9 @@ def segment_softmax(logits: torch.Tensor, receivers: torch.Tensor,
     logits: (E,) or (E, H); returns normalised weights of the same shape,
     0 for masked edges. Three sweeps (segment max, segment sum of the
     exponentials, the normalising gathers), counted as three passes; under
-    ``impl='kernel'`` the two launches of ``seg_softmax`` (statistics with
-    an online-rescaled denominator, then normalisation), two passes.
+    ``impl='kernel'`` the one launch of ``seg_softmax`` (statistics, then
+    the weights), counted as two passes, as the reference counts its two
+    kernels.
     """
     if edge_mask is None:
         edge_mask = torch.ones(logits.shape[0], dtype=torch.bool,

@@ -1,6 +1,8 @@
-// Owner bucketing of a materialised edge stream, for kernels launched
-// cooperatively (cudaLaunchCooperativeKernel, every block resident), so
-// that each destination row reads only its own edges, in stream order.
+// Owner bucketing of a materialised edge stream, so that each destination
+// row reads only its own edges, in stream order: bucket_edges for kernels
+// launched cooperatively (cudaLaunchCooperativeKernel, every block
+// resident; mp_scatter.cu), bucket_edges_stable for one block's rows of a
+// tile (mp_pipeline.cuh, seg_softmax.cu).
 //
 // bucket_edges builds the buckets of the rows [lo, hi) in four phases, each
 // followed by a barrier:
@@ -38,6 +40,8 @@
 // row's edges as it meets them, which is stream order at any length. That
 // sweep costs O(E) reads per row longer than 32 * K, so at most
 // E / (32 * K + 1) rows pay it.
+// bucket_edges_stable (below) keeps stream order as it places the edges,
+// so its segments need neither the sort nor the sweep.
 //
 // Atomics count and place edges here, where order cannot change a value;
 // no message is ever added by an atomic.
@@ -347,6 +351,154 @@ __device__ __forceinline__ void fold_in_stream_order(const Edges& g,
       }
     }
   }
+}
+
+// The stable block-local form: the owned edges of rows [b.lo, b.hi) among
+// the tile's edges [0, g.e), g.e <= kThreads * kPer, each row's segment in
+// stream order, so that no sort follows. Every thread of one block calls
+// it. In round k thread t takes edge k * kThreads + t (coalesced) and
+// loads its mask and receiver together (and the caller's streams beside
+// them, x.load); a ballot per warp and round gives each owned edge its
+// rank among its warp's, and one warp's scan of the (round, warp) counts
+// its place in stream order. With one row that is the segment itself;
+// with more the edges are listed in list_e (the edge) and list_r (its row
+// relative to b.lo), then one warp counts the list's edges per row
+// (__match_any_sync: one add per distinct row of 32 consecutive entries),
+// scans the counts into row_start and places each entry after the earlier
+// entries of its row, 32 at a time in list order: a stable counting sort.
+// counts end at each row's segment end. Two to four block barriers and one
+// warp's passes over the list, where bucket_edges takes atomics from every
+// warp and fold_in_stream_order a sort of every segment.
+// x.load(k, i) issues the caller's loads of edge i (the thread's k-th);
+// x.store(k, i, owner, key) runs once they are in, with owner the edge's
+// row when any row of [0, g.n) owns it (else -1) and key its row relative
+// to b.lo when this block's rows do (else -1). Returns after a barrier,
+// the buckets ready.
+template <int kPer, typename Extra>
+__device__ __forceinline__ void bucket_edges_stable(const Edges& g,
+                                                    const Buckets& b,
+                                                    int* list_e, int* list_r,
+                                                    Extra& x) {
+  // owned edges per (round, warp), then their exclusive scan; the total last
+  __shared__ int before[kPer * kWarps + 1];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rows = b.hi - b.lo;
+  const int rounds = (g.e + kThreads - 1) / kThreads;
+  uint8_t m[kPer];
+  int64_t r[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = k * kThreads + tid;
+    const bool in = k < rounds && i < g.e;
+    m[k] = in ? __ldg(g.mask + i) : 0;
+    r[k] = in ? __ldg(g.rcv + i) : -1;
+    if (in) x.load(k, i);
+  }
+  int key[kPer];
+  unsigned bal[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = k * kThreads + tid;
+    const int owner = m[k] && r[k] >= 0 && r[k] < g.n ? static_cast<int>(r[k])
+                                                       : -1;
+    key[k] = owner >= b.lo && owner < b.hi ? owner - b.lo : -1;
+    if (k < rounds) {
+      bal[k] = __ballot_sync(kFull, key[k] >= 0);
+      if (lane == 0) before[k * kWarps + warp] = __popc(bal[k]);
+      if (i < g.e) x.store(k, i, owner, key[k]);
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {   // the scan: kPer * kWarps / 32 entries a lane, in order
+    constexpr int kEach = kPer * kWarps / 32;
+    const int n = rounds * kWarps;
+    int v[kEach];
+    int sum = 0;
+#pragma unroll
+    for (int t = 0; t < kEach; ++t) {
+      v[t] = lane * kEach + t < n ? before[lane * kEach + t] : 0;
+      sum += v[t];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += u;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int t = 0; t < kEach; ++t) {
+      if (lane * kEach + t < n) before[lane * kEach + t] = run;
+      run += v[t];
+    }
+    if (lane == 31) before[kPer * kWarps] = incl;
+  }
+  __syncthreads();
+  const int total = before[kPer * kWarps];
+  const unsigned below = (1u << lane) - 1u;
+  if (rows == 1) {   // the list is the one row's segment
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k < rounds && key[k] >= 0) {
+        b.order[before[k * kWarps + warp] + __popc(bal[k] & below)] =
+            k * kThreads + tid;
+      }
+    }
+    if (tid == 0) {
+      b.row_start[0] = 0;
+      b.row_start[1] = b.counts[0] = total;
+    }
+    __syncthreads();
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (k < rounds && key[k] >= 0) {
+      const int slot = before[k * kWarps + warp] + __popc(bal[k] & below);
+      list_e[slot] = k * kThreads + tid;
+      list_r[slot] = key[k];
+    }
+  }
+  __syncthreads();
+  if (tid < 32) {
+    for (int q = lane; q < rows; q += 32) b.counts[q] = 0;
+    __syncwarp();
+    for (int c = 0; c < total; c += 32) {
+      const int q = c + lane < total ? list_r[c + lane] : -1;
+      const unsigned peers = __match_any_sync(kFull, q);
+      if (q >= 0 && lane == __ffs(peers) - 1) b.counts[q] += __popc(peers);
+      __syncwarp();
+    }
+    int carry = 0;
+    for (int q0 = 0; q0 < rows; q0 += 32) {
+      const int q = q0 + lane;
+      const int v = q < rows ? b.counts[q] : 0;
+      int incl = v;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int u = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += u;
+      }
+      if (q < rows) b.row_start[q] = b.counts[q] = carry + incl - v;
+      carry += __shfl_sync(kFull, incl, 31);
+    }
+    if (lane == 0) b.row_start[rows] = carry;
+    __syncwarp();
+    for (int c = 0; c < total; c += 32) {
+      const int q = c + lane < total ? list_r[c + lane] : -1;
+      const unsigned peers = __match_any_sync(kFull, q);
+      const int at = q >= 0 ? b.counts[q] : 0;
+      __syncwarp();   // every lane has read its row's cursor
+      if (q >= 0) {
+        b.order[at + __popc(peers & ((1u << lane) - 1u))] = list_e[c + lane];
+        if (lane == __ffs(peers) - 1) b.counts[q] = at + __popc(peers);
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace buckets

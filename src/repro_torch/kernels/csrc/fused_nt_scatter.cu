@@ -22,11 +22,11 @@
 // caller's stream.
 //   launch 1  the NT tile (nt_tile.cuh) writes y to the caller's (n, d) f32
 //             scratch;
-//   launch 2  the edge phase of mp_pipeline.cuh with the sum alone, the
-//             edge term edge_feat, a relu and its sender check on: owner
-//             computes, each block sweeping the edge stream in stream order
-//             for the destination rows it owns, no atomics, bitwise the same
-//             for any rows per block and from run to run.
+//   launch 2  the edge phase of mp_pipeline.cuh in its NT form (the sum
+//             alone, the edge term edge_feat, a relu and its sender check
+//             on): owner buckets, each block folding the stream-ordered
+//             edges of the destination rows it owns, no atomics, bitwise
+//             the same for any rows per block and from run to run.
 // In the kernel's regime (n up to ~2k, e up to ~8k, per its docstring) y is
 // under 1 MB and stays in the 50 MB L2 between the two launches, so in
 // practice it does not make the round trip to HBM either. One launch with a
@@ -86,5 +86,5 @@ extern "C" int fused_nt_scatter_launch(
   p.sw_mode = pipeline::kSwNone;
   p.relu = 1;
   p.check_src = 1;
-  return pipeline::launch(p, rows_scatter, st);
+  return pipeline::launch_form<pipeline::NtForm>(p, rows_scatter, st);
 }

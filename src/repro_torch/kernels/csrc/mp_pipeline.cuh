@@ -13,16 +13,15 @@
 //
 // src_weight is none, a scalar per edge (E,), full (E, D), or per head (E, H)
 // broadcast over D / H lanes. With attention (att_src, att_dst of (N, H)) the
-// sweep also runs GAT's edge softmax online, per head h = lane / (D / H):
+// sweep also runs GAT's edge softmax, per head h = lane / (D / H):
 //
-//   logit = leaky_relu(att_src[snd_e, h] + att_dst[i, h], slope)
-//   m' = max(m, logit); corr = exp(m - m'); p = exp(logit - m')
-//   l  = l * corr + p;  acc = acc * corr + p * phi_e;  m = m'
+//   logit_e = leaky_relu(att_src[snd_e, h] + att_dst[i, h], slope)
+//   m = max logit_e;   p_e = exp(logit_e - m);
+//   l = sum p_e;       acc = sum p_e phi_e
 //
-// starting from m = -BIG, l = 0 (the first edge gives corr = exp(-BIG - logit)
-// = 0, finite; -inf would give inf - inf), and normalises in the same launch:
-// sum_i = acc * (l > 0 ? 1 / max(l, 1e-16) : 0). att_max = m (-BIG when
-// empty) and att_denom = l (0 when empty) come back beside it.
+// and normalises in the same launch: sum_i = acc * (l > 0 ? 1 / max(l,
+// 1e-16) : 0). att_max = m (-BIG when empty) and att_denom = l (0 when
+// empty) come back beside it.
 //
 // The Pallas kernel gathers and routes with one-hot matrix products on the
 // TPU's matrix unit (_gather_phi_tile, mp_scatter._route_matrix). That is a
@@ -34,27 +33,58 @@
 // ~0.05 MB if each input is read once and each output written once (node
 // rows 16 KB, output 16 KB, the unmasked edges' indices 13 KB): ~0.015 us at
 // 3.35 TB/s, far below a launch. At N = 1024, E = 4096 it is ~0.6 MB, ~0.2 us.
-// Launch latency and the serial sweep rule, as they do for layer_fused.
+// Launch latency and the chain of dependent steps inside the block bound
+// it; experiments/pipeline_breakdown.py times the parts.
 //
-// Design (simple and right first; speed is later work), as layer_fused.cu:
-//   * Owner computes. Block b owns destination rows [b*R, b*R + R) and sweeps
-//     the whole edge stream in stream order, a tile of kEdgeTile edges at a
-//     time. A block-wide scan compacts the owned, unmasked edges of the tile
-//     into a shared-memory list that keeps stream order. Masked edges (the
-//     padding points at node 0) never enter the list, nor does an edge whose
-//     receiver lies outside [0, n): no block owns it. A sender outside
-//     [0, n) enters as -1 and gathers a zero row (y and att_src are never
-//     read there), so phi = act(edge_term + bias) still counts, as the
-//     Pallas kernel's one-hot gather gives; check_src drops it instead.
-//   * Threads run over the D lanes; with D <= blockDim there are
-//     blockDim / D groups of lanes and group g owns the rows r % groups == g.
-//     Every (row, lane) of each f32 shared-memory accumulator is written by
-//     exactly one thread, in stream order: no atomics, and the result is
-//     bitwise the same for any R and from run to run.
-//   * Attention keeps m and l per (row, lane): every lane of a (row, head)
-//     computes the same m and l from the same edges in the same order, so
-//     no lane waits on another and no barrier is needed per edge. One lane
-//     per (row, head) writes att_max / att_denom.
+// Design (owner buckets, block-local, as mp_scatter.cu's GNN-size form):
+//   * Block b owns destination rows [b*R, b*R + R). The edge stream is taken
+//     in tiles of kTileEdges edges (fewer with attention: the tile's
+//     per-(edge, head) weights live in shared memory). For each tile the
+//     block buckets the owned edges of its rows in shared memory with
+//     edge_buckets.cuh's stable form (bucket_edges_stable: mask, receiver
+//     and sender loaded together, coalesced, each int64 index read once a
+//     tile; a scan lists the owned edges in stream order and one warp
+//     places them by row, keeping that order), so each row's segment is in
+//     stream order at any length: no sort, no sweep. (bucket_edges with a
+//     register sort of each segment took ~2.5 us more at the hep bucket:
+//     PERF.md, experiments/pipeline_breakdown.py.) A tile of at most 1,024
+//     edges takes the form of 4 edges a thread (a quarter of the
+//     instructions of 16, which cost ~1.5 us there). Masked edges (the
+//     padding points at node 0) never enter a bucket, nor does an edge
+//     whose receiver lies outside [0, n): no block owns it. A sender
+//     outside [0, n) is kept as -1 and gathers a zero row (y and att_src
+//     are never read there), as the Pallas kernel's one-hot gather gives;
+//     check_src (fused_nt_scatter) folds the neutral for it instead, which
+//     drops the edge.
+//   * Attention in two passes over a row's segment: a warp takes a row, its
+//     lanes (slice, head) pairs, and computes each (edge, head) logit once,
+//     into shared memory, with the row's max per head; then one expf per
+//     (edge, head) in place, which every lane of the head reads in the
+//     fold. The fold's first gathers are issued before this pass and land
+//     during it. Across tiles the running max rescales the earlier tiles'
+//     sums (one expf per row and head a tile); within a tile nothing is
+//     rescaled.
+//   * The fold: the block's 256 threads form S groups of L lanes, L the
+//     power of two >= D (32 at least, 256 at most: a lane of a group folds
+//     one column, or several when D > 256), S = 256 / L. S depends on D
+//     alone: group s folds slice s of every row, the positions [len s / S,
+//     len (s+1) / S) of the row's stream-ordered segment, so that at one row
+//     a block every group works. A slice is folded in registers, its loads
+//     for 4 or 8 edges (by form) issued before its first fold; folds are
+//     branch-free (a select folds the neutral past the slice's end). The
+//     slices' partial sums meet in shared memory and are added in slice
+//     order, after the earlier tiles' running value, straight into the
+//     outputs at the last tile. No atomics ever add a value, and an output's arithmetic depends
+//     on D, H and the tiles alone: bitwise the same for any R and from run
+//     to run. Any E: tiles follow one another (E = 65,536 takes 16).
+//   * The phi and the statistics are fixed at compile time for the forms
+//     the paths use (GAT's attention, GIN's sum, GCN's scalar src_weight,
+//     PNA's four statistics, DGN's full src_weight, fused_nt_scatter's
+//     relu + edge term + check_src); one generic form takes the rest, its
+//     terms selected without branches and all four statistics folded, and
+//     one generic attention form.
+//   * Rows per block: one block per SM where the rows allow it, fewer rows
+//     while shared memory is short; __launch_bounds__(256, 1), no spills.
 //   * expf, not __expf; no fast math; fp32 throughout, no TF32.
 //   * The launcher returns cudaGetLastError(); it allocates nothing and does
 //     not synchronise.
@@ -64,17 +94,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace pipeline {
-namespace {   // each source that includes this gets its own kernel
+#include <algorithm>
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kEdgesPerThread = 4;
-constexpr int kEdgeTile = kThreads * kEdgesPerThread;
-constexpr int kUnroll = 4;        // edges whose loads are issued together
+#include "edge_buckets.cuh"
+
+namespace pipeline {
+namespace {   // each source that includes this gets its own kernels
+
+using buckets::kThreads;
+using buckets::kWarps;
+constexpr int kAttU = 4;              // the attention pass's edges at once
+constexpr int kMaxSlices = kThreads / 32;   // S = 256 / L, L >= 32
+constexpr int kPerThread = 16;        // a thread's edges of a tile
+constexpr int kPerThreadSmall = 4;    // ... of a tile of <= 1,024 edges
+constexpr int kTileEdges = kPerThread * kThreads;   // bucketed at a time
+constexpr int kProbFloats = 16384;    // the attention's (edge, head) weights
+constexpr int kPartFloats = 8192;     // the slices' partial sums
 constexpr float kBig = 1e30f;
 
 enum SrcWeightMode { kSwNone = 0, kSwScalar = 1, kSwFull = 2, kSwHead = 3 };
+enum Stat { kSum = 1, kSumSq = 2, kMax = 4, kMin = 8 };
 
 struct Args {
   const float* y;        // (n, d) gather buffer
@@ -99,231 +138,582 @@ struct Args {
   float slope;
   int check_src;         // 1: an edge whose sender lies outside [0, n)
                          // adds nothing (fused_nt_scatter's rule)
+  // the launch's layout (set by layout()):
   int rows;              // destination rows one block owns
+  int tile;              // edges a tile
+  int lanes, slices;     // L lanes a group, S = kThreads / L groups
+  int batch;             // rows whose slices are folded between two combines
+  int ask, nstat;        // the statistics asked (Stat bits; the sum alone
+                         // with attention) and how many
+  // offsets in 4-byte words of the shared-memory regions
+  int o_counts, o_start, o_order, o_list_e, o_list_r, o_snd, o_prob, o_state,
+      o_cnt, o_m, o_l, o_corr, o_part, o_part_l, o_red;
 };
 
-// f32 arrays of rows x d in shared memory: sum, sumsq, max, min, and the
-// attention's m and l
-int wide_arrays(const Args& p) {
-  const bool att = p.heads > 0;
-  return (p.sum != nullptr) + (p.sumsq != nullptr) + (p.mx != nullptr) +
-         (p.mn != nullptr) + (att ? 2 : 0);
-}
+// The phi and statistics of one instantiation. kGeneric: every term and
+// the activation read from Args (selected without branches), all four
+// statistics folded.
+template <int Sw, bool Et, bool Bias, bool Relu, bool Att, int Stats,
+          bool Check, bool Generic = false>
+struct Form {
+  static constexpr int kSw = Sw;
+  static constexpr bool kEt = Et, kBias = Bias, kRelu = Relu, kAtt = Att;
+  static constexpr int kStats = Stats;
+  static constexpr bool kCheck = Check, kGeneric = Generic;
+  // a slice's edges whose gathers are issued together: 4 where the slices
+  // are short or a thread's folds are few (GAT's 4 slices of a row; GIN,
+  // GCN and the NT form, one sum), 8 for four statistics or one slice a
+  // row (PNA, DGN) and the generic forms (measured, PERF.md)
+  static constexpr int kU =
+      Att || (Stats == kSum && Sw != kSwFull && !Generic) ? 4 : 8;
+};
+constexpr int kFour = kSum | kSumSq | kMax | kMin;
+using GatForm = Form<kSwNone, false, false, false, true, kSum, false>;
+using GinForm = Form<kSwNone, true, false, true, false, kSum, false>;
+using GcnForm = Form<kSwScalar, false, false, false, false, kSum, false>;
+using PnaForm = Form<kSwNone, true, true, true, false, kFour, false>;
+using DgnForm = Form<kSwFull, false, false, false, false, kSum, false>;
+using NtForm = Form<kSwNone, true, false, true, false, kSum, true>;
+using GenericForm = Form<-1, true, true, true, false, kFour, false, true>;
+using GenericAttForm = Form<-1, true, true, true, true, kSum, false, true>;
 
-size_t smem_bytes(const Args& p, int rows) {
-  const size_t floats =
-      (size_t)rows * p.d * wide_arrays(p) + (p.count != nullptr ? rows : 0);
-  return floats * sizeof(float) + 3 * kEdgeTile * sizeof(int) +
-         (kWarps + 1) * sizeof(int);
-}
-
-// s is -1 for a sender outside [0, n): its row reads as zeros
-__device__ __forceinline__ float phi(const Args& p, int e, int s, int dd) {
-  float v = s >= 0 ? p.y[(size_t)s * p.d + dd] : 0.f;
-  if (p.sw_mode == kSwScalar) {
-    v = __fmul_rn(v, p.sw[e]);
-  } else if (p.sw_mode == kSwFull) {
-    v = __fmul_rn(v, p.sw[(size_t)e * p.d + dd]);
-  } else if (p.sw_mode == kSwHead) {
-    v = __fmul_rn(v, p.sw[(size_t)e * p.sw_cols + dd / p.head_dim]);
+// the Stat bit of state slot k (the asked statistics in Stat order)
+__device__ __forceinline__ int slot_stat(int ask, int k) {
+  for (int bit = 1; bit <= kMin; bit <<= 1) {
+    if (ask & bit) {
+      if (k == 0) return bit;
+      --k;
+    }
   }
-  if (p.et != nullptr) v = __fadd_rn(v, p.et[(size_t)e * p.d + dd]);
-  if (p.bias != nullptr) v = __fadd_rn(v, p.bias[dd]);
-  if (p.relu) v = fmaxf(v, 0.f);
+  return 0;
+}
+
+__device__ __forceinline__ float neutral(int stat) {
+  return stat == kMax ? -kBig : stat == kMin ? kBig : 0.f;
+}
+
+template <class F>
+__device__ __forceinline__ float phi(const Args& p, float y, float w,
+                                     float t, float b) {
+  float v = y;
+  if constexpr (F::kGeneric) {
+    v = p.sw_mode != kSwNone ? __fmul_rn(v, w) : v;
+    v = p.et != nullptr ? __fadd_rn(v, t) : v;
+    v = p.bias != nullptr ? __fadd_rn(v, b) : v;
+    v = p.relu ? fmaxf(v, 0.f) : v;
+  } else {
+    if constexpr (F::kSw != kSwNone) v = __fmul_rn(v, w);
+    if constexpr (F::kEt) v = __fadd_rn(v, t);
+    if constexpr (F::kBias) v = __fadd_rn(v, b);
+    if constexpr (F::kRelu) v = fmaxf(v, 0.f);
+  }
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    mp_pipeline_kernel(const __grid_constant__ Args p) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * p.rows;
-  const int rows_here = min(p.rows, p.n - row0);
-  const int rd = p.rows * p.d;
-  const bool att = p.heads > 0;
-
-  // carve the accumulators; each is null when not asked for
-  float* next = smem;
-  auto take = [&](bool want, int size) {
-    float* a = want ? next : nullptr;
-    next += want ? size : 0;
-    return a;
+// The attention's weights of one tile: for each of the block's rows (a warp
+// a row) the (edge, head) logits, the row's max per head and one expf per
+// (edge, head), in prob[edge of the tile * heads + head]; the running max
+// moves to the new max and corr holds the factor of the earlier tiles'
+// sums. The warp's lanes are (slice, head) pairs, S = 32 / H slices of the
+// row's segment (one when H > 32): a lane computes its slice's logits and
+// their max, the lanes of a head take the head's max (by shuffles when H
+// divides 32, else through shared memory), then each lane takes the
+// exponentials of its slice.
+__device__ __forceinline__ void attention_weights(const Args& p, int row0,
+                                                  int rows_here) {
+  extern __shared__ __align__(16) int smem_i[];
+  float* smem_f = reinterpret_cast<float*>(smem_i);
+  const int* row_start = smem_i + p.o_start;
+  const int* order = smem_i + p.o_order;
+  const int* snd_l = smem_i + p.o_snd;
+  float* prob = smem_f + p.o_prob;
+  float* m_run = smem_f + p.o_m;
+  float* corr = smem_f + p.o_corr;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int H = p.heads;
+  const int S = max(1, 32 / H);
+  float* red = smem_f + p.o_red + warp * 2 * max(32, H);
+  float* red_m = red + max(32, H);
+  // the logits of the positions [lo, hi) at head h, into prob; their max
+  const auto logits = [&](const float* dst, int h, int lo, int hi) {
+    const float b = __ldg(dst + h);
+    float mt = -kBig;
+    for (int j = lo; j < hi; j += kAttU) {
+      const int cnt = min(kAttU, hi - j);
+      int id[kAttU];
+      float a[kAttU];
+#pragma unroll
+      for (int u = 0; u < kAttU; ++u) {
+        id[u] = order[u < cnt ? j + u : j];
+        const int sv = snd_l[id[u]];
+        a[u] = sv >= 0 ? __ldg(p.att_src + ((size_t)sv * H + h)) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kAttU; ++u) {
+        const float z = __fadd_rn(a[u], b);
+        const float lg = z >= 0.f ? z : __fmul_rn(p.slope, z);
+        if (u < cnt) prob[id[u] * H + h] = lg;
+        mt = fmaxf(mt, u < cnt ? lg : -kBig);
+      }
+    }
+    return mt;
   };
-  float* a_sum = take(p.sum != nullptr, rd);
-  float* a_sumsq = take(p.sumsq != nullptr, rd);
-  float* a_max = take(p.mx != nullptr, rd);
-  float* a_min = take(p.mn != nullptr, rd);
-  float* a_m = take(att, rd);
-  float* a_l = take(att, rd);
-  float* a_cnt = take(p.count != nullptr, p.rows);
-  int* list_e = reinterpret_cast<int*>(next);
-  int* list_s = list_e + kEdgeTile;
-  int* list_r = list_s + kEdgeTile;
-  int* scan = list_r + kEdgeTile;                      // kWarps + 1
-
-  for (int i = tid; i < rd; i += kThreads) {
-    if (a_sum) a_sum[i] = 0.f;
-    if (a_sumsq) a_sumsq[i] = 0.f;
-    if (a_max) a_max[i] = -kBig;
-    if (a_min) a_min[i] = kBig;
-    if (att) {
-      a_m[i] = -kBig;
-      a_l[i] = 0.f;
+  // one expf per (edge, head) of the positions [lo, hi) at head h
+  const auto exps = [&](int h, int lo, int hi, float m_h) {
+    for (int j = lo; j < hi; ++j) {
+      const int i = order[j] * H + h;
+      const float lg = prob[i];
+      const float pe = expf(__fsub_rn(lg, m_h));
+      prob[i] = pe;
     }
+  };
+  if (S * H == 32) {   // one (slice, head) a lane
+    const int s = lane / H;
+    const int h = lane - s * H;
+    for (int r = warp; r < rows_here; r += kWarps) {
+      const int start = row_start[r];
+      const int len = row_start[r + 1] - start;
+      const int lo = start + len * s / S;
+      const int hi = start + len * (s + 1) / S;
+      const float m_old = m_run[r * H + h];
+      float mt = logits(p.att_dst + (size_t)(row0 + r) * H, h, lo, hi);
+      for (int off = 16; off >= H; off >>= 1) {   // lanes of one head
+        mt = fmaxf(mt, __shfl_xor_sync(buckets::kFull, mt, off));
+      }
+      const float m_h = fmaxf(m_old, mt);
+      exps(h, lo, hi, m_h);
+      if (s == 0) {   // every lane has read m_old: the shuffles came between
+        corr[r * H + h] = expf(__fsub_rn(m_old, m_h));
+        m_run[r * H + h] = m_h;
+      }
+    }
+    return;
   }
-  if (a_cnt) {
-    for (int i = tid; i < p.rows; i += kThreads) a_cnt[i] = 0.f;
+  for (int r = warp; r < rows_here; r += kWarps) {
+    const int start = row_start[r];
+    const int len = row_start[r + 1] - start;
+    // 1. the logits of each lane's (slice, head), and their max
+    for (int q = lane; q < S * H; q += 32) {
+      const int s = q / H;
+      const int h = q - s * H;
+      red[q] = logits(p.att_dst + (size_t)(row0 + r) * H, h,
+                      start + len * s / S, start + len * (s + 1) / S);
+    }
+    __syncwarp();
+    // 2. the row's max per head; the running max moves to it
+    for (int h = lane; h < H; h += 32) {
+      float mt = -kBig;
+      for (int s = 0; s < S; ++s) mt = fmaxf(mt, red[s * H + h]);
+      const float m_old = m_run[r * H + h];
+      const float m_h = fmaxf(m_old, mt);
+      red_m[h] = m_h;
+      corr[r * H + h] = expf(__fsub_rn(m_old, m_h));
+      m_run[r * H + h] = m_h;
+    }
+    __syncwarp();
+    // 3. each lane the exponentials of its slice
+    for (int q = lane; q < S * H; q += 32) {
+      const int s = q / H;
+      const int h = q - s * H;
+      exps(h, start + len * s / S, start + len * (s + 1) / S, red_m[h]);
+    }
+    __syncwarp();   // red is rewritten by the warp's next row
   }
+}
 
-  // lanes of the accumulate phase (see the design note above)
-  const bool narrow = p.d <= kThreads;
-  const int groups = narrow ? kThreads / p.d : 1;
-  const int group = narrow ? tid / p.d : 0;
-  const int lane0 = narrow ? tid % p.d : tid;
-  const int lane_step = narrow ? p.d : kThreads;
-  const int att_hd = att ? p.d / p.heads : 1;
+// What one column of a group folds with: the column, where its src_weight
+// sits in an edge's row of it, its bias and its attention head.
+struct Column {
+  int c;
+  int sw_mode, sw_stride, sw_lane;
+  bool has_et;
+  float bias;
+  int h;
+  bool head_lane;        // the head's first column writes its denominator
+};
 
-  for (int base = 0; base < p.e; base += kEdgeTile) {
-    // 1. which of this thread's consecutive edges does the block own?
-    const int e0 = base + tid * kEdgesPerThread;
-    int local[kEdgesPerThread];
-    int cnt = 0;
+template <class F>
+__device__ __forceinline__ Column column(const Args& p, int c) {
+  Column k;
+  k.c = c;
+  k.sw_mode = F::kGeneric ? p.sw_mode : F::kSw;
+  k.sw_stride = k.sw_mode == kSwFull ? p.d
+                : k.sw_mode == kSwHead ? p.sw_cols : 1;
+  k.sw_lane = k.sw_mode == kSwFull   ? c
+              : k.sw_mode == kSwHead ? c / p.head_dim
+                                     : 0;
+  k.has_et = F::kGeneric ? p.et != nullptr : F::kEt;
+  const bool has_bias = F::kGeneric ? p.bias != nullptr : F::kBias;
+  k.bias = has_bias ? __ldg(p.bias + c) : 0.f;
+  k.h = F::kAtt ? c / (p.d / p.heads) : 0;
+  k.head_lane = F::kAtt && c % (p.d / p.heads) == 0;
+  return k;
+}
+
+// One round of a slice: U edges' indices and gathered terms, every load
+// issued before the first fold (ids[0] again past cnt).
+template <int U>
+struct Gather {
+  int id[U], sv[U];
+  float y[U], w[U], t[U];
+};
+
+template <int U>
+__device__ __forceinline__ void gather(const Args& p, const Column& k,
+                                       int base, int j, int cnt,
+                                       Gather<U>& g) {
+  constexpr int kU = U;
+  extern __shared__ __align__(16) int smem_i[];
+  const int* order = smem_i + p.o_order;
+  const int* snd_l = smem_i + p.o_snd;
 #pragma unroll
-    for (int k = 0; k < kEdgesPerThread; ++k) {
-      const int e = e0 + k;
-      local[k] = -1;
-      if (e < p.e && p.mask[e]) {
-        const int64_t r = p.rcv[e] - row0;
-        if (r >= 0 && r < rows_here &&
-            (!p.check_src || (p.snd[e] >= 0 && p.snd[e] < p.n))) {
-          local[k] = static_cast<int>(r);
-          ++cnt;
+  for (int u = 0; u < kU; ++u) {
+    g.id[u] = order[u < cnt ? j + u : j];
+    g.sv[u] = snd_l[g.id[u]];
+  }
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const size_t e = (size_t)base + g.id[u];
+    g.y[u] = g.sv[u] >= 0 ? __ldg(p.y + ((size_t)g.sv[u] * p.d + k.c)) : 0.f;
+    g.w[u] = k.sw_mode != kSwNone
+                 ? __ldg(p.sw + (e * k.sw_stride + k.sw_lane))
+                 : 1.f;
+    g.t[u] = k.has_et ? __ldg(p.et + (e * p.d + k.c)) : 0.f;
+  }
+}
+
+// The positions [lo, hi) of slice `group` of row r's segment.
+__device__ __forceinline__ void slice_of(const Args& p, int r, int group,
+                                         int* lo, int* hi) {
+  extern __shared__ __align__(16) int smem_i[];
+  const int* row_start = smem_i + p.o_start;
+  const int start = row_start[r];
+  const int len = row_start[r + 1] - start;
+  *lo = start + len * group / p.slices;
+  *hi = start + len * (group + 1) / p.slices;
+}
+
+// Slice `group` of the rows [rb0, rb0 + nb) of this tile, column k.c:
+// folded in registers, then written to the partial sums. With `pre` the
+// first round of the first row was gathered already.
+template <class F>
+__device__ __forceinline__ void fold_slice(const Args& p, const Column& k,
+                                           int base, int rb0, int nb,
+                                           int group, bool use_pre,
+                                           const Gather<F::kU>& pre) {
+  constexpr int kU = F::kU;
+  extern __shared__ __align__(16) int smem_i[];
+  float* smem_f = reinterpret_cast<float*>(smem_i);
+  const float* prob = smem_f + p.o_prob;
+  float* part = smem_f + p.o_part;
+  const int d = p.d;
+  const int S = p.slices;
+  for (int rb = 0; rb < nb; ++rb) {
+    int lo, hi;
+    slice_of(p, rb0 + rb, group, &lo, &hi);
+    float s1 = 0.f, s2 = 0.f, mx = -kBig, mn = kBig, lsum = 0.f;
+    for (int j = lo; j < hi; j += kU) {
+      const int cnt = min(kU, hi - j);
+      Gather<kU> g;
+      if (use_pre && rb == 0 && j == lo) {
+        g = pre;
+      } else {
+        gather(p, k, base, j, cnt, g);
+      }
+      float pv[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        pv[u] = F::kAtt ? prob[g.id[u] * p.heads + k.h] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const bool take = u < cnt && (!F::kCheck || g.sv[u] >= 0);
+        const float v = phi<F>(p, g.y[u], g.w[u], g.t[u], k.bias);
+        if constexpr (F::kAtt) {
+          s1 = __fadd_rn(s1, take ? __fmul_rn(pv[u], v) : 0.f);
+          lsum = __fadd_rn(lsum, take ? pv[u] : 0.f);
+        } else {
+          if constexpr ((F::kStats & kSum) != 0) {
+            s1 = __fadd_rn(s1, take ? v : 0.f);
+          }
+          if constexpr ((F::kStats & kSumSq) != 0) {
+            s2 = __fadd_rn(s2, take ? __fmul_rn(v, v) : 0.f);
+          }
+          if constexpr ((F::kStats & kMax) != 0) {
+            mx = fmaxf(mx, take ? v : -kBig);
+          }
+          if constexpr ((F::kStats & kMin) != 0) {
+            mn = fminf(mn, take ? v : kBig);
+          }
         }
       }
     }
-    // 2. block-wide exclusive scan of the counts: list slots in stream order
-    int incl = cnt;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += v;
-    }
-    if (lane == 31) scan[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const int v = lane < kWarps ? scan[lane] : 0;
-      int s = v;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int u = __shfl_up_sync(0xffffffffu, s, off);
-        if (lane >= off) s += u;
-      }
-      if (lane < kWarps) scan[lane] = s - v;
-      if (lane == kWarps - 1) scan[kWarps] = s;
-    }
-    __syncthreads();
-    int slot = scan[warp] + incl - cnt;
-#pragma unroll
-    for (int k = 0; k < kEdgesPerThread; ++k) {
-      if (local[k] >= 0) {
-        list_e[slot] = e0 + k;
-        // a sender outside [0, n) gathers a zero row (the Pallas kernel's
-        // one-hot gather); -1 marks it so that y is never read there
-        const int64_t s = p.snd[e0 + k];
-        list_s[slot] = (s >= 0 && s < p.n) ? static_cast<int>(s) : -1;
-        list_r[slot] = local[k];
-        ++slot;
-      }
-    }
-    __syncthreads();
-    const int total = scan[kWarps];
-
-    // 3. each (row, lane) folds its edges' phi in stream order
-    if (group < groups) {
-      for (int dd = lane0; dd < p.d; dd += lane_step) {
-        const int h = dd / att_hd;
-        for (int i = 0; i < total; i += kUnroll) {
-          float v[kUnroll];
-          float logit[kUnroll];
-          int rr[kUnroll];
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            rr[u] = -1;
-            v[u] = 0.f;
-            logit[u] = 0.f;
-            if (i + u < total && list_r[i + u] % groups == group) {
-              const int s = list_s[i + u];
-              rr[u] = list_r[i + u];
-              v[u] = phi(p, list_e[i + u], s, dd);
-              if (att) {
-                const float z = __fadd_rn(
-                    s >= 0 ? p.att_src[(size_t)s * p.heads + h] : 0.f,
-                    p.att_dst[(size_t)(row0 + rr[u]) * p.heads + h]);
-                logit[u] = z >= 0.f ? z : __fmul_rn(p.slope, z);
-              }
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            if (rr[u] < 0) continue;
-            const int idx = rr[u] * p.d + dd;
-            if (att) {
-              const float m_old = a_m[idx];
-              const float m_new = fmaxf(m_old, logit[u]);
-              const float corr = expf(__fsub_rn(m_old, m_new));
-              const float pe = expf(__fsub_rn(logit[u], m_new));
-              a_l[idx] = __fadd_rn(__fmul_rn(a_l[idx], corr), pe);
-              a_sum[idx] = __fadd_rn(__fmul_rn(a_sum[idx], corr),
-                                     __fmul_rn(pe, v[u]));
-              a_m[idx] = m_new;
-            } else {
-              if (a_sum) a_sum[idx] = __fadd_rn(a_sum[idx], v[u]);
-              if (a_sumsq) {
-                a_sumsq[idx] = __fadd_rn(a_sumsq[idx], __fmul_rn(v[u], v[u]));
-              }
-              if (a_max) a_max[idx] = fmaxf(a_max[idx], v[u]);
-              if (a_min) a_min[idx] = fminf(a_min[idx], v[u]);
-            }
-            // one lane per row counts: lane 0 of the row's group
-            if (a_cnt && dd == 0) a_cnt[rr[u]] += 1.f;
-          }
-        }
-      }
-    }
-    __syncthreads();   // the list is rewritten by the next tile
-  }
-
-  // 4. write the block's rows; attention normalises its sum on the way out
-  const size_t out0 = (size_t)row0 * p.d;
-  for (int i = tid; i < rows_here * p.d; i += kThreads) {
-    if (att) {
-      const float l = a_l[i];
-      const float w = l > 0.f ? 1.f / fmaxf(l, 1e-16f) : 0.f;
-      p.sum[out0 + i] = __fmul_rn(a_sum[i], w);
-    } else if (a_sum) {
-      p.sum[out0 + i] = a_sum[i];
-    }
-    if (a_sumsq) p.sumsq[out0 + i] = a_sumsq[i];
-    if (a_max) p.mx[out0 + i] = a_max[i];
-    if (a_min) p.mn[out0 + i] = a_min[i];
-  }
-  if (a_cnt) {
-    for (int r = tid; r < rows_here; r += kThreads) p.count[row0 + r] = a_cnt[r];
-  }
-  if (att) {
-    for (int i = tid; i < rows_here * p.heads; i += kThreads) {
-      const int r = i / p.heads;
-      const int h = i % p.heads;
-      const int idx = r * p.d + h * att_hd;      // the head's first lane
-      p.att_max[(size_t)row0 * p.heads + i] = a_m[idx];
-      p.att_denom[(size_t)row0 * p.heads + i] = a_l[idx];
+    // slot q of the partial sums: stat q of row rb, slice `group`
+    const int stride = p.batch * S * d;
+    float* out = part + ((size_t)rb * S + group) * d + k.c;
+    int q = 0;
+    if (p.ask & kSum) out[stride * q++] = s1;
+    if (p.ask & kSumSq) out[stride * q++] = s2;
+    if (p.ask & kMax) out[stride * q++] = mx;
+    if (p.ask & kMin) out[stride * q++] = mn;
+    if (k.head_lane) {
+      smem_f[p.o_part_l + ((size_t)rb * S + group) * p.heads + k.h] = lsum;
     }
   }
 }
 
-int default_rows(const Args& p) {
+// Row r's denominator at head h: the earlier tiles' (rescaled; none at the
+// first) plus the slices' partial sums, in slice order.
+__device__ __forceinline__ float head_sum(const float* l_run,
+                                          const float* corr,
+                                          const float* part_l, int r, int rb,
+                                          int h, int H, int S, bool first) {
+  float x[kMaxSlices];
+#pragma unroll
+  for (int s = 0; s < kMaxSlices; ++s) {
+    x[s] = s < S ? part_l[((size_t)rb * S + s) * H + h] : 0.f;
+  }
+  float l = first ? 0.f : __fmul_rn(l_run[r * H + h], corr[r * H + h]);
+#pragma unroll
+  for (int s = 0; s < kMaxSlices; ++s) {
+    if (s < S) l = __fadd_rn(l, x[s]);
+  }
+  return l;
+}
+
+// The slices of rows [rb0, rb0 + nb) added in slice order after the earlier
+// tiles' running value (rescaled with attention; the neutral at the first
+// tile): into the running state, or at the last tile into the outputs
+// (attention normalising its sum there). count takes each row's segment
+// length.
+template <class F>
+__device__ __forceinline__ void combine(const Args& p, int row0, int rb0,
+                                        int nb, bool first, bool last) {
+  extern __shared__ __align__(16) int smem_i[];
+  float* smem_f = reinterpret_cast<float*>(smem_i);
+  const int* row_start = smem_i + p.o_start;
+  const float* part = smem_f + p.o_part;
+  const float* part_l = smem_f + p.o_part_l;
+  float* state = smem_f + p.o_state;
+  float* l_run = smem_f + p.o_l;
+  const float* corr = smem_f + p.o_corr;
+  const int tid = threadIdx.x;
+  const int d = p.d;
+  const int H = p.heads;
+  const int S = p.slices;
+  const int stride = p.batch * S * d;
+  const int att_hd = F::kAtt ? d / H : 1;
+  for (int i = tid; i < nb * d; i += kThreads) {
+    const int rb = i / d;
+    const int c = i - rb * d;
+    const int r = rb0 + rb;
+    const size_t at = (size_t)(row0 + r) * d + c;
+    const float* src = part + (size_t)rb * S * d + c;
+    for (int k = 0; k < p.nstat; ++k) {
+      const int stat = F::kAtt ? kSum : slot_stat(p.ask, k);
+      float* st = state + ((size_t)k * p.rows + r) * d + c;
+      float v = first ? neutral(stat) : *st;
+      if constexpr (F::kAtt) {
+        if (!first) v = __fmul_rn(v, corr[r * H + c / att_hd]);
+      }
+      const float* sk = src + (size_t)stride * k;
+      float x[kMaxSlices];
+#pragma unroll
+      for (int s = 0; s < kMaxSlices; ++s) {
+        x[s] = s < S ? sk[(size_t)s * d] : 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < kMaxSlices; ++s) {
+        if (s < S) {
+          v = stat == kMax ? fmaxf(v, x[s])
+              : stat == kMin ? fminf(v, x[s]) : __fadd_rn(v, x[s]);
+        }
+      }
+      if (!last) {
+        *st = v;
+      } else if constexpr (F::kAtt) {
+        // the head's denominator, as the (row, head) pass below takes it
+        const float l = head_sum(l_run, corr, part_l, r, rb, c / att_hd, H,
+                                 S, first);
+        const float w = l > 0.f ? 1.f / fmaxf(l, 1e-16f) : 0.f;
+        p.sum[at] = __fmul_rn(v, w);
+      } else {
+        float* out = stat == kSum     ? p.sum
+                     : stat == kSumSq ? p.sumsq
+                     : stat == kMax   ? p.mx
+                                      : p.mn;
+        out[at] = v;
+      }
+    }
+  }
+  if constexpr (F::kAtt) {
+    for (int i = tid; i < nb * H; i += kThreads) {
+      const int rb = i / H;
+      const int h = i - rb * H;
+      const int r = rb0 + rb;
+      const float l = head_sum(l_run, corr, part_l, r, rb, h, H, S, first);
+      if (last) {
+        const size_t at = (size_t)(row0 + r) * H + h;
+        p.att_max[at] = smem_f[p.o_m + r * H + h];
+        p.att_denom[at] = l;
+      } else {
+        l_run[r * H + h] = l;
+      }
+    }
+  }
+  if (p.count != nullptr) {
+    for (int rb = tid; rb < nb; rb += kThreads) {
+      const int r = rb0 + rb;
+      const float v = __fadd_rn(
+          first ? 0.f : smem_f[p.o_cnt + r],
+          static_cast<float>(row_start[r + 1] - row_start[r]));
+      if (last) {
+        p.count[row0 + r] = v;
+      } else {
+        smem_f[p.o_cnt + r] = v;
+      }
+    }
+  }
+}
+
+// Everything after a tile's buckets: the attention's weights, then the
+// slices folded and combined, `batch` rows at a time. With attention the
+// fold's first round (each thread's first column, the first row) is
+// gathered before the attention's pass, so that its loads land during it.
+template <class F>
+__device__ __forceinline__ void fold_tile(const Args& p, int base, int row0,
+                                          int rows_here, bool first,
+                                          bool last) {
+  const int group = threadIdx.x / p.lanes;
+  const int lane_g = threadIdx.x - group * p.lanes;
+  Gather<F::kU> pre;
+  bool use_pre = false;
+  if constexpr (F::kAtt) {
+    int lo, hi;
+    slice_of(p, 0, group, &lo, &hi);
+    if (lane_g < p.d && hi > lo) {
+      gather(p, column<F>(p, lane_g), base, lo, min(F::kU, hi - lo), pre);
+      use_pre = true;
+    }
+    attention_weights(p, row0, rows_here);
+    __syncthreads();
+  }
+  for (int rb0 = 0; rb0 < rows_here; rb0 += p.batch) {
+    const int nb = min(p.batch, rows_here - rb0);
+    for (int c = lane_g; c < p.d; c += p.lanes) {
+      fold_slice<F>(p, column<F>(p, c), base, rb0, nb, group,
+                    use_pre && rb0 == 0 && c == lane_g, pre);
+    }
+    __syncthreads();
+    combine<F>(p, row0, rb0, nb, first, last);
+    if (!last || rb0 + p.batch < rows_here) {
+      __syncthreads();   // the partial sums are rewritten by the next batch
+    }
+  }
+}
+
+// A tile's senders, loaded beside the buckets' masks and receivers and kept
+// (checked: -1 outside [0, n)) for the edges the block owns.
+struct Senders {
+  const int64_t* snd;    // the tile's
+  int* snd_l;            // by edge of the tile
+  int n;
+  int64_t v[kPerThread];
+  __device__ __forceinline__ void load(int k, int i) { v[k] = __ldg(snd + i); }
+  __device__ __forceinline__ void store(int k, int i, int, int key) {
+    if (key >= 0) {
+      snd_l[i] = v[k] >= 0 && v[k] < n ? static_cast<int>(v[k]) : -1;
+    }
+  }
+};
+
+template <class F>
+__global__ void __launch_bounds__(kThreads, 1)
+    mp_pipeline_kernel(const __grid_constant__ Args p) {
+  extern __shared__ __align__(16) int smem_i[];
+  float* smem_f = reinterpret_cast<float*>(smem_i);
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * p.rows;
+  const int rows_here = min(p.rows, p.n - row0);
+  int* snd_l = smem_i + p.o_snd;
+
+  if constexpr (F::kAtt) {
+    for (int i = tid; i < rows_here * p.heads; i += kThreads) {
+      smem_f[p.o_m + i] = -kBig;
+    }
+  }
+  // one tile (an empty one when E = 0) writes the outputs at its end; more
+  // carry a running state in shared memory from one to the next
+  for (int base = 0; base == 0 || base < p.e; base += p.tile) {
+    const buckets::Edges g = {p.rcv + base, p.mask + base, p.n,
+                              min(p.tile, p.e - base)};
+    const buckets::Buckets b = {smem_i + p.o_counts, smem_i + p.o_start,
+                                smem_i + p.o_order, row0, row0 + rows_here};
+    Senders x = {p.snd + base, snd_l, p.n, {}};
+    // a tile of at most 1,024 edges (the serving buckets) takes the form
+    // of 4 edges a thread, with a quarter of the instructions
+    if (g.e <= kThreads * kPerThreadSmall) {
+      buckets::bucket_edges_stable<kPerThreadSmall>(
+          g, b, smem_i + p.o_list_e, smem_i + p.o_list_r, x);
+    } else {
+      buckets::bucket_edges_stable<kPerThread>(g, b, smem_i + p.o_list_e,
+                                               smem_i + p.o_list_r, x);
+    }
+    fold_tile<F>(p, base, row0, rows_here, base == 0, base + p.tile >= p.e);
+  }
+}
+
+// --- the launcher
+
+int popcount(int v) {
+  int c = 0;
+  for (; v; v &= v - 1) ++c;
+  return c;
+}
+
+// Fills the launch's layout for `rows` rows a block; returns the dynamic
+// shared memory it needs, in bytes.
+size_t layout(Args& p, int rows) {
+  const bool att = p.heads > 0;
+  p.rows = rows;
+  p.tile = att ? std::max(32, std::min(kTileEdges,
+                                       kProbFloats / p.heads / 32 * 32))
+               : kTileEdges;
+  p.lanes = 32;
+  while (p.lanes < p.d && p.lanes < kThreads) p.lanes *= 2;
+  p.slices = kThreads / p.lanes;
+  p.nstat = popcount(p.ask);
+  const int per_row = p.nstat * p.slices * p.d;
+  p.batch = std::max(1, std::min(rows, kPartFloats / std::max(per_row, 1)));
+  const int t = std::max(1, std::min(p.tile, p.e));
+  const int hr = att ? rows * p.heads : 0;
+  size_t words = 0;
+  auto take = [&](int n) {
+    const int at = static_cast<int>(words);
+    words += (static_cast<size_t>(n) + 3) / 4 * 4;   // 16-byte aligned
+    return at;
+  };
+  p.o_counts = take(rows);
+  p.o_start = take(rows + 1);
+  p.o_order = take(t);
+  p.o_list_e = take(t);
+  p.o_list_r = take(t);
+  p.o_snd = take(t);
+  p.o_prob = take(att ? t * p.heads : 0);
+  const bool tiles = p.e > p.tile;   // a running state between tiles
+  p.o_state = take(tiles ? p.nstat * rows * p.d : 0);
+  p.o_cnt = take(tiles && p.count != nullptr ? rows : 0);
+  p.o_m = take(hr);
+  p.o_l = take(tiles ? hr : 0);
+  p.o_corr = take(hr);
+  p.o_part = take(p.batch * per_row);
+  p.o_part_l = take(att ? p.batch * p.slices * p.heads : 0);
+  p.o_red = take(att ? kWarps * 2 * std::max(32, p.heads) : 0);
+  return words * 4;
+}
+
+int default_rows(Args p) {
   int dev = 0;
   int sms = 132;
   int max_smem = 227 * 1024;
@@ -333,33 +723,36 @@ int default_rows(const Args& p) {
                          dev);
   // one block per SM where the rows allow it, fewer rows if smem is short
   int rows = (p.n + sms - 1) / sms;
-  while (rows > 1 && smem_bytes(p, rows) > static_cast<size_t>(max_smem)) {
+  while (rows > 1 && layout(p, rows) > static_cast<size_t>(max_smem)) {
     rows = (rows + 1) / 2;
   }
   return rows < 1 ? 1 : rows;
 }
 
-// One launch of the edge phase on `stream`. A null output pointer switches
-// its statistic off; null att_src/att_dst switch attention off (heads = 0).
-// rows <= 0 lets the kernel choose. Returns cudaGetLastError() after the
-// launch (0 on success).
-int launch(Args p, int rows, cudaStream_t stream) {
+// The statistics a call asks for (Stat bits); attention folds the sum.
+int asked(const Args& p) {
+  return (p.sum != nullptr ? kSum : 0) | (p.sumsq != nullptr ? kSumSq : 0) |
+         (p.mx != nullptr ? kMax : 0) | (p.mn != nullptr ? kMin : 0);
+}
+
+// One launch of form F on `stream` (rows <= 0 lets the kernel choose).
+template <class F>
+int launch_form(Args p, int rows, cudaStream_t stream) {
   if (p.n <= 0) return 0;
-  if (p.heads > 0 &&
-      (p.sum == nullptr || p.att_max == nullptr || p.att_denom == nullptr ||
-       p.att_src == nullptr || p.att_dst == nullptr || p.d % p.heads != 0)) {
+  p.ask = F::kAtt ? kSum : asked(p);
+  if (p.ask == 0 || p.d <= 0 ||
+      (p.heads > 0) != F::kAtt || (p.check_src != 0) != F::kCheck) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  p.rows = rows > 0 ? rows : default_rows(p);
-  const size_t smem = smem_bytes(p, p.rows);
+  const size_t smem = layout(p, rows > 0 ? rows : default_rows(p));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mp_pipeline_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mp_pipeline_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (p.n + p.rows - 1) / p.rows;
-  mp_pipeline_kernel<<<blocks, kThreads, smem, stream>>>(p);
+  mp_pipeline_kernel<F><<<blocks, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -197,7 +197,8 @@ def mp_pipeline_ref(x: torch.Tensor, senders: torch.Tensor,
     attention carries (``att_max`` -BIG / ``att_denom`` 0 when empty) and
     the softmax-weighted, normalised ``sum``, and the out-of-range rules of
     the module docstring. The softmax is two-pass here (segment max, then
-    exp and sums) where the kernel rescales online.
+    exp and sums), as in the kernel, which also rescales across its edge
+    tiles past the first.
     """
     msg = apply_fusable_phi(x, senders, src_weight=src_weight,
                             edge_term=edge_term, bias=bias,

@@ -12,10 +12,11 @@ whose receiver lies outside [0, n_pad), and the edges of destinations no
 unmasked edge reaches get exactly 0.
 
 ``seg_softmax`` takes its plain version ``segment_softmax_ref`` for tensors
-on the CPU. For CUDA tensors it runs the hand-written kernels of
-``csrc/seg_softmax.cu`` or raises: two launches a call, the statistics
-(running max and online-rescaled denominator) and then the normalisation.
-``seg_softmax.launches`` counts those CUDA launches, two a call.
+on the CPU. For CUDA tensors it runs the hand-written kernel of
+``csrc/seg_softmax.cu`` or raises: one launch a call, in which each block
+buckets the edges of the rows it owns, takes their max and denominator and
+writes their weights. ``seg_softmax.launches`` counts those CUDA launches,
+one a call.
 ``num_banks`` sets n_pad as above and so decides the weights of edges into
 the padding rows; ``edge_tile`` describes the TPU kernel's grid, is
 accepted, and the result does not depend on it.
@@ -70,10 +71,9 @@ def seg_softmax(logits: torch.Tensor, receivers: torch.Tensor,
                 edge_tile: int = 128, num_banks: int = 4,
                 rows_per_block: Optional[int] = None) -> torch.Tensor:
     """Streaming per-destination softmax of (E,) or (E, H) logits. CPU
-    tensors run ``segment_softmax_ref``; CUDA tensors launch the two
-    kernels. ``rows_per_block`` overrides how many destination rows one
-    block of the statistics launch owns (the result does not depend on
-    it)."""
+    tensors run ``segment_softmax_ref``; CUDA tensors launch the kernel.
+    ``rows_per_block`` overrides how many destination rows one block owns
+    (the result does not depend on it)."""
     if logits.ndim not in (1, 2):
         raise ValueError(f"seg_softmax expects (E,) or (E, H) logits, got "
                          f"{tuple(logits.shape)}")
@@ -117,9 +117,9 @@ def _launch(logits, receivers, edge_mask, n_pad, rows_per_block):
     ptrs = (need(lg, "logits", f32, (e, h)),
             need(receivers, "receivers", torch.int64, (e,)),
             need(edge_mask, "edge_mask", torch.bool, (e,)))
-    # the statistics are scratch: (n_pad, H) running max and denominator.
-    # They are freed on return, before the launches run; the caching
-    # allocator hands their memory only to work queued later on this stream
+    # the statistics are scratch: (n_pad, H) max and denominator. They are
+    # freed on return, before the launch runs; the caching allocator hands
+    # their memory only to work queued later on this stream
     m = torch.empty((n_pad, h), dtype=f32, device=dev)
     d = torch.empty((n_pad, h), dtype=f32, device=dev)
     out = torch.empty((e, h), dtype=f32, device=dev)
@@ -128,5 +128,5 @@ def _launch(logits, receivers, edge_mask, n_pad, rows_per_block):
                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"seg_softmax launch failed with CUDA error {err}")
-    seg_softmax.launches += int(n_pad > 0) + int(e > 0)
+    seg_softmax.launches += int(n_pad > 0 or e > 0)
     return out[:, 0] if squeeze else out

@@ -342,3 +342,78 @@ def test_cuda_kernel_follows_the_out_of_range_rules(attention):
     for name, want in plain.items():
         torch.testing.assert_close(out[name], want, atol=1e-5, rtol=1e-5,
                                    msg=name)
+
+
+# The owner buckets' edge cases: a hub row (most edges into one row), every
+# edge into one row, more rows than edges, and a row longer than the
+# register sort of a bucket's segment (128 edges; a longer one is rebuilt
+# from a sweep of the stream).
+OWNER_CASES = {
+    "hub_row": dict(e=400, n=32, rows=[10], share=0.6),
+    "every_edge_to_one_row": dict(e=160, n=16, rows=[3], share=1.0),
+    "more_rows_than_edges": dict(e=40, n=200, rows=[], share=0.0),
+    "row_past_the_sort_limit": dict(e=300, n=24, rows=[7], share=0.7),
+}
+
+
+def owner_case(name, d=8, heads=0, seed=11):
+    """``_problem`` with ``share`` of the receivers moved to ``rows``."""
+    spec = OWNER_CASES[name]
+    p, r = _problem(spec["e"], d, spec["n"], seed=seed, heads=heads)
+    if spec["rows"]:
+        pick = r.random(spec["e"]) < spec["share"]
+        p["receivers"] = np.where(pick, spec["rows"][0],
+                                  p["receivers"]).astype(np.int32)
+    return p, r
+
+
+@pytest.mark.parametrize("attention", [False, True])
+@pytest.mark.parametrize("case", sorted(OWNER_CASES))
+def test_owner_bucket_cases_match_the_kernel(jops, case, attention):
+    """The owner buckets' edge cases against the interpret-mode Pallas
+    kernel at 1e-5: all five statistics with a full src_weight, edge term,
+    bias and relu, or GAT's attention (H=2) with the count."""
+    p, r = owner_case(case, heads=2 if attention else 0)
+    e, d = p["senders"].shape[0], p["x"].shape[1]
+    if attention:
+        kw, stats = {}, ("sum", "count")
+    else:
+        kw = _phi(r, e, d, sw="full", edge_term=True, bias=True, relu=True)
+        stats = ALL_STATS
+    ours = _port(p, kw, stats)
+    kern, _ = _jax(jops, p, kw, stats, edge_tile=32, num_banks=4)
+    assert set(ours) == set(kern)
+    for name, v in ours.items():
+        np.testing.assert_allclose(v.numpy(), kern[name], atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+    longest = np.bincount(p["receivers"][p["edge_mask"]]).max()
+    assert case != "row_past_the_sort_limit" or longest > 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention", [False, True])
+@pytest.mark.parametrize("case", sorted(OWNER_CASES))
+def test_cuda_owner_bucket_cases_are_bitwise_across_rows(case, attention):
+    """The owner buckets' edge cases on the card: the kernel against its
+    plain version (fp32 sums in another order: 1e-4 of each output's
+    scale, empty rows exact), bitwise equal across runs and at 1, 3, 8 and
+    16 rows per block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    p, r = owner_case(case, d=64, heads=4 if attention else 0)
+    e, d = p["senders"].shape[0], p["x"].shape[1]
+    if attention:
+        kw, stats = {}, ("sum", "count")
+    else:
+        kw = _phi(r, e, d, sw="full", edge_term=True, bias=True, relu=True)
+        stats = ALL_STATS
+    outs = [_port(p, kw, stats, device="cuda", rows_per_block=rpb)
+            for rpb in (None, None, 1, 3, 8, 16)]
+    plain = _port(p, kw, stats, fn=tmp.mp_pipeline_ref, device="cuda")
+    torch.cuda.synchronize()
+    for name, want in plain.items():
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(outs[0][name], want, atol=1e-4 * scale,
+                                   rtol=1e-4, msg=name)
+        for o in outs[1:]:
+            assert torch.equal(o[name], outs[0][name]), name

@@ -166,22 +166,85 @@ def test_wrapper_rejects_bad_input_and_launches_nothing_on_the_cpu():
     ((1000, 300), 61),
 ])
 def test_cuda_kernel_matches_plain_version(shape, n):
-    """The two CUDA launches vs the plain version on the card, bitwise
-    equal across rows-per-block and runs; masked edges exactly 0. Both are
-    fp32 with exponentials and sums in another order: 1e-5."""
+    """The CUDA launch (one a call) vs the plain version on the card,
+    bitwise equal across rows-per-block and runs; masked edges exactly 0.
+    Both are fp32 with exponentials and sums in another order: 1e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     p = _problem(shape, n, seed=shape[0], empty_tail=16)
     args = _torch(p, "cuda")
     before = tss.seg_softmax.launches
     outs = [tops.seg_softmax(*args, n, rows_per_block=rpb)
-            for rpb in (None, None, 1, 3, 16)]
+            for rpb in (None, None, 1, 3, 8, 16)]
     plain = tss.segment_softmax_ref(*args, n)
     torch.cuda.synchronize()
-    assert tss.seg_softmax.launches == before + 2 * len(outs)
+    assert tss.seg_softmax.launches == before + len(outs)
     assert outs[0].shape == shape
     masked = ~args[2]
     assert (outs[0][masked] == 0).all()
     torch.testing.assert_close(outs[0], plain, **TOL)
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+# The owner buckets' edge cases: a hub row (most edges into one row), every
+# edge into one row, more rows than edges, and a row longer than the
+# register sort of a bucket's segment (128 edges; a longer one is rebuilt
+# from a sweep of the stream).
+OWNER_CASES = {
+    "hub_row": dict(e=400, n=32, row=10, share=0.6),
+    "every_edge_to_one_row": dict(e=160, n=16, row=3, share=1.0),
+    "more_rows_than_edges": dict(e=40, n=200, row=None, share=0.0),
+    "row_past_the_sort_limit": dict(e=300, n=24, row=7, share=0.7),
+}
+
+
+def owner_problem(case, heads, seed=13):
+    """``_problem`` with ``share`` of the receivers moved to ``row``."""
+    spec = OWNER_CASES[case]
+    e, n = spec["e"], spec["n"]
+    p = _problem((e, heads) if heads else (e,), n, seed=seed, empty_tail=2)
+    if spec["row"] is not None:
+        pick = np.random.default_rng(seed + 1).random(e) < spec["share"]
+        p["receivers"] = np.where(pick, spec["row"],
+                                  p["receivers"]).astype(np.int64)
+    return p, n
+
+
+@pytest.mark.parametrize("heads", [0, 3])
+@pytest.mark.parametrize("case", sorted(OWNER_CASES))
+def test_owner_bucket_cases_match_the_kernel(jops, case, heads):
+    """The owner buckets' edge cases against the interpret-mode Pallas
+    kernel at the reference's 1e-5, (E,) and (E, 3) logits; masked edges
+    exactly 0."""
+    p, n = owner_problem(case, heads)
+    ours = tops.seg_softmax(*_torch(p), n, edge_tile=32, num_banks=4)
+    kern = np.asarray(jops.seg_softmax(*_jnp(p), n, edge_tile=32,
+                                       num_banks=4))
+    np.testing.assert_allclose(ours.numpy(), kern, **TOL)
+    assert (ours.numpy()[~p["edge_mask"]] == 0).all()
+    longest = np.bincount(p["receivers"][p["edge_mask"]]).max()
+    assert case != "row_past_the_sort_limit" or longest > 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [0, 4])
+@pytest.mark.parametrize("case", sorted(OWNER_CASES))
+def test_cuda_owner_bucket_cases_are_bitwise_across_rows(case, heads):
+    """The owner buckets' edge cases on the card: one launch a call, the
+    kernel within 1e-5 of its plain version, masked edges exactly 0,
+    bitwise equal across runs and at 1, 3, 8 and 16 rows per block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    p, n = owner_problem(case, heads)
+    args = _torch(p, "cuda")
+    before = tss.seg_softmax.launches
+    outs = [tops.seg_softmax(*args, n, rows_per_block=rpb)
+            for rpb in (None, None, 1, 3, 8, 16)]
+    plain = tss.segment_softmax_ref(*args, n)
+    torch.cuda.synchronize()
+    assert tss.seg_softmax.launches == before + len(outs)
+    torch.testing.assert_close(outs[0], plain, **TOL)
+    assert (outs[0][~args[2]] == 0).all()
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
