@@ -10,7 +10,8 @@ Phases, each printing its own lines:
                reduced-precision reductions in bf16 products.
   2. build   — builds every CUDA kernel of the paths from ``src/
                repro_torch/kernels/csrc`` with nvcc (all eight sources at
-               once).
+               once); the NT tile's instantiations' registers and spills
+               (f32, bf16, f16; nt_mlp.cu and fused_nt_scatter.cu).
   3. kernels — each kernel against its plain PyTorch version on the card,
                at stated tolerances, bitwise across runs and launch shapes,
                empty destinations exact; kernel, plain and bound times. The
@@ -24,9 +25,10 @@ Phases, each printing its own lines:
                rows per block. layer_fused also on a w1 larger than shared
                memory (PNA's form at d_in 2080: the weight ring), ragged
                widths (D=9, d_ff 25), weights and biases as views off 4
-               bytes, one layer replayed from a CUDA graph; first, its
-               kernel instantiations' registers, shared memory and spills
-               from the ptxas log.
+               bytes, one layer replayed from a CUDA graph; each case's
+               output bytes as a sha256 line (to hold against another
+               tree's run); first, its kernel instantiations' registers,
+               shared memory and spills from the ptxas log.
                The scatter kernels of impl='kernel' (mp_scatter,
                mp_scatter_multi, seg_softmax) also on an empty-destination
                tail, a fully masked stream and receivers outside [0, N)
@@ -68,12 +70,18 @@ Phases, each printing its own lines:
                and with the CPU.
   5. nt      — ``ops.nt_mlp`` and ``ops.fused_nt_scatter`` driven at GIN's
                MLP (100->200->100) on the serving buckets' graphs and at
-               the standard point (N=1024, E=4096, MLP 64->128->64), counts
-               from 0; each against its plain version, fused_nt_scatter
-               also against nt_mlp + mp_pipeline, bitwise across runs and
-               rows per block, fused_nt_scatter bitwise equal to nt_mlp +
-               mp_pipeline; times beside the bound (and, for nt_mlp,
-               cuBLAS's addmm -> relu -> addmm).
+               the standard point (N=1024, E=4096, MLP 64->128->64), and
+               on bf16 and f16 operands (GIN at the hep bucket), odd
+               widths (d_in 9, d_ff 25, N=997) and views off 16 bytes,
+               counts from 0; each against its plain version (a 16-bit
+               nt_mlp result within half a unit in its last place more),
+               bitwise across runs and at 1, 3, 8, 16 rows per block,
+               fused_nt_scatter bitwise equal to nt_mlp + mp_pipeline on
+               the operands widened to f32; the programmatic dependent
+               launch named; times beside the bound and, for float32, the
+               library chains (nt_mlp: cuBLAS's addmm -> relu -> addmm;
+               fused_nt_scatter: those, index_select, add, relu and
+               index_add_).
   6. moe     — the MoE data path at olmoe-1b-7b's full width (d_model 2048,
                64 experts, top-8, moe_d_ff 1024, capacity factor 1.25,
                bf16, one group of 1,024 tokens): routing, ``moe_dispatch``
@@ -117,6 +125,7 @@ exits non-zero before printing any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import statistics
@@ -605,11 +614,9 @@ def off_by_4_bytes(kw):
     return out
 
 
-def kernel_phase(card: str, main_inputs):
-    """Phase 3: layer_fused against layer_fused_ref on the card."""
-    import torch
-    from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
-    cases = {
+def lf_cases() -> dict:
+    """Phase 3's synthetic layer_fused cases in numpy, by name."""
+    return {
         "a_gin_paper_width": lf_case(1, 1024, 4096, 100, 200, 100,
                                      empty_tail=64),
         "b_gcn_form": lf_case(2, 1024, 4096, 9, 100, self_coeff="node",
@@ -634,14 +641,26 @@ def kernel_phase(card: str, main_inputs):
         "h_weights_off_4_bytes": lf_case(9, 1024, 4096, 100, 200, 100,
                                          empty_tail=64),
     }
+
+
+def lf_on_device(name, kw_np):
+    """A layer_fused case on the card (its weights as views off 4 bytes
+    for the case that asks for it)."""
+    kw = on_device(kw_np, "cuda")
+    return off_by_4_bytes(kw) if name == "h_weights_off_4_bytes" else kw
+
+
+def kernel_phase(card: str, main_inputs):
+    """Phase 3: layer_fused against layer_fused_ref on the card."""
+    import torch
+    from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
+    cases = lf_cases()
     for name, kw in main_inputs.items():
         cases[name] = to_numpy(kw)
     rows = {}
     tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
     for name, kw_np in cases.items():
-        kw = on_device(kw_np, "cuda")
-        if name == "h_weights_off_4_bytes":
-            kw = off_by_4_bytes(kw)
+        kw = lf_on_device(name, kw_np)
         out = call(layer_fused, kw)
         plain = call(layer_fused_ref, kw)
         torch.cuda.synchronize()
@@ -656,6 +675,9 @@ def kernel_phase(card: str, main_inputs):
         if not ok:
             raise AssertionError(f"layer_fused {name} disagrees with its "
                                  f"plain version")
+        # the output's bytes, to hold against another tree's run
+        log("kernels", f"layer_fused {name}: output sha256 "
+            f"{hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()}")
         epilogue_rows_check(name, kw, kw_np, layer_fused, layer_fused_ref)
         label = f"layer_fused {name}"
         bitwise_stable("kernels", label,
@@ -1221,6 +1243,39 @@ PIPELINE_FORMS = {
     ("n1", "1", "1", "1", "0", "15", "0", "1"): "generic",
     ("n1", "1", "1", "1", "1", "1", "0", "1"): "generic attention",
 }
+# the NT form (NtFormOf<edge_feat type>): its Form's arguments and types
+NT_FORM_ARGS = ("0", "1", "0", "1", "0", "1", "1", "0")
+NT_EDGE_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
+def nt_build_report() -> dict:
+    """Per instantiation of the NT tile (csrc/nt_tile.cuh's kernel, by its
+    operand and y types, in nt_mlp.cu and fused_nt_scatter.cu): registers,
+    spill bytes and static shared memory from the builds' ``-Xptxas -v``
+    logs."""
+    import re
+    names = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+    def tile(symbol):
+        m = re.search(r"mlp_tile_kernelI(f|13__nv_bfloat16|6__half)"
+                      r"(f|S2_)E", symbol)
+        return None if m is None else (
+            f"{names[m.group(1)]} -> "
+            f"{'f32' if m.group(2) == 'f' else names[m.group(1)]}")
+    report = {}
+    for source in ("nt_mlp", "fused_nt_scatter"):
+        found = ptxas_report(source, tile)
+        for name, info in sorted(found.items()):
+            log("nt", f"{source}.cu NT tile {name}: "
+                f"{info['registers']} registers, spill stores/loads "
+                f"{info['spill_stores']}/{info['spill_loads']} bytes, "
+                f"{info['smem']} bytes static shared memory (ptxas -v log)")
+        if len(found) != 3:
+            raise AssertionError(f"{source}.cu: {len(found)} NT tile "
+                                 f"instantiations in the ptxas log, "
+                                 f"expected 3")
+        report.update({f"{source}: {k}": v for k, v in found.items()})
+    return report
 
 
 def pipeline_build_report() -> dict:
@@ -1231,6 +1286,11 @@ def pipeline_build_report() -> dict:
     import re
 
     def form(symbol):
+        nt = re.search(r"mp_pipeline_kernelI\w*?NtFormOfI(f|13__nv_bfloat16"
+                       r"|6__half)E", symbol)
+        if nt is not None:   # the NT form, by its edge_feat type
+            return (f"{PIPELINE_FORMS[NT_FORM_ARGS]}, edge_feat "
+                    f"{NT_EDGE_TYPES[nt.group(1)]}")
         m = re.search(r"mp_pipeline_kernelI\w*?FormILi(n?\d+)ELb(\d)ELb(\d)"
                       r"ELb(\d)ELb(\d)ELi(\d+)ELb(\d)ELb(\d)E", symbol)
         return None if m is None else PIPELINE_FORMS.get(m.groups(),
@@ -1238,7 +1298,7 @@ def pipeline_build_report() -> dict:
     report = {}
     for source, instance, want in (
             ("mp_pipeline", form, len(PIPELINE_FORMS)),
-            ("fused_nt_scatter", form, 1),
+            ("fused_nt_scatter", form, 3),
             ("seg_softmax", lambda sym: "seg_softmax"
              if "seg_softmax_kernel" in sym else None, 1)):
         found = ptxas_report(source, instance)
@@ -1360,6 +1420,26 @@ FUSED_POSITIONAL = MLP_POSITIONAL + ("senders", "receivers", "edge_mask",
                                      "edge_feat")
 
 
+def serving_buckets(device: str = "cuda"):
+    """The two serving buckets' padded batches, one graph each: (key,
+    bucket name, batch) for molhiv (32/64) and hep (64/1024)."""
+    from repro_torch.core.graph import build_graph_batch, pad_bucket
+    from repro_torch.data.graphs import hep_like, molhiv_like
+    for key, bucket, g in (
+            ("e", "molhiv_bucket", next(molhiv_like(seed=0, n_graphs=1))),
+            ("f", "hep_bucket", next(hep_like(seed=2, n_graphs=1)))):
+        yield key, bucket, build_graph_batch(
+            g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
+            node_pos=g.node_pos, node_pad=pad_bucket(g.node_feat.shape[0]),
+            edge_pad=pad_bucket(g.senders.shape[0]), device=device)
+
+
+def edge_stream(batch):
+    """A padded batch's (senders, receivers, edge_mask) in numpy."""
+    return tuple(t.cpu().numpy() for t in (batch.senders, batch.receivers,
+                                           batch.edge_mask))
+
+
 def nt_case(seed, n, mlp, edges=None):
     """Numpy inputs of one nt_mlp call and, given an edge stream (senders,
     receivers, edge_mask), of one fused_nt_scatter call: x, glorot weights,
@@ -1378,55 +1458,18 @@ def nt_case(seed, n, mlp, edges=None):
     return kw
 
 
-def mlp_flops(kw):
-    """The MLP's operations: both products, the two biases and the relu."""
-    n = kw["x"].shape[0]
-    d_in, d_ff = kw["w1"].shape
-    d = kw["w2"].shape[1]
-    return 2 * n * (d_in * d_ff + d_ff * d) + 2 * n * d_ff + n * d
-
-
-def nt_bound(kw):
-    """The least time (ms) the card could take for this call, the larger of
-    two. Bytes at the memory rate: x and the weights read once, the edge
-    mask once, the unmasked in-range edges' indices (at INDEX_BYTES) and
-    features once, the f32 output written once. Operations at the fp32
-    rate: the MLP's (``mlp_flops``), then per such edge and lane the add,
-    the relu and the sum."""
-    n = kw["x"].shape[0]
-    d = kw["w2"].shape[1]
-    nbytes = sum(kw[k].nbytes for k in MLP_POSITIONAL) + 4 * n * d
-    flops = mlp_flops(kw)
-    if "senders" in kw:
-        keep = (kw["edge_mask"] & (kw["senders"] >= 0) & (kw["senders"] < n)
-                & (kw["receivers"] >= 0) & (kw["receivers"] < n))
-        valid = int(keep.sum())
-        nbytes += kw["edge_mask"].nbytes + valid * (2 * INDEX_BYTES + 4 * d)
-        flops += 3 * valid * d
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
-
-
-def nt_phase(card: str, graphs):
-    """nt_mlp and fused_nt_scatter driven through their ``ops`` entry
-    points at GIN's widths on the serving buckets' graphs and at the
-    standard point, with the launch counts set to 0 just before and read
-    just after; then each against its plain version, fused_nt_scatter also
-    against nt_mlp followed by mp_pipeline's relu(y[src] + edge_term) sum,
-    both bitwise across runs and rows per block, and timed. ``graphs``
-    maps a bucket's name to its padded graph's (senders, receivers,
-    edge_mask) in numpy."""
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.mp_pipeline import mp_pipeline
+def nt_cases(graphs) -> dict:
+    """Phase 5's main-path cases in numpy, {kernel: {name: inputs}}: GIN's
+    MLP at N=32, 64 and 1024 and the standard point's for nt_mlp; GIN's on
+    the serving buckets' edge streams (``graphs``: bucket name ->
+    (senders, receivers, edge_mask)) and the standard point for
+    fused_nt_scatter."""
     r = np.random.default_rng(21)
     n_std, e_std = 1024, 4096
     standard = (r.integers(0, n_std, size=e_std).astype(np.int64),
                 r.integers(0, n_std - 64, size=e_std).astype(np.int64),
                 r.random(e_std) < 0.8)
-    cases = {
+    return {
         "nt_mlp": {
             "a_gin_molhiv_bucket": nt_case(31, 32, GIN_MLP),
             "b_gin_hep_bucket": nt_case(32, 64, GIN_MLP),
@@ -1441,15 +1484,178 @@ def nt_phase(card: str, graphs):
             "c_standard_point": nt_case(37, n_std, STD_MLP, standard),
         },
     }
-    dev = {k: {name: on_device(kw, "cuda") for name, kw in c.items()}
+
+
+# bytes of one value of each dtype the NT kernels take
+NT_ELEM = {"float32": 4, "bfloat16": 2, "float16": 2}
+# the float operands of an NT call: those a case's "dtype" applies to
+NT_FLOATS = ("x", "w1", "b1", "w2", "b2", "edge_feat")
+# half a unit in the last place of a 16-bit result, relative to it: what
+# rounding the kernel's f32 result into x's dtype adds (8 significant bits
+# in bf16, 11 in f16)
+NT_ROUNDING = {"float32": 0.0, "bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+
+
+def nt_extra_cases(graphs) -> dict:
+    """Phase 5's cases beside the main path's: GIN's MLP on the hep bucket
+    with bf16 and f16 operands (``dtype``), odd widths (d_in 9, d_ff 25:
+    short quads, weight chunks off 4 floats) at N=997 (not a multiple of
+    any rows per block), and weights, biases and x as views 4 bytes into
+    buffers of their own (``offset``: off 16 bytes)."""
+    r = np.random.default_rng(22)
+    n_odd, e_odd = 997, 3001
+    ragged = (r.integers(0, n_odd, size=e_odd).astype(np.int64),
+              r.integers(0, n_odd, size=e_odd).astype(np.int64),
+              r.random(e_odd) < 0.8)
+    hep = graphs["hep_bucket"]
+    out = {"nt_mlp": {}, "fused_nt_scatter": {}}
+    for i, dt in enumerate(("bfloat16", "float16")):
+        out["nt_mlp"][f"e_gin_hep_bucket_{dt}"] = dict(
+            nt_case(38 + i, 64, GIN_MLP), dtype=dt)
+        out["fused_nt_scatter"][f"d_gin_hep_bucket_{dt}"] = dict(
+            nt_case(40 + i, 64, GIN_MLP, hep), dtype=dt)
+    out["nt_mlp"]["f_odd_widths_d9_dff25"] = nt_case(42, n_odd, (9, 25, 9))
+    out["fused_nt_scatter"]["e_odd_widths_d9_dff25"] = nt_case(
+        43, n_odd, (9, 25, 9), ragged)
+    out["nt_mlp"]["g_gin_n1024_views_off_16_bytes"] = dict(
+        nt_case(44, 1024, GIN_MLP), offset=4)
+    standard = (r.integers(0, 1024, size=4096).astype(np.int64),
+                r.integers(0, 1024 - 64, size=4096).astype(np.int64),
+                r.random(4096) < 0.8)
+    out["fused_nt_scatter"]["f_standard_point_views_off_16_bytes"] = dict(
+        nt_case(45, 1024, STD_MLP, standard), offset=4)
+    return out
+
+
+def nt_on_device(kw):
+    """A phase-5 case's tensors on the card: the float operands in the
+    case's ``dtype`` (float32 by default), each a view ``offset`` bytes into
+    a buffer of its own where the case gives one."""
+    import torch
+    dt = getattr(torch, kw.get("dtype", "float32"))
+    offset = kw.get("offset", 0)
+    out = {}
+    for k, v in kw.items():
+        if k in ("dtype", "offset"):
+            continue
+        t = torch.from_numpy(v).to("cuda")
+        if k in NT_FLOATS:
+            t = t.to(dt)
+            if offset:
+                skip = offset // t.element_size()
+                buf = torch.empty(t.numel() + skip, dtype=dt, device="cuda")
+                buf[skip:].copy_(t.reshape(-1))
+                t = buf[skip:].view(t.shape)
+        out[k] = t
+    return out
+
+
+def mlp_flops(kw):
+    """The MLP's operations: both products, the two biases and the relu."""
+    n = kw["x"].shape[0]
+    d_in, d_ff = kw["w1"].shape
+    d = kw["w2"].shape[1]
+    return 2 * n * (d_in * d_ff + d_ff * d) + 2 * n * d_ff + n * d
+
+
+def nt_bound(kw):
+    """The least time (ms) the card could take for this call, the larger of
+    two. Bytes at the memory rate: x and the weights read once (in the
+    case's dtype), the edge mask once, the unmasked in-range edges' indices
+    (at INDEX_BYTES) and features once, the output written once (nt_mlp's
+    in x's dtype, fused_nt_scatter's in f32). Operations at the fp32 rate:
+    the MLP's (``mlp_flops``), then per such edge and lane the add, the relu
+    and the sum."""
+    n = kw["x"].shape[0]
+    d = kw["w2"].shape[1]
+    elem = NT_ELEM[kw.get("dtype", "float32")]
+    fused = "senders" in kw
+    nbytes = (sum(kw[k].size for k in MLP_POSITIONAL) * elem
+              + (4 if fused else elem) * n * d)
+    flops = mlp_flops(kw)
+    if fused:
+        keep = (kw["edge_mask"] & (kw["senders"] >= 0) & (kw["senders"] < n)
+                & (kw["receivers"] >= 0) & (kw["receivers"] < n))
+        valid = int(keep.sum())
+        nbytes += kw["edge_mask"].nbytes + valid * (2 * INDEX_BYTES
+                                                    + elem * d)
+        flops += 3 * valid * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def nt_library_chain(kernel, kw, want):
+    """The PyTorch calls that compute the case's function, where its
+    operands are float32 (cuBLAS, TF32 off), checked against the plain
+    version ``want``: for nt_mlp the three calls addmm -> relu_ -> addmm;
+    for fused_nt_scatter those, then index_select of y's sender rows, the
+    add of edge_feat, relu_, and index_add_ into an (N+1, D) buffer zeroed
+    first (atomics, order not fixed; masked and out-of-range edges routed
+    to row N). None for 16-bit operands (cuBLAS would round h and y into
+    them)."""
+    import torch
+    x, w1, b1, w2, b2 = (kw[k] for k in MLP_POSITIONAL)
+    if x.dtype != torch.float32:
+        return None
+
+    def mlp():
+        return torch.addmm(b2, torch.addmm(b1, x, w1).relu_(), w2)
+    chain = mlp
+    if kernel == "fused_nt_scatter":
+        n = x.shape[0]
+        snd, rcv, ef = kw["senders"], kw["receivers"], kw["edge_feat"]
+        keep = (kw["edge_mask"] & (snd >= 0) & (snd < n) & (rcv >= 0)
+                & (rcv < n))
+        src = torch.where(keep, snd, 0)
+        dst = torch.where(keep, rcv, n)
+        buf = torch.empty((n + 1, w2.shape[1]), device=x.device)
+
+        def chain():
+            msg = (mlp().index_select(0, src) + ef).relu_()
+            return buf.zero_().index_add_(0, dst, msg)[:n]
+    c = chain()
+    torch.cuda.synchronize()
+    if not close(c, want)[2]:
+        raise AssertionError(f"{kernel}: the library chain disagrees with "
+                             f"the plain version")
+    return chain
+
+
+NT_CHAIN_TXT = {
+    "nt_mlp": "three calls addmm -> relu_ -> addmm (cuBLAS, TF32 off)",
+    "fused_nt_scatter": "chain addmm -> relu_ -> addmm, index_select, add, "
+                        "relu_, zero_, index_add_ (atomics, order not "
+                        "fixed)"}
+
+
+def nt_phase(card: str, graphs):
+    """nt_mlp and fused_nt_scatter driven through their ``ops`` entry
+    points at GIN's widths on the serving buckets' graphs and at the
+    standard point, and on the extra cases (``nt_extra_cases``: bf16 and
+    f16 operands, odd widths, views off 16 bytes), with the launch counts
+    set to 0 just before and read just after; then each against its plain
+    version, fused_nt_scatter also bitwise against nt_mlp followed by
+    mp_pipeline's relu(y[src] + edge_term) sum on the operands widened to
+    float32, both bitwise across runs and rows per block, and timed beside
+    their library chains. ``graphs`` maps a bucket's name to its padded
+    graph's (senders, receivers, edge_mask) in numpy."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mp_pipeline import mp_pipeline
+    cases = nt_cases(graphs)
+    for kernel, extra in nt_extra_cases(graphs).items():
+        cases[kernel].update(extra)
+    dev = {k: {name: nt_on_device(kw) for name, kw in c.items()}
            for k, c in cases.items()}
 
     def run(kernel, kw, **extra):
         if kernel == "nt_mlp":
-            return call(ops.nt_mlp, kw, MLP_POSITIONAL, node_tile=32,
-                        k_tile=kw["x"].shape[1], **extra)
+            return call(ops.nt_mlp, kw, MLP_POSITIONAL, node_tile=1,
+                        k_tile=1, **extra)
         return call(ops.fused_nt_scatter, kw, FUSED_POSITIONAL,
-                    node_tile=32, **extra)
+                    node_tile=1, **extra)
 
     def plain(kernel, kw):
         if kernel == "nt_mlp":
@@ -1467,30 +1673,44 @@ def nt_phase(card: str, graphs):
                               "fused_nt_scatter":
                                   2 * len(cases["fused_nt_scatter"])},
                    "one a call, two a call")
+    log("nt", "fused_nt_scatter: its second launch goes through "
+        "cudaLaunchKernelEx with cudaLaunchAttributeProgrammaticStream"
+        "Serialization (programmaticStreamSerializationAllowed = 1), "
+        "mp_pipeline.cuh's launch_form<NtFormOf<...>>; the NT tile issues "
+        "griddepcontrol.launch_dependents as each block starts, the edge "
+        "phase griddepcontrol.wait before its first fold")
 
-    tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
     rows = {k: {} for k in cases}
     for kernel, kcases in dev.items():
         for name, kw in kcases.items():
             kw_np = cases[kernel][name]
+            dtype = kw_np.get("dtype", "float32")
             out = outs[kernel][name]
             want = plain(kernel, kw)
             torch.cuda.synchronize()
             n, d = out.shape
-            if out.dtype != torch.float32 or tuple(want.shape) != (n, d):
+            out_dtype = (getattr(torch, dtype) if kernel == "nt_mlp"
+                         else torch.float32)
+            if out.dtype != out_dtype or tuple(want.shape) != (n, d):
                 raise AssertionError(f"{kernel} {name}: output {out.dtype} "
                                      f"{tuple(out.shape)}")
-            err, rel, ok = close(out, want)
+            # a 16-bit nt_mlp result: the kernel's f32 value rounded once
+            rtol = RTOL + (NT_ROUNDING[dtype] if kernel == "nt_mlp" else 0)
+            err, rel, ok = close(out.float(), want, rtol=rtol)
+            tol = (f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + "
+                   f"{rtol:.6g}*|p|")
             if not ok:
                 raise AssertionError(f"{kernel} {name} disagrees with its "
                                      f"plain version ({err:.3e})")
             extra = ""
             if kernel == "fused_nt_scatter":
-                # the same function through the two kernels' own wrappers
-                y = run("nt_mlp", {k_: kw[k_] for k_ in MLP_POSITIONAL})
+                # the same function through the two kernels' own wrappers,
+                # on the operands widened to f32 (exact)
+                y = run("nt_mlp", {k_: kw[k_].float()
+                                   for k_ in MLP_POSITIONAL})
                 two = mp_pipeline(y, kw["senders"], kw["receivers"],
                                   kw["edge_mask"], n, stats=("sum",),
-                                  edge_term=kw["edge_feat"],
+                                  edge_term=kw["edge_feat"].float(),
                                   activation="relu")["sum"]
                 torch.cuda.synchronize()
                 # the same NT tile and the same edge fold (slices fixed by
@@ -1500,35 +1720,27 @@ def nt_phase(card: str, graphs):
                     raise AssertionError(f"fused_nt_scatter {name} is not "
                                          f"bitwise nt_mlp + mp_pipeline "
                                          f"({e2:.3e})")
-                extra = "; bitwise equal to nt_mlp + mp_pipeline"
+                extra = ("; bitwise equal to nt_mlp + mp_pipeline on the "
+                         "operands widened to f32")
             e_txt = (f" E={kw_np['senders'].shape[0]}"
                      if "senders" in kw_np else "")
+            off = kw_np.get("offset", 0)
             label = f"{kernel} {name}"
             log("nt", f"{label}: N={n}{e_txt} MLP "
-                f"{kw_np['w1'].shape[0]}->{kw_np['w1'].shape[1]}->{d}; "
-                f"max_abs_err={err:.3e} max_rel_err={rel:.3e} tol: {tol}"
-                f"{extra}; ok")
+                f"{kw_np['w1'].shape[0]}->{kw_np['w1'].shape[1]}->{d} "
+                f"{dtype}{f', views {off} bytes off 16' if off else ''}; "
+                f"output {out.dtype}; max_abs_err={err:.3e} "
+                f"max_rel_err={rel:.3e} tol: {tol}{extra}; ok")
             bitwise_stable("nt", label,
-                           lambda **extra: run(kernel, kw, **extra), out)
-            chain = None
-            if kernel == "nt_mlp":
-                # no one PyTorch call computes it: cuBLAS's three calls
-                x, w1, b1, w2, b2 = (kw[k] for k in MLP_POSITIONAL)
-
-                def chain():
-                    return torch.addmm(b2, torch.addmm(b1, x, w1).relu_(),
-                                       w2)
-                c = chain()
-                torch.cuda.synchronize()
-                if not close(c, want)[2]:
-                    raise AssertionError(f"nt_mlp {name}: the addmm chain "
-                                         f"disagrees with the plain version")
+                           lambda **extra: run(kernel, kw, **extra), out,
+                           (1, 3, 8, 16))
             rows[kernel][name] = timed_row(
                 card, "nt", label, lambda: run(kernel, kw),
-                lambda: plain(kernel, kw), nt_bound(kw_np), err=err, rel=rel,
-                library=chain, library_key="three_calls_ms",
-                library_txt="three calls addmm -> relu_ -> addmm (cuBLAS, "
-                            "TF32 off)")
+                lambda: plain(kernel, kw), nt_bound(kw_np), err=err,
+                rel=rel, library=nt_library_chain(kernel, kw, want),
+                library_key=("three_calls_ms" if kernel == "nt_mlp"
+                             else "chain_ms"),
+                library_txt=NT_CHAIN_TXT[kernel])
     return rows, {"launches": launches}
 
 
@@ -2521,6 +2733,34 @@ def profile_serving(engine, graphs, args, card: str, label: str):
     return out
 
 
+def record_main_inputs():
+    """What each path of phase 4 hands its kernel in its first two layers
+    (the first reads the raw features or their encoding, the second the
+    hidden width), with the slice's own models and seeds, at both buckets:
+    ({kernel: {case name: inputs}}, {bucket: its edge stream in numpy})."""
+    users = {"layer_fused": (("gin", "fused_layer"), ("gcn", "fused_layer"),
+                             ("pna", "fused_layer"), ("dgn", "fused_layer"),
+                             ("gin_vn", "fused_layer")),
+             "mp_pipeline": (("gat", "fused_layer"), ("gin", "pipeline"),
+                             ("gcn", "pipeline"), ("pna", "pipeline"),
+                             ("dgn", "pipeline")),
+             "mp_scatter": (("gin", "kernel"), ("gcn", "kernel"),
+                            ("gin_vn", "kernel"), ("gat", "kernel")),
+             "mp_scatter_multi": (("pna", "kernel"), ("dgn", "kernel")),
+             "seg_softmax": (("gat", "kernel"),)}
+    main_inputs = {kernel: {} for kernel in users}
+    bucket_edges = {}
+    for key, bucket, batch in serving_buckets():
+        bucket_edges[bucket] = edge_stream(batch)
+        for kernel, runs in users.items():
+            for name, impl in runs:
+                for l, kw in enumerate(main_path_inputs(name, impl, kernel,
+                                                        batch)):
+                    main_inputs[kernel][
+                        f"{key}_{name}_{impl}_L{l}_{bucket}"] = kw
+    return main_inputs, bucket_edges
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2555,41 +2795,10 @@ def main() -> int:
     scatter_build = scatter_build_report()
     lf_build = lf_build_report()
     pipeline_build = pipeline_build_report()
+    nt_build = nt_build_report()
 
-    # 3 needs the main path's inputs first: record what each path of phase 4
-    # hands its kernel in its first two layers (the first reads the raw
-    # features or their encoding, the second the hidden width), with the
-    # slice's own models and seeds, at both buckets
-    from repro_torch.core.graph import build_graph_batch, pad_bucket
-    from repro_torch.data.graphs import hep_like, molhiv_like
-    users = {"layer_fused": (("gin", "fused_layer"), ("gcn", "fused_layer"),
-                             ("pna", "fused_layer"), ("dgn", "fused_layer"),
-                             ("gin_vn", "fused_layer")),
-             "mp_pipeline": (("gat", "fused_layer"), ("gin", "pipeline"),
-                             ("gcn", "pipeline"), ("pna", "pipeline"),
-                             ("dgn", "pipeline")),
-             "mp_scatter": (("gin", "kernel"), ("gcn", "kernel"),
-                            ("gin_vn", "kernel"), ("gat", "kernel")),
-             "mp_scatter_multi": (("pna", "kernel"), ("dgn", "kernel")),
-             "seg_softmax": (("gat", "kernel"),)}
-    main_inputs = {kernel: {} for kernel in users}
-    bucket_edges = {}
-    for key, bucket, g in (
-            ("e", "molhiv_bucket", next(molhiv_like(seed=0, n_graphs=1))),
-            ("f", "hep_bucket", next(hep_like(seed=2, n_graphs=1)))):
-        batch = build_graph_batch(
-            g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
-            node_pos=g.node_pos, node_pad=pad_bucket(g.node_feat.shape[0]),
-            edge_pad=pad_bucket(g.senders.shape[0]), device="cuda")
-        bucket_edges[bucket] = tuple(
-            t.cpu().numpy() for t in (batch.senders, batch.receivers,
-                                      batch.edge_mask))
-        for kernel, runs in users.items():
-            for name, impl in runs:
-                for l, kw in enumerate(main_path_inputs(name, impl, kernel,
-                                                        batch)):
-                    main_inputs[kernel][
-                        f"{key}_{name}_{impl}_L{l}_{bucket}"] = kw
+    # 3 needs the main path's inputs first
+    main_inputs, bucket_edges = record_main_inputs()
 
     # 3. kernels against their plain versions
     lf_rows = kernel_phase(card, main_inputs["layer_fused"])
@@ -2622,8 +2831,8 @@ def main() -> int:
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],
                 "library_ms": main.get("library_ms"),
-                **({"three_calls_ms": main["three_calls_ms"]}
-                   if main.get("three_calls_ms") is not None else {}),
+                **{k: main[k] for k in ("three_calls_ms", "chain_ms")
+                   if main.get(k) is not None},
                 "call_ms": main["call_ms"],
                 "plain_call_ms": main["plain_call_ms"], "shape": shape,
                 "main_path": path,
@@ -2631,7 +2840,7 @@ def main() -> int:
                                      for k, v in paths.items()},
                 "cases": {k: {m: v.get(m) for m in (
                     "ms", "plain_ms", "bound_ms", "library_ms",
-                    "three_calls_ms", "max_abs_err") if m in v}
+                    "three_calls_ms", "chain_ms", "max_abs_err") if m in v}
                           for k, v in cases.items()}}
 
     kernels = [
@@ -2697,6 +2906,10 @@ def main() -> int:
     kernels[4]["instantiations"] = {
         k: v for k, v in pipeline_build.items()
         if k.startswith("seg_softmax")}
+    kernels[5]["instantiations"] = {
+        k: v for k, v in nt_build.items() if k.startswith("nt_mlp")}
+    kernels[6]["instantiations"] = {
+        k: v for k, v in nt_build.items() if k.startswith("fused")}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

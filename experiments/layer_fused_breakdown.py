@@ -4,10 +4,11 @@
     python3 experiments/layer_fused_breakdown.py              # this checkout
     python3 experiments/layer_fused_breakdown.py --parent DIR # and another
 
-Builds variants of ``src/repro_torch/kernels/csrc/layer_fused.cu``, each a
-copy of the source with one part taken out or moved (a variant with a part
-taken out returns wrong numbers by design: these are timing probes, not
-kernels), and times each as ``chip_smoke.py::time_ms`` does (device time of
+Builds variants of ``src/repro_torch/kernels/csrc/layer_fused.cu`` and of
+the dense tile it includes (``csrc/dense_tile.cuh``: the weight staging
+and the split-k dense layers), each a copy of the sources with one part
+taken out or moved (a variant with a part taken out returns wrong numbers
+by design: these are timing probes, not kernels), and times each as ``chip_smoke.py::time_ms`` does (device time of
 launches queued behind a GPU spin), in turns (each variant twice, the
 source as it is first and last), at four shapes, each built by
 ``chip_smoke.py``'s case builders from a seed:
@@ -19,7 +20,7 @@ source as it is first and last), at four shapes, each built by
   dgn_hep    DGN's field form at the hep bucket: D=200 (stacked), w1 300->100
   gin_n1024  GIN's self form at N=1024, E=4096
 
-The variants of the staged design (this checkout's source):
+The variants of the staged design (this checkout's sources):
 
   as_is          the committed kernel
   no_dense       the dense layers' arithmetic taken out (the weights are
@@ -36,29 +37,34 @@ The variants of the staged design (this checkout's source):
   empty          no sweep, no copies, no dense arithmetic: launch, set-up
                  and the epilogue's passes
 
-The variants of the earlier design, whose dense layers read the weights
-from L2 (another checkout's source, with ``--parent``):
-``as_is``, ``no_dense`` (the dense layers' k loops taken out),
-``no_edges``, ``empty`` (both) and ``weights_const`` (each weight load from
-device memory replaced by a constant: the arithmetic without the loads).
+The same variants of the staged design written in one file, before the
+dense tile moved to its header (another checkout's source, with
+``--parent``, e.g. a ``git archive`` of the parent commit under
+``build/``).
 
 Then the committed kernel alone at 1, 2, 4, 8 and 16 rows per block and
 at its own choice, at ``gin_hep``, ``pna_hep`` and ``gin_n1024`` (how
-the rows per block were chosen).
+the rows per block were chosen). With ``--parent``, last, both ``as_is``
+kernels on every layer_fused case of ``chip_smoke.py``'s phase 3 (its
+synthetic cases and what the six models' paths hand the kernel at both
+buckets), each output's sha256, and whether the two are bitwise equal.
 
 Prints one line per variant and shape, and the card's ``nvidia-smi`` name
 and power limit. Needs nvcc and one CUDA device; imports nothing of JAX.
 
-The variants are exact-text edits of the kernel's source: an edit to the
-lines they name makes ``variants()`` raise, and
+The variants are exact-text edits of the kernel's sources, each applied
+to whichever of ``layer_fused.cu`` and ``dense_tile.cuh`` holds its text:
+an edit to the lines they name makes ``variants()`` raise, and
 tests/test_torch_layer_fused_breakdown.py checks on the CPU that each
-variant of this checkout's source still applies.
+variant of this checkout's sources still applies.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -73,68 +79,67 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import layer_fused as lf  # noqa: E402
 
-SRC = build.CSRC / "layer_fused.cu"
 OUT = REPO / "build" / "layer_fused_breakdown"
 CSRC_REL = Path("src/repro_torch/kernels/csrc")
+# the files the variants edit: the kernel and, once it exists, its dense tile
+FILES = ("layer_fused.cu", "dense_tile.cuh")
 
-# the staged design (this checkout)
-STAGED_MARK = "bulk_load"
 FIRST_COPIES = "  issue_first(p, tid);   // land while the edges are swept\n"
 SWEEP_OFF = [("  for (int base = 0; base < p.e; base += kEdgeTile) {",
               "  for (int base = 0; base < 0; base += kEdgeTile) {")]
-FMA_OFF = [("      for (int r0 = 0; r0 < rows_here;) {",
-            "      for (int r0 = 0; r0 < rows_here && p.n < 0;) {")]
-COPIES_OFF = [
-    (FIRST_COPIES, ""),
-    ("    mbar_wait(&bars[slot], phase);\n", ""),
-    ("  mbar_wait(&bars[p.slots + layer], 0);   // the bias\n", ""),
-    ("    if (c + p.slots < total) {   // the block is done with this slot",
-     "    if (p.n < 0) {")]
 ACCUMULATE_OFF = [(
     "    if (group >= groups || (one_row && group >= rows_here)) return;",
     "    if (p.n >= 0) return;")]
-STAGED_EDITS = {
-    "no_dense": FMA_OFF,
-    "no_edges": SWEEP_OFF,
-    "no_copies": COPIES_OFF,
-    "unstaged": [
+
+
+def staged_edits(off: str) -> dict:
+    """The variants' edits, ``off`` a condition false at run time in the
+    dense layers' scope (``p.n < 0`` where they share the kernel's Args,
+    ``p.rows < 0`` in the header's Tile)."""
+    fma_off = [("      for (int r0 = 0; r0 < rows_here;) {",
+                f"      for (int r0 = 0; r0 < rows_here && {off};) {{")]
+    copies_off = [
         (FIRST_COPIES, ""),
-        ("  // 4. the first dense layer's input row",
-         "  issue_first(p, tid);\n  // 4. the first dense layer's input row")],
-    "sweep_only": COPIES_OFF + FMA_OFF,
-    "copies_only": SWEEP_OFF + FMA_OFF,
-    "classify_only": COPIES_OFF + FMA_OFF + ACCUMULATE_OFF,
-    "empty": SWEEP_OFF + COPIES_OFF + FMA_OFF,
-}
-
-# the earlier design: dense layers reading the weights from L2
-L2_EDITS = {
-    "no_dense": [(
-        "      for (int k = 0; k < k_dim; ++k) {",
-        "      for (int k = 0; k < 0; ++k) {")],
-    "no_edges": [(
-        "  for (int base = 0; base < p.e; base += kEdgeTile) {",
-        "  for (int base = 0; base < 0; base += kEdgeTile) {")],
-    "weights_const": [(
-        "        const float wk = w[(size_t)k * n_dim + j];",
-        "        const float wk = 0.5f;")],
-}
-L2_EDITS["empty"] = L2_EDITS["no_edges"] + L2_EDITS["no_dense"]
+        ("    mbar_wait(&bars[slot], phase);\n", ""),
+        ("  mbar_wait(&bars[p.slots + layer], 0);   // the bias\n", ""),
+        ("    if (c + p.slots < total) {   // the block is done with this slot",
+         f"    if ({off}) {{")]
+    return {
+        "no_dense": fma_off,
+        "no_edges": SWEEP_OFF,
+        "no_copies": copies_off,
+        "unstaged": [
+            (FIRST_COPIES, ""),
+            ("  // 4. the first dense layer's input row",
+             "  issue_first(p, tid);\n  // 4. the first dense layer's input "
+             "row")],
+        "sweep_only": copies_off + fma_off,
+        "copies_only": SWEEP_OFF + fma_off,
+        "classify_only": copies_off + fma_off + ACCUMULATE_OFF,
+        "empty": SWEEP_OFF + copies_off + fma_off,
+    }
 
 
-def variants(src: str) -> dict:
-    """{name: source} for the design ``src`` is written in; each edit must
-    apply."""
-    edits = STAGED_EDITS if STAGED_MARK in src else L2_EDITS
-    out = {"as_is": src}
+def sources(csrc: Path) -> dict:
+    """{file: text} of the edited files that ``csrc`` holds."""
+    return {name: (csrc / name).read_text() for name in FILES
+            if (csrc / name).exists()}
+
+
+def variants(srcs: dict) -> dict:
+    """{name: {file: text}}; each edit must apply to one of the files."""
+    edits = staged_edits("p.rows < 0" if "dense_tile.cuh" in srcs
+                         else "p.n < 0")
+    out = {"as_is": dict(srcs)}
     for name, subs in edits.items():
-        text = src
+        texts = dict(srcs)
         for old, new in subs:
-            if old not in text:
+            where = [f for f, text in texts.items() if old in text]
+            if not where:
                 raise RuntimeError(f"the source changed: {old[:50]!r} not "
                                    f"found ({name})")
-            text = text.replace(old, new)
-        out[name] = text
+            texts[where[0]] = texts[where[0]].replace(old, new)
+        out[name] = texts
     return out
 
 
@@ -147,18 +152,19 @@ def shapes():
         ("gin_n1024", cs.lf_case(14, 1024, 4096, 100, 200, 100)))}
 
 
-def build_variants(tag: str, src_path: Path) -> dict:
-    """Build every variant of ``src_path`` at once; {name: launch fn}."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def build_variants(tag: str, csrc: Path) -> dict:
+    """Build every variant of the sources in ``csrc`` at once; {name: launch
+    fn}. Each variant builds in a directory of its own that holds the
+    sources and headers it includes."""
     procs = {}
-    for name, text in variants(src_path.read_text()).items():
-        src = OUT / f"{tag}_{name}.cu"
-        for header in src_path.parent.glob("*.cuh"):
-            text = text.replace(f'#include "{header.name}"',
-                                f'#include "{header}"')
-        src.write_text(text)
+    for name, texts in variants(sources(csrc)).items():
+        where = OUT / tag / name
+        shutil.rmtree(where, ignore_errors=True)
+        shutil.copytree(csrc, where)
+        for file, text in texts.items():
+            (where / file).write_text(text)
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-               str(OUT / f"{tag}_{name}.so"), str(src)]
+               str(where / "variant.so"), str(where / "layer_fused.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     fns = {}
@@ -167,12 +173,39 @@ def build_variants(tag: str, src_path: Path) -> dict:
         if proc.returncode:
             print(log, file=sys.stderr)
             raise RuntimeError(f"nvcc failed on the {tag} {name} variant")
-        fn = ctypes.CDLL(str(OUT / f"{tag}_{name}.so")).layer_fused_launch
+        fn = ctypes.CDLL(str(OUT / tag / name / "variant.so")
+                         ).layer_fused_launch
         fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 16 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[f"{tag} {name}"] = fn
     return fns
+
+
+def compare_outputs(this, parent):
+    """Both kernels on every layer_fused case of chip_smoke.py's phase 3;
+    prints each output's sha256; returns (cases bitwise equal, cases)."""
+    cases = cs.lf_cases()
+    for name, kw in cs.record_main_inputs()[0]["layer_fused"].items():
+        cases[name] = cs.to_numpy(kw)
+    real = lf._kernel
+    same = 0
+    for name, kw_np in cases.items():
+        kw = cs.lf_on_device(name, kw_np)
+        outs = []
+        for fn in (this, parent):
+            lf._kernel = lambda fn=fn: fn
+            try:
+                outs.append(cs.call(lf.layer_fused, kw))
+            finally:
+                lf._kernel = real
+        torch.cuda.synchronize()
+        digest = [hashlib.sha256(o.cpu().numpy().tobytes()).hexdigest()
+                  for o in outs]
+        same += torch.equal(*outs)
+        print(f"{name}: sha256 this {digest[0]} parent {digest[1]}"
+              f"{'' if torch.equal(*outs) else ' DIFFER'}", flush=True)
+    return same, len(cases)
 
 
 def main() -> int:
@@ -183,10 +216,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("layer_fused_breakdown: no CUDA device", file=sys.stderr)
         return 2
-    fns = build_variants("this", SRC)
+    fns = build_variants("this", build.CSRC)
     if args.parent is not None:
-        fns.update(build_variants("parent",
-                                  args.parent / CSRC_REL / "layer_fused.cu"))
+        fns.update(build_variants("parent", args.parent / CSRC_REL))
     real = lf._kernel
     for shape, kw in shapes().items():
         times = {name: [] for name in fns}
@@ -210,6 +242,10 @@ def main() -> int:
                                             rows_per_block=rows))[0]
             print(f"{shape} as_is rows_per_block={rows or 'own'}: device "
                   f"{ms * 1e3:.2f} us", flush=True)
+    if args.parent is not None:
+        same = compare_outputs(fns["this as_is"], fns["parent as_is"])
+        print(f"this and parent as_is bitwise equal on {same[0]} of "
+              f"{same[1]} phase-3 cases", flush=True)
     print(cs.gpu_line())
     return 0
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile loads through a tensor map, 1-d bulk copies and 4-byte cp.async
-// copies that complete on an mbarrier, wgmma shared-memory descriptors and
-// the warpgroup matrix products themselves, plus the host's encoding of a
-// tensor map.
+// copies that complete on an mbarrier, programmatic dependent launch,
+// widening and rounding of bf16 / f16 values, wgmma shared-memory
+// descriptors and the warpgroup matrix products themselves, plus the host's
+// encoding of a tensor map.
 //
 // The wgmma wrappers name every accumulator register, as PTX requires;
 // d[i] of a 64 x N accumulator sits, in warp w of the warpgroup and lane l,
@@ -20,6 +21,8 @@
 
 #include <cuda.h>            // CUtensorMap and its enums (no -lcuda: the
                              // encoder is fetched through the runtime)
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,6 +116,46 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.shared.b64 [%0];\n"
                :: "r"(smem_u32(bar)) : "memory");
+}
+
+// --- programmatic dependent launch
+
+// let the grid queued after this one on the stream with programmatic stream
+// serialization start now: it runs its set-up beside this grid and calls
+// wait_prior_grid() before it reads what this grid writes
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// wait until the grid before this one on the stream has completed and its
+// writes are visible (returns at once when this grid was launched without
+// programmatic stream serialization: the stream already waited)
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// --- float32, bfloat16 and float16 values
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
+
+// v in O, rounded to nearest even
+template <typename O>
+__device__ __forceinline__ O narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half narrow<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // --- wgmma

@@ -31,36 +31,19 @@
 // parts: launch, edge sweep, weight copies, dense arithmetic.
 //
 // Design:
-//   * Weights on chip while the edges are swept. Each dense layer's weight
-//     is one chunk where both fit in shared memory (GIN's 160 KB), else it
-//     is cut into chunks of whole k rows (<= 32 KB; each starts on a
-//     multiple of 4 S rows, S below); the chunks stream through a ring of
-//     shared-memory slots, one mbarrier a slot. At entry the block issues
-//     as many chunks as there are slots, and b1 / b2, then sweeps the edges
-//     while they land; the dense layers wait on each chunk's barrier. A
-//     chunk whose source is on a 16-byte boundary with a size a multiple of
-//     16 bytes is one cp.async.bulk by thread 0 (completing on the barrier's
-//     transaction count); any other (a view off 16 bytes, k * n_dim not a
-//     multiple of 4) is copied 4 bytes a thread by cp.async, tracked by the
-//     same barrier. When every chunk fits (GIN, DGN, GCN) nothing is
-//     refilled; otherwise (PNA's w1) a slot is refilled with the chunk
-//     `slots` ahead as soon as the block is done with it.
-//   * Split-k dense layers, every thread busy. Thread t of a dense layer
-//     with n_dim columns takes column j = t % n_dim and slice ks = t / n_dim
-//     of S = min(256 / n_dim, k quads) slices (at least 1): the k quads
-//     (4 consecutive k) q = ks, ks + S, ks + 2S, ..., summed in k order as
-//     fp32 FMAs from shared memory (z as one 16-byte load a quad and row).
-//     The slices' partial sums meet in shared memory and are added in the
-//     order ks = 0, 1, ..., S - 1, then the bias, then the relu. S and the
-//     slices depend only on k_dim and n_dim, never on the rows a block holds,
-//     the ring or the grid, so an output's arithmetic is the same for any
-//     rows per block and from run to run. No TF32 anywhere. No integer
-//     division runs per chunk: each is a long chain of dependent
-//     instructions.
-//   * No work on padding rows. A thread takes a group of 8 rows at once
-//     (each weight load shared by the group's FMAs) and the block's last
-//     rows in groups of 4, 2 and 1; every pass of the epilogue runs over
-//     rows_here alone.
+//   * Weights on chip while the edges are swept, split-k dense layers with
+//     every thread busy (csrc/dense_tile.cuh, shared with the NT kernels).
+//     Each dense layer's weight is one chunk where both fit in shared memory
+//     (GIN's 160 KB), else it is cut into chunks of whole k rows (<= 32 KB);
+//     the chunks stream through the header's ring of shared-memory slots,
+//     one mbarrier a slot. At entry the block issues as many chunks as
+//     there are slots, and b1 / b2, then sweeps the edges while they land.
+//     When every chunk fits (GIN, DGN, GCN) nothing is refilled; otherwise
+//     (PNA's w1) a slot is refilled as soon as the block is done with it.
+//     The split-k slices depend only on k_dim and n_dim, so an output's
+//     arithmetic is the same for any rows per block and from run to run.
+//   * No work on padding rows: the dense layers take groups of 8, 4, 2 and
+//     1 rows, and every pass of the epilogue runs over rows_here alone.
 //   * Owner computes for the edges. Block b owns destination rows
 //     [b*R, b*R + R) and sweeps the whole edge stream in stream order, a tile
 //     of kEdgeTile edges at a time (mask, receiver and sender loaded
@@ -80,9 +63,7 @@
 //     field input row z built in shared memory (rounded adds and products,
 //     no contraction, as the plain version rounds them), then the dense
 //     layers; the hidden layer stays in shared memory. A dense layer names
-//     its shared-memory input by offset, so that its loads compile as
-//     shared-memory loads (a pointer chosen at run time compiled to generic
-//     loads and cost the scalers form ~1.6x).
+//     its shared-memory input by offset (dense_tile.cuh).
 //   * Rows per block: one block per SM where the rows allow it (one row a
 //     block at the buckets, 8 at N = 1024), the best of 1-16 rows measured
 //     at both (PERF.md). No thread-block clusters: the weight
@@ -93,30 +74,34 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dense_tile.cuh"
 #include "hopper.cuh"
 
-// The block's dynamic shared memory: weight slots, biases, accumulators, z,
-// hidden layer, partial sums, edge lists, barriers.
-extern __shared__ __align__(128) float smem[];
+// The block's dynamic shared memory (dense_tile.cuh's smem): weight slots,
+// biases, accumulators, z, hidden layer, partial sums, edge lists, barriers.
 
 namespace {
 
+using dense::dense_layer;
+using dense::issue_first;
+using dense::kChunkBytes;
+using dense::round_up;
 using hopper::mbar_init;
-using hopper::mbar_wait;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kEdgesPerThread = 4;
 constexpr int kEdgeTile = kThreads * kEdgesPerThread;
 constexpr int kUnroll = 8;        // edges whose loads are issued together
-constexpr int kChunkBytes = 32 * 1024;
 constexpr float kBig = 1e30f;     // keyed max / min neutral (mp_pipeline's)
 
 enum SrcWeightMode { kSwNone = 0, kSwScalar = 1, kSwFull = 2, kSwHead = 3 };
 enum SelfMode { kSelfNone = 0, kSelfScalar = 1, kSelfNode = 2 };
 enum Epilogue { kEpiSelf = 0, kEpiScalers = 1, kEpiField = 2 };
 
-struct Args {
+// the dense layers' part (dense::Tile: weights, ring, the rows a block
+// owns, the offsets of the biases, partial sums and barriers), then the rest
+struct Args : dense::Tile {
   const float* x;        // (n, d_x) carry rows: the self term, z's first part
   const float* y;        // (n, d) gather buffer (x unless node_input)
   const int64_t* snd;    // (e,)
@@ -129,224 +114,19 @@ struct Args {
   const float* scal;     // (n, n_scalers) degree scalers, or null
   const float* deg;      // (n,) shared in-degrees (scalers, field), or null
   const float* wsum;     // (n,) field-weight sums (field), or null
-  const float* w1;       // (d_in, d_ff)
-  const float* b1;       // (d_ff,)
-  const float* w2;       // (d_ff, d_out) or null
-  const float* b2;       // (d_out,) or null
   float* out;            // (n, d_out)
-  int n, e, d, d_x, d_in, d_ff, d_out;
+  int n, e, d, d_x;
   int sw_mode, sw_cols, head_dim;
   int self_mode, epilogue, n_scalers, phi_relu, out_relu;
-  int rows;              // destination rows one block owns
-  // the weight ring: `slots` slots of slot_floats; per dense layer its k
-  // rows a chunk, its chunks and its split-k slices
-  int slots, slot_floats;
-  int kc[2], chunks[2], split[2];
   // row strides (floats, multiples of 4) of the accumulators, z, hidden
   int ds, zs, hs;
-  // offsets (in floats) of the regions after the slots
-  int o_b1, o_b2, o_acc, o_z, o_hid, o_part, o_list, o_bar;
+  // offsets (in floats) of the regions after the slots and biases
+  int o_acc, o_z, o_hid, o_list;
 };
-
-__host__ __device__ inline int round_up(int a, int b) {
-  return (a + b - 1) / b * b;
-}
 
 // accumulators: s1, then s2 / max / min for the scalers form
 __host__ __device__ inline int n_acc(int epilogue) {
   return epilogue == kEpiScalers ? 4 : 1;
-}
-
-// --- staging the weights
-
-__device__ __forceinline__ void bulk_or_cp_async(float* dst, const float* src,
-                                                 int floats, uint64_t* bar,
-                                                 int tid) {
-  const bool bulk =
-      (reinterpret_cast<uintptr_t>(src) & 15) == 0 && (floats & 3) == 0;
-  if (bulk) {
-    if (tid == 0) {
-      hopper::fence_proxy_async();   // after generic reads of the slot
-      hopper::mbar_expect_tx(bar, floats * 4);
-      hopper::bulk_load(dst, src, floats * 4, bar);
-    }
-  } else {
-    for (int i = tid; i < floats; i += kThreads) {
-      hopper::cp_async4(dst + i, src + i);
-    }
-    hopper::cp_async_arrive(bar);   // each thread's copies, counted
-    __syncthreads();                // before the one real arrival
-    if (tid == 0) hopper::mbar_arrive(bar);
-  }
-}
-
-// chunk c of the weight stream (layer 0's chunks, then layer 1's) into
-// `slot`; every thread calls it (the cp.async path needs them all)
-__device__ __forceinline__ void issue_chunk(const Args& p, int c, int slot,
-                                            int tid) {
-  const int layer = c < p.chunks[0] ? 0 : 1;
-  const int ci = layer ? c - p.chunks[0] : c;
-  const int k_dim = layer ? p.d_ff : p.d_in;
-  const int n_dim = layer ? p.d_out : p.d_ff;
-  const float* w = layer ? p.w2 : p.w1;
-  const int k0 = ci * p.kc[layer];
-  const int rows = min(p.kc[layer], k_dim - k0);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
-  bulk_or_cp_async(smem + slot * p.slot_floats, w + (size_t)k0 * n_dim,
-                   rows * n_dim, &bars[slot], tid);
-}
-
-// the first `slots` chunks and the biases (barriers slots, slots + 1)
-__device__ __forceinline__ void issue_first(const Args& p, int tid) {
-  const int total = p.chunks[0] + p.chunks[1];
-  for (int c = 0; c < min(p.slots, total); ++c) issue_chunk(p, c, c, tid);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
-  bulk_or_cp_async(smem + p.o_b1, p.b1, p.d_ff, &bars[p.slots], tid);
-  if (p.w2 != nullptr) {
-    bulk_or_cp_async(smem + p.o_b2, p.b2, p.d_out, &bars[p.slots + 1], tid);
-  }
-}
-
-// --- the dense layers
-
-// Partial sums of slice ks for the T rows at src_off (row stride
-// src_stride) and column j: the k quads q = ks, ks + S, ... that lie in the
-// chunk [k0, k1), in order, added to part[t * n_dim] (or from 0 at the
-// layer's first chunk). w is the chunk: k rows k0.. of n_dim floats; k0 is a
-// multiple of 4 S. The short quad past k_dim's last multiple of 4 (slice
-// short_ks) comes last, in the layer's last chunk.
-template <int T>
-__device__ __forceinline__ void fma_rows(int src_off, int src_stride,
-                                         const float* w, int n_dim, int j,
-                                         int ks, int S, int k0, int k1,
-                                         int k_dim, int short_ks, float* part,
-                                         bool first) {
-  float a[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t) a[t] = first ? 0.f : part[t * n_dim];
-  const int qe = min(k1, k_dim & ~3) >> 2;   // past the chunk's whole quads
-  for (int q = (k0 >> 2) + ks; q < qe; q += S) {
-    const int k = 4 * q;
-    const float* wk = w + (k - k0) * n_dim + j;
-    const float w0 = wk[0];
-    const float w1 = wk[n_dim];
-    const float w2 = wk[2 * n_dim];
-    const float w3 = wk[3 * n_dim];
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float4 z = *reinterpret_cast<const float4*>(
-          smem + src_off + t * src_stride + k);
-      a[t] = fmaf(z.x, w0, a[t]);
-      a[t] = fmaf(z.y, w1, a[t]);
-      a[t] = fmaf(z.z, w2, a[t]);
-      a[t] = fmaf(z.w, w3, a[t]);
-    }
-  }
-  if (k1 == k_dim && (k_dim & 3) && ks == short_ks) {   // the short quad
-    for (int k = k_dim & ~3; k < k_dim; ++k) {
-      const float wv = w[(k - k0) * n_dim + j];
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        a[t] = fmaf(smem[src_off + t * src_stride + k], wv, a[t]);
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < T; ++t) part[t * n_dim] = a[t];
-}
-
-// dst = act(src @ w + b) for the block's rows_here rows: src at src_off
-// (row stride src_stride, k_dim wide), w the weight stream's chunks of this
-// layer, b at bias_off; dst in shared memory at dst_off (row stride
-// dst_stride) or, with `global` set, p.out's rows from row0. Thread t <
-// S n_dim takes column t % n_dim and slice t / n_dim for every group of 8
-// rows, and the last rows in groups of 4, 2 and 1. No integer division in
-// the loops: the slot and phase of the ring advance by one a chunk.
-__device__ __forceinline__ void dense_layer(const Args& p, int layer,
-                                            int src_off, int src_stride,
-                                            int bias_off, int dst_off,
-                                            int dst_stride, bool global,
-                                            int row0, int rows_here,
-                                            bool relu, int tid) {
-  const int k_dim = layer ? p.d_ff : p.d_in;
-  const int n_dim = layer ? p.d_out : p.d_ff;
-  const int S = p.split[layer];
-  const int kc = p.kc[layer];
-  const int first_chunk = layer ? p.chunks[0] : 0;
-  const int total = p.chunks[0] + p.chunks[1];
-  const int per_row = S * n_dim;
-  const int short_ks = (k_dim >> 2) % S;
-  const int ks0 = tid / n_dim;                 // the thread's first (j, ks)
-  const int j0 = tid - ks0 * n_dim;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
-  int slot = first_chunk % p.slots;
-  uint32_t phase = (first_chunk / p.slots) & 1;
-  for (int ci = 0; ci < p.chunks[layer]; ++ci) {
-    const int c = first_chunk + ci;
-    mbar_wait(&bars[slot], phase);
-    const int k0 = ci * kc;
-    const int k1 = min(k0 + kc, k_dim);
-    const float* w = smem + slot * p.slot_floats;
-    int ks = ks0;
-    int j = j0;
-    for (int t = tid; t < per_row; t += kThreads) {
-      // groups of 8 rows, then the last rows as 4 + 2 + 1
-      for (int r0 = 0; r0 < rows_here;) {
-        const int left = rows_here - r0;
-        const int in = src_off + r0 * src_stride;
-        float* part =
-            smem + p.o_part + ((size_t)ks * p.rows + r0) * n_dim + j;
-        const bool first = ci == 0;
-        if (left >= 8) {
-          fma_rows<8>(in, src_stride, w, n_dim, j, ks, S, k0, k1, k_dim,
-                      short_ks, part, first);
-          r0 += 8;
-        } else if (left >= 4) {
-          fma_rows<4>(in, src_stride, w, n_dim, j, ks, S, k0, k1, k_dim,
-                      short_ks, part, first);
-          r0 += 4;
-        } else if (left >= 2) {
-          fma_rows<2>(in, src_stride, w, n_dim, j, ks, S, k0, k1, k_dim,
-                      short_ks, part, first);
-          r0 += 2;
-        } else {
-          fma_rows<1>(in, src_stride, w, n_dim, j, ks, S, k0, k1, k_dim,
-                      short_ks, part, first);
-          r0 += 1;
-        }
-      }
-      if (t + kThreads < per_row) {   // the next t (n_dim > kThreads)
-        for (j += kThreads; j >= n_dim; j -= n_dim) ++ks;
-      }
-    }
-    if (c + p.slots < total) {   // the block is done with this slot
-      __syncthreads();
-      issue_chunk(p, c + p.slots, slot, tid);
-    }
-    if (++slot == p.slots) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-  mbar_wait(&bars[p.slots + layer], 0);   // the bias
-  __syncthreads();
-  // the slices ks = 0, 1, ... in order, then the bias, then the relu
-  for (int r = 0; r < rows_here; ++r) {
-    for (int j = tid; j < n_dim; j += kThreads) {
-      const float* part = smem + p.o_part + (size_t)r * n_dim + j;
-      float h = part[0];
-      for (int ks = 1; ks < S; ++ks) {
-        h = __fadd_rn(h, part[(size_t)ks * p.rows * n_dim]);
-      }
-      h = __fadd_rn(h, smem[bias_off + j]);
-      if (relu) h = fmaxf(h, 0.f);
-      if (global) {
-        p.out[(size_t)(row0 + r) * n_dim + j] = h;
-      } else {
-        smem[dst_off + r * dst_stride + j] = h;
-      }
-    }
-  }
 }
 
 // thread tid's kEdgesPerThread consecutive edges of the tile at `base`
@@ -654,35 +434,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int in_off = self ? p.o_acc : p.o_z;
   const int in_stride = self ? p.ds : p.zs;
   if (two_layer) {
-    dense_layer(p, 0, in_off, in_stride, p.o_b1, p.o_hid, p.hs, false, row0,
-                rows_here, true, tid);
+    dense_layer(p, 0, in_off, in_stride, p.o_b1, p.o_hid, p.hs, false,
+                p.out, row0, rows_here, true, tid);
     __syncthreads();
-    dense_layer(p, 1, p.o_hid, p.hs, p.o_b2, 0, 0, true, row0, rows_here,
-                p.out_relu, tid);
+    dense_layer(p, 1, p.o_hid, p.hs, p.o_b2, 0, 0, true, p.out, row0,
+                rows_here, p.out_relu, tid);
   } else {
-    dense_layer(p, 0, in_off, in_stride, p.o_b1, 0, 0, true, row0,
+    dense_layer(p, 0, in_off, in_stride, p.o_b1, 0, 0, true, p.out, row0,
                 rows_here, p.out_relu, tid);
   }
 }
 
 // --- the host's plan
-
-// split-k slices of a dense layer: every thread a (column, slice), at most
-// one slice per quad of k; a function of k_dim and n_dim alone
-int split_of(int k_dim, int n_dim) {
-  const int s = kThreads / n_dim;
-  const int quads = (k_dim + 3) / 4;
-  return s < 1 ? 1 : (s < quads ? s : quads);
-}
-
-// k rows a chunk: a multiple of 4 S (every slice starts a chunk on its own
-// quad), at most kChunkBytes where that allows one such step
-int chunk_rows(int k_dim, int n_dim, int split) {
-  const int step = 4 * split;
-  int kc = kChunkBytes / (4 * n_dim) / step * step;
-  if (kc < step) kc = step;
-  return kc < k_dim ? kc : k_dim;   // one chunk holds a short layer whole
-}
 
 // Lay out a block of `rows` rows; returns its bytes. Every region starts on
 // 16 bytes (the slots on 128).
@@ -731,19 +494,11 @@ size_t plan(Args& p, int rows) {
   p.ds = round_up(p.d, 4);
   p.zs = round_up(p.d_in, 4);
   p.hs = round_up(p.d_ff, 4);
-  p.split[0] = split_of(p.d_in, p.d_ff);
-  p.split[1] = two ? split_of(p.d_ff, p.d_out) : 1;
+  p.split[0] = dense::split_of(p.d_in, p.d_ff);
+  p.split[1] = two ? dense::split_of(p.d_ff, p.d_out) : 1;
   // chunks of whole layers (whole = true) or of at most kChunkBytes
   auto chunking = [&](bool whole) {
-    p.kc[0] = whole ? p.d_in : chunk_rows(p.d_in, p.d_ff, p.split[0]);
-    p.kc[1] = !two ? 4 : whole ? p.d_ff : chunk_rows(p.d_ff, p.d_out,
-                                                     p.split[1]);
-    p.chunks[0] = (p.d_in + p.kc[0] - 1) / p.kc[0];
-    p.chunks[1] = two ? (p.d_ff + p.kc[1] - 1) / p.kc[1] : 0;
-    const int f0 = p.kc[0] * p.d_ff;
-    const int f1 = two ? p.kc[1] * p.d_out : 0;
-    p.slot_floats = round_up(f0 > f1 ? f0 : f1, 32);
-    return p.chunks[0] + p.chunks[1];
+    return dense::chunking(p, whole, sizeof(float), kChunkBytes);
   };
   if (rows <= 0) rows = (p.n + sms - 1) / sms;
   // each layer's weight in one slot where both fit beside the rows

@@ -80,9 +80,15 @@
 //   * The phi and the statistics are fixed at compile time for the forms
 //     the paths use (GAT's attention, GIN's sum, GCN's scalar src_weight,
 //     PNA's four statistics, DGN's full src_weight, fused_nt_scatter's
-//     relu + edge term + check_src); one generic form takes the rest, its
+//     relu + edge term + check_src, its edge term of float, bfloat16 or
+//     float16 widened at the load); one generic form takes the rest, its
 //     terms selected without branches and all four statistics folded, and
 //     one generic attention form.
+//   * The NT form alone is launched with programmatic stream serialization
+//     (fused_nt_scatter's second launch): its blocks start while the NT tile
+//     that writes y still runs, set up and bucket the first edge tile
+//     (receivers, mask and senders; nothing of y), and wait for that grid
+//     (griddepcontrol.wait) before the first fold reads y.
 //   * Rows per block: one block per SM where the rows allow it, fewer rows
 //     while shared memory is short; __launch_bounds__(256, 1), no spills.
 //   * expf, not __expf; no fast math; fp32 throughout, no TF32.
@@ -97,6 +103,7 @@
 #include <algorithm>
 
 #include "edge_buckets.cuh"
+#include "hopper.cuh"
 
 namespace pipeline {
 namespace {   // each source that includes this gets its own kernels
@@ -166,6 +173,8 @@ struct Form {
   // row (PNA, DGN) and the generic forms (measured, PERF.md)
   static constexpr int kU =
       Att || (Stats == kSum && Sw != kSwFull && !Generic) ? 4 : 8;
+  using EdgeT = float;                     // the edge term's stored type
+  static constexpr bool kWaitPrior = false;   // see NtFormOf
 };
 constexpr int kFour = kSum | kSumSq | kMax | kMin;
 using GatForm = Form<kSwNone, false, false, false, true, kSum, false>;
@@ -173,7 +182,16 @@ using GinForm = Form<kSwNone, true, false, true, false, kSum, false>;
 using GcnForm = Form<kSwScalar, false, false, false, false, kSum, false>;
 using PnaForm = Form<kSwNone, true, true, true, false, kFour, false>;
 using DgnForm = Form<kSwFull, false, false, false, false, kSum, false>;
-using NtForm = Form<kSwNone, true, false, true, false, kSum, true>;
+// fused_nt_scatter's form: relu(y[snd] + edge_feat) with the sender check,
+// edge_feat stored as E (float, __nv_bfloat16 or __half); launched with
+// programmatic stream serialization behind the NT tile, whose y it waits
+// for before its first fold
+template <typename E>
+struct NtFormOf : Form<kSwNone, true, false, true, false, kSum, true> {
+  using EdgeT = E;
+  static constexpr bool kWaitPrior = true;
+};
+using NtForm = NtFormOf<float>;
 using GenericForm = Form<-1, true, true, true, false, kFour, false, true>;
 using GenericAttForm = Form<-1, true, true, true, true, kSum, false, true>;
 
@@ -359,11 +377,12 @@ struct Gather {
   float y[U], w[U], t[U];
 };
 
-template <int U>
+template <class F>
 __device__ __forceinline__ void gather(const Args& p, const Column& k,
                                        int base, int j, int cnt,
-                                       Gather<U>& g) {
-  constexpr int kU = U;
+                                       Gather<F::kU>& g) {
+  constexpr int kU = F::kU;
+  using EdgeT = typename F::EdgeT;
   extern __shared__ __align__(16) int smem_i[];
   const int* order = smem_i + p.o_order;
   const int* snd_l = smem_i + p.o_snd;
@@ -379,7 +398,10 @@ __device__ __forceinline__ void gather(const Args& p, const Column& k,
     g.w[u] = k.sw_mode != kSwNone
                  ? __ldg(p.sw + (e * k.sw_stride + k.sw_lane))
                  : 1.f;
-    g.t[u] = k.has_et ? __ldg(p.et + (e * p.d + k.c)) : 0.f;
+    g.t[u] = k.has_et ? hopper::widen(__ldg(
+                            reinterpret_cast<const EdgeT*>(p.et) +
+                            (e * p.d + k.c)))
+                      : 0.f;
   }
 }
 
@@ -419,7 +441,7 @@ __device__ __forceinline__ void fold_slice(const Args& p, const Column& k,
       if (use_pre && rb == 0 && j == lo) {
         g = pre;
       } else {
-        gather(p, k, base, j, cnt, g);
+        gather<F>(p, k, base, j, cnt, g);
       }
       float pv[kU];
 #pragma unroll
@@ -593,7 +615,8 @@ __device__ __forceinline__ void fold_tile(const Args& p, int base, int row0,
     int lo, hi;
     slice_of(p, 0, group, &lo, &hi);
     if (lane_g < p.d && hi > lo) {
-      gather(p, column<F>(p, lane_g), base, lo, min(F::kU, hi - lo), pre);
+      gather<F>(p, column<F>(p, lane_g), base, lo, min(F::kU, hi - lo),
+                pre);
       use_pre = true;
     }
     attention_weights(p, row0, rows_here);
@@ -659,6 +682,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else {
       buckets::bucket_edges_stable<kPerThread>(g, b, smem_i + p.o_list_e,
                                                smem_i + p.o_list_r, x);
+    }
+    if constexpr (F::kWaitPrior) {
+      // y is the grid's before this one (the NT tile): the set-up and the
+      // first tile's buckets ran beside it; its writes are whole from here
+      if (base == 0) hopper::wait_prior_grid();
     }
     fold_tile<F>(p, base, row0, rows_here, base == 0, base + p.tile >= p.e);
   }
@@ -752,7 +780,24 @@ int launch_form(Args p, int rows, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (p.n + p.rows - 1) / p.rows;
-  mp_pipeline_kernel<F><<<blocks, kThreads, smem, stream>>>(p);
+  if constexpr (F::kWaitPrior) {
+    // programmatic stream serialization: the grid may start before the one
+    // ahead of it on the stream has finished (the kernel waits for it)
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr = {};
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, mp_pipeline_kernel<F>, p);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    mp_pipeline_kernel<F><<<blocks, kThreads, smem, stream>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,12 +12,16 @@ adds nothing, as in the Pallas kernel. Mind the argument order: the kernel
 takes ``(..., edge_mask, edge_feat)``, its oracle ``fused_nt_scatter_ref``
 ``(..., edge_feat, edge_mask)``, as in the reference.
 
-``fused_nt_scatter`` takes the plain version for tensors on the CPU. For
-CUDA tensors (everything float32) it runs ``csrc/fused_nt_scatter.cu`` or
-raises: two launches a call, the NT tile writing y to a scratch, then
-``mp_pipeline``'s edge phase (the sum of relu(y[src] + edge_feat)) with its
-check that drops edges whose sender lies outside [0, N).
-``fused_nt_scatter.launches`` counts those CUDA launches, two a call.
+x and the weights share one dtype (``ValueError`` otherwise, on every
+device). ``fused_nt_scatter`` takes the plain version for tensors on the
+CPU. For CUDA tensors (the MLP's operands float32, bfloat16 or float16;
+``edge_feat`` any of the three; widened to float32 inside) it runs
+``csrc/fused_nt_scatter.cu`` or raises: two launches a call, the NT tile
+writing y to a float32 scratch, then ``mp_pipeline``'s edge phase (the sum
+of relu(y[src] + edge_feat)) with its check that drops edges whose sender
+lies outside [0, N), launched so that its set-up and bucketing overlap the
+NT tile. ``fused_nt_scatter.launches`` counts those CUDA launches, two a
+call.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.mp_pipeline import launch_ptr
 from repro_torch.kernels.mp_scatter import mp_scatter_ref
-from repro_torch.kernels.nt_mlp import check_mlp, mlp_ptrs, nt_mlp_ref
+from repro_torch.kernels.nt_mlp import (DTYPE_CODES, check_mlp, mlp_ptrs,
+                                       nt_mlp_ref)
 
 
 def fused_nt_scatter_ref(x, w1, b1, w2, b2, senders, receivers, edge_feat,
@@ -80,7 +85,7 @@ def _kernel():
     if fn.argtypes is None:
         # without argtypes ctypes passes every int as a 32-bit C int:
         # pointers are cut and the stream slot holds garbage
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -95,18 +100,22 @@ def _launch(x, w1, b1, w2, b2, senders, receivers, edge_mask, edge_feat,
     if e * d >= 2 ** 31:
         raise ValueError("fused_nt_scatter indexes edges with int32")
     mlp = mlp_ptrs(x, w1, b1, w2, b2, rows_per_block)
+    if edge_feat.dtype not in DTYPE_CODES:
+        raise ValueError(f"edge_feat must be float32, bfloat16 or float16, "
+                         f"not {edge_feat.dtype}")
     need = functools.partial(launch_ptr, dev)
     edges = (need(senders, "senders", torch.int64, (e,)),
              need(receivers, "receivers", torch.int64, (e,)),
              need(edge_mask, "edge_mask", torch.bool, (e,)),
-             need(edge_feat, "edge_feat", torch.float32, (e, d)))
+             need(edge_feat, "edge_feat", edge_feat.dtype, (e, d)))
     # y is scratch, freed on return before the launches run; the caching
     # allocator hands its memory only to work queued later on this stream
     y = torch.empty((n, d), dtype=torch.float32, device=dev)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     rows = rows_per_block or 0
     err = _kernel()(*mlp, *edges, y.data_ptr(), out.data_ptr(), n, e, d_in,
-                    d_ff, d, rows, rows,
+                    d_ff, d, DTYPE_CODES[x.dtype],
+                    DTYPE_CODES[edge_feat.dtype], rows, rows,
                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_nt_scatter launch failed with CUDA error "

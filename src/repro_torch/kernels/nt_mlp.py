@@ -5,12 +5,14 @@ The twin of ``repro/kernels/nt_mlp.py``: ``y = relu(x @ w1 + b1) @ w2 + b2``
 for x (N, D_in), w1 (D_in, D_ff), w2 (D_ff, D_out), computed in float32
 and returned in ``x.dtype``, with the hidden tile kept on chip.
 
-``nt_mlp`` takes its plain version ``nt_mlp_ref`` for tensors on the CPU
-(any float dtype). For CUDA tensors it launches the hand-written kernel
-``csrc/nt_mlp.cu`` (everything float32) or raises; ``nt_mlp.launches``
-counts those launches. The tile knobs (``node_tile``, ``k_tile``) describe
-the TPU kernel's grid: the result does not depend on them, but the
-reference's padding rules stand.
+x and the weights share one dtype (``ValueError`` otherwise, on every
+device). ``nt_mlp`` takes its plain version ``nt_mlp_ref`` for tensors on
+the CPU (any float dtype). For CUDA tensors it launches the hand-written
+kernel ``csrc/nt_mlp.cu`` (float32, bfloat16 or float16, widened to float32
+inside; the result rounded to nearest even into ``x.dtype``) or raises;
+``nt_mlp.launches`` counts those launches. The tile knobs (``node_tile``,
+``k_tile``) describe the TPU kernel's grid: the result does not depend on
+them, but the reference's padding rules stand.
 """
 
 from __future__ import annotations
@@ -34,8 +36,18 @@ def nt_mlp_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return h @ w2.to(f32) + b2.to(f32)
 
 
+# the operand types the NT kernels take, by the code their C entry points
+# take (nt_tile.cuh's Dtype)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def check_mlp(x, w1, b1, w2, b2) -> None:
-    """The shapes of one MLP's operands (``ValueError``)."""
+    """The shapes of one MLP's operands, and their one dtype
+    (``ValueError``)."""
+    for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+        if t.dtype != x.dtype:
+            raise ValueError(f"the MLP's operands must share x's dtype "
+                             f"{x.dtype}; {name} is {t.dtype}")
     if x.ndim != 2:
         raise ValueError(f"x must be (N, D_in), got {tuple(x.shape)}")
     d_in, d_ff = x.shape[1], w1.shape[-1]
@@ -52,11 +64,12 @@ def nt_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
            w2: torch.Tensor, b2: torch.Tensor, *, node_tile: int = 128,
            k_tile: int = 128,
            rows_per_block: Optional[int] = None) -> torch.Tensor:
-    """y = relu(x @ w1 + b1) @ w2 + b2 in ``x.dtype``, float32 inside.
-    N % node_tile == 0 and D_in % k_tile == 0, as the reference asks (pad at
-    the call site). CPU tensors run ``nt_mlp_ref``; CUDA tensors launch the
-    kernel. ``rows_per_block`` overrides how many node rows one CUDA block
-    owns (the result does not depend on it)."""
+    """y = relu(x @ w1 + b1) @ w2 + b2 in ``x.dtype``, float32 inside; x
+    and the weights of one dtype. N % node_tile == 0 and D_in % k_tile == 0,
+    as the reference asks (pad at the call site). CPU tensors run
+    ``nt_mlp_ref``; CUDA tensors launch the kernel. ``rows_per_block``
+    overrides how many node rows one CUDA block owns (the result does not
+    depend on it)."""
     check_mlp(x, w1, b1, w2, b2)
     n, d_in = x.shape
     if n % node_tile or d_in % k_tile:
@@ -73,8 +86,8 @@ nt_mlp.launches = 0
 
 def mlp_ptrs(x, w1, b1, w2, b2, rows_per_block):
     """The data pointers of the MLP's operands for a launch, after the
-    checks the kernel cannot make: everything float32 and contiguous on
-    x's device (``ValueError``)."""
+    checks the kernel cannot make: everything of x's dtype (float32,
+    bfloat16 or float16) and contiguous on x's device (``ValueError``)."""
     n, d_in = x.shape
     d_ff, d_out = w2.shape
     if 0 in (d_in, d_ff, d_out):
@@ -83,11 +96,14 @@ def mlp_ptrs(x, w1, b1, w2, b2, rows_per_block):
         raise ValueError("the NT kernels index rows with int32")
     if rows_per_block is not None and rows_per_block < 1:
         raise ValueError("rows_per_block must be >= 1")
-    f32 = torch.float32
+    dt = x.dtype
+    if dt not in DTYPE_CODES:
+        raise ValueError(f"the NT kernels take float32, bfloat16 or float16, "
+                         f"not {dt}")
     need = functools.partial(launch_ptr, x.device)
-    return (need(x, "x", f32, (n, d_in)), need(w1, "w1", f32, (d_in, d_ff)),
-            need(b1, "b1", f32, (d_ff,)), need(w2, "w2", f32, (d_ff, d_out)),
-            need(b2, "b2", f32, (d_out,)))
+    return (need(x, "x", dt, (n, d_in)), need(w1, "w1", dt, (d_in, d_ff)),
+            need(b1, "b1", dt, (d_ff,)), need(w2, "w2", dt, (d_ff, d_out)),
+            need(b2, "b2", dt, (d_out,)))
 
 
 def _kernel():
@@ -95,7 +111,7 @@ def _kernel():
     if fn.argtypes is None:
         # without argtypes ctypes passes every int as a 32-bit C int:
         # pointers are cut and the stream slot holds garbage
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -105,9 +121,9 @@ def _launch(x, w1, b1, w2, b2, rows_per_block):
     ptrs = mlp_ptrs(x, w1, b1, w2, b2, rows_per_block)
     n, d_in = x.shape
     d_ff, d_out = w2.shape
-    out = torch.empty((n, d_out), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, d_out), dtype=x.dtype, device=x.device)
     err = _kernel()(*ptrs, out.data_ptr(), n, d_in, d_ff, d_out,
-                    rows_per_block or 0,
+                    DTYPE_CODES[x.dtype], rows_per_block or 0,
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nt_mlp launch failed with CUDA error {err}")

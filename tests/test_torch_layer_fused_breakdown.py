@@ -1,10 +1,11 @@
 """``experiments/layer_fused_breakdown.py``'s variants still apply to the
 kernel.
 
-The probe builds its variants by exact-text edits of ``csrc/layer_fused.cu``;
-an edit to the lines it names breaks it. This checks on the CPU (no nvcc,
-no card) that every variant of the staged design applies to the source as
-it stands and changes it.
+The probe builds its variants by exact-text edits of ``csrc/layer_fused.cu``
+and the dense tile it includes (``csrc/dense_tile.cuh``); an edit to the
+lines it names breaks it. This checks on the CPU (no nvcc, no card) that
+every variant of the staged design applies to the sources as they stand and
+changes them.
 """
 
 import importlib.util
@@ -31,7 +32,8 @@ def breakdown():
 
 @pytest.mark.parametrize("name", VARIANTS)
 def test_variant_applies_to_the_kernel_source(breakdown, name):
-    src = breakdown.SRC.read_text()
+    src = breakdown.sources(breakdown.build.CSRC)
+    assert set(src) == {"layer_fused.cu", "dense_tile.cuh"}
     out = breakdown.variants(src)
     assert tuple(out) == VARIANTS
     assert (out[name] == src) == (name == "as_is")

@@ -4,8 +4,13 @@ On the CPU the port's wrappers run their plain PyTorch versions; they are
 held against the JAX Pallas kernels run in interpret mode and the JAX
 oracles, on the same numpy-seeded inputs, at the reference's own
 tolerances (``tests/test_kernels.py``): ``nt_mlp`` 3e-5, ``fused_nt_scatter``
-1e-4, at the reference's shapes and at GIN's 100 -> 200 -> 100. The CUDA
-kernels are held against the plain versions in tests that need the card.
+1e-4, at the reference's shapes and at GIN's 100 -> 200 -> 100. bf16 and
+f16 operands widen exactly to float32 on both sides, so ``fused_nt_scatter``
+keeps its float32 tolerance; ``nt_mlp`` rounds its float32 result into the
+operands' type on both sides, so the two may differ by one unit in the last
+place of that type (2^-7 of the value in bf16, 2^-10 in f16) where the
+float32 sums straddle a rounding point. The CUDA kernels are held against
+the plain versions in tests that need the card.
 """
 
 import numpy as np
@@ -19,6 +24,8 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 
 NT_TOL = dict(atol=3e-5, rtol=3e-5)
 FUSED_TOL = dict(atol=1e-4, rtol=1e-4)
+# one unit in the last place of a 16-bit result, relative to the value
+ULP16 = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 MLP = ("x", "w1", "b1", "w2", "b2")
 EDGES = ("senders", "receivers", "edge_mask", "edge_feat")
 
@@ -51,14 +58,20 @@ def _problem(n, din, dff, d, e=0, seed=0, lo=0, hi=None):
     return p
 
 
-def _torch(p, keys, device="cpu"):
-    return [torch.from_numpy(p[k]).to(device) for k in keys]
+def _torch(p, keys, device="cpu", dtype=None):
+    """The operands named by ``keys`` as tensors; float ones in ``dtype``
+    where it is given."""
+    out = [torch.from_numpy(p[k]).to(device) for k in keys]
+    return [t.to(getattr(torch, dtype)) if dtype and t.is_floating_point()
+            else t for t in out]
 
 
-def _jnp(p, keys):
+def _jnp(p, keys, dtype=None):
     import jax.numpy as jnp
-    return [jnp.asarray(p[k], jnp.int32) if p[k].dtype == np.int64
-            else jnp.asarray(p[k]) for k in keys]
+    out = [jnp.asarray(p[k], jnp.int32) if p[k].dtype == np.int64
+           else jnp.asarray(p[k]) for k in keys]
+    return [a.astype(getattr(jnp, dtype)) if dtype
+            and jnp.issubdtype(a.dtype, jnp.floating) else a for a in out]
 
 
 NT_SHAPES = [
@@ -82,20 +95,37 @@ def test_nt_mlp_matches_reference(jops, n, din, dff, dout, node_tile,
 
 
 def test_nt_mlp_returns_the_input_dtype(jops):
-    """bf16 x: float32 inside, bf16 out, as the Pallas kernel (its bf16
-    tolerance)."""
+    """bf16 x and weights (the port takes one dtype for all): float32
+    inside, bf16 out, as the Pallas kernel (its bf16 tolerance)."""
     import jax.numpy as jnp
     p = _problem(64, 32, 48, 24, seed=2)
-    args = _torch(p, MLP)
-    args[0] = args[0].to(torch.bfloat16)
-    jargs = _jnp(p, MLP)
-    jargs[0] = jargs[0].astype(jnp.bfloat16)
-    ours = tops.nt_mlp(*args, node_tile=32, k_tile=32)
-    kern = jops.nt_mlp(*jargs, node_tile=32, k_tile=32)
+    ours = tops.nt_mlp(*_torch(p, MLP, dtype="bfloat16"), node_tile=32,
+                       k_tile=32)
+    kern = jops.nt_mlp(*_jnp(p, MLP, "bfloat16"), node_tile=32, k_tile=32)
     assert ours.dtype == torch.bfloat16 and kern.dtype == jnp.bfloat16
     np.testing.assert_allclose(ours.float().numpy(),
                                np.asarray(kern.astype(jnp.float32)),
                                atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_nt_mlp_16bit_operands_match_reference(jops, dtype):
+    """x and the weights in bf16 or f16 at GIN's MLP: widened exactly,
+    summed in float32, rounded once into the dtype on both sides; within
+    one unit in the last place (plus the float32 tolerance) of the Pallas
+    kernel's and of the oracle's result rounded the same way."""
+    import jax.numpy as jnp
+    p = _problem(64, 100, 200, 100, seed=5)
+    ours = tops.nt_mlp(*_torch(p, MLP, dtype=dtype), node_tile=32,
+                       k_tile=50)
+    kern = jops.nt_mlp(*_jnp(p, MLP, dtype), node_tile=32, k_tile=50)
+    ref = jops.nt_mlp_ref(*_jnp(p, MLP, dtype)).astype(getattr(jnp, dtype))
+    assert ours.dtype == getattr(torch, dtype) and kern.dtype == ref.dtype
+    scale = max(1.0, float(np.abs(np.asarray(ref, np.float32)).max()))
+    for want in (kern, ref):
+        np.testing.assert_allclose(
+            ours.float().numpy(), np.asarray(want.astype(jnp.float32)),
+            atol=NT_TOL["atol"] * scale, rtol=ULP16[dtype])
 
 
 FUSED_SHAPES = [
@@ -120,6 +150,51 @@ def test_fused_nt_scatter_matches_reference(jops, n, e, din, dff, d,
     np.testing.assert_allclose(ours.numpy(), np.asarray(kern), **FUSED_TOL)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **FUSED_TOL)
     assert torch.equal(ours, plain)
+
+
+@pytest.mark.parametrize("mlp_dtype,edge_dtype", [
+    ("bfloat16", "bfloat16"), ("float16", "float16"),
+    ("float32", "bfloat16")])
+def test_fused_nt_scatter_16bit_operands_match_reference(jops, mlp_dtype,
+                                                         edge_dtype):
+    """bf16 / f16 MLP operands and edge features at GIN's MLP: widened
+    exactly to float32, so the float32 tolerance holds against the Pallas
+    kernel and the oracle; the port's plain version is the oracle's
+    arithmetic on the same widened values."""
+    n, e, d = 64, 512, 100
+    p = _problem(n, 100, 200, d, e=e, seed=9)
+    mlp = _torch(p, MLP, dtype=mlp_dtype)
+    snd, rcv, mask, ef = _torch(p, EDGES, dtype=edge_dtype)
+    ours = tops.fused_nt_scatter(*mlp, snd, rcv, mask, ef, node_tile=32)
+    jm = _jnp(p, MLP, mlp_dtype)
+    jsnd, jrcv, jmask, jef = _jnp(p, EDGES, edge_dtype)
+    kern = jops.fused_nt_scatter(*jm, jsnd, jrcv, jmask, jef, node_tile=32)
+    ref = jops.fused_nt_scatter_ref(*jm, jsnd, jrcv, jef, jmask)
+    plain = tops.fused_nt_scatter_ref(*[t.float() for t in mlp], snd, rcv,
+                                      ef.float(), mask)
+    assert ours.shape == (n, d) and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), np.asarray(kern), **FUSED_TOL)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **FUSED_TOL)
+    assert torch.equal(ours, plain)
+
+
+@pytest.mark.parametrize("kernel", ["nt_mlp", "fused_nt_scatter"])
+@pytest.mark.parametrize("operand", ["w1", "b1", "w2", "b2"])
+def test_mixed_dtypes_raise_before_any_launch(kernel, operand):
+    """The MLP's operands share x's dtype, or the wrapper raises a
+    ValueError naming the one that differs, before it launches anything
+    (here on the CPU; the card path makes the same check first)."""
+    p = _problem(32, 16, 24, 8, e=64, seed=3)
+    args = dict(zip(MLP + EDGES, _torch(p, MLP + EDGES)))
+    args[operand] = args[operand].to(torch.bfloat16)
+    before = (tnt.nt_mlp.launches, tfs.fused_nt_scatter.launches)
+    with pytest.raises(ValueError, match=operand):
+        if kernel == "nt_mlp":
+            tops.nt_mlp(*(args[k] for k in MLP), node_tile=32, k_tile=16)
+        else:
+            tops.fused_nt_scatter(*(args[k] for k in MLP + EDGES),
+                                  node_tile=32)
+    assert (tnt.nt_mlp.launches, tfs.fused_nt_scatter.launches) == before
 
 
 def test_fused_nt_scatter_out_of_range_edges_add_nothing(jops):
@@ -225,5 +300,94 @@ def test_cuda_fused_nt_scatter_matches_plain_version(n, e, din, dff, d):
     assert tfs.fused_nt_scatter.launches == before + 2 * len(outs)
     _close_to_scale(outs[0], plain)
     _close_to_scale(outs[0], two)
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+def _views_off(ts, by_bytes):
+    """Each tensor as a contiguous view that starts ``by_bytes`` into a
+    buffer of its own (0: the tensors as they are)."""
+    out = []
+    for t in ts:
+        k = by_bytes // t.element_size()
+        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+        buf[k:].copy_(t.reshape(-1))
+        out.append(buf[k:].view(t.shape))
+    return out
+
+
+# the kernel's result against the plain version's: float32 sums in another
+# order (1e-4 of the scale), then, for 16-bit results, the rounding into the
+# dtype (half a unit in the last place: 2^-8 of the value in bf16, 2^-11 in
+# f16)
+CARD_RTOL = {"float32": 1e-4, "bfloat16": 1e-4 + 2.0 ** -8,
+             "float16": 1e-4 + 2.0 ** -11}
+
+# (dtype, n, d_in, d_ff, d_out, views off this many bytes): every dtype at
+# GIN's MLP; d_in 9 and d_ff 25 (short quads; chunks off 4 floats, which
+# take 4-byte cp.async in f32 and plain loads in 16 bits); weights off 16
+# bytes (4-byte copies) and, in bf16, off 4 bytes (plain loads); n not a
+# multiple of the rows per block
+STAGING = [
+    ("float32", 64, 100, 200, 100, 0),
+    ("bfloat16", 64, 100, 200, 100, 0),
+    ("float16", 1024, 100, 200, 100, 0),
+    ("float32", 997, 9, 25, 9, 0),
+    ("bfloat16", 997, 9, 25, 9, 0),
+    ("float32", 1024, 100, 200, 100, 4),
+    ("bfloat16", 61, 100, 200, 100, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,din,dff,dout,offset", STAGING)
+def test_cuda_nt_mlp_staging_paths(dtype, n, din, dff, dout, offset):
+    """The staged tile in each dtype and on each staging path: the result in
+    x's dtype within CARD_RTOL of the plain version, bitwise across runs and
+    at 1, 3, 8 and 16 rows per block."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = _problem(n, din, dff, dout, seed=n + din)
+    args = _views_off(_torch(p, MLP, "cuda", dtype), offset)
+    outs = [tnt.nt_mlp(*args, node_tile=1, k_tile=1, rows_per_block=rpb)
+            for rpb in (None, None, 1, 3, 8, 16)]
+    plain = tnt.nt_mlp_ref(*args)
+    torch.cuda.synchronize()
+    assert outs[0].dtype == args[0].dtype
+    scale = max(1.0, float(plain.abs().max()))
+    torch.testing.assert_close(outs[0].float(), plain, atol=1e-4 * scale,
+                               rtol=CARD_RTOL[dtype])
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mlp_dtype,edge_dtype,n,e", [
+    ("float32", "float32", 997, 3001), ("bfloat16", "bfloat16", 64, 1024),
+    ("float16", "float16", 64, 1024), ("float32", "float16", 1024, 4096)])
+def test_cuda_fused_nt_scatter_is_nt_mlp_then_mp_pipeline(mlp_dtype,
+                                                         edge_dtype, n, e):
+    """The two launches (the second overlapped with the first by
+    programmatic dependent launch) bitwise equal to nt_mlp followed by
+    mp_pipeline on the operands widened to float32 (the widening is exact
+    and the tile widens at the load), at any rows per block."""
+    _need_card()
+    from repro_torch.kernels.mp_pipeline import mp_pipeline
+    p = _problem(n, 100, 200, 100, e=e, seed=e + n)
+    mlp = _torch(p, MLP, "cuda", mlp_dtype)
+    snd, rcv, mask, ef = _torch(p, EDGES, "cuda", edge_dtype)
+    before = tfs.fused_nt_scatter.launches
+    outs = [tfs.fused_nt_scatter(*mlp, snd, rcv, mask, ef, node_tile=1,
+                                 rows_per_block=rpb)
+            for rpb in (None, None, 1, 3, 16)]
+    y = tnt.nt_mlp(*[t.float() for t in mlp], node_tile=1, k_tile=1)
+    two = mp_pipeline(y, snd, rcv, mask, n, stats=("sum",),
+                      edge_term=ef.float(), activation="relu")["sum"]
+    plain = tfs.fused_nt_scatter_ref(*mlp, snd, rcv, ef, mask)
+    torch.cuda.synchronize()
+    assert tfs.fused_nt_scatter.launches == before + 2 * len(outs)
+    assert outs[0].dtype == torch.float32
+    assert torch.equal(outs[0], two)
+    _close_to_scale(outs[0], plain)
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
