@@ -58,16 +58,43 @@ Phases, each printing its own lines:
                both bitwise at 1, 3, 8 and 16 rows per block; first, the
                registers and spills of each of their instantiations.
   4. slice   — the paper configs served end to end through
-               ``GraphStreamEngine.process``, each path with the launch
-               counts set to 0 just before it and read just after: GIN,
-               GAT, PNA and DGN under impl='fused_layer' (then 16 graphs of
-               each again under ``torch.profiler``: device-busy share, top
-               device and host ops, the host's batch build alone), GCN and
-               GIN-VN under 'fused_layer', GIN, GCN, PNA and DGN under
-               'pipeline', all six under 'kernel' (GAT's profiled too).
-               Each checks its launches, its passes over the edges, and
-               agreement with the plain ``impl='fused'`` path on the card
-               and with the CPU.
+               ``GraphStreamEngine.process``, which answers each bucket from
+               one CUDA graph captured on the bucket's first graph, each
+               path with the launch counts set to 0 just before it and read
+               just after: GIN, GAT, PNA and DGN under impl='fused_layer'
+               (then 16 graphs of each again under ``torch.profiler``:
+               device-busy share, top device and host ops), GCN and GIN-VN
+               under 'fused_layer', GIN, GCN, PNA and DGN under 'pipeline',
+               all six under 'kernel' (GAT's profiled too). The first graph
+               of every bucket the traffic reaches is served first (that
+               builds and captures each bucket's program; its time is
+               logged), then every graph under ``torch.profiler``. Each
+               path checks its wrappers' counts (a forward's per program
+               built: its warm-up run and its capture; a replay runs no
+               wrapper), the kernels the card ran in the replays (the
+               profiler's device events by symbol: a forward's per graph;
+               the ``launches`` the result line reports), that every bucket
+               is a captured graph whose kernel nodes
+               (``CUDAGraph.debug_dump``) hold each kernel as often as a
+               forward launches it, its passes over the edges, its answers
+               against the eager forward composed here
+               (``build_graph_batch`` + ``model.apply``): to 1e-5 as
+               served (the readout's ``index_add_`` adds with atomics; two
+               eager runs' spread logged beside), bitwise for an engine
+               captured under torch's deterministic algorithms (two eager
+               runs bitwise there too), and agreement with the plain
+               ``impl='fused'`` path on the card and with the CPU. Then the
+               graphs are served again with the profiler off: p50 / p99.
+  4b. host   — GIN, GAT and PNA under 'fused_layer' and GAT under 'kernel'
+               on phase 4's 72 graphs: the parent's eager forward (composed)
+               against the captured engine, side by side: p50 / p99,
+               forward-span throughput, device-busy us a graph and share of
+               the wall; each host step alone (eager: build_graph_batch,
+               the forward's enqueue, .cpu(); captured: padding into pinned
+               memory, enqueueing the one copy, the replay's launch, the
+               copy-out and wait); the host cost of one mp_scatter call
+               eager against its share of a replay. One ``[host] json``
+               line holds them all.
   5. nt      — ``ops.nt_mlp`` and ``ops.fused_nt_scatter`` driven at GIN's
                MLP (100->200->100) on the serving buckets' graphs and at
                the standard point (N=1024, E=4096, MLP 64->128->64), and
@@ -128,10 +155,13 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -151,6 +181,14 @@ ATOL_OF_SCALE = 1e-4
 # the served prediction vs the plain impl='fused' path: five layers of
 # those differences, compounded
 SLICE_RTOL = 1e-4
+# the served prediction vs the eager forward of the same model and impl on
+# the card: the same kernels, but the readout's index_add_ and DGN's field
+# sums add with atomics in an order that changes run to run. On an H100,
+# two eager runs of a path's graphs were read up to 2.3e-6 apart (relative
+# to max(1, |ref|); GIN-VN, whose virtual node sums with index_add_ in
+# every layer) and the served answers up to 2.0e-6 from one (PERF.md §6):
+# four times the largest
+EAGER_RTOL = 1e-5
 
 
 def log(phase: str, msg: str) -> None:
@@ -265,29 +303,12 @@ def timed_row(card: str, phase: str, label: str, kernel_fn, plain_fn, bound,
     return row
 
 
-def kernel_wrappers() -> dict:
-    """Every kernel wrapper of the port by name; each counts the CUDA
-    launches it makes in ``.launches``."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.fused_nt_scatter import fused_nt_scatter
-    from repro_torch.kernels.gather_rows import gather_rows
-    from repro_torch.kernels.layer_fused import layer_fused
-    from repro_torch.kernels.mp_pipeline import mp_pipeline
-    from repro_torch.kernels.mp_scatter import mp_scatter, mp_scatter_multi
-    from repro_torch.kernels.nt_mlp import nt_mlp
-    from repro_torch.kernels.seg_softmax import seg_softmax
-    return {"layer_fused": layer_fused, "mp_pipeline": mp_pipeline,
-            "mp_scatter": mp_scatter, "mp_scatter_multi": mp_scatter_multi,
-            "seg_softmax": seg_softmax, "gather_rows": gather_rows,
-            "nt_mlp": nt_mlp, "fused_nt_scatter": fused_nt_scatter,
-            "flash_attention": flash_attention}
-
-
 def counted(run):
     """``run()`` with every kernel's launch count set to 0 just before it
     and read just after: (what it returned, the counts by kernel)."""
     import torch
-    kernels = kernel_wrappers()
+    from repro_torch.kernels.ops import launch_counters
+    kernels = launch_counters()
     for fn in kernels.values():
         fn.launches = 0
     result = run()
@@ -2391,6 +2412,7 @@ def lm_phase(card: str):
     import torch
     from repro_torch.configs.archs import ARCHS
     from repro_torch.distributed.sharding import param_bytes
+    from repro_torch.kernels.ops import launch_counters
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
@@ -2417,7 +2439,7 @@ def lm_phase(card: str):
     real = {"prefill": lm.prefill, "decode": lm.decode_step}
 
     def recording(phase):
-        wrappers = kernel_wrappers()
+        wrappers = launch_counters()
 
         def run(*args, **kw):
             before = {k: fn.launches for k, fn in wrappers.items()}
@@ -2536,60 +2558,291 @@ def main_path_inputs(name: str, impl: str, kernel: str, batch):
     return seen[:2]
 
 
+# each kernel's symbol in csrc/ and the wrappers that launch it: how a
+# captured graph's kernel nodes and the profiler's device events are told
+# apart
+KERNEL_SYMBOLS = {"layer_fused_kernel": ("layer_fused",),
+                  "mp_pipeline_kernel": ("mp_pipeline",),
+                  "mp_scatter_kernel": ("mp_scatter", "mp_scatter_multi"),
+                  "seg_softmax_kernel": ("seg_softmax",)}
+SYMBOL_OF = {w: sym for sym, ws in KERNEL_SYMBOLS.items() for w in ws}
+# where the captured graphs' debug dumps go (Graphviz, one per program)
+GRAPH_DUMPS = REPO / "build" / "repro_torch" / "graphs"
+# eager forwards of every graph, as served and under deterministic
+# algorithms
+EAGER_RUNS = 2
+
+
+def graph_args(g):
+    return g.node_feat, g.senders, g.receivers, g.edge_feat, g.node_pos
+
+
+def bucket_of(engine, g):
+    """The engine's bucket key for graph ``g``."""
+    from repro_torch.core.graph import pad_bucket
+    return (pad_bucket(max(g.node_feat.shape[0], 1), engine.buckets),
+            pad_bucket(max(g.senders.shape[0], 1), engine.buckets), 1)
+
+
+def program_of(engine, g):
+    """The program that serves ``g`` (built already)."""
+    from repro_torch.core.engine import raw_graph
+    return engine._ensure_program(bucket_of(engine, g),
+                                  raw_graph(*graph_args(g)))
+
+
+def warm_buckets(engine, graphs):
+    """Serve, unrecorded, the first graph of every bucket ``graphs`` reach,
+    so that no program is built (captured) inside a timed run: {bucket:
+    (its first graph, host seconds to serve it: the program's build, i.e.
+    staging, the warm-up run and the capture, then its first replay)}."""
+    first = {}
+    for g in graphs:
+        first.setdefault(bucket_of(engine, g), g)
+    out = {}
+    for bucket, g in first.items():
+        t0 = time.perf_counter()
+        engine.warmup(*graph_args(g))
+        out[bucket] = (g, time.perf_counter() - t0)
+    return out
+
+
+def kernel_nodes(prog, path) -> list:
+    """The kernel nodes of a ``CapturedProgram``'s graph, one label each,
+    as ``CUDAGraph.debug_dump`` writes them (Graphviz) to ``path``: what
+    the graph launches, read from the graph rather than the counts."""
+    prog.graph.debug_dump(str(path))
+    text = Path(path).read_text(errors="replace")
+    nodes = re.split(r'"graph_\d+_node_\d+"\s*\[', text)[1:]
+    return [node for node in nodes if "KERNEL" in node]
+
+
+def device_kernels(run):
+    """``run()`` under ``torch.profiler`` with CUDA activity: (what it
+    returned, the device kernel events of each symbol of
+    ``KERNEL_SYMBOLS``). Each kernel the card ran is one event, those
+    inside a CUDA-graph replay too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    on_device, _ = event_tables(prof)
+    return result, {sym: sum(c for name, (_, c) in on_device.items()
+                             if sym in name) for sym in KERNEL_SYMBOLS}
+
+
+def by_symbol(per_graph: dict, times: int) -> dict:
+    """``per_graph`` launches (by wrapper) ``times`` over, by symbol."""
+    return {sym: times * sum(per_graph.get(w, 0) for w in wrappers)
+            for sym, wrappers in KERNEL_SYMBOLS.items()}
+
+
+def eager_forward(engine, g):
+    """The parent's batch-1 path, composed here from the engine's parts:
+    the admission check, ``build_graph_batch`` (nine copies from pageable
+    memory), the eager forward between two CUDA events and the output on
+    the host. (prediction, forward span s, host latency s)."""
+    import torch
+    from repro_torch.core.graph import build_graph_batch
+    from repro_torch.core.validate import check_graph
+    t0 = time.perf_counter()
+    cfg = engine.cfg
+    reason = check_graph(*graph_args(g), node_feat_dim=cfg.node_feat_dim,
+                         edge_feat_dim=cfg.edge_feat_dim,
+                         pos_dim=cfg.pos_dim)
+    if reason is not None:
+        raise AssertionError(reason)
+    node_pad, edge_pad, graph_pad = bucket_of(engine, g)
+    batch = build_graph_batch(
+        g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
+        node_pos=g.node_pos, node_pad=node_pad, edge_pad=edge_pad,
+        graph_pad=graph_pad, pos_dim=cfg.pos_dim, device=engine.device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with torch.inference_mode():
+        out = engine.model.apply(engine.params, batch, cfg, engine.dataflow)
+    end.record()
+    pred = out.cpu().numpy()[0]
+    return pred, start.elapsed_time(end) * 1e-3, time.perf_counter() - t0
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| relative to max(1, max |b|)."""
+    return float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+
+
+@contextmanager
+def deterministic():
+    """torch's deterministic algorithms while the block runs: ``index_add_``
+    on the card then sums without atomics (the readout, the statistics,
+    DGN's field), so two eager forwards are bitwise equal. ``warn_only``:
+    cuBLAS asks for a workspace setting this script does not make (its
+    products run on one stream here, in a fixed order, either way)."""
+    import torch
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def as_eager(label: str, preds, eager, det_preds, det_eager) -> dict:
+    """Hold the served predictions ``preds`` to the eager forward of their
+    graphs (composed here: ``eager_forward``), run ``EAGER_RUNS`` times as
+    served (``eager``) and as often under ``deterministic()``
+    (``det_eager``). As served the readout's ``index_add_`` and DGN's field
+    sums add with atomics, in an order that changes from run to run: the
+    answers must agree with the first eager run to ``EAGER_RTOL``, and the
+    eager runs' own spread is logged beside. Under ``deterministic()``
+    every eager run must be bitwise the first, and so must the answers of
+    an engine captured there (``det_preds``)."""
+    spread = max(rel_diff(r[i], eager[0][i]) for r in eager
+                 for i in range(len(preds)))
+    worst = max(rel_diff(p, eager[0][i]) for i, p in enumerate(preds))
+    runs_equal = all(np.array_equal(r[i], det_eager[0][i])
+                     for r in det_eager for i in range(len(preds)))
+    bitwise = sum(bool(np.array_equal(p, det_eager[0][i]))
+                  for i, p in enumerate(det_preds))
+    log("slice", f"{label}: vs the eager forward (composed from "
+        f"build_graph_batch and model.apply): as served worst "
+        f"{worst:.3e} relative to max(1, |ref|) (tol {EAGER_RTOL:g}; "
+        f"{len(eager)} eager runs spread {spread:.3e}); under deterministic "
+        f"algorithms {len(det_eager)} eager runs "
+        f"{'bitwise equal' if runs_equal else 'NOT bitwise equal'} and a "
+        f"captured engine's answers bitwise equal to them on {bitwise}/"
+        f"{len(preds)} graphs")
+    if not runs_equal or bitwise != len(preds) or worst > EAGER_RTOL:
+        raise AssertionError(f"{label}: the captured engine's answers "
+                             f"differ from the eager forward's")
+    return {"bitwise_deterministic": bitwise, "graphs": len(preds),
+            "worst_rel_as_served": worst, "eager_spread_as_served": spread}
+
+
+def check_captured(label: str, engine, builds: dict, per_graph: dict) -> dict:
+    """Raise unless every program of ``engine`` is a captured CUDA graph
+    whose kernel nodes (``kernel_nodes``: read from the graph, not the
+    counts) hold each kernel's symbol as often as ``per_graph`` says a
+    forward launches it; each program's build time (``builds``, from
+    ``warm_buckets``) and kernel nodes."""
+    from repro_torch.core.engine import CapturedProgram
+    GRAPH_DUMPS.mkdir(parents=True, exist_ok=True)
+    want = by_symbol(per_graph, 1)
+    out = {}
+    for (bucket, widths), prog in engine.compiled.items():
+        if not isinstance(prog, CapturedProgram):
+            raise AssertionError(f"{label}: bucket {bucket} is not served "
+                                 f"from a captured graph")
+        tag = "_".join(map(str, bucket))
+        nodes = kernel_nodes(prog, GRAPH_DUMPS / f"{label.split()[0]}_"
+                             f"{label.split()[-1]}_{tag}.dot")
+        found = {sym: sum(sym in n for n in nodes) for sym in want}
+        build_s = builds[bucket][1]
+        log("slice", f"{label}: bucket {bucket}: built in "
+            f"{build_s * 1e3:.1f} ms (staging, warm-up run, capture, first "
+            f"replay); the graph holds {len(nodes)} kernel nodes, ours by "
+            f"symbol {found} (expected {want})")
+        if not out:
+            log("slice", f"{label}: one of its kernel nodes as debug_dump "
+                f"writes it: " + " ".join(next((n for n in nodes if any(
+                    sym in n for sym in want)), "")[:240].split()))
+        if found != want:
+            raise AssertionError(f"{label}: the captured graph of bucket "
+                                 f"{bucket} does not hold the expected "
+                                 f"kernels")
+        out[tag] = {"build_ms": build_s * 1e3, "kernel_nodes": len(nodes),
+                    "ours_by_symbol": found}
+    return out
+
+
 def serve_path(card: str, name: str, impl: str, graphs, *,
                per_graph: dict, passes: int, profile: bool = False):
-    """Serve ``graphs`` (after one warmup graph per kind of bucket) with the
-    paper config of ``name`` under ``impl``: the launch counts are set to 0
-    just before and read just after, and must be ``per_graph`` times the
-    graphs served for each kernel (0 for a kernel not named); every bucket
-    must show ``passes`` passes over the edges; the predictions must be
-    finite, match the plain ``impl='fused'`` path on the card and, for a
-    sample, the CPU path."""
+    """Serve ``graphs`` with the paper config of ``name`` under ``impl``
+    through the engine, which answers each bucket from one captured CUDA
+    graph. The main path's run: the launch counts set to 0, then the first
+    graph of every bucket the traffic reaches served unrecorded (each
+    bucket's program is built then: one eager warm-up run, then the
+    capture), then every graph served under ``torch.profiler``, then the
+    counts read. The wrappers count where they enqueue a launch, so they
+    must show ``per_graph`` twice per program built (its warm-up run and
+    its capture; a replay counts nothing, 0 for a kernel not named); the
+    profiler's device kernel events must show ``per_graph`` per graph
+    served, by symbol: the launches the card ran in the replays, which is
+    what the path reports as its ``launches``. Each captured graph must hold
+    those kernels (``check_captured``); every bucket must show ``passes``
+    passes over the edges; the predictions must be finite, agree with the
+    eager forward's (``as_eager``), match the plain ``impl='fused'`` path on
+    the card and, for a sample, the CPU path. Then the graphs are served
+    again with the profiler off, for the latencies."""
     import torch
-    from repro_torch.core.engine import GraphStreamEngine
+    from repro_torch.core.engine import GraphStreamEngine, StreamStats
     from repro_torch.core.message_passing import DataflowConfig
 
     cfg, params = init_params(name, "cuda")
-    warm = [graphs[0], graphs[-1]]             # one graph per kind of bucket
     label = f"{name.upper()} paper config, {impl}"
-
-    def args(g):
-        return g.node_feat, g.senders, g.receivers, g.edge_feat, g.node_pos
-
     engine = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
                                device="cuda")
 
     def serve():
-        for g in warm:
-            engine.warmup(*args(g))
-        t0 = time.perf_counter()
-        preds = [engine.process(*args(g)) for g in graphs]
-        return preds, time.perf_counter() - t0
-    (preds, wall), launches = counted(serve)
-    served = len(graphs) + len(warm)
-    log("slice", f"{label}: served {len(graphs)} graphs (+{len(warm)} "
-        f"warmup) in {wall:.3f} s")
-    check_launches("slice", label, launches,
-                   {k: v * served for k, v in per_graph.items()},
-                   f"{per_graph} per graph x {served}")
+        builds = warm_buckets(engine, graphs)
+        preds, on_device = device_kernels(
+            lambda: [engine.process(*graph_args(g)) for g in graphs])
+        return builds, preds, on_device
+    (builds, preds, on_device), counts = counted(serve)
+    built = len(engine.compiled)
+    if built != len(builds):
+        raise AssertionError(f"{label}: {built} programs for "
+                             f"{len(builds)} buckets")
+    log("slice", f"{label}: served {len(graphs)} graphs (+{len(builds)} "
+        f"warmup, one per bucket) under the profiler")
+    check_launches("slice", label, counts,
+                   {k: 2 * v * built for k, v in per_graph.items()},
+                   f"{per_graph} per forward x {built} programs x 2: each "
+                   f"program's warm-up run and its capture; a replay runs "
+                   f"no wrapper")
+    want = by_symbol(per_graph, len(graphs))
+    log("slice", f"{label}: device kernel events in the {len(graphs)} "
+        f"replays (torch.profiler) by symbol {on_device} (expected {want}: "
+        f"{per_graph} per graph)")
+    if on_device != want:
+        raise AssertionError(f"{label}: the replays did not run the "
+                             f"expected kernels on the card")
+    launches = {k: on_device[SYMBOL_OF[k]] if k in per_graph else 0
+                for k in counts}
+    programs = check_captured(label, engine, builds, per_graph)
     log("slice", f"{label}: edge passes per bucket {engine.edge_passes}")
     if set(engine.edge_passes.values()) != {passes}:
         raise AssertionError(f"{label}: expected {passes} passes over the "
                              f"edges per forward")
+    eager = [[eager_forward(engine, g)[0] for g in graphs]
+             for _ in range(EAGER_RUNS)]
+    with deterministic():
+        det = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
+                                device="cuda")
+        det_preds = [det.process(*graph_args(g)) for g in graphs]
+        det_eager = [[eager_forward(det, g)[0] for g in graphs]
+                     for _ in range(EAGER_RUNS)]
+    vs_eager = as_eager(label, preds, eager, det_preds, det_eager)
 
     plain = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused"),
                               device="cuda")
-    ref = [plain.process(*args(g)) for g in graphs]
+    ref = [plain.process(*graph_args(g)) for g in graphs]
     cpu = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
                             device="cpu")
     worst = 0.0
     for i, (p, r) in enumerate(zip(preds, ref)):
         if p.shape != (cfg.out_dim,) or not np.isfinite(p).all():
             raise AssertionError(f"{label}: graph {i}: bad prediction {p}")
-        worst = max(worst, float(np.abs(p - r).max()
-                                 / max(1.0, float(np.abs(r).max()))))
+        worst = max(worst, rel_diff(p, r))
         if i % 9 == 0:                         # a sample against the CPU
-            c = cpu.process(*args(graphs[i]))
+            c = cpu.process(*graph_args(graphs[i]))
             np.testing.assert_allclose(p, c, rtol=SLICE_RTOL,
                                        atol=SLICE_RTOL * max(1.0, float(
                                            np.abs(c).max())))
@@ -2601,35 +2854,51 @@ def serve_path(card: str, name: str, impl: str, graphs, *,
     if worst > SLICE_RTOL:
         raise AssertionError(f"{label}: served predictions disagree with "
                              f"the plain path")
+    engine.stats = StreamStats()
+    t0 = time.perf_counter()
+    for g in graphs:
+        engine.process(*graph_args(g))
+    wall = time.perf_counter() - t0
     summary = engine.stats.summary()
     plain_summary = plain.stats.summary()
-    log("slice", f"{label}, batch 1: p50 {summary['p50_ms']:.3f} ms, p90 "
-        f"{summary['p90_ms']:.3f} ms, p99 {summary['p99_ms']:.3f} ms; "
-        f"forward span (CUDA events around the forward, host launch gaps "
-        f"included) {summary['device_mean_ms']:.3f} ms/graph, "
+    log("slice", f"{label}, batch 1 (profiler off): p50 "
+        f"{summary['p50_ms']:.3f} ms, p90 {summary['p90_ms']:.3f} ms, p99 "
+        f"{summary['p99_ms']:.3f} ms; forward span (CUDA events around the "
+        f"replay) {summary['device_mean_ms']:.3f} ms/graph, "
         f"{summary['throughput_gps']:.1f} graphs/s of forward span; "
         f"{len(graphs) / wall:.1f} graphs/s wall; same graphs under "
-        f"impl='fused' (plain PyTorch): p50 {plain_summary['p50_ms']:.3f} "
-        f"ms, forward span {plain_summary['device_mean_ms']:.3f} ms/graph; "
-        f"on {card}")
+        f"impl='fused' (plain PyTorch, captured too): p50 "
+        f"{plain_summary['p50_ms']:.3f} ms, forward span "
+        f"{plain_summary['device_mean_ms']:.3f} ms/graph; on {card}")
     result = {"model": name, "impl": impl, "graphs": len(graphs),
-              "launches": launches, "summary": summary,
-              "plain_summary": plain_summary, "wall_s": wall,
-              "worst_rel_err_vs_fused": worst,
+              "launches": launches, "wrapper_launches": counts,
+              "summary": summary, "plain_summary": plain_summary,
+              "wall_s": wall, "worst_rel_err_vs_fused": worst,
+              "vs_eager": vs_eager, "programs": programs,
               "edge_passes": {str(k): v for k, v in
                               engine.edge_passes.items()}}
     if profile:
-        result["profile"] = profile_serving(engine, graphs[:16], args, card,
-                                            label)
+        result["profile"] = profile_serving(
+            label, lambda g: captured_span(engine, g), graphs[:16], card)
     torch.cuda.synchronize()
     return result
 
 
-def slice_phase(card: str):
-    """Phase 4: every path of the slice, each with its own counts."""
+def captured_span(engine, g) -> float:
+    """Serve ``g`` through the engine (recorded); its replay's span (s)."""
+    engine.process(*graph_args(g))
+    return engine.stats.device_s[-1]
+
+
+def slice_graphs():
+    """Phase 4's traffic: 64 molecules, then 8 kNN graphs."""
     from repro_torch.data.graphs import hep_like, molhiv_like
-    graphs = (list(molhiv_like(seed=0, n_graphs=64))
-              + list(hep_like(seed=2, n_graphs=8)))
+    return (list(molhiv_like(seed=0, n_graphs=64))
+            + list(hep_like(seed=2, n_graphs=8)))
+
+
+def slice_phase(card: str, graphs):
+    """Phase 4: every path of the slice, each with its own counts."""
     # the pipeline and kernel runs are shorter: 16 molecules and 4 kNN graphs
     short = graphs[:16] + graphs[64:68]
     lf, mp = "layer_fused", "mp_pipeline"
@@ -2682,54 +2951,238 @@ def top(table, k):
             sorted(table.items(), key=lambda kv: -kv[1][0])[:k]]
 
 
-def profile_serving(engine, graphs, args, card: str, label: str):
-    """Device-busy share, the top device and host ops while serving
-    ``graphs``, and the host's batch build (padding + copies) alone."""
+def profile_serving(label: str, serve, graphs, card: str) -> dict:
+    """Device-busy share and the top device and host ops while ``serve(g)``
+    answers each of ``graphs`` (``torch.profiler``); ``serve`` returns its
+    forward's span (s), summed beside the profiler's busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core.graph import build_graph_batch, pad_bucket
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for g in graphs:
-        build_graph_batch(
-            g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
-            node_pos=g.node_pos,
-            node_pad=pad_bucket(g.node_feat.shape[0], engine.buckets),
-            edge_pad=pad_bucket(g.senders.shape[0], engine.buckets),
-            device=engine.device)
-    torch.cuda.synchronize()
-    build_ms = (time.perf_counter() - t0) * 1e3 / len(graphs)
-    log("profile", f"{label}: build_graph_batch alone (pad + copies to the "
-        f"card): {build_ms:.3f} ms/graph on {card}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for g in graphs:
-            engine.process(*args(g), record=False)
+        spans = [serve(g) for g in graphs]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     on_device, on_host = event_tables(prof)
     busy_us = sum(t for t, _ in on_device.values())
+    span_us = sum(spans) * 1e6
     out = {"graphs": len(graphs), "wall_ms": wall * 1e3,
-           "build_ms_per_graph": build_ms, "device_busy_us": busy_us,
+           "device_busy_us": busy_us,
            "device_busy_share": busy_us / (wall * 1e6),
            # graphs per second of the card's own busy time: what one card
            # would serve if the host kept it fed
-           "busy_throughput_gps": len(graphs) / (busy_us * 1e-6),
+           "busy_throughput_gps": (len(graphs) / (busy_us * 1e-6)
+                                   if busy_us else None),
+           "span_us": span_us,
            "host_self_us": sum(t for t, _ in on_host.values()),
            "top_device": top(on_device, 10), "top_host": top(on_host, 10)}
+    if not busy_us:
+        log("profile", f"{label}: the profiler saw no device events")
     log("profile", f"{label}: {len(graphs)} graphs in {wall * 1e3:.2f} ms "
-        f"wall "
-        f"(profiler on); device busy {busy_us:.1f} us "
+        f"wall (profiler on); device busy {busy_us:.1f} us "
         f"({out['device_busy_share']:.1%} of wall), "
-        f"{busy_us / len(graphs):.1f} us/graph, "
-        f"{out['busy_throughput_gps']:.1f} graphs/s of device-busy time, "
-        f"on {card}")
+        f"{busy_us / len(graphs):.1f} us/graph; forward spans "
+        f"{span_us / len(graphs):.1f} us/graph; on {card}")
     for side in ("top_device", "top_host"):
         for row in out[side]:
             log("profile", f"  {side[4:]:6} {row['us']:10.1f} us "
                 f"x{row['count']:<5} {row['name']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the batch-1 host path: the parent's eager forward against the captured
+# engine
+# ---------------------------------------------------------------------------
+
+# (model, impl): the paths whose host side phase 4b breaks down
+HOST_PATHS = (("gin", "fused_layer"), ("gat", "fused_layer"),
+              ("pna", "fused_layer"), ("gat", "kernel"))
+HOST_REPS = 3       # each step of each graph timed this many times
+
+
+def median_us(xs) -> float:
+    return statistics.median(xs) * 1e6
+
+
+def host_steps(engine, graphs) -> dict:
+    """Each step of both paths' host side timed alone on the host clock, the
+    card idle before each (median us over ``graphs`` x ``HOST_REPS``).
+    Eager (the parent's): ``build_graph_batch`` (padding and nine copies
+    from pageable memory), the forward's enqueue (``model.apply``), the
+    output's copy and wait (``.cpu()``). Captured: padding into pinned
+    memory (``stage``), enqueueing the one copy (``upload``), launching the
+    replay (``replay``), the copy-out and the wait (``download``)."""
+    import torch
+    from repro_torch.core.engine import raw_graph
+    from repro_torch.core.graph import build_graph_batch
+    steps = {k: [] for k in ("build_graph_batch", "apply_enqueue",
+                             "cpu_wait", "stage", "upload", "replay",
+                             "download")}
+    for g in graphs:
+        prog = program_of(engine, g)
+        raw = raw_graph(*graph_args(g))
+        node_pad, edge_pad, graph_pad = bucket_of(engine, g)
+        for _ in range(HOST_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = build_graph_batch(
+                g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
+                node_pos=g.node_pos, node_pad=node_pad, edge_pad=edge_pad,
+                graph_pad=graph_pad, pos_dim=engine.cfg.pos_dim,
+                device=engine.device)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            with torch.inference_mode():
+                out = engine.model.apply(engine.params, batch, engine.cfg,
+                                         engine.dataflow)
+            t3 = time.perf_counter()
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            out.cpu()
+            t5 = time.perf_counter()
+            steps["build_graph_batch"].append(t1 - t0)
+            steps["apply_enqueue"].append(t3 - t2)
+            steps["cpu_wait"].append(t5 - t4)
+            t0 = time.perf_counter()
+            prog.stage(raw)
+            t1 = time.perf_counter()
+            prog.upload()
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            prog.replay()
+            t4 = time.perf_counter()
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            prog.download()
+            t6 = time.perf_counter()
+            steps["stage"].append(t1 - t0)
+            steps["upload"].append(t2 - t1)
+            steps["replay"].append(t4 - t3)
+            steps["download"].append(t6 - t5)
+    return {k: median_us(v) for k, v in steps.items()}
+
+
+def scatter_host_cost(engine, graphs) -> dict:
+    """The host cost of one ``mp_scatter`` call in the eager forward (its
+    wrapper timed on the host clock while the card is kept busy, so no call
+    waits on the queue) against its share of a replay (the replay's launch
+    over the graph's kernel nodes), median over ``graphs``."""
+    import torch
+    from repro_torch.core.graph import build_graph_batch
+    from repro_torch.kernels import ops
+    real = ops.mp_scatter
+    calls = []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    ops.mp_scatter = timed
+    try:
+        for g in graphs:
+            node_pad, edge_pad, graph_pad = bucket_of(engine, g)
+            batch = build_graph_batch(
+                g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
+                node_pos=g.node_pos, node_pad=node_pad, edge_pad=edge_pad,
+                graph_pad=graph_pad, pos_dim=engine.cfg.pos_dim,
+                device=engine.device)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)        # ~25 ms of the card
+            with torch.inference_mode():
+                engine.model.apply(engine.params, batch, engine.cfg,
+                                   engine.dataflow)
+            torch.cuda.synchronize()
+    finally:
+        ops.mp_scatter = real
+    replays, per_node, nodes = [], [], None
+    for g in graphs:
+        prog = program_of(engine, g)
+        nodes = len(kernel_nodes(prog, GRAPH_DUMPS / "scatter_host.dot"))
+        for _ in range(HOST_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog.replay()
+            replays.append(time.perf_counter() - t0)
+            per_node.append(replays[-1] / max(nodes, 1))
+        torch.cuda.synchronize()
+    return {"eager_call_us": median_us(calls), "eager_calls": len(calls),
+            "replay_us": median_us(replays), "kernel_nodes": nodes,
+            "replay_share_per_node_us": median_us(per_node)}
+
+
+def host_phase(card: str, graphs) -> dict:
+    """Phase 4b: for each of ``HOST_PATHS`` on phase 4's graphs, the
+    parent's eager forward (composed: ``eager_forward``) against the
+    captured engine, in one process: p50 / p99 latency, forward-span
+    throughput, device-busy us a graph and share of the wall (16 molecules
+    under the profiler), each host step alone (``host_steps``), and for
+    GAT ``kernel`` the host cost of one ``mp_scatter`` call eager against
+    its share of a replay."""
+    from repro_torch.core.engine import GraphStreamEngine, StreamStats
+    from repro_torch.core.message_passing import DataflowConfig
+    out = {}
+    for name, impl in HOST_PATHS:
+        label = f"{name.upper()} {impl}"
+        cfg, params = init_params(name, "cuda")
+        engine = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
+                                   device="cuda")
+        for g, _ in warm_buckets(engine, graphs).values():
+            eager_forward(engine, g)
+        eager = [eager_forward(engine, g) for g in graphs]
+        lat = np.array([e[2] for e in eager])
+        eager_row = {"p50_ms": float(np.percentile(lat, 50) * 1e3),
+                     "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                     "throughput_gps": len(eager) / sum(e[1] for e in eager)}
+        engine.stats = StreamStats()
+        for g in graphs:
+            engine.process(*graph_args(g))
+        summary = engine.stats.summary()
+        captured_row = {k: summary[k] for k in ("p50_ms", "p99_ms",
+                                                "throughput_gps")}
+        eager_row["profile"] = profile_serving(
+            f"{label} eager", lambda g: eager_forward(engine, g)[1],
+            graphs[:16], card)
+        captured_row["profile"] = profile_serving(
+            f"{label} captured", lambda g: captured_span(engine, g),
+            graphs[:16], card)
+        steps = host_steps(engine, graphs)
+        for row, p in ((eager_row, eager_row["profile"]),
+                       (captured_row, captured_row["profile"])):
+            row["busy_us_per_graph"] = p["device_busy_us"] / p["graphs"]
+            row["busy_share"] = p["device_busy_share"]
+            row["busy_throughput_gps"] = p["busy_throughput_gps"]
+        out[f"{name}_{impl}"] = {"eager": eager_row,
+                                 "captured": captured_row, "steps": steps}
+        for kind, row in (("eager", eager_row), ("captured", captured_row)):
+            log("host", f"{label} {kind:8}: p50 {row['p50_ms']:.3f} ms, p99 "
+                f"{row['p99_ms']:.3f} ms, {row['throughput_gps']:.1f} "
+                f"graphs/s of forward span; device busy "
+                f"{row['busy_us_per_graph']:.1f} us/graph, "
+                f"{row['busy_share']:.1%} of the wall; on {card}")
+        log("host", f"{label} host steps alone, median us over "
+            f"{len(graphs)} graphs x {HOST_REPS}: eager build_graph_batch "
+            f"{steps['build_graph_batch']:.1f}, apply (enqueue) "
+            f"{steps['apply_enqueue']:.1f}, .cpu() {steps['cpu_wait']:.1f}; "
+            f"captured stage (pad into pinned) {steps['stage']:.1f}, upload "
+            f"(enqueue one copy) {steps['upload']:.1f}, replay (launch) "
+            f"{steps['replay']:.1f}, download (copy out + sync) "
+            f"{steps['download']:.1f}; on {card}")
+        if impl == "kernel":
+            hep = [g for g in graphs if bucket_of(engine, g)[1] == 1024]
+            cost = scatter_host_cost(engine, hep)
+            out[f"{name}_{impl}"]["mp_scatter_host"] = cost
+            log("host", f"{label} mp_scatter host cost at the hep bucket: "
+                f"eager {cost['eager_call_us']:.1f} us a call (median of "
+                f"{cost['eager_calls']}); captured: a replay's launch "
+                f"{cost['replay_us']:.1f} us for {cost['kernel_nodes']} "
+                f"kernel nodes, {cost['replay_share_per_node_us']:.2f} us "
+                f"a node; on {card}")
     return out
 
 
@@ -2806,8 +3259,10 @@ def main() -> int:
     scatter_rows = {k: scatter_kernel_phase(card, k, main_inputs[k])
                     for k in SCATTER_CASES}
 
-    # 4. the slice end to end
-    paths = slice_phase(card)
+    # 4. the slice end to end, 4b. its host path, eager against captured
+    graphs = slice_graphs()
+    paths = slice_phase(card, graphs)
+    log("host", "json " + json.dumps(host_phase(card, graphs)))
 
     # 5. the NT kernels through their entry points, 6. the MoE data path
     nt_rows, paths["nt"] = nt_phase(card, bucket_edges)

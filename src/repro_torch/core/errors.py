@@ -1,7 +1,11 @@
 """Typed failures of the serving engine.
 
-The twin of ``repro/core/errors.py`` (the classes this slice raises). All
-subclass ``RuntimeError`` and carry
+The twin of ``repro/core/errors.py``: all eleven classes, with the
+reference's bases, fields and messages. The batch-1 engine raises the
+admission ones (``InvalidRequest``, ``InvalidGraph``, ``GraphTooLarge``)
+and ``EngineClosed``; the others belong to the scheduler, the executors and
+failure handling, which are not ported yet. All subclass ``RuntimeError``
+and carry
 
   * ``request_ids``    — engine request ids of the affected graphs, and
   * ``executor_index`` — the executor involved, when there is one.
@@ -50,3 +54,42 @@ class InvalidGraph(InvalidRequest):
 
 class GraphTooLarge(InvalidRequest):
     """The submitted graph exceeds the largest bucket the engine serves."""
+
+
+class UnknownQueue(EngineError, KeyError):
+    """The named tenant queue does not exist (no silent remapping; a
+    typo fails loudly). Also a ``KeyError`` for pre-hierarchy callers."""
+
+    def __str__(self) -> str:          # KeyError.__str__ would repr-quote
+        return BaseException.__str__(self)
+
+
+class ParamUpdateFailed(EngineError):
+    """A hot parameter update was rejected: the new tree's structure or
+    leaf shapes/dtypes do not match the serving params, or the canary
+    batch produced non-finite / reference-diverging outputs. The
+    previous version stays installed (atomic rollback); no in-flight
+    request is affected."""
+
+
+class BatchFailed(EngineError):
+    """A batch's execution failed after the retry budget was exhausted
+    without the failure being attributable to a single graph."""
+
+
+class PoisonGraph(BatchFailed):
+    """One graph was isolated as the cause of repeated batch failures
+    (bisection quarantine) or produced non-finite outputs (validation
+    gate). Only this graph's future fails; co-packed neighbors complete."""
+
+
+class DeadlineExceeded(EngineError):
+    """The graph's deadline (measured from enqueue time) expired before
+    dispatch, or its batch sat in an executor past the in-flight
+    timeout."""
+
+
+class ExecutorDead(EngineError):
+    """A ``DeviceExecutor`` worker died (crash, wedge past the watchdog
+    timeout, or shutdown) and the work could not be re-placed on a
+    survivor."""

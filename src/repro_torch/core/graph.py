@@ -10,14 +10,17 @@ are never sorted or partitioned. Padding convention:
     each node to its graph for the readout.
 
 Indices are int64 (``index_add_`` and friends want int64), converted once
-when the batch is built.
+when the batch is built. ``build_graph_batch`` pads into fresh arrays and
+copies each to the device; ``BatchStaging`` pads into one (pinned) host
+buffer and copies it whole, for the engine's captured programs. Both pad
+through ``pad_graph_into``, so the two layouts cannot drift.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +59,77 @@ class GraphBatch:
         return self.node_feat.device
 
 
+# the nine arrays of a GraphBatch, in the order of a staging buffer's layout
+BATCH_FIELDS = ("node_feat", "edge_feat", "senders", "receivers", "node_pos",
+                "graph_ids", "node_mask", "edge_mask", "graph_mask")
+# where each array of a staging buffer starts: a multiple of this many bytes
+STAGING_ALIGN = 256
+
+
+def batch_layout(node_pad: int, edge_pad: int, graph_pad: int,
+                 node_width: int, edge_width: int, pos_width: int
+                 ) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
+    """The shape and numpy dtype of each padded array of a batch, by name
+    (in ``BATCH_FIELDS`` order)."""
+    f32, i64, b = np.dtype(np.float32), np.dtype(np.int64), np.dtype(bool)
+    return {"node_feat": ((node_pad, node_width), f32),
+            "edge_feat": ((edge_pad, edge_width), f32),
+            "senders": ((edge_pad,), i64), "receivers": ((edge_pad,), i64),
+            "node_pos": ((node_pad, pos_width), f32),
+            "graph_ids": ((node_pad,), i64), "node_mask": ((node_pad,), b),
+            "edge_mask": ((edge_pad,), b), "graph_mask": ((graph_pad,), b)}
+
+
+def pad_graph_into(out: Dict[str, np.ndarray], node_feat: np.ndarray,
+                   senders: np.ndarray, receivers: np.ndarray, *,
+                   edge_feat: Optional[np.ndarray] = None,
+                   graph_offsets: Optional[np.ndarray] = None,
+                   node_pos: Optional[np.ndarray] = None) -> None:
+    """Write raw COO arrays (host-side numpy) into the nine padded arrays
+    ``out`` (shapes and dtypes of :func:`batch_layout`), every element of
+    them: the padding rows too, so that ``out`` may hold an earlier, larger
+    graph. ``edge_feat`` / ``node_pos`` left out are zeros.
+
+    ``graph_offsets``: node-index boundaries between packed graphs,
+    e.g. [0, n0, n0+n1, ...]; defaults to a single graph.
+    """
+    node_pad, edge_pad = out["node_feat"].shape[0], out["senders"].shape[0]
+    graph_pad = out["graph_mask"].shape[0]
+    n, e = node_feat.shape[0], senders.shape[0]
+    if n > node_pad or e > edge_pad:
+        raise ValueError(f"graph ({n} nodes, {e} edges) exceeds padding "
+                         f"({node_pad}, {edge_pad})")
+    if graph_offsets is None:
+        graph_offsets = np.array([0, n])
+    n_graphs = len(graph_offsets) - 1
+    if n_graphs > graph_pad:
+        raise ValueError(f"{n_graphs} graphs exceed graph_pad={graph_pad}")
+
+    def put(name, value, count):
+        a = out[name]
+        a[:count] = 0 if value is None else value
+        a[count:] = 0
+
+    put("node_feat", node_feat, n)
+    put("edge_feat", edge_feat, e)
+    put("senders", senders, e)
+    put("receivers", receivers, e)
+    put("node_pos", node_pos, n)
+    out["node_mask"][:n] = True
+    out["node_mask"][n:] = False
+    out["edge_mask"][:e] = True
+    out["edge_mask"][e:] = False
+    gids = out["graph_ids"]
+    gids[:n] = 0
+    for g in range(n_graphs):
+        gids[graph_offsets[g]:graph_offsets[g + 1]] = g
+    # padded nodes pool into the last (masked) graph slot if it exists, else
+    # 0; node_mask keeps them out of the readout either way
+    gids[n:] = min(n_graphs, graph_pad - 1)
+    out["graph_mask"][:n_graphs] = True
+    out["graph_mask"][n_graphs:] = False
+
+
 def build_graph_batch(
     node_feat: np.ndarray,
     senders: np.ndarray,
@@ -73,54 +147,79 @@ def build_graph_batch(
     """Pad raw COO arrays (host-side numpy) into a GraphBatch on ``device``.
 
     ``graph_offsets``: node-index boundaries between packed graphs,
-    e.g. [0, n0, n0+n1, ...]; defaults to a single graph.
+    e.g. [0, n0, n0+n1, ...]; defaults to a single graph. Each array is
+    padded on the host (:func:`pad_graph_into`) and copied on its own.
     """
     dev = resolve_device(device)
-    n, f = node_feat.shape
-    e = senders.shape[0]
-    if n > node_pad or e > edge_pad:
-        raise ValueError(f"graph ({n} nodes, {e} edges) exceeds padding "
-                         f"({node_pad}, {edge_pad})")
-    if edge_feat is None:
-        edge_feat = np.zeros((e, 1), dtype=np.float32)
-    d = edge_feat.shape[1]
-    if node_pos is None:
-        node_pos = np.zeros((n, pos_dim), dtype=np.float32)
+    layout = batch_layout(
+        node_pad, edge_pad, graph_pad, node_feat.shape[1],
+        1 if edge_feat is None else edge_feat.shape[1],
+        pos_dim if node_pos is None else node_pos.shape[1])
+    arrays = {name: np.empty(shape, dtype)
+              for name, (shape, dtype) in layout.items()}
+    pad_graph_into(arrays, node_feat, senders, receivers, edge_feat=edge_feat,
+                   graph_offsets=graph_offsets, node_pos=node_pos)
+    return GraphBatch(**{name: torch.from_numpy(a).to(dev)
+                         for name, a in arrays.items()})
 
-    nf = np.zeros((node_pad, f), dtype=np.float32)
-    nf[:n] = node_feat
-    ef = np.zeros((edge_pad, d), dtype=np.float32)
-    ef[:e] = edge_feat
-    snd = np.zeros((edge_pad,), dtype=np.int64)
-    snd[:e] = senders
-    rcv = np.zeros((edge_pad,), dtype=np.int64)
-    rcv[:e] = receivers
-    npos = np.zeros((node_pad, node_pos.shape[1]), dtype=np.float32)
-    npos[:n] = node_pos
 
-    nmask = np.arange(node_pad) < n
-    emask = np.arange(edge_pad) < e
+class BatchStaging:
+    """One bucket's padded batch in one host buffer and one device buffer
+    of the same layout, so that a graph reaches the device in one copy.
 
-    gids = np.zeros((node_pad,), dtype=np.int64)
-    if graph_offsets is None:
-        graph_offsets = np.array([0, n])
-    n_graphs = len(graph_offsets) - 1
-    if n_graphs > graph_pad:
-        raise ValueError(f"{n_graphs} graphs exceed graph_pad={graph_pad}")
-    for g in range(n_graphs):
-        gids[graph_offsets[g]:graph_offsets[g + 1]] = g
-    # padded nodes pool into the last (masked) graph slot if it exists, else
-    # 0; node_mask keeps them out of the readout either way
-    gids[n:] = min(n_graphs, graph_pad - 1)
-    gmask = np.arange(graph_pad) < n_graphs
+    The nine arrays of a ``GraphBatch`` (:func:`batch_layout`) lie in each
+    buffer at offsets aligned to ``STAGING_ALIGN`` bytes. ``stage`` pads a
+    raw graph straight into numpy views of the host buffer (pinned when
+    ``pin``, as a CUDA device wants for an asynchronous copy); ``upload``
+    enqueues the one copy of the used extent on the current stream;
+    ``batch`` is a ``GraphBatch`` of views into the device buffer, the same
+    tensors every time (what a captured CUDA graph reads). The host buffer
+    may be written again once that copy has run.
+    """
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(dev)
+    def __init__(self, node_pad: int, edge_pad: int, graph_pad: int,
+                 widths: Tuple[int, int, int], device: DeviceLike = None, *,
+                 pin: bool = False):
+        dev = resolve_device(device)
+        layout = batch_layout(node_pad, edge_pad, graph_pad, *widths)
+        offsets, end = {}, 0
+        for name, (shape, dtype) in layout.items():
+            start = -(-end // STAGING_ALIGN) * STAGING_ALIGN
+            offsets[name] = start
+            end = start + int(np.prod(shape)) * dtype.itemsize
+        self.nbytes = end
+        self.host = torch.empty(end, dtype=torch.uint8, pin_memory=pin)
+        self.device_buf = torch.empty(end, dtype=torch.uint8, device=dev)
+        host = self.host.numpy()
+        self.arrays: Dict[str, np.ndarray] = {}
+        fields = {}
+        for name, (shape, dtype) in layout.items():
+            size = int(np.prod(shape)) * dtype.itemsize
+            at = slice(offsets[name], offsets[name] + size)
+            self.arrays[name] = host[at].view(dtype).reshape(shape)
+            fields[name] = self.device_buf[at].view(
+                _TORCH_DTYPES[dtype]).view(shape)
+        self.batch = GraphBatch(**fields)
 
-    return GraphBatch(
-        node_feat=put(nf), edge_feat=put(ef), senders=put(snd),
-        receivers=put(rcv), node_mask=put(nmask), edge_mask=put(emask),
-        graph_ids=put(gids), graph_mask=put(gmask), node_pos=put(npos))
+    def stage(self, node_feat: np.ndarray, senders: np.ndarray,
+              receivers: np.ndarray, *,
+              edge_feat: Optional[np.ndarray] = None,
+              graph_offsets: Optional[np.ndarray] = None,
+              node_pos: Optional[np.ndarray] = None) -> None:
+        """Pad a raw graph into the host buffer (every byte of the layout's
+        arrays is written)."""
+        pad_graph_into(self.arrays, node_feat, senders, receivers,
+                       edge_feat=edge_feat, graph_offsets=graph_offsets,
+                       node_pos=node_pos)
+
+    def upload(self) -> None:
+        """Enqueue the host buffer's copy to the device buffer."""
+        self.device_buf[:self.nbytes].copy_(self.host[:self.nbytes],
+                                            non_blocking=True)
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.int64): torch.int64, np.dtype(bool): torch.bool}
 
 
 def concat_raw_graphs(graphs) -> dict:

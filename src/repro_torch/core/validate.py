@@ -4,7 +4,8 @@ The twin of ``repro/core/validate.py``. A malformed graph is rejected at
 ``GraphStreamEngine.submit``, before it reaches the device: an out-of-range
 edge index inside a gather or ``index_add_`` is a device-side fault, not a
 clean error. ``check_graph`` and ``check_budget`` return a reason string
-(``None`` = admissible) so the engine can attach its request id.
+(``None`` = admissible) so the engine can attach its request id;
+``validate_graph`` raises ``InvalidGraph`` from ``check_graph``'s reason.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+
+from repro_torch.core.errors import InvalidGraph
 
 
 def _is_int_dtype(a: np.ndarray) -> bool:
@@ -83,13 +86,44 @@ def check_graph(node_feat, senders, receivers, edge_feat=None,
     return None
 
 
-def check_budget(num_nodes: int, *, node_budget: int) -> Optional[str]:
+def check_budget(num_nodes: int, num_edges: int, *,
+                 node_budget: Optional[int] = None,
+                 edge_budget: Optional[int] = None,
+                 wide_enabled: bool = False) -> Optional[str]:
     """Why this graph exceeds the single-device serving budget, or ``None``.
 
-    The budget is the largest bucket the engine serves. Wide placement (one
-    graph split across devices) is not ported yet: ROADMAP queue 1 item 8.
+    The budget is the largest bucket the engine serves (``max(
+    GraphStreamEngine.buckets)`` node slots, plus an optional edge bound).
+    A graph over budget is admissible only under wide placement (one graph
+    split across devices), which the port does not have yet (ROADMAP queue
+    1 item 6): its engine always passes ``wide_enabled=False`` and raises
+    ``GraphTooLarge`` from the reason, whose words name the knob as the
+    reference's do.
     """
-    if num_nodes > node_budget:
+    if node_budget is not None and num_nodes > node_budget:
         return (f"graph has {num_nodes} nodes > largest single-device "
-                f"bucket {node_budget}")
+                f"bucket {node_budget}"
+                + ("" if wide_enabled else
+                   " and wide placement is disabled (wide=True splits it "
+                   "across the executor pool)"))
+    if edge_budget is not None and num_edges > edge_budget:
+        return (f"graph has {num_edges} edges > single-device edge "
+                f"budget {edge_budget}"
+                + ("" if wide_enabled else
+                   " and wide placement is disabled (wide=True splits it "
+                   "across the executor pool)"))
     return None
+
+
+def validate_graph(node_feat, senders, receivers, edge_feat=None,
+                   node_pos=None, *, node_feat_dim: Optional[int] = None,
+                   edge_feat_dim: Optional[int] = None,
+                   pos_dim: Optional[int] = None,
+                   require_finite: bool = False) -> None:
+    """Raise ``InvalidGraph`` when :func:`check_graph` finds a reason."""
+    reason = check_graph(node_feat, senders, receivers, edge_feat, node_pos,
+                         node_feat_dim=node_feat_dim,
+                         edge_feat_dim=edge_feat_dim, pos_dim=pos_dim,
+                         require_finite=require_finite)
+    if reason is not None:
+        raise InvalidGraph(reason)

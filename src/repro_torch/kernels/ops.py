@@ -13,7 +13,7 @@ reference. The plain versions are re-exported beside them for tests and
 ``chip_smoke.py``.
 """
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -47,8 +47,24 @@ def mp_scatter_multi(msg, receivers, edge_mask, num_nodes, *,
         rows_per_block=rows_per_block)
 
 
+def launch_counters() -> Dict[str, Callable]:
+    """Every kernel wrapper of the port by name, as its module holds it now;
+    each counts the CUDA launches it makes in ``.launches``."""
+    from repro_torch.kernels import (flash_attention as fa,
+                                     fused_nt_scatter as fns,
+                                     gather_rows as gr, layer_fused as lf,
+                                     mp_pipeline as mp, mp_scatter as ms,
+                                     nt_mlp as nt, seg_softmax as ss)
+    return {"layer_fused": lf.layer_fused, "mp_pipeline": mp.mp_pipeline,
+            "mp_scatter": ms.mp_scatter,
+            "mp_scatter_multi": ms.mp_scatter_multi,
+            "seg_softmax": ss.seg_softmax, "gather_rows": gr.gather_rows,
+            "nt_mlp": nt.nt_mlp, "fused_nt_scatter": fns.fused_nt_scatter,
+            "flash_attention": fa.flash_attention}
+
+
 __all__ = ["flash_attention", "flash_attention_ref", "fused_nt_scatter",
-           "fused_nt_scatter_ref", "layer_fused",
+           "fused_nt_scatter_ref", "launch_counters", "layer_fused",
            "layer_fused_ref", "mp_pipeline", "mp_pipeline_ref", "mp_scatter",
            "mp_scatter_multi", "mp_scatter_multi_ref", "mp_scatter_ref",
            "nt_mlp", "nt_mlp_ref", "seg_softmax", "segment_softmax_ref"]
