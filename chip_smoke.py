@@ -17,7 +17,9 @@ Phases, each printing its own lines:
                empty destinations exact; kernel, plain and bound times. The
                cases: synthetic ones at N=1024 (997), and the inputs every
                path of phase 4 hands its kernel in its first two layers at
-               both serving buckets, recorded at the wrapper. For every
+               both serving buckets, and each path of phase 4c at its
+               first packed batch of max_batch 8 and 64, recorded at the
+               wrapper. For every
                layer_fused case an identity first layer also reads out the
                dense layer's input row (the self term's sum; the scalers or
                field row), whose empty destinations must equal the plain
@@ -58,7 +60,8 @@ Phases, each printing its own lines:
                both bitwise at 1, 3, 8 and 16 rows per block; first, the
                registers and spills of each of their instantiations.
   4. slice   — the paper configs served end to end through
-               ``GraphStreamEngine.process``, which answers each bucket from
+               ``GraphStreamEngine.process`` (each graph alone in a bucket
+               of max_batch 8 graph slots), which answers each bucket from
                one CUDA graph captured on the bucket's first graph, each
                path with the launch counts set to 0 just before it and read
                just after: GIN, GAT, PNA and DGN under impl='fused_layer'
@@ -86,7 +89,7 @@ Phases, each printing its own lines:
                ``impl='fused'`` path on the card and with the CPU. Then the
                graphs are served again with the profiler off: p50 / p99.
   4b. host   — GIN, GAT and PNA under 'fused_layer' and GAT under 'kernel'
-               on phase 4's 72 graphs: the parent's eager forward (composed)
+               on phase 4's 72 graphs: the eager forward (composed)
                against the captured engine, side by side: p50 / p99,
                forward-span throughput, device-busy us a graph and share of
                the wall; each host step alone (eager: build_graph_batch,
@@ -94,6 +97,25 @@ Phases, each printing its own lines:
                memory, enqueueing the one copy, the replay's launch, the
                copy-out and wait); the host cost of one mp_scatter call
                eager against its share of a replay. One ``[host] json``
+               line holds them all.
+  4c. packed — the same four paths serve phase 4's 72 graphs through
+               ``submit`` / ``drain`` (the packer, the scheduler, one
+               executor's dispatch and complete threads on a captured
+               program per packed bucket), counts from 0, after
+               ``warmup_all`` and one unrecorded pass: at max_batch 8 and
+               64 with max_wait 5 ms and no eager flush, and at max_batch 8
+               with eager flush: p50 / p99, mean batch size, forward-span
+               and wall (aggregate) throughputs; under ``torch.profiler``
+               device-busy us a graph, the busy share and the device
+               kernel events (a forward's per batch served); every answer
+               within 1e-5 of the same graph through ``process``; under
+               deterministic algorithms each packed answer bitwise the
+               graph served alone in its packed bucket. Then GIN at
+               max_batch 1,024 (1,024 molecules in one batch: its bucket,
+               its replay's span, layer_fused timed there) and the
+               reference example's two tenants (per-queue p50 / p90).
+               Phase 3 also checks these paths' kernels at their first
+               packed batch of max_batch 8 and 64. One ``[packed] json``
                line holds them all.
   5. nt      — ``ops.nt_mlp`` and ``ops.fused_nt_scatter`` driven at GIN's
                MLP (100->200->100) on the serving buckets' graphs and at
@@ -2578,17 +2600,30 @@ def graph_args(g):
 
 
 def bucket_of(engine, g):
-    """The engine's bucket key for graph ``g``."""
+    """The engine's bucket key for graph ``g`` served alone: its graph slots
+    are the default queue's ``max_batch``, as in the reference."""
     from repro_torch.core.graph import pad_bucket
     return (pad_bucket(max(g.node_feat.shape[0], 1), engine.buckets),
-            pad_bucket(max(g.senders.shape[0], 1), engine.buckets), 1)
+            pad_bucket(max(g.senders.shape[0], 1), engine.buckets),
+            engine._scheduler.graph_pads()[0])
 
 
-def program_of(engine, g):
-    """The program that serves ``g`` (built already)."""
-    from repro_torch.core.engine import raw_graph
-    return engine._ensure_program(bucket_of(engine, g),
-                                  raw_graph(*graph_args(g)))
+def alone_batch(g, bucket):
+    """Graph ``g`` alone in a ``PackedBatch`` sealed to ``bucket``."""
+    from repro_torch.core.packing import PackedBatch, PackItem
+    return PackedBatch(items=[PackItem(*graph_args(g))], node_pad=bucket[0],
+                       edge_pad=bucket[1], graph_pad=bucket[2])
+
+
+def program_of(engine, g, bucket=None):
+    """The program of the engine's first executor that serves ``g`` alone
+    (in ``bucket``, else its own; built already, the executor idle), and
+    the batch of ``g`` alone in that bucket."""
+    bucket = bucket_of(engine, g) if bucket is None else bucket
+    ex = engine._executors[0]
+    pb = alone_batch(g, bucket)
+    with ex.on_device():
+        return engine._ensure_program(ex, bucket, pb), pb
 
 
 def warm_buckets(engine, graphs):
@@ -2829,6 +2864,7 @@ def serve_path(card: str, name: str, impl: str, graphs, *,
         det_preds = [det.process(*graph_args(g)) for g in graphs]
         det_eager = [[eager_forward(det, g)[0] for g in graphs]
                      for _ in range(EAGER_RUNS)]
+        det.close()
     vs_eager = as_eager(label, preds, eager, det_preds, det_eager)
 
     plain = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused"),
@@ -2880,6 +2916,8 @@ def serve_path(card: str, name: str, impl: str, graphs, *,
     if profile:
         result["profile"] = profile_serving(
             label, lambda g: captured_span(engine, g), graphs[:16], card)
+    for e in (engine, plain, cpu):
+        e.close()
     torch.cuda.synchronize()
     return result
 
@@ -3013,16 +3051,15 @@ def host_steps(engine, graphs) -> dict:
     from pageable memory), the forward's enqueue (``model.apply``), the
     output's copy and wait (``.cpu()``). Captured: padding into pinned
     memory (``stage``), enqueueing the one copy (``upload``), launching the
-    replay (``replay``), the copy-out and the wait (``download``)."""
+    replay (``replay``), the copy-out and the wait (``copy_out`` +
+    ``wait``), on the program's stream, outside the engine's threads."""
     import torch
-    from repro_torch.core.engine import raw_graph
     from repro_torch.core.graph import build_graph_batch
     steps = {k: [] for k in ("build_graph_batch", "apply_enqueue",
                              "cpu_wait", "stage", "upload", "replay",
                              "download")}
     for g in graphs:
-        prog = program_of(engine, g)
-        raw = raw_graph(*graph_args(g))
+        prog, pb = program_of(engine, g)
         node_pad, edge_pad, graph_pad = bucket_of(engine, g)
         for _ in range(HOST_REPS):
             torch.cuda.synchronize()
@@ -3046,19 +3083,21 @@ def host_steps(engine, graphs) -> dict:
             steps["build_graph_batch"].append(t1 - t0)
             steps["apply_enqueue"].append(t3 - t2)
             steps["cpu_wait"].append(t5 - t4)
-            t0 = time.perf_counter()
-            prog.stage(raw)
-            t1 = time.perf_counter()
-            prog.upload()
-            t2 = time.perf_counter()
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            prog.replay()
-            t4 = time.perf_counter()
-            torch.cuda.synchronize()
-            t5 = time.perf_counter()
-            prog.download()
-            t6 = time.perf_counter()
+            with torch.cuda.stream(prog.stream):
+                t0 = time.perf_counter()
+                prog.stage(pb, 0)
+                t1 = time.perf_counter()
+                prog.upload(0)
+                t2 = time.perf_counter()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                prog.replay(0)
+                t4 = time.perf_counter()
+                torch.cuda.synchronize()
+                t5 = time.perf_counter()
+                prog.copy_out(0)
+                prog.wait(0)
+                t6 = time.perf_counter()
             steps["stage"].append(t1 - t0)
             steps["upload"].append(t2 - t1)
             steps["replay"].append(t4 - t3)
@@ -3102,14 +3141,15 @@ def scatter_host_cost(engine, graphs) -> dict:
         ops.mp_scatter = real
     replays, per_node, nodes = [], [], None
     for g in graphs:
-        prog = program_of(engine, g)
+        prog, _ = program_of(engine, g)
         nodes = len(kernel_nodes(prog, GRAPH_DUMPS / "scatter_host.dot"))
-        for _ in range(HOST_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            prog.replay()
-            replays.append(time.perf_counter() - t0)
-            per_node.append(replays[-1] / max(nodes, 1))
+        with torch.cuda.stream(prog.stream):
+            for _ in range(HOST_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prog.replay(0)
+                replays.append(time.perf_counter() - t0)
+                per_node.append(replays[-1] / max(nodes, 1))
         torch.cuda.synchronize()
     return {"eager_call_us": median_us(calls), "eager_calls": len(calls),
             "replay_us": median_us(replays), "kernel_nodes": nodes,
@@ -3183,14 +3223,401 @@ def host_phase(card: str, graphs) -> dict:
                 f"{cost['replay_us']:.1f} us for {cost['kernel_nodes']} "
                 f"kernel nodes, {cost['replay_share_per_node_us']:.2f} us "
                 f"a node; on {card}")
+        engine.close()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# packed serving: submit / drain through the scheduler and an executor
+# ---------------------------------------------------------------------------
+
+# launches one forward makes, by wrapper, on each of HOST_PATHS
+HOST_LAUNCHES = {("gin", "fused_layer"): {"layer_fused": 5},
+                 ("gat", "fused_layer"): {"mp_pipeline": 5},
+                 ("pna", "fused_layer"): {"layer_fused": 4},
+                 ("gat", "kernel"): {"mp_scatter": 5, "seg_softmax": 5}}
+# (max_batch, eager_flush) of each packed run, and the packers' max_wait
+PACKED_RUNS = ((8, False), (64, False), (8, True))
+PACKED_WAIT_MS = 5.0
+# the paper's largest batch (Fig. 7), one GIN run
+PACKED_LARGEST = 1024
+
+
+def stream(engine, graphs, record=True, queue=None):
+    """Submit every graph of ``graphs``, then drain: (the answers in order,
+    host seconds from the first submit to the drain's end)."""
+    t0 = time.perf_counter()
+    futs = [engine.submit(*graph_args(g), record=record, queue=queue)
+            for g in graphs]
+    engine.drain(timeout=600)
+    wall = time.perf_counter() - t0
+    return [f.result(timeout=60) for f in futs], wall
+
+
+def completed(engine) -> list:
+    """From now on, record each batch the engine's executors complete: the
+    returned list gets their ``CompletedBatch`` (its bucket and graphs, the
+    dispatch thread's enqueue from ``t_build_start`` to ``t_dispatch``, the
+    replay's span ``device_s``)."""
+    seen = []
+    for ex in engine._executors:
+        def record(e, done, real=ex._on_complete):
+            seen.append(done)
+            real(e, done)
+        ex._on_complete = record
+    return seen
+
+
+def buckets_by_request(done: list) -> dict:
+    """{request id: the bucket its batch was served in}."""
+    return {it.payload.req_id: d.batch.bucket for d in done
+            for it in d.batch.items}
+
+
+def profiled(run):
+    """``run()`` under ``torch.profiler`` with CUDA activity: (what it
+    returned, the device events ``{name: (us, count)}``, wall seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_device, _ = event_tables(prof)
+    return result, on_device, wall
+
+
+def events_by_symbol(on_device: dict) -> dict:
+    return {sym: sum(c for name, (_, c) in on_device.items() if sym in name)
+            for sym in KERNEL_SYMBOLS}
+
+
+def profiled_pass(tag: str, engine, per_graph: dict, serve) -> tuple:
+    """``serve()`` under ``torch.profiler``, the engine's stats reset first:
+    raise unless the card's kernel events are a forward's (``per_graph``)
+    for each batch served and each program built inside the pass (its
+    warm-up run runs on the card); (device events, wall s, batches)."""
+    from repro_torch.core.engine import StreamStats
+    built = len(engine.compiled)
+    engine.stats = StreamStats()
+    _, on_device, wall = profiled(serve)
+    batches = len(engine.stats.batch_sizes)
+    built_inside = len(engine.compiled) - built
+    got = events_by_symbol(on_device)
+    want = by_symbol(per_graph, batches + built_inside)
+    log("packed", f"{tag}: device kernel events under the profiler by "
+        f"symbol {got} (expected {want}: {per_graph} per forward x "
+        f"({batches} batches served + {built_inside} programs built in the "
+        f"pass, whose warm-up run runs on the card))")
+    if got != want:
+        raise AssertionError(f"{tag}: the replays did not run the expected "
+                             f"kernels on the card")
+    return on_device, wall, batches
+
+
+def packed_run(card: str, label: str, name: str, impl: str, graphs, ref, *,
+               max_batch: int, eager_flush: bool) -> dict:
+    """One packed run of ``graphs`` through ``submit`` / ``drain``, counts
+    from 0: ``warmup_all``, one unrecorded pass (it builds the buckets the
+    stream reaches beyond warmup_all's), the measured pass (profiler off:
+    p50 / p99, mean batch size, forward-span and wall throughputs), then a
+    pass under ``torch.profiler`` (device-busy us a graph and share of the
+    wall; the device kernel events, which must be a forward's for each
+    batch served and for each program built inside the pass). The wrappers
+    must count two forwards per program built; every answer must be within
+    ``EAGER_RTOL`` of ``ref`` (the graphs served through ``process``)."""
+    from repro_torch.core.engine import GraphStreamEngine, StreamStats
+    from repro_torch.core.message_passing import DataflowConfig
+    cfg, params = init_params(name, "cuda")
+    per_graph = HOST_LAUNCHES[(name, impl)]
+    tag = (f"{label}, max_batch {max_batch}, "
+           + ("eager flush" if eager_flush
+              else f"max_wait {PACKED_WAIT_MS:g} ms, no eager flush"))
+    engine = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
+                               device="cuda", max_batch=max_batch,
+                               max_wait_ms=PACKED_WAIT_MS,
+                               eager_flush=eager_flush)
+
+    def run():
+        warmed = engine.warmup_all()
+        stream(engine, graphs, record=False)
+        engine.stats = StreamStats()
+        done = completed(engine)
+        preds, wall = stream(engine, graphs)
+        summary = engine.stats.summary()
+        summary["enqueue_us_per_batch"] = statistics.median(
+            (d.t_dispatch - d.t_build_start) * 1e6 for d in done)
+        summary["span_us_per_batch"] = statistics.median(
+            d.device_s * 1e6 for d in done)
+        on_device, pwall, batches = profiled_pass(
+            tag, engine, per_graph, lambda: stream(engine, graphs))
+        return warmed, preds, wall, summary, on_device, pwall, batches
+    (warmed, preds, wall, summary, on_device, pwall,
+     batches), counts = counted(run)
+    programs = len(engine.compiled)
+    check_launches("packed", tag, counts,
+                   {k: 2 * v * programs for k, v in per_graph.items()},
+                   f"{per_graph} per forward x {programs} programs x 2: "
+                   f"each program's warm-up run and its capture "
+                   f"({len(warmed)} from warmup_all); a replay runs no "
+                   f"wrapper")
+    got = events_by_symbol(on_device)
+    worst = max(rel_diff(p, r) for p, r in zip(preds, ref))
+    log("packed", f"{tag}: {len(graphs)} answers vs the same graphs served "
+        f"through process: worst {worst:.3e} relative to max(1, |ref|) "
+        f"(tol {EAGER_RTOL:g})")
+    if worst > EAGER_RTOL or not all(np.isfinite(p).all() for p in preds):
+        raise AssertionError(f"{tag}: packed answers disagree with process")
+    if not eager_flush and summary["mean_batch_size"] <= 1:
+        raise AssertionError(f"{tag}: no batch held more than one graph")
+    busy_us = sum(t for t, _ in on_device.values())
+    row = {k: summary[k] for k in ("p50_ms", "p99_ms", "mean_batch_size",
+                                   "throughput_gps", "aggregate_gps",
+                                   "device_mean_ms", "queue_wait_mean_ms",
+                                   "enqueue_us_per_batch",
+                                   "span_us_per_batch")}
+    row.update({"max_batch": max_batch, "eager_flush": eager_flush,
+                "wall_s": wall, "graphs": len(graphs),
+                "busy_us_per_graph": busy_us / len(graphs),
+                "busy_share": busy_us / (pwall * 1e6),
+                "profiled_batches": batches, "programs": programs,
+                "launches": {k: got[SYMBOL_OF[k]] if k in per_graph else 0
+                             for k in counts},
+                "wrapper_launches": counts, "worst_rel_vs_process": worst,
+                "buckets": sorted({str(k) for k, _ in engine.compiled})})
+    log("packed", f"{tag}: p50 {row['p50_ms']:.3f} ms, p99 "
+        f"{row['p99_ms']:.3f} ms, mean batch {row['mean_batch_size']:.2f} "
+        f"graphs, {row['throughput_gps']:.1f} graphs/s of forward span "
+        f"(CUDA events around each replay), aggregate "
+        f"{row['aggregate_gps']:.1f} graphs/s (wall, first dispatch to "
+        f"last completion), queue wait mean {row['queue_wait_mean_ms']:.3f} "
+        f"ms; a batch's enqueue on the dispatch thread (pad, upload, "
+        f"replay, copy-out) {row['enqueue_us_per_batch']:.1f} us against "
+        f"its replay's span {row['span_us_per_batch']:.1f} us (medians); "
+        f"under the profiler device busy {row['busy_us_per_graph']:.1f} "
+        f"us/graph, {row['busy_share']:.1%} of the wall; {programs} "
+        f"programs; on {card}")
+    engine.close()
+    return row
+
+
+def packed_deterministic(card: str, label: str, name: str, impl: str,
+                         graphs) -> dict:
+    """The max_batch 8 run (no eager flush) under torch's deterministic
+    algorithms: each graph's packed answer bitwise the same graph served
+    alone in its packed bucket, through the same engine's program."""
+    from repro_torch.core.engine import GraphStreamEngine
+    from repro_torch.core.message_passing import DataflowConfig
+    cfg, params = init_params(name, "cuda")
+    with deterministic():
+        engine = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
+                                   device="cuda", max_batch=8,
+                                   max_wait_ms=PACKED_WAIT_MS,
+                                   eager_flush=False)
+        done = completed(engine)
+        preds, _ = stream(engine, graphs)
+        seen = buckets_by_request(done)
+        buckets = [seen[i] for i in sorted(seen)]
+        same = 0
+        for g, p, bucket in zip(graphs, preds, buckets):
+            prog, pb = program_of(engine, g, bucket)
+            same += bool(np.array_equal(
+                p, prog.wait(prog.enqueue(pb))[0][0]))
+        engine.close()
+    log("packed", f"{label}, max_batch 8 under deterministic algorithms: "
+        f"{same}/{len(graphs)} answers bitwise equal to the graph served "
+        f"alone in its packed bucket ({len(set(buckets))} buckets); on "
+        f"{card}")
+    if same != len(graphs):
+        raise AssertionError(f"{label}: packed answers are not bitwise the "
+                             f"graphs served alone")
+    return {"bitwise_alone": same, "graphs": len(graphs),
+            "buckets": len(set(buckets))}
+
+
+def packed_largest(card: str) -> dict:
+    """GIN ``fused_layer`` at the paper's largest batch: 1,024
+    ``molhiv_like(seed=0)`` graphs in one batch (``max_batch`` 1,024),
+    counts from 0: its bucket, the batch's replay span, the first 16
+    answers within ``EAGER_RTOL`` of those graphs served through
+    ``process``, the kernel events of a pass under the profiler
+    (``profiled_pass``), and ``layer_fused`` on GIN's first layer at that
+    bucket against its plain version and its bound."""
+    import torch
+    from repro_torch.core.engine import GraphStreamEngine, StreamStats
+    from repro_torch.core.message_passing import DataflowConfig
+    from repro_torch.core.packing import PackedBatch, PackItem
+    from repro_torch.data.graphs import molhiv_like
+    from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
+    cfg, params = init_params("gin", "cuda")
+    graphs = list(molhiv_like(seed=0, n_graphs=PACKED_LARGEST))
+    label = f"GIN fused_layer, max_batch {PACKED_LARGEST}"
+    engine = GraphStreamEngine(cfg, params, DataflowConfig(
+        impl="fused_layer"), device="cuda")
+    ref = [engine.process(*graph_args(g)) for g in graphs[:16]]
+    engine.close()
+    engine = GraphStreamEngine(cfg, params, DataflowConfig(
+        impl="fused_layer"), device="cuda", max_batch=PACKED_LARGEST,
+        max_wait_ms=600_000.0, eager_flush=False)
+
+    def run():
+        stream(engine, graphs, record=False)       # builds the bucket
+        engine.stats = StreamStats()
+        done = completed(engine)
+        preds, wall = stream(engine, graphs)
+        seen = buckets_by_request(done)
+        summary = engine.stats.summary()
+        on_device, _, _ = profiled_pass(label, engine, {"layer_fused": 5},
+                                        lambda: stream(engine, graphs))
+        return preds, wall, seen, summary, on_device
+    (preds, wall, seen, summary, on_device), counts = counted(run)
+    programs = len(engine.compiled)
+    check_launches("packed", label, counts, {"layer_fused": 10 * programs},
+                   "5 per forward x 2 (warm-up run, capture) per program")
+    (bucket,) = set(seen.values())
+    worst = max(rel_diff(p, r) for p, r in zip(preds, ref))
+    if worst > EAGER_RTOL:
+        raise AssertionError(f"{label}: answers disagree with process")
+    engine.close()
+    pb = PackedBatch(items=[PackItem(*graph_args(g)) for g in graphs],
+                     node_pad=bucket[0], edge_pad=bucket[1],
+                     graph_pad=bucket[2])
+    kw = main_path_inputs("gin", "fused_layer", "layer_fused",
+                          pb.build(pos_dim=cfg.pos_dim, device="cuda"))[0]
+    out, plain = call(layer_fused, kw), call(layer_fused_ref, kw)
+    torch.cuda.synchronize()
+    err, rel, ok = close(out, plain)
+    if not ok:
+        raise AssertionError(f"{label}: layer_fused disagrees with its "
+                             f"plain version at {bucket}")
+    kw_np = to_numpy(kw)
+    lf = timed_row(card, "packed", f"layer_fused GIN L0 at {bucket}",
+                   lambda: call(layer_fused, kw),
+                   lambda: call(layer_fused_ref, kw),
+                   lf_bound(dict(kw_np, edge_mask=owned_edges(kw_np))),
+                   err=err, rel=rel, reps=11, inner=10)
+    log("packed", f"{label}: one batch of {summary['count']:.0f} graphs in "
+        f"bucket {bucket} ({sum(g.node_feat.shape[0] for g in graphs)} "
+        f"nodes, {sum(g.senders.shape[0] for g in graphs)} edges); its "
+        f"replay's span {summary['device_mean_ms'] * 1e3:.1f} us "
+        f"({summary['device_mean_ms'] * 1e3 / summary['count']:.3f} us a "
+        f"graph); p50 {summary['p50_ms']:.3f} ms; first 16 answers vs "
+        f"process worst {worst:.3e} (tol {EAGER_RTOL:g}); layer_fused "
+        f"there {lf['ms'] * 1e3:.2f} us (max_abs_err {err:.3e}); on {card}")
+    return {"bucket": list(bucket), "summary": summary, "wall_s": wall,
+            "worst_rel_vs_process": worst, "layer_fused": lf,
+            "launches": {k: events_by_symbol(on_device)[SYMBOL_OF[k]]
+                         if k == "layer_fused" else 0 for k in counts},
+            "wrapper_launches": counts}
+
+
+def two_tenants(card: str) -> dict:
+    """The reference example's two tenants
+    (``examples/gnn_streaming.py::stream_two_tenants``) on GIN
+    ``fused_layer``, 64 ``molhiv_like(seed=0)`` graphs: a bulk queue
+    (weight 1, 20 ms, max_batch 16) given each graph three times, then a
+    latency queue (weight 16, 1 ms, max_batch 2) given the first 16, after
+    ``warmup_all`` and one unrecorded pass, then a pass under the profiler
+    (``profiled_pass``); counts from 0. Per-queue p50 / p90 (profiler off);
+    whether the latency queue's p90 is below the bulk queue's is a reading,
+    not a check."""
+    from repro_torch.core.engine import GraphStreamEngine, StreamStats
+    from repro_torch.core.message_passing import DataflowConfig
+    from repro_torch.core.scheduler import QueueConfig
+    from repro_torch.data.graphs import molhiv_like
+    cfg, params = init_params("gin", "cuda")
+    graphs = list(molhiv_like(seed=0, n_graphs=64))
+    queues = [QueueConfig("bulk", weight=1.0, max_wait_ms=20.0,
+                          max_batch=16),
+              QueueConfig("latency", weight=16.0, max_wait_ms=1.0,
+                          max_batch=2)]
+    engine = GraphStreamEngine(cfg, params, DataflowConfig(
+        impl="fused_layer"), device="cuda", queues=queues, eager_flush=False)
+
+    def tenants():
+        bulk = [engine.submit(*graph_args(g), queue="bulk")
+                for g in graphs for _ in range(3)]
+        lat = [engine.submit(*graph_args(g), queue="latency")
+               for g in graphs[:16]]
+        engine.drain(timeout=600)
+        return [f.result(timeout=60) for f in bulk + lat]
+
+    def run():
+        engine.warmup_all()
+        tenants()
+        engine.stats = StreamStats()
+        preds = tenants()
+        summary = engine.stats.summary()
+        on_device, _, _ = profiled_pass("two tenants", engine,
+                                        {"layer_fused": 5}, tenants)
+        return preds, summary, on_device
+    (preds, s, on_device), counts = counted(run)
+    programs = len(engine.compiled)
+    check_launches("packed", "two tenants", counts,
+                   {"layer_fused": 10 * programs},
+                   "5 per forward x 2 (warm-up run, capture) per program")
+    if not all(np.isfinite(p).all() for p in preds):
+        raise AssertionError("two tenants: non-finite answers")
+    engine.close()
+    out = {q: {k: s["queues"][q][k] for k in ("count", "p50_ms", "p90_ms",
+                                              "mean_batch_size")}
+           for q in ("bulk", "latency")}
+    below = out["latency"]["p90_ms"] < out["bulk"]["p90_ms"]
+    for q, row in out.items():
+        log("packed", f"two tenants, GIN fused_layer: queue {q:8s} "
+            f"{row['count']:.0f} graphs, p50 {row['p50_ms']:.3f} ms, p90 "
+            f"{row['p90_ms']:.3f} ms, mean batch "
+            f"{row['mean_batch_size']:.2f}; on {card}")
+    log("packed", f"two tenants: the latency queue's p90 is "
+        f"{'below' if below else 'NOT below'} the bulk queue's (a reading)")
+    out.update({"latency_p90_below_bulk": below, "programs": programs,
+                "launches": {k: events_by_symbol(on_device)[SYMBOL_OF[k]]
+                             if k == "layer_fused" else 0 for k in counts},
+                "wrapper_launches": counts})
+    return out
+
+
+def packed_phase(card: str, graphs) -> dict:
+    """Phase 4c: each of ``HOST_PATHS`` serves phase 4's 72 graphs through
+    ``submit`` / ``drain`` at each of ``PACKED_RUNS`` (``packed_run``) and
+    under deterministic algorithms (``packed_deterministic``); then GIN at
+    max_batch 1,024 (``packed_largest``) and the two tenants
+    (``two_tenants``). Each run's answers against the same graphs served
+    through ``process``. {path name: its row}, each with ``launches``."""
+    from repro_torch.core.engine import GraphStreamEngine
+    from repro_torch.core.message_passing import DataflowConfig
+    out = {}
+    for name, impl in HOST_PATHS:
+        label = f"{name.upper()} {impl}"
+        cfg, params = init_params(name, "cuda")
+        engine = GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
+                                   device="cuda")
+        ref = [engine.process(*graph_args(g)) for g in graphs]
+        engine.close()
+        for max_batch, eager_flush in PACKED_RUNS:
+            key = (f"packed{max_batch}{'_eager' if eager_flush else ''}_"
+                   f"{name}_{impl}")
+            out[key] = packed_run(card, label, name, impl, graphs, ref,
+                                  max_batch=max_batch,
+                                  eager_flush=eager_flush)
+        out[f"packed8_{name}_{impl}"]["deterministic"] = (
+            packed_deterministic(card, label, name, impl, graphs))
+    out[f"packed{PACKED_LARGEST}_gin_fused_layer"] = packed_largest(card)
+    out["packed_two_tenants_gin_fused_layer"] = two_tenants(card)
     return out
 
 
 def record_main_inputs():
     """What each path of phase 4 hands its kernel in its first two layers
     (the first reads the raw features or their encoding, the second the
-    hidden width), with the slice's own models and seeds, at both buckets:
-    ({kernel: {case name: inputs}}, {bucket: its edge stream in numpy})."""
+    hidden width), with the slice's own models and seeds, at both buckets,
+    and what each path of phase 4c hands its kernels at its first packed
+    batch of max_batch 8 and 64 (``packed_buckets``): ({kernel: {case
+    name: inputs}}, {bucket: its edge stream in numpy}, the two batch-1
+    buckets only)."""
     users = {"layer_fused": (("gin", "fused_layer"), ("gcn", "fused_layer"),
                              ("pna", "fused_layer"), ("dgn", "fused_layer"),
                              ("gin_vn", "fused_layer")),
@@ -3211,7 +3638,34 @@ def record_main_inputs():
                                                         batch)):
                     main_inputs[kernel][
                         f"{key}_{name}_{impl}_L{l}_{bucket}"] = kw
+    # phase 4c's paths at their first packed bucket
+    for key, bucket, batch in packed_buckets():
+        for (name, impl), per_graph in HOST_LAUNCHES.items():
+            for kernel in per_graph:
+                for l, kw in enumerate(main_path_inputs(name, impl, kernel,
+                                                        batch)):
+                    main_inputs[kernel][
+                        f"{key}_{name}_{impl}_L{l}_{bucket}"] = kw
     return main_inputs, bucket_edges
+
+
+def packed_buckets(device: str = "cuda"):
+    """Phase 4c's first batch at max_batch 8 and at 64: the first 8 and 64
+    ``molhiv_like(seed=0)`` graphs packed and padded as the packer seals
+    them (the engine's bucket table), (key, bucket name, batch)."""
+    from repro_torch.core.graph import pad_bucket
+    from repro_torch.core.packing import DEFAULT_BUCKETS, PackedBatch, PackItem
+    from repro_torch.data.graphs import molhiv_like
+    graphs = list(molhiv_like(seed=0, n_graphs=64))
+    for key, k in (("g", 8), ("h", 64)):
+        items = [PackItem(*graph_args(g)) for g in graphs[:k]]
+        pb = PackedBatch(
+            items=items,
+            node_pad=pad_bucket(sum(it.num_nodes for it in items),
+                                DEFAULT_BUCKETS),
+            edge_pad=pad_bucket(sum(it.num_edges for it in items),
+                                DEFAULT_BUCKETS), graph_pad=k)
+        yield key, f"packed{k}_bucket", pb.build(device=device)
 
 
 def main() -> int:
@@ -3259,10 +3713,14 @@ def main() -> int:
     scatter_rows = {k: scatter_kernel_phase(card, k, main_inputs[k])
                     for k in SCATTER_CASES}
 
-    # 4. the slice end to end, 4b. its host path, eager against captured
+    # 4. the slice end to end, 4b. its host path, eager against captured,
+    # 4c. packed serving through submit / drain
     graphs = slice_graphs()
     paths = slice_phase(card, graphs)
     log("host", "json " + json.dumps(host_phase(card, graphs)))
+    packed = packed_phase(card, graphs)
+    log("packed", "json " + json.dumps(packed, default=str))
+    paths.update(packed)
 
     # 5. the NT kernels through their entry points, 6. the MoE data path
     nt_rows, paths["nt"] = nt_phase(card, bucket_edges)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -164,22 +164,25 @@ def build_graph_batch(
 
 
 class BatchStaging:
-    """One bucket's padded batch in one host buffer and one device buffer
-    of the same layout, so that a graph reaches the device in one copy.
+    """One bucket's padded batch in ``slots`` host buffers and one device
+    buffer of the same layout, so that a graph reaches the device in one
+    copy.
 
     The nine arrays of a ``GraphBatch`` (:func:`batch_layout`) lie in each
     buffer at offsets aligned to ``STAGING_ALIGN`` bytes. ``stage`` pads a
-    raw graph straight into numpy views of the host buffer (pinned when
-    ``pin``, as a CUDA device wants for an asynchronous copy); ``upload``
-    enqueues the one copy of the used extent on the current stream;
-    ``batch`` is a ``GraphBatch`` of views into the device buffer, the same
-    tensors every time (what a captured CUDA graph reads). The host buffer
-    may be written again once that copy has run.
+    raw graph (or packed graphs, with their ``graph_offsets``) straight into
+    numpy views of one host slot (pinned when ``pin``, as a CUDA device
+    wants for an asynchronous copy); ``upload`` enqueues the one copy of a
+    slot's used extent on the current stream; ``batch`` is a ``GraphBatch``
+    of views into the device buffer, the same tensors every time (what a
+    captured CUDA graph reads). A host slot may be written again once its
+    copy has run: several slots let the host pad the next batch while the
+    copy of the one before is still queued.
     """
 
     def __init__(self, node_pad: int, edge_pad: int, graph_pad: int,
                  widths: Tuple[int, int, int], device: DeviceLike = None, *,
-                 pin: bool = False):
+                 pin: bool = False, slots: int = 1):
         dev = resolve_device(device)
         layout = batch_layout(node_pad, edge_pad, graph_pad, *widths)
         offsets, end = {}, 0
@@ -188,15 +191,17 @@ class BatchStaging:
             offsets[name] = start
             end = start + int(np.prod(shape)) * dtype.itemsize
         self.nbytes = end
-        self.host = torch.empty(end, dtype=torch.uint8, pin_memory=pin)
+        self.hosts = [torch.empty(end, dtype=torch.uint8, pin_memory=pin)
+                      for _ in range(slots)]
         self.device_buf = torch.empty(end, dtype=torch.uint8, device=dev)
-        host = self.host.numpy()
-        self.arrays: Dict[str, np.ndarray] = {}
+        self.slot_arrays: List[Dict[str, np.ndarray]] = [
+            {} for _ in range(slots)]
         fields = {}
         for name, (shape, dtype) in layout.items():
             size = int(np.prod(shape)) * dtype.itemsize
             at = slice(offsets[name], offsets[name] + size)
-            self.arrays[name] = host[at].view(dtype).reshape(shape)
+            for host, arrays in zip(self.hosts, self.slot_arrays):
+                arrays[name] = host.numpy()[at].view(dtype).reshape(shape)
             fields[name] = self.device_buf[at].view(
                 _TORCH_DTYPES[dtype]).view(shape)
         self.batch = GraphBatch(**fields)
@@ -205,16 +210,16 @@ class BatchStaging:
               receivers: np.ndarray, *,
               edge_feat: Optional[np.ndarray] = None,
               graph_offsets: Optional[np.ndarray] = None,
-              node_pos: Optional[np.ndarray] = None) -> None:
-        """Pad a raw graph into the host buffer (every byte of the layout's
-        arrays is written)."""
-        pad_graph_into(self.arrays, node_feat, senders, receivers,
+              node_pos: Optional[np.ndarray] = None, slot: int = 0) -> None:
+        """Pad a raw graph into host slot ``slot`` (every byte of the
+        layout's arrays is written)."""
+        pad_graph_into(self.slot_arrays[slot], node_feat, senders, receivers,
                        edge_feat=edge_feat, graph_offsets=graph_offsets,
                        node_pos=node_pos)
 
-    def upload(self) -> None:
-        """Enqueue the host buffer's copy to the device buffer."""
-        self.device_buf[:self.nbytes].copy_(self.host[:self.nbytes],
+    def upload(self, slot: int = 0) -> None:
+        """Enqueue host slot ``slot``'s copy to the device buffer."""
+        self.device_buf[:self.nbytes].copy_(self.hosts[slot][:self.nbytes],
                                             non_blocking=True)
 
 

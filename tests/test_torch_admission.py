@@ -156,6 +156,7 @@ def test_require_finite_knob():
         assert np.isfinite(out).all()
     with _engine() as eng:
         fut = eng.submit(nan_feat, g.senders, g.receivers, g.edge_feat)
+        eng.drain(timeout=60)
         assert fut.done()
 
 

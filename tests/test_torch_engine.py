@@ -1,4 +1,5 @@
-"""The port's batch-1 engine against the JAX package's, on the CPU."""
+"""The port's engine against the JAX package's, on the CPU, one graph at a
+time through ``process``."""
 
 import numpy as np
 import pytest
@@ -58,18 +59,21 @@ def test_engine_matches_reference_engine():
     assert summary["count"] == len(graphs)
     for k in ("p50_ms", "p90_ms", "p99_ms", "throughput_gps"):
         assert summary[k] > 0
-    # molecules land in (32, 64|128), kNN graphs in (64, 1024): one pass
-    # per layer in each bucket
-    assert (32, 64, 1) in passes and (64, 1024, 1) in passes
+    # molecules land in (32, 64|128), kNN graphs in (64, 1024), each bucket
+    # padded to the queue's max_batch (8) graph slots as in the reference:
+    # one pass per layer in each bucket
+    assert (32, 64, 8) in passes and (64, 1024, 8) in passes
     assert set(passes.values()) == {jcfg.num_layers}
 
 
 def test_submit_returns_resolved_future(port_engine):
+    """``submit`` returns a Future that resolves, without a drain, to what
+    ``process`` answers for the same graph."""
     g = next(molhiv_like(seed=1, n_graphs=1))
     fut = port_engine.submit(*_args(g))
-    assert fut.done()
-    np.testing.assert_array_equal(fut.result(),
+    np.testing.assert_array_equal(fut.result(timeout=60),
                                   port_engine.process(*_args(g)))
+    assert fut.done()
 
 
 def test_malformed_graph_raises_invalid_graph(port_engine):

@@ -152,8 +152,10 @@ def test_bucket_builds_its_program_once(monkeypatch):
     keys = set()
     for g in graphs:
         eng.process(*_args(g))
+        # the reference's rule: graph_pad is the queue's max_batch
         keys.add((tgraph.pad_bucket(g.node_feat.shape[0], eng.buckets),
-                  tgraph.pad_bucket(g.senders.shape[0], eng.buckets), 1))
+                  tgraph.pad_bucket(g.senders.shape[0], eng.buckets),
+                  eng._scheduler.graph_pads()[0]))
         if len(eng.compiled) == 1:
             first = next(iter(eng.compiled.values()))
     assert len(made) == len(eng.compiled) == len(keys)
@@ -280,7 +282,8 @@ def card():
 
 
 def _eager(eng, g, runs=2):
-    """The parent's forward, composed: ``build_graph_batch`` on the card,
+    """The eager forward, composed: ``build_graph_batch`` on the card in the
+    engine's bucket for ``g`` (``graph_pad`` the queue's max_batch),
     ``model.apply``, the output on the host; ``runs`` times, which must be
     bitwise equal (deterministic algorithms). One run's output."""
     node_pad, edge_pad = (tgraph.pad_bucket(g.node_feat.shape[0],
@@ -290,8 +293,8 @@ def _eager(eng, g, runs=2):
     for _ in range(runs):
         batch = tgraph.build_graph_batch(
             g.node_feat, g.senders, g.receivers, node_pad=node_pad,
-            edge_pad=edge_pad, pos_dim=eng.cfg.pos_dim, device=eng.device,
-            **_raw(g))
+            edge_pad=edge_pad, graph_pad=eng._scheduler.graph_pads()[0],
+            pos_dim=eng.cfg.pos_dim, device=eng.device, **_raw(g))
         with torch.inference_mode():
             out = eng.model.apply(eng.params, batch, eng.cfg, eng.dataflow)
         outs.append(out.cpu().numpy()[0])
