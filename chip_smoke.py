@@ -117,6 +117,30 @@ Phases, each printing its own lines:
                Phase 3 also checks these paths' kernels at their first
                packed batch of max_batch 8 and 64. One ``[packed] json``
                line holds them all.
+  4d. faults — GIN ``fused_layer`` at the paper config through ``submit`` /
+               ``drain`` at max_batch 8 on 16 molecules and 4 kNN graphs of
+               phase 4, counts from 0, with faults planted (``FaultInjector``):
+               (a) a poison graph fails alone with ``PoisonGraph``, the others
+               bitwise the fault-free run under deterministic algorithms
+               (1e-5 as served), no program built for retries or bisection;
+               (b) a NaN output trips the breaker, the bucket re-captured on
+               ``pipeline``: its kernel nodes and one replay's device events
+               hold ``mp_pipeline`` and no ``layer_fused``, answers within
+               1e-4 of rung 0's; (c) ``break_impl("fused_layer")`` under
+               audits of every batch: the audit demotes exactly that
+               bucket, a probe of the broken rung is demoted again, a probe
+               after ``fix_impl`` brings ``layer_fused`` back (nodes and
+               events); (d) ``update_params`` to seed-1 weights under live
+               traffic: every answer within 1e-5 of the eager forward under
+               the version its batch ran, no bucket captured again, the
+               copy into the captured weights timed; a NaN leaf refused,
+               answers bitwise unchanged; (e) two executors on the card:
+               one killed (work re-placed, every future once, respawned),
+               one stalled past the watchdog (``DeadlineExceeded``,
+               respawned, its programs and pool kept); (f) a checkpoint
+               round trip serves bitwise. Phases 4–4c must trip no breaker,
+               4d only where it plants a fault, never on a build failure.
+               One ``[faults] json`` line.
   5. nt      — ``ops.nt_mlp`` and ``ops.fused_nt_scatter`` driven at GIN's
                MLP (100->200->100) on the serving buckets' graphs and at
                the standard point (N=1024, E=4096, MLP 64->128->64), and
@@ -183,7 +207,7 @@ import subprocess
 import sys
 import time
 import warnings
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -3425,7 +3449,7 @@ def packed_deterministic(card: str, label: str, name: str, impl: str,
         for g, p, bucket in zip(graphs, preds, buckets):
             prog, pb = program_of(engine, g, bucket)
             same += bool(np.array_equal(
-                p, prog.wait(prog.enqueue(pb))[0][0]))
+                p, prog.wait(prog.enqueue(pb, prog.params))[0][0]))
         engine.close()
     log("packed", f"{label}, max_batch 8 under deterministic algorithms: "
         f"{same}/{len(graphs)} answers bitwise equal to the graph served "
@@ -3610,6 +3634,634 @@ def packed_phase(card: str, graphs) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: failure semantics and defense in depth on the captured programs
+# ---------------------------------------------------------------------------
+
+# every breaker trip of every engine since ``record_trips``: (engine id,
+# bucket, reason). Phases 4-4c must add none (a kernel that fails to build
+# or launch would otherwise be served quietly on a lower rung); phase 4d
+# only the ones it plants.
+TRIPS: list = []
+FAULT_WAIT_MS = 10_000.0     # batches flush when full or at the drain
+FAULT_COOLDOWN_S = 0.5       # (c): the breaker's cooldown before a probe
+FAULT_TIMEOUT_S = 0.5        # (e): the watchdog's in-flight timeout
+FAULT_STALL_S = 1.5          # (e): the injected stall, past the timeout
+CHECKPOINTS = REPO / "build" / "repro_torch" / "checkpoints"
+
+
+def record_trips() -> None:
+    """Keep every breaker trip of every ``GraphStreamEngine`` in
+    ``TRIPS`` from now on."""
+    from repro_torch.core.engine import GraphStreamEngine
+    real = GraphStreamEngine._record_trip_locked
+
+    def recorded(self, key, reason, now):
+        TRIPS.append((id(self), key, reason))
+        return real(self, key, reason, now)
+    GraphStreamEngine._record_trip_locked = recorded
+
+
+def check_trips(where: str, planted: list) -> None:
+    """Raise unless the trips recorded since the last check are exactly
+    ``planted`` (reasons, in order), and none is a build failure."""
+    seen = [reason for _, _, reason in TRIPS]
+    TRIPS.clear()
+    log("faults", f"{where}: breaker trips {seen} (planted {planted})")
+    if any(r.startswith("build_failure") for r in seen):
+        raise AssertionError(f"{where}: a program failed to build and the "
+                             f"breaker served a lower rung: {seen}")
+    if seen != planted:
+        raise AssertionError(f"{where}: breaker trips {seen}, planted "
+                             f"{planted}")
+
+
+@contextmanager
+def captures():
+    """Every ``CapturedProgram`` built while the block runs, in order."""
+    from repro_torch.core import engine as tengine
+    real = tengine.CapturedProgram.__init__
+    built = []
+
+    def counting(self, *args, **kw):
+        real(self, *args, **kw)
+        built.append(self)
+    tengine.CapturedProgram.__init__ = counting
+    try:
+        yield built
+    finally:
+        tengine.CapturedProgram.__init__ = real
+
+
+def fault_engine(params, **kw):
+    """GIN ``fused_layer`` at the paper config through ``submit`` / ``drain``
+    at max_batch 8, batches sealed when full or at the drain (no eager
+    flush): the same stream packs the same way every run."""
+    from repro_torch.core.engine import GraphStreamEngine
+    from repro_torch.core.message_passing import DataflowConfig
+    from repro_torch.core.models import PAPER_GNN_CONFIGS
+    kw.setdefault("device", "cuda")
+    return GraphStreamEngine(PAPER_GNN_CONFIGS["gin"], params,
+                             DataflowConfig(impl="fused_layer"), max_batch=8,
+                             max_wait_ms=FAULT_WAIT_MS, eager_flush=False,
+                             **kw)
+
+
+def submit_all(engine, graphs) -> list:
+    """Submit ``graphs``, drain; the futures, every one resolved."""
+    futs = [engine.submit(*graph_args(g)) for g in graphs]
+    engine.drain(timeout=600)
+    if not all(f.done() for f in futs):
+        raise AssertionError("a future was left unresolved")
+    return futs
+
+
+def answers(engine, graphs) -> list:
+    return [f.result(timeout=60) for f in submit_all(engine, graphs)]
+
+
+def breaker(engine) -> dict:
+    return {k: v["breaker"] for k, v in engine.autotune_report().items()
+            if "breaker" in v}
+
+
+def only_program(engine, bucket):
+    (prog,) = [p for (b, _), p in engine.compiled.items() if b == bucket]
+    return prog
+
+
+def nodes_by_symbol(prog, tag: str) -> dict:
+    GRAPH_DUMPS.mkdir(parents=True, exist_ok=True)
+    nodes = kernel_nodes(prog, GRAPH_DUMPS / f"faults_{tag}.dot")
+    return {sym: sum(sym in n for n in nodes) for sym in KERNEL_SYMBOLS}
+
+
+def alone_in(engine, g, bucket, params):
+    """``g`` alone in ``bucket`` through the eager forward under
+    ``params``: what a captured replay of that bucket must answer."""
+    import torch
+    from repro_torch.core.graph import build_graph_batch
+    batch = build_graph_batch(
+        g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
+        node_pos=g.node_pos, node_pad=bucket[0], edge_pad=bucket[1],
+        graph_pad=bucket[2], pos_dim=engine.cfg.pos_dim, device="cuda")
+    with torch.inference_mode():
+        out = engine.model.apply(params, batch, engine.cfg, engine.dataflow)
+    return out.cpu().numpy()[0]
+
+
+def faults_poison(card: str, params, gs) -> dict:
+    """(a) Request 3 poisoned in a packed batch: exactly one
+    ``PoisonGraph``, every other answer bitwise the fault-free run's under
+    deterministic algorithms and within ``EAGER_RTOL`` as served, and no
+    program built beyond the fault-free run's."""
+    from repro_torch.core.errors import PoisonGraph
+    from repro_torch.core.faults import FaultInjector
+    runs = {}
+    for tag, det, poison in (("fault-free", True, False),
+                             ("poisoned", True, True),
+                             ("poisoned as served", False, True)):
+        with (deterministic() if det else nullcontext()), \
+                captures() as built:
+            inj = FaultInjector(seed=0)
+            if poison:
+                inj.poison_request(3)
+            eng = fault_engine(params, fault_injector=inj)
+            done = completed(eng)
+            futs = submit_all(eng, gs)
+            s = eng.stats.summary()
+            eng.close()
+        runs[tag] = {"futs": futs, "captures": len(built), "summary": s,
+                     "replays": sum(d.err is None for d in done),
+                     "failed_dispatches": sum(d.err is not None
+                                              for d in done),
+                     "injected": inj.summary()["dispatch_error"]}
+    ref = [f.result() for f in runs["fault-free"]["futs"]]
+    out = {}
+    for tag in ("poisoned", "poisoned as served"):
+        r = runs[tag]
+        failed = [i for i, f in enumerate(r["futs"])
+                  if f.exception() is not None]
+        if failed != [3] or not isinstance(r["futs"][3].exception(),
+                                           PoisonGraph):
+            raise AssertionError(f"(a) {tag}: failed futures {failed}, "
+                                 f"expected one PoisonGraph at 3")
+        got = [f.result() for i, f in enumerate(r["futs"]) if i != 3]
+        want = [a for i, a in enumerate(ref) if i != 3]
+        bitwise = sum(bool(np.array_equal(a, b)) for a, b in zip(got, want))
+        worst = max(rel_diff(a, b) for a, b in zip(got, want))
+        log("faults", f"(a) {tag}: one PoisonGraph (request 3); the "
+            f"{len(got)} others bitwise the fault-free run on {bitwise}, "
+            f"worst {worst:.3e} (tol {EAGER_RTOL:g}); programs captured "
+            f"{r['captures']} (fault-free {runs['fault-free']['captures']}); "
+            f"replays {r['replays']} against {runs['fault-free']['replays']}"
+            f", dispatches failed {r['failed_dispatches']}; retries "
+            f"{r['summary']['retries']}, quarantined "
+            f"{r['summary']['quarantined_graphs']}; on {card}")
+        if tag == "poisoned" and bitwise != len(got):
+            raise AssertionError("(a) survivors are not bitwise the "
+                                 "fault-free run under deterministic "
+                                 "algorithms")
+        if worst > EAGER_RTOL:
+            raise AssertionError(f"(a) {tag}: survivors disagree with the "
+                                 f"fault-free run")
+        if r["captures"] != runs["fault-free"]["captures"]:
+            raise AssertionError(f"(a) {tag}: retries or bisection built "
+                                 f"a program")
+        out[tag] = {"bitwise": bitwise, "worst_rel": worst,
+                    "captures": r["captures"], "replays": r["replays"],
+                    "failed_dispatches": r["failed_dispatches"],
+                    "retries": r["summary"]["retries"]}
+    out["fault_free"] = {k: runs["fault-free"][k]
+                         for k in ("captures", "replays")}
+    out["retry_replays"] = (runs["poisoned"]["replays"]
+                            - runs["fault-free"]["replays"])
+    return out
+
+
+def faults_nan(card: str, params, gs) -> dict:
+    """(b) Request 2 of 8 copies of one molecule (one batch, one bucket)
+    NaN-injected: one ``PoisonGraph``, the bucket demoted to ``pipeline``;
+    its re-captured program's kernel nodes and the profiler's device events
+    of its replay hold ``mp_pipeline`` and no ``layer_fused``; its answers
+    within ``SLICE_RTOL`` of rung 0's. Then two more NaN graphs (requests
+    26 and 34, in the fourth and fifth batches): the card's ladder ends at
+    ``pipeline``, so both trips leave the bucket on the same program."""
+    from repro_torch.core.errors import PoisonGraph
+    from repro_torch.core.faults import FaultInjector
+    batch = [gs[0]] * 8
+    inj = FaultInjector(seed=0).nan_request(2).nan_request(26)
+    inj.nan_request(34)
+    eng = fault_engine(params, breaker_cooldown_s=3600.0,
+                       fault_injector=inj)
+    futs = submit_all(eng, batch)
+    if ([i for i, f in enumerate(futs) if f.exception() is not None] != [2]
+            or not isinstance(futs[2].exception(), PoisonGraph)):
+        raise AssertionError("(b) the NaN graph was not the one quarantined")
+    rung0 = [f.result() for i, f in enumerate(futs) if i != 2]
+    health = breaker(eng)
+    (bucket_s, h), = health.items()
+    if (h["level"], h["last_reason"], h["serving_impl"]) != (
+            1, "nan_gate", "pipeline"):
+        raise AssertionError(f"(b) the bucket was not demoted: {health}")
+    with captures() as built:
+        demoted = answers(eng, batch)
+    bucket = tuple(map(int, bucket_s.split("x")))
+    prog = only_program(eng, bucket)
+    if built != [prog]:
+        raise AssertionError("(b) the demoted bucket was not re-captured "
+                             "once")
+    nodes = nodes_by_symbol(prog, "nan_demoted")
+    _, on_device = device_kernels(lambda: answers(eng, batch))
+    worst = max(rel_diff(a, b) for a, b in zip(demoted[:7], rung0))
+    log("faults", f"(b) NaN gate: bucket {bucket} demoted to pipeline "
+        f"({h}); re-captured in {prog.build_s * 1e3:.1f} ms; its kernel "
+        f"nodes by symbol {nodes}; one replay's device events {on_device}; "
+        f"answers vs rung 0 worst {worst:.3e} (tol {SLICE_RTOL:g}); on "
+        f"{card}")
+    if (nodes["mp_pipeline_kernel"] != 5 or nodes["layer_fused_kernel"]
+            or on_device["mp_pipeline_kernel"] != 5
+            or on_device["layer_fused_kernel"]):
+        raise AssertionError("(b) the demoted bucket does not run "
+                             "mp_pipeline alone")
+    if worst > SLICE_RTOL:
+        raise AssertionError("(b) the demoted bucket's answers disagree "
+                             "with rung 0's")
+    with captures() as again:
+        for _ in range(2):
+            futs = submit_all(eng, batch)
+            if not isinstance(futs[2].exception(), PoisonGraph):
+                raise AssertionError("(b) a later NaN graph was not "
+                                     "quarantined")
+    (h,) = breaker(eng).values()
+    log("faults", f"(b) two more NaN graphs: {h}; programs captured "
+        f"{len(again)}; on {card}")
+    if ((h["level"], h["serving_impl"]) != (1, "pipeline") or again
+            or only_program(eng, bucket) is not prog):
+        raise AssertionError("(b) the card's ladder went below pipeline")
+    eng.close()
+    return {"bucket": list(bucket), "recapture_ms": prog.build_s * 1e3,
+            "kernel_nodes": nodes, "device_events": on_device,
+            "worst_rel_vs_rung0": worst,
+            "floor": {"level": h["level"], "serving": h["serving_impl"]}}
+
+
+def faults_audit(card: str, params, gs) -> dict:
+    """(c) ``break_impl("fused_layer")`` under audits of every batch: a
+    bystander bucket and the bucket under attack (8 copies of one
+    molecule) served and audited clean, then the attack: the audit demotes
+    exactly that bucket; after the cooldown a probe serves the broken rung
+    again and is demoted; after ``fix_impl`` a probe confirms and the
+    bucket's replays launch ``layer_fused`` again."""
+    from repro_torch.core.faults import FaultInjector
+    inj = FaultInjector(seed=0)
+    eng = fault_engine(params, fault_injector=inj, audit_sample_rate=1.0,
+                       breaker_cooldown_s=FAULT_COOLDOWN_S)
+    attacked, bystander = [gs[1]] * 8, gs[-4:-2]
+
+    def wave(graphs):
+        out = answers(eng, graphs)
+        if not eng.flush_audits(timeout=120):
+            raise AssertionError("(c) the audits did not finish")
+        return out
+    wave(bystander)
+    ref = wave(attacked)
+    if breaker(eng):
+        raise AssertionError("(c) a clean audit tripped the breaker")
+    ladder = []
+    with captures() as built:
+        inj.break_impl("fused_layer", eps=0.05)
+        wave(attacked)
+        ladder.append(("broken", dict(breaker(eng))))
+        time.sleep(FAULT_COOLDOWN_S)
+        wave(attacked)           # served on pipeline; its completion probes
+        wave(attacked)           # the probe, on the broken fused_layer
+        ladder.append(("probe of the broken rung", dict(breaker(eng))))
+        inj.fix_impl("fused_layer")
+        time.sleep(FAULT_COOLDOWN_S)
+        wave(attacked)
+        healed = wave(attacked)  # the probe, on the healed fused_layer
+        ladder.append(("healed", dict(breaker(eng))))
+    for tag, health in ladder:
+        log("faults", f"(c) {tag}: breaker {health}")
+    (bucket_s, first), = ladder[0][1].items()
+    if (first["level"], first["last_reason"], first["serving_impl"]) != (
+            1, "audit_mismatch", "pipeline"):
+        raise AssertionError("(c) the audit did not demote the bucket")
+    (_, probe), = ladder[1][1].items()
+    if (probe["level"], probe["probes"], probe["trips"]) != (1, 1, 2):
+        raise AssertionError("(c) the probe of the broken rung was not "
+                             "demoted again")
+    (_, last), = ladder[2][1].items()
+    if (last["level"], last["probing"], last["serving_impl"]) != (
+            0, False, "fused_layer"):
+        raise AssertionError("(c) the healed bucket was not promoted")
+    bucket = tuple(map(int, bucket_s.split("x")))
+    prog = only_program(eng, bucket)
+    nodes = nodes_by_symbol(prog, "audit_healed")
+    _, on_device = device_kernels(lambda: answers(eng, attacked))
+    worst = max(rel_diff(a, b) for a, b in zip(healed, ref))
+    audits = eng.stats.audits
+    per_s = audits / eng.audit_seconds
+    log("faults", f"(c) audits: {audits} on the CPU mirror in "
+        f"{eng.audit_seconds:.3f} s ({per_s:.1f} batches/s of 8 graphs), "
+        f"{eng.stats.audit_mismatches} mismatches; the bucket re-captured "
+        f"{len(built)} times ({', '.join(f'{p.build_s * 1e3:.1f}' for p in built)}"
+        f" ms); healed: kernel nodes {nodes}, one replay's device events "
+        f"{on_device}; answers vs before the attack worst {worst:.3e} (tol "
+        f"{EAGER_RTOL:g}); on {card}")
+    if (nodes["layer_fused_kernel"] != 5 or nodes["mp_pipeline_kernel"]
+            or on_device["layer_fused_kernel"] != 5
+            or on_device["mp_pipeline_kernel"]):
+        raise AssertionError("(c) the healed bucket does not run "
+                             "layer_fused alone")
+    if worst > EAGER_RTOL:
+        raise AssertionError("(c) the healed bucket's answers disagree")
+    eng.close()
+    return {"bucket": list(bucket), "audits": audits,
+            "audit_s": eng.audit_seconds, "audits_per_s": per_s,
+            "audit_mismatches": eng.stats.audit_mismatches,
+            "recaptures": len(built),
+            "recapture_ms": [p.build_s * 1e3 for p in built],
+            "ladder": ladder,
+            "healed_kernel_nodes": nodes, "healed_device_events": on_device}
+
+
+def faults_reload(card: str, params, gs) -> dict:
+    """(d) ``update_params`` to weights from seed 1 while traffic is in
+    flight (under deterministic algorithms): every answer within
+    ``EAGER_RTOL`` of the eager forward of its graph alone in its bucket
+    under the version its batch ran (what catches stale captured weights),
+    no bucket captured again, the copy into the captured weights timed;
+    then a canary with a NaN leaf raises ``ParamUpdateFailed`` and the
+    answers stay bitwise."""
+    import torch
+    from repro_torch.core.errors import ParamUpdateFailed
+    from repro_torch.core.models import PAPER_GNN_CONFIGS, make_gnn
+    cfg = PAPER_GNN_CONFIGS["gin"]
+    params1 = make_gnn(cfg).init(torch.Generator().manual_seed(1), cfg,
+                                 device="cuda")
+    out = {}
+    with deterministic():
+        eng = fault_engine(params)
+        answers(eng, gs)
+        before = {k: id(p) for k, p in eng.compiled.items()}
+        canary_s = []
+        real = eng._run_canary
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            try:
+                return real(*a)
+            finally:
+                canary_s.append(time.perf_counter() - t0)
+        eng._run_canary = timed
+        done = completed(eng)
+        with captures() as built:
+            futs = [eng.submit(*graph_args(g)) for g in gs[:10]]
+            t0 = time.perf_counter()
+            version = eng.update_params(params1)
+            update_s = time.perf_counter() - t0
+            futs += [eng.submit(*graph_args(g)) for g in gs]
+            eng.drain(timeout=600)
+        served = {it.payload.req_id: (d.batch.bucket, d.params_version)
+                  for d in done for it in d.batch.items}
+        first = min(served)
+        graphs = gs[:10] + gs
+        worst, bitwise, versions = 0.0, 0, {0: 0, 1: 0}
+        for i, (g, f) in enumerate(zip(graphs, futs)):
+            bucket, v = served[first + i]
+            want = alone_in(eng, g, bucket, params if v == 0 else params1)
+            got = f.result()
+            worst = max(worst, rel_diff(got, want))
+            bitwise += bool(np.array_equal(got, want))
+            versions[v] += 1
+        swapped = [ex for ex in eng._executors if ex.swaps]
+        swap_ms = [ex.swap_ms() for ex in swapped]
+        new = list(built)
+        for p in new:
+            key = next(k for k, q in eng.compiled.items() if q is p)
+            if key in before:
+                raise AssertionError(f"(d) bucket {key} was captured again")
+        if any(id(eng.compiled[k]) != v for k, v in before.items()
+               if k in eng.compiled):
+            raise AssertionError("(d) a program was rebuilt")
+        log("faults", f"(d) update_params to version {version} in "
+            f"{update_s * 1e3:.2f} ms (canary {canary_s[0] * 1e3:.2f} ms) "
+            f"under live traffic: {len(futs)} answers ({versions[0]} on "
+            f"version 0, {versions[1]} on version 1) vs the eager forward "
+            f"alone in their bucket under their version: worst "
+            f"{worst:.3e} (tol {EAGER_RTOL:g}), {bitwise} bitwise; the "
+            f"executor copied the new weights once into the tree its "
+            f"{len(before)} programs built before the swap read "
+            f"({', '.join(f'{m * 1e3:.2f}' for m in swap_ms)} us on the "
+            f"card), {len(new)} captured for new buckets; on {card}")
+        if worst > EAGER_RTOL or not versions[1] or not swapped:
+            raise AssertionError("(d) answers after the swap are not the "
+                                 "new weights'")
+        steady = answers(eng, gs)
+        nan = {k: v for k, v in params1.items()}
+        nan["node_enc"] = dict(params1["node_enc"])
+        nan["node_enc"]["w"] = params1["node_enc"]["w"].clone()
+        nan["node_enc"]["w"][0, 0] = float("nan")
+        try:
+            eng.update_params(nan)
+        except ParamUpdateFailed as exc:
+            refused = str(exc)
+        else:
+            raise AssertionError("(d) a canary with a NaN leaf passed")
+        again = answers(eng, gs)
+        same = sum(bool(np.array_equal(a, b)) for a, b in zip(steady, again))
+        log("faults", f"(d) NaN leaf: ParamUpdateFailed ({refused}); "
+            f"answers after it bitwise those before on {same}/{len(gs)}")
+        if same != len(gs):
+            raise AssertionError("(d) a refused update changed the answers")
+        out.update({"update_ms": update_s * 1e3,
+                    "canary_ms": canary_s[0] * 1e3,
+                    "swap_us": [m * 1e3 for m in swap_ms],
+                    "answers": len(futs), "on_version": versions,
+                    "worst_rel": worst, "bitwise": bitwise,
+                    "new_captures": len(new),
+                    "rollbacks": eng.stats.param_rollbacks})
+        eng.close()
+    return out
+
+
+def faults_death(card: str, params, graphs, gs) -> dict:
+    """(e) Two executors on the one card (``devices=["cuda:0"] * 2``, each
+    its own stream, graph pool and parameter replica). Executor 0 killed on
+    its third dispatch: its work re-placed on the survivor, every future
+    resolved once, the slot respawned; answers within ``EAGER_RTOL`` of a
+    fault-free pool's. Then a stall past ``inflight_timeout_s``:
+    ``DeadlineExceeded`` for its batch, its executor marked dead and
+    respawned, its programs and pool still referenced."""
+    from repro_torch.core.errors import DeadlineExceeded
+    from repro_torch.core.faults import FaultInjector
+    from repro_torch.core.graph import pad_bucket
+    pool = ["cuda:0", "cuda:0"]
+    clean = fault_engine(params, device=None, devices=pool)
+    ref = answers(clean, graphs)
+    reps = {id(ex.params["node_enc"]["w"]) for ex in clean._executors}
+    clean.close()
+    inj = FaultInjector(seed=0).kill_executor(0, after_batches=2)
+    eng = fault_engine(params, device=None, devices=pool,
+                       respawn_executors=True, fault_injector=inj)
+    resolved = {}
+    with captures() as built:
+        futs = [eng.submit(*graph_args(g)) for g in graphs]
+        for i, f in enumerate(futs):
+            f.add_done_callback(lambda f, i=i: resolved.__setitem__(
+                i, resolved.get(i, 0) + 1))
+        eng.drain(timeout=600)
+    s = eng.stats.summary()
+    got = [f.result(timeout=60) for f in futs]
+    worst = max(rel_diff(a, b) for a, b in zip(got, ref))
+    log("faults", f"(e) kill_executor(0, after_batches=2) on two executors "
+        f"of one card ({len(reps)} parameter replicas): {len(futs)} futures "
+        f"resolved {sorted(set(resolved.values()))} time(s) each; deaths "
+        f"{s['executor_deaths']}, respawns {s['respawns']}, retries "
+        f"{s['retries']}, pool degraded {s['pool_degraded']}; "
+        f"{len(built)} programs captured; answers vs a fault-free pool worst "
+        f"{worst:.3e} (tol {EAGER_RTOL:g}); on {card}")
+    if len(reps) != 2 or resolved != {i: 1 for i in range(len(futs))}:
+        raise AssertionError("(e) a future did not resolve exactly once, "
+                             "or the executors share a parameter replica")
+    if (inj.summary()["crash"] != 1 or s["executor_deaths"] != 1
+            or s["respawns"] != 1 or worst > EAGER_RTOL):
+        raise AssertionError("(e) the killed executor's work was not "
+                             "re-placed and its slot respawned")
+    eng.close()
+    kill = {"futures": len(futs), "deaths": s["executor_deaths"],
+            "respawns": s["respawns"], "retries": s["retries"],
+            "captures": len(built), "worst_rel": worst,
+            "replicas": len(reps)}
+
+    # the watchdog: warm the bucket of 8 copies of one molecule on both
+    # executors first (the in-flight clock counts a capture)
+    batch = [gs[2]] * 8
+    n, e = batch[0].node_feat.shape[0], batch[0].senders.shape[0]
+    inj = FaultInjector(seed=0, stall_s=FAULT_STALL_S)
+    eng = fault_engine(params, device=None, devices=pool,
+                       respawn_executors=True, fault_injector=inj,
+                       inflight_timeout_s=FAULT_TIMEOUT_S)
+    eng.warmup_all(pairs=[(pad_bucket(8 * n, eng.buckets),
+                           pad_bucket(8 * e, eng.buckets))])
+    inj.stall_request(eng._req_seq + 3)
+    t0 = time.perf_counter()
+    stamps = []
+    futs = [eng.submit(*graph_args(g)) for g in batch]
+    for f in futs:
+        f.add_done_callback(lambda f: stamps.append(time.perf_counter()))
+    eng.drain(timeout=600)
+    reclaim_s = max(stamps) - t0
+    if not all(isinstance(f.exception(), DeadlineExceeded) for f in futs):
+        raise AssertionError("(e) the stalled batch did not fail with "
+                             "DeadlineExceeded")
+    deadline = time.perf_counter() + 60
+    while not eng.stats.respawns and time.perf_counter() < deadline:
+        time.sleep(0.01)         # the respawn follows the reclaim
+    dead = eng._dead_executors
+    kept = (len(dead) == 1 and dead[0].dead and bool(dead[0].compiled)
+            and (dead[0].pool is not None or dead[0].device.type == "cpu"))
+    s = eng.stats.summary()
+    time.sleep(FAULT_STALL_S)         # the stalled completion, then dropped
+    after = answers(eng, batch)
+    log("faults", f"(e) stall of {FAULT_STALL_S} s past an in-flight "
+        f"timeout of {FAULT_TIMEOUT_S} s: 8 futures DeadlineExceeded "
+        f"{reclaim_s * 1e3:.1f} ms after submit; deaths "
+        f"{s['executor_deaths']}, respawns {s['respawns']}; the dead "
+        f"executor's {len(dead[0].compiled) if dead else 0} programs and "
+        f"pool still referenced: {kept}; the same batch served again after "
+        f"the stall, finite: {all(np.isfinite(a).all() for a in after)}")
+    if (not kept or s["executor_deaths"] != 1 or s["respawns"] != 1
+            or not all(np.isfinite(a).all() for a in after)):
+        raise AssertionError("(e) the watchdog did not reclaim the wedged "
+                             "executor")
+    eng.close()
+    return {"kill": kill, "watchdog": {
+        "timeout_s": FAULT_TIMEOUT_S, "stall_s": FAULT_STALL_S,
+        "reclaim_ms": reclaim_s * 1e3, "deaths": s["executor_deaths"],
+        "respawns": s["respawns"]}}
+
+
+def faults_checkpoint(card: str, params, gs) -> dict:
+    """(f) The engine's params ``save``d and ``restore``d onto the card
+    serve bitwise the same answers (deterministic algorithms)."""
+    import shutil
+    from repro_torch.checkpoint import checkpoint as ckpt
+    shutil.rmtree(CHECKPOINTS, ignore_errors=True)
+    with deterministic():
+        eng = fault_engine(params)
+        want = answers(eng, gs)
+        t0 = time.perf_counter()
+        path = ckpt.save(CHECKPOINTS, 1, eng.params, extra={"model": "gin"})
+        save_s = time.perf_counter() - t0
+        eng.close()
+        t0 = time.perf_counter()
+        restored, extra = ckpt.restore(CHECKPOINTS, 1, params)
+        restore_s = time.perf_counter() - t0
+        eng = fault_engine(restored)
+        got = answers(eng, gs)
+        eng.close()
+    same = sum(bool(np.array_equal(a, b)) for a, b in zip(got, want))
+    files = len(list(path.glob("leaf_*.npy")))
+    log("faults", f"(f) checkpoint: {files} leaves saved in "
+        f"{save_s * 1e3:.1f} ms, restored onto the card in "
+        f"{restore_s * 1e3:.1f} ms (extra {extra}); answers bitwise on "
+        f"{same}/{len(gs)}")
+    shutil.rmtree(CHECKPOINTS, ignore_errors=True)
+    if same != len(gs):
+        raise AssertionError("(f) restored params serve other answers")
+    return {"leaves": files, "save_ms": save_s * 1e3,
+            "restore_ms": restore_s * 1e3, "bitwise": same}
+
+
+def faults_phase(card: str, graphs) -> dict:
+    """Phase 4d: failure semantics and defense in depth on GIN
+    ``fused_layer``'s captured programs at the paper config, through
+    ``submit`` / ``drain`` at max_batch 8, on phase 4's molhiv and hep
+    graphs (16 molecules and 4 kNN graphs), counts from 0: (a) poison, (b)
+    the NaN gate and demotion, (c) audits, (d) hot reload under live
+    traffic, (e) an executor's death and the watchdog on two executors of
+    the card, (f) a checkpoint round trip. The breaker must trip exactly
+    where a sub-phase plants it. The wrappers count two forwards for each
+    program captured (its warm-up run and the capture) and one for each
+    canary."""
+    from repro_torch.core.engine import GraphStreamEngine
+    gs = graphs[:16] + graphs[64:68]
+    _, params = init_params("gin", "cuda")
+    out = {}
+    t0 = time.perf_counter()
+    canaries = []
+    real = GraphStreamEngine._run_canary
+
+    def counted_canary(self, host, alive, replicas):
+        err = real(self, host, alive, replicas)
+        if err is None:              # every replica ran its forward
+            canaries.append(len(replicas))
+        return err
+    GraphStreamEngine._run_canary = counted_canary
+
+    def run():
+        with captures() as built:
+            out["a_poison"] = faults_poison(card, params, gs)
+            check_trips("(a)", [])
+            out["b_nan_gate"] = faults_nan(card, params, gs)
+            check_trips("(b)", ["nan_gate"] * 3)
+            out["c_audits"] = faults_audit(card, params, gs)
+            check_trips("(c)", ["audit_mismatch", "audit_mismatch"])
+            out["d_reload"] = faults_reload(card, params, gs)
+            check_trips("(d)", [])
+            out["e_death"] = faults_death(card, params, graphs, gs)
+            check_trips("(e)", [])
+            out["f_checkpoint"] = faults_checkpoint(card, params, gs)
+            check_trips("(f)", [])
+        return len(built)
+    try:
+        captured, counts = counted(run)
+    finally:
+        GraphStreamEngine._run_canary = real
+    # every forward of the phase: two a capture, one a replica of a canary
+    # that passed (a NaN leaf is refused before any forward), the eager
+    # forwards of (d)'s checks; each is 5 launches of layer_fused or of
+    # mp_pipeline
+    eager = out["d_reload"]["answers"]
+    forwards = 2 * captured + sum(canaries) + eager
+    total = counts["layer_fused"] + counts["mp_pipeline"]
+    log("faults", f"wrapper launches {counts} over {captured} captures, "
+        f"{sum(canaries)} canary forwards and {eager} eager forwards "
+        f"(5 launches each: {5 * forwards})")
+    if (total != 5 * forwards or not counts["layer_fused"]
+            or not counts["mp_pipeline"]
+            or any(v for k, v in counts.items()
+                   if k not in ("layer_fused", "mp_pipeline"))):
+        raise AssertionError("phase 4d did not run the expected launches")
+    out.update({"captures": captured, "launches": counts,
+                "seconds": time.perf_counter() - t0})
+    log("faults", f"phase 4d took {out['seconds']:.1f} s; on {card}")
+    return out
+
+
 def record_main_inputs():
     """What each path of phase 4 hands its kernel in its first two layers
     (the first reads the raw features or their encoding, the second the
@@ -3714,13 +4366,19 @@ def main() -> int:
                     for k in SCATTER_CASES}
 
     # 4. the slice end to end, 4b. its host path, eager against captured,
-    # 4c. packed serving through submit / drain
+    # 4c. packed serving through submit / drain, with no breaker trip; 4d.
+    # failure semantics and defense in depth
     graphs = slice_graphs()
+    record_trips()
     paths = slice_phase(card, graphs)
     log("host", "json " + json.dumps(host_phase(card, graphs)))
     packed = packed_phase(card, graphs)
     log("packed", "json " + json.dumps(packed, default=str))
     paths.update(packed)
+    check_trips("phases 4, 4b and 4c", [])
+    faults = faults_phase(card, graphs)
+    log("faults", "json " + json.dumps(faults, default=str))
+    paths["faults_gin_fused_layer"] = faults
 
     # 5. the NT kernels through their entry points, 6. the MoE data path
     nt_rows, paths["nt"] = nt_phase(card, bucket_edges)

@@ -3,8 +3,8 @@
 The JAX side keeps its weights as a pytree of dicts and lists; as numpy
 (``jax.tree_util.tree_map(np.asarray, params)``) it has the same nesting as
 the port's parameters, leaf for leaf, in the same ``(d_in, d_out)`` layout.
-Reading and writing the JAX checkpoint format itself is ROADMAP queue 1
-item 1.
+The JAX checkpoint format itself is read and written by
+``repro_torch/checkpoint/checkpoint.py``.
 """
 
 from __future__ import annotations

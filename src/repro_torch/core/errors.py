@@ -1,11 +1,14 @@
 """Typed failures of the serving engine.
 
 The twin of ``repro/core/errors.py``: all eleven classes, with the
-reference's bases, fields and messages. The batch-1 engine raises the
-admission ones (``InvalidRequest``, ``InvalidGraph``, ``GraphTooLarge``)
-and ``EngineClosed``; the others belong to the scheduler, the executors and
-failure handling, which are not ported yet. All subclass ``RuntimeError``
-and carry
+reference's bases, fields and messages. The engine raises every one of
+them: the admission errors (``InvalidRequest``, ``InvalidGraph``,
+``GraphTooLarge``, ``UnknownQueue``) and ``EngineClosed`` at ``submit``;
+``PoisonGraph``, ``BatchFailed``, ``DeadlineExceeded`` and
+``ExecutorDead`` through the futures (DESIGN.md §8); ``ParamUpdateFailed``
+from ``update_params`` (§9). Wide placement, which would raise
+``GraphTooLarge`` for a graph no gang can hold, is not ported. All
+subclass ``RuntimeError`` and carry
 
   * ``request_ids``    — engine request ids of the affected graphs, and
   * ``executor_index`` — the executor involved, when there is one.

@@ -13,18 +13,32 @@ engine injects
 
   * ``program_fn(ex, key, pb)``  — the program of a bucket on THIS executor
     (built on the first ``PackedBatch`` of the bucket; the engine's cache
-    is namespaced per executor). A program has ``enqueue(pb) -> ticket``
-    (dispatch thread: pad the batch into the program's input, enqueue its
-    work), ``wait(ticket) -> (output on the host, device seconds or
-    None)`` (complete thread) and ``release(ticket)`` (drop a ticket
-    unread). The reference's ``build_fn`` is the program's ``enqueue``: a
-    captured program pads a batch straight into one of its pinned slots.
+    is namespaced per executor). A program has ``enqueue(pb, params) ->
+    ticket`` (dispatch thread: pad the batch into the program's input,
+    enqueue its work on ``params``: the pinned tree on the CPU,
+    ``resident`` on a GPU),
+    ``wait(ticket) -> (output on the host, device seconds or None)``
+    (complete thread) and ``release(ticket)`` (drop a ticket unread). The
+    reference's ``build_fn`` is the program's ``enqueue``: a captured
+    program pads a batch straight into one of its pinned slots.
   * ``unpack_fn(pb, out)``        — per-graph results of a batch's output,
   * ``on_complete(ex, done)``     — called from the complete thread with a
     ``CompletedBatch`` (results or error),
   * ``on_fatal(ex, exc)``         — a worker loop died unexpectedly,
   * ``fault_hook(site, ex, pb)``  — an optional callable run at the
-    ``'dispatch'`` and ``'complete'`` sites; it may raise or sleep.
+    ``'dispatch'`` and ``'complete'`` sites; it may raise or sleep (the
+    engine passes ``FaultInjector.executor_hook``).
+
+Versioned parameters. Each dispatch reads the executor's ``(params,
+version)`` pair once (``set_params`` swaps it as one reference): a batch
+runs on the version it was dispatched with, whichever version is installed
+by the time it runs. On the CPU the program runs the pinned tree itself.
+On a GPU every captured program of the executor reads one tree of weights
+the executor owns (``resident``, never aliased to a replica): a dispatch
+whose pinned version differs from the one ``resident`` holds first
+enqueues one device-to-device copy of the pinned replica into it on the
+executor's stream, so batches enqueued earlier run the old weights and
+later ones the new, in stream order, and no program is captured again.
 
 On a GPU the dispatch thread runs each step inside ``torch.cuda.device``
 and ``torch.cuda.stream(self.stream)``: the program pads the batch into a
@@ -76,6 +90,22 @@ BucketKey = Tuple[int, int, int]
 _SENTINEL = object()
 
 
+def _map_tensors(fn, tree):
+    """``fn`` on every tensor of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a tree, in the order ``_map_tensors`` visits them."""
+    out: List[torch.Tensor] = []
+    _map_tensors(out.append, tree)
+    return out
+
+
 @dataclass
 class _InFlight:
     """A dispatched batch waiting for this executor's device."""
@@ -87,6 +117,7 @@ class _InFlight:
     t_build_start: float
     t_dispatch: float
     params_version: int = 0
+    params: Any = None        # the pinned tree, alive until completion
 
 
 @dataclass
@@ -120,7 +151,7 @@ class CompletedBatch:
 class DeviceExecutor:
     """One device's double-buffered dispatch/complete pipeline."""
 
-    def __init__(self, *, device, index: int, params,
+    def __init__(self, *, device, index: int, params, version: int = 0,
                  program_fn: Callable[["DeviceExecutor", BucketKey,
                                        PackedBatch], Any],
                  unpack_fn: Callable[[PackedBatch, np.ndarray],
@@ -133,16 +164,31 @@ class DeviceExecutor:
         self.device = torch.device(device)
         self.index = index
         # (params on ``device``, version), swapped as ONE reference
-        self._params_v: Tuple[Any, int] = (params, 0)
+        self._params_v: Tuple[Any, int] = (params, int(version))
         self.label = f"{self.device}#{index}"
         # this executor's programs, by (bucket, input widths); the engine's
         # ``compiled`` merges them
         self.compiled: Dict[Any, Any] = {}
+        # programs the engine dropped from ``compiled`` (the breaker moved
+        # their bucket a rung): kept until the dispatch thread next builds
+        # a program with the pipe drained, so that none is freed while a
+        # batch of it may still be on this executor's stream
+        self.retired: List[Any] = []
         cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if cuda else None
         # the memory pool this executor's captured programs share (made by
         # the engine at the first capture)
         self.pool = None
+        # on a GPU: the weights every captured program of this executor
+        # reads (made on the first dispatch), the version they hold, the
+        # versions copied in since, and the events around the last copy.
+        # Only the dispatch thread touches them.
+        self.resident: Any = None
+        self.resident_version: Optional[int] = None
+        self.swaps = 0
+        self._swap_events = ((torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                             if cuda else None)
 
         self._program_fn = program_fn
         self._unpack_fn = unpack_fn
@@ -255,9 +301,39 @@ class DeviceExecutor:
 
     def set_params(self, params, version: int) -> None:
         """Install parameters on this device at ``version`` (one reference
-        store). Programs built afterwards run them; a captured program
-        reads the tensors it was captured on."""
+        store). Every dispatch from now on pins them; on a GPU the first
+        one copies them into ``resident`` on this executor's stream."""
         self._params_v = (params, int(version))
+
+    def _load(self, params, version: int) -> Any:
+        """The tree a program runs for a batch pinned to ``(params,
+        version)``: ``params`` on the CPU; on a GPU ``resident``, into
+        which a version it does not hold yet is first copied (one
+        multi-tensor copy between two events, enqueued on the current
+        stream: the executor's). Dispatch thread only."""
+        if self.stream is None:
+            return params
+        if self.resident is None:
+            self.resident = _map_tensors(torch.empty_like, params)
+        if version != self.resident_version:
+            start, end = self._swap_events
+            start.record()
+            torch._foreach_copy_(_tensors(self.resident), _tensors(params),
+                                 non_blocking=True)
+            end.record()
+            if self.resident_version is not None:
+                self.swaps += 1
+            self.resident_version = version
+        return self.resident
+
+    def swap_ms(self) -> Optional[float]:
+        """The span on the card of the last copy of a new version into
+        ``resident`` (ms; waits for it), or None before the first."""
+        if not self.swaps:
+            return None
+        start, end = self._swap_events
+        end.synchronize()
+        return start.elapsed_time(end)
 
     # -- placement interface ---------------------------------------------
 
@@ -310,8 +386,8 @@ class DeviceExecutor:
         the dispatch thread once the threads run, else here."""
         if self._dispatcher is None or self._stopped:
             with self.on_device():
-                run = self._program_fn(self, key, pb)
-                run.wait(run.enqueue(pb))
+                program, ticket, _, _ = self._enqueue(key, pb)
+                program.wait(ticket)
             return
         if self._dead:
             raise self._dead_exc()
@@ -395,11 +471,22 @@ class DeviceExecutor:
         self._drain_queues(exc)
         self._on_fatal(self, exc)
 
+    def _enqueue(self, key: BucketKey, pb: PackedBatch
+                 ) -> Tuple[Any, Any, Any, int]:
+        """Pin ``(params, version)`` (one read), load them, and enqueue
+        ``pb`` on the bucket's program (built here on the bucket's first
+        batch): ``(program, ticket, params, version)``. In
+        ``on_device()``."""
+        params, version = self._params_v
+        tree = self._load(params, version)
+        program = self._program_fn(self, key, pb)
+        return program, program.enqueue(pb, tree), params, version
+
     def _run_warm(self, item: _Warm) -> None:
         try:
             with self.on_device():
-                run = self._program_fn(self, item.key, item.batch)
-                run.wait(run.enqueue(item.batch))
+                program, ticket, _, _ = self._enqueue(item.key, item.batch)
+                program.wait(ticket)
         except Exception as exc:
             item.done.set_exception(exc)
         else:
@@ -425,10 +512,9 @@ class DeviceExecutor:
                 try:
                     if self._fault_hook is not None:
                         self._fault_hook("dispatch", self, pb)
-                    pver = self.params_version
                     with self.on_device():
-                        program = self._program_fn(self, pb.bucket, pb)
-                        ticket = program.enqueue(pb)
+                        program, ticket, params, pver = self._enqueue(
+                            pb.bucket, pb)
                 except Exception as exc:        # bad batch: report, stay up
                     t = time.perf_counter()
                     self._finish(CompletedBatch(
@@ -443,7 +529,7 @@ class DeviceExecutor:
                 # wedge this thread on a full pipe.
                 inflight = _InFlight(queue_name, pb, program, ticket,
                                      t_build, time.perf_counter(),
-                                     params_version=pver)
+                                     params_version=pver, params=params)
                 with self._lock:
                     self._unfinished += 1
                 current = inflight

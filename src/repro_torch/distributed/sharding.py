@@ -9,13 +9,17 @@ one GPU has none, so a ``ParamDef`` here carries no axes.
 
 A tree is dicts, lists, tuples and ``NamedTuple``s of ``ParamDef`` leaves,
 with plain Python values (a cache's length) kept as they are.
+
+``replicate_params`` and ``params_compatible`` are the serving pool's
+(``core/engine.py``): one parameter replica per executor, and the check
+that a hot-reloaded tree may replace the serving one.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,3 +92,69 @@ def param_bytes(defs: Any) -> int:
         math.prod(d.shape) * torch.empty((), dtype=d.dtype).element_size()),
         defs)
     return int(sum(total))
+
+
+def _tree_leaves(tree: Any) -> Tuple[Any, List[Any]]:
+    """(structure, leaves) of a tree of dicts (sorted keys), lists, tuples
+    and ``NamedTuple``s; the structure records containers, keys and
+    lengths, not leaf values."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        subs = [_tree_leaves(tree[k]) for k in keys]
+        return (("dict", tuple(keys), tuple(s for s, _ in subs)),
+                [x for _, ls in subs for x in ls])
+    if isinstance(tree, (list, tuple)):
+        subs = [_tree_leaves(v) for v in tree]
+        kind = type(tree).__name__ if hasattr(tree, "_fields") else "seq"
+        return ((kind, len(tree), tuple(s for s, _ in subs)),
+                [x for _, ls in subs for x in ls])
+    if tree is None:
+        return ("none",), []
+    return ("leaf",), [tree]
+
+
+def _copy_to(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_copy_to(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy_to(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, copy=True)
+    return tree
+
+
+def replicate_params(params: Any, devices: Sequence[DeviceLike]) -> list:
+    """One copy of ``params`` per entry of ``devices``: a replica per
+    EXECUTOR, also where two executors share a device, so that what one
+    executor does with its replica (a copy into a captured program's
+    resident weights on its own stream) never races another's replays.
+    Every leaf tensor is copied, never aliased; a CUDA copy has finished
+    when this returns. Returns ``[params_on_dev for dev in devices]``."""
+    devs = [resolve_device(d) for d in devices]
+    copies = [_copy_to(params, d) for d in devs]
+    for d in {d for d in devs if d.type == "cuda"}:
+        torch.cuda.synchronize(d)
+    return copies
+
+
+def params_compatible(old: Any, new: Any) -> Optional[str]:
+    """Why ``new`` cannot replace ``old`` as a hot-reloaded params tree,
+    or ``None`` when it can (same tree structure, leaf shapes, dtypes).
+
+    The serving engine's programs were built on ``old``'s shapes (on a GPU
+    captured on tensors of them), so hot reload is same-architecture only:
+    anything else is a new engine."""
+    s_old, l_old = _tree_leaves(old)
+    s_new, l_new = _tree_leaves(new)
+    if s_old != s_new:
+        return (f"params tree structure changed: {s_new} != serving "
+                f"{s_old}")
+    for i, (a, b) in enumerate(zip(l_old, l_new)):
+        a = a if isinstance(a, torch.Tensor) else torch.as_tensor(a)
+        b = b if isinstance(b, torch.Tensor) else torch.as_tensor(b)
+        if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+            return (f"params leaf {i} changed: {tuple(b.shape)}/{b.dtype} "
+                    f"!= serving {tuple(a.shape)}/{a.dtype}")
+    return None

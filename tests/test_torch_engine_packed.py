@@ -117,8 +117,8 @@ class _InFlight:
         enqueue = tengine.CapturedProgram.enqueue
         wait = tengine.CapturedProgram.wait
 
-        def counted_enqueue(prog, pb):
-            ticket = enqueue(prog, pb)
+        def counted_enqueue(prog, pb, params):
+            ticket = enqueue(prog, pb, params)
             with self.lock:
                 self.now += 1
                 self.enqueued += 1

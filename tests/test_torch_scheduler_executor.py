@@ -250,8 +250,11 @@ def test_submit_rejects_unknown_queue_and_deadlines():
         g = next(molhiv_like(seed=0, n_graphs=1))
         with pytest.raises(KeyError):
             eng.submit(*_args(g), queue="nope")
+        # deadlines are served now; a budget that is not positive is refused
         with pytest.raises(InvalidRequest, match="deadline"):
-            eng.submit(*_args(g), deadline=1.0)
+            eng.submit(*_args(g), deadline=0.0)
+        with pytest.raises(InvalidRequest, match="deadline"):
+            eng.submit(*_args(g), deadline=-1.0)
     cfg = small_cfg("gin")
     params = make_gnn(cfg).init(torch.Generator().manual_seed(0), cfg,
                                 device="cpu")
@@ -343,7 +346,8 @@ def test_drain_is_not_a_results_barrier():
 
 def test_a_failing_batch_fails_its_futures_with_the_cause():
     """A batch whose program raises fails every one of its futures with
-    ``BatchFailed``, the error chained; the engine keeps serving."""
+    ``BatchFailed`` (after its retry and bisection, ``PoisonGraph``, a
+    ``BatchFailed``), the error chained; the engine keeps serving."""
     graphs = list(molhiv_like(seed=0, n_graphs=3))
     with _make_engine("gin", max_batch=2, max_wait_ms=10_000.0,
                       eager_flush=False) as eng:
@@ -380,7 +384,7 @@ class InjectedCrash(BaseException):
 class _Program:
     """A program that answers zeros at once (the executor's interface)."""
 
-    def enqueue(self, pb):
+    def enqueue(self, pb, params):
         return pb
 
     def wait(self, ticket):
