@@ -141,6 +141,27 @@ Phases, each printing its own lines:
                round trip serves bitwise. Phases 4–4c must trip no breaker,
                4d only where it plants a fault, never on a build failure.
                One ``[faults] json`` line.
+  4e. tune   — per-bucket autotune on the captured programs (GIN, GAT and
+               PNA configured ``fused_layer``, PNA and DGN configured
+               ``kernel``, at the paper configs, through ``process`` at
+               phase 4's molhiv and hep buckets), counts from 0: (a) each
+               bucket tuned on its first real graph (every candidate, the
+               configured impl, ``pipeline`` and ``fused_layer`` at rows
+               per block None, 1, 8, captured once and timed by the span
+               of its replays; the winner beside the kernels' own launch
+               shape; captures and tune ms), the winner's capture kept as
+               the bucket's program (no capture more), its kernel nodes its
+               impl's kernel, answers within 1e-5 of the eager forward
+               under the winner; then a second engine tuned on
+               ``warmup_all``'s synthetic batch, its winners beside the
+               real ones; (b) an engine on the JSON cache (a) wrote tunes
+               nothing and captures one program a bucket; (c) the
+               reference test's drift scenario (GCN, fill 4, then singles):
+               a retune fires and the bucket keeps serving; (d) GIN with
+               ``max_cached_programs=2`` through four buckets three times:
+               evictions, at most two programs, no tune after the first
+               cycle, the card's reserved memory flat. No candidate may
+               fail, no breaker trip. One ``[tune] json`` line.
   5. nt      — ``ops.nt_mlp`` and ``ops.fused_nt_scatter`` driven at GIN's
                MLP (100->200->100) on the serving buckets' graphs and at
                the standard point (N=1024, E=4096, MLP 64->128->64), and
@@ -3677,15 +3698,16 @@ def check_trips(where: str, planted: list) -> None:
 
 
 @contextmanager
-def captures():
-    """Every ``CapturedProgram`` built while the block runs, in order."""
+def captures(keep: bool = True):
+    """Every ``CapturedProgram`` built while the block runs, in order (with
+    ``keep=False`` a None for each: their count, keeping none alive)."""
     from repro_torch.core import engine as tengine
     real = tengine.CapturedProgram.__init__
     built = []
 
     def counting(self, *args, **kw):
         real(self, *args, **kw)
-        built.append(self)
+        built.append(self if keep else None)
     tengine.CapturedProgram.__init__ = counting
     try:
         yield built
@@ -3736,9 +3758,10 @@ def nodes_by_symbol(prog, tag: str) -> dict:
     return {sym: sum(sym in n for n in nodes) for sym in KERNEL_SYMBOLS}
 
 
-def alone_in(engine, g, bucket, params):
+def alone_in(engine, g, bucket, params, dataflow=None):
     """``g`` alone in ``bucket`` through the eager forward under
-    ``params``: what a captured replay of that bucket must answer."""
+    ``params`` (and ``dataflow``, else the engine's): what a captured
+    replay of that bucket must answer."""
     import torch
     from repro_torch.core.graph import build_graph_batch
     batch = build_graph_batch(
@@ -3746,7 +3769,8 @@ def alone_in(engine, g, bucket, params):
         node_pos=g.node_pos, node_pad=bucket[0], edge_pad=bucket[1],
         graph_pad=bucket[2], pos_dim=engine.cfg.pos_dim, device="cuda")
     with torch.inference_mode():
-        out = engine.model.apply(params, batch, engine.cfg, engine.dataflow)
+        out = engine.model.apply(params, batch, engine.cfg,
+                                 dataflow or engine.dataflow)
     return out.cpu().numpy()[0]
 
 
@@ -4262,6 +4286,327 @@ def faults_phase(card: str, graphs) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4e: per-bucket autotune, drift retune and LRU eviction
+# ---------------------------------------------------------------------------
+
+#: (model, configured impl) of the tuned engines: the configured impl is
+#: the first candidate, then pipeline and fused_layer
+TUNE_PATHS = (("gin", "fused_layer"), ("gat", "fused_layer"),
+              ("pna", "fused_layer"), ("pna", "kernel"), ("dgn", "kernel"))
+TUNE_CACHE = REPO / "build" / "repro_torch" / "autotune.json"
+#: (c): the pause between the fill-4 regime and the singles (s)
+DRIFT_LULL_S = 0.1
+#: (d): n_mean of the four buckets the eviction engine cycles through
+EVICT_SIZES = (10, 60, 200, 400)
+
+
+def bucket_name(bucket) -> str:
+    return "x".join(map(str, bucket))
+
+
+def forward_symbols(name: str, impl: str, layers: int) -> dict:
+    """The kernel nodes one forward of ``name`` under ``impl`` holds, by
+    symbol (GAT has no layer_fused form: its fused_layer is the
+    pipeline's attention sweep)."""
+    per = {"pipeline": {"mp_pipeline_kernel": 1},
+           "fused_layer": ({"mp_pipeline_kernel": 1} if name == "gat"
+                           else {"layer_fused_kernel": 1}),
+           "kernel": ({"mp_scatter_kernel": 1, "seg_softmax_kernel": 1}
+                      if name == "gat" else {"mp_scatter_kernel": 1})}[impl]
+    return {sym: layers * per.get(sym, 0) for sym in KERNEL_SYMBOLS}
+
+
+def tuned_engine(name: str, impl: str, **kw):
+    """``name`` at the paper config under ``impl`` on the card with
+    ``autotune``, at max_batch 8 (``process`` pads a graph to 8 slots)."""
+    from repro_torch.core.engine import GraphStreamEngine
+    from repro_torch.core.message_passing import DataflowConfig
+    cfg, params = init_params(name, "cuda")
+    return GraphStreamEngine(cfg, params, DataflowConfig(impl=impl),
+                             device="cuda", autotune=True, **kw)
+
+
+def kernels_own_shape(engine, bucket) -> str:
+    """The name of ``bucket``'s first candidate: the configured impl with
+    each kernel picking its own launch shape (rows per block None)."""
+    dev = engine._executors[0].device
+    return engine._candidate_name(
+        engine._candidate_dataflows(bucket, dev)[0])
+
+
+def tune_log_line(tag: str, entry: dict, default: str, card: str) -> str:
+    spans = ", ".join(f"{k} {v:.2f}" for k, v in
+                      sorted(entry["candidates_us"].items(),
+                             key=lambda kv: kv[1]))
+    d = entry["candidates_us"].get(default)
+    return (f"{tag}: replay spans us [{spans}]; winner {entry['winner']} "
+            f"{entry['best_us']:.2f} us against the kernels' own launch "
+            f"shape ({default}) {d:.2f} us ({entry['best_us'] / d:.3f}x); "
+            f"{entry['programs']} captures, tune {entry['tune_ms']:.1f} ms; "
+            f"on {card}")
+
+
+def tune_winners(card: str, gs, built: list) -> dict:
+    """(a) Each path tunes each bucket on its first real graph: every
+    candidate captured once and timed by its replays' spans, no candidate
+    failed, the winner's capture kept as the bucket's program (no capture
+    more to serve the bucket's other graphs), its kernel nodes its impl's
+    kernel, every answer within ``EAGER_RTOL`` of the eager forward under
+    the winning dataflow; then a second engine tunes the same buckets on
+    ``warmup_all``'s synthetic batch (two nodes, one edge)."""
+    out = {}
+    for name, impl in TUNE_PATHS:
+        path = f"{name}_{impl}"
+        res = out[path] = {"real": {}, "synthetic": {}}
+        with tuned_engine(name, impl, autotune_cache=str(TUNE_CACHE)) as eng:
+            first = {}
+            for g in gs:
+                first.setdefault(bucket_of(eng, g), g)
+            for bucket, g in first.items():
+                n0 = len(built)
+                eng.process(*graph_args(g))
+                entry = eng.autotune_report()[bucket_name(bucket)]
+                prog = only_program(eng, bucket)
+                if (entry["source"] != "autotuned" or entry["failed"]
+                        or len(built) - n0 != entry["programs"]
+                        or len(entry["candidates_us"]) != entry["programs"]
+                        or not any(prog is b for b in built[n0:])
+                        or prog.dataflow != eng._tuned[bucket]):
+                    raise AssertionError(
+                        f"(a) {path} {bucket}: the tune did not time every "
+                        f"candidate once and keep the winner's capture: "
+                        f"{entry}, {len(built) - n0} captures")
+                rest = [x for x in gs if bucket_of(eng, x) == bucket]
+                n1 = len(built)
+                preds = [eng.process(*graph_args(x)) for x in rest]
+                if len(built) != n1:
+                    raise AssertionError(f"(a) {path} {bucket}: serving the "
+                                         f"tuned bucket captured again")
+                worst = max(rel_diff(p, alone_in(eng, x, bucket, eng.params,
+                                                 prog.dataflow))
+                            for p, x in zip(preds, rest))
+                nodes = nodes_by_symbol(
+                    prog, f"tune_{path}_{bucket_name(bucket)}")
+                want = forward_symbols(name, prog.dataflow.impl,
+                                       eng.cfg.num_layers)
+                default = kernels_own_shape(eng, bucket)
+                log("tune", tune_log_line(f"(a) {path} {bucket} real first "
+                                          f"graph", entry, default, card))
+                log("tune", f"(a) {path} {bucket}: winner "
+                    f"{prog.dataflow.impl} rows {prog.dataflow.rows_per_block}"
+                    f"; kernel nodes {nodes} (want {want}); {len(rest)} "
+                    f"answers, worst {worst:.3e} against the eager forward "
+                    f"under the winner (tol {EAGER_RTOL:g})")
+                if nodes != want:
+                    raise AssertionError(f"(a) {path} {bucket}: the winner's "
+                                         f"graph does not hold its impl's "
+                                         f"kernel")
+                if worst > EAGER_RTOL:
+                    raise AssertionError(f"(a) {path} {bucket}: an answer "
+                                         f"disagrees with the eager forward")
+                res["real"][bucket_name(bucket)] = {
+                    **{k: entry[k] for k in ("candidates_us", "winner",
+                                             "best_us", "programs",
+                                             "tune_ms")},
+                    "default": default,
+                    "default_us": entry["candidates_us"][default],
+                    "impl": prog.dataflow.impl,
+                    "rows_per_block": prog.dataflow.rows_per_block,
+                    "answers": len(rest), "worst_rel": worst}
+        with tuned_engine(name, impl) as syn:
+            n0 = len(built)
+            keys = syn.warmup_all(pairs=[b[:2] for b in first])
+            report = syn.autotune_report()
+            for key in keys:
+                entry = report[bucket_name(key)]
+                if entry["failed"] or entry["source"] != "autotuned":
+                    raise AssertionError(f"(a) {path} {key}: the synthetic "
+                                         f"tune failed: {entry}")
+                real = res["real"][bucket_name(key)]
+                log("tune", tune_log_line(
+                    f"(a) {path} {key} synthetic batch", entry,
+                    kernels_own_shape(syn, key),
+                    card) + f"; the real first graph's winner "
+                    f"{real['winner']}")
+                res["synthetic"][bucket_name(key)] = {
+                    k: entry[k] for k in ("candidates_us", "winner",
+                                          "best_us", "programs", "tune_ms")}
+            res["synthetic_captures"] = len(built) - n0
+    return out
+
+
+def tune_cached(card: str, gs, built: list) -> dict:
+    """(b) Each path again on the cache (a) wrote: nothing is tuned (every
+    bucket's source ``cache``), one capture a bucket, the cached winner
+    served, answers within ``EAGER_RTOL`` of the eager forward under it."""
+    out = {}
+    for name, impl in TUNE_PATHS:
+        path = f"{name}_{impl}"
+        with tuned_engine(name, impl, autotune_cache=str(TUNE_CACHE)) as eng:
+            first = {}
+            for g in gs:
+                first.setdefault(bucket_of(eng, g), g)
+            n0 = len(built)
+            worst = 0.0
+            for bucket, g in first.items():
+                pred = eng.process(*graph_args(g))
+                prog = only_program(eng, bucket)
+                worst = max(worst, rel_diff(pred, alone_in(
+                    eng, g, bucket, eng.params, prog.dataflow)))
+            report = eng.autotune_report()
+            sources = {k: v["source"] for k, v in report.items()}
+            timed = [k for k, v in report.items() if "candidates_us" in v]
+            captured = len(built) - n0
+            log("tune", f"(b) {path} on the cache: sources {sources}, "
+                f"captures {captured} for {len(first)} buckets, winners "
+                f"{ {k: (v['impl'], v['rows_per_block']) for k, v in report.items()} }, "
+                f"worst {worst:.3e}; on {card}")
+            if (set(sources.values()) != {"cache"} or timed
+                    or captured != len(first) or worst > EAGER_RTOL):
+                raise AssertionError(f"(b) {path}: the cached engine tuned "
+                                     f"or captured more than one program a "
+                                     f"bucket")
+            out[path] = {"captures": captured, "buckets": len(first),
+                         "worst_rel": worst}
+    return out
+
+
+def tune_drift(card: str, built: list) -> dict:
+    """(c) The reference test's drift scenario on the card: GCN
+    ``fused_layer`` at the paper config, tuned at fill 4 (four batches of
+    four 20-node graphs), then, after a lull of ``DRIFT_LULL_S``, six
+    single 80-node graphs in the same bucket: at least one retune fires,
+    and the bucket keeps serving."""
+    from repro_torch.core.scheduler import QueueConfig
+    from repro_torch.data.graphs import sized_stream
+    n0 = len(built)
+    with tuned_engine("gcn", "fused_layer", max_autotune=2,
+                      queues=(QueueConfig("default", max_batch=4,
+                                          max_wait_ms=3.0),),
+                      eager_flush=False, drift_window=4,
+                      drift_cooldown_s=0.05, drift_fill_factor=1.3,
+                      max_retunes=2) as eng:
+        futs = []
+        full = list(sized_stream(seed=0, n_graphs=16, n_mean=20, n_std=0,
+                                 e_per_node=2.2))
+        for i in range(0, 16, 4):
+            futs += [eng.submit(*graph_args(g)) for g in full[i:i + 4]]
+            eng.drain(timeout=600)
+        singles = list(sized_stream(seed=1, n_graphs=6, n_mean=80, n_std=0,
+                                    e_per_node=2.6))
+        # the mix shifts after a lull: on the card the fill-4 regime takes a
+        # few ms, inside the 50 ms cooldown that spaces retunes
+        time.sleep(DRIFT_LULL_S)
+        for g in singles:
+            futs.append(eng.submit(*graph_args(g)))
+            eng.drain(timeout=600)
+        retunes = eng.stats.retunes
+        post = list(sized_stream(seed=2, n_graphs=4, n_mean=20, n_std=0,
+                                 e_per_node=2.2))
+        futs += [eng.submit(*graph_args(g)) for g in post]
+        eng.drain(timeout=600)
+        finite = all(bool(np.all(np.isfinite(f.result(timeout=60))))
+                     for f in futs)
+        report = eng.autotune_report()
+        loads = {k: v["load"] for k, v in report.items() if "load" in v}
+        winners = {k: (v["impl"], v["rows_per_block"], v.get("winner"))
+                   for k, v in report.items()}
+    log("tune", f"(c) drift: {retunes} retunes after the fill-4 regime and "
+        f"6 singles ({eng.stats.retunes} in all), loads {loads}, winners "
+        f"{winners}, {len(futs)} answers all finite {finite}, captures "
+        f"{len(built) - n0}; on {card}")
+    if retunes < 1 or not finite:
+        raise AssertionError("(c) no drift retune fired, or the retuned "
+                             "bucket did not keep serving")
+    return {"retunes": eng.stats.retunes, "loads": loads,
+            "winners": {k: list(v) for k, v in winners.items()},
+            "captures": len(built) - n0, "answers": len(futs)}
+
+
+def tune_evict(card: str, built: list) -> dict:
+    """(d) GIN ``fused_layer`` tuned at max_batch 1 with
+    ``max_cached_programs=2`` through four buckets three times: evictions,
+    at most two programs held, every later visit one capture of the cached
+    winner and no tune, the card's reserved memory no larger after the
+    second cycle than after the first (nor after the third). ``built``
+    keeps no program alive (``captures(keep=False)``), so that what the
+    card holds is what the engine holds."""
+    import torch
+    from repro_torch.data.graphs import sized_stream
+    graphs = [next(sized_stream(seed=nm, n_graphs=1, n_mean=nm, n_std=0))
+              for nm in EVICT_SIZES]
+    cycles = []
+    with tuned_engine("gin", "fused_layer", max_batch=1,
+                      max_cached_programs=2) as eng:
+        ex = eng._executors[0]
+        for cycle in range(3):
+            n0 = len(built)
+            logs = {k: v["tune_ms"] for k, v in eng._tune_log.items()}
+            preds = [eng.process(*graph_args(g)) for g in graphs]
+            torch.cuda.synchronize()
+            cycles.append({
+                "captures": len(built) - n0,
+                "tuned": sum(eng._tune_log[k]["tune_ms"] != logs.get(k)
+                             for k in eng._tune_log),
+                "held": len(ex.compiled), "retired": len(ex.retired),
+                "evictions": eng.stats.program_evictions,
+                "reserved": torch.cuda.memory_reserved(),
+                "allocated": torch.cuda.memory_allocated(),
+                "finite": all(bool(np.all(np.isfinite(p))) for p in preds)})
+        report = eng.autotune_report()
+    log("tune", f"(d) eviction, buckets {sorted(report)}: per cycle "
+        f"{cycles}; evictions by bucket "
+        f"{ {k: v.get('evictions', 0) for k, v in report.items()} }; "
+        f"on {card}")
+    c1, c2, c3 = cycles
+    if (c3["evictions"] < 1 or any(c["held"] > 2 for c in cycles)
+            or not all(c["finite"] for c in cycles)
+            or c1["tuned"] != len(graphs) or c2["tuned"] or c3["tuned"]
+            or c2["captures"] != len(graphs)
+            or c3["captures"] != len(graphs)):
+        raise AssertionError("(d) eviction did not bound the programs or an "
+                             "evicted bucket was tuned again")
+    if c2["reserved"] > c1["reserved"] or c3["reserved"] > c2["reserved"]:
+        raise AssertionError("(d) the pool's memory grew on a later cycle")
+    return {"cycles": cycles}
+
+
+def tune_phase(card: str, graphs) -> dict:
+    """Phase 4e: per-bucket autotune on the captured programs (a) on a
+    real first graph and on the synthetic batch, (b) from its JSON cache,
+    (c) drift retune, (d) LRU eviction; counts from 0, no breaker trip."""
+    gs = graphs[:16] + graphs[64:68]
+    TUNE_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    if TUNE_CACHE.exists():
+        TUNE_CACHE.unlink()
+    out = {}
+    t0 = time.perf_counter()
+
+    def run():
+        with captures() as built:
+            out["a_winners"] = tune_winners(card, gs, built)
+            out["b_cached"] = tune_cached(card, gs, built)
+            out["c_drift"] = tune_drift(card, built)
+        n = len(built)
+        del built[:]
+        with captures(keep=False) as counted_only:
+            out["d_evict"] = tune_evict(card, counted_only)
+        return n + len(counted_only)
+    captured, counts = counted(run)
+    check_trips("phase 4e", [])
+    log("tune", f"wrapper launches {counts} over {captured} captures and "
+        f"the eager checks")
+    used = ("layer_fused", "mp_pipeline", "mp_scatter_multi")
+    if (not all(counts[k] for k in used)
+            or any(v for k, v in counts.items() if k not in used)):
+        raise AssertionError("phase 4e did not run the expected kernels")
+    out.update({"captures": captured, "launches": counts,
+                "seconds": time.perf_counter() - t0})
+    log("tune", f"phase 4e took {out['seconds']:.1f} s; on {card}")
+    return out
+
+
 def record_main_inputs():
     """What each path of phase 4 hands its kernel in its first two layers
     (the first reads the raw features or their encoding, the second the
@@ -4379,6 +4724,10 @@ def main() -> int:
     faults = faults_phase(card, graphs)
     log("faults", "json " + json.dumps(faults, default=str))
     paths["faults_gin_fused_layer"] = faults
+    # 4e. per-bucket autotune, its cache, drift retune and eviction
+    tune = tune_phase(card, graphs)
+    log("tune", "json " + json.dumps(tune, default=str))
+    paths["tune"] = tune
 
     # 5. the NT kernels through their entry points, 6. the MoE data path
     nt_rows, paths["nt"] = nt_phase(card, bucket_edges)

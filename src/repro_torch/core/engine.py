@@ -70,15 +70,31 @@ replay of that version, so that no bucket is captured again and none
 serves stale weights; a canary holds the new weights to the CPU mirror
 first and rolls back on failure (``ParamUpdateFailed``).
 
-Not ported yet (ROADMAP queue 1): autotune (4(b); until then rung 0 is the
-engine's configured dataflow), drift retune and eviction (4(e)), wide
-placement (item 6).
+Autotune and overload (DESIGN.md §5). With ``autotune=True`` a bucket's
+first batch times a few candidate dataflows (``_candidate_dataflows``: on
+the CPU the reference's (num_banks, edge_tile, impl) grid; on a GPU the
+impls ``fused_layer`` / ``pipeline`` / the configured one, each at a few
+``rows_per_block``) and the winner serves the bucket on every executor
+(on a GPU the winner's capture itself is kept); winners persist in a JSON
+cache keyed by the workload, torch and the device (``autotune_cache``).
+The winner is rung 0 of the breaker's ladder. Each bucket's traffic is
+folded into running stats (``_BucketLoad``); when its device time or batch
+fill drifts out of the envelope it was tuned in, the winner is dropped and
+the next batch tunes again (``drift_*``, ``max_retunes``). Each executor
+keeps at most ``max_cached_programs`` programs, evicting the least
+recently used (its graph, pool share and pinned ring go with it); an
+evicted bucket stays servable from its cached winner.
+
+Not ported yet (ROADMAP queue 1): wide placement (item 6).
 """
 
 from __future__ import annotations
 
 import gc
 import heapq
+import itertools
+import json
+import os
 import queue as queue_lib
 import threading
 import time
@@ -149,6 +165,10 @@ class StreamStats:
     supervision, and ``pool_degraded`` is true from the first death until
     a respawn restores the whole pool.
 
+    Load accounting (DESIGN.md §5): ``retunes`` drift-triggered autotune
+    searches, ``program_evictions`` programs dropped by an executor's LRU
+    cap; neither is a failure.
+
     Defense accounting (DESIGN.md §9): ``invalid_rejects`` graphs refused
     at admission, ``audits`` / ``audit_mismatches`` / ``audit_dropped`` the
     shadow auditor, ``breaker_trips`` / ``breaker_probes`` the ladder's
@@ -173,6 +193,8 @@ class StreamStats:
     respawns: int = 0
     pool_degraded: bool = False
     preemptions: int = 0
+    retunes: int = 0
+    program_evictions: int = 0
     invalid_rejects: int = 0
     audits: int = 0
     audit_mismatches: int = 0
@@ -221,6 +243,11 @@ class StreamStats:
                     or self.pool_degraded)
 
     @property
+    def _has_load_events(self) -> bool:
+        return bool(self.preemptions or self.retunes
+                    or self.program_evictions)
+
+    @property
     def _has_defense_events(self) -> bool:
         return bool(self.invalid_rejects or self.audits
                     or self.audit_mismatches or self.audit_dropped
@@ -258,8 +285,7 @@ class StreamStats:
                     sum(self.batch_sizes)
                     / (self.t_last_done - self.t_first_dispatch))
         self._failure_summary(out)
-        if self.preemptions:
-            out["preemptions"] = int(self.preemptions)
+        self._load_summary(out)
         self._defense_summary(out)
         if self.by_queue and (self.latencies_s or self._has_failures):
             out["queues"] = {name: s.summary()
@@ -279,6 +305,13 @@ class StreamStats:
         out["executor_deaths"] = int(self.executor_deaths)
         out["respawns"] = int(self.respawns)
         out["pool_degraded"] = bool(self.pool_degraded)
+
+    def _load_summary(self, out: Dict[str, Any]) -> None:
+        if not self._has_load_events:
+            return
+        out["preemptions"] = int(self.preemptions)
+        out["retunes"] = int(self.retunes)
+        out["program_evictions"] = int(self.program_evictions)
 
     def _defense_summary(self, out: Dict[str, Any]) -> None:
         if not self._has_defense_events:
@@ -322,6 +355,35 @@ class _Inflight:
     t_placed: float
 
 
+@dataclass
+class _BucketLoad:
+    """A bucket's running traffic stats, which drive drift retunes (§5).
+
+    EWMAs (window ``drift_window`` batches) of the batch fill, the device
+    time (``CompletedBatch.device_s``: the replay's span on a GPU, the
+    marginal host time on the CPU) and the gap between completions are held
+    to the envelope the bucket was tuned in: ``tuned_device_s`` is the
+    winner's best time in the same units, ``tuned_fill`` the fill of the
+    first batch served after (re)tuning. When the device time grows past
+    ``drift_device_factor`` times the tuned one, or the fill leaves
+    [tuned / ``drift_fill_factor``, tuned x ``drift_fill_factor``], the
+    winner is dropped and the next batch tunes again, at most
+    ``max_retunes`` times a bucket and ``drift_cooldown_s`` apart."""
+
+    batches: int = 0
+    graphs: int = 0
+    ewma_fill: Optional[float] = None
+    ewma_device_s: Optional[float] = None
+    ewma_gap_s: Optional[float] = None
+    last_seen_t: Optional[float] = None
+    tuned_fill: Optional[float] = None
+    tuned_device_s: Optional[float] = None
+    batches_since_tune: int = 0
+    last_tune_t: float = float("-inf")
+    retunes: int = 0
+    last_reason: Optional[str] = None
+
+
 #: the ladder's floor on the CPU: the unfused mirror, the program the
 #: shadow auditor holds every batch to, so a bucket at the floor cannot
 #: fail an audit
@@ -336,8 +398,8 @@ _KERNEL_RUNG = 1
 class _BucketHealth:
     """A bucket's circuit-breaker ledger (DESIGN.md §9).
 
-    ``level`` is how many rungs BELOW its configured dataflow the bucket
-    serves on (0: healthy). A trip (a NaN-gate quarantine, a program that
+    ``level`` is how many rungs BELOW its tuned winner (the configured
+    dataflow when untuned) the bucket serves on (0: healthy). A trip (a NaN-gate quarantine, a program that
     fails to build, an audit mismatch) demotes one rung down the ladder
     ``fused_layer -> pipeline -> single-pass fused -> unfused``. After
     ``breaker_cooldown_s`` without a trip the breaker half-opens: it
@@ -412,11 +474,20 @@ class GraphStreamEngine:
                  max_nodes_per_batch: Optional[int] = None,
                  max_edges_per_batch: Optional[int] = None,
                  eager_flush: bool = True,
+                 autotune: bool = False,
+                 autotune_cache: Optional[str] = None,
+                 max_autotune: int = 5,
                  max_pending: int = 4096,
                  queues: Optional[Sequence[QueueConfig]] = None,
                  preempt: bool = True,
                  preempt_chunk: int = 4,
                  preempt_horizon_ms: float = 20.0,
+                 max_cached_programs: Optional[int] = 128,
+                 drift_window: int = 32,
+                 drift_device_factor: float = 3.0,
+                 drift_fill_factor: float = 2.0,
+                 drift_cooldown_s: float = 2.0,
+                 max_retunes: int = 2,
                  devices: Optional[Sequence[DeviceLike]] = None,
                  device: DeviceLike = None,
                  max_retries: int = 1,
@@ -536,6 +607,29 @@ class GraphStreamEngine:
         # programs are built one at a time (a capture must not overlap
         # another build, or a canary)
         self._compile_lock = threading.RLock()
+
+        # autotune: the winner of each bucket, shared by the pool (programs
+        # stay per executor); the timings of the buckets tuned here
+        self._autotune = bool(autotune)
+        self._autotune_cache = autotune_cache
+        self._max_autotune = max(1, int(max_autotune))
+        self._tuned: Dict[BucketKey, DataflowConfig] = {}
+        self._tune_log: Dict[BucketKey, Dict[str, Any]] = {}
+        self._load_autotune_cache()
+
+        # drift retune (per-bucket stats under self._cv) and LRU eviction of
+        # programs (under the compile lock)
+        if max_cached_programs is not None and max_cached_programs < 1:
+            raise ValueError("max_cached_programs must be >= 1 or None")
+        self._max_cached_programs = max_cached_programs
+        self._drift_window = max(1, int(drift_window))
+        self._drift_device_factor = float(drift_device_factor)
+        self._drift_fill_factor = max(1.0, float(drift_fill_factor))
+        self._drift_cooldown_s = max(0.0, float(drift_cooldown_s))
+        self._max_retunes = max(0, int(max_retunes))
+        self._bucket_load: Dict[BucketKey, _BucketLoad] = {}
+        self._evict_log: Dict[BucketKey, int] = {}
+        self._touch = itertools.count(1)   # engine-wide LRU touch sequence
 
         # async machinery (threads started lazily on first submit)
         self._cv = threading.Condition()
@@ -796,7 +890,9 @@ class GraphStreamEngine:
     def warmup_all(self, pairs: Optional[List[Tuple[int, int]]] = None
                    ) -> List[BucketKey]:
         """Build (and run once) every configured bucket's program on EVERY
-        executor. ``pairs`` lists the (node_pad, edge_pad) combinations; the
+        executor; with ``autotune`` each bucket is tuned first, on a
+        synthetic batch (two nodes, one edge) as in the reference, by the
+        first executor that builds it. ``pairs`` lists the (node_pad, edge_pad) combinations; the
         default pairs each node bucket with the next edge bucket up
         (``(b, 2b)``), the shape a sparse stream (E ~ 2N) lands in. Buckets
         are prepared for every distinct per-queue ``graph_pad``. Returns
@@ -814,21 +910,53 @@ class GraphStreamEngine:
         return keys
 
     def autotune_report(self) -> Dict[str, Dict[str, Any]]:
-        """Per bucket (``"NxExG"``): the dataflow it is configured with and,
-        once its breaker has tripped or probed, the breaker's ledger
-        (``level``, ``trips``, ``probes``, ``probing``, ``last_reason``,
-        ``serving_impl``: the impl of the rung it serves on, which the next
-        program built for it runs). The autotune half of the reference's report
-        comes with autotune (ROADMAP queue 1 item 4(b))."""
+        """Per bucket (``"NxExG"``): the dataflow it serves at rung 0
+        (``num_banks``, ``edge_tile``, ``impl``, ``rows_per_block``) and
+        where it came from (``source``: ``autotuned`` here, ``cache``, or
+        ``default``); for a bucket tuned here the tune's log
+        (``candidates_us``: each candidate's best time, ``winner``,
+        ``best_us``, ``device``: the executor that tuned it, ``failed``:
+        candidates that raised, ``captures``: programs built to tune it,
+        ``tune_ms``); its traffic envelope (``load``: batches, graphs, EWMA
+        fill and device µs, arrival rate, retunes and the last one's
+        reason); ``evictions`` of its programs; once its breaker has
+        tripped or probed, the breaker's ledger (``level``, ``trips``,
+        ``probes``, ``probing``, ``last_reason``, ``serving_impl``: the
+        impl of the rung it serves on). Evicted buckets stay in the
+        report."""
         report: Dict[str, Dict[str, Any]] = {}
         with self._compile_lock:
-            keys = ({k for k, _ in self._compiled}
-                    | set(self._bucket_health))
-            df = self.dataflow
+            keys = ({k for k, _ in self._compiled} | set(self._tuned)
+                    | set(self._tune_log) | set(self._bucket_load)
+                    | set(self._evict_log) | set(self._bucket_health))
             for key in keys:
+                df = self._base_df(key)
                 entry: Dict[str, Any] = {
                     "num_banks": df.num_banks, "edge_tile": df.edge_tile,
-                    "impl": df.impl, "source": "default"}
+                    "impl": df.impl, "rows_per_block": df.rows_per_block,
+                    "source": ("autotuned" if key in self._tune_log else
+                               "cache" if key in self._tuned else "default")}
+                if key in self._tune_log:
+                    entry.update(self._tune_log[key])
+                load = self._bucket_load.get(key)
+                if load is not None and load.batches:
+                    entry["load"] = {
+                        "batches": int(load.batches),
+                        "graphs": int(load.graphs),
+                        "ewma_fill": (None if load.ewma_fill is None
+                                      else round(load.ewma_fill, 3)),
+                        "ewma_device_us": (
+                            None if load.ewma_device_s is None
+                            else round(load.ewma_device_s * 1e6, 1)),
+                        "arrival_hz": (
+                            None if not load.ewma_gap_s
+                            else round(1.0 / load.ewma_gap_s, 2)),
+                        "retunes": int(load.retunes),
+                        "last_retune_reason": load.last_reason,
+                    }
+                ev = self._evict_log.get(key)
+                if ev:
+                    entry["evictions"] = int(ev)
                 health = self._bucket_health.get(key)
                 if health is not None and (health.trips or health.probes):
                     entry["breaker"] = {
@@ -1182,11 +1310,14 @@ class GraphStreamEngine:
                     # no auditor: a clean completion is the best verdict
                     h.probing = False
                 invalidate = self._maybe_probe_locked(pb.bucket, now)
+            retune_reason = self._observe_bucket_locked(pb, done)
             self._cv.notify_all()
         for fut, res, exc in resolved:
             _resolve(fut, res, exc)
         if invalidate:
             self._invalidate_programs(pb.bucket)
+        if retune_reason is not None:
+            self._trigger_retune(pb.bucket)
 
     def _complete_err(self, ex: DeviceExecutor, done: CompletedBatch) -> None:
         """Classify a failed batch: requeue (executor death), retry with
@@ -1594,6 +1725,79 @@ class GraphStreamEngine:
             pos_dim=self.cfg.pos_dim, device=device)
 
     # ------------------------------------------------------------------
+    # drift detection -> bounded retune (§5)
+    # ------------------------------------------------------------------
+
+    def _observe_bucket_locked(self, pb: PackedBatch,
+                               done: CompletedBatch) -> Optional[str]:
+        """Fold one completed batch into its bucket's running stats (under
+        ``self._cv``) and decide whether its traffic has drifted out of the
+        envelope it was tuned in: the drift's reason when a retune should
+        fire (``_trigger_retune``, outside the lock), else None. The retune
+        budget is spent here, under the lock, so that two completions of
+        one bucket never both trigger."""
+        key = pb.bucket
+        load = self._bucket_load.setdefault(key, _BucketLoad())
+        a = 2.0 / (self._drift_window + 1.0)
+
+        def ewma(old: Optional[float], new: float) -> float:
+            return new if old is None else (1.0 - a) * old + a * new
+
+        load.batches += 1
+        load.graphs += pb.num_graphs
+        load.batches_since_tune += 1
+        fill = float(pb.num_graphs)
+        load.ewma_fill = ewma(load.ewma_fill, fill)
+        if done.device_s > 0:
+            load.ewma_device_s = ewma(load.ewma_device_s, done.device_s)
+        if load.last_seen_t is not None:
+            load.ewma_gap_s = ewma(load.ewma_gap_s,
+                                   done.t_ready - load.last_seen_t)
+        load.last_seen_t = done.t_ready
+        if load.tuned_fill is None:
+            # the first batch after a (re)tune anchors the envelope's mix
+            load.tuned_fill = fill
+
+        if not self._autotune or key not in self._tuned:
+            return None            # nothing tuned: nothing to retune
+        if (load.retunes >= self._max_retunes
+                or load.batches_since_tune < self._drift_window
+                or done.t_ready - load.last_tune_t < self._drift_cooldown_s):
+            return None
+        reason = None
+        if (load.tuned_device_s is not None
+                and load.ewma_device_s is not None
+                and load.ewma_device_s
+                > self._drift_device_factor * load.tuned_device_s):
+            reason = "device_time"
+        elif (load.tuned_fill is not None and load.ewma_fill is not None
+              and not (load.tuned_fill / self._drift_fill_factor
+                       <= load.ewma_fill
+                       <= load.tuned_fill * self._drift_fill_factor)):
+            reason = "batch_mix"
+        if reason is None:
+            return None
+        load.retunes += 1
+        load.last_tune_t = done.t_ready
+        load.batches_since_tune = 0
+        load.tuned_fill = None
+        load.tuned_device_s = None
+        load.last_reason = reason
+        self.stats.retunes += 1
+        return reason
+
+    def _trigger_retune(self, key: BucketKey) -> None:
+        """Drop a drifted bucket's winner and move every executor's programs
+        of it to ``retired`` (as ``_invalidate_programs`` does): the next
+        batch of the bucket runs the autotune search again on current
+        traffic. The bucket stays servable: a dispatch that misses builds
+        as on a first sight, and a batch already enqueued on the old
+        program finishes on it."""
+        with self._compile_lock:
+            self._tuned.pop(key, None)
+            self._retire_bucket(key)
+
+    # ------------------------------------------------------------------
     # circuit breaker: the degradation ladder and cooldown probes (§9)
     # ------------------------------------------------------------------
 
@@ -1622,10 +1826,15 @@ class GraphStreamEngine:
             return base.replace(impl="fused", single_pass=True)
         return base.replace(impl="unfused", single_pass=False)
 
+    def _base_df(self, key: BucketKey) -> DataflowConfig:
+        """Rung 0 of ``key``'s ladder: its tuned winner, else the engine's
+        configured dataflow."""
+        return self._tuned.get(key, self.dataflow)
+
     def _effective_df(self, key: BucketKey, df: DataflowConfig
                       ) -> DataflowConfig:
-        """The dataflow ``key`` serves on: ``df`` demoted by the bucket's
-        breaker level."""
+        """The dataflow ``key`` serves on: ``df`` (its rung 0) demoted by
+        the bucket's breaker level."""
         h = self._bucket_health.get(key)
         if not self._breaker or h is None or h.level == 0:
             return df
@@ -1643,7 +1852,7 @@ class GraphStreamEngine:
         h.last_trip_t = now
         h.last_reason = reason
         h.probing = False              # a trip ends any open probe
-        if self._impl_rung(self.dataflow) + h.level >= self._floor:
+        if self._impl_rung(self._base_df(key)) + h.level >= self._floor:
             return False               # already serving the floor
         h.level += 1
         self.stats.breaker_trips += 1
@@ -1667,14 +1876,22 @@ class GraphStreamEngine:
 
     def _invalidate_programs(self, key: BucketKey) -> None:
         """Drop every executor's programs of bucket ``key``, so that the
-        next dispatch builds it at the bucket's current rung. A batch in
-        flight keeps its program alive until it is waited for; the
-        executor holds the dropped ones (``retired``) until its dispatch
-        thread next builds with the pipe drained."""
+        next dispatch builds it at the bucket's current rung. Unlike
+        ``_trigger_retune`` the tuned winner stays: the breaker moves along
+        the ladder from it, and a healed bucket comes back to it."""
         with self._compile_lock:
-            for ex in self._executors:
-                for pkey in [k for k in ex.compiled if k[0] == key]:
-                    ex.retired.append(ex.compiled.pop(pkey))
+            self._retire_bucket(key)
+
+    def _retire_bucket(self, key: BucketKey) -> None:
+        """Move every executor's programs of bucket ``key`` to its
+        ``retired`` list (under the compile lock). A batch in flight keeps
+        its program alive until it is waited for; the executor holds the
+        dropped ones until its dispatch thread next builds with the pipe
+        drained."""
+        for ex in self._executors:
+            for pkey in [k for k in ex.compiled if k[0] == key]:
+                ex.retired.append(ex.compiled.pop(pkey))
+                ex.touched.pop(pkey, None)
 
     # ------------------------------------------------------------------
     # one program per bucket and executor
@@ -1706,22 +1923,29 @@ class GraphStreamEngine:
                         graph: PackedBatch):
         """The program for ``key`` on executor ``ex``, built on the first
         sight of the bucket from its first batch ``graph``, at the bucket's
-        breaker rung: the twin of the reference's ``_ensure_program``,
-        without autotune and eviction (ROADMAP queue 1 item 4 (b), (e)).
-        On the CPU, when a rung fails to build, the breaker trips
-        (``build_failure: ...``) and the next rung down is built. On a GPU
-        a capture that raises fails the batch and trips nothing: a kernel
-        that does not build or launch is never hidden by a lower rung. Runs on
-        ``ex``'s dispatch thread (or the caller's before the threads
-        start), in ``ex.on_device()``. A program built at another rung than
-        the bucket's current one is never served (the breaker's level is
-        read at each dispatch, so a batch dispatched after a trip or a
-        probe runs the new rung even before ``_invalidate_programs`` has
-        dropped the old program)."""
+        breaker rung: the twin of the reference's ``_ensure_program``.
+        With ``autotune`` and no winner for the bucket yet, the candidates
+        are built and timed first (``_run_autotune``) and the winner's own
+        program is kept; other executors build only the winner. On the CPU,
+        when a rung fails to build, the breaker trips (``build_failure:
+        ...``) and the next rung down is built. On a GPU a capture that
+        raises fails the batch and trips nothing: a kernel that does not
+        build or launch is never hidden by a lower rung. Each program's use
+        is stamped in ``ex.touched``; past ``max_cached_programs`` the
+        least recently used program of ``ex`` is evicted. Runs on ``ex``'s
+        dispatch thread (or the caller's before the threads start), in
+        ``ex.on_device()``. A program built at another rung than the
+        bucket's current one is never served (the breaker's level is read
+        at each dispatch, so a batch dispatched after a trip or a probe
+        runs the new rung even before ``_invalidate_programs`` has dropped
+        the old program)."""
         pkey = (key, self._widths(graph))
         prog = ex.compiled.get(pkey)
-        if (prog is not None
-                and prog.dataflow == self._effective_df(key, self.dataflow)):
+        if (prog is not None and prog.dataflow
+                == self._effective_df(key, self._base_df(key))):
+            # a plain dict store: the LRU order is approximate across
+            # racing dispatch threads, which is fine
+            ex.touched[pkey] = next(self._touch)
             return prog
         cuda = ex.device.type == "cuda"
         if cuda:
@@ -1733,47 +1957,368 @@ class GraphStreamEngine:
         with self._compile_lock:
             prog = ex.compiled.get(pkey)
             if prog is not None:
-                if prog.dataflow == self._effective_df(key, self.dataflow):
+                if prog.dataflow == self._effective_df(key,
+                                                       self._base_df(key)):
+                    ex.touched[pkey] = next(self._touch)
                     return prog
                 ex.retired.append(ex.compiled.pop(pkey))     # another rung
+                ex.touched.pop(pkey, None)
             if not ex.dead:
                 ex.retired.clear()       # none of them is on the stream
             if cuda and ex.pool is None:
                 ex.pool = torch.cuda.graph_pool_handle()
-            while True:
-                eff = self._effective_df(key, self.dataflow)
-                run = self._make_run(eff)
-                try:
-                    if cuda:
-                        staging = BatchStaging(
-                            *key, pkey[1], ex.device, pin=True,
-                            slots=CapturedProgram.SLOTS)
-                        prog = CapturedProgram(
-                            run, ex.resident, staging, graph, pool=ex.pool,
-                            stream=ex.stream)
-                    else:
-                        prog = EagerProgram(run, key, pkey[1], ex.device,
-                                            passes=self.edge_passes)
-                except Exception as exc:
-                    if cuda:
-                        # a capture that failed may leave its pool
-                        # recording: later captures take a fresh one
-                        ex.pool = torch.cuda.graph_pool_handle()
-                    if (cuda or not self._breaker
-                            or self._impl_rung(eff) >= self._floor):
-                        raise
-                    with self._cv:
-                        self._record_trip_locked(
-                            key, f"build_failure: {type(exc).__name__}: "
-                            f"{exc}", time.perf_counter())
-                    continue
-                break
-            if cuda:
+            prog = None
+            if self._autotune and key not in self._tuned:
+                prog = self._run_autotune(ex, key, pkey, graph)
+            if prog is None:
+                prog = self._build_on_ladder(ex, key, pkey, graph)
+            if prog.edge_passes is not None:
                 self.edge_passes.setdefault(key, prog.edge_passes)
-            prog.dataflow = eff
-            self._served_impl[key] = eff.impl
+            self._served_impl[key] = prog.dataflow.impl
             ex.compiled[pkey] = prog
+            ex.touched[pkey] = next(self._touch)
+            self._evict_cold_locked(ex, keep=pkey)
             return prog
+
+    def _build_on_ladder(self, ex: DeviceExecutor, key: BucketKey,
+                         pkey: ProgramKey, graph: PackedBatch):
+        """Build ``key``'s program at its breaker rung (under the compile
+        lock); on the CPU a rung that fails to build trips the breaker and
+        the next rung down is built."""
+        cuda = ex.device.type == "cuda"
+        while True:
+            eff = self._effective_df(key, self._base_df(key))
+            try:
+                return self._new_program(ex, key, pkey, graph, eff,
+                                         self.edge_passes)
+            except Exception as exc:
+                if cuda:
+                    # a capture that failed may leave its pool recording:
+                    # later captures take a fresh one
+                    ex.pool = torch.cuda.graph_pool_handle()
+                if (cuda or not self._breaker
+                        or self._impl_rung(eff) >= self._floor):
+                    raise
+                with self._cv:
+                    self._record_trip_locked(
+                        key, f"build_failure: {type(exc).__name__}: "
+                        f"{exc}", time.perf_counter())
+
+    def _new_program(self, ex: DeviceExecutor, key: BucketKey,
+                     pkey: ProgramKey, graph: PackedBatch,
+                     df: DataflowConfig, passes: Dict[BucketKey, int]):
+        """One program of ``key`` under ``df`` on ``ex``: on a GPU the
+        forward captured on ``graph`` into the executor's pool, with a ring
+        of pinned slots of its own; on the CPU the eager forward, which
+        counts its passes into ``passes`` on its first run."""
+        run = self._make_run(df)
+        if ex.device.type == "cuda":
+            staging = BatchStaging(*key, pkey[1], ex.device, pin=True,
+                                   slots=CapturedProgram.SLOTS)
+            prog = CapturedProgram(run, ex.resident, staging, graph,
+                                   pool=ex.pool, stream=ex.stream,
+                                   warm_stream=ex.warm_stream)
+        else:
+            prog = EagerProgram(run, key, pkey[1], ex.device, passes=passes)
+        prog.dataflow = df
+        return prog
+
+    def _evict_cold_locked(self, ex: DeviceExecutor, keep: ProgramKey
+                           ) -> None:
+        """Bound ``ex``'s programs (under the compile lock): while there
+        are more than ``max_cached_programs``, move the least recently
+        touched one, never ``keep`` (the one just installed), to
+        ``ex.retired``, which frees it (its graph, its share of the pool,
+        its pinned ring) once no batch of it can be in flight. The bucket
+        stays servable: its next batch builds it again from its cached
+        winner."""
+        cap = self._max_cached_programs
+        if cap is None:
+            return
+        while len(ex.compiled) > cap:
+            victim = min((k for k in ex.compiled if k != keep),
+                         key=lambda k: ex.touched.get(k, 0), default=None)
+            if victim is None:
+                return
+            ex.retired.append(ex.compiled.pop(victim))
+            ex.touched.pop(victim, None)
+            self._evict_log[victim[0]] = self._evict_log.get(victim[0], 0) + 1
+            with self._cv:
+                self.stats.program_evictions += 1
+
+    #: the impls that run a hand-written kernel, where ``rows_per_block``
+    #: is a distinct launch shape
+    _KERNEL_IMPLS = ("fused_layer", "pipeline", "kernel")
+
+    def _candidate_dataflows(self, key: BucketKey, device: torch.device
+                             ) -> List[DataflowConfig]:
+        """The dataflows a bucket's autotune times on an executor of
+        ``device`` (a pure function of the bucket and the device type).
+
+        On the CPU the reference's design space (the paper's Fig. 10: its
+        ``engine.py::_candidate_dataflows`` off the TPU): the configured
+        (num_banks, edge_tile) and up to two more, the configured impl and
+        ``pipeline``; ``fused_layer`` is left out, as the reference leaves
+        it out where it would be a bitwise duplicate of the pipeline.
+        Raising ``max_autotune`` expands toward banks {1, 2, 4, 8, 16} x
+        tiles {32, 64, 128, 256} x impls.
+
+        On a GPU (num_banks, edge_tile) change nothing, so every variant of
+        them would be a bitwise duplicate; the kernels' launch shape,
+        ``rows_per_block``, takes their place. The configured impl comes
+        first, then ``pipeline`` and ``fused_layer`` (distinct hand-written
+        programs there), each at the configured rows per block, then the
+        configured impl at the other two of {None, 1, 8}; raising
+        ``max_autotune`` expands toward {None, 1, 2, 4, 8, 16} x impls. As
+        in the reference, impl diversity outranks launch-shape diversity
+        under truncation to ``max_autotune``, and no duplicate is timed (a
+        plain impl, which runs no kernel, is offered at None only)."""
+        if torch.device(device).type == "cuda":
+            return self._card_candidates()
+        node_pad, edge_pad, _ = key
+
+        def clamp(banks: int, tile: int) -> Tuple[int, int]:
+            banks = max(1, min(banks, node_pad))
+            while node_pad % banks:
+                banks //= 2
+            return banks, max(8, min(tile, edge_pad))
+
+        impls = [self.dataflow.impl]
+        if "pipeline" not in impls:
+            impls.append("pipeline")
+        pairs: List[Tuple[int, int]] = []
+        for banks, tile in ((self.dataflow.num_banks, self.dataflow.edge_tile),
+                            (1, 128), (8, 64)):
+            bt = clamp(banks, tile)
+            if bt not in pairs:
+                pairs.append(bt)
+        base = self.dataflow.replace(num_banks=pairs[0][0],
+                                     edge_tile=pairs[0][1])
+        cands = [base]
+        cands += [base.replace(impl=impl) for impl in impls[1:]]
+        cands += [self.dataflow.replace(num_banks=b, edge_tile=t)
+                  for b, t in pairs[1:3]]
+        if self._max_autotune > len(cands):
+            seen = {(c.num_banks, c.edge_tile, c.impl) for c in cands}
+            for banks in (1, 2, 4, 8, 16):
+                for tile in (32, 64, 128, 256):
+                    b, t = clamp(banks, tile)
+                    for impl in impls:
+                        if (b, t, impl) not in seen:
+                            seen.add((b, t, impl))
+                            cands.append(self.dataflow.replace(
+                                num_banks=b, edge_tile=t, impl=impl))
+        return cands[:self._max_autotune]
+
+    def _card_candidates(self) -> List[DataflowConfig]:
+        """``_candidate_dataflows`` on a GPU."""
+        df = self.dataflow
+        impls = [df.impl]
+        for extra in ("pipeline", "fused_layer"):
+            if extra not in impls:
+                impls.append(extra)
+        rows = [df.rows_per_block]
+        for r in (None, 1, 8):
+            if r not in rows:
+                rows.append(r)
+        cands: List[DataflowConfig] = []
+        seen = set()
+
+        def offer(impl: str, r: Optional[int]) -> None:
+            r = r if impl in self._KERNEL_IMPLS else None
+            if (impl, r) not in seen:
+                seen.add((impl, r))
+                cands.append(df.replace(impl=impl, rows_per_block=r))
+
+        for impl in impls:
+            offer(impl, rows[0])
+        for r in rows[1:3]:
+            offer(df.impl, r)
+        if self._max_autotune > len(cands):
+            for r in (None, 1, 2, 4, 8, 16):
+                for impl in impls:
+                    offer(impl, r)
+        return cands[:self._max_autotune]
+
+    def _candidate_name(self, df: DataflowConfig) -> str:
+        """A candidate's name in the tune log: the reference's
+        (``banks4_tile128``, ``_<impl>`` when it is not the configured
+        one), with ``_rows<r>`` for a launch shape set."""
+        name = f"banks{df.num_banks}_tile{df.edge_tile}"
+        if df.rows_per_block is not None:
+            name += f"_rows{df.rows_per_block}"
+        if df.impl != self.dataflow.impl:
+            name += f"_{df.impl}"
+        return name
+
+    def _run_autotune(self, ex: DeviceExecutor, key: BucketKey,
+                      pkey: ProgramKey, pb: PackedBatch):
+        """Time the bucket's candidates on its first batch ``pb`` on ``ex``
+        (under the compile lock, on ``ex``'s dispatch thread, after its
+        pipe drained), record the winner for the whole pool, anchor the
+        drift envelope, persist the cache. Each candidate is a program of
+        its own, its passes counted into a throwaway dict: on a GPU a
+        ``CapturedProgram`` in the executor's pool timed by the span
+        between the CUDA events around its replay (``device_s``'s span),
+        the minimum of 3 replays of ``pb``; on the CPU the eager forward by
+        the host clock, the minimum of 3 after a first run. A candidate
+        that raises is skipped and named in the log's ``failed`` (on a GPU
+        the executor then takes a fresh pool). Returns the winner's program
+        when the bucket serves at rung 0 (the losers go to ``ex.retired``),
+        else None, and then the caller builds the bucket's rung (also when
+        every candidate failed: that build raises on a GPU)."""
+        cuda = ex.device.type == "cuda"
+        params = ex.resident if cuda else ex.params
+        t0 = time.perf_counter()
+        timings: Dict[str, float] = {}
+        failed: Dict[str, str] = {}
+        best_t, best_df, best_name, best_prog = float("inf"), None, None, None
+        built = 0
+        for df in self._candidate_dataflows(key, ex.device):
+            name = self._candidate_name(df)
+            try:
+                built += 1
+                prog = self._new_program(ex, key, pkey, pb, df, passes={})
+                t = self._time_candidate(prog, pb, params, cuda)
+            except Exception as exc:   # the candidate does not serve here
+                failed[name] = f"{type(exc).__name__}: {exc}"
+                if cuda:
+                    ex.pool = torch.cuda.graph_pool_handle()
+                continue
+            timings[name] = t * 1e6
+            if t < best_t:
+                if best_prog is not None:
+                    ex.retired.append(best_prog)
+                best_t, best_df, best_name, best_prog = t, df, name, prog
+            else:
+                ex.retired.append(prog)
+        winner = best_df if best_df is not None else self.dataflow
+        self._tuned[key] = winner
+        with self._cv:
+            load = self._bucket_load.setdefault(key, _BucketLoad())
+            load.last_tune_t = time.perf_counter()
+            load.batches_since_tune = 0
+            load.tuned_fill = None     # the next completion anchors the mix
+            load.tuned_device_s = best_t if np.isfinite(best_t) else None
+        log: Dict[str, Any] = {"candidates_us": timings, "device": ex.label,
+                               "failed": failed, "programs": built,
+                               "tune_ms": (time.perf_counter() - t0) * 1e3}
+        if best_name is not None:
+            log["winner"] = best_name
+            log["best_us"] = best_t * 1e6
+        self._tune_log[key] = log
+        self._save_autotune_cache()
+        if best_prog is None:
+            return None
+        if best_prog.dataflow != self._effective_df(key, winner):
+            ex.retired.append(best_prog)   # the breaker serves another rung
+            return None
+        return best_prog
+
+    @staticmethod
+    def _time_candidate(prog, pb: PackedBatch, params, cuda: bool) -> float:
+        """A candidate program's time on ``pb`` (s): on a GPU the least
+        span of 3 replays, each between the CUDA events around it; on the
+        CPU the least host time of 3 forwards after a first one."""
+        if cuda:
+            return min(prog.wait(prog.enqueue(pb, params))[1]
+                       for _ in range(3))
+        ticket = prog.enqueue(pb, params)
+        prog.wait(ticket)              # the first run counts the passes
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            prog.wait(ticket)
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    # ------------------------------------------------------------------
+    # autotune cache persistence
+    # ------------------------------------------------------------------
+
+    # The reference's schema, so that one file can hold both engines'
+    # sections (each side rebuilds a file of another schema on save); the
+    # fingerprint keeps the port's winners apart from the JAX engine's.
+    AUTOTUNE_CACHE_SCHEMA = 3
+
+    def _cache_fingerprint(self) -> str:
+        """The workload and device the winners were tuned for: torch, the
+        executors' device type and kind (``torch.cuda.get_device_name``,
+        or ``cpu``), the model's shape and the configured dataflow. The JAX
+        engine's sections start with its backend's name, never ``torch``,
+        so neither side applies the other's winners."""
+        c, d = self.cfg, self.dataflow
+        dev = self._executors[0].device
+        kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else "cpu").replace(" ", "_")
+        return (f"torch:{dev.type}:{kind}/{c.model}-l{c.num_layers}-"
+                f"h{c.hidden_dim}-{c.task}-{d.impl}"
+                f"{'-sp' if d.single_pass else ''}@wide1")
+
+    def _load_autotune_cache(self) -> None:
+        """Load the winners of this engine's section; a file of another
+        schema, or one that does not parse, is ignored."""
+        path = self._autotune_cache
+        if not path or not os.path.exists(path):
+            return
+        try:
+            with open(path) as f:
+                raw = json.load(f)
+        except (OSError, ValueError):
+            return
+        if (not isinstance(raw, dict)
+                or raw.get("__schema__") != self.AUTOTUNE_CACHE_SCHEMA):
+            return                 # stale (or unversioned) cache: re-tune
+        section = raw.get(self._cache_fingerprint(), {})
+        if not isinstance(section, dict):
+            return
+        for key_s, val in section.items():
+            try:
+                key = tuple(int(v) for v in key_s.split("x"))
+                if len(key) != 3:
+                    continue
+                rows = val.get("rows_per_block")
+                self._tuned[key] = self.dataflow.replace(
+                    num_banks=int(val["num_banks"]),
+                    edge_tile=int(val["edge_tile"]),
+                    impl=str(val.get("impl", self.dataflow.impl)),
+                    rows_per_block=None if rows is None else int(rows))
+            except (KeyError, ValueError, TypeError, AttributeError):
+                continue
+        self._tune_log.clear()     # cached winners are not timed again
+
+    def _save_autotune_cache(self) -> None:
+        """Write this engine's section, keeping the other sections of a
+        file of the same schema; written to a temporary file, then moved
+        into place."""
+        path = self._autotune_cache
+        if not path:
+            return
+        existing: Dict[str, Any] = {}
+        if os.path.exists(path):
+            try:
+                with open(path) as f:
+                    existing = json.load(f)
+                if not isinstance(existing, dict):
+                    existing = {}
+            except (OSError, ValueError):
+                existing = {}
+        if existing.get("__schema__") != self.AUTOTUNE_CACHE_SCHEMA:
+            existing = {}              # drop every stale-schema section
+        existing["__schema__"] = self.AUTOTUNE_CACHE_SCHEMA
+        existing[self._cache_fingerprint()] = {
+            "x".join(map(str, key)): {"num_banks": df.num_banks,
+                                      "edge_tile": df.edge_tile,
+                                      "impl": df.impl,
+                                      "rows_per_block": df.rows_per_block}
+            for key, df in self._tuned.items()}
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(existing, f, indent=2, sort_keys=True)
+            os.replace(tmp, path)
+        except OSError:
+            pass
 
     def _synthetic_batch(self, node_pad: int, edge_pad: int,
                          graph_pad: int) -> PackedBatch:
@@ -1845,7 +2390,11 @@ class CapturedProgram:
     is staged, the forward runs once eagerly on a side stream (it loads the
     kernels, sets their attributes, fills their launch caches and warms the
     allocator), then is captured on the static batch of ``staging`` into
-    ``pool`` (one pool per executor), in ``thread_local`` capture mode.
+    ``pool`` (one pool per executor), in ``thread_local`` capture mode. The
+    side stream is ``warm_stream``, one an executor: the caching allocator
+    reuses a freed block only on the stream that freed it, so a new side
+    stream for each capture would hold a new set of blocks for each (memory
+    that grows with every program built, as eviction rebuilds them).
 
     A batch is served in two halves. ``enqueue`` (the dispatch thread)
     takes the next slot of a ring of ``SLOTS``, pads the batch into the
@@ -1887,7 +2436,8 @@ class CapturedProgram:
     SLOTS = DeviceExecutor.PIPELINE_DEPTH
 
     def __init__(self, run, params, staging: BatchStaging, pb: PackedBatch,
-                 *, pool, stream: torch.cuda.Stream):
+                 *, pool, stream: torch.cuda.Stream,
+                 warm_stream: torch.cuda.Stream):
         t0 = time.perf_counter()
         self.params = params
         self.staging = staging
@@ -1898,11 +2448,10 @@ class CapturedProgram:
         with torch.cuda.stream(stream):
             pb.stage(staging, 0)
             staging.upload(0)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(stream)
-            with torch.cuda.stream(side):
+            warm_stream.wait_stream(stream)
+            with torch.cuda.stream(warm_stream):
                 run(self.params, staging.batch)
-            stream.wait_stream(side)
+            stream.wait_stream(warm_stream)
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             self.graph.enable_debug_mode()
             with _no_gc(), count_edge_passes() as ps, torch.cuda.graph(

@@ -8,8 +8,9 @@ thread pair with a depth-2 staging pipe, so that the host's packing of
 batch k+1 overlaps the device's work on batch k, and D executors run D
 pipelines.
 
-The executor knows nothing about queues, futures, stats or autotuning; the
-engine injects
+The executor knows nothing about queues, futures, stats or autotuning (it
+only holds the engine's per-executor state: ``compiled``, ``touched`` for
+LRU eviction, ``retired``); the engine injects
 
   * ``program_fn(ex, key, pb)``  — the program of a bucket on THIS executor
     (built on the first ``PackedBatch`` of the bucket; the engine's cache
@@ -169,13 +170,20 @@ class DeviceExecutor:
         # this executor's programs, by (bucket, input widths); the engine's
         # ``compiled`` merges them
         self.compiled: Dict[Any, Any] = {}
+        # the engine-wide touch sequence number of each program's last use
+        # (the engine's LRU eviction reads it)
+        self.touched: Dict[Any, int] = {}
         # programs the engine dropped from ``compiled`` (the breaker moved
-        # their bucket a rung): kept until the dispatch thread next builds
+        # their bucket a rung, a drift retune, an eviction, an autotune
+        # candidate that lost): kept until the dispatch thread next builds
         # a program with the pipe drained, so that none is freed while a
         # batch of it may still be on this executor's stream
         self.retired: List[Any] = []
         cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if cuda else None
+        # the side stream of every capture's warm-up run (made once, so that
+        # the allocator reuses its blocks across the captures)
+        self.warm_stream = torch.cuda.Stream(self.device) if cuda else None
         # the memory pool this executor's captured programs share (made by
         # the engine at the first capture)
         self.pool = None

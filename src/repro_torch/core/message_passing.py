@@ -227,7 +227,13 @@ class DataflowConfig:
     ``scan_layers`` is accepted for parity and means a plain Python loop
     over the layers either way. The tile knobs (``node_tile``,
     ``num_banks``, ``apply_tile``, ``scatter_tile``, ``edge_tile``) describe
-    the TPU kernels' grids; the CUDA kernel picks its own launch shape.
+    the TPU kernels' grids; they are still accepted and change nothing on
+    the card. ``rows_per_block`` is their CUDA counterpart: how many
+    destination rows one block of each GNN kernel owns (``layer_fused``,
+    ``mp_pipeline``, ``mp_scatter``, ``mp_scatter_multi``,
+    ``seg_softmax``), ``None`` letting each kernel pick its own launch
+    shape. Outputs are bitwise the same for any value; the engine's
+    autotune varies it per bucket.
     """
 
     node_tile: int = 8
@@ -239,6 +245,7 @@ class DataflowConfig:
     impl: str = "fused"
     single_pass: bool = True
     scan_layers: bool = True
+    rows_per_block: Optional[int] = None
 
     def replace(self, **kw) -> "DataflowConfig":
         import dataclasses
@@ -381,7 +388,8 @@ def segment_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
             return kops.mp_scatter(
                 msg, receivers, edge_mask, num_nodes,
                 node_tile=dataflow.node_tile, edge_tile=dataflow.edge_tile,
-                num_banks=dataflow.num_banks)
+                num_banks=dataflow.num_banks,
+                rows_per_block=dataflow.rows_per_block)
         return banked_segment_sum(msg, receivers, num_nodes,
                                   num_banks=dataflow.num_banks,
                                   edge_mask=edge_mask)
@@ -456,7 +464,8 @@ def segment_multi_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
             want_sum="sum" in kinds or want_moments, want_sumsq=want_sumsq,
             want_count=need_count, want_max="max" in kinds,
             want_min="min" in kinds, node_tile=dataflow.node_tile,
-            edge_tile=dataflow.edge_tile, num_banks=dataflow.num_banks)
+            edge_tile=dataflow.edge_tile, num_banks=dataflow.num_banks,
+            rows_per_block=dataflow.rows_per_block)
         _count_pass()                  # one edge stream, all statistics
         s1, s2 = got.get("sum"), got.get("sumsq")
         cnt = got["count"][:, 0] if need_count else None
@@ -572,7 +581,8 @@ def segment_softmax(logits: torch.Tensor, receivers: torch.Tensor,
         _count_pass(2)
         return kops.seg_softmax(logits, receivers, edge_mask, num_nodes,
                                 edge_tile=dataflow.edge_tile,
-                                num_banks=dataflow.num_banks)
+                                num_banks=dataflow.num_banks,
+                                rows_per_block=dataflow.rows_per_block)
     m = edge_mask if logits.ndim == 1 else edge_mask[:, None]
     neg = torch.where(m, logits, -torch.inf)
     _count_pass()
@@ -592,13 +602,14 @@ def fused_edge_aggregate(
     fusable: FusableMessage,
     *,
     kinds: Sequence[str],
+    dataflow: DataflowConfig = DEFAULT_DATAFLOW,
     stats: Optional[PrecomputedGraphStats] = None,
 ) -> Dict[str, torch.Tensor]:
     """The fused gather-phi-scatter edge phase: one pass, no (E, D) buffer.
 
     One ``mp_pipeline`` launch on the card (its plain version for CPU
-    tensors); the requested kinds are derived from its raw accumulators.
-    Returns ``{kind: (N, D) tensor}``.
+    tensors), at ``dataflow.rows_per_block``; the requested kinds are
+    derived from its raw accumulators. Returns ``{kind: (N, D) tensor}``.
     """
     kinds = tuple(kinds)
     if not kinds:
@@ -619,11 +630,11 @@ def fused_edge_aggregate(
     _count_pass()                 # the whole edge phase is one launch
     with _uncounted():
         return _pipeline_kernel_stats(graph, y, fusable, kinds, degrees,
-                                      y.dtype)
+                                      y.dtype, dataflow.rows_per_block)
 
 
-def _pipeline_kernel_stats(graph, y, fusable, kinds, degrees,
-                           out_dtype) -> Dict[str, torch.Tensor]:
+def _pipeline_kernel_stats(graph, y, fusable, kinds, degrees, out_dtype,
+                           rows_per_block) -> Dict[str, torch.Tensor]:
     """Run mp_pipeline and derive the requested kinds from its raw
     accumulators."""
     from repro_torch.kernels.mp_pipeline import BIG
@@ -647,7 +658,8 @@ def _pipeline_kernel_stats(graph, y, fusable, kinds, degrees,
         bias=fusable.bias, activation=fusable.activation,
         att_src=None if att is None else att.src_logits,
         att_dst=None if att is None else att.dst_logits,
-        att_slope=0.2 if att is None else att.slope)
+        att_slope=0.2 if att is None else att.slope,
+        rows_per_block=rows_per_block)
     deg = degrees if degrees is not None else raw.get("count")
     if deg is not None and deg.ndim == 2:
         deg = deg[:, 0]
@@ -744,10 +756,11 @@ def propagate(
                     field_wsum=fu.field_wsum,
                     degrees=(None if fu.scalers is None
                              and fu.field_wsum is None else stats.degrees),
-                    w2=fu.w2, b2=fu.b2, out_activation=fu.out_activation)
+                    w2=fu.w2, b2=fu.b2, out_activation=fu.out_activation,
+                    rows_per_block=dataflow.rows_per_block)
             return torch.where(graph.node_mask[:, None], out, 0.0)
         agg = fused_edge_aggregate(graph, x, fusable, kinds=kinds,
-                                   stats=stats)
+                                   dataflow=dataflow, stats=stats)
         m = (agg[kinds[0]] if len(kinds) == 1 else
              torch.cat([agg[k] for k in kinds], dim=-1))
         out = update_fn(x, m)

@@ -340,7 +340,7 @@ def gat_layer(p, graph: GraphBatch, x: torch.Tensor,
             graph, h.reshape(n, heads * hd),
             FusableMessage(attention=FusableAttention(
                 src_logits=alpha_src, dst_logits=alpha_dst)),
-            kinds=("sum",), stats=stats)["sum"]
+            kinds=("sum",), dataflow=dataflow, stats=stats)["sum"]
     else:
         logits = torch.nn.functional.leaky_relu(
             alpha_src[graph.senders] + alpha_dst[graph.receivers],

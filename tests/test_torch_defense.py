@@ -386,8 +386,10 @@ def test_a_rung_that_fails_to_build_walks_down_the_ladder(monkeypatch):
     monkeypatch.setattr(tengine, "EagerProgram", Refuses)
     monkeypatch.setattr(GraphStreamEngine, "_make_run", tagged)
     graphs = _graphs(4)
+    # no probe may promote the bucket back before the checks: a first
+    # forward slower than the default 1 s cooldown would open one
     with _engine(cfg, params, dataflow=DataflowConfig(impl="fused_layer"),
-                 max_batch=4) as eng:
+                 max_batch=4, breaker_cooldown_s=3600.0) as eng:
         futs = _submit_all(eng, graphs)
         eng.drain(timeout=300)
         assert all(f.exception() is None for f in futs)
