@@ -2,6 +2,7 @@
 """Drive the PyTorch port of FlowGNN on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --only wide    # phase 4f alone (no result lines)
 
 Phases, each printing its own lines:
 
@@ -162,6 +163,35 @@ Phases, each printing its own lines:
                evictions, at most two programs, no tune after the first
                cycle, the card's reserved memory flat. No candidate may
                fail, no breaker trip. One ``[tune] json`` line.
+  4f. wide   — wide placement at the paper's GIN (5 layers, hidden 100):
+               one graph over the largest bucket split across a gang of
+               four executors of the card, counts from 0. (a) An engine
+               with the default buckets, ``wide=True, wide_k=4``,
+               ``devices=["cuda"] * 4`` serves 8 ``mesh_like`` graphs of
+               1,100-2,040 nodes among 16 molecules through ``submit`` /
+               ``drain``: every wide answer within ``EAGER_RTOL`` of the
+               eager single-device forward at the 4,096 bucket and
+               ``SLICE_RTOL`` of ``impl='fused'`` (max abs error and
+               bitwise printed), the molecules within ``EAGER_RTOL`` of
+               theirs, one ``CapturedWideProgram`` for both size classes,
+               the edge passes under ``("wide", 4, 1024, 4096)``, ``wide[4]``
+               in ``by_device``, one replay's device events 20
+               ``layer_fused`` and no other of the nine kernels, and how far
+               the shards' kernels ran side by side. (b) All six models at
+               K=4, one wide graph each (GAT 20 ``mp_pipeline``, PNA and
+               DGN 16 ``layer_fused``). (c) K=2 as the program alone:
+               ``build_wide_forward`` on two executors' streams, captured,
+               8 graphs of 1,000 nodes. (d) p50 from ``submit`` to answer,
+               replay spans and graphs/s of the gang against a K=1 pool
+               (buckets + 4,096, ``max_batch`` 1, 4 executors):
+               ``speedup_vs_k1``, reported only; each ring step's ms from
+               the eager schedule; halo rows and bytes a layer; capture
+               ms. (e) ``update_params`` under wide traffic (the next
+               answer under the new weights, no capture again), a planted
+               transient failure retried and served, a random graph of
+               900 nodes and 3,600 edges ``GraphTooLarge`` on buckets up
+               to 512. One ``[wide] json`` line. ``--only wide`` runs
+               phases 1, 2 (two sources) and 4f alone.
   5. nt      — ``ops.nt_mlp`` and ``ops.fused_nt_scatter`` driven at GIN's
                MLP (100->200->100) on the serving buckets' graphs and at
                the standard point (N=1024, E=4096, MLP 64->128->64), and
@@ -4607,6 +4637,471 @@ def tune_phase(card: str, graphs) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4f: wide placement, one oversized graph on a gang of executors
+# ---------------------------------------------------------------------------
+
+WIDE_K = 4
+# (a)'s oversized traffic: mesh_like graphs of 1,100 to 2,040 nodes (over
+# the largest default bucket, 1,024), every one in one WideBucket at K=4:
+# n_own_pad 512, h_pad 32, n_pad 1024, e_pad 4096, node_pad_full 4096
+WIDE_SIZES = (1100, 1234, 1368, 1502, 1636, 1770, 1904, 2040)
+WIDE_KEY = ("wide", WIDE_K, 1024, 4096)
+# the nine kernels' symbols in csrc/ (nt_mlp and fused_nt_scatter share
+# the NT tile, gather_rows has two)
+NINE_SYMBOLS = ("layer_fused_kernel", "mp_pipeline_kernel",
+                "mp_scatter_kernel", "seg_softmax_kernel", "mlp_tile_kernel",
+                "gather_pieces_kernel", "gather_values_kernel",
+                "flash_attention_kernel")
+# (c): K=2 as the program alone, as the reference's wide_bench times it
+WIDE_K2_NODES = 1000
+
+
+def wide_graphs():
+    from repro_torch.data.graphs import mesh_like
+    return [next(mesh_like(seed=100 + i, n_graphs=1, n_nodes=n))
+            for i, n in enumerate(WIDE_SIZES)]
+
+
+def single_forward(cfg, params, g, impl: str):
+    """The port's eager single-device forward of ``g`` on the card at the
+    bucket of its size (4,096 nodes for (a)'s graphs), on the host."""
+    import torch
+    from repro_torch.core.graph import build_graph_batch, pad_bucket
+    from repro_torch.core.message_passing import DataflowConfig
+    from repro_torch.core.models import make_gnn
+    n, e = g.node_feat.shape[0], g.senders.shape[0]
+    batch = build_graph_batch(
+        g.node_feat, g.senders, g.receivers, edge_feat=g.edge_feat,
+        node_pos=g.node_pos, node_pad=pad_bucket(n), edge_pad=pad_bucket(e),
+        pos_dim=cfg.pos_dim, device="cuda")
+    with torch.inference_mode():
+        out = make_gnn(cfg).apply(params, batch, cfg,
+                                  DataflowConfig(impl=impl))
+    return out.cpu().numpy()[0]
+
+
+def wide_engine(cfg, params, **kw):
+    """``cfg`` under ``fused_layer`` on ``WIDE_K`` executors of the card
+    with wide placement on (the default buckets unless given)."""
+    from repro_torch.core.engine import GraphStreamEngine
+    from repro_torch.core.message_passing import DataflowConfig
+    return GraphStreamEngine(cfg, params, DataflowConfig(impl="fused_layer"),
+                             wide=True, wide_k=WIDE_K,
+                             devices=["cuda"] * WIDE_K, **kw)
+
+
+def overlap(intervals) -> dict:
+    """How far kernel intervals (start, end in us) ran side by side: the
+    most at once, and the us during which two or more ran."""
+    points = sorted([(a, 1) for a, _ in intervals]
+                    + [(b, -1) for _, b in intervals])
+    running = most = 0
+    side_by_side = 0.0
+    last = None
+    for t, step in points:
+        if last is not None and running >= 2:
+            side_by_side += t - last
+        running += step
+        most = max(most, running)
+        last = t
+    return {"kernels": len(intervals), "max_concurrent": most,
+            "side_by_side_us": side_by_side,
+            "kernel_us": sum(b - a for a, b in intervals)}
+
+
+def replay_events(run):
+    """``run()`` under ``torch.profiler``: (what it returned, the device
+    events of each of ``NINE_SYMBOLS``, how far the GNN kernels' intervals
+    overlapped)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    counts = {sym: 0 for sym in NINE_SYMBOLS}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for sym in NINE_SYMBOLS:
+            if sym in ev.name:
+                counts[sym] += 1
+                spans.append((ev.time_range.start, ev.time_range.end))
+    return result, counts, overlap(spans)
+
+
+def check_replay(label: str, counts: dict, want: dict) -> None:
+    want = {sym: want.get(sym, 0) for sym in NINE_SYMBOLS}
+    log("wide", f"{label}: one replay's device kernel events {counts} "
+        f"(expected {want})")
+    if counts != want:
+        raise AssertionError(f"{label}: the wide replay did not run the "
+                             f"expected kernels")
+
+
+def wide_answers(label: str, cfg, params, graphs, outs) -> dict:
+    """Hold each wide answer to the eager single-device forward of its
+    graph on the card under ``fused_layer`` (``EAGER_RTOL``) and under the
+    plain ``fused`` (``SLICE_RTOL``); report the largest error and whether
+    each is bitwise the former."""
+    rows = []
+    for g, out in zip(graphs, outs):
+        ref = single_forward(cfg, params, g, "fused_layer")
+        plain = single_forward(cfg, params, g, "fused")
+        rows.append({"nodes": int(g.node_feat.shape[0]),
+                     "max_abs_err": float(np.abs(out - ref).max()),
+                     "rel": rel_diff(out, ref),
+                     "rel_vs_fused": rel_diff(out, plain),
+                     "bitwise": bool(np.array_equal(out, ref))})
+    worst = max(r["rel"] for r in rows)
+    worst_plain = max(r["rel_vs_fused"] for r in rows)
+    bitwise = sum(r["bitwise"] for r in rows)
+    log("wide", f"{label}: {len(rows)} wide answers vs the eager "
+        f"single-device forward: max abs err "
+        f"{max(r['max_abs_err'] for r in rows):.3e}, worst {worst:.3e} "
+        f"relative to max(1, |ref|) (tol {EAGER_RTOL:g}), bitwise on "
+        f"{bitwise}/{len(rows)}; vs impl='fused' {worst_plain:.3e} (tol "
+        f"{SLICE_RTOL:g})")
+    if worst > EAGER_RTOL or worst_plain > SLICE_RTOL:
+        raise AssertionError(f"{label}: wide answers differ from the "
+                             f"single-device forward")
+    return {"worst_rel": worst, "worst_rel_vs_fused": worst_plain,
+            "bitwise": bitwise, "answers": rows}
+
+
+def wide_served(card: str, eng, cfg, params, graphs) -> dict:
+    """(a): the oversized graphs and 16 molecules through one engine's
+    ``submit`` / ``drain``, interleaved."""
+    from repro_torch.data.graphs import molhiv_like
+    narrow = list(molhiv_like(seed=0, n_graphs=16))
+    mixed = []
+    for i in range(16):
+        mixed.append(narrow[i])
+        if i % 2:
+            mixed.append(graphs[i // 2])
+    t0 = time.perf_counter()
+    futs = [eng.submit(*graph_args(g)) for g in mixed]
+    eng.drain(timeout=600)
+    outs = [f.result(timeout=60) for f in futs]
+    wall = time.perf_counter() - t0
+    wide_out = [o for g, o in zip(mixed, outs) if g.node_feat.shape[0] > 1024]
+    narrow_out = [o for g, o in zip(mixed, outs)
+                  if g.node_feat.shape[0] <= 1024]
+    out = {"wall_s": wall, "wide": wide_answers("(a) GIN", cfg, params,
+                                                graphs, wide_out)}
+    worst = max(rel_diff(o, eager_forward(eng, g)[0])
+                for g, o in zip(narrow, narrow_out))
+    log("wide", f"(a) 16 narrow answers on the same engine vs the eager "
+        f"forward: worst {worst:.3e} (tol {EAGER_RTOL:g})")
+    if worst > EAGER_RTOL:
+        raise AssertionError("(a): narrow answers differ from the eager "
+                             "forward")
+    progs = list(eng._wide_programs.values())
+    by_device = eng.stats.by_device
+    log("wide", f"(a) wide programs {len(progs)} "
+        f"({', '.join(type(p).__name__ for p in progs)}), edge passes "
+        f"{eng.edge_passes.get(WIDE_KEY)} under {WIDE_KEY}, by_device "
+        f"{sorted(by_device)}")
+    if (len(progs) != 1 or type(progs[0]).__name__ != "CapturedWideProgram"
+            or WIDE_KEY not in eng.edge_passes
+            or f"wide[{WIDE_K}]" not in by_device):
+        raise AssertionError("(a): not one captured wide program serving "
+                             "both size classes")
+    _, counts, ov = replay_events(
+        lambda: eng.submit(*graph_args(graphs[0])).result(timeout=60))
+    check_replay("(a) GIN", counts, {"layer_fused_kernel": WIDE_K * 5})
+    log("wide", f"(a) GIN replay: {ov['kernels']} kernels, at most "
+        f"{ov['max_concurrent']} at once, {ov['side_by_side_us']:.1f} of "
+        f"{ov['kernel_us']:.1f} kernel us side by side")
+    out.update({"narrow_worst_rel": worst, "capture_s": progs[0].build_s,
+                "edge_passes": eng.edge_passes[WIDE_KEY],
+                "replay_events": counts, "overlap": ov})
+    return out
+
+
+def wide_models(card: str, g) -> dict:
+    """(b): each paper model at K=4 serves one wide graph."""
+    out = {}
+    for name in ("gin", "gin_vn", "gcn", "gat", "pna", "dgn"):
+        cfg, params = init_params(name, "cuda")
+        eng = wide_engine(cfg, params)
+        try:
+            t0 = time.perf_counter()
+            eng.submit(*graph_args(g)).result(timeout=300)
+            first_s = time.perf_counter() - t0
+            ans, counts, ov = replay_events(
+                lambda: eng.submit(*graph_args(g)).result(timeout=60))
+            sym = ("mp_pipeline_kernel" if name == "gat"
+                   else "layer_fused_kernel")
+            check_replay(f"(b) {name}", counts,
+                         {sym: WIDE_K * cfg.num_layers})
+            (prog,) = eng._wide_programs.values()
+            out[name] = {**wide_answers(f"(b) {name}", cfg, params, [g],
+                                        [ans]),
+                         "replay_events": counts, "overlap": ov,
+                         "capture_s": prog.build_s, "first_s": first_s,
+                         "span_ms": eng.stats.device_s[-1] * 1e3}
+            log("wide", f"(b) {name}: capture {prog.build_s * 1e3:.1f} ms, "
+                f"replay span {out[name]['span_ms']:.3f} ms, at most "
+                f"{ov['max_concurrent']} kernels at once; on {card}")
+        finally:
+            eng.close(timeout=60)
+    return out
+
+
+def ring_steps_ms(cfg, params, plan, stacked, executors) -> list:
+    """The ms of each ring step of the eager schedule on ``executors``'
+    streams, between CUDA events (the capture hides them): one entry per
+    (layer, step), the members joined around each step."""
+    import torch
+    from repro_torch.core.message_passing import DataflowConfig
+    from repro_torch.distributed.wide import build_wide_forward, wide_mesh
+    fwd = build_wide_forward(
+        cfg, plan, wide_mesh([ex.device for ex in executors],
+                             [ex.stream for ex in executors]),
+        DataflowConfig(impl="fused_layer"))
+    with executors[0].on_device():
+        fwd(params, stacked)                      # warm
+        events = []
+        fwd(params, stacked, ring_events=events)
+        torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def wide_k2(card: str, cfg, params) -> dict:
+    """(c): K=2 as the program alone, as the reference's wide_bench times
+    it: ``build_wide_forward`` on two executors' streams, captured once,
+    for 8 ``mesh_like`` graphs of 1,000 nodes planned with no budget (each
+    graph's plan, shard arrays and replay timed), against the
+    single-device forward at the 1,024 bucket."""
+    import torch
+    from repro_torch.core.engine import CapturedWideProgram
+    from repro_torch.core.engine import GraphStreamEngine
+    from repro_torch.core.message_passing import DataflowConfig
+    from repro_torch.data.graphs import mesh_like
+    from repro_torch.distributed.wide import (build_wide_forward, plan_wide,
+                                              stack_shard_arrays, wide_mesh)
+    graphs = list(mesh_like(seed=7, n_graphs=8, n_nodes=WIDE_K2_NODES))
+    plans = [plan_wide(g.senders, g.receivers, WIDE_K2_NODES, k=2)
+             for g in graphs]
+    buckets = {p.bucket for p in plans}
+    (bucket,) = buckets
+    if (bucket.n_pad, bucket.e_pad) != (1024, 4096):
+        raise AssertionError(f"(c): K=2 bucket {bucket}")
+    pair = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused_layer"),
+                             devices=["cuda"] * 2)
+    ex0, ex1 = pair._executors
+    fwd = build_wide_forward(cfg, bucket, wide_mesh(
+        ["cuda"] * 2, [ex0.stream, ex1.stream]),
+        DataflowConfig(impl="fused_layer"))
+    stacked = [stack_shard_arrays(p, g.node_feat, g.edge_feat, g.node_pos)
+               for p, g in zip(plans, graphs)]
+    with ex0.on_device():
+        prog = CapturedWideProgram(
+            fwd, params, stacked[0], pool=torch.cuda.graph_pool_handle(),
+            stream=ex0.stream, warm_stream=ex0.warm_stream)
+        for st in stacked:
+            prog.run(st, params)                  # warm
+        t0 = time.perf_counter()
+        outs, spans = [], []
+        for g in graphs:
+            p = plan_wide(g.senders, g.receivers, WIDE_K2_NODES, k=2)
+            o, span = prog.run(stack_shard_arrays(
+                p, g.node_feat, g.edge_feat, g.node_pos), params)
+            outs.append(o[0])
+            spans.append(span)
+        wall = time.perf_counter() - t0
+    steps = ring_steps_ms(cfg, params, plans[0], stacked[0], [ex0, ex1])
+    pair.close(timeout=60)
+    out = {"bucket": bucket.__dict__, "capture_s": prog.build_s,
+           "gps": len(graphs) / wall, "span_ms": [s * 1e3 for s in spans],
+           "ring_step_ms": steps,
+           "halo_rows_per_layer": plans[0].halo_rows_per_layer,
+           "halo_bytes_per_layer": plans[0].halo_bytes_per_layer(
+               cfg.hidden_dim),
+           **wide_answers("(c) GIN K=2", cfg, params, graphs, outs)}
+    log("wide", f"(c) K=2 program: {out['gps']:.1f} graphs/s (plan, shard "
+        f"arrays, replay), replay span p50 "
+        f"{statistics.median(out['span_ms']):.3f} ms, ring steps "
+        f"{', '.join(f'{s:.4f}' for s in steps)} ms, halo "
+        f"{out['halo_rows_per_layer']} rows / {out['halo_bytes_per_layer']} "
+        f"bytes a layer, capture {prog.build_s * 1e3:.1f} ms; on {card}")
+    return out
+
+
+def wide_vs_k1(card: str, eng, cfg, params, graphs) -> dict:
+    """(d): the wide graphs through the K=4 gang against a K=1 pool (the
+    default buckets plus 4096, max_batch 1, 4 executors: one graph a
+    device), each served once to warm, then timed through submit / drain:
+    p50 from submit to answer, replay spans, graphs per second of wall
+    (the reference's ``speedup_vs_k1``, reported, not gated); the ring
+    steps' ms of the eager schedule and the halo a layer."""
+    from repro_torch.core.engine import GraphStreamEngine, StreamStats
+    from repro_torch.core.message_passing import DataflowConfig
+    from repro_torch.distributed.wide import plan_wide, stack_shard_arrays
+
+    def timed(engine) -> dict:
+        stream(engine, graphs, record=False)
+        engine.stats = StreamStats()
+        outs, wall = stream(engine, graphs)
+        s = engine.stats.summary()
+        return {"outs": outs, "wall_s": wall, "gps": len(graphs) / wall,
+                "p50_ms": s["p50_ms"], "p99_ms": s["p99_ms"],
+                "span_ms": [d * 1e3 for d in engine.stats.device_s]}
+
+    wide = timed(eng)
+    k1_eng = GraphStreamEngine(cfg, params, DataflowConfig(impl="fused_layer"),
+                               buckets=(32, 64, 128, 256, 512, 1024, 4096),
+                               max_batch=1, devices=["cuda"] * WIDE_K)
+    try:
+        k1_eng.warmup_all(pairs=[(4096, 8192)])    # every executor's capture
+        k1 = timed(k1_eng)
+    finally:
+        k1_eng.close(timeout=60)
+    same = sum(bool(np.array_equal(a, b))
+               for a, b in zip(wide["outs"], k1["outs"]))
+    worst = max(rel_diff(a, b) for a, b in zip(wide["outs"], k1["outs"]))
+    if worst > EAGER_RTOL:
+        raise AssertionError("(d): the gang's answers differ from the K=1 "
+                             "pool's")
+    plan = plan_wide(graphs[-1].senders, graphs[-1].receivers,
+                     graphs[-1].node_feat.shape[0], k=WIDE_K,
+                     node_budget=1024)
+    g = graphs[-1]
+    steps = ring_steps_ms(cfg, eng.params, plan, stack_shard_arrays(
+        plan, g.node_feat, g.edge_feat, g.node_pos), eng._executors)
+    halo = [plan_wide(x.senders, x.receivers, x.node_feat.shape[0],
+                      k=WIDE_K).halo_rows_per_layer for x in graphs]
+    out = {"wide": {k: v for k, v in wide.items() if k != "outs"},
+           "k1": {k: v for k, v in k1.items() if k != "outs"},
+           "speedup_vs_k1": wide["gps"] / k1["gps"],
+           "bitwise_vs_k1": same, "worst_rel_vs_k1": worst,
+           "ring_step_ms": steps, "halo_rows_per_layer": halo,
+           "halo_bytes_per_layer": [h * cfg.hidden_dim * 4 for h in halo]}
+    log("wide", f"(d) K={WIDE_K} gang: p50 {wide['p50_ms']:.3f} ms, p99 "
+        f"{wide['p99_ms']:.3f} ms, replay span p50 "
+        f"{statistics.median(wide['span_ms']):.3f} ms, {wide['gps']:.1f} "
+        f"graphs/s; K=1 pool: p50 {k1['p50_ms']:.3f} ms, replay span p50 "
+        f"{statistics.median(k1['span_ms']):.3f} ms, {k1['gps']:.1f} "
+        f"graphs/s; speedup_vs_k1 {out['speedup_vs_k1']:.3f} (reported, "
+        f"not gated); answers bitwise the K=1 pool's on {same}/"
+        f"{len(graphs)}, worst {worst:.3e}; on {card}")
+    log("wide", f"(d) ring steps of the eager schedule at n="
+        f"{g.node_feat.shape[0]} ({cfg.num_layers - 1} exchanges x "
+        f"{WIDE_K - 1} steps): {', '.join(f'{s:.4f}' for s in steps)} ms; "
+        f"halo rows a layer {halo} ({cfg.hidden_dim} floats a row)")
+    return out
+
+
+def wide_faults(card: str, eng, cfg, graphs) -> dict:
+    """(e): ``update_params`` under wide traffic, the next wide answer
+    under the new version; a planted transient failure of the wide program
+    retried, then served; a random graph with no locality refused."""
+    import torch
+    from repro_torch.core.engine import GraphStreamEngine
+    from repro_torch.core.errors import GraphTooLarge
+    from repro_torch.core.message_passing import DataflowConfig
+    from repro_torch.core.models import make_gnn
+    new = make_gnn(cfg).init(torch.Generator().manual_seed(1), cfg,
+                             device="cuda")
+    leader = eng._executors[0]
+    swaps0 = leader.swaps
+    futs = [eng.submit(*graph_args(g)) for g in graphs[:4]]
+    t0 = time.perf_counter()
+    version = eng.update_params(new)
+    update_ms = (time.perf_counter() - t0) * 1e3
+    eng.drain(timeout=600)
+    for f in futs:
+        f.result(timeout=60)
+    after = eng.submit(*graph_args(graphs[4])).result(timeout=60)
+    rel_new = rel_diff(after, single_forward(cfg, new, graphs[4],
+                                             "fused_layer"))
+    log("wide", f"(e) update_params to version {version} under wide "
+        f"traffic ({update_ms:.1f} ms): the next wide answer vs the new "
+        f"weights' eager forward {rel_new:.3e} (tol {EAGER_RTOL:g}); "
+        f"leader swaps {leader.swaps - swaps0}, wide programs "
+        f"{len(eng._wide_programs)}")
+    if (rel_new > EAGER_RTOL or len(eng._wide_programs) != 1
+            or leader.swaps == swaps0):
+        raise AssertionError("(e): the wide program did not serve the new "
+                             "weights from its one capture")
+    (prog,) = eng._wide_programs.values()
+    real, calls = prog.run, []
+
+    def flaky(stacked, params):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("planted transient failure")
+        return real(stacked, params)
+    retries0 = eng.stats.retries
+    prog.run = flaky
+    try:
+        out = eng.submit(*graph_args(graphs[5])).result(timeout=60)
+    finally:
+        del prog.run
+    rel_retry = rel_diff(out, single_forward(cfg, new, graphs[5],
+                                             "fused_layer"))
+    log("wide", f"(e) a planted transient failure: {len(calls)} runs, "
+        f"retries {eng.stats.retries - retries0}, the answer "
+        f"{rel_retry:.3e} from the eager forward")
+    if len(calls) != 2 or eng.stats.retries != retries0 + 1 or (
+            rel_retry > EAGER_RTOL):
+        raise AssertionError("(e): the transient failure was not retried "
+                             "and served")
+    rng = np.random.default_rng(0)
+    small = GraphStreamEngine(cfg, new, DataflowConfig(impl="fused_layer"),
+                              buckets=(32, 64, 128, 256, 512), wide=True,
+                              wide_k=WIDE_K, devices=["cuda"] * WIDE_K)
+    try:
+        small.submit(rng.normal(size=(900, 9)).astype(np.float32),
+                     rng.integers(0, 900, 3600).astype(np.int32),
+                     rng.integers(0, 900, 3600).astype(np.int32),
+                     rng.normal(size=(3600, 3)).astype(np.float32))
+        raise AssertionError("(e): a graph with no locality was admitted")
+    except GraphTooLarge as exc:
+        refused = str(exc)
+    finally:
+        small.close(timeout=60)
+    log("wide", f"(e) a random graph of 900 nodes and 3,600 edges on "
+        f"buckets up to 512: GraphTooLarge ({refused})")
+    return {"update_ms": update_ms, "rel_after_update": rel_new,
+            "swaps": leader.swaps - swaps0, "retry_runs": len(calls),
+            "rel_after_retry": rel_retry, "refused": refused}
+
+
+def wide_phase(card: str) -> dict:
+    """Phase 4f: wide placement, counts from 0, no breaker trip."""
+    out = {}
+    t0 = time.perf_counter()
+
+    def run():
+        cfg, params = init_params("gin", "cuda")
+        graphs = wide_graphs()
+        eng = wide_engine(cfg, params)
+        try:
+            out["a_served"] = wide_served(card, eng, cfg, params, graphs)
+            out["d_vs_k1"] = wide_vs_k1(card, eng, cfg, params, graphs)
+            out["e_faults"] = wide_faults(card, eng, cfg, graphs)
+        finally:
+            eng.close(timeout=60)
+        out["b_models"] = wide_models(card, graphs[-1])
+        out["c_k2_program"] = wide_k2(card, cfg, params)
+    _, counts = counted(run)
+    check_trips("phase 4f", [])
+    used = ("layer_fused", "mp_pipeline")
+    log("wide", f"wrapper launches {counts} (the captures' warm-up runs "
+        f"and captures, the eager checks)")
+    if (not all(counts[k] for k in used)
+            or any(v for k, v in counts.items() if k not in used)):
+        raise AssertionError("phase 4f did not run the expected kernels")
+    out.update({"launches": counts, "seconds": time.perf_counter() - t0})
+    log("wide", f"phase 4f took {out['seconds']:.1f} s; on {card}")
+    return out
+
+
 def record_main_inputs():
     """What each path of phase 4 hands its kernel in its first two layers
     (the first reads the raw features or their encoding, the second the
@@ -4665,8 +5160,15 @@ def packed_buckets(device: str = "cuda"):
         yield key, f"packed{k}_bucket", pb.build(device=device)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+    args = sys.argv[1:] if argv is None else list(argv)
+    only = None
+    if args == ["--only", "wide"]:
+        only = "wide"
+    elif args:
+        print("usage: chip_smoke.py [--only wide]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "an NVIDIA GPU", file=sys.stderr)
@@ -4686,9 +5188,9 @@ def main() -> int:
     # 2. build
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build(["layer_fused", "mp_pipeline", "mp_scatter",
-                        "seg_softmax", "gather_rows", "nt_mlp",
-                        "fused_nt_scatter", "flash_attention"])
+    libs = build.build(["layer_fused", "mp_pipeline"] if only else [
+        "layer_fused", "mp_pipeline", "mp_scatter", "seg_softmax",
+        "gather_rows", "nt_mlp", "fused_nt_scatter", "flash_attention"])
     log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4696,6 +5198,12 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log("build", line.strip())
+    if only == "wide":
+        # phase 4f alone: no result lines
+        record_trips()
+        log("wide", "json " + json.dumps(wide_phase(card), default=str))
+        print(smi)
+        return 0
     scatter_build = scatter_build_report()
     lf_build = lf_build_report()
     pipeline_build = pipeline_build_report()
@@ -4728,6 +5236,10 @@ def main() -> int:
     tune = tune_phase(card, graphs)
     log("tune", "json " + json.dumps(tune, default=str))
     paths["tune"] = tune
+    # 4f. wide placement: oversized graphs on a gang of four executors
+    wide = wide_phase(card)
+    log("wide", "json " + json.dumps(wide, default=str))
+    paths["wide"] = wide
 
     # 5. the NT kernels through their entry points, 6. the MoE data path
     nt_rows, paths["nt"] = nt_phase(card, bucket_edges)

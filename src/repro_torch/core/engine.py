@@ -85,7 +85,20 @@ keeps at most ``max_cached_programs`` programs, evicting the least
 recently used (its graph, pool share and pinned ring go with it); an
 evicted bucket stays servable from its cached winner.
 
-Not ported yet (ROADMAP queue 1): wide placement (item 6).
+Wide placement (DESIGN.md §10). With ``wide=True`` a graph over the
+largest bucket is planned at ``submit`` (``distributed/wide.py::plan_wide``,
+one O(E) numpy pass; ``GraphTooLarge`` when no ``wide_k``-way split fits a
+bucket), waits in the wide queue until ``wide_k`` executors are idle at once
+(all or nothing, outside the priority tenant's preempt window), and runs as
+``wide_k`` destination-owned shards that exchange their halo rows once per
+layer. The gang answers through the same future, registry, stats
+(``by_device["wide[K]"]``) and fault semantics as narrow traffic: a member's
+death requeues the whole request, a transient failure retries up to
+``max_retries`` (``BatchFailed`` after), a non-finite answer is
+``PoisonGraph``. On a card the wide forward of each (``WideBucket``, gang) is
+one CUDA graph (``CapturedWideProgram``) that reads the leader's resident
+weights; on the CPU, or over several cards, it runs eagerly
+(``EagerWideProgram``).
 """
 
 from __future__ import annotations
@@ -127,6 +140,10 @@ from repro_torch.core.scheduler import BatchScheduler, QueueConfig
 from repro_torch.core.validate import check_budget, check_graph
 from repro_torch.distributed.sharding import (params_compatible,
                                               replicate_params)
+from repro_torch.distributed.wide import (WideForward, WidePlan,
+                                          WidePlanError, build_wide_forward,
+                                          plan_wide, stack_shard_arrays,
+                                          wide_mesh)
 
 BucketKey = Tuple[int, int, int]        # (node_pad, edge_pad, graph_pad)
 # a program's key: its bucket and the widths of node_feat, edge_feat and
@@ -356,6 +373,26 @@ class _Inflight:
 
 
 @dataclass
+class _WideRequest:
+    """One oversized graph waiting for (or holding) a gang of ``wide_k``
+    executors. It bypasses the packer (an oversized graph is its own batch)
+    but shares the request registry, the per-queue admission caps and the
+    stats with narrow traffic. ``plan`` is made at ``submit``, where a
+    graph no split fits is refused, so the placer only looks for a gang.
+    ``attempts`` counts transient failures against ``max_retries``;
+    ``requeues`` counts gang deaths against the requeue budget."""
+
+    req: _Request
+    plan: WidePlan
+    node_feat: np.ndarray
+    edge_feat: Optional[np.ndarray]
+    node_pos: Optional[np.ndarray]
+    t_arrival: float
+    attempts: int = 0
+    requeues: int = 0
+
+
+@dataclass
 class _BucketLoad:
     """A bucket's running traffic stats, which drive drift retunes (§5).
 
@@ -505,7 +542,9 @@ class GraphStreamEngine:
                  audit_seed: int = 0,
                  breaker: bool = True,
                  breaker_cooldown_s: float = 1.0,
-                 breaker_max_probes: int = 2):
+                 breaker_max_probes: int = 2,
+                 wide: bool = False,
+                 wide_k: Optional[int] = None):
         if device is not None and devices is not None:
             raise ValueError("pass device= or devices=, not both")
         devs = ([resolve_device(d) for d in devices] if devices is not None
@@ -602,6 +641,22 @@ class GraphStreamEngine:
         # executor-death requeues are bounded apart from poison retries:
         # one hop per surviving executor plus slack
         self._max_requeues = 2 * len(devs) + 2
+
+        # wide placement (DESIGN.md §10): one oversized graph split across
+        # a gang of ``wide_k`` executors. State under self._cv, except the
+        # programs (under the compile lock, like the narrow ones)
+        self._wide_enabled = bool(wide)
+        self._wide_k = int(wide_k) if wide_k is not None else len(devs)
+        if self._wide_enabled:
+            if self._wide_k < 2:
+                raise ValueError("wide placement needs wide_k >= 2")
+            if self._wide_k > len(devs):
+                raise ValueError(f"wide_k={self._wide_k} exceeds the pool "
+                                 f"size {len(devs)}")
+        self._wide_queue: List[_WideRequest] = []
+        self._wide_reserved: set = set()       # executor indices gang-held
+        self._wide_running = 0
+        self._wide_programs: Dict[Tuple[Any, ...], Any] = {}
         self.device = devs[0]
         self.params = self._executors[0].params
         # programs are built one at a time (a capture must not overlap
@@ -688,8 +743,10 @@ class GraphStreamEngine:
         routes to the first configured queue, which also serves
         ``process`` / ``warmup``; an unknown name raises ``UnknownQueue``.
         Blocks (backpressure) while THIS tenant's ``max_pending`` graphs are
-        outstanding. A malformed graph raises ``InvalidGraph``, one over
-        the largest bucket ``GraphTooLarge``. ``deadline`` is a budget in
+        outstanding. A malformed graph raises ``InvalidGraph``; one over
+        the largest bucket ``GraphTooLarge``, unless ``wide=True`` and a
+        ``wide_k``-way split of it fits a bucket, when it is served by a
+        gang of executors. ``deadline`` is a budget in
         seconds from this call: a graph whose deadline passes before it is
         dispatched is shed and its future fails with ``DeadlineExceeded``
         (shed work never reaches a device); the admission wait is bounded
@@ -732,27 +789,42 @@ class GraphStreamEngine:
                 with self._cv:
                     self.stats.invalid_rejects += 1
                 raise InvalidGraph(reason, request_ids=(req_id,))
+        # the single-device budget gate (DESIGN.md §10): a graph no bucket
+        # holds is servable only split across a gang of executors
         n = int(np.asarray(node_feat).shape[0])
         e = int(np.asarray(senders).shape[0])
-        # the port has no wide placement: a graph over budget is refused
-        reason = check_budget(n, e, node_budget=max(self.buckets),
-                              wide_enabled=False)
+        node_budget = max(self.buckets)
+        reason = check_budget(n, e, node_budget=node_budget,
+                              wide_enabled=self._wide_enabled)
+        wide_plan: Optional[WidePlan] = None
         if reason is not None:
-            with self._cv:
-                self.stats.invalid_rejects += 1
-            raise GraphTooLarge(reason, request_ids=(req_id,))
+            if not self._wide_enabled:
+                with self._cv:
+                    self.stats.invalid_rejects += 1
+                raise GraphTooLarge(reason, request_ids=(req_id,))
+            try:
+                wide_plan = plan_wide(
+                    np.asarray(senders), np.asarray(receivers), n,
+                    k=self._wide_k, node_budget=node_budget)
+            except WidePlanError as exc:
+                with self._cv:
+                    self.stats.invalid_rejects += 1
+                raise GraphTooLarge(
+                    f"graph does not fit a {self._wide_k}-shard wide split: "
+                    f"{exc}", request_ids=(req_id,)) from exc
         fut: Future = Future()
         req = _Request(future=fut, record=record, req_id=req_id, queue=queue,
                        deadline_t=(None if deadline is None
                                    else t_arrival + deadline))
-        item = PackItem(
-            node_feat=np.asarray(node_feat, np.float32),
-            senders=np.asarray(senders), receivers=np.asarray(receivers),
-            edge_feat=(None if edge_feat is None
-                       else np.asarray(edge_feat, np.float32)),
-            node_pos=(None if node_pos is None
-                      else np.asarray(node_pos, np.float32)),
-            payload=req, t_arrival=t_arrival)
+        node_feat = np.asarray(node_feat, np.float32)
+        edge_feat = (None if edge_feat is None
+                     else np.asarray(edge_feat, np.float32))
+        node_pos = (None if node_pos is None
+                    else np.asarray(node_pos, np.float32))
+        item = (None if wide_plan is not None else PackItem(
+            node_feat=node_feat, senders=np.asarray(senders),
+            receivers=np.asarray(receivers), edge_feat=edge_feat,
+            node_pos=node_pos, payload=req, t_arrival=t_arrival))
         self._ensure_threads()
         cap = self._queue_caps[queue]
         with self._cv:
@@ -781,7 +853,13 @@ class GraphStreamEngine:
                     self._deadlines_used = True
                     heapq.heappush(self._deadline_heap,
                                    (req.deadline_t, req_id))
-                self._scheduler.add(queue, item, now=item.t_arrival)
+                if wide_plan is not None:
+                    self._wide_queue.append(_WideRequest(
+                        req=req, plan=wide_plan, node_feat=node_feat,
+                        edge_feat=edge_feat, node_pos=node_pos,
+                        t_arrival=t_arrival))
+                else:
+                    self._scheduler.add(queue, item, now=item.t_arrival)
             self._cv.notify_all()
         if expired:
             _resolve(fut, exc=DeadlineExceeded(
@@ -863,6 +941,7 @@ class GraphStreamEngine:
         self._scheduler.flush_all()
         self._retry_heap.clear()
         self._inflight.clear()
+        self._wide_queue.clear()
         victims = list(self._requests.values())
         self._requests.clear()
         for req in victims:
@@ -1014,7 +1093,30 @@ class GraphStreamEngine:
                     to_fail.extend(self._shed_scheduler_locked(now))
                     if to_fail:
                         break          # resolve outside the lock, re-enter
-                    has_cap = any(ex.has_capacity for ex in self._executors)
+                    # wide gang scheduling (DESIGN.md §10): all-or-nothing
+                    # reservation of wide_k idle executors; without one the
+                    # request stays queued while narrow traffic flows, and
+                    # every completion wakes this loop to try again
+                    if self._wide_queue:
+                        alive = sum(1 for ex in self._executors
+                                    if not ex.dead)
+                        if alive < self._wide_k and not self._respawn:
+                            # the pool shrank below wide_k for good
+                            to_fail.extend(self._fail_wide_queue_locked(
+                                f"pool has {alive} live executors "
+                                f"< wide_k={self._wide_k}"))
+                            break
+                        gang = self._try_reserve_gang_locked(now)
+                        if gang is not None:
+                            wreq = self._wide_queue.pop(0)
+                            self._wide_running += 1
+                            threading.Thread(
+                                target=self._run_wide, args=(wreq, gang),
+                                name="flowgnn-wide", daemon=True).start()
+                            continue
+                    free = [ex for ex in self._executors
+                            if ex.index not in self._wide_reserved]
+                    has_cap = any(ex.has_capacity for ex in free)
                     # due retries jump the fairness queue: they are old work
                     # that has been charged already
                     if (has_cap and self._retry_heap
@@ -1033,8 +1135,7 @@ class GraphStreamEngine:
                     restrained = (has_cap
                                   and self._scheduler.preempt_active(now)
                                   and not self._scheduler.priority_ready
-                                  and not any(ex.idle for ex in
-                                              self._executors
+                                  and not any(ex.idle for ex in free
                                               if not ex.dead))
                     if has_cap and not restrained:
                         nxt = self._scheduler.next_batch(now)
@@ -1049,13 +1150,15 @@ class GraphStreamEngine:
                             continue
                         if (self._closed
                                 and not self._scheduler.ready_batches
-                                and not self._retry_heap):
+                                and not self._retry_heap
+                                and not self._wide_queue
+                                and not self._wide_running):
                             return
                         # ready or retrying batches remain, no capacity (or
                         # a retry not yet due): wait below
                     elif (self._eager_flush and has_cap
                             and self._scheduler.open_batches
-                            and any(ex.idle for ex in self._executors)):
+                            and any(ex.idle for ex in free)):
                         # an executor is idle: serving the oldest open batch
                         # NOW beats waiting out its deadline (under load,
                         # batches fill while every device is busy)
@@ -1106,13 +1209,22 @@ class GraphStreamEngine:
                exclude: Optional[int] = None) -> None:
         """Least-backlog placement across executors with pipeline room
         (ties: lowest index); a dead executor is never chosen while an
-        alive one exists, and a retry avoids the executor it failed on
-        (``exclude``) when another is alive."""
+        alive one exists, a retry avoids the executor it failed on
+        (``exclude``) when another is alive, and an executor a gang holds
+        takes no narrow batch."""
         with self._cv:
-            cands = ([ex for ex in self._executors if ex.has_capacity]
-                     or [ex for ex in self._executors if not ex.dead])
+            free = [ex for ex in self._executors
+                    if ex.index not in self._wide_reserved]
+            cands = ([ex for ex in free if ex.has_capacity]
+                     or [ex for ex in free if not ex.dead])
             if exclude is not None:
                 cands = [ex for ex in cands if ex.index != exclude] or cands
+            if not cands and any(not ex.dead for ex in self._executors):
+                # every live executor is held by a gang: not a failure,
+                # the batch comes back when the gang releases
+                self._push_retry_locked(queue_name, pb, delay=0.001,
+                                        exclude=exclude)
+                return
             if not cands:          # whole pool dead: nothing can run this
                 reqs = self._take_requests_locked(pb)
                 self.stats.record_failure(queue=queue_name, failed=len(reqs))
@@ -1157,6 +1269,19 @@ class GraphStreamEngine:
         out = [f for f in (self._shed_one_locked(
             it.payload, "deadline expired before dispatch")
             for _, it in self._scheduler.shed(expired)) if f is not None]
+        if self._wide_queue:
+            # wide requests waiting for a gang are sheddable too
+            keep: List[_WideRequest] = []
+            for wreq in self._wide_queue:
+                dt = wreq.req.deadline_t
+                if dt is None or dt > now:
+                    keep.append(wreq)
+                    continue
+                f = self._shed_one_locked(
+                    wreq.req, "deadline expired before a gang window opened")
+                if f is not None:
+                    out.append(f)
+            self._wide_queue[:] = keep
         if out:
             self._cv.notify_all()
         return out
@@ -1215,11 +1340,257 @@ class GraphStreamEngine:
             victims: List[_Request] = []
             for _, pb in stranded:
                 victims.extend(self._take_requests_locked(pb))
+            for wreq in self._wide_queue:
+                req = self._requests.pop(wreq.req.req_id, None)
+                if req is not None:
+                    self._pending -= 1
+                    self._pending_by_queue[req.queue] -= 1
+                    victims.append(req)
+            self._wide_queue.clear()
             if victims:
                 self.stats.record_failure(failed=len(victims))
             self._cv.notify_all()
         for req in victims:
             _resolve(req.future, exc=exc)
+
+    # ------------------------------------------------------------------
+    # wide placement: gang scheduling and the gang runner (DESIGN.md §10)
+    # ------------------------------------------------------------------
+
+    def _try_reserve_gang_locked(self, now: float
+                                 ) -> Optional[List[DeviceExecutor]]:
+        """Reserve ``wide_k`` idle executors for a wide request at once, or
+        None (the request stays queued). Under ``self._cv``, where the
+        executors' ``idle`` and ``dead`` are read. All or nothing: a
+        partial hold would deadlock against narrow traffic and against a
+        second wide request. While a priority batch could claim an idle
+        executor (the preempt window), no gang takes one."""
+        if (self._scheduler.preempt_active(now)
+                and self._scheduler.priority_ready):
+            return None
+        avail = [ex for ex in self._executors
+                 if not ex.dead and ex.idle
+                 and ex.index not in self._wide_reserved]
+        if len(avail) < self._wide_k:
+            return None
+        gang = avail[:self._wide_k]
+        self._wide_reserved.update(ex.index for ex in gang)
+        return gang
+
+    def _fail_wide_queue_locked(self, reason: str
+                                ) -> List[Tuple[_Request, BaseException]]:
+        """Fail every queued wide request (under ``self._cv``): the pool
+        can no longer form a gang and will not heal (no respawn)."""
+        out: List[Tuple[_Request, BaseException]] = []
+        for wreq in self._wide_queue:
+            req = self._requests.pop(wreq.req.req_id, None)
+            if req is None:
+                continue
+            self._pending -= 1
+            self._pending_by_queue[req.queue] -= 1
+            self.stats.record_failure(queue=req.queue, failed=1)
+            out.append((req, ExecutorDead(
+                f"wide placement impossible: {reason}",
+                request_ids=(req.req_id,))))
+        self._wide_queue.clear()
+        if out:
+            self._cv.notify_all()
+        return out
+
+    def _ensure_wide_program(self, plan: WidePlan,
+                             gang: List[DeviceExecutor], stacked, params):
+        """The wide program of (the plan's ``WideBucket``, the gang, the
+        input widths), built on its first graph ``stacked`` under the
+        compile lock: the reference's one program per bucket extended to
+        gangs. A gang on one card gets a ``CapturedWideProgram`` in the
+        leader's graph pool on ``params``, the leader's resident tree; any
+        other gang an ``EagerWideProgram``."""
+        bucket = plan.bucket
+        widths = (stacked["node_feat"].shape[-1],
+                  stacked["edge_feat"].shape[-1],
+                  stacked["node_pos"].shape[-1])
+        # executors, not indices: a respawned member has a new stream and
+        # a new resident tree
+        key = (bucket, tuple(id(ex) for ex in gang), widths)
+        prog = self._wide_programs.get(key)
+        if prog is not None:
+            return prog
+        with self._compile_lock:
+            prog = self._wide_programs.get(key)
+            if prog is not None:
+                return prog
+            leader = gang[0]
+            fwd = build_wide_forward(
+                self.cfg, bucket,
+                wide_mesh([ex.device for ex in gang],
+                          [ex.stream for ex in gang]), self.dataflow)
+            if fwd.gang.one_card:
+                if leader.pool is None:
+                    leader.pool = torch.cuda.graph_pool_handle()
+                try:
+                    prog = CapturedWideProgram(
+                        fwd, params, stacked, pool=leader.pool,
+                        stream=leader.stream,
+                        warm_stream=leader.warm_stream)
+                except Exception:
+                    # a capture that failed may leave its pool recording
+                    leader.pool = torch.cuda.graph_pool_handle()
+                    raise
+            else:
+                prog = EagerWideProgram(fwd)
+            self._wide_programs[key] = prog
+            return prog
+
+    def _serve_wide(self, plan: WidePlan, gang: List[DeviceExecutor],
+                    pinned: List[Tuple[Any, int]], stacked
+                    ) -> Tuple[np.ndarray, Optional[float]]:
+        """One wide graph on its reserved gang: (the output on the host,
+        the replay's span on a card, else None). On a card the program
+        reads the leader's resident tree, into which the version the
+        request pinned is first copied on the leader's stream (as a
+        dispatch does); elsewhere each shard runs its member's pinned
+        tree. The passes over the edges of one shard are recorded under
+        ``("wide", k, n_pad, e_pad)``."""
+        leader = gang[0]
+        one_card = leader.device.type == "cuda" and all(
+            ex.device == leader.device for ex in gang)
+        with leader.on_device():
+            if one_card:
+                params: Any = leader._load(*pinned[0])
+            else:
+                params = [p for p, _ in pinned]
+            prog = self._ensure_wide_program(plan, gang, stacked, params)
+            out, span = prog.run(stacked, params)
+        if prog.edge_passes is not None:
+            b = plan.bucket
+            self.edge_passes.setdefault(("wide", b.k, b.n_pad, b.e_pad),
+                                        prog.edge_passes)
+        return out, span
+
+    def _run_wide(self, wreq: _WideRequest,
+                  gang: List[DeviceExecutor]) -> None:
+        """Run one wide request on its reserved gang (on its own thread).
+
+        A gang member's death before, during or after the run invalidates
+        the whole gang, so the request requeues intact (bounded by the
+        requeue budget; the placer forms a gang of survivors). A transient
+        failure with the gang healthy retries like a narrow batch until
+        ``max_retries``, then fails with ``BatchFailed``. A non-finite
+        answer is ``PoisonGraph``. Every future resolves once, through the
+        request registry. The gang is released after the answer is on the
+        host."""
+        req, plan = wreq.req, wreq.plan
+        resolved: Optional[Tuple[Future, Any,
+                                 Optional[BaseException]]] = None
+        try:
+            t_dispatch = time.perf_counter()
+            with self._cv:
+                if req.req_id not in self._requests:
+                    return             # shed or abandoned while queued
+                req.dispatched = True  # past the shedding window
+                # one (params, version) read a member, as a dispatch pins
+                pinned = [ex._params_v for ex in gang]
+            err: Optional[BaseException] = None
+            out_np, span = None, None
+            if not any(ex.dead for ex in gang):
+                try:
+                    stacked = stack_shard_arrays(
+                        plan, wreq.node_feat, wreq.edge_feat, wreq.node_pos)
+                    out_np, span = self._serve_wide(plan, gang, pinned,
+                                                    stacked)
+                except Exception as exc:
+                    err = exc
+            t_done = time.perf_counter()
+
+            if any(ex.dead for ex in gang):
+                # a member died: requeue the whole request on survivors
+                with self._cv:
+                    alive = sum(1 for ex in self._executors if not ex.dead)
+                    if (not (self._stopped or self._closed)
+                            and (alive >= self._wide_k or self._respawn)
+                            and wreq.requeues < self._max_requeues
+                            and req.req_id in self._requests):
+                        wreq.requeues += 1
+                        req.dispatched = False     # sheddable again
+                        self.stats.record_failure(queue=req.queue,
+                                                  retries=1)
+                        self._wide_queue.append(wreq)
+                        self._cv.notify_all()
+                        return
+                    if self._requests.pop(req.req_id, None) is None:
+                        return
+                    self._pending -= 1
+                    self._pending_by_queue[req.queue] -= 1
+                    self.stats.record_failure(queue=req.queue, failed=1)
+                    self._cv.notify_all()
+                failure: EngineError = ExecutorDead(
+                    "gang member died and the wide graph could not be "
+                    "re-placed", request_ids=(req.req_id,))
+                failure.__cause__ = err
+                resolved = (req.future, None, failure)
+                return
+
+            if err is not None:
+                # the gang is healthy and the program failed: retry
+                with self._cv:
+                    if (not (self._stopped or self._closed)
+                            and wreq.attempts < self._max_retries
+                            and req.req_id in self._requests):
+                        # forming a gang again spaces the retries
+                        wreq.attempts += 1
+                        req.dispatched = False
+                        self.stats.record_failure(queue=req.queue,
+                                                  retries=1)
+                        self._wide_queue.append(wreq)
+                        self._cv.notify_all()
+                        return
+                    if self._requests.pop(req.req_id, None) is None:
+                        return
+                    self._pending -= 1
+                    self._pending_by_queue[req.queue] -= 1
+                    self.stats.record_failure(queue=req.queue, failed=1)
+                    self._cv.notify_all()
+                failure = BatchFailed(
+                    f"wide graph failed after {wreq.attempts + 1} "
+                    f"attempts: {err}", request_ids=(req.req_id,))
+                failure.__cause__ = err
+                resolved = (req.future, None, failure)
+                return
+
+            result = (np.array(out_np[0]) if self.cfg.task == "graph"
+                      else np.array(out_np[:plan.n_nodes]))
+            with self._cv:
+                if self._requests.pop(req.req_id, None) is None:
+                    return             # abandoned mid-run: drop the answer
+                self._pending -= 1
+                self._pending_by_queue[req.queue] -= 1
+                if (self._validate_outputs
+                        and not bool(np.all(np.isfinite(result)))):
+                    self.stats.record_failure(queue=req.queue,
+                                              quarantined=1, failed=1)
+                    resolved = (req.future, None, PoisonGraph(
+                        "non-finite wide output quarantined by the "
+                        "validation gate", request_ids=(req.req_id,)))
+                else:
+                    if req.record:
+                        self.stats.record_batch(
+                            latencies=[t_done - wreq.t_arrival],
+                            queue_waits=[t_dispatch - wreq.t_arrival],
+                            device_s=(span if span is not None
+                                      else t_done - t_dispatch),
+                            batch_size=1, t_dispatch=t_dispatch,
+                            t_done=t_done, queue=req.queue,
+                            device=f"wide[{len(gang)}]")
+                    resolved = (req.future, result, None)
+                self._cv.notify_all()
+        finally:
+            with self._cv:
+                self._wide_reserved.difference_update(
+                    ex.index for ex in gang)
+                self._wide_running -= 1
+                self._cv.notify_all()
+            if resolved is not None:
+                _resolve(*resolved)
 
     # ------------------------------------------------------------------
     # executor callbacks (dispatch threads / complete threads)
@@ -2244,16 +2615,20 @@ class GraphStreamEngine:
     def _cache_fingerprint(self) -> str:
         """The workload and device the winners were tuned for: torch, the
         executors' device type and kind (``torch.cuda.get_device_name``,
-        or ``cpu``), the model's shape and the configured dataflow. The JAX
+        or ``cpu``), the model's shape, the configured dataflow and the wide
+        shard count (``@wide{wide_k}``, ``@wide1`` with wide placement
+        off: a wide engine's narrow buckets share their executors with
+        gangs, so they keep their own section). The JAX
         engine's sections start with its backend's name, never ``torch``,
         so neither side applies the other's winners."""
         c, d = self.cfg, self.dataflow
         dev = self._executors[0].device
         kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu").replace(" ", "_")
+        wide_k = self._wide_k if self._wide_enabled else 1
         return (f"torch:{dev.type}:{kind}/{c.model}-l{c.num_layers}-"
                 f"h{c.hidden_dim}-{c.task}-{d.impl}"
-                f"{'-sp' if d.single_pass else ''}@wide1")
+                f"{'-sp' if d.single_pass else ''}@wide{wide_k}")
 
     def _load_autotune_cache(self) -> None:
         """Load the winners of this engine's section; a file of another
@@ -2532,3 +2907,129 @@ class CapturedProgram:
         """Enqueue the static output's copy into the slot's pinned output."""
         self.out_host[slot].copy_(self.out, non_blocking=True)
         self._slots[slot].done.record()
+
+
+class EagerWideProgram:
+    """A wide program off a single card (the CPU, or a gang over several
+    cards): the ``WideForward`` run eagerly on each graph's arrays, its
+    passes over the edges counted on its first run."""
+
+    def __init__(self, fwd: WideForward):
+        self.fwd = fwd
+        self.edge_passes: Optional[int] = None
+
+    def run(self, stacked, params) -> Tuple[np.ndarray, None]:
+        """The graph's output on the host; no device span (the engine takes
+        the host time)."""
+        if self.edge_passes is None:
+            with count_edge_passes() as ps:
+                out = self.fwd(params, stacked)
+            self.edge_passes = ps.passes
+        else:
+            out = self.fwd(params, stacked)
+        return out.cpu().numpy(), None
+
+
+class CapturedWideProgram:
+    """The wide forward of one (``WideBucket``, gang) on one card, captured
+    once as one ``torch.cuda.CUDAGraph``: K shards x L layers, the ring
+    steps, the gathers and the readout.
+
+    Built on the bucket's first graph under the compile lock, with every
+    member idle: the graph's arrays are staged into the program's static
+    inputs (pinned host mirrors, one copy each to the card), the forward
+    runs once eagerly on the leader's ``warm_stream``, then is captured on
+    the leader's ``stream`` into the leader's graph pool, in
+    ``thread_local`` mode with the collector off. Inside, the schedule
+    forks onto the members' streams by events, so that a layer's K shards
+    are independent branches of the graph between two exchanges, and joins
+    them back before the capture ends. A replay is one launch on the
+    leader's stream.
+
+    ``run`` pads a graph's arrays into the pinned mirrors, and on the
+    leader's stream enqueues their upload, the replay between two events
+    and the copy of the static output into pinned memory, then waits: the
+    output is on the host before the gang is released, so no replay of
+    another program of the pool (the leader's narrow ones share it) can
+    overwrite it first. The graph reads ``params``, the leader's resident
+    tree, into which ``DeviceExecutor._load`` copies each new version on
+    the leader's stream before the replay that first runs it.
+    """
+
+    def __init__(self, fwd: WideForward, params, stacked, *, pool,
+                 stream: torch.cuda.Stream, warm_stream: torch.cuda.Stream):
+        from repro_torch.distributed.wide import WIDE_DTYPES
+        t0 = time.perf_counter()
+        self.fwd, self.params, self.stream = fwd, params, stream
+        dev = fwd.gang.devices[0]
+        self.host = {key: torch.empty(a.shape, dtype=WIDE_DTYPES[key],
+                                      pin_memory=True)
+                     for key, a in stacked.items()}
+        self.inputs = {key: torch.empty(a.shape, dtype=WIDE_DTYPES[key],
+                                        device=dev)
+                       for key, a in stacked.items()}
+        self.uploaded = torch.cuda.Event()
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.done = torch.cuda.Event()
+        with torch.cuda.stream(stream):
+            self.stage(stacked)
+            self.upload()
+            warm_stream.wait_stream(stream)
+            with torch.cuda.stream(warm_stream), torch.inference_mode():
+                fwd.run(params, self.inputs)
+            stream.wait_stream(warm_stream)
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            self.graph.enable_debug_mode()
+            with _no_gc(), count_edge_passes() as ps, \
+                    torch.inference_mode(), torch.cuda.graph(
+                        self.graph, pool=pool, stream=stream,
+                        capture_error_mode="thread_local"):
+                self.out = fwd.run(params, self.inputs)
+            self.graph.instantiate()
+        self.edge_passes = ps.passes
+        self.out_host = torch.empty(self.out.shape, dtype=self.out.dtype,
+                                    pin_memory=True)
+        torch.cuda.synchronize(dev)
+        #: host seconds the build took (staging, warm-up run, capture)
+        self.build_s = time.perf_counter() - t0
+
+    def run(self, stacked, params) -> Tuple[np.ndarray, float]:
+        """One graph through the captured forward: (its output on the
+        host, the replay's span in seconds). ``params`` must be the tree
+        the graph was captured on."""
+        if params is not self.params:
+            raise RuntimeError("a captured program runs only the weights "
+                               "it was captured on")
+        self.stage(stacked)
+        with torch.cuda.stream(self.stream):
+            self.upload()
+            self.replay()
+            self.copy_out()
+        self.done.synchronize()
+        return (self.out_host.numpy().copy(),
+                self.start.elapsed_time(self.end) * 1e-3)
+
+    # the steps of ``run``, each a method so that it can be timed alone;
+    # upload, replay and copy_out enqueue on the current stream
+
+    def stage(self, stacked) -> None:
+        """Pad a graph's arrays into the pinned mirrors, once the upload
+        that last read them has run."""
+        self.uploaded.synchronize()
+        for key, a in stacked.items():
+            self.host[key].numpy()[...] = a
+
+    def upload(self) -> None:
+        for key, t in self.inputs.items():
+            t.copy_(self.host[key], non_blocking=True)
+        self.uploaded.record()
+
+    def replay(self) -> None:
+        self.start.record()
+        self.graph.replay()
+        self.end.record()
+
+    def copy_out(self) -> None:
+        self.out_host.copy_(self.out, non_blocking=True)
+        self.done.record()

@@ -68,6 +68,16 @@ point for executors that are stuck rather than crashed.
 
 ``backlog`` (graphs submitted here and not yet completed) is what the
 engine's least-backlog placement reads.
+
+Gangs (wide placement, DESIGN.md §10). The engine may reserve K executors
+at once for one oversized graph, and only when every one of them is
+``idle`` and none is ``dead`` (read under the engine's lock). A reserved
+executor is placed no narrow batch, so while the engine's wide runner
+holds it, its threads make no CUDA call; the runner then uses its
+``stream`` (the shards' branches), and the leader's ``warm_stream``,
+``pool`` (the wide program's capture) and ``_load`` (the version the wide
+request pinned, copied into ``resident`` on the leader's stream). The
+executor itself knows nothing of gangs.
 """
 
 from __future__ import annotations
@@ -318,7 +328,8 @@ class DeviceExecutor:
         version)``: ``params`` on the CPU; on a GPU ``resident``, into
         which a version it does not hold yet is first copied (one
         multi-tensor copy between two events, enqueued on the current
-        stream: the executor's). Dispatch thread only."""
+        stream: the executor's). Dispatch thread only, or the engine's
+        wide runner while it holds this executor in a gang."""
         if self.stream is None:
             return params
         if self.resident is None:

@@ -167,19 +167,29 @@ def precompute_graph_stats(
     pna_delta: Optional[float] = None,
     with_dgn_field: bool = False,
     with_graph_counts: bool = False,
+    degrees: Optional[torch.Tensor] = None,
 ) -> PrecomputedGraphStats:
     """Compute the per-graph statistics bundle (one sweep per family).
 
     ``pna_delta`` is PNA's normalisation constant (``cfg.avg_log_degree``).
     The sweeps over the edge stream are counted: one for the degrees, two
     for DGN's field (the |dpos| normaliser, then the weight sums).
+
+    ``degrees`` (N,) skips the degree sweep and its count: wide placement
+    (``distributed/wide.py``) injects each shard's exact *global*
+    in-degrees, since halo rows have no local in-edges but their degree
+    normalisers (GCN's ``inv_sqrt_deg[senders]``, PNA's scalers) must be
+    the owner's. In-degrees are small integers, exact in float32, so the
+    injected values equal what the owning shard's sweep gives.
     """
     n = graph.n_node_pad
     emask = graph.edge_mask
-    degrees = None
-    if with_degrees or with_self_loop_norm or pna_delta is not None:
+    need_deg = with_degrees or with_self_loop_norm or pna_delta is not None
+    if need_deg and degrees is None:
         _count_pass()
         degrees = _seg_sum(emask.to(torch.float32), graph.receivers, n)
+    elif not need_deg:
+        degrees = None
     inv_sqrt_deg = torch.rsqrt(degrees + 1.0) if with_self_loop_norm else None
     pna_scalers = None
     if pna_delta is not None:

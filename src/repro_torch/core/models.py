@@ -133,12 +133,16 @@ def gcn_init(gen: torch.Generator, cfg: GNNConfig,
 
 def gcn_layer(p, graph: GraphBatch, x: torch.Tensor,
               dataflow: DataflowConfig, stats: PrecomputedGraphStats, *,
-              last: bool, fusable: Optional[FusableMessage]) -> torch.Tensor:
+              last: bool, fusable: Optional[FusableMessage] = None
+              ) -> torch.Tensor:
     """One GCN layer. ``stats`` must carry ``inv_sqrt_deg``; ``fusable``
-    holds the per-edge norm stream that every layer shares (None under
-    ``impl='fused'``)."""
+    may share the per-edge norm stream across layers (built here when
+    absent and a fusable impl needs it, as the wide runner drives it)."""
     inv_sqrt = stats.inv_sqrt_deg
     self_coeff = inv_sqrt * inv_sqrt        # analytic self-loop weight
+    if fusable is None and dataflow.impl in _FUSABLE_IMPLS:
+        fusable = FusableMessage(
+            src_weight=inv_sqrt[graph.senders] * inv_sqrt[graph.receivers])
 
     def message(src, dst, e, _inv=inv_sqrt, _g=graph):
         norm = _inv[_g.senders] * _inv[_g.receivers]

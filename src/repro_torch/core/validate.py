@@ -94,11 +94,13 @@ def check_budget(num_nodes: int, num_edges: int, *,
 
     The budget is the largest bucket the engine serves (``max(
     GraphStreamEngine.buckets)`` node slots, plus an optional edge bound).
-    A graph over budget is admissible only under wide placement (one graph
-    split across devices), which the port does not have yet (ROADMAP queue
-    1 item 6): its engine always passes ``wide_enabled=False`` and raises
-    ``GraphTooLarge`` from the reason, whose words name the knob as the
-    reference's do.
+    A graph over budget is admissible only under wide placement
+    (``GraphStreamEngine(wide=True)``: one graph split across a gang of
+    executors, ``distributed/wide.py``), which the engine passes as
+    ``wide_enabled``. Without it the engine raises ``GraphTooLarge`` from
+    the reason, whose words name the knob as the reference's do; with it
+    the engine plans the split, and a graph no split fits is
+    ``GraphTooLarge`` too.
     """
     if node_budget is not None and num_nodes > node_budget:
         return (f"graph has {num_nodes} nodes > largest single-device "

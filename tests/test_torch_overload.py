@@ -15,6 +15,7 @@ buckets than the cap).
 
 import gc
 import inspect
+import time
 import weakref
 
 import numpy as np
@@ -72,7 +73,10 @@ def test_drift_retune_fires_and_bucket_stays_servable():
         for i in range(0, 16, 4):                  # tuned regime: fill 4
             futs += [_submit(eng, g) for g in full[i:i + 4]]
             eng.drain(timeout=120)
-        # mix shift: singles land in the SAME bucket at fill 1
+        # mix shift: singles land in the SAME bucket at fill 1, after a
+        # lull past the 50 ms cooldown (a fast host serves the whole tuned
+        # regime inside it, and then nothing may fire)
+        time.sleep(0.1)
         singles = list(sized_stream(seed=1, n_graphs=6, n_mean=80, n_std=0,
                                     e_per_node=2.6))
         for g in singles:
