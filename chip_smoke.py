@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --only wide    # phase 4f alone (no result lines)
+    python3 chip_smoke.py --only lm_families    # phase 9 alone (the same)
 
 Phases, each printing its own lines:
 
@@ -208,8 +209,9 @@ Phases, each printing its own lines:
                index_add_).
   6. moe     — the MoE data path at olmoe-1b-7b's full width (d_model 2048,
                64 experts, top-8, moe_d_ff 1024, capacity factor 1.25,
-               bf16, one group of 1,024 tokens): routing, ``moe_dispatch``
-               (bf16 mp_scatter), the SwiGLU experts (``torch.bmm``),
+               bf16, one group of 1,024 tokens): ``nn/moe.py``'s routing
+               and capacity, ``moe_dispatch`` (bf16 mp_scatter), its SwiGLU
+               experts (``torch.einsum``),
                ``moe_combine`` (gather_rows, f32 mp_scatter), counts from
                0; the dispatch bitwise against the plain path and under a
                permutation, gather_rows bitwise, the combine against the
@@ -240,7 +242,33 @@ Phases, each printing its own lines:
                counts from 0 (prefill 32 ``flash_attention`` launches, decode
                none), the last-position logits against the plain attention
                path's, prefill ms and decode tokens/s.
-  9. result  — one JSON line with every kernel's numbers, the card's
+  9. lm_families — the MoE, SSM and hybrid LM paths at full width, each
+               freed before the next, the LM traffic of phase 8, counts
+               from 0: olmoe-1b-7b (MoE through ``nn/moe.py`` on
+               ``mp_scatter`` / ``gather_rows``, and ``flash_attention``),
+               mamba2-2.7b (no kernel: the SSD runs outside any, as in the
+               reference) and recurrentgemma-2b (``flash_attention`` on its
+               local layers, D=256, window 2048, one KV head). First each at
+               depth 2 (3 for the hybrid's group) in float32: the prefill
+               and three decode steps through the kernels against their
+               plain versions (the MoE's routing compared), mamba2's
+               chunked prefill against the prompt fed token by token
+               through ``decode_step``. Then ``serve_lm(full=True)`` in
+               bf16: launches of the prefill and of every decode step
+               against the layers (olmoe: 16 flash_attention, 32
+               mp_scatter, 16 gather_rows, then 32 and 16 a step); the
+               first MoE layer's dispatch, gather and combine of the
+               prefill and of the first decode step, and the first
+               attention layer's flash_attention, each again against its
+               plain version on the served inputs and timed; the prefill's
+               logits against the same serve through the plain kernels,
+               and planted kernel faults outside that tolerance; prefill
+               ms, decode tokens/s, peak memory, the MoE's drop share and
+               aux loss; a prefill and a decode step again under
+               ``torch.profiler``, whose device events must be the same
+               counts. One ``[lm9] json`` line; ``--only lm_families``
+               runs phases 1, 2 (three sources) and 9 alone.
+  10. result — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -1873,43 +1901,6 @@ OLMOE = {"d_model": 2048, "experts": 64, "top_k": 8, "moe_d_ff": 1024,
          "capacity_factor": 1.25, "tokens": 1024, "shared_direction": 0.2}
 
 
-def capacity(tokens: int, k: int, experts: int, cf: float) -> int:
-    """Slots per expert, as ``nn/moe.py::_capacity``."""
-    c = int(math.ceil(tokens * k / experts * cf))
-    return max(8, (c + 7) // 8 * 8)
-
-
-def route(x, rw, k: int, cap: int):
-    """Top-k routing binned as ``nn/moe.py`` bins it, every expert local
-    (bank_start 0): the assignments sorted by expert (stable), each one's
-    rank in its expert, owned while the rank is under capacity; an
-    assignment that is not owned points at the trash slot E * cap, one past
-    the buffer. Returns (token_ids, slot, own, weights), each (T*k,)."""
-    import torch
-    t, e_total = x.shape[0], rw.shape[1]
-    probs = torch.softmax(x.float() @ rw, dim=-1)
-    top_w, top_i = torch.topk(probs, k)
-    flat_e = top_i.reshape(-1)
-    flat_t = torch.arange(t, device=x.device).repeat_interleave(k)
-    order = torch.sort(flat_e, stable=True).indices
-    se, st, sw = flat_e[order], flat_t[order], top_w.reshape(-1)[order]
-    starts = torch.searchsorted(se, torch.arange(e_total, device=x.device))
-    rank = torch.arange(t * k, device=x.device) - starts[se]
-    own = rank < cap
-    slot = torch.where(own, se * cap + rank, e_total * cap)
-    return st, slot, own, sw
-
-
-def expert_ffn(buf, wg, wu, wd):
-    """The SwiGLU expert FFN over the (E * cap, d) buffer, batched by
-    expert in bf16 (``torch.bmm``; JAX computes it outside any kernel)."""
-    import torch
-    e, d = wg.shape[0], buf.shape[1]
-    b = buf.reshape(e, -1, d)
-    h = torch.nn.functional.silu(torch.bmm(b, wg)) * torch.bmm(b, wu)
-    return torch.bmm(h, wd).reshape(-1, d)
-
-
 def captured(run):
     """``run()`` (one kernel call) captured in a ``torch.cuda.CUDAGraph``
     (after a warm-up call on the capture's side stream), replayed once; its
@@ -1940,9 +1931,10 @@ def moe_phase(card: str):
     from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
     from repro_torch.kernels.mp_scatter import mp_scatter, mp_scatter_ref
+    from repro_torch.nn import moe
     t, d, e_total = OLMOE["tokens"], OLMOE["d_model"], OLMOE["experts"]
     k, ff = OLMOE["top_k"], OLMOE["moe_d_ff"]
-    cap = capacity(t, k, e_total, OLMOE["capacity_factor"])
+    cap = moe._capacity(t, k, e_total, OLMOE["capacity_factor"])
     slots = e_total * cap
     g = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
@@ -1959,7 +1951,9 @@ def moe_phase(card: str):
     wg = randn(e_total, d, ff, scale=d ** -0.5, dtype=bf16)
     wu = randn(e_total, d, ff, scale=d ** -0.5, dtype=bf16)
     wd = randn(e_total, ff, d, scale=ff ** -0.5, dtype=bf16)
-    st, slot, own, sw = route(x, rw, k, cap)
+    r = moe.route(x, rw, k=k, capacity=cap)
+    st, slot, own, sw = (r[n] for n in ("token_ids", "slot", "own",
+                                        "weights"))
     s = st.shape[0]
     dropped = float((~own).float().mean())
     log("moe", f"olmoe-1b-7b width: T={t} tokens, d_model={d}, "
@@ -1975,7 +1969,8 @@ def moe_phase(card: str):
     # the path, once, with the counts from 0
     def path():
         buf = moe_dispatch(x, st, slot, own, slots)
-        y = expert_ffn(buf, wg, wu, wd)
+        y = moe.expert_ffn(buf.reshape(e_total, cap, d), wg, wu, wd,
+                           torch.nn.functional.silu).reshape(slots, d)
         return buf, y, moe_combine(y, st, slot, own, sw, t)
     (buf, y, out), launches = counted(path)
     check_launches("moe", "dispatch -> expert FFN -> combine", launches,
@@ -2434,6 +2429,60 @@ def logits_close(label, a, b, tol):
     return rel
 
 
+def serve_full_lm(arch: str, gen: int):
+    """``serve_lm`` of ``arch`` at full width and depth on the card: the LM
+    traffic (LM_BATCH prompts of LM_PROMPT tokens), ``gen`` tokens each."""
+    from repro_torch.launch import serve
+    return serve.serve_lm(arch, gen, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                          max_len=LM_PROMPT + gen, full=True, device="cuda")
+
+
+def serve_counted(serve_fn, profile_calls: int = 0):
+    """``serve_fn()`` (a ``serve_lm`` call) with every count set to 0 just
+    before and read just after, and each call of ``lm.prefill`` /
+    ``lm.decode_step`` in it recorded by phase: (what it returned, the
+    counts, {phase: [each call's counts]}, {phase: [for each of the first
+    ``profile_calls`` calls, run under ``torch.profiler``: its device
+    events by LM kernel (``kernels``), wall ms, the card's busy ms and the
+    top device ops]})."""
+    from repro_torch.kernels.ops import launch_counters
+    from repro_torch.models import lm
+    real = {"prefill": lm.prefill, "decode": lm.decode_step}
+    per_call = {"prefill": [], "decode": []}
+    events = {"prefill": [], "decode": []}
+
+    def recording(phase):
+        wrappers = launch_counters()
+
+        def run(*args, **kw):
+            before = {k: fn.launches for k, fn in wrappers.items()}
+            if len(events[phase]) < profile_calls:
+                out, on_device, wall = profiled(
+                    lambda: real[phase](*args, **kw))
+                events[phase].append({
+                    "kernels": lm_events(on_device), "wall_ms": wall * 1e3,
+                    "busy_ms": sum(t for t, _ in on_device.values()) / 1e3,
+                    "top_device": top(on_device, 6)})
+            else:
+                out = real[phase](*args, **kw)
+            per_call[phase].append(
+                {k: fn.launches - before[k] for k, fn in wrappers.items()})
+            return out
+        return run
+
+    lm.prefill, lm.decode_step = recording("prefill"), recording("decode")
+    try:
+        stats, launches = counted(serve_fn)
+    finally:
+        lm.prefill, lm.decode_step = real["prefill"], real["decode"]
+    return stats, launches, per_call, events
+
+
+def summed_calls(calls: list, kernels) -> dict:
+    """Per-call counts summed, for every name of ``kernels``."""
+    return {k: sum(c[k] for c in calls) for k in kernels}
+
+
 def profile_lm(card: str, label: str, cfg, *, prompt_len: int,
                steps: int = 3):
     """The LM path's prefill and ``steps`` decode steps under
@@ -2509,8 +2558,6 @@ def lm_phase(card: str):
     import torch
     from repro_torch.configs.archs import ARCHS
     from repro_torch.distributed.sharding import param_bytes
-    from repro_torch.kernels.ops import launch_counters
-    from repro_torch.launch import serve
     from repro_torch.models import lm
 
     # depth 2, float32, full width: the tight check
@@ -2532,32 +2579,11 @@ def lm_phase(card: str):
     torch.cuda.empty_cache()
 
     # the main path: full width and depth, bf16, counts per phase
-    per_phase = {"prefill": [], "decode": []}
-    real = {"prefill": lm.prefill, "decode": lm.decode_step}
-
-    def recording(phase):
-        wrappers = launch_counters()
-
-        def run(*args, **kw):
-            before = {k: fn.launches for k, fn in wrappers.items()}
-            out = real[phase](*args, **kw)
-            per_phase[phase].append(
-                {k: fn.launches - before[k] for k, fn in wrappers.items()})
-            return out
-        return run
-
     def serve_full():
-        return serve.serve_lm("llama3-8b", LM_GEN, batch=LM_BATCH,
-                              prompt_len=LM_PROMPT,
-                              max_len=LM_PROMPT + LM_GEN, full=True,
-                              device="cuda")
+        return serve_full_lm("llama3-8b", LM_GEN)
 
-    lm.prefill, lm.decode_step = recording("prefill"), recording("decode")
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        stats, launches = counted(serve_full)
-    finally:
-        lm.prefill, lm.decode_step = real["prefill"], real["decode"]
+    torch.cuda.reset_peak_memory_stats()
+    stats, launches, per_phase, _ = serve_counted(serve_full)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     full = ARCHS["llama3-8b"]
     label = "llama3-8b full width and depth, bf16"
@@ -2566,8 +2592,7 @@ def lm_phase(card: str):
                    "none in decode")
 
     def summed(phase):
-        return {k: sum(c[k] for c in per_phase[phase])
-                for k in launches}
+        return summed_calls(per_phase[phase], launches)
     check_launches("lm", f"{label}: prefill", summed("prefill"),
                    {"flash_attention": full.num_layers},
                    "one per attention layer")
@@ -2609,6 +2634,608 @@ def lm_phase(card: str):
             "plain_decode_tok_per_s": plain_stats["decode_tok_per_s"],
             "logits_rel_err_bf16": bf16_rel, "logits_rel_err_f32": f32_rel,
             "greedy_agreement": agree, "peak_allocated_gb": peak_gb}
+
+
+# ---------------------------------------------------------------------------
+# the MoE, SSM and hybrid LM families at full width
+# ---------------------------------------------------------------------------
+
+# each LM kernel's device symbols in csrc/, how the profiler's events are
+# told apart (flash_attention: the bf16 wgmma body and the float32 one;
+# gather_rows: its 16-byte and scalar forms)
+LM_EVENT_SYMBOLS = {
+    "flash_attention": ("flash_attention_wgmma", "flash_attention_kernel"),
+    "mp_scatter": ("mp_scatter_kernel",),
+    "gather_rows": ("gather_pieces_kernel", "gather_values_kernel")}
+# mamba2's chunked prefill against the same prompt fed token by token
+# through decode_step (the recurrence), last-position logits in float32:
+# the two forms sum in other orders, held at the reference's own tolerance
+# between them (tests/test_ssm.py, 2e-4), of the logits' scale
+SSM_FORMS_TOL = 2e-4
+# the families, (arch, depth of the float32 check): olmoe's MoE blocks,
+# mamba2's SSD mixer, recurrentgemma's group (rec, rec, local)
+LM_FAMILIES = (("olmoe-1b-7b", 2), ("mamba2-2.7b", 2),
+               ("recurrentgemma-2b", 3))
+# decode steps of the float32 check after its prefill: each MoE layer's
+# decode-size dispatch (B=2 tokens, 16 assignments padded to 128, into
+# capacity's floor of 8 slots an expert) through the kernels
+F32_STEPS = 3
+# serve_lm in bf16 at full width and depth against the same serve through
+# the plain kernels: the prefill's last-position logits within this share
+# of their scale, by family. Read on an H100 at 700 W, the same in two
+# runs (every kernel and product of the path is deterministic):
+#   olmoe-1b-7b: the sound run 1.25e-2 (bf16 attention and combine
+#     roundings, and the routing flips they cause, through 16 layers);
+#     planted faults 0.82 (flash_attention skipping its diagonal kv
+#     tile), 7.1e-2 (gather_rows reading the neighbouring slot), 4.5e-2
+#     (one 64-key tile's values lost). Twice the sound reading.
+#   recurrentgemma-2b: the sound run 7.3e-3; the diagonal tile skipped
+#     1.39e-2, one tile's values lost 1.05e-2: at random weights a fault
+#     in the 8 local layers moves these logits little (why is not
+#     measured). The tolerance sits between the sound run and the
+#     diagonal fault; the calls' own checks at the served shape hold the
+#     kernel to one bf16 unit
+FAMILY_BF16_TOL = {"olmoe-1b-7b": 0.025, "recurrentgemma-2b": 0.01}
+
+
+def lm_events(on_device: dict) -> dict:
+    """Device events by LM kernel (``LM_EVENT_SYMBOLS``)."""
+    return {k: sum(c for name, (_, c) in on_device.items()
+                   if any(sym in name for sym in syms))
+            for k, syms in LM_EVENT_SYMBOLS.items()}
+
+
+LM_LAUNCHES_TXT = ("one flash_attention per attention layer in a prefill, "
+                   "none in decode; two mp_scatter and one gather_rows per "
+                   "MoE layer in each call; the SSD and the RG-LRU outside "
+                   "any kernel")
+
+
+def lm_launches(cfg):
+    """The kernel launches of one prefill and of one decode step of
+    ``cfg``'s stack, by kernel (kernels it never launches left out)."""
+    from repro_torch.nn.transformer import stack_pattern
+    sd = stack_pattern(cfg)
+    kinds = sd.group * sd.num_groups + sd.remainder
+    attn = sum(k in ("attn", "local") for k in kinds)
+    moe = attn if cfg.num_experts else 0
+    step = {"mp_scatter": 2 * moe, "gather_rows": moe}
+    prefill = {"flash_attention": attn, **step}
+    return ({k: v for k, v in prefill.items() if v},
+            {k: v for k, v in step.items() if v})
+
+
+def plain_kernels(run):
+    """``run()`` with the LM path's three kernels routed to their plain
+    versions: ``ops.flash_attention`` (``plain_attention``) and the MoE
+    path's ``mp_scatter`` and ``gather_rows`` (as ``moe_dispatch.py``
+    holds them)."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels.gather_rows import gather_rows_ref
+    from repro_torch.kernels.mp_scatter import mp_scatter_ref
+    real = md.mp_scatter, md.gather_rows
+    md.mp_scatter = (lambda msg, rcv, mask, n, **kw:
+                     mp_scatter_ref(msg, rcv, mask, n).to(msg.dtype))
+    md.gather_rows = lambda y, idx, mask, **kw: gather_rows_ref(y, idx, mask)
+    try:
+        return with_attention(plain_attention, run)
+    finally:
+        md.mp_scatter, md.gather_rows = real
+
+
+@contextmanager
+def moe_taps():
+    """Within: each MoE layer's routing (``slot`` and ``own``, in call
+    order) and aux loss, recorded in the dict it yields."""
+    from repro_torch.nn import moe, transformer
+    real_route, real_ffn = moe.route, transformer.moe_ffn
+    taps = {"slot": [], "own": [], "aux": []}
+
+    def route(*args, **kw):
+        r = real_route(*args, **kw)
+        taps["slot"].append(r["slot"])
+        taps["own"].append(r["own"])
+        return r
+
+    def ffn(*args, **kw):
+        out, aux = real_ffn(*args, **kw)
+        taps["aux"].append(aux)
+        return out, aux
+
+    moe.route, transformer.moe_ffn = route, ffn
+    try:
+        yield taps
+    finally:
+        moe.route, transformer.moe_ffn = real_route, real_ffn
+
+
+@contextmanager
+def patched(owner, name: str, fn):
+    """Within: ``owner.name`` is ``fn``."""
+    real = getattr(owner, name)
+    setattr(owner, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(owner, name, real)
+
+
+@contextmanager
+def kept_calls(wanted: dict):
+    """Within: every call of ``moe_dispatch``'s ``mp_scatter`` and
+    ``gather_rows`` and of ``ops.flash_attention`` goes to the real
+    wrapper, and the arguments of those whose index in call order (from 0,
+    per wrapper) ``wanted[name]`` lists are kept in the dict it yields,
+    {(name, index): (args, kwargs)}."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops
+    owners = {"mp_scatter": md, "gather_rows": md, "flash_attention": ops}
+    real = {k: getattr(o, k) for k, o in owners.items()}
+    seen = dict.fromkeys(owners, 0)
+    kept = {}
+
+    def tap(name):
+        def run(*args, **kw):
+            i = seen[name]
+            seen[name] += 1
+            if i in wanted.get(name, ()):
+                kept[(name, i)] = (args, kw)
+            return real[name](*args, **kw)
+        return run
+    for k, o in owners.items():
+        setattr(o, k, tap(k))
+    try:
+        yield kept
+    finally:
+        for k, o in owners.items():
+            setattr(o, k, real[k])
+
+
+def served_indices(want_prefill: dict, want_step: dict) -> dict:
+    """The calls of the served run that phase 9 keeps, by wrapper: the
+    prefill's first attention layer's ``flash_attention``, and for the MoE
+    the first layer's dispatch, gather and combine in the prefill and in
+    the first decode step."""
+    keep = {}
+    if want_prefill.get("flash_attention"):
+        keep["flash_attention"] = (0,)
+    if want_step.get("gather_rows"):
+        p, g = want_prefill["mp_scatter"], want_prefill["gather_rows"]
+        keep["mp_scatter"] = (0, 1, p, p + 1)
+        keep["gather_rows"] = (0, g)
+    return keep
+
+
+def served_call_rows(card: str, arch: str, kept: dict,
+                     want_prefill: dict) -> dict:
+    """Each kept call of the served run again through its kernel and its
+    plain version on the same inputs: the MoE dispatch and gather_rows
+    bitwise, the combine within RTOL / ATOL_OF_SCALE, flash_attention
+    within ``FLASH_TOL`` (which must fail a planted skipped kv tile); each
+    timed beside its bound and, where one call computes the same function,
+    the library's. These launches are not the path's. Rows by
+    ``<arch>_<prefill|decode>_<dispatch|gather|combine|attention>``."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.gather_rows import gather_rows, gather_rows_ref
+    rows = {}
+    for (name, i), (args, kw) in sorted(kept.items()):
+        where = "prefill" if i < want_prefill[name] else "decode"
+        if name == "mp_scatter":
+            what = "dispatch" if i % 2 == 0 else "combine"
+            msg, rcv, mask, n = args
+            skw = dict(msg=msg, receivers=rcv, edge_mask=mask, num_nodes=n)
+            got = scatter_kernel("mp_scatter", skw)["sum"]
+            plain = scatter_plain("mp_scatter", skw)["sum"]
+            torch.cuda.synchronize()
+            label = (f"{arch} served {where}, first MoE layer's {what}: "
+                     f"mp_scatter of {msg.shape[0]} x {msg.shape[1]} "
+                     f"{str(msg.dtype)[6:]} rows into {n}")
+            if what == "dispatch":
+                # each slot takes at most one row: the sum is that row
+                ok = torch.equal(got, plain.to(got.dtype))
+                err, rel = float((got.float() - plain).abs().max()), None
+                txt = "bitwise the plain version"
+            else:
+                err, rel, ok = close(got, plain)
+                txt = (f"max_abs_err={err:.3e} (max_rel_err={rel:.3e}), tol "
+                       f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + "
+                       f"{RTOL:g}*|p|")
+            log("lm9", f"{label}: {txt}; {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{label}: the kernel disagrees with "
+                                     f"its plain version")
+            rows[f"{arch}_{where}_{what}"] = timed_row(
+                card, "lm9", label,
+                lambda: scatter_kernel("mp_scatter", skw),
+                lambda: scatter_plain("mp_scatter", skw),
+                scatter_bound("mp_scatter", skw), err=err, rel=rel,
+                library=library_call("mp_scatter", skw, {"sum": plain}),
+                library_txt=INDEX_ADD_TXT)
+        elif name == "gather_rows":
+            y, idx, mask = args
+            got, plain = gather_rows(y, idx, mask), gather_rows_ref(y, idx,
+                                                                   mask)
+            torch.cuda.synchronize()
+            label = (f"{arch} served {where}, first MoE layer's gather: "
+                     f"gather_rows of {idx.shape[0]} rows of y "
+                     f"{tuple(y.shape)} {str(y.dtype)[6:]}")
+            ok = torch.equal(got, plain)
+            log("lm9", f"{label}: bitwise the plain version; "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{label}: the kernel disagrees with "
+                                     f"its plain version")
+            s, d = idx.shape[0], y.shape[1]
+            valid = int(mask.sum())
+            nbytes = (s + valid * (INDEX_BYTES + d * y.element_size())
+                      + s * d * 4)
+            safe = idx.clamp(max=y.shape[0] - 1)
+            rows[f"{arch}_{where}_gather"] = timed_row(
+                card, "lm9", label, lambda: gather_rows(y, idx, mask),
+                lambda: gather_rows_ref(y, idx, mask),
+                (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes", nbytes, 0),
+                err=float((got - plain).abs().max()),
+                library=lambda: torch.index_select(y, 0, safe),
+                library_txt="library torch.index_select (bf16 rows out, no "
+                            "mask, indices clamped)")
+        else:
+            q, k, v = args
+            causal, window, cap = (kw.get("causal", True), kw.get("window"),
+                                   kw.get("softcap"))
+            b, h, sq, d = q.shape
+            sk = k.shape[2]
+            dtype = str(q.dtype)[6:]
+            got = flash_attention(q, k, v, **kw)
+            plain = flash_attention_ref(q, k, v, causal=causal,
+                                        window=window, softcap=cap)
+            torch.cuda.synchronize()
+            label = (f"{arch} served prefill, first attention layer: "
+                     f"flash_attention B={b} H={h} S={sq} D={d} causal="
+                     f"{causal} window={window} softcap={cap} {dtype}")
+            err, ok = flash_close(got, plain, dtype)
+            rtol, atol = FLASH_TOL[dtype]
+            log("lm9", f"{label}: max_abs_err={err:.3e} tol |k-p| <= "
+                f"{atol:g} + {rtol:g}|p|; {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{label}: the kernel disagrees with "
+                                     f"its plain version")
+            # a window as long as the keys hides none of them
+            binding = window if window is not None and window < sk else None
+            check_planted_faults(label, q, k, v, got, plain, causal=causal,
+                                 window=binding, softcap=cap, dtype=dtype)
+            library = None
+            if binding is None and cap is None and causal and sq == sk:
+                def library():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=True)
+            long = time_ms(lambda: flash_attention_ref(
+                q, k, v, causal=causal, window=window, softcap=cap),
+                reps=1, inner=1)[0] > 1.0
+            rows[f"{arch}_prefill_attention"] = timed_row(
+                card, "lm9", label, lambda: flash_attention(q, k, v, **kw),
+                lambda: flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, softcap=cap),
+                flash_bound(b, h, sq, sk, d, causal, window, dtype),
+                err=err, library=library, library_txt=SDPA_TXT,
+                **(dict(reps=5, inner=3) if long else {}))
+        del got, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gather_next_slot(real):
+    """A planted fault: ``gather_rows`` reads each owned row's neighbouring
+    slot (index ^ 1), an indexing error of the kernel."""
+    import torch
+
+    def run(y, idx, mask, **kw):
+        return real(y, torch.where(mask, idx ^ 1, idx), mask, **kw)
+    return run
+
+
+def attention_drops_tile(real):
+    """A planted fault: ``flash_attention`` loses one 64-key tile's values
+    (keys [S/2, S/2 + 64) add to the softmax's denominator but nothing to
+    the output), a skipped P @ V product of the kernel."""
+    def run(q, k, v, **kw):
+        mid = v.shape[2] // 2
+        v = v.clone()
+        v[:, :, mid:mid + 64] = 0
+        return real(q, k, v, **kw)
+    return run
+
+
+def attention_skips_diagonal(real):
+    """A planted fault: ``flash_attention``'s causal loop stops one 64-key
+    tile short, so each query row loses the keys of the tile that holds
+    its own position (a row of the first tile sees none and comes out 0),
+    an off-by-one of the kernel. Computed densely in float32."""
+    import torch
+
+    def run(q, k, v, *, causal=True, window=None, softcap=None, **kw):
+        f32 = torch.float32
+        s = (q.to(f32) / math.sqrt(q.shape[-1])) @ k.to(f32).transpose(-1,
+                                                                        -2)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        sq, sk = q.shape[2], k.shape[2]
+        i = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        j = torch.arange(sk, device=q.device)[None, :]
+        keep = j < i // 64 * 64
+        if window is not None:
+            keep &= j > i - window
+        p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+        return (p.nan_to_num(0.0) @ v.to(f32)).to(q.dtype)
+    return run
+
+
+def served_vs_plain(card: str, arch: str, cfg, stats: dict) -> dict:
+    """``serve_lm`` of ``arch`` at full width and depth in bf16 (``stats``,
+    the counted run) against the same serve through the plain kernels
+    (``plain_kernels``): the prefill's last-position logits within
+    ``FAMILY_BF16_TOL[arch]`` of their scale; then each planted fault of
+    the path's kernels, served again (its prefill), must fall outside that
+    tolerance, except the loss of one kv tile's values, which is read
+    only (at recurrentgemma-2b's width it lies about as far from the
+    tolerance as the sound run; the call's own check at the served shape
+    sees it). The plain path's times, and the greedy tokens' agreement
+    (not gated: random weights give near-flat logits)."""
+    import torch
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops
+    v = cfg.vocab_size
+    tol = FAMILY_BF16_TOL[arch]
+    label = f"{arch} full width and depth, bf16"
+    plain = plain_kernels(lambda: serve_full_lm(arch, LM_GEN))
+    want = plain["last_logits"][:, :v]
+    rel = logits_close(f"{label}: prefill's last-position logits, kernels "
+                       f"vs plain kernels", stats["last_logits"][:, :v],
+                       want, tol)
+    agree = float((stats["tokens"] == plain["tokens"]).mean())
+    log("lm9", f"{label}: greedy tokens equal to the plain path's: "
+        f"{agree:.3f} of all (not gated); the plain path: prefill "
+        f"{plain['prefill_s'] * 1e3:.2f} ms, decode "
+        f"{plain['decode_tok_per_s']:.2f} tokens/s; on {card}")
+    # (what, where, which wrapper, the fault, gated)
+    faults = [("flash_attention skips the kv tile on its diagonal", ops,
+               "flash_attention", attention_skips_diagonal, True),
+              ("flash_attention loses one kv tile's values", ops,
+               "flash_attention", attention_drops_tile, False)]
+    if cfg.num_experts:
+        faults.append(("gather_rows reads the neighbouring slot", md,
+                       "gather_rows", gather_next_slot, True))
+    seen = {}
+    for what, owner, name, fault, gated in faults:
+        with patched(owner, name, fault(getattr(owner, name))):
+            got = serve_full_lm(arch, 1)["last_logits"][:, :v]
+        err, seen[what], ok = close(got.float(), want.float(), rtol=0.0,
+                                    atol_of_scale=tol)
+        fault_fails(f"{label}: planted fault, {what}", err, seen[what], ok,
+                    tol, gated)
+    out = {"logits_rel_err_bf16": rel, "greedy_agreement": agree,
+           "plain_prefill_ms": plain["prefill_s"] * 1e3,
+           "plain_decode_tok_per_s": plain["decode_tok_per_s"],
+           "planted_fault_rel_err": seen}
+    del plain, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def fault_fails(label: str, err: float, rel: float, ok: bool,
+                tol: float, gated: bool) -> None:
+    """Log a planted fault's logits against the tolerance; if ``gated``,
+    raise when they lie within it."""
+    where = "within" if ok else "outside"
+    verdict = ("FAIL: " if ok else "ok: ") if gated else "read only: "
+    log("lm9", f"{label}: max_abs_err={err:.4e}, {rel:.3e} of the logits' "
+        f"scale (tol {tol:g}); {verdict}{where} the tolerance")
+    if gated and ok:
+        raise AssertionError(f"{label}: the tolerance passes it")
+
+
+def lm_prompt(cfg):
+    import torch
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).cuda()
+
+
+def family_f32_check(card: str, arch: str, depth: int) -> dict:
+    """``arch`` at full width, ``depth`` layers, float32 (TF32 off), seed-0
+    weights, the LM prompts. MoE and hybrid: the prefill and
+    ``F32_STEPS`` decode steps (fed the same tokens) through the kernels,
+    counts from 0, against the same calls through their plain versions,
+    each call's logits within ``LM_F32_TOL`` of scale (the MoE's routing
+    decisions compared too). SSM: the chunked prefill against the prompt
+    fed token by token through ``decode_step``, within
+    ``SSM_FORMS_TOL``."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.models import lm
+    cfg = ARCHS[arch].replace(num_layers=depth, dtype=torch.float32)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+    prompt = lm_prompt(cfg)
+    label = f"{arch} width, depth {depth}, float32"
+    # the padded vocabulary's logits are -1e30 and would set the scale
+    v = cfg.vocab_size
+    out = {}
+    if cfg.layer_pattern == "ssm":
+        def prefill():
+            caches = lm.init_caches(cfg, LM_BATCH, LM_PROMPT + 1, "cuda")
+            return lm.prefill(params, prompt, caches, cfg)[0]
+        chunked, launches = counted(prefill)
+        caches = lm.init_caches(cfg, LM_BATCH, LM_PROMPT, "cuda")
+        for i in range(LM_PROMPT):
+            step, caches = lm.decode_step(params, prompt[:, i:i + 1], caches,
+                                          cfg, position=i)
+        torch.cuda.synchronize()
+        check_launches("lm9", f"{label}: prefill", launches, {},
+                       "the SSD runs outside any kernel, as the reference "
+                       "computes it outside Pallas")
+        out["logits_rel_err_forms"] = logits_close(
+            f"{label}: chunked prefill's last-position logits vs the "
+            f"{LM_PROMPT} tokens fed one by one through decode_step",
+            chunked[:, :v], step[:, :v], SSM_FORMS_TOL)
+    else:
+        fed = torch.from_numpy(np.random.default_rng(1).integers(
+            0, v, (LM_BATCH, F32_STEPS))).cuda()
+
+        def prefill_and_steps():
+            caches = lm.init_caches(cfg, LM_BATCH, LM_PROMPT + F32_STEPS,
+                                    "cuda")
+            logits, caches = lm.prefill(params, prompt, caches, cfg)
+            calls = [logits]
+            for i in range(F32_STEPS):
+                logits, caches = lm.decode_step(
+                    params, fed[:, i:i + 1], caches, cfg,
+                    position=LM_PROMPT + i)
+                calls.append(logits)
+            return calls
+        with moe_taps() as kernel_taps:
+            got, launches = counted(prefill_and_steps)
+        with moe_taps() as plain_taps:
+            want = plain_kernels(prefill_and_steps)
+        per_prefill, per_step = lm_launches(cfg)
+        check_launches("lm9", f"{label}: prefill and {F32_STEPS} decode "
+                       f"steps", launches,
+                       {k: per_prefill.get(k, 0) + F32_STEPS
+                        * per_step.get(k, 0) for k in launches},
+                       LM_LAUNCHES_TXT)
+        moved = sum(int((a != b).sum()) for a, b in
+                    zip(kernel_taps["slot"], plain_taps["slot"]))
+        if cfg.num_experts:
+            total = sum(int(a.numel()) for a in kernel_taps["slot"])
+            aux = [float(sum(t["aux"])) for t in (kernel_taps, plain_taps)]
+            log("lm9", f"{label}: routing of the prefill and the decode "
+                f"steps: {moved} of {total} assignments' slots differ "
+                f"between the kernel and the plain path; the prefill's aux "
+                f"loss {float(sum(kernel_taps['aux'][:depth])):.6f} (kernel "
+                f"path) and {float(sum(plain_taps['aux'][:depth])):.6f} "
+                f"(plain); all calls' {aux[0]:.6f} and {aux[1]:.6f}")
+            out.update(slots_moved=moved,
+                       aux_f32=float(sum(kernel_taps["aux"][:depth])))
+        calls = ["prefill's last-position"] + [
+            f"decode step {i}'s" for i in range(1, F32_STEPS + 1)]
+        out["logits_rel_err_f32"] = max(
+            logits_close(f"{label}: {call} logits, kernel vs plain kernels",
+                         a[:, :v], b[:, :v], LM_F32_TOL)
+            for call, a, b in zip(calls, got, want))
+    out["launches_f32"] = launches
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_phase(card: str, arch: str, depth: int) -> dict:
+    """One family: the float32 check at ``depth``, then ``serve_lm`` at
+    full width and depth in bf16 with the counts from 0 (per call of the
+    prefill and of each decode step, checked against the layers), its
+    times, peak memory and output; then a prefill and one decode step
+    again under ``torch.profiler``, the kernels' device events checked the
+    same way. For the MoE: the share of the prefill's assignments dropped
+    past capacity and its aux loss."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.distributed.sharding import param_bytes
+    from repro_torch.models import lm
+    out = family_f32_check(card, arch, depth)
+    full = ARCHS[arch]
+    label = f"{arch} full width and depth, bf16"
+    want_prefill, want_step = lm_launches(full)
+    moe_layers = want_step.get("gather_rows", 0)
+    why = LM_LAUNCHES_TXT
+
+    torch.cuda.reset_peak_memory_stats()
+    with moe_taps() as taps, kept_calls(
+            served_indices(want_prefill, want_step)) as kept:
+        stats, launches, per_call, _ = serve_counted(
+            lambda: serve_full_lm(arch, LM_GEN))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = len(per_call["decode"])
+    check_launches("lm9", label, launches,
+                   {k: want_prefill.get(k, 0) + steps * want_step.get(k, 0)
+                    for k in launches}, why)
+    check_launches("lm9", f"{label}: prefill",
+                   summed_calls(per_call["prefill"], launches),
+                   want_prefill, why)
+    for i, c in enumerate(per_call["decode"]):
+        if c != {k: want_step.get(k, 0) for k in c}:
+            raise AssertionError(f"{label}: decode step {i} launched {c}")
+    log("lm9", f"{label}: each of the {steps} decode steps launched "
+        f"{want_step or 'no kernel'}")
+    tokens, logits = stats["tokens"], stats["last_logits"]
+    if (tokens.shape != (LM_BATCH, LM_GEN)
+            or tuple(logits.shape) != (LM_BATCH, full.vocab_pad)
+            or not bool(torch.isfinite(logits[:, :full.vocab_size]).all())
+            or int(tokens.max()) >= full.vocab_size):
+        raise AssertionError(f"{label}: tokens {tokens.shape}, logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    if full.num_experts:
+        # the prefill's layers come first in call order
+        own = taps["own"][:moe_layers]
+        drop = float(sum(int((~o).sum()) for o in own)
+                     / sum(o.numel() for o in own))
+        aux = float(sum(taps["aux"][:moe_layers]))
+        log("lm9", f"{label}: the prefill's {moe_layers} MoE layers dropped "
+            f"{drop:.4%} of their {own[0].numel()} assignments each past "
+            f"capacity {full.capacity_factor} on average; aux loss {aux:.6f} "
+            f"(summed over layers; a layer in perfect balance gives "
+            f"top-k = {full.num_experts_per_tok})")
+        out.update(drop_share=drop, aux=aux)
+    del taps
+    # the kernels against their plain versions at the served shapes, call
+    # by call and end to end
+    out["rows"] = served_call_rows(card, arch, kept, want_prefill)
+    del kept
+    if want_prefill:
+        out.update(served_vs_plain(card, arch, full, stats))
+    weights_gb = param_bytes(lm.lm_param_defs(full)) / 1e9
+    log("lm9", f"{label}: B={LM_BATCH} prompts of {LM_PROMPT} tokens, "
+        f"{LM_GEN} generated each: prefill {stats['prefill_s'] * 1e3:.2f} ms, "
+        f"decode {stats['decode_tok_per_s']:.2f} tokens/s ({steps} steps, "
+        f"{stats['decode_s'] * 1e3:.2f} ms); weights {weights_gb:.2f} GB, "
+        f"peak allocated {peak_gb:.2f} GB; on {card}")
+    torch.cuda.empty_cache()
+
+    # the same traffic's prefill and first decode step under the profiler
+    _, _, _, events = serve_counted(lambda: serve_full_lm(arch, 2),
+                                    profile_calls=1)
+    for phase, want in (("prefill", want_prefill), ("decode", want_step)):
+        ev = events[phase][0]
+        got = ev["kernels"]
+        log("lm9", f"{label}: {phase}'s device events {got} (expected "
+            f"{want or 'none'}); profiler on: {ev['wall_ms']:.2f} ms wall, "
+            f"the card busy {ev['busy_ms']:.2f} ms; top device ops "
+            + "; ".join(f"{r['name']} {r['us']:.1f} us x{r['count']}"
+                        for r in ev["top_device"]))
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"{label}: the {phase}'s device events are "
+                                 f"not its kernels' launches")
+    torch.cuda.empty_cache()
+    out.update({"launches": launches,
+                "launches_prefill": summed_calls(per_call["prefill"],
+                                                 launches),
+                "launches_decode_step": per_call["decode"][0],
+                "profiled": {k: v[0] for k, v in events.items()},
+                "prefill_ms": stats["prefill_s"] * 1e3,
+                "decode_tok_per_s": stats["decode_tok_per_s"],
+                "peak_allocated_gb": peak_gb, "weights_gb": weights_gb})
+    return out
+
+
+def lm_families_phase(card: str) -> dict:
+    """Phase 9: olmoe-1b-7b (MoE on mp_scatter and gather_rows, and
+    flash_attention), mamba2-2.7b (no kernel) and recurrentgemma-2b
+    (flash_attention on its local layers, D=256, window 2048, one KV head)
+    at full width and depth, each freed before the next."""
+    t0 = time.perf_counter()
+    out = {f"lm_{arch}": family_phase(card, arch, depth)
+           for arch, depth in LM_FAMILIES}
+    log("lm9", f"phase 9 took {time.perf_counter() - t0:.1f} s; on {card}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5160,14 +5787,22 @@ def packed_buckets(device: str = "cuda"):
         yield key, f"packed{k}_bucket", pb.build(device=device)
 
 
+# what ``--only`` runs after phase 1: the sources it builds (phase 2) and
+# its phase alone, with no result lines
+ONLY_SOURCES = {"wide": ["layer_fused", "mp_pipeline"],
+                "lm_families": ["mp_scatter", "gather_rows",
+                                "flash_attention"]}
+
+
 def main(argv=None) -> int:
     import torch
     args = sys.argv[1:] if argv is None else list(argv)
     only = None
-    if args == ["--only", "wide"]:
-        only = "wide"
+    if len(args) == 2 and args[0] == "--only" and args[1] in ONLY_SOURCES:
+        only = args[1]
     elif args:
-        print("usage: chip_smoke.py [--only wide]", file=sys.stderr)
+        print(f"usage: chip_smoke.py [--only {'|'.join(ONLY_SOURCES)}]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5188,7 +5823,7 @@ def main(argv=None) -> int:
     # 2. build
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build(["layer_fused", "mp_pipeline"] if only else [
+    libs = build.build(ONLY_SOURCES[only] if only else [
         "layer_fused", "mp_pipeline", "mp_scatter", "seg_softmax",
         "gather_rows", "nt_mlp", "fused_nt_scatter", "flash_attention"])
     log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: "
@@ -5202,6 +5837,12 @@ def main(argv=None) -> int:
         # phase 4f alone: no result lines
         record_trips()
         log("wide", "json " + json.dumps(wide_phase(card), default=str))
+        print(smi)
+        return 0
+    if only == "lm_families":
+        # phase 9 alone: no result lines
+        log("lm9", "json " + json.dumps(lm_families_phase(card),
+                                        default=str))
         print(smi)
         return 0
     scatter_build = scatter_build_report()
@@ -5251,8 +5892,20 @@ def main(argv=None) -> int:
     # llama3-8b's full width
     flash_rows, flash_build = flash_phase(card)
     paths["lm_llama3_8b"] = lm_phase(card)
+    # 9. the MoE, SSM and hybrid LM families at full width and depth
+    families = lm_families_phase(card)
+    log("lm9", "json " + json.dumps(families, default=str))
+    paths.update(families)
+    # phase 9's kernel calls at the served shapes join each kernel's cases
+    served = {k: v for fam in families.values()
+              for k, v in fam.get("rows", {}).items()}
+    scatter_rows["mp_scatter"].update(
+        {k: v for k, v in served.items()
+         if k.endswith(("_dispatch", "_combine"))})
+    flash_rows.update({k: v for k, v in served.items()
+                       if k.endswith("_attention")})
 
-    # 9. result: each kernel's row at the largest shape its main path gives
+    # 10. result: each kernel's row at the largest shape its main path gives
     # it (the hep bucket for the GNN kernels), and its launches in its main
     # path's run
     def row(name, source, replaces, cases, main, path, shape):
@@ -5318,10 +5971,11 @@ def main(argv=None) -> int:
             "N=1024, E=4096, MLP 64->128->64; both launches"),
         row("gather_rows", "src/repro_torch/kernels/csrc/gather_rows.cu",
             "src/repro/kernels/gather_rows.py:48",
-            {"moe_gather": moe_rows["moe_gather"]},
-            moe_rows["moe_gather"], "moe_olmoe",
-            "olmoe-1b-7b combine: S=8192 rows of y (10240, 2048) bf16, "
-            "f32 out"),
+            {"moe_gather": moe_rows["moe_gather"],
+             **{k: v for k, v in served.items() if k.endswith("_gather")}},
+            served["olmoe-1b-7b_prefill_gather"], "lm_olmoe-1b-7b",
+            "olmoe-1b-7b served prefill's first MoE layer's combine: "
+            "S=32768 rows of y (40960, 2048) bf16, f32 out"),
         row("flash_attention",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:81", flash_rows,

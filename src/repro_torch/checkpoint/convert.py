@@ -45,8 +45,12 @@ def lm_params_from_jax(tree: Any, cfg, device: DeviceLike = None) -> Any:
     """The JAX LM's parameters (``repro/models/lm.py``, as numpy) as the
     port's: every leaf's shape checked against ``lm_param_defs(cfg)``
     (``ValueError`` on a missing, extra or misshapen leaf) and cast to its
-    definition's dtype (``cfg.dtype`` for every LM leaf); the stack's
-    ``groups`` come back as a tuple, as the port's defs have them."""
+    definition's dtype: ``cfg.dtype`` for most leaves, float32 for those
+    whose definition says so in any model (the MoE router, mamba's
+    ``a_log``, ``d_skip`` and ``dt_bias``, the RG-LRU's ``lam``). A bf16
+    leaf arrives from numpy as JAX's ml_dtypes bfloat16, which widens to
+    float32 exactly before the cast. The stack's ``groups`` come back as a
+    tuple, as the port's defs have them."""
     from repro_torch.distributed.sharding import ParamDef
     from repro_torch.models.lm import lm_param_defs
 

@@ -1,0 +1,9 @@
+"""Config module for --arch internvl2-2b: the per-arch entry point (the
+canonical definition and its reduced variant live in ``archs.py``)."""
+
+from repro_torch.configs.archs import INTERNVL2_2B as CONFIG
+from repro_torch.configs.archs import REDUCED as _REDUCED
+
+REDUCED_CONFIG = _REDUCED["internvl2-2b"]
+
+__all__ = ["CONFIG", "REDUCED_CONFIG"]

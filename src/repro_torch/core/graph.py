@@ -58,6 +58,24 @@ class GraphBatch:
     def device(self) -> torch.device:
         return self.node_feat.device
 
+    def num_nodes(self) -> torch.Tensor:
+        """The real nodes, as a 0-d int32 tensor."""
+        return self.node_mask.sum(dtype=torch.int32)
+
+    def num_edges(self) -> torch.Tensor:
+        """The real edges, as a 0-d int32 tensor."""
+        return self.edge_mask.sum(dtype=torch.int32)
+
+    def in_degrees(self) -> torch.Tensor:
+        """Per-node in-degree (N_pad,) float32, computed on the fly. A
+        receiver outside [0, N_pad) counts nowhere, as
+        ``jax.ops.segment_sum`` drops it (``index_add_`` would raise)."""
+        n, rcv = self.n_node_pad, self.receivers
+        keep = self.edge_mask & (rcv >= 0) & (rcv < n)
+        out = torch.zeros(n, dtype=torch.float32, device=self.device)
+        return out.index_add_(0, torch.where(keep, rcv, 0),
+                              keep.to(torch.float32))
+
 
 # the nine arrays of a GraphBatch, in the order of a staging buffer's layout
 BATCH_FIELDS = ("node_feat", "edge_feat", "senders", "receivers", "node_pos",

@@ -6,6 +6,7 @@ both sides.
 
   molhiv_like   : ~25.3 nodes, ~55.6 edges, 9d node + 3d edge features
   sized_stream  : molhiv_like with the node-count distribution as parameters
+  molpcba_like  : ~27 nodes, ~59.3 edges, the same features
   hep_like      : kNN (k=16) graphs over particle point clouds, ~49 nodes
   mesh_like     : locality-structured oversized graphs (wide placement)
   citation_like : single graphs with the citation benchmarks' sizes
@@ -86,6 +87,15 @@ def sized_stream(seed: int = 0, n_graphs: int = 64, n_mean: float = 25.0,
     for _ in range(n_graphs):
         n = max(4, int(rng.normal(n_mean, n_std)))
         e = max(2 * (n - 1), int(n * e_per_node) // 2 * 2)
+        yield _random_connected_graph(rng, n, e, node_dim, edge_dim)
+
+
+def molpcba_like(seed: int = 1, n_graphs: int = 43773,
+                 node_dim: int = 9, edge_dim: int = 3) -> Iterator[RawGraph]:
+    rng = np.random.default_rng(seed)
+    for _ in range(n_graphs):
+        n = max(4, int(rng.normal(27.0, 6.0)))
+        e = max(2 * (n - 1), int(rng.normal(59.3, 10.0)) // 2 * 2)
         yield _random_connected_graph(rng, n, e, node_dim, edge_dim)
 
 

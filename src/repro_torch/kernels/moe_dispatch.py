@@ -10,11 +10,12 @@ The routing arrays are the router's raw output order (``token_ids``,
 ``slot``, ``own``, ``weights``, each (T*k,)); any order gives the same
 buffer, since every owned slot is hit by one assignment. An assignment that
 is not owned may point its slot one past the buffer (``nn/moe.py``'s trash
-row): it is masked and adds nothing. The dtypes follow the reference:
-dispatch returns ``x.dtype``, combine float32. On the card each step is one
-kernel launch (``mp_scatter``, ``gather_rows``, ``mp_scatter``); the token
-gather ``x[token_ids]`` and the weighting are PyTorch ops, as the reference
-leaves them to XLA outside any kernel.
+row): it is masked and adds nothing. ``pad_assignments`` brings a stream
+to the wrappers' index tile with such assignments. The dtypes follow the
+reference: dispatch returns ``x.dtype``, combine float32. On the card each
+step is one kernel launch (``mp_scatter``, ``gather_rows``,
+``mp_scatter``); the token gather ``x[token_ids]`` and the weighting are
+PyTorch ops, as the reference leaves them to XLA outside any kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +24,24 @@ import torch
 
 from repro_torch.kernels.gather_rows import gather_rows
 from repro_torch.kernels.mp_scatter import mp_scatter
+
+
+def pad_assignments(token_ids: torch.Tensor, slot: torch.Tensor,
+                    own: torch.Tensor, weights: torch.Tensor,
+                    num_slots: int, *, edge_tile: int = 128):
+    """The routing arrays padded to a multiple of ``edge_tile`` (the
+    wrappers' index tile; they raise otherwise, as the reference's do) with
+    assignments that are not owned: token 0, the trash slot ``num_slots``,
+    weight 0. Returns (token_ids, slot, own, weights)."""
+    pad = (-slot.shape[0]) % edge_tile
+    if not pad:
+        return token_ids, slot, own, weights
+
+    def grow(v, fill):
+        return torch.cat([v, torch.full((pad,), fill, dtype=v.dtype,
+                                        device=v.device)])
+    return (grow(token_ids, 0), grow(slot, num_slots), grow(own, False),
+            grow(weights, 0.0))
 
 
 def moe_dispatch(x: torch.Tensor, token_ids: torch.Tensor,

@@ -6,9 +6,11 @@ of the repo:
   * ``gnn``: raw COO graphs streamed at batch size 1 through the port's
     ``GraphStreamEngine``; reports per-graph latency percentiles and
     throughput.
-  * ``lm``: prefill then greedy decode with the layer-stacked KV cache, the
-    reduced config by default (as the reference) or, with ``--full``, the
-    published one at full width and depth.
+  * ``lm``: prefill then greedy decode with the layer-stacked caches (K/V,
+    SSM state, recurrent state) of any assigned arch: dense, MoE (olmoe,
+    arctic), SSM (mamba2), hybrid (recurrentgemma). The reduced config by
+    default (as the reference) or, with ``--full``, the published one at
+    full width and depth.
 
 Both run on the GPU unless ``--device cpu`` is given. Usage (from the root
 of a checkout):
@@ -16,6 +18,7 @@ of a checkout):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode gnn --model gin --graphs 200
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch llama3-8b --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch llama3-8b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch olmoe-1b-7b --full
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
 """Causal LM wrapper: embeddings, stack, prefill and decode steps.
 
-The twin of ``repro/models/lm.py`` for the dense families (qwen, deepseek,
-gemma2, llama3; the VLM and audio backbones through ``prefix_embed``, whose
-front ends are stubs in the JAX package too). The parameter tree has the
-JAX nesting and shapes (``lm_param_defs``). The training loss and the MoE,
-SSM and hybrid stacks are not ported yet (ROADMAP queue 1 item 7).
+The twin of ``repro/models/lm.py`` for every assigned architecture through
+``ModelConfig``: dense (qwen, deepseek, gemma2, llama3), the VLM and audio
+backbones (``prefix_embed``, whose front ends are stubs in the JAX package
+too), MoE (olmoe, arctic), SSM (mamba2) and hybrid (recurrentgemma). The
+parameter tree has the JAX nesting and shapes (``lm_param_defs``).
+``forward`` returns the reference's three values, the MoE aux loss last.
+The training loss is not ported yet (ROADMAP, "The rest of the LM
+substrate").
 """
 
 from __future__ import annotations
@@ -75,9 +78,9 @@ def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                    prefix_embed: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
-                   caches=None) -> Tuple[torch.Tensor, Any]:
-    """tokens: (B, S) -> (hidden (B, S, d), new_caches). The reference's
-    third value, the MoE aux loss, comes back with the MoE block."""
+                   caches=None) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """tokens: (B, S) -> (hidden (B, S, d), new_caches, aux_loss () float32,
+    summed over the layers)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
@@ -85,21 +88,21 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x = _embed(params, tokens, cfg, prefix_embed)
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
-    x, new_caches = stack_apply(params["stack"], x, positions, cfg,
-                                caches=caches)
+    x, new_caches, aux = stack_apply(params["stack"], x, positions, cfg,
+                                     caches=caches)
     x = apply_norm(params["final_norm"], x, cfg)
-    return x, new_caches
+    return x, new_caches, aux
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             prefix_embed: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            caches=None) -> Tuple[torch.Tensor, Any]:
-    """tokens: (B, S) -> (logits (B, S, V), new_caches)."""
-    x, new_caches = forward_hidden(
+            caches=None) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """tokens: (B, S) -> (logits (B, S, V), new_caches, aux_loss)."""
+    x, new_caches, aux = forward_hidden(
         params, tokens, cfg, prefix_embed=prefix_embed, positions=positions,
         caches=caches)
-    return _unembed(params, x, cfg), new_caches
+    return _unembed(params, x, cfg), new_caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +115,9 @@ def lm_cache_defs(cfg: ModelConfig, batch: int, max_len: int):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: DeviceLike = None):
-    """Empty KV caches for ``batch`` sequences of up to ``max_len`` tokens:
-    zeros stacked as the parameters are, length 0."""
+    """Empty caches for ``batch`` sequences of up to ``max_len`` tokens (K/V,
+    SSM or recurrent state and conv windows by block kind): zeros stacked
+    as the parameters are, length 0."""
     return sharding.zeros_like_defs(lm_cache_defs(cfg, batch, max_len),
                                     device)
 
@@ -122,8 +126,9 @@ def prefill(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
             prefix_embed: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Any]:
     """Fill caches from a prompt; return (last-position logits, caches)."""
-    logits, new_caches = forward(params, tokens, cfg,
-                                    prefix_embed=prefix_embed, caches=caches)
+    logits, new_caches, _ = forward(params, tokens, cfg,
+                                    prefix_embed=prefix_embed,
+                                    caches=caches)
     return logits[:, -1], new_caches
 
 
@@ -134,6 +139,6 @@ def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig, *,
     b = token.shape[0]
     positions = torch.full((b, 1), position, dtype=torch.int32,
                            device=token.device)
-    logits, new_caches = forward(params, token, cfg, positions=positions,
-                                    caches=caches)
+    logits, new_caches, _ = forward(params, token, cfg,
+                                    positions=positions, caches=caches)
     return logits[:, -1], new_caches

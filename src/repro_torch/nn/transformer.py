@@ -3,22 +3,25 @@
 The twin of ``repro/nn/transformer.py``. Layer patterns
 (``cfg.layer_pattern``):
 
-  global       -> group ("attn",)              qwen/deepseek/llama/...
+  global       -> group ("attn",)              qwen/deepseek/llama/internvl/
+                                               olmoe/arctic/musicgen
   local_global -> group ("local", "attn")      gemma2 (alternating windows)
-  griffin      -> group ("rec", "rec", "local") recurrentgemma
+  griffin      -> group ("rec", "rec", "local") recurrentgemma (+2 rem layers)
   ssm          -> group ("mamba",)             mamba2
+
+An "attn" or "local" block's feed-forward is the MoE (``nn/moe.py``) where
+``cfg.num_experts`` is set, plus the dense MLP with ``dense_residual``
+(arctic). Every block returns the MoE aux loss as a third value (0 where
+there is none), summed over the stack.
 
 The parameter tree keeps the JAX nesting, so JAX weights carry over leaf
 for leaf (``checkpoint/convert.py::lm_params_from_jax``): ``{"groups": a
 tuple with one tree per position of the group, each leaf stacked on a
 leading layer axis, "rem": [one tree per remainder layer]}``. The JAX
 package scans the groups; ``stack_apply`` runs a Python loop over the
-group index on views of the stacked leaves, and updates the stacked KV
-caches in place by layer index.
-
-Only the dense blocks ("attn", "local") are ported. The kinds "mamba" and
-"rec" and MoE configs (``cfg.num_experts``) raise ``NotImplementedError``
-(ROADMAP queue 1 item 7), never a silent substitute.
+group index on views of the stacked leaves, and the blocks write their
+caches (K/V, SSM state, recurrent state and conv windows) in place into
+the stacked buffers through those views.
 """
 
 from __future__ import annotations
@@ -33,23 +36,9 @@ from repro_torch.distributed.sharding import ParamDef, map_defs
 from repro_torch.nn.attention import KVCache, attention, attn_param_defs
 from repro_torch.nn.layers import layernorm, rmsnorm
 from repro_torch.nn.mlp import mlp, mlp_param_defs
-
-DENSE_KINDS = ("attn", "local")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP queue 1 item 7); the "
-        f"port serves dense blocks ('attn', 'local') only")
-
-
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in DENSE_KINDS:
-        if kind in ("mamba", "rec"):
-            raise _not_ported(f"the '{kind}' block")
-        raise ValueError(kind)
-    if cfg.num_experts:
-        raise _not_ported("the MoE feed-forward (nn/moe.py)")
+from repro_torch.nn.moe import moe_ffn, moe_param_defs
+from repro_torch.nn.rglru import RecCache, recurrent_block, rglru_param_defs
+from repro_torch.nn.ssm import MambaCache, mamba_mixer, mamba_param_defs
 
 
 # ---------------------------------------------------------------------------
@@ -77,50 +66,94 @@ def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def block_param_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    _check_kind(cfg, kind)
-    defs: Dict[str, Any] = {
-        "ln1": norm_defs(cfg),
-        "attn": attn_param_defs(cfg),
-        "ln2": norm_defs(cfg),
-        "mlp": mlp_param_defs(cfg, gated=cfg.gated_mlp),
-    }
-    if cfg.post_norms:
-        defs["pn1"] = norm_defs(cfg)
-        defs["pn2"] = norm_defs(cfg)
-    return defs
+    if kind in ("attn", "local"):
+        defs: Dict[str, Any] = {
+            "ln1": norm_defs(cfg),
+            "attn": attn_param_defs(cfg),
+            "ln2": norm_defs(cfg),
+        }
+        if cfg.num_experts:
+            defs["moe"] = moe_param_defs(cfg)
+            if cfg.dense_residual:
+                defs["mlp"] = mlp_param_defs(cfg, gated=True)
+        else:
+            defs["mlp"] = mlp_param_defs(cfg, gated=cfg.gated_mlp)
+        if cfg.post_norms:
+            defs["pn1"] = norm_defs(cfg)
+            defs["pn2"] = norm_defs(cfg)
+        return defs
+    if kind == "mamba":
+        return {"ln1": norm_defs(cfg), "mamba": mamba_param_defs(cfg)}
+    if kind == "rec":
+        return {"ln1": norm_defs(cfg), "rec": rglru_param_defs(cfg),
+                "ln2": norm_defs(cfg), "mlp": mlp_param_defs(cfg, gated=True)}
+    raise ValueError(kind)
 
 
 def block_apply(params, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, kind: str, *,
-                cache: Optional[KVCache] = None
-                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Returns (x, new_cache). The reference's third value, the MoE aux
-    loss, comes back with the MoE block (ROADMAP queue 1 item 7)."""
-    _check_kind(cfg, kind)
-    window = cfg.local_window if kind == "local" else None
-    h = apply_norm(params["ln1"], x, cfg)
-    a_out, new_cache = attention(params["attn"], h, positions, cfg,
-                                 layer_window=window, cache=cache)
-    if cfg.post_norms:
-        a_out = apply_norm(params["pn1"], a_out, cfg)
-    x = x + a_out
-    h = apply_norm(params["ln2"], x, cfg)
-    f_out = mlp(params["mlp"], h, cfg)
-    if cfg.post_norms:
-        f_out = apply_norm(params["pn2"], f_out, cfg)
-    x = x + f_out
-    return x, new_cache
+                cfg: ModelConfig, kind: str, *, cache=None
+                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """Returns (x, new_cache, aux_loss () float32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ("attn", "local"):
+        window = cfg.local_window if kind == "local" else None
+        h = apply_norm(params["ln1"], x, cfg)
+        a_out, new_cache = attention(params["attn"], h, positions, cfg,
+                                     layer_window=window, cache=cache)
+        if cfg.post_norms:
+            a_out = apply_norm(params["pn1"], a_out, cfg)
+        x = x + a_out
+        h = apply_norm(params["ln2"], x, cfg)
+        if cfg.num_experts:
+            f_out, aux = moe_ffn(params["moe"], h, cfg)
+            if cfg.dense_residual:
+                f_out = f_out + mlp(params["mlp"], h, cfg)
+        else:
+            f_out = mlp(params["mlp"], h, cfg)
+        if cfg.post_norms:
+            f_out = apply_norm(params["pn2"], f_out, cfg)
+        x = x + f_out
+    elif kind == "mamba":
+        h = apply_norm(params["ln1"], x, cfg)
+        m_out, new_cache = mamba_mixer(params["mamba"], h, cfg, cache=cache)
+        x = x + m_out
+    elif kind == "rec":
+        h = apply_norm(params["ln1"], x, cfg)
+        r_out, new_cache = recurrent_block(params["rec"], h, cfg,
+                                           cache=cache)
+        x = x + r_out
+        h = apply_norm(params["ln2"], x, cfg)
+        x = x + mlp(params["mlp"], h, cfg)
+    else:
+        raise ValueError(kind)
+    return x, new_cache, aux
 
 
 def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
-                     max_len: int) -> KVCache:
-    """One block's decode cache: K and V zeros, length 0."""
-    _check_kind(cfg, kind)
-    hk, dh = cfg.num_kv_heads, cfg.head_dim
-    shape = (batch, max_len, hk, dh)
-    return KVCache(k=ParamDef(shape, init="zeros", dtype=cfg.dtype),
-                   v=ParamDef(shape, init="zeros", dtype=cfg.dtype),
-                   length=0)
+                     max_len: int):
+    """One block's decode cache: zeros of its kind's shapes, length 0."""
+    if kind in ("attn", "local"):
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return KVCache(k=ParamDef(shape, init="zeros", dtype=cfg.dtype),
+                       v=ParamDef(shape, init="zeros", dtype=cfg.dtype),
+                       length=0)
+    if kind == "mamba":
+        return MambaCache(
+            state=ParamDef((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                            cfg.ssm_state), init="zeros",
+                           dtype=torch.float32),
+            conv=ParamDef((batch, cfg.ssm_conv - 1,
+                           cfg.d_inner + 2 * cfg.ssm_state), init="zeros",
+                          dtype=cfg.dtype),
+            length=0)
+    if kind == "rec":
+        return RecCache(
+            h=ParamDef((batch, cfg.lru_width), init="zeros",
+                       dtype=torch.float32),
+            conv=ParamDef((batch, cfg.lru_conv - 1, cfg.lru_width),
+                          init="zeros", dtype=cfg.dtype),
+            length=0)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -186,37 +219,46 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _cache_at(cache, g: int):
+    """Layer ``g`` of a stacked cache (a ``KVCache``, ``MambaCache`` or
+    ``RecCache``, its tensors first and its length last): views of every
+    tensor's slice, so that the block's in-place writes land in the
+    stack."""
+    return type(cache)(*(t[g] for t in cache[:-1]), cache.length)
+
+
 def stack_apply(params, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, *, caches=None
-                ) -> Tuple[torch.Tensor, Any]:
-    """Run the full stack. Returns (x, new_caches | None). The
-    caches' K/V tensors are written in place; the returned tree holds the
-    same tensors with the new lengths."""
+                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """Run the full stack. Returns (x, new_caches | None, aux_loss). The
+    caches' tensors are written in place; the returned tree holds the same
+    tensors with the new lengths."""
     sd = stack_pattern(cfg)
     have_cache = caches is not None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     lengths: List[Optional[int]] = [None] * len(sd.group)
     for g in range(sd.num_groups):
         for i, kind in enumerate(sd.group):
-            cache_i = None
-            if have_cache:
-                c = caches["groups"][i]
-                cache_i = KVCache(c.k[g], c.v[g], c.length)
-            x, nc = block_apply(_layer(params["groups"][i], g), x,
-                                positions, cfg, kind, cache=cache_i)
+            cache_i = (_cache_at(caches["groups"][i], g) if have_cache
+                       else None)
+            x, nc, aux_i = block_apply(_layer(params["groups"][i], g), x,
+                                       positions, cfg, kind, cache=cache_i)
+            aux = aux + aux_i
             if have_cache:
                 lengths[i] = nc.length
 
     new_rem_caches = []
     for i, kind in enumerate(sd.remainder):
         cache_i = caches["rem"][i] if have_cache else None
-        x, nc = block_apply(params["rem"][i], x, positions, cfg, kind,
-                            cache=cache_i)
+        x, nc, aux_i = block_apply(params["rem"][i], x, positions, cfg, kind,
+                                   cache=cache_i)
+        aux = aux + aux_i
         new_rem_caches.append(nc)
 
     if not have_cache:
-        return x, None
-    new_groups = tuple(KVCache(c.k, c.v, n) for c, n in
+        return x, None, aux
+    new_groups = tuple(type(c)(*c[:-1], n) for c, n in
                        zip(caches["groups"], lengths)) \
         if sd.num_groups > 0 else ()
-    return x, {"groups": new_groups, "rem": new_rem_caches}
+    return x, {"groups": new_groups, "rem": new_rem_caches}, aux

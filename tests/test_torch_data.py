@@ -56,3 +56,12 @@ def test_mesh_like_edges_stay_inside_the_window():
     ring = (gap == 1) | (gap == 499)
     assert np.all(ring | (gap <= 8))
     assert g.node_feat.shape == (500, 9) and g.edge_feat.shape[1] == 3
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(seed=7, n_graphs=5),
+                                dict(seed=3, n_graphs=2, node_dim=4,
+                                     edge_dim=1)])
+def test_molpcba_like_matches_the_reference(kw):
+    kw = {"n_graphs": 3, **kw}
+    for a, b in zip(J.molpcba_like(**kw), T.molpcba_like(**kw), strict=True):
+        _same(a, b)

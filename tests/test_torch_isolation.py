@@ -1,8 +1,9 @@
 """The port stands alone: no ``jax`` and nothing of the JAX package.
 
-Checked twice: by importing every module of ``repro_torch`` and
-``chip_smoke`` in a fresh interpreter and looking at ``sys.modules``, and by
-walking their syntax trees for an ``import jax`` or ``from repro...``.
+Checked twice: by importing every module of ``repro_torch``,
+``chip_smoke`` and the port's examples (``examples/*_torch.py``) in a
+fresh interpreter and looking at ``sys.modules``, and by walking their
+syntax trees for an ``import jax`` or ``from repro...``.
 """
 
 import ast
@@ -17,7 +18,8 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+EXAMPLES = sorted((REPO / "examples").glob("*_torch.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + EXAMPLES
 
 
 def _module_names():
@@ -33,8 +35,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({m!r})" for m in _module_names()]
-        + ["import chip_smoke",
-           "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        + ["import chip_smoke", "import importlib.util as u"]
+        + [f"s = u.spec_from_file_location({p.stem!r}, {str(p)!r}); "
+           f"s.loader.exec_module(u.module_from_spec(s))" for p in EXAMPLES]
+        + ["bad = sorted(m for m in sys.modules if m == 'jax' or "
            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))",
            "assert not bad, bad",
            "print('ok', len(sys.modules))"])
@@ -66,6 +70,11 @@ def _bad_imports(path):
     p.relative_to(REPO)))
 def test_no_jax_or_reference_import_in_source(path):
     assert _bad_imports(path) == []
+
+
+def test_both_port_examples_are_walked():
+    assert [p.name for p in EXAMPLES] == ["gnn_streaming_torch.py",
+                                          "quickstart_torch.py"]
 
 
 def test_walker_catches_a_reference_import(tmp_path):
