@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --only wide    # phase 4f alone (no result lines)
     python3 chip_smoke.py --only lm_families    # phase 9 alone (the same)
+    python3 chip_smoke.py --only train          # phase 10 alone (the same)
 
 Phases, each printing its own lines:
 
@@ -11,7 +12,7 @@ Phases, each printing its own lines:
                and power limit; TF32 off for every fp32 product, and no
                reduced-precision reductions in bf16 products.
   2. build   — builds every CUDA kernel of the paths from ``src/
-               repro_torch/kernels/csrc`` with nvcc (all eight sources at
+               repro_torch/kernels/csrc`` with nvcc (all nine sources at
                once); the NT tile's instantiations' registers and spills
                (f32, bf16, f16; nt_mlp.cu and fused_nt_scatter.cu).
   3. kernels — each kernel against its plain PyTorch version on the card,
@@ -268,7 +269,31 @@ Phases, each printing its own lines:
                ``torch.profiler``, whose device events must be the same
                counts. One ``[lm9] json`` line; ``--only lm_families``
                runs phases 1, 2 (three sources) and 9 alone.
-  10. result — one JSON line with every kernel's numbers, the card's
+  10. train  — the LM training path ([train] lines). (a) the backward
+               kernel ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu)
+               against its plain version at qwen1.5-0.5b's, llama3-8b's,
+               gemma2-27b's local (softcap 50, q x50) and recurrentgemma-
+               2b's local (D=256, window 2048) training shapes, float32,
+               Sq < Sk and a ragged 1000 (each gradient within two bf16
+               units of its scale, float32 within 2e-5), the forward's lse
+               from the forward kernel; bitwise across two runs; planted
+               faults (dq skipping one kv tile, the softcap's derivative
+               dropped) must fail the tolerance; its registers and spills;
+               times beside the bound (10 D operations a visible pair) and
+               SDPA's backward. (b) qwen1.5-0.5b and olmoe-1b-7b at full
+               width, depth 2, float32: ``lm_loss`` and every parameter's
+               gradient through the kernels against the plain path (within
+               1e-4 of each scale), the MoE's routing compared, launches
+               from 0 (mp_scatter and gather_rows also as each other's
+               backward). (c) the ``Trainer`` on qwen1.5-0.5b at full width
+               and depth (24 layers, bf16, AdamW, remat) for 20 steps of
+               B=8 x S=2048 synth tokens, counts from 0 against the layers
+               (two forward and two backward launches an attention layer a
+               step), step ms (median, p90), tokens/s, peak memory, the
+               loss falling, one step's busy share and top device ops
+               under ``torch.profiler``. ``--only train`` runs phases 1, 2
+               (four sources) and 10 alone.
+  11. result — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -5787,11 +5812,485 @@ def packed_buckets(device: str = "cuda"):
         yield key, f"packed{k}_bucket", pb.build(device=device)
 
 
+# ---------------------------------------------------------------------------
+# 10. training: the flash backward kernel, gradients through the kernels,
+# and qwen1.5-0.5b trained at full width and depth
+# ---------------------------------------------------------------------------
+
+# flash_attention_bwd against its plain version, each gradient within this
+# share of its own scale (max |plain|): float32 sums the kernel and the
+# plain version take in other orders over up to 4,096 rows or keys;
+# bfloat16: both compute in float32 and round each gradient once, so they
+# may differ by one bf16 unit (2^-8 relative) where the two float32 values
+# straddle a rounding point, held at two units of the scale
+FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
+# (B, H, Sq, Sk, D, causal, window, softcap, q scale, dtype, library call):
+# the training shapes of qwen1.5-0.5b (archs.py:22: 16 heads of 64, the
+# phase's B=8 x S=2048) and llama3-8b (32 heads of 128, KV repeated);
+# gemma2-27b's local layer (window 4096, softcap 50, q scaled by 50 so the
+# cap bends the scores) at S=4096; recurrentgemma-2b's local layer (10
+# heads of 256, window 2048) at S=4096, where the window binds; one
+# float32 case; Sq < Sk; a ragged length with the window's edge inside
+# the tiles
+FLASH_BWD_CASES = {
+    "a_qwen1.5_0.5b_train_bf16": (8, 16, 2048, 2048, 64, True, None, None,
+                                  1.0, "bfloat16", "sdpa"),
+    "b_llama3_8b_train_bf16": (1, 32, 2048, 2048, 128, True, None, None,
+                               1.0, "bfloat16", "sdpa"),
+    "c_gemma2_27b_local_bf16": (1, 8, 4096, 4096, 128, True, 4096, 50.0,
+                                50.0, "bfloat16", None),
+    "d_recurrentgemma_2b_local_bf16": (1, 10, 4096, 4096, 256, True, 2048,
+                                       None, 1.0, "bfloat16", None),
+    "e_qwen1.5_0.5b_f32": (1, 16, 2048, 2048, 64, True, None, None, 1.0,
+                           "float32", "sdpa"),
+    "f_sq_lt_sk_bf16": (1, 4, 512, 1024, 64, True, None, None, 1.0,
+                        "bfloat16", None),
+    "g_ragged_1000_window_bf16": (1, 4, 1000, 1000, 128, True, 300, None,
+                                  1.0, "bfloat16", None),
+}
+SDPA_BWD_TXT = ("library scaled_dot_product_attention(is_causal=True)'s "
+                "backward (torch.autograd.grad of its output)")
+# the depth-2 float32 gradient check (TF32 off): the loss within this
+# share of itself and every parameter's gradient within this share of its
+# own scale, the kernels against their plain versions (float32 sums in
+# other orders, through two blocks and the loss)
+TRAIN_F32_TOL = 1e-4
+TRAIN_CHECK = (("qwen1.5-0.5b", 2, 2, 512), ("olmoe-1b-7b", 2, 2, 256))
+# the training run: qwen1.5-0.5b at full width and depth (bf16, AdamW,
+# per-layer remat), B x S synth tokens, this many steps
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1.5-0.5b", 8, 2048, 20
+TRAIN_LR = 1e-3
+
+
+def flash_bwd_tiling(d: int):
+    """(query rows, keys) a block of ``csrc/flash_attention_bwd.cu`` takes
+    per tile at head width ``d``, as the built library reports them."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_tiling
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(d, *(ctypes.byref(x) for x in out))
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_tiling({d}): error {err}")
+    return out[0].value, out[1].value
+
+
+def flash_bwd_instantiation(symbol: str):
+    """(launch, D, dtype) of a mangled kernel name of
+    csrc/flash_attention_bwd.cu, or None."""
+    m = re.search(r"flash_bwd_(dkv|dq)ILi(\d+)E(f|13__nv_bfloat16)", symbol)
+    if not m:
+        return None
+    return (m.group(1), int(m.group(2)),
+            "float32" if m.group(3) == "f" else "bfloat16")
+
+
+def dense_attention_bwd(q, k, v, out, lse, dout, mask, softcap, *,
+                        skip_rows=None, skip_keys=None, drop_dcap=False,
+                        with_ds=False):
+    """One head's (dq, dk, dv) by the plain rules in float32, from q (Sq,
+    D), k, v (Sk, D), the forward's out and lse (the residuals ``_bwd``
+    reads) and dout, under an explicit mask (and ds, (Sq, Sk), with
+    ``with_ds``); a planted fault drops keys ``skip_keys`` from rows
+    ``skip_rows``' dq alone, or the softcap's derivative."""
+    import torch
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs, kk, vv, go = (t.to(f32) for t in (q, k, v, dout))
+    qs = qs * scale
+    s = qs @ kk.T
+    dcap = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        dcap, s = 1.0 - t * t, softcap * t
+    p = torch.where(mask, torch.exp(s - lse[:, None]), 0.0)
+    ds = p * (go @ vv.T - (go * out.to(f32)).sum(-1, keepdim=True))
+    if dcap is not None and not drop_dcap:
+        ds = ds * dcap
+    dsq = ds
+    if skip_rows is not None:
+        dsq = ds.clone()
+        dsq[skip_rows, skip_keys] = 0.0
+    grads = ((dsq @ kk) * scale, ds.T @ qs, p.T @ go)
+    return grads + (ds,) if with_ds else grads
+
+
+def flash_bwd_close(ours, want, dtype: str):
+    """(max |ours - want|, the worst share of a gradient's scale, whether
+    each gradient is within ``FLASH_BWD_TOL[dtype]`` of its scale and
+    finite)."""
+    import torch
+    errs, rels, ok = [], [], True
+    for a, b in zip(ours, want):
+        err = float((a.float() - b.float()).abs().max())
+        scale = max(1e-30, float(b.float().abs().max()))
+        errs.append(err)
+        rels.append(err / scale)
+        ok &= err <= FLASH_BWD_TOL[dtype] * scale and bool(
+            torch.isfinite(a).all())
+    return max(errs), max(rels), ok
+
+
+def check_bwd_planted_faults(name, q, k, v, out, lse, dout, grads, plain, *,
+                             causal, window, softcap, dtype):
+    """On head (0, 0): the one-head plain rules hold against the kernel's
+    gradients, and each planted fault, taken as if it were the kernel's,
+    fails the tolerance against the plain version's: dq of one of the
+    kernel's q blocks skipping one kv tile of its sweep, and (with a
+    softcap) the softcap's derivative dropped. The (q block, kv tile) is
+    the one whose keys move that block's dq most: a peaked softmax (the
+    saturated softcap) leaves most tiles' share below any tolerance.
+    Raise otherwise."""
+    import torch
+    from repro_torch.kernels.flash_attention import visible
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    bq, bk = flash_bwd_tiling(d)
+    mask = visible(sq, sk, causal=causal, window=window, device=q.device)
+    heads = [t[0, 0] for t in (q, k, v, out, lse, dout)]
+    *one, ds = dense_attention_bwd(*heads, mask, softcap, with_ds=True)
+    err, rel, ok = flash_bwd_close([g[0, 0] for g in grads], one, dtype)
+    if not ok:
+        raise AssertionError(f"flash_attention_bwd {name}: head (0, 0) "
+                             f"disagrees with one head's plain rules "
+                             f"({rel:.3e} of scale)")
+    # each (q block, kv tile)'s share of that block's dq: ds and k padded
+    # to whole tiles, (q blocks, rows, kv tiles, D), its largest entry
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    dsp = torch.nn.functional.pad(ds, (0, nk * bk - sk, 0, nq * bq - sq))
+    kp = torch.nn.functional.pad(heads[1].float(), (0, 0, 0, nk * bk - sk))
+    share = torch.einsum("aibj,bjd->aibd", dsp.reshape(nq, bq, nk, bk),
+                         kp.reshape(nk, bk, -1)).abs().amax(dim=(1, 3))
+    a, t = divmod(int(share.argmax()), nk)
+    faults = {f"dq of q block [{a * bq}, {min(sq, (a + 1) * bq)}) skips "
+              f"keys [{t * bk}, {min(sk, (t + 1) * bk)})":
+              dense_attention_bwd(*heads, mask, softcap,
+                                  skip_rows=slice(a * bq, (a + 1) * bq),
+                                  skip_keys=slice(t * bk, (t + 1) * bk))}
+    if softcap is not None:
+        faults["the softcap's derivative dropped"] = dense_attention_bwd(
+            *heads, mask, softcap, drop_dcap=True)
+    seen_txt = []
+    for label, fault in faults.items():
+        err, rel, ok = flash_bwd_close(fault, [g[0, 0] for g in plain],
+                                       dtype)
+        if ok:
+            raise AssertionError(f"flash_attention_bwd {name}: the "
+                                 f"tolerance passes a planted fault, {label}")
+        seen_txt.append(f"{label} ({rel:.3e} of scale)")
+    log("train", f"flash_attention_bwd {name}: the tolerance fails each "
+        f"planted fault on head (0, 0): {'; '.join(seen_txt)}")
+
+
+def flash_bwd_bound(b, h, sq, sk, d, causal, window, dtype):
+    """The least time (ms) of the backward's function: q, k, v, out, dout
+    and lse read once and dq, dk, dv written once at the memory rate, or
+    its five products (10 D operations per visible (query, key) pair, the
+    pairs this mask leaves) at the peak rate of the inputs' type (bf16 on
+    the tensor cores, float32 outside them)."""
+    from repro_torch.kernels.flash_attention import visible
+    pairs = int(visible(sq, sk, causal=causal, window=window,
+                        device="cuda").sum()) * b * h
+    size = 2 if dtype == "bfloat16" else 4
+    # read q, out, dout (Sq rows), k, v (Sk rows), lse; write dq, dk, dv
+    nbytes = ((3 * sq + 2 * sk) + (sq + 2 * sk)) * b * h * d * size \
+        + 4 * b * h * sq
+    flops = 10 * d * pairs
+    peak = PEAK_BF16_FLOP_PER_S if dtype == "bfloat16" else \
+        PEAK_FP32_FLOP_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def flash_bwd_phase(card: str):
+    """``flash_attention_bwd`` against its plain version on the card at
+    the training shapes (``FLASH_BWD_CASES``), bitwise across two runs,
+    the planted faults, timed beside its bound and, where one call computes
+    the same function, SDPA's backward. The forward's lse comes from the
+    forward kernel. These launches are not the path's. Returns the cases'
+    rows and the instantiations' registers and spills."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        _forward_with_lse, _launch, flash_attention_bwd,
+        flash_attention_bwd_ref)
+    report = {f"{dt}_{launch}_d{d}": info for (launch, d, dt), info in
+              sorted(ptxas_report("flash_attention_bwd",
+                                  flash_bwd_instantiation).items())}
+    for key, info in report.items():
+        log("train", f"flash_attention_bwd {key}: {info['registers']} "
+            f"registers, spill stores/loads {info['spill_stores']}/"
+            f"{info['spill_loads']} bytes (ptxas -v log)")
+    if len(report) != 20:
+        raise AssertionError(f"flash_attention_bwd: {len(report)} "
+                             f"instantiations in the ptxas log, not 20")
+    rows = {}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for name, (b, h, sq, sk, d, causal, window, cap, q_scale, dtype,
+               lib) in FLASH_BWD_CASES.items():
+        dt = getattr(torch, dtype)
+        q = (torch.randn(b, h, sq, d, generator=g, device="cuda")
+             * q_scale).to(dt)
+        k, v, dout = (torch.randn(b, h, n, d, generator=g,
+                                  device="cuda").to(dt)
+                      for n in (sk, sk, sq))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out, lse = _forward_with_lse(q, k, v, causal, window, cap)
+
+        def kern():
+            return flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+
+        def plain():
+            return flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+
+        grads, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, ok = flash_bwd_close(grads, want, dtype)
+        log("train", f"flash_attention_bwd {name}: B={b} H={h} Sq={sq} "
+            f"Sk={sk} D={d} causal={causal} window={window} softcap={cap} "
+            f"q x{q_scale:g} {dtype}; dq, dk, dv max_abs_err={err:.3e}, "
+            f"{rel:.3e} of the worst gradient's scale (tol "
+            f"{FLASH_BWD_TOL[dtype]:g}); {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd {name} disagrees "
+                                 f"with its plain version")
+        if sq > sk and causal and bool(grads[0][:, :, :sq - sk].any()):
+            raise AssertionError(f"flash_attention_bwd {name}: rows that "
+                                 f"see no key have a gradient")
+        check_bwd_planted_faults(name, q, k, v, out, lse, dout, grads, want,
+                                 **kw, dtype=dtype)
+        again = kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(again, grads)):
+            raise AssertionError(f"flash_attention_bwd {name} is not "
+                                 f"bitwise stable across runs")
+        log("train", f"flash_attention_bwd {name}: bitwise equal across 2 "
+            f"runs")
+        library = None
+        if lib == "sdpa":
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, is_causal=True)
+
+            def library():
+                return torch.autograd.grad(sdpa_out, leaves, dout,
+                                           retain_graph=True)
+        rows[name] = timed_row(
+            card, "train", f"flash_attention_bwd {name}", kern, plain,
+            flash_bwd_bound(b, h, sq, sk, d, causal, window, dtype),
+            err=err, rel=rel, library=library, library_txt=SDPA_BWD_TXT,
+            reps=5, inner=3)
+        # the forward kernel as training calls it (writing lse) and as
+        # serving calls it (not), in turns
+        fwd = {"serving": lambda: _launch(q, k, v, **kw),
+               "with_lse": lambda: _launch(q, k, v, **kw, lse=lse)}
+        times = {key: [] for key in fwd}
+        for key in ("serving", "with_lse", "with_lse", "serving"):
+            times[key].append(time_ms(fwd[key], reps=5, inner=5)[0])
+        rows[name].update(fwd_ms=min(times["serving"]),
+                          fwd_lse_ms=min(times["with_lse"]))
+        log("train", f"flash_attention {name}: forward "
+            f"{rows[name]['fwd_ms'] * 1e3:.2f} us as serving calls it, "
+            f"{rows[name]['fwd_lse_ms'] * 1e3:.2f} us writing lse (least of "
+            f"two, in turns; on {card})")
+        del q, k, v, dout, out, lse, grads, want, again
+        library = None
+        torch.cuda.empty_cache()
+    return rows, report
+
+
+def train_launches(cfg) -> dict:
+    """The kernel launches of one ``lm_loss`` forward and backward of
+    ``cfg``'s stack, by kernel: each attention layer's forward once, again
+    in its remat recompute, and its backward's two launches; each MoE
+    layer's dispatch / combine (two mp_scatter, one gather_rows) in the
+    forward and once more in the recompute (the layer's remat, the token
+    group's own, or both: PyTorch's nested checkpoint recomputes the inner
+    one within the outer's recompute, where the reference recomputes it a
+    third time), and its backward: a gather_rows for each mp_scatter, an
+    mp_scatter for the gather_rows."""
+    from repro_torch.nn.transformer import stack_pattern
+    sd = stack_pattern(cfg)
+    kinds = sd.group * sd.num_groups + sd.remainder
+    attn = sum(k in ("attn", "local") for k in kinds)
+    moe = attn if cfg.num_experts else 0
+    sets = 1 + int(cfg.remat or cfg.moe_inner_remat)
+    want = {"flash_attention": attn * (1 + int(cfg.remat)),
+            "flash_attention_bwd": 2 * attn,
+            "mp_scatter": moe * (2 * sets + 1),
+            "gather_rows": moe * (sets + 2)}
+    return {k: v for k, v in want.items() if v}
+
+
+TRAIN_LAUNCHES_TXT = ("per attention layer one flash_attention forward "
+                      "(with lse) and one more in the remat recompute, two "
+                      "flash_attention_bwd launches (dK/dV, dQ); per MoE "
+                      "layer two mp_scatter and one gather_rows in the "
+                      "forward and in its recompute, then a "
+                      "gather_rows per mp_scatter and an mp_scatter per "
+                      "gather_rows in the backward")
+
+
+def token_batch(cfg, batch: int, seq: int, step: int = 0):
+    """``synth_batch`` (seed 0) on the card."""
+    import torch
+    from repro_torch.data.tokens import TokenDataConfig, synth_batch
+    data = synth_batch(TokenDataConfig(cfg.vocab_size, seq, batch), step)
+    return {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+
+
+def train_grad_check(card: str, arch: str, depth: int, batch: int,
+                     seq: int) -> dict:
+    """``arch`` at full width, ``depth`` layers, float32 (TF32 off), seed-0
+    weights: ``lm_loss`` and every parameter's gradient through the
+    kernels (counts from 0) against the same through their plain versions,
+    within ``TRAIN_F32_TOL``; the MoE's routing compared."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = ARCHS[arch].replace(num_layers=depth, dtype=torch.float32)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    data = token_batch(cfg, batch, seq)
+    label = f"{arch} width, depth {depth}, float32, B={batch} S={seq}"
+
+    def step():
+        loss, _ = lm.lm_loss(params, data, cfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+    with moe_taps() as kernel_taps:
+        (loss, grads), launches = counted(step)
+    check_launches("train", f"{label}: lm_loss forward and backward",
+                   launches, train_launches(cfg), TRAIN_LAUNCHES_TXT)
+    with moe_taps() as plain_taps:
+        loss_p, grads_p = plain_kernels(step)
+    torch.cuda.synchronize()
+    rel_loss = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    worst, worst_at = 0.0, None
+    for i, (a, b) in enumerate(zip(grads, grads_p)):
+        rel = float((a - b).abs().max()) / max(1e-30, float(b.abs().max()))
+        if rel > worst:
+            worst, worst_at = rel, i
+    ok = (rel_loss <= TRAIN_F32_TOL and worst <= TRAIN_F32_TOL
+          and all(bool(torch.isfinite(g).all()) for g in grads))
+    out = {"loss": float(loss), "loss_rel_err": rel_loss,
+           "grad_rel_err": worst, "launches": launches,
+           "leaves": len(leaves)}
+    if cfg.num_experts:
+        moved = sum(int((a != b).sum()) for a, b in
+                    zip(kernel_taps["slot"], plain_taps["slot"]))
+        total = sum(int(a.numel()) for a in kernel_taps["slot"])
+        log("train", f"{label}: routing: {moved} of {total} assignments' "
+            f"slots differ between the kernel and the plain path")
+        out.update(slots_moved=moved, assignments=total)
+        ok &= moved == 0
+    log("train", f"{label}: loss {float(loss):.6f} (plain {float(loss_p):.6f}"
+        f", {rel_loss:.2e} apart); {len(leaves)} parameter gradients, the "
+        f"worst {worst:.2e} of its scale (leaf {worst_at}); tol "
+        f"{TRAIN_F32_TOL:g}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the kernels' gradients disagree "
+                             f"with the plain path's")
+    del params, leaves, grads, grads_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_run(card: str) -> dict:
+    """The ``Trainer`` on qwen1.5-0.5b at full width and depth (bf16 params,
+    AdamW, per-layer remat), ``TRAIN_STEPS`` steps of B x S synth tokens,
+    counts from 0: step ms (median, p90), tokens/s, peak memory, the first
+    and last losses (the last must be lower), launches per step against
+    the layers; then one more step under ``torch.profiler``: the card's
+    busy share and top ops."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = ARCHS[TRAIN_ARCH]
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=5,
+                       total_steps=TRAIN_STEPS, checkpoint_every=0, seed=0)
+    tr = Trainer(cfg, tcfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                 device="cuda")
+    tr.init_state()
+    n_params = sum(p.numel() for p in tree_leaves(tr.params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run, launches = counted(lambda: tr.run(TRAIN_STEPS, log_every=5))
+    peak = torch.cuda.max_memory_allocated()
+    label = (f"{TRAIN_ARCH} full width and depth ({cfg.num_layers} layers, "
+             f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+             f"{n_params / 1e6:.1f}M params, bf16, AdamW, remat), "
+             f"B={TRAIN_BATCH} S={TRAIN_SEQ}")
+    per_step = train_launches(cfg)
+    check_launches("train", f"{label}: {TRAIN_STEPS} steps", launches,
+                   {k: TRAIN_STEPS * v for k, v in per_step.items()},
+                   f"{TRAIN_STEPS} x ({TRAIN_LAUNCHES_TXT})")
+    losses = run["losses"]
+    steps_ms = [s * 1e3 for s in run["step_s"]]
+    # the first step carries the first calls' set-up (cuBLAS handles,
+    # the kernels' loads): the steady steps are the rest
+    steady = sorted(s * 1e3 for s in run["step_s"][1:])
+    med = statistics.median(steady)
+    p90 = steady[min(len(steady) - 1, int(0.9 * len(steady)))]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"steps": TRAIN_STEPS, "losses": losses, "first_loss": losses[0],
+           "last_loss": losses[-1], "step_ms_median": med,
+           "step_ms_p90": p90, "first_step_ms": run["step_s"][0] * 1e3,
+           "tokens_per_s": tokens / (med / 1e3), "peak_mem_gb": peak / 1e9,
+           "launches": launches, "launches_per_step": per_step,
+           "params": n_params, "straggler_events": run["straggler_events"]}
+    log("train", f"{label}: step {med:.1f} ms median, {p90:.1f} ms p90 over "
+        f"steps 2-{TRAIN_STEPS} (the first {out['first_step_ms']:.1f} ms); "
+        f"{out['tokens_per_s']:.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"all step ms {[round(s, 1) for s in steps_ms]}; on {card}")
+    if not losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: the loss did not fall "
+                             f"({losses[0]} -> {losses[-1]})")
+    data = token_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=TRAIN_STEPS)
+    _, on_device, wall = profiled(
+        lambda: tr.step_fn(tr.params, tr.opt_state, data))
+    busy_us = sum(t for t, _ in on_device.values())
+    out.update(profiled_step_ms=wall * 1e3, busy_ms=busy_us / 1e3,
+               busy_share=busy_us / (wall * 1e6),
+               top_device=top(on_device, 10))
+    log("train", f"{label}: one step under torch.profiler: {wall * 1e3:.1f} "
+        f"ms wall, the card busy {busy_us / 1e3:.1f} ms "
+        f"({out['busy_share']:.1%}); on {card}")
+    for row in out["top_device"]:
+        log("train", f"  device {row['us']:10.1f} us x{row['count']:<5} "
+            f"{row['name']}")
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(card: str) -> dict:
+    """Phase 10: the backward kernel against its plain version, the
+    depth-2 float32 gradients of qwen1.5-0.5b and olmoe-1b-7b through the
+    kernels against their plain versions, then the training run. Returns
+    {"rows": the backward's cases, "build": its instantiations, "paths":
+    each run's record with its launches}."""
+    rows, build_report = flash_bwd_phase(card)
+    paths = {f"train_grads_{arch}": train_grad_check(card, arch, depth, b,
+                                                     s)
+             for arch, depth, b, s in TRAIN_CHECK}
+    paths[f"train_{TRAIN_ARCH}"] = train_run(card)
+    return {"rows": rows, "build": build_report, "paths": paths}
+
+
 # what ``--only`` runs after phase 1: the sources it builds (phase 2) and
 # its phase alone, with no result lines
 ONLY_SOURCES = {"wide": ["layer_fused", "mp_pipeline"],
                 "lm_families": ["mp_scatter", "gather_rows",
-                                "flash_attention"]}
+                                "flash_attention"],
+                "train": ["flash_attention", "flash_attention_bwd",
+                          "mp_scatter", "gather_rows"]}
 
 
 def main(argv=None) -> int:
@@ -5825,7 +6324,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = build.build(ONLY_SOURCES[only] if only else [
         "layer_fused", "mp_pipeline", "mp_scatter", "seg_softmax",
-        "gather_rows", "nt_mlp", "fused_nt_scatter", "flash_attention"])
+        "gather_rows", "nt_mlp", "fused_nt_scatter", "flash_attention",
+        "flash_attention_bwd"])
     log("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -5843,6 +6343,13 @@ def main(argv=None) -> int:
         # phase 9 alone: no result lines
         log("lm9", "json " + json.dumps(lm_families_phase(card),
                                         default=str))
+        print(smi)
+        return 0
+    if only == "train":
+        # phase 10 alone: no result lines
+        train = train_phase(card)
+        log("train", "json " + json.dumps(
+            {"rows": train["rows"], "paths": train["paths"]}, default=str))
         print(smi)
         return 0
     scatter_build = scatter_build_report()
@@ -5904,6 +6411,12 @@ def main(argv=None) -> int:
          if k.endswith(("_dispatch", "_combine"))})
     flash_rows.update({k: v for k, v in served.items()
                        if k.endswith("_attention")})
+    # 10. training: the backward kernel, gradients through the kernels,
+    # qwen1.5-0.5b trained at full width and depth
+    train = train_phase(card)
+    log("train", "json " + json.dumps(
+        {"rows": train["rows"], "paths": train["paths"]}, default=str))
+    paths.update(train["paths"])
 
     # 10. result: each kernel's row at the largest shape its main path gives
     # it (the hep bucket for the GNN kernels), and its launches in its main
@@ -5921,7 +6434,7 @@ def main(argv=None) -> int:
                 "call_ms": main["call_ms"],
                 "plain_call_ms": main["plain_call_ms"], "shape": shape,
                 "main_path": path,
-                "launches_by_path": {k: v["launches"][name]
+                "launches_by_path": {k: v["launches"].get(name, 0)
                                      for k, v in paths.items()},
                 "cases": {k: {m: v.get(m) for m in (
                     "ms", "plain_ms", "bound_ms", "library_ms",
@@ -5982,8 +6495,18 @@ def main(argv=None) -> int:
             flash_rows["e_lm_path_llama3_8b_b2_bf16"], "lm_llama3_8b",
             "llama3-8b prefill attention: B=2, H=32 (KV heads repeated), "
             "S=2048, D=128, causal, bf16"),
+        row("flash_attention_bwd",
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/nn/flash.py:155 (_bwd, the custom VJP of flash_mha; "
+            "jnp, no Pallas kernel)", train["rows"],
+            train["rows"]["a_qwen1.5_0.5b_train_bf16"],
+            f"train_{TRAIN_ARCH}",
+            "qwen1.5-0.5b training attention backward: B=8, H=16, S=2048, "
+            "D=64, causal, bf16; two launches (dK/dV, dQ) and the wrapper's "
+            "delta reduction"),
     ]
-    kernels[-1]["instantiations"] = flash_build
+    kernels[-1]["instantiations"] = train["build"]
+    kernels[-2]["instantiations"] = flash_build
     kernels[0]["instantiations"] = lf_build
     kernels[2]["instantiations"] = scatter_build
     kernels[1]["instantiations"] = {

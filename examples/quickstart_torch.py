@@ -1,15 +1,14 @@
-"""Quickstart for the PyTorch port: FlowGNN's streaming inference on a GPU.
+"""Quickstart for the PyTorch port: FlowGNN's streaming inference on a GPU,
+then one gradient of the LM substrate's loss.
 
-The twin of ``examples/quickstart.py::flowgnn_demo``: a GIN at the paper's
-config (5 layers, width 100, Eq. 1) served by the port's real-time
+The twin of ``examples/quickstart.py``. ``flowgnn_demo``: a GIN at the
+paper's config (5 layers, width 100, Eq. 1) served by the port's real-time
 engine, 20 raw COO molecules streamed through ``process`` at batch size 1,
 in arrival order and with no preprocessing, then the latency stats. The
 engine runs the port's main path, ``impl="fused_layer"``: one
-``layer_fused`` kernel launch per layer on the card.
-
-The reference's second demo, ``lm_demo``, takes a gradient of
-``lm_loss``; the port's training half is not written yet (ROADMAP, "The
-rest of the LM substrate"), so it has no twin here.
+``layer_fused`` kernel launch per layer on the card. ``lm_demo``: the loss
+of reduced llama3-8b on a random batch and its gradient's global norm,
+through the flash attention kernel and its backward on the card.
 
 Run (from the root of a checkout):
     PYTHONPATH=src python examples/quickstart_torch.py                # GPU
@@ -18,12 +17,17 @@ Run (from the root of a checkout):
 
 import argparse
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.configs.archs import REDUCED
 from repro_torch.core.engine import GraphStreamEngine
 from repro_torch.core.message_passing import DataflowConfig
 from repro_torch.core.models import PAPER_GNN_CONFIGS, make_gnn
 from repro_torch.data.graphs import molhiv_like
+from repro_torch.models import lm
+from repro_torch.optim.optimizers import global_norm, tree_leaves
 
 
 def flowgnn_demo(n_graphs: int = 20, device=None) -> dict:
@@ -48,6 +52,30 @@ def flowgnn_demo(n_graphs: int = 20, device=None) -> dict:
     return stats
 
 
+def lm_demo(device=None) -> dict:
+    """One loss and gradient of reduced llama3-8b (weights from
+    ``torch.Generator().manual_seed(0)``) on a (4, 64) batch of random
+    tokens, on ``device`` (the card by default); returns the loss, its
+    parts and the gradient's global norm."""
+    print("=== LM substrate: one gradient of reduced llama3-8b ===")
+    dev = resolve_device(device)
+    cfg = REDUCED["llama3-8b"]
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            dev)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))
+                                 .astype(np.int32)).to(dev)
+             for k in ("tokens", "labels")}
+    loss, parts = lm.lm_loss(params, batch, cfg)
+    gnorm = global_norm(torch.autograd.grad(loss, leaves))
+    out = {"loss": float(loss), "xent": float(parts["xent"]),
+           "grad_norm": float(gnorm)}
+    print(f"loss={out['loss']:.4f} xent={out['xent']:.4f} "
+          f"grad_norm={out['grad_norm']:.3f}")
+    return out
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--graphs", type=int, default=20)
@@ -55,3 +83,4 @@ if __name__ == "__main__":
                     help="cpu or cuda (default: cuda, which must exist)")
     args = ap.parse_args()
     flowgnn_demo(args.graphs, args.device)
+    lm_demo(args.device)

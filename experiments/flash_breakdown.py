@@ -146,7 +146,8 @@ def main() -> int:
         for name in order:
             def call():
                 err = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                out.data_ptr(), b * h, s, s, d, 1, causal, 0,
+                                out.data_ptr(), None, b * h, s, s, d, 1,
+                                causal, 0,
                                 0, 0, 0.0, 1 / math.sqrt(d), stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")

@@ -41,20 +41,10 @@ def params_to_numpy(params: Any) -> Any:
     return params.detach().cpu().numpy()
 
 
-def lm_params_from_jax(tree: Any, cfg, device: DeviceLike = None) -> Any:
-    """The JAX LM's parameters (``repro/models/lm.py``, as numpy) as the
-    port's: every leaf's shape checked against ``lm_param_defs(cfg)``
-    (``ValueError`` on a missing, extra or misshapen leaf) and cast to its
-    definition's dtype: ``cfg.dtype`` for most leaves, float32 for those
-    whose definition says so in any model (the MoE router, mamba's
-    ``a_log``, ``d_skip`` and ``dt_bias``, the RG-LRU's ``lam``). A bf16
-    leaf arrives from numpy as JAX's ml_dtypes bfloat16, which widens to
-    float32 exactly before the cast. The stack's ``groups`` come back as a
-    tuple, as the port's defs have them."""
+def _from_defs(tree: Any, defs: Any, dev: torch.device, what: str) -> Any:
+    """A numpy tree as tensors shaped and typed by the ``ParamDef`` tree
+    ``defs`` (``ValueError`` on a missing, extra or misshapen leaf)."""
     from repro_torch.distributed.sharding import ParamDef
-    from repro_torch.models.lm import lm_param_defs
-
-    dev = resolve_device(device)
 
     def conv(node, d, path):
         if isinstance(d, ParamDef):
@@ -62,8 +52,10 @@ def lm_params_from_jax(tree: Any, cfg, device: DeviceLike = None) -> Any:
             if tuple(a.shape) != tuple(d.shape):
                 raise ValueError(f"{path}: shape {tuple(a.shape)}, the "
                                  f"port expects {tuple(d.shape)}")
-            return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-                device=dev, dtype=d.dtype)
+            # a JAX bfloat16 leaf widens to float32 exactly first
+            a = np.array(a, dtype=np.float32 if d.dtype.is_floating_point
+                         else a.dtype)
+            return torch.from_numpy(a).to(device=dev, dtype=d.dtype)
         if isinstance(d, dict):
             if not isinstance(node, dict) or set(node) != set(d):
                 raise ValueError(f"{path}: keys {sorted(node)}, the port "
@@ -74,4 +66,32 @@ def lm_params_from_jax(tree: Any, cfg, device: DeviceLike = None) -> Any:
         return type(d)(conv(n, x, f"{path}[{i}]")
                        for i, (n, x) in enumerate(zip(node, d)))
 
-    return conv(tree, lm_param_defs(cfg), "params")
+    return conv(tree, defs, what)
+
+
+def lm_params_from_jax(tree: Any, cfg, device: DeviceLike = None) -> Any:
+    """The JAX LM's parameters (``repro/models/lm.py``, as numpy) as the
+    port's: every leaf's shape checked against ``lm_param_defs(cfg)``
+    (``ValueError`` on a missing, extra or misshapen leaf) and cast to its
+    definition's dtype: ``cfg.dtype`` for most leaves, float32 for those
+    whose definition says so in any model (the MoE router, mamba's
+    ``a_log``, ``d_skip`` and ``dt_bias``, the RG-LRU's ``lam``). A bf16
+    leaf arrives from numpy as JAX's ml_dtypes bfloat16, which widens to
+    float32 exactly before the cast. The stack's ``groups`` come back as a
+    tuple, as the port's defs have them."""
+    from repro_torch.models.lm import lm_param_defs
+    return _from_defs(tree, lm_param_defs(cfg), resolve_device(device),
+                      "params")
+
+
+def opt_state_from_jax(tree: Any, cfg, device: DeviceLike = None) -> Any:
+    """The JAX optimizer state of an LM (``repro/optim/optimizers.py``'s
+    tree for ``cfg.optimizer``, as numpy) as the port's: ``step`` int32 and
+    float32 ``m`` / ``v`` or ``vr`` / ``vc``, every leaf checked against
+    the port's state definitions as ``lm_params_from_jax`` checks the
+    parameters. With both, the two packages start from the same params
+    and optimizer state."""
+    from repro_torch.models.lm import lm_param_defs
+    from repro_torch.optim.optimizers import get_optimizer
+    defs = get_optimizer(cfg.optimizer).state_defs(lm_param_defs(cfg))
+    return _from_defs(tree, defs, resolve_device(device), "opt")

@@ -14,11 +14,15 @@
 //              && (!window || k_pos > q_pos - window)
 //   out[i]   = sum_j p[i, j] v[j] / max(sum_j p[i, j], 1e-30),
 //              p = exp(s - m) on visible keys, 0 elsewhere
+//   lse[i]   = m + log(max(sum_j p[i, j], 1e-30))      where lse is given
 //
 // with the running max m, denominator and accumulator in f32, rescaled per
 // key tile as the Pallas kernel does (m starts at -1e30, so a row that sees
 // no key comes out 0, not NaN). The output has the inputs' dtype (bfloat16
-// rounded to nearest even).
+// rounded to nearest even). With a non-null ``lse`` pointer the block also
+// writes each row's log-sum-exp in float32, (BH, Sq): the residual that
+// nn/flash.py::_fwd saves for the backward (csrc/flash_attention_bwd.cu).
+// Serving passes null and writes nothing more.
 //
 // The Pallas kernel walks a (BH, q tiles, kv tiles) grid in order, keeping
 // its carries in VMEM scratch across the kv steps. That order is a device of
@@ -110,6 +114,7 @@ struct Args {
   const void* k;       // (bh, sk, d)
   const void* v;       // (bh, sk, d)
   void* out;           // (bh, sq, d), q's dtype
+  float* lse;          // (bh, sq) float32, or null
   int sq, sk;
   int causal, has_window, window, has_softcap;
   float softcap, scale;
@@ -309,6 +314,10 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + rg + 16 * r;
     if (row >= p.sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    // the row's 8 lanes hold the same m and l; the first writes its lse
+    if (p.lse != nullptr && cg == 0) {
+      p.lse[bh * p.sq + row] = m[r] + logf(denom);
+    }
     float* orow = out + (size_t)row * D + cg * kVec;
 #pragma unroll
     for (int c = 0; c < kOut / kVec; ++c) {
@@ -563,6 +572,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = q0 + row0 + 8 * h;
     if (row >= p.sq) continue;
     const float denom = fmaxf(l[h], 1e-30f);
+    // the row's 4 lanes hold the same m and l; the first writes its lse
+    if (p.lse != nullptr && lane % 4 == 0) {
+      p.lse[(size_t)bh * p.sq + row] = m[h] + logf(denom);
+    }
     __nv_bfloat16* orow = out + (size_t)row * D + c0;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
@@ -670,10 +683,11 @@ extern "C" int flash_attention_tiling(int d, int bf16, int* block_q,
 
 // q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d): float32 (bf16 = 0) or
 // bfloat16 (bf16 = 1), contiguous, 16-byte aligned; d one of 16, 32, 64,
-// 128, 256; bh <= 65535. window and softcap count only where has_window /
-// has_softcap are set.
+// 128, 256; bh <= 65535. lse (bh, sq) float32 or null (nothing written).
+// window and softcap count only where has_window / has_softcap are set.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int bh,
+                                      const void* v, void* out, float* lse,
+                                      int bh,
                                       int sq, int sk, int d, int bf16,
                                       int causal, int has_window, int window,
                                       int has_softcap, float softcap,
@@ -683,6 +697,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.out = out;
+  p.lse = lse;
   p.sq = sq;
   p.sk = sk;
   p.causal = causal;

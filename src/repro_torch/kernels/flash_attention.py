@@ -22,6 +22,17 @@ and ``kv_tile`` are the reference's contract on the lengths (Sq % q_tile ==
 Sk % kv_tile == 0, else ``ValueError``) and its TPU grid; the CUDA kernel
 tiles by its own constants and masks ragged ends, so they change nothing
 else.
+
+The backward. When grad mode is on and q, k or v requires grad,
+``flash_attention`` goes through ``FlashAttentionFn``, the twin of
+``repro/nn/flash.py``'s custom VJP of ``flash_mha``: its forward also
+writes the rows' log-sum-exp (float32, (B, H, Sq)) and saves (q, k, v,
+out, lse), as ``_fwd`` saves them; its backward is ``flash_attention_bwd``
+(``_bwd``'s function): the plain ``flash_attention_bwd_ref`` for CPU
+tensors, the hand-written ``csrc/flash_attention_bwd.cu`` for CUDA ones
+(two launches a call, each counted in ``flash_attention_bwd.launches``).
+Serving runs under ``torch.no_grad()`` or on tensors that need no grad,
+and takes the forward launch alone, which writes no lse.
 """
 
 from __future__ import annotations
@@ -56,19 +67,30 @@ def visible(sq: int, sk: int, *, causal: bool, window: Optional[int],
     return mask
 
 
+def _acc_dtype(dtype) -> torch.dtype:
+    """The plain versions' working type: float32, or float64 for float64
+    inputs (``torch.autograd.gradcheck``'s)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        with_lse: bool = False):
     """Dense attention under the kernel's rules (scale q first, float32
     softmax, 0 for a row that sees no key), in ``q.dtype``. Runs a few
-    (batch, head) pairs at a time to bound the score matrix's memory."""
+    (batch, head) pairs at a time to bound the score matrix's memory.
+    With ``with_lse`` returns (out, lse): each row's log-sum-exp
+    ``m + log(max(l, 1e-30))`` as ``_fwd`` saves it, (B, H, Sq) in the
+    working type."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    f32 = torch.float32
+    f32 = _acc_dtype(q.dtype)
     scale = 1.0 / math.sqrt(d)
     mask = visible(sq, sk, causal=causal, window=window, device=q.device)
     qf, kf, vf = (t.reshape(b * h, -1, d) for t in (q, k, v))
     out = torch.empty((b * h, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, sq), dtype=f32, device=q.device)
     step = max(1, _REF_CHUNK // max(1, sq * sk))
     for i in range(0, b * h, step):
         s = (qf[i:i + step].to(f32) * scale) @ kf[i:i + step].to(f32).mT
@@ -79,7 +101,53 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.where(mask, torch.exp(s - m), 0.0)
         l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
         out[i:i + step] = ((p @ vf[i:i + step].to(f32)) / l).to(q.dtype)
-    return out.reshape(b, h, sq, d)
+        lse[i:i + step] = (m + torch.log(l))[..., 0]
+    out = out.reshape(b, h, sq, d)
+    return (out, lse.reshape(b, h, sq)) if with_lse else out
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None):
+    """The plain backward, ``repro/nn/flash.py::_bwd``'s function, dense in
+    float32 and a few (batch, head) pairs at a time: from q (B, H, Sq, D),
+    k, v (B, H, Sk, D), the forward's out and lse, and dout, returns (dq,
+    dk, dv) in the inputs' dtypes. p = exp(s - lse) on visible keys,
+    delta = rowsum(dout * out), ds = p (dp - delta), times 1 - tanh^2
+    under a softcap; q is scaled by 1/sqrt(D) before the products, as the
+    forward scales it."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    f32 = _acc_dtype(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    mask = visible(sq, sk, causal=causal, window=window, device=q.device)
+    qf, kf, vf, of, gf = (t.reshape(b * h, -1, d)
+                          for t in (q, k, v, out, dout))
+    lf = lse.reshape(b * h, sq).to(f32)
+    dq = torch.empty((b * h, sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b * h, sk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b * h, sk, d), dtype=v.dtype, device=q.device)
+    step = max(1, _REF_CHUNK // max(1, sq * sk))
+    for i in range(0, b * h, step):
+        sl = slice(i, i + step)
+        qs = qf[sl].to(f32) * scale
+        kk, vv, go = kf[sl].to(f32), vf[sl].to(f32), gf[sl].to(f32)
+        delta = (go * of[sl].to(f32)).sum(-1, keepdim=True)
+        s = qs @ kk.mT
+        dcap = None
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            dcap = 1.0 - t * t
+            s = softcap * t
+        p = torch.where(mask, torch.exp(s - lf[sl, :, None]), 0.0)
+        ds = p * (go @ vv.mT - delta)
+        if dcap is not None:
+            ds = ds * dcap
+        dv[sl] = (p.mT @ go).to(v.dtype)
+        dk[sl] = (ds.mT @ qs).to(k.dtype)
+        dq[sl] = ((ds @ kk) * scale).to(q.dtype)
+    return (dq.reshape(b, h, sq, d), dk.reshape(b, h, sk, d),
+            dv.reshape(b, h, sk, d))
 
 
 def _check(q, k, v, q_tile, kv_tile):
@@ -102,18 +170,77 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q (B, H, Sq, D) over k, v (B, H, Sk, D), in
     ``q.dtype``. Sq % q_tile == Sk % kv_tile == 0 (``ValueError``
     otherwise). CPU tensors run ``flash_attention_ref``; CUDA tensors
-    launch the kernel."""
+    launch the kernel. Where autograd needs the graph (grad mode on and q,
+    k or v requiring grad) the call goes through ``FlashAttentionFn``."""
     _check(q, k, v, q_tile, kv_tile)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device}")
     return _launch(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 flash_attention.launches = 0
+
+
+def _forward_with_lse(q, k, v, causal, window, softcap):
+    """(out, lse float32 (B, H, Sq)): the plain version for CPU tensors, the
+    forward kernel with its lse output for CUDA ones."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, with_lse=True)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                   lse=lse), lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its backward: the forward saves (q, k, v,
+    out, lse), the backward runs ``flash_attention_bwd`` (the kernel on
+    the card, the plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _forward_with_lse(q, k, v, causal, window, softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), causal=causal,
+            window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention`` from its inputs, its output, the
+    rows' log-sum-exp and the output's gradient. CPU tensors run
+    ``flash_attention_bwd_ref``; CUDA tensors launch
+    ``csrc/flash_attention_bwd.cu`` (the wrapper computes delta = rowsum
+    (dout * out) in float32 with one PyTorch reduction first) or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                       causal=causal, window=window,
+                                       softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    return _launch_bwd(q, k, v, out, lse, dout, causal=causal,
+                       window=window, softcap=softcap)
+
+
+flash_attention_bwd.launches = 0
 
 
 def bind_launch(lib):
@@ -122,7 +249,7 @@ def bind_launch(lib):
     if fn.argtypes is None:
         # without argtypes ctypes passes every int as a 32-bit C int:
         # pointers are cut and the stream slot holds garbage
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -132,10 +259,9 @@ def _kernel():
     return bind_launch(build.load("flash_attention"))
 
 
-def _launch(q, k, v, *, causal, window, softcap):
-    dev = q.device
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
+def _check_card(q, k, window):
+    """The CUDA kernels' limits on their inputs, each a ``ValueError``."""
+    b, h, _, d = q.shape
     if q.dtype not in CUDA_DTYPES:
         raise ValueError(f"q must be one of {CUDA_DTYPES} on the card, got "
                          f"{q.dtype}")
@@ -146,6 +272,13 @@ def _launch(q, k, v, *, causal, window, softcap):
         raise ValueError(f"the CUDA grid takes B*H <= 65535, got {b * h}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+
+
+def _launch(q, k, v, *, causal, window, softcap, lse=None):
+    dev = q.device
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _check_card(q, k, window)
     need = functools.partial(launch_ptr, dev)
     out = torch.empty_like(q)
     ptrs = (need(q, "q", q.dtype, (b, h, sq, d)),
@@ -153,7 +286,10 @@ def _launch(q, k, v, *, causal, window, softcap):
             need(v, "v", q.dtype, (b, h, sk, d)), out.data_ptr())
     if any(p % 16 for p in ptrs):
         raise ValueError("q, k, v must start on 16-byte boundaries")
-    err = _kernel()(*ptrs, b * h, sq, sk, d, int(q.dtype == torch.bfloat16),
+    lse_ptr = None if lse is None else need(lse, "lse", torch.float32,
+                                            (b, h, sq))
+    err = _kernel()(*ptrs, lse_ptr, b * h, sq, sk, d,
+                    int(q.dtype == torch.bfloat16),
                     int(causal), int(window is not None), window or 0,
                     int(softcap is not None), float(softcap or 0.0),
                     1.0 / math.sqrt(d),
@@ -163,3 +299,45 @@ def _launch(q, k, v, *, causal, window, softcap):
                            f"{err}")
     flash_attention.launches += 1
     return out
+
+
+def _kernel_bwd():
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+    if fn.argtypes is None:
+        # without argtypes ctypes passes every int as a 32-bit C int:
+        # pointers are cut and the stream slot holds garbage
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(q, k, v, out, lse, dout, *, causal, window, softcap):
+    dev = q.device
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _check_card(q, k, window)
+    need = functools.partial(launch_ptr, dev)
+    ptrs = (need(q, "q", q.dtype, (b, h, sq, d)),
+            need(k, "k", q.dtype, (b, h, sk, d)),
+            need(v, "v", q.dtype, (b, h, sk, d)),
+            need(dout, "dout", q.dtype, (b, h, sq, d)))
+    need(out, "out", q.dtype, (b, h, sq, d))
+    delta = (dout.float() * out.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if any(p % 16 for p in ptrs):
+        raise ValueError("q, k, v, dout must start on 16-byte boundaries")
+    err = _kernel_bwd()(*ptrs, need(lse, "lse", torch.float32, (b, h, sq)),
+                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), b * h, sq, sk, d,
+                        int(q.dtype == torch.bfloat16), int(causal),
+                        int(window is not None), window or 0,
+                        int(softcap is not None), float(softcap or 0.0),
+                        1.0 / math.sqrt(d),
+                        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed with CUDA "
+                           f"error {err}")
+    # two CUDA launches a call: dK / dV, then dQ
+    flash_attention_bwd.launches += int(sk > 0) + int(sq > 0)
+    return dq, dk, dv

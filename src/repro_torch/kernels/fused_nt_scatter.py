@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mp_pipeline import launch_ptr
+from repro_torch.kernels.mp_pipeline import launch_ptr, no_backward
 from repro_torch.kernels.mp_scatter import mp_scatter_ref
 from repro_torch.kernels.nt_mlp import (DTYPE_CODES, check_mlp, mlp_ptrs,
                                        nt_mlp_ref)
@@ -73,6 +73,7 @@ def fused_nt_scatter(x, w1, b1, w2, b2, senders, receivers, edge_mask,
     if x.device.type != "cuda":
         raise ValueError(f"fused_nt_scatter runs on cpu or cuda, not "
                          f"{x.device}")
+    no_backward("fused_nt_scatter", x, w1, b1, w2, b2, edge_feat)
     return _launch(x, w1, b1, w2, b2, senders, receivers, edge_mask,
                    edge_feat, rows_per_block)
 

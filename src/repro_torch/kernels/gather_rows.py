@@ -12,6 +12,12 @@ the CPU. For CUDA tensors it launches the hand-written kernel
 ``gather_rows.launches`` counts those launches. The tile knobs
 (``idx_tile``, ``num_banks``) describe the TPU kernel's grid: the result
 does not depend on them, but the reference's padding rules stand.
+
+Gradients. Where autograd needs the graph (grad mode on and ``y``
+requiring grad) ``gather_rows`` goes through ``GatherRowsFn``, whose
+backward is the dual kernel: ``mp_scatter(dout, idx, mask, N)`` (masked
+and out-of-range rows add nothing), cast to ``y.dtype``. Both directions
+are owner computes, so the gradient is the same bits every run.
 """
 
 from __future__ import annotations
@@ -49,14 +55,40 @@ def gather_rows(y: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, *,
                          f"{tuple(mask.shape)}")
     if idx.shape[0] % idx_tile or y.shape[0] % num_banks:
         raise ValueError("pad S to idx_tile and N to num_banks")
-    if y.device.type == "cpu":
-        return gather_rows_ref(y, idx, mask)
-    if y.device.type != "cuda":
+    if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gather_rows runs on cpu or cuda, not {y.device}")
-    return _launch(y, idx, mask)
+    if torch.is_grad_enabled() and y.requires_grad:
+        return GatherRowsFn.apply(y, idx, mask)
+    return _gather(y, idx, mask)
 
 
 gather_rows.launches = 0
+
+
+def _gather(y, idx, mask):
+    """``gather_rows``' value: the plain version on the CPU, one counted
+    launch on the card."""
+    if y.device.type == "cpu":
+        return gather_rows_ref(y, idx, mask)
+    return _launch(y, idx, mask)
+
+
+class GatherRowsFn(torch.autograd.Function):
+    """``gather_rows`` with its backward, ``mp_scatter`` of the output's
+    gradient back to the rows of y."""
+
+    @staticmethod
+    def forward(ctx, y, idx, mask):
+        ctx.save_for_backward(idx, mask)
+        ctx.y_rows, ctx.y_dtype = y.shape[0], y.dtype
+        return _gather(y, idx, mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.mp_scatter import mp_scatter
+        idx, mask = ctx.saved_tensors
+        dy = mp_scatter(dout.contiguous(), idx, mask, ctx.y_rows)
+        return dy.to(ctx.y_dtype), None, None
 
 
 def _kernel():

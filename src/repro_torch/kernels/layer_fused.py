@@ -41,6 +41,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.mp_pipeline import (_SW_MODES, BIG,
                                              apply_fusable_phi, launch_ptr,
+                                             no_backward,
                                              owned_stream, seg_extreme_rows,
                                              seg_sum_rows, src_weight_mode)
 
@@ -204,6 +205,8 @@ def layer_fused(x: torch.Tensor, senders: torch.Tensor,
             w2=w2, b2=b2, out_activation=out_activation)
     if x.device.type != "cuda":
         raise ValueError(f"layer_fused runs on cpu or cuda, not {x.device}")
+    no_backward("layer_fused", x, w1, b1, w2, b2, node_input, src_weight,
+                edge_term)
     return _launch(x, senders, receivers, edge_mask, num_nodes, d, epilogue,
                    sw_mode, head_dim, w1=w1, b1=b1, node_input=node_input,
                    src_weight=src_weight, edge_term=edge_term,

@@ -133,6 +133,19 @@ def seg_extreme_rows(v: torch.Tensor, own: torch.Tensor,
                                include_self=False)
 
 
+def no_backward(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward this kernel does not have:
+    grad mode on and a CUDA input that requires grad. The kernel's output
+    would carry no ``grad_fn``, and the gradient upstream would be lost
+    without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.device.type == "cuda" and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(f"{name} has no backward on the card; call it "
+                           f"under torch.no_grad() or on tensors that need "
+                           f"no grad")
+
+
 def launch_ptr(dev: torch.device, t: torch.Tensor, name: str, dtype,
                shape) -> int:
     """The data pointer of ``t`` for a kernel launch on ``dev``, after the
@@ -283,6 +296,8 @@ def mp_pipeline(x: torch.Tensor, senders: torch.Tensor,
             att_slope=att_slope)
     if x.device.type != "cuda":
         raise ValueError(f"mp_pipeline runs on cpu or cuda, not {x.device}")
+    no_backward("mp_pipeline", x, src_weight, edge_term, bias, att_src,
+                att_dst)
     return _launch(x, senders, receivers, edge_mask, num_nodes, stats, heads,
                    sw_mode, head_dim, src_weight=src_weight,
                    edge_term=edge_term, bias=bias, activation=activation,

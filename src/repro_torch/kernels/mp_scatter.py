@@ -25,6 +25,17 @@ float32 or bfloat16 (read as such, accumulated in float32);
 ``mp_scatter`` writes bfloat16 sums itself, rounded to nearest even. The
 wrapper allocates the kernel's int32 scratch (``counts`` (N), ``row_start``
 (N + 1), ``order`` (E), one ``torch.empty``); the kernel clears it.
+
+Gradients. Where autograd needs the graph (grad mode on and ``msg``
+requiring grad) ``mp_scatter`` goes through ``MpScatterFn``, whose backward
+is the dual kernel: the gradient of the messages is
+``gather_rows(dout, receivers, edge_mask)`` (a masked or out-of-range edge
+gets a zero row) cast to ``msg.dtype``, as the reference differentiates
+the MoE's ``.at[slot].set`` and ``.at[st].add`` (``repro/nn/moe.py``). The
+owner computes in both directions, so the gradient is deterministic too.
+``mp_scatter_multi`` has no backward (no training path reaches it): on a
+CUDA tensor that requires grad under grad mode it raises rather than
+return a result autograd cannot follow.
 """
 
 from __future__ import annotations
@@ -36,8 +47,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mp_pipeline import (launch_ptr, owned_stream,
-                                             seg_extreme_rows, seg_sum_rows)
+from repro_torch.kernels.mp_pipeline import (launch_ptr, no_backward,
+                                             owned_stream, seg_extreme_rows,
+                                             seg_sum_rows)
 
 # Statistic names in the fixed output order of mp_scatter_multi.
 MULTI_STATS = ("sum", "sumsq", "count", "max", "min")
@@ -102,6 +114,18 @@ def mp_scatter(msg: torch.Tensor, receivers: torch.Tensor,
     the accumulate phase (the kernel's own choice by default; the result
     does not depend on it)."""
     _check_msg(msg, "mp_scatter")
+    if torch.is_grad_enabled() and msg.requires_grad:
+        return MpScatterFn.apply(msg, receivers, edge_mask, num_nodes,
+                                 rows_per_block)
+    return _scatter_sum(msg, receivers, edge_mask, num_nodes, rows_per_block)
+
+
+mp_scatter.launches = 0
+
+
+def _scatter_sum(msg, receivers, edge_mask, num_nodes, rows_per_block):
+    """``mp_scatter``'s value: the plain version on the CPU, one counted
+    launch on the card."""
     if msg.device.type == "cpu":
         return mp_scatter_ref(msg, receivers, edge_mask,
                               num_nodes).to(msg.dtype)
@@ -111,7 +135,24 @@ def mp_scatter(msg: torch.Tensor, receivers: torch.Tensor,
     return out
 
 
-mp_scatter.launches = 0
+class MpScatterFn(torch.autograd.Function):
+    """``mp_scatter`` with its backward, ``gather_rows`` of the output's
+    gradient at the receivers."""
+
+    @staticmethod
+    def forward(ctx, msg, receivers, edge_mask, num_nodes, rows_per_block):
+        ctx.save_for_backward(receivers, edge_mask)
+        ctx.msg_dtype = msg.dtype
+        return _scatter_sum(msg, receivers, edge_mask, num_nodes,
+                            rows_per_block)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.gather_rows import gather_rows
+        receivers, edge_mask = ctx.saved_tensors
+        dmsg = gather_rows(dout.contiguous(), receivers, edge_mask,
+                           idx_tile=1, num_banks=1)
+        return dmsg.to(ctx.msg_dtype), None, None, None, None
 
 
 def mp_scatter_multi(msg: torch.Tensor, receivers: torch.Tensor,
@@ -130,6 +171,7 @@ def mp_scatter_multi(msg: torch.Tensor, receivers: torch.Tensor,
     if not stats:
         raise ValueError("stats must name at least one accumulator")
     _check_msg(msg, "mp_scatter_multi")
+    no_backward("mp_scatter_multi", msg)
     if msg.device.type == "cpu":
         return mp_scatter_multi_ref(msg, receivers, edge_mask, num_nodes,
                                     stats)

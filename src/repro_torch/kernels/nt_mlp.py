@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mp_pipeline import launch_ptr
+from repro_torch.kernels.mp_pipeline import launch_ptr, no_backward
 
 
 def nt_mlp_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -78,6 +78,7 @@ def nt_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return nt_mlp_ref(x, w1, b1, w2, b2).to(x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"nt_mlp runs on cpu or cuda, not {x.device}")
+    no_backward("nt_mlp", x, w1, b1, w2, b2)
     return _launch(x, w1, b1, w2, b2, rows_per_block)
 
 

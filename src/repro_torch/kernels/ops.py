@@ -9,8 +9,10 @@ term, degree scalers and directional field epilogues), ``mp_pipeline``,
 ``seg_softmax``, ``nt_mlp``, ``fused_nt_scatter``, ``flash_attention``
 and, in their own modules, ``gather_rows`` and the MoE path that composes
 it with ``mp_scatter`` (``moe_dispatch.py``): every TPU kernel of the
-reference. The plain versions are re-exported beside them for tests and
-``chip_smoke.py``.
+reference. Beside them ``flash_attention_bwd``, the backward of
+``flash_attention`` (the reference differentiates its attention in jnp,
+``nn/flash.py::_bwd``). The plain versions are re-exported beside them for
+tests and ``chip_smoke.py``.
 """
 
 from typing import Callable, Dict, Optional
@@ -19,6 +21,8 @@ import torch
 
 from repro_torch.kernels import mp_scatter as _mp_scatter
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_ref,
                                                  flash_attention_ref)
 from repro_torch.kernels.fused_nt_scatter import (fused_nt_scatter,
                                                   fused_nt_scatter_ref)
@@ -60,11 +64,13 @@ def launch_counters() -> Dict[str, Callable]:
             "mp_scatter_multi": ms.mp_scatter_multi,
             "seg_softmax": ss.seg_softmax, "gather_rows": gr.gather_rows,
             "nt_mlp": nt.nt_mlp, "fused_nt_scatter": fns.fused_nt_scatter,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd}
 
 
-__all__ = ["flash_attention", "flash_attention_ref", "fused_nt_scatter",
-           "fused_nt_scatter_ref", "launch_counters", "layer_fused",
-           "layer_fused_ref", "mp_pipeline", "mp_pipeline_ref", "mp_scatter",
-           "mp_scatter_multi", "mp_scatter_multi_ref", "mp_scatter_ref",
-           "nt_mlp", "nt_mlp_ref", "seg_softmax", "segment_softmax_ref"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",
+           "flash_attention_ref", "fused_nt_scatter", "fused_nt_scatter_ref",
+           "launch_counters", "layer_fused", "layer_fused_ref", "mp_pipeline",
+           "mp_pipeline_ref", "mp_scatter", "mp_scatter_multi",
+           "mp_scatter_multi_ref", "mp_scatter_ref", "nt_mlp", "nt_mlp_ref",
+           "seg_softmax", "segment_softmax_ref"]

@@ -31,7 +31,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mp_pipeline import launch_ptr, owned_stream
+from repro_torch.kernels.mp_pipeline import (launch_ptr, no_backward,
+                                             owned_stream)
 
 
 def padded_rows(num_nodes: int, num_banks: int) -> int:
@@ -83,6 +84,7 @@ def seg_softmax(logits: torch.Tensor, receivers: torch.Tensor,
     if logits.device.type != "cuda":
         raise ValueError(f"seg_softmax runs on cpu or cuda, not "
                          f"{logits.device}")
+    no_backward("seg_softmax", logits)
     return _launch(logits, receivers, edge_mask,
                    padded_rows(num_nodes, num_banks), rows_per_block)
 

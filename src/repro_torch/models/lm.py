@@ -6,8 +6,9 @@ backbones (``prefix_embed``, whose front ends are stubs in the JAX package
 too), MoE (olmoe, arctic), SSM (mamba2) and hybrid (recurrentgemma). The
 parameter tree has the JAX nesting and shapes (``lm_param_defs``).
 ``forward`` returns the reference's three values, the MoE aux loss last.
-The training loss is not ported yet (ROADMAP, "The rest of the LM
-substrate").
+``lm_loss`` is the training loss: next-token cross-entropy over sequence
+chunks, each under ``torch.utils.checkpoint`` so that the (B, S, V)
+logits never exist whole, plus the z-loss and the router's aux loss.
 """
 
 from __future__ import annotations
@@ -16,12 +17,13 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import ParamDef
-from repro_torch.nn.layers import sinusoidal_pos, softcap
+from repro_torch.nn.layers import needs_grad, sinusoidal_pos, softcap
 from repro_torch.nn.transformer import (apply_norm, norm_defs, stack_apply,
                                         stack_cache_defs, stack_param_defs)
 
@@ -103,6 +105,69 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         params, tokens, cfg, prefix_embed=prefix_embed, positions=positions,
         caches=caches)
     return _unembed(params, x, cfg), new_caches, aux
+
+
+def _chunk_loss(xc: torch.Tensor, lc: torch.Tensor, mc: torch.Tensor,
+                unembed: torch.Tensor, cfg: ModelConfig):
+    """(sum of masked next-token NLL, sum of (lse * mask)^2) over one
+    sequence chunk: xc (B, T, d), labels lc (B, T), mask mc (B, T) float32.
+    The logits stay in the model's dtype; float32 appears inside the
+    reductions, as in the reference."""
+    logits = xc @ unembed.T if cfg.tie_embeddings else xc @ unembed
+    logits = _mask_pad_vocab(softcap(logits, cfg.final_softcap), cfg)
+    m = logits.detach().amax(dim=-1, keepdim=True).to(torch.float32)
+    sumexp = torch.exp(logits.to(torch.float32) - m).sum(dim=-1)
+    lse = m[..., 0] + torch.log(sumexp)
+    ll = torch.gather(logits, -1, lc[..., None].long())[..., 0].to(
+        torch.float32)
+    return ((lse - ll) * mc).sum(), ((lse * mc) ** 2).sum()
+
+
+def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            loss_chunks: int = 8) -> Tuple[torch.Tensor, Dict[str,
+                                                              torch.Tensor]]:
+    """Next-token cross-entropy (+ MoE aux + z-loss): the twin of
+    ``repro/models/lm.py::lm_loss``. ``batch`` holds ``tokens`` and
+    ``labels`` (B, S), and optionally ``mask`` (B, S) and ``prefix_embed``.
+
+    The unembedding and the softmax cross-entropy run per sequence chunk
+    (``loss_chunks``, lowered until it divides S), each under
+    ``torch.utils.checkpoint`` where autograd needs the graph, so the
+    (B, S, V) logits never exist whole. Returns (total, {"xent", "aux",
+    "z_loss"}), float32: total = xent + 1e-4 * sum((lse * mask)^2) / denom
+    + router_aux_coef * aux, denom = max(sum(mask), 1)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = batch.get("mask")
+    x, _, aux = forward_hidden(params, tokens, cfg,
+                               prefix_embed=batch.get("prefix_embed"))
+    b, s, _ = x.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    mask = mask.to(torch.float32)
+    unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    remat = needs_grad(x, unembed)
+
+    nc = loss_chunks
+    while s % nc:
+        nc -= 1
+    sc = s // nc
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        part = (x[:, i * sc:(i + 1) * sc], labels[:, i * sc:(i + 1) * sc],
+                mask[:, i * sc:(i + 1) * sc], unembed)
+        if remat:
+            a, z = checkpoint(_chunk_loss, *part, cfg, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            a, z = _chunk_loss(*part, cfg)
+        nll_sum, z_sum = nll_sum + a, z_sum + z
+
+    denom = torch.clamp(mask.sum(), min=1.0)
+    xent = nll_sum / denom
+    z_loss = 1e-4 * z_sum / denom
+    total = xent + z_loss + cfg.router_aux_coef * aux
+    return total, {"xent": xent, "aux": aux, "z_loss": z_loss}
 
 
 # ---------------------------------------------------------------------------

@@ -23,23 +23,32 @@ card steps 4 and 6 are three kernel launches. One difference of rounding
 follows: the reference adds a token's k contributions in ``x.dtype``, the
 combine here in float32, cast once (the same in a float32 model).
 
+Training. The dispatch and the combine differentiate through the kernels'
+own backward (``MpScatterFn`` / ``GatherRowsFn``: each kernel's gradient
+is the other kernel), the router through the weights and the aux loss,
+the experts through PyTorch. Under ``cfg.moe_inner_remat`` and grad mode
+each token group runs under ``torch.utils.checkpoint`` (non-reentrant), the
+reference's ``jax.checkpoint`` per dispatch group: its buffers are
+recomputed in the backward, the kernels launched again.
+
 The expert-parallel mesh (``mesh`` / ``rules``, the psum over the model
-axis) and ``moe_inner_remat`` (a training feature) are not ported; every
-expert is local (``bank_start`` 0).
+axis) is not ported; every expert is local (``bank_start`` 0).
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamDef
 from repro_torch.kernels.moe_dispatch import (moe_combine, moe_dispatch,
                                               pad_assignments)
-from repro_torch.nn.layers import activation
+from repro_torch.nn.layers import activation, needs_grad
 
 def moe_param_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
@@ -136,9 +145,14 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
     cap = _capacity(tg, cfg.num_experts_per_tok, cfg.num_experts,
                     cfg.capacity_factor)
     act = activation(cfg.act)
-    res = [_dispatch_compute_combine(xg, params, k=cfg.num_experts_per_tok,
-                                     capacity=cap, act=act)
-           for xg in x2.reshape(groups, tg, d)]
+    fn = partial(_dispatch_compute_combine, k=cfg.num_experts_per_tok,
+                 capacity=cap, act=act)
+    if cfg.moe_inner_remat and needs_grad(x, params):
+        res = [checkpoint(fn, xg, params, use_reentrant=False,
+                          preserve_rng_state=False)
+               for xg in x2.reshape(groups, tg, d)]
+    else:
+        res = [fn(xg, params) for xg in x2.reshape(groups, tg, d)]
     if groups == 1:
         out, aux = res[0]
     else:

@@ -9,7 +9,10 @@ The twin of ``repro/nn/rglru.py``:
 
 The sequence runs as a log-depth scan in both packages (float32): the
 reference's ``associative_scan`` and the port's doubling scan combine in
-another order, so they agree to float32 rounding, not bitwise. Decode is
+another order, so they agree to float32 rounding, not bitwise. Serving
+(grad mode off, or no input that requires grad) runs the scan in place;
+where autograd needs the graph it runs out of place, since the backward
+needs every step's values (the same values, step for step). Decode is
 one step of the recurrence on the cached state. The reference computes all
 of it outside any Pallas kernel, as the port does in plain PyTorch.
 
@@ -83,6 +86,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """h_t = a_t h_{t-1} + b_t along axis 1 (h_{-1} = h0, else 0), as a
     log-depth inclusive scan: step d combines each position with the one d
     before it, (a1, b1) then (a2, b2) -> (a1 a2, a2 b1 + b2)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return _scan_for_autograd(a, b, h0)
     a, b = a.clone(), b.clone()
     if h0 is not None:
         b[:, 0] += a[:, 0] * h0
@@ -94,6 +100,22 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
         b[:, d:] = a[:, d:] * b[:, :-d] + b[:, d:]
         if 2 * d < b.shape[1]:
             a[:, d:] = a[:, d:] * a[:, :-d]
+        d *= 2
+    return b
+
+
+def _scan_for_autograd(a: torch.Tensor, b: torch.Tensor,
+                       h0: Optional[torch.Tensor]) -> torch.Tensor:
+    """``rglru_scan`` with every step a new tensor: the same values as the
+    in-place scan, and a graph autograd can differentiate (the in-place
+    writes overwrite what the backward of the step before needs)."""
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    d = 1
+    while d < b.shape[1]:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        if 2 * d < b.shape[1]:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return b
 

@@ -22,19 +22,28 @@ package scans the groups; ``stack_apply`` runs a Python loop over the
 group index on views of the stacked leaves, and the blocks write their
 caches (K/V, SSM state, recurrent state and conv windows) in place into
 the stacked buffers through those views.
+
+Per-layer remat. Under ``cfg.remat`` and grad mode, without caches (a
+training forward), each block runs under ``torch.utils.checkpoint``
+(non-reentrant): its activations are recomputed in the backward, the
+reference's ``jax.checkpoint(..., nothing_saveable)`` around the group
+body and each remainder block. With remat off, under ``no_grad`` or with
+caches, nothing changes.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamDef, map_defs
 from repro_torch.nn.attention import KVCache, attention, attn_param_defs
-from repro_torch.nn.layers import layernorm, rmsnorm
+from repro_torch.nn.layers import layernorm, needs_grad, rmsnorm
 from repro_torch.nn.mlp import mlp, mlp_param_defs
 from repro_torch.nn.moe import moe_ffn, moe_param_defs
 from repro_torch.nn.rglru import RecCache, recurrent_block, rglru_param_defs
@@ -236,14 +245,24 @@ def stack_apply(params, x: torch.Tensor, positions: torch.Tensor,
     sd = stack_pattern(cfg)
     have_cache = caches is not None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = (cfg.remat and not have_cache
+             and needs_grad(x, params))
+
+    def run(p, x, kind, cache):
+        if not remat:
+            return block_apply(p, x, positions, cfg, kind, cache=cache)
+        # the model draws no random numbers: no RNG state to keep
+        return checkpoint(partial(block_apply, positions=positions, cfg=cfg,
+                                  kind=kind), p, x, use_reentrant=False,
+                          preserve_rng_state=False)
 
     lengths: List[Optional[int]] = [None] * len(sd.group)
     for g in range(sd.num_groups):
         for i, kind in enumerate(sd.group):
             cache_i = (_cache_at(caches["groups"][i], g) if have_cache
                        else None)
-            x, nc, aux_i = block_apply(_layer(params["groups"][i], g), x,
-                                       positions, cfg, kind, cache=cache_i)
+            x, nc, aux_i = run(_layer(params["groups"][i], g), x, kind,
+                               cache_i)
             aux = aux + aux_i
             if have_cache:
                 lengths[i] = nc.length
@@ -251,8 +270,7 @@ def stack_apply(params, x: torch.Tensor, positions: torch.Tensor,
     new_rem_caches = []
     for i, kind in enumerate(sd.remainder):
         cache_i = caches["rem"][i] if have_cache else None
-        x, nc, aux_i = block_apply(params["rem"][i], x, positions, cfg, kind,
-                                   cache=cache_i)
+        x, nc, aux_i = run(params["rem"][i], x, kind, cache_i)
         aux = aux + aux_i
         new_rem_caches.append(nc)
 

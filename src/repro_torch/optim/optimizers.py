@@ -1,0 +1,211 @@
+"""Optimizers (AdamW, Adafactor) as functions over parameter trees.
+
+The twin of ``repro/optim/optimizers.py``. State trees are declared as
+``ParamDef`` trees (``adamw_state_defs``, ``adafactor_state_defs``) with
+the reference's keys: ``step`` (int32, ()) and float32 ``m`` / ``v``
+(AdamW) or ``vr`` / ``vc`` (Adafactor's factored second moments), so the
+JAX package's optimizer state carries over leaf for leaf
+(``checkpoint/convert.py::opt_state_from_jax``) and the two packages'
+checkpoints hold the same leaves.
+
+An update takes ``(params, grads, state, tcfg)`` and returns ``(params,
+state, {"lr", "grad_norm"})`` as the reference's does, with one
+difference: it writes the new values into the given parameter and state
+tensors (under ``torch.no_grad``) and returns those same trees. The
+parameters stay the leaf tensors autograd differentiates, and no second
+copy of the model or its state is made. The arithmetic is the
+reference's, in float32, each result cast to its leaf's dtype.
+
+The reference chains its per-leaf updates through optimization barriers
+(``_chained_updates``) so that XLA does not schedule every leaf's float32
+upcast at once. Eager PyTorch updates one leaf after the other anyway, so
+that device has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed.sharding import ParamDef, map_defs
+
+f32 = torch.float32
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a tree of dicts (keys sorted, as JAX orders them),
+    lists and tuples."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
+    """``like``'s structure with its leaves replaced by ``leaves``, in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            done = {k: build(node[k]) for k in sorted(node)}
+            return {k: done[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    return build(like)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure), the structure kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def lr_schedule(step: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
+    """Linear warm-up to ``cfg.learning_rate``, then a cosine down to a
+    tenth of it at ``total_steps``; float32, on ``step``'s device."""
+    s = step.to(f32)
+    warm = torch.clamp(s / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((s - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
+
+
+def global_norm(grads: Any) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32."""
+    return torch.sqrt(sum(torch.sum(g.to(f32) ** 2)
+                          for g in tree_leaves(grads)))
+
+
+def clip_by_global_norm(grads: Any, max_norm: float):
+    """(grads scaled by min(1, max_norm / global norm), each in its own
+    dtype; the global norm)."""
+    gn = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.to(f32) * scale).to(g.dtype), grads), gn
+
+
+def _zeros_like_def(d: ParamDef) -> ParamDef:
+    return ParamDef(d.shape, init="zeros", dtype=f32)
+
+
+def _step_def() -> ParamDef:
+    return ParamDef((), init="zeros", dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw_state_defs(param_defs) -> Dict[str, Any]:
+    return {"step": _step_def(),
+            "m": map_defs(_zeros_like_def, param_defs),
+            "v": map_defs(_zeros_like_def, param_defs)}
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state, cfg: TrainConfig):
+    step = state["step"] + 1
+    lr = lr_schedule(step, cfg)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    b1, b2 = cfg.b1, cfg.b2
+    sf = step.to(f32)
+    c1 = 1 - torch.pow(torch.tensor(b1, dtype=f32, device=sf.device), sf)
+    c2 = 1 - torch.pow(torch.tensor(b2, dtype=f32, device=sf.device), sf)
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["m"]), tree_leaves(state["v"])):
+        gf = g.to(f32)
+        m.copy_(b1 * m + (1 - b1) * gf)
+        v.copy_(b2 * v + (1 - b2) * gf * gf)
+        pf = p.to(f32)
+        pf = pf - lr * ((m / c1) / (torch.sqrt(v / c2) + 1e-8)
+                        + cfg.weight_decay * pf)
+        p.copy_(pf.to(p.dtype))
+    state["step"].copy_(step)
+    return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moments; memory ~ sum of dims, not product)
+# ---------------------------------------------------------------------------
+
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+
+def adafactor_state_defs(param_defs) -> Dict[str, Any]:
+    def row_def(d: ParamDef) -> ParamDef:
+        if not _factored(d.shape):
+            return _zeros_like_def(d)
+        return ParamDef(d.shape[:-1], init="zeros", dtype=f32)
+
+    def col_def(d: ParamDef) -> ParamDef:
+        if not _factored(d.shape):
+            return ParamDef((1,), init="zeros", dtype=f32)
+        return ParamDef(d.shape[:-2] + d.shape[-1:], init="zeros", dtype=f32)
+
+    return {"step": _step_def(),
+            "vr": map_defs(row_def, param_defs),
+            "vc": map_defs(col_def, param_defs)}
+
+
+@torch.no_grad()
+def adafactor_update(params, grads, state, cfg: TrainConfig):
+    step = state["step"] + 1
+    lr = lr_schedule(step, cfg)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    beta2 = 1.0 - step.to(f32) ** -0.8
+    eps = 1e-30
+    for p, g, vr, vc in zip(tree_leaves(params), tree_leaves(grads),
+                            tree_leaves(state["vr"]),
+                            tree_leaves(state["vc"])):
+        gf = g.to(f32)
+        g2 = gf * gf + eps
+        if _factored(p.shape):
+            vr.copy_(beta2 * vr + (1 - beta2) * g2.mean(dim=-1))
+            vc.copy_(beta2 * vc + (1 - beta2) * g2.mean(dim=-2))
+            rfac = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+            u = gf / (torch.sqrt(rfac)[..., None]
+                      * torch.sqrt(vc)[..., None, :])
+        else:
+            vr.copy_(beta2 * vr + (1 - beta2) * g2)
+            u = gf / torch.sqrt(vr + 1e-12)
+        # update clipping (Adafactor's d=1.0 RMS rule)
+        rms = torch.sqrt(torch.mean(u * u) + eps)
+        u = u / torch.clamp(rms, min=1.0)
+        pf = p.to(f32)
+        p.copy_((pf - lr * u - lr * cfg.weight_decay * pf).to(p.dtype))
+    state["step"].copy_(step)
+    return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+class Optimizer(NamedTuple):
+    state_defs: Callable[[Any], Any]
+    update: Callable[..., Tuple[Any, Any, Dict[str, torch.Tensor]]]
+
+
+OPTIMIZERS = {
+    "adamw": Optimizer(adamw_state_defs, adamw_update),
+    "adafactor": Optimizer(adafactor_state_defs, adafactor_update),
+}
+
+
+def get_optimizer(name: str) -> Optimizer:
+    return OPTIMIZERS[name]

@@ -5,7 +5,10 @@
 ``device="cpu"``: every graph answered, the engine's first answer within
 the reference's sparse-vs-dense tolerance (1e-4) of the port's dense
 oracle, every future resolved, both tenants served. The reference's own
-example drives the same calls on its engine.
+example drives the same calls on its engine. ``quickstart_torch.py::
+lm_demo`` takes one gradient of reduced llama3-8b's loss, and
+``examples/train_lm_torch.py`` trains its small config for a few steps
+with a restart from the checkpoint halfway.
 """
 
 import importlib.util
@@ -65,3 +68,22 @@ def test_time_fn_is_a_median_of_wall_seconds(streaming):
     t = streaming.time_fn(lambda: calls.append(1), device=torch.device("cpu"),
                           warmup=1, iters=3)
     assert len(calls) == 4 and 0 <= t < 1 and np.isfinite(t)
+
+
+def test_quickstart_lm_demo_takes_a_gradient():
+    """``lm_demo``: a finite loss near log(vocab) at random weights and a
+    positive gradient norm."""
+    out = _load("quickstart_torch").lm_demo(device="cpu")
+    assert 0 < out["loss"] < 2 * np.log(512) and out["grad_norm"] > 0
+
+
+def test_train_lm_trains_and_resumes(tmp_path):
+    """``train_lm_torch.py`` at its small config, 30 steps of (8, 64): a
+    restart at step 15 resumes from the checkpoint written there, and the
+    loss falls across it."""
+    out = _load("train_lm_torch").train(steps=30, batch=8, seq=64,
+                                        ckpt_dir=str(tmp_path),
+                                        device="cpu")
+    assert out["resumed"] and out["resumed_at"] == 15
+    assert len(out["first"]) == 15 and len(out["second"]) == 15
+    assert out["second"][-1] < out["first"][0]

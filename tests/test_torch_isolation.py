@@ -74,7 +74,8 @@ def test_no_jax_or_reference_import_in_source(path):
 
 def test_both_port_examples_are_walked():
     assert [p.name for p in EXAMPLES] == ["gnn_streaming_torch.py",
-                                          "quickstart_torch.py"]
+                                          "quickstart_torch.py",
+                                          "train_lm_torch.py"]
 
 
 def test_walker_catches_a_reference_import(tmp_path):
