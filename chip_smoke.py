@@ -270,20 +270,25 @@ Phases, each printing its own lines:
                counts. One ``[lm9] json`` line; ``--only lm_families``
                runs phases 1, 2 (three sources) and 9 alone.
   10. train  — the LM training path ([train] lines). (a) the backward
-               kernel ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu)
-               against its plain version at qwen1.5-0.5b's, llama3-8b's,
-               gemma2-27b's local (softcap 50, q x50) and recurrentgemma-
-               2b's local (D=256, window 2048) training shapes, float32,
-               Sq < Sk and a ragged 1000 (each gradient within two bf16
-               units of its scale, float32 within 2e-5), the forward's lse
-               from the forward kernel; bitwise across two runs; planted
-               faults (dq skipping one kv tile, the softcap's derivative
-               dropped) must fail the tolerance; its registers and spills;
-               times beside the bound (10 D operations a visible pair) and
-               SDPA's backward. (b) qwen1.5-0.5b and olmoe-1b-7b at full
-               width, depth 2, float32: ``lm_loss`` and every parameter's
-               gradient through the kernels against the plain path (within
-               1e-4 of each scale), the MoE's routing compared, launches
+               kernel ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu:
+               bf16 on wgmma and TMA, float32 on FMAs; dQ and delta, then
+               dK / dV) against its plain version at qwen1.5-0.5b's,
+               llama3-8b's, gemma2-27b's local (softcap 50, q x50) and
+               recurrentgemma-2b's local (D=256, window 2048) training
+               shapes, float32, Sq < Sk and a ragged 1000 (each gradient
+               within 2^-7 of its scale, float32 within 2e-5), the
+               forward's lse from the forward kernel; bitwise across two
+               runs; planted faults (dq skipping one kv tile, the softcap's
+               derivative dropped) must fail the tolerance; each
+               instantiation's registers, spills and SASS HGMMA count (the
+               wgmma ones must hold HGMMA, none an ATOM or RED); times
+               beside the bound (10 D operations a visible pair) and
+               SDPA's backward (with an explicit end-aligned mask under a
+               window or Sq < Sk; a refusal is logged). (b) qwen1.5-0.5b and
+               olmoe-1b-7b at full width, depth 2, float32: ``lm_loss`` and
+               every parameter's gradient through the kernels against the
+               plain path (within 1e-4 of each scale), the MoE's routing
+               compared, launches
                from 0 (mp_scatter and gather_rows also as each other's
                backward). (c) the ``Trainer`` on qwen1.5-0.5b at full width
                and depth (24 layers, bf16, AdamW, remat) for 20 steps of
@@ -5820,9 +5825,12 @@ def packed_buckets(device: str = "cuda"):
 # flash_attention_bwd against its plain version, each gradient within this
 # share of its own scale (max |plain|): float32 sums the kernel and the
 # plain version take in other orders over up to 4,096 rows or keys;
-# bfloat16: both compute in float32 and round each gradient once, so they
-# may differ by one bf16 unit (2^-8 relative) where the two float32 values
-# straddle a rounding point, held at two units of the scale
+# bfloat16: the plain version computes in float32, the kernel's tensor
+# cores take P and dS rounded to bf16 (one term each, within 2^-8 of each
+# value) and sum in float32; both round each gradient once, so they may
+# differ by one bf16 unit (2^-8 to 2^-7 of the value) where the two
+# float32 values straddle a rounding point, and P's and dS's rounding
+# moves the float32 values by less than a unit: held at 2^-7 of the scale
 FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
 # (B, H, Sq, Sk, D, causal, window, softcap, q scale, dtype, library call):
 # the training shapes of qwen1.5-0.5b (archs.py:22: 16 heads of 64, the
@@ -5831,7 +5839,9 @@ FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
 # cap bends the scores) at S=4096; recurrentgemma-2b's local layer (10
 # heads of 256, window 2048) at S=4096, where the window binds; one
 # float32 case; Sq < Sk; a ragged length with the window's edge inside
-# the tiles
+# the tiles. The library call: SDPA's backward, causal ("sdpa") or under an
+# explicit end-aligned boolean mask ("sdpa_mask": a window, or Sq < Sk,
+# which is_causal aligns at the top); none with a softcap
 FLASH_BWD_CASES = {
     "a_qwen1.5_0.5b_train_bf16": (8, 16, 2048, 2048, 64, True, None, None,
                                   1.0, "bfloat16", "sdpa"),
@@ -5840,16 +5850,20 @@ FLASH_BWD_CASES = {
     "c_gemma2_27b_local_bf16": (1, 8, 4096, 4096, 128, True, 4096, 50.0,
                                 50.0, "bfloat16", None),
     "d_recurrentgemma_2b_local_bf16": (1, 10, 4096, 4096, 256, True, 2048,
-                                       None, 1.0, "bfloat16", None),
+                                       None, 1.0, "bfloat16", "sdpa_mask"),
     "e_qwen1.5_0.5b_f32": (1, 16, 2048, 2048, 64, True, None, None, 1.0,
                            "float32", "sdpa"),
     "f_sq_lt_sk_bf16": (1, 4, 512, 1024, 64, True, None, None, 1.0,
-                        "bfloat16", None),
+                        "bfloat16", "sdpa_mask"),
     "g_ragged_1000_window_bf16": (1, 4, 1000, 1000, 128, True, 300, None,
-                                  1.0, "bfloat16", None),
+                                  1.0, "bfloat16", "sdpa_mask"),
 }
-SDPA_BWD_TXT = ("library scaled_dot_product_attention(is_causal=True)'s "
-                "backward (torch.autograd.grad of its output)")
+SDPA_BWD_TXT = {"sdpa": "library scaled_dot_product_attention("
+                        "is_causal=True)'s backward (torch.autograd.grad "
+                        "of its output)",
+                "sdpa_mask": "library scaled_dot_product_attention("
+                             "attn_mask=the end-aligned boolean mask)'s "
+                             "backward (torch.autograd.grad of its output)"}
 # the depth-2 float32 gradient check (TF32 off): the loss within this
 # share of itself and every parameter's gradient within this share of its
 # own scale, the kernels against their plain versions (float32 sums in
@@ -5862,16 +5876,17 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1.5-0.5b", 8, 2048, 20
 TRAIN_LR = 1e-3
 
 
-def flash_bwd_tiling(d: int):
-    """(query rows, keys) a block of ``csrc/flash_attention_bwd.cu`` takes
-    per tile at head width ``d``, as the built library reports them."""
+def flash_bwd_tiling(d: int, dtype: str):
+    """(query rows a dQ block owns, keys a dQ block takes per kv tile) of
+    the kernel of ``csrc/flash_attention_bwd.cu`` that runs ``dtype`` at
+    head width ``d``, as the built library reports them."""
     import ctypes
     from repro_torch.kernels import build
     fn = build.load("flash_attention_bwd").flash_attention_bwd_tiling
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int
     out = [ctypes.c_int() for _ in range(3)]
-    err = fn(d, *(ctypes.byref(x) for x in out))
+    err = fn(d, int(dtype == "bfloat16"), *(ctypes.byref(x) for x in out))
     if err:
         raise RuntimeError(f"flash_attention_bwd_tiling({d}): error {err}")
     return out[0].value, out[1].value
@@ -5879,12 +5894,55 @@ def flash_bwd_tiling(d: int):
 
 def flash_bwd_instantiation(symbol: str):
     """(launch, D, dtype) of a mangled kernel name of
-    csrc/flash_attention_bwd.cu, or None."""
-    m = re.search(r"flash_bwd_(dkv|dq)ILi(\d+)E(f|13__nv_bfloat16)", symbol)
+    csrc/flash_attention_bwd.cu, or None: the tensor-core kernels
+    (``flash_bwd_{dkv,dq}_wgmma<D>``) run bfloat16, the FMA body
+    (``flash_bwd_{dkv,dq}<D>``) float32."""
+    m = re.search(r"flash_bwd_(dkv|dq)(_wgmma)?ILi(\d+)E", symbol)
     if not m:
         return None
-    return (m.group(1), int(m.group(2)),
-            "float32" if m.group(3) == "f" else "bfloat16")
+    return (m.group(1), int(m.group(3)),
+            "bfloat16" if m.group(2) else "float32")
+
+
+def flash_bwd_build_report() -> dict:
+    """Per instantiation of csrc/flash_attention_bwd.cu: registers and
+    spill bytes from the build's ``-Xptxas -v`` log and the count of HGMMA
+    (wgmma), ATOM* and RED instructions in the library's SASS (``cuobjdump
+    -sass``). Raises unless there are 20 (dQ and dK / dV at five widths
+    for the tensor-core kernels and for the FMA body), every tensor-core
+    one holds HGMMA and none holds an atomic."""
+    from repro_torch.kernels import build
+    report = {f"{dt}_{launch}_d{d}": info for (launch, d, dt), info in
+              sorted(ptxas_report("flash_attention_bwd",
+                                  flash_bwd_instantiation).items())}
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass",
+         str(build.library_path("flash_attention_bwd"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    for part in sass.split("Function : ")[1:]:
+        key = flash_bwd_instantiation(part.split(None, 1)[0])
+        if key is None:
+            continue
+        info = report[f"{key[2]}_{key[0]}_d{key[1]}"]
+        info["hgmma"] = part.count("HGMMA")
+        info["atomics"] = len(re.findall(r"\b(?:ATOM[SG]?|RED)[.\s]",
+                                         part))
+    for key, info in report.items():
+        log("train", f"flash_attention_bwd {key}: {info['registers']} "
+            f"registers, spill stores/loads {info['spill_stores']}/"
+            f"{info['spill_loads']} bytes, {info.get('hgmma', 0)} HGMMA and "
+            f"{info.get('atomics', 0)} ATOM/RED in its SASS (ptxas -v log, "
+            f"cuobjdump -sass)")
+    missing = [k for k, info in report.items()
+               if k.startswith("bfloat16_") and not info.get("hgmma")]
+    atomics = [k for k, info in report.items() if info.get("atomics")]
+    if len(report) != 20 or missing or atomics:
+        raise AssertionError(f"flash_attention_bwd's build: {len(report)} "
+                             f"instantiations (not 20), tensor-core ones "
+                             f"without HGMMA: {missing}, with atomics: "
+                             f"{atomics}")
+    return report
 
 
 def dense_attention_bwd(q, k, v, out, lse, dout, mask, softcap, *,
@@ -5946,7 +6004,7 @@ def check_bwd_planted_faults(name, q, k, v, out, lse, dout, grads, plain, *,
     import torch
     from repro_torch.kernels.flash_attention import visible
     sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
-    bq, bk = flash_bwd_tiling(d)
+    bq, bk = flash_bwd_tiling(d, dtype)
     mask = visible(sq, sk, causal=causal, window=window, device=q.device)
     heads = [t[0, 0] for t in (q, k, v, out, lse, dout)]
     *one, ds = dense_attention_bwd(*heads, mask, softcap, with_ds=True)
@@ -6008,24 +6066,15 @@ def flash_bwd_bound(b, h, sq, sk, d, causal, window, dtype):
 def flash_bwd_phase(card: str):
     """``flash_attention_bwd`` against its plain version on the card at
     the training shapes (``FLASH_BWD_CASES``), bitwise across two runs,
-    the planted faults, timed beside its bound and, where one call computes
-    the same function, SDPA's backward. The forward's lse comes from the
-    forward kernel. These launches are not the path's. Returns the cases'
-    rows and the instantiations' registers and spills."""
+    the planted faults, timed beside its bound and, where one call
+    computes the same function, SDPA's backward. The forward's lse comes
+    from the forward kernel. These launches are not the path's. Returns
+    the cases' rows and the instantiations' build report."""
     import torch
     from repro_torch.kernels.flash_attention import (
         _forward_with_lse, _launch, flash_attention_bwd,
-        flash_attention_bwd_ref)
-    report = {f"{dt}_{launch}_d{d}": info for (launch, d, dt), info in
-              sorted(ptxas_report("flash_attention_bwd",
-                                  flash_bwd_instantiation).items())}
-    for key, info in report.items():
-        log("train", f"flash_attention_bwd {key}: {info['registers']} "
-            f"registers, spill stores/loads {info['spill_stores']}/"
-            f"{info['spill_loads']} bytes (ptxas -v log)")
-    if len(report) != 20:
-        raise AssertionError(f"flash_attention_bwd: {len(report)} "
-                             f"instantiations in the ptxas log, not 20")
+        flash_attention_bwd_ref, visible)
+    report = flash_bwd_build_report()
     rows = {}
     g = torch.Generator(device="cuda").manual_seed(5)
     for name, (b, h, sq, sk, d, causal, window, cap, q_scale, dtype,
@@ -6069,19 +6118,28 @@ def flash_bwd_phase(card: str):
         log("train", f"flash_attention_bwd {name}: bitwise equal across 2 "
             f"runs")
         library = None
-        if lib == "sdpa":
+        if lib is not None:
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-                *leaves, is_causal=True)
+            mask = visible(sq, sk, causal=causal, window=window,
+                           device="cuda") if lib == "sdpa_mask" else None
+            try:
+                sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask, is_causal=mask is None)
+                torch.autograd.grad(sdpa_out, leaves, dout,
+                                    retain_graph=True)
+                torch.cuda.synchronize()
 
-            def library():
-                return torch.autograd.grad(sdpa_out, leaves, dout,
-                                           retain_graph=True)
+                def library():
+                    return torch.autograd.grad(sdpa_out, leaves, dout,
+                                               retain_graph=True)
+            except RuntimeError as exc:
+                log("train", f"flash_attention_bwd {name}: SDPA refused "
+                    f"the shape ({str(exc).splitlines()[0][:200]})")
         rows[name] = timed_row(
             card, "train", f"flash_attention_bwd {name}", kern, plain,
             flash_bwd_bound(b, h, sq, sk, d, causal, window, dtype),
-            err=err, rel=rel, library=library, library_txt=SDPA_BWD_TXT,
-            reps=5, inner=3)
+            err=err, rel=rel, library=library,
+            library_txt=SDPA_BWD_TXT.get(lib, ""), reps=5, inner=3)
         # the forward kernel as training calls it (writing lse) and as
         # serving calls it (not), in turns
         fwd = {"serving": lambda: _launch(q, k, v, **kw),
@@ -6126,7 +6184,8 @@ def train_launches(cfg) -> dict:
 
 TRAIN_LAUNCHES_TXT = ("per attention layer one flash_attention forward "
                       "(with lse) and one more in the remat recompute, two "
-                      "flash_attention_bwd launches (dK/dV, dQ); per MoE "
+                      "flash_attention_bwd launches (dQ with delta, dK/dV); "
+                      "per MoE "
                       "layer two mp_scatter and one gather_rows in the "
                       "forward and in its recompute, then a "
                       "gather_rows per mp_scatter and an mp_scatter per "
@@ -6502,8 +6561,7 @@ def main(argv=None) -> int:
             train["rows"]["a_qwen1.5_0.5b_train_bf16"],
             f"train_{TRAIN_ARCH}",
             "qwen1.5-0.5b training attention backward: B=8, H=16, S=2048, "
-            "D=64, causal, bf16; two launches (dK/dV, dQ) and the wrapper's "
-            "delta reduction"),
+            "D=64, causal, bf16; two launches (dQ with delta, dK/dV)"),
     ]
     kernels[-1]["instantiations"] = train["build"]
     kernels[-2]["instantiations"] = flash_build

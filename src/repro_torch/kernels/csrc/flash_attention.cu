@@ -589,6 +589,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 int launch(const Args& p, int bh, cudaStream_t st) {
   using T = Tile<D>;
+  // the runtime's call first: on a thread where no context is current yet
+  // (an autograd worker whose first CUDA work this is) it makes the
+  // device's primary context current, which cuTensorMapEncodeTiled needs
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   // no keys (Sk = 0): no tile is loaded, so K and V need no map
   CUtensorMap tq{}, tk{}, tv{};
   int err = encode_bf16_3d(&tq, p.q, bh, p.sq, D, kBlockQ);
@@ -597,10 +604,6 @@ int launch(const Args& p, int bh, cudaStream_t st) {
     if (err == 0) err = encode_bf16_3d(&tv, p.v, bh, p.sk, D, T::kBlockK);
   }
   if (err != 0) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(bh, (p.sq + kBlockQ - 1) / kBlockQ);
   flash_attention_wgmma<D><<<grid, kThreads, T::kSmem, st>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());

@@ -30,7 +30,10 @@ writes the rows' log-sum-exp (float32, (B, H, Sq)) and saves (q, k, v,
 out, lse), as ``_fwd`` saves them; its backward is ``flash_attention_bwd``
 (``_bwd``'s function): the plain ``flash_attention_bwd_ref`` for CPU
 tensors, the hand-written ``csrc/flash_attention_bwd.cu`` for CUDA ones
-(two launches a call, each counted in ``flash_attention_bwd.launches``).
+(two launches a call, each counted in ``flash_attention_bwd.launches``:
+dQ, which also computes delta = rowsum(dout * out), then dK / dV; bf16 on
+the tensor cores by ``wgmma`` on TMA-staged tiles, P and dS entering them
+as one bf16 term each; float32 on FMAs).
 Serving runs under ``torch.no_grad()`` or on tensors that need no grad,
 and takes the forward launch alone, which writes no lse.
 """
@@ -227,8 +230,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     """(dq, dk, dv) of ``flash_attention`` from its inputs, its output, the
     rows' log-sum-exp and the output's gradient. CPU tensors run
     ``flash_attention_bwd_ref``; CUDA tensors launch
-    ``csrc/flash_attention_bwd.cu`` (the wrapper computes delta = rowsum
-    (dout * out) in float32 with one PyTorch reduction first) or raise."""
+    ``csrc/flash_attention_bwd.cu`` (its dQ launch computes delta = rowsum
+    (dout * out) in float32 for its rows, its dK / dV launch reads it) or
+    raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                        causal=causal, window=window,
@@ -237,7 +241,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
                          f"{q.device}")
     return _launch_bwd(q, k, v, out, lse, dout, causal=causal,
-                       window=window, softcap=softcap)
+                       window=window, softcap=softcap)[:3]
 
 
 flash_attention_bwd.launches = 0
@@ -301,18 +305,27 @@ def _launch(q, k, v, *, causal, window, softcap, lse=None):
     return out
 
 
-def _kernel_bwd():
-    fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+def bind_bwd_launch(lib):
+    """``lib``'s ``flash_attention_bwd_launch`` with its C signature set."""
+    fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         # without argtypes ctypes passes every int as a 32-bit C int:
         # pointers are cut and the stream slot holds garbage
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def _kernel_bwd():
+    return bind_bwd_launch(build.load("flash_attention_bwd"))
+
+
 def _launch_bwd(q, k, v, out, lse, dout, *, causal, window, softcap):
+    """(dq, dk, dv, stats): the two launches on the current stream, and the
+    float32 (B*H, 2, Sq rounded up to 64) buffer between them, each row's
+    lse and delta = rowsum(dout * out) as the dQ launch wrote them (0 past
+    Sq)."""
     dev = q.device
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -321,14 +334,16 @@ def _launch_bwd(q, k, v, out, lse, dout, *, causal, window, softcap):
     ptrs = (need(q, "q", q.dtype, (b, h, sq, d)),
             need(k, "k", q.dtype, (b, h, sk, d)),
             need(v, "v", q.dtype, (b, h, sk, d)),
+            need(out, "out", q.dtype, (b, h, sq, d)),
             need(dout, "dout", q.dtype, (b, h, sq, d)))
-    need(out, "out", q.dtype, (b, h, sq, d))
-    delta = (dout.float() * out.float()).sum(-1)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if any(p % 16 for p in ptrs):
-        raise ValueError("q, k, v, dout must start on 16-byte boundaries")
+        raise ValueError("q, k, v, out, dout must start on 16-byte "
+                         "boundaries")
+    stats = torch.empty((b * h, 2, -(-sq // 64) * 64), dtype=torch.float32,
+                        device=dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = _kernel_bwd()(*ptrs, need(lse, "lse", torch.float32, (b, h, sq)),
-                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                         dv.data_ptr(), b * h, sq, sk, d,
                         int(q.dtype == torch.bfloat16), int(causal),
                         int(window is not None), window or 0,
@@ -338,6 +353,6 @@ def _launch_bwd(q, k, v, out, lse, dout, *, causal, window, softcap):
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed with CUDA "
                            f"error {err}")
-    # two CUDA launches a call: dK / dV, then dQ
-    flash_attention_bwd.launches += int(sk > 0) + int(sq > 0)
-    return dq, dk, dv
+    # two CUDA launches a call: dQ (and delta), then dK / dV
+    flash_attention_bwd.launches += int(sq > 0) + int(sk > 0)
+    return dq, dk, dv, stats

@@ -37,6 +37,18 @@ def streaming():
     return _load("gnn_streaming_torch")
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: beside the suite's other workers,
+    torch's default of a thread per core in every worker oversubscribes
+    the cores, and a training loop's many small ops then ran 20-35x slower
+    than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_quickstart_serves_every_graph():
     stats = _load("quickstart_torch").flowgnn_demo(n_graphs=4, device="cpu")
     assert stats["count"] == 4 and stats["p50_ms"] > 0
@@ -77,7 +89,7 @@ def test_quickstart_lm_demo_takes_a_gradient():
     assert 0 < out["loss"] < 2 * np.log(512) and out["grad_norm"] > 0
 
 
-def test_train_lm_trains_and_resumes(tmp_path):
+def test_train_lm_trains_and_resumes(tmp_path, one_thread):
     """``train_lm_torch.py`` at its small config, 30 steps of (8, 64): a
     restart at step 15 resumes from the checkpoint written there, and the
     loss falls across it."""

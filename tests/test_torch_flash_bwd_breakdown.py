@@ -1,0 +1,37 @@
+"""``experiments/flash_bwd_breakdown.py``'s variants still apply to the
+backward kernel.
+
+The probe builds its variants by exact-text edits of
+``csrc/flash_attention_bwd.cu``; an edit to the lines it names breaks it.
+This checks on the CPU (no nvcc, no card) that every variant applies to the
+source as it stands and changes it.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+VARIANTS = ("as_is", "split_d128", "two_stages", "lag0", "head_by_head",
+            "two_terms", "accurate_exp", "no_rs", "no_ss")
+
+
+@pytest.fixture(scope="module")
+def breakdown():
+    spec = importlib.util.spec_from_file_location(
+        "flash_bwd_breakdown",
+        REPO / "experiments" / "flash_bwd_breakdown.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_variant_applies_to_the_kernel_source(breakdown, name):
+    src = breakdown.SRC.read_text()
+    out = breakdown.variants(src)
+    assert tuple(out) == VARIANTS
+    assert (out[name] == src) == (name == "as_is")

@@ -5,7 +5,9 @@ against the port's plain PyTorch versions.
 
 * ``FlashAttentionFn``: the forward kernel's lse and the backward kernel
   (``csrc/flash_attention_bwd.cu``) against ``flash_attention_bwd_ref``,
-  launched and counted, never the plain path; bitwise across two runs.
+  launched and counted, never the plain path; bitwise across two runs, at
+  every head width in both types also the lse and delta buffer its dQ
+  launch writes for the dK / dV launch.
 * ``MpScatterFn`` / ``GatherRowsFn``: each backward launches the other
   kernel, and the gradients equal autograd of the plain versions.
 * A reduced MoE layer and a reduced LM train on the card: every parameter
@@ -24,9 +26,13 @@ from repro_torch.kernels import mp_scatter as tms
 # float32: the kernel and the plain version sum in other orders, over up to
 # a few hundred keys or rows: within 2e-5 of each gradient's scale
 F32_TOL = 2e-5
-# bfloat16: both compute in float32 and round each gradient once, so they
-# may differ by one bf16 unit (2^-8 relative) where the two float32 values
-# straddle a rounding point; held at two units of each gradient's scale
+# bfloat16: the plain version computes in float32; the kernel's tensor
+# cores take P and dS rounded to bf16 (one term each, within 2^-8 of each
+# value) and sum in float32 (tests/test_torch_flash_bwd_rounding.py models
+# it on the CPU). Both round each gradient once, so they may differ by one
+# bf16 unit (2^-8 to 2^-7 of the value) where the two float32 values
+# straddle a rounding point, and P's and dS's rounding moves the float32
+# values by less than a unit: held at 2^-7 of each gradient's scale
 BF16_TOL = 2.0 ** -7
 
 
@@ -96,6 +102,36 @@ def test_cuda_backward_kernel_matches_plain(b, h, sq, sk, d, causal, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", tfa.CUDA_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_bitwise_and_its_delta_at_every_width(d, dtype):
+    """At every head width and type: two runs give the same bits (the
+    gradients and the stats buffer between the launches), the buffer's
+    delta is the plain rowsum(dout * out) within float32 summation order
+    (1e-6 of its scale), its lse the forward's bits, and the padding rows
+    past Sq zeros."""
+    _card()
+    dt = getattr(torch, dtype)
+    sq, sk = 100, 130
+    q, k, v, dout = _inputs(1, 3, sq, sk, d, dt, seed=d)
+    kw = dict(causal=True, window=70, softcap=None)
+    out, lse = tfa._forward_with_lse(q, k, v, True, 70, None)
+    runs = [tfa._launch_bwd(q, k, v, out, lse, dout, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    stats = runs[0][3]
+    assert stats.shape == (3, 2, 128)
+    delta = (dout.float() * out.float()).sum(-1).reshape(3, sq)
+    _close(stats[:, 1, :sq], delta, 1e-6)
+    assert torch.equal(stats[:, 0, :sq], lse.reshape(3, sq))
+    assert not bool(stats[:, :, sq:].any())
+    _close(runs[0][0], tfa.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                   **kw)[0],
+           F32_TOL if dt == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.cuda
 def test_cuda_function_launches_the_backward_kernel():
     """Through ``flash_attention`` with inputs that require grad: one
     forward launch (with lse), two backward launches, gradients with a
@@ -120,6 +156,36 @@ def test_cuda_function_launches_the_backward_kernel():
     with torch.no_grad():
         tfa.flash_attention(*leaves, causal=True)
     assert tfa.flash_attention_bwd.launches == before[1] + 2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernels_launch_from_a_fresh_thread():
+    """The bf16 forward (with lse) and backward kernels as the first CUDA
+    work of a new thread, where no context is current until the kernels'
+    own runtime makes one (an autograd worker's backward): both launch and
+    give what they give on the main thread, bit for bit."""
+    import threading
+    _card()
+    q, k, v, dout = _inputs(1, 2, 128, 128, 64, torch.bfloat16, seed=3)
+
+    def run():
+        out, lse = tfa._forward_with_lse(q, k, v, True, None, None)
+        return (out, lse) + tfa.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = run()
+    got, errors = [], []
+
+    def worker():
+        try:
+            got.append(run())
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            errors.append(exc)
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+    for a, b in zip(got[0], want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -60,7 +60,18 @@ def test_trainer_resume(tmp_path):
     assert out2["final_step"] == 9
 
 
-def test_trainer_loss_decreases():
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: beside the suite's other workers,
+    torch's default of a thread per core in every worker oversubscribes
+    the cores, and the 50 steps ran 20x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_trainer_loss_decreases(one_thread):
     cfg = REDUCED["qwen1.5-0.5b"]
     tcfg = TrainConfig(learning_rate=3e-3, total_steps=60, warmup_steps=5,
                        checkpoint_every=0, seed=0)
