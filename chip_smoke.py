@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only wide    # phase 4f alone (no result lines)
     python3 chip_smoke.py --only lm_families    # phase 9 alone (the same)
     python3 chip_smoke.py --only train          # phase 10 alone (the same)
+    python3 chip_smoke.py --only mesh           # phase 11 alone (the same)
 
 Phases, each printing its own lines:
 
@@ -298,7 +299,40 @@ Phases, each printing its own lines:
                loss falling, one step's busy share and top device ops
                under ``torch.profiler``. ``--only train`` runs phases 1, 2
                (four sources) and 10 alone.
-  11. result — one JSON line with every kernel's numbers, the card's
+  11. mesh   — the mesh ([mesh] lines), its positions on the card (spread
+               over the cards where there are several), each on its own
+               stream, one thread a position inside ``shard_map``. (a) On a
+               (4,) ring at 4 x 16 MB float32: ``ring_shift`` for every
+               step count (``torch.roll``), ``broadcast_from`` every source,
+               ``psum`` / ``pmax`` bitwise the fold in position order on
+               one stream. (b) GPipe: qwen1.5-0.5b's 24 blocks (bf16,
+               seed-0 weights) as 4 stages of 6 over a ring of 4, 8
+               microbatches of 1 x 2048 synth tokens, counts from 0 (4 x
+               (8 + 3) x 6 = 264 flash_attention: every stage runs at every
+               step), against the blocks in sequence on one stream at
+               phase 8's bf16 tolerance; both timed. (c) data parallelism:
+               at depth 2 in float32 (qwen1.5-0.5b, olmoe-1b-7b, phase 10's
+               shapes) the DP step on a (2, 1) mesh against the unsharded
+               step, one step at learning rate 0, every gradient (AdamW's
+               m) within 1e-5 of the scale; then the ``Trainer`` on
+               qwen1.5-0.5b at full width and depth (bf16, AdamW, remat),
+               5 steps of 8 x 2048, on one position and on a (2, 1) mesh,
+               counts from 0 each step (48 flash_attention and 48
+               flash_attention_bwd a position), the two replicas bitwise
+               after every step, each step's loss within 2e-2 of the one
+               position's; step ms and tokens/s of both. (d) compression:
+               ``tree_ef_compressed_psum`` of qwen's gradient tree over the
+               2 positions against the plain ``psum``, each element within
+               K x s_max / 2 plus the pmax-of-scales term; both timed; the
+               reference's least-squares convergence on a (4,) ring (200
+               steps, loss < 1e-3). (e) elastic: (c)'s parameters and
+               AdamW state saved and restored through ``elastic_restore``
+               onto (1, 1) and (4, 1), bitwise; ``remesh_plan`` of
+               llama3-8b on the production mesh (meta positions); an
+               indivisible case's message. One ``[mesh] json`` line;
+               ``--only mesh`` runs phases 1, 2 (four sources) and 11
+               alone.
+  12. result — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -6343,13 +6377,539 @@ def train_phase(card: str) -> dict:
     return {"rows": rows, "build": build_report, "paths": paths}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mesh
+# ---------------------------------------------------------------------------
+
+# the GPipe case: qwen1.5-0.5b's blocks as this many stages over a ring of
+# as many positions, this many microbatches of one sequence each
+MESH_ARCH = "qwen1.5-0.5b"
+MESH_STAGES, MESH_MICRO, MESH_SEQ = 4, 8, 2048
+# the data-parallel run: a global batch of B x S over a (K, 1) mesh
+MESH_DP_K, MESH_DP_BATCH, MESH_DP_STEPS = 2, 8, 5
+# the DP run's per-step loss against the one-position Trainer's: the
+# reference's tolerance for a sharded step (tests/test_distributed.py:56)
+MESH_LOSS_TOL = 2e-2
+# the depth-2 float32 DP gradients against the unsharded ones: float32
+# sums over the shards in another order
+MESH_GRAD_TOL = 1e-5
+MESH_CKPT = REPO / "build" / "repro_torch" / "mesh_checkpoint"
+
+
+def mesh_devices(k: int) -> list:
+    """Positions for a mesh of ``k``: all on the card, or spread over the
+    cards round-robin where there are several."""
+    import torch
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(k)]
+
+
+def wall_ms(run, reps: int = 3, warm: bool = True) -> tuple:
+    """(median wall ms of ``run()`` between two device synchronisations,
+    over ``reps`` after one warm-up call unless ``warm`` is off; the last
+    result)."""
+    import torch
+    out = run() if warm else None
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def mesh_collectives(card: str) -> dict:
+    """(a) On a (4,) ring of positions: ``ring_shift`` for every step count
+    (``torch.roll`` of the parts), ``broadcast_from`` every source, and
+    ``psum`` / ``pmax`` bitwise against the fold in position order on one
+    stream, at 4 x 16 MB float32."""
+    import torch
+    from repro_torch.distributed.collectives import pmax, psum, shard_map
+    from repro_torch.distributed.pipeline import broadcast_from, ring_shift
+    from repro_torch.distributed.sharding import P, make_mesh
+    mesh = make_mesh((4,), ("ring",), devices=mesh_devices(4))
+    streams = {id(s) for s in mesh.streams.flat}
+    if len(streams) != 4 or None in list(mesh.streams.flat):
+        raise AssertionError("the positions do not each have a stream")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((4, 2048, 2048), generator=gen, device="cuda")
+
+    def run(f, out_spec=P("ring")):
+        return shard_map(f, mesh=mesh, in_specs=(P("ring"),),
+                         out_specs=out_spec)(x)
+    out = {}
+    for s in range(1, 4):
+        got = run(lambda v: ring_shift(v, "ring", steps=s)).gather("cuda")
+        out[f"ring_shift_{s}"] = bool(torch.equal(got, torch.roll(x, s, 0)))
+    for src in range(4):
+        got = run(lambda v: broadcast_from(v, "ring", src))
+        out[f"broadcast_from_{src}"] = all(
+            torch.equal(t.to("cuda")[0], x[src]) for t in got.pieces.flat)
+    want_sum = ((x[0] + x[1]) + x[2]) + x[3]
+    want_max = torch.maximum(torch.maximum(torch.maximum(x[0], x[1]), x[2]),
+                             x[3])
+    got = run(lambda v: psum(v, "ring"), P())
+    out["psum"] = all(torch.equal(t.to("cuda")[0], want_sum)
+                      for t in got.pieces.flat)
+    got = run(lambda v: pmax(v, "ring"), P())
+    out["pmax"] = all(torch.equal(t.to("cuda")[0], want_max)
+                      for t in got.pieces.flat)
+    psum_ms, _ = wall_ms(lambda: run(lambda v: psum(v, "ring"), P()))
+    log("mesh", f"(a) collectives on a (4,) ring over "
+        f"{sorted({str(d) for d in mesh.devices.flat})}, each position on "
+        f"its own stream, 4 x {x[0].numel() * 4 / 1e6:.1f} MB float32: "
+        f"{out}; psum wall {psum_ms:.2f} ms; on {card}")
+    if not all(out.values()):
+        raise AssertionError("(a) a collective is not bitwise its reference")
+    return {"checks": out, "psum_wall_ms": psum_ms}
+
+
+def mesh_gpipe(card: str) -> dict:
+    """(b) qwen1.5-0.5b's blocks (bf16, seed-0 weights) as MESH_STAGES
+    stages of equal depth over a ring of as many positions, MESH_MICRO
+    microbatches of 1 x MESH_SEQ synth tokens' embeddings, counts from 0,
+    against the same blocks run in sequence on one stream."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import make_mesh, map_tree
+    from repro_torch.models import lm
+    from repro_torch.nn.transformer import stack_pattern
+    cfg = ARCHS[MESH_ARCH]
+    sd = stack_pattern(cfg)
+    if sd.group != ("attn",) or sd.remainder:
+        raise AssertionError(f"{MESH_ARCH}: expected one stacked attn group")
+    depth = sd.num_groups // MESH_STAGES
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+    stacked = params["stack"]["groups"][0]
+    stage_params = map_tree(lambda v: v.reshape(
+        (MESH_STAGES, depth) + tuple(v.shape[1:])), stacked)
+    tokens = token_batch(cfg, MESH_MICRO, MESH_SEQ)["tokens"]
+    positions = torch.arange(MESH_SEQ, dtype=torch.int32,
+                             device="cuda").expand(1, MESH_SEQ)
+    with torch.inference_mode():
+        xs = lm._embed(params, tokens, cfg, None)[:, None]
+
+    def stage_fn(p, x):
+        return run_blocks(p, x, depth, positions.to(x.device), cfg)
+
+    mesh = make_mesh((MESH_STAGES,), ("pod",),
+                     devices=mesh_devices(MESH_STAGES))
+
+    def piped():
+        with torch.inference_mode():
+            return pipeline_apply(stage_fn, stage_params, xs, mesh=mesh,
+                                  axis_name="pod")
+
+    def sequential():
+        with torch.inference_mode():
+            return torch.stack([run_blocks(stacked, xs[m], sd.num_groups,
+                                           positions, cfg)
+                                for m in range(MESH_MICRO)])
+    out, launches = counted(piped)           # also the warm-up run
+    steps = MESH_MICRO + MESH_STAGES - 1
+    check_launches("mesh", f"(b) GPipe {MESH_STAGES} stages x {depth} "
+                   f"blocks, {MESH_MICRO} microbatches", launches,
+                   {"flash_attention": MESH_STAGES * steps * depth},
+                   f"{MESH_STAGES} stages x ({MESH_MICRO} + "
+                   f"{MESH_STAGES - 1}) steps x {depth} attention layers: "
+                   f"every stage runs at every step, bubbles included")
+    ref = sequential()
+    got = out.gather("cuda")
+    err, rel, ok = close(got.float(), ref.float(), rtol=0.0,
+                         atol_of_scale=LM_BF16_TOL)
+    pieces_equal = all(torch.equal(t.to("cuda"), got)
+                       for t in out.pieces.flat)
+    pipe_ms, _ = wall_ms(piped, reps=1, warm=False)
+    seq_ms, _ = wall_ms(sequential, reps=1)
+    _, pipe_dev, pipe_wall = profiled(piped)
+    _, seq_dev, seq_wall = profiled(sequential)
+    res = {"stages": MESH_STAGES, "blocks_per_stage": depth,
+           "microbatches": MESH_MICRO, "seq": MESH_SEQ,
+           "launches": launches, "max_abs_err": err, "rel_err": rel,
+           "bitwise_sequential": bool(torch.equal(got, ref)),
+           "replicated_outputs_equal": pieces_equal,
+           "gpipe_ms": pipe_ms, "sequential_ms": seq_ms,
+           "gpipe_profiled": {"wall_ms": pipe_wall * 1e3,
+                              "busy_ms": sum(t for t, _ in
+                                             pipe_dev.values()) / 1e3,
+                              "top_device": top(pipe_dev, 6)},
+           "sequential_profiled": {"wall_ms": seq_wall * 1e3,
+                                   "busy_ms": sum(t for t, _ in
+                                                  seq_dev.values()) / 1e3}}
+    log("mesh", f"(b) GPipe {MESH_ARCH}: {res}; on {card}")
+    if not ok or not pieces_equal:
+        raise AssertionError("(b) the pipeline's outputs disagree with the "
+                             "sequential stack's, or between the stages")
+    del params, stacked, stage_params, out, ref, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_blocks(stacked, x, layers, positions, cfg):
+    """The first ``layers`` attention blocks of a stacked group on ``x``."""
+    from repro_torch.nn.transformer import _layer, block_apply
+    for i in range(layers):
+        x, _, _ = block_apply(_layer(stacked, i), x, positions, cfg, "attn")
+    return x
+
+
+def mesh_grad_check(card: str, arch: str, depth: int, batch: int,
+                    seq: int) -> dict:
+    """(c) first: ``arch`` at full width, ``depth`` layers, float32, the DP
+    step on a (MESH_DP_K, 1) mesh against the unsharded step from the same
+    seed-0 state: one step at learning rate 0 (the parameters untouched,
+    AdamW's m = (1 - b1) g), every gradient within MESH_GRAD_TOL of the
+    gradients' scale, the loss beside; the replicas bitwise equal."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed.sharding import (NamedSharding, P,
+                                                  device_put,
+                                                  zeros_like_defs)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_rules, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import get_optimizer, tree_leaves
+    cfg = ARCHS[arch].replace(num_layers=depth, dtype=torch.float32)
+    tcfg = TrainConfig(learning_rate=0.0, warmup_steps=1, total_steps=10,
+                       grad_clip=1e9)
+    data = token_batch(cfg, batch, seq)
+    mesh = make_host_mesh(MESH_DP_K, 1, devices=mesh_devices(MESH_DP_K))
+    label = (f"{arch} width, depth {depth}, float32, B={batch} S={seq}, "
+             f"({MESH_DP_K}, 1) mesh")
+
+    def fresh():
+        params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, "cuda")
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        odefs = get_optimizer(cfg.optimizer).state_defs(lm.lm_param_defs(cfg))
+        return params, zeros_like_defs(odefs, "cuda")
+    def on_mesh():
+        replicated = NamedSharding(mesh, P())
+        return tuple(device_put(t, replicated) for t in fresh())
+    one = make_train_step(cfg, tcfg)
+    (_, o1, m1), base = counted(lambda: one(*fresh(), data))
+    g1 = [t.detach() for t in tree_leaves(o1["m"])]     # (1 - b1) g
+    del _, o1
+    torch.cuda.empty_cache()
+    dp = make_train_step(cfg, tcfg, build_rules(cfg, mesh, "train", batch),
+                         mesh)
+    (p2, o2, m2), launches = counted(lambda: dp(*on_mesh(), data))
+    check_launches("mesh", f"(c) {label}: one DP step", launches,
+                   {k: MESH_DP_K * v for k, v in train_launches(cfg).items()},
+                   f"each of {MESH_DP_K} positions one forward and backward "
+                   f"({TRAIN_LAUNCHES_TXT})")
+    g2 = [t.gather("cuda").detach() for t in tree_leaves(o2["m"])]
+    scale = max(float(g.abs().max()) for g in g1)
+    worst = max(float((a - b).abs().max()) for a, b in zip(g1, g2)) / scale
+    rel_loss = abs(float(m1["loss"]) - float(m2["loss"])) / abs(
+        float(m1["loss"]))
+    replicas = all(torch.equal(t, leaf.pieces.flat[0].to(t.device))
+                   for leaf in tree_leaves(o2) for t in leaf.pieces.flat)
+    ok = worst <= MESH_GRAD_TOL and rel_loss <= MESH_GRAD_TOL and replicas
+    log("mesh", f"(c) {label}: loss {float(m2['loss']):.6f} (unsharded "
+        f"{float(m1['loss']):.6f}, {rel_loss:.2e} apart); gradients worst "
+        f"{worst:.2e} of their scale (tol {MESH_GRAD_TOL:g}); replicas "
+        f"bitwise {replicas}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(c) {label}: the DP step disagrees with the "
+                             f"unsharded step")
+    del o2, p2, g1, g2
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": rel_loss, "grad_rel_err": worst,
+            "launches": launches, "unsharded_launches": base}
+
+
+def mesh_train_run(card: str, k: int) -> tuple:
+    """(c) The Trainer on qwen1.5-0.5b at full width and depth (bf16, AdamW,
+    per-layer remat), MESH_DP_STEPS steps of MESH_DP_BATCH x TRAIN_SEQ
+    synth tokens, one ``run(1)`` a step with the counts from 0: on one
+    position (k = 1, no mesh) or on a (k, 1) mesh. Returns (its record,
+    the Trainer)."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = ARCHS[MESH_ARCH]
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=5,
+                       total_steps=MESH_DP_STEPS, checkpoint_every=0, seed=0)
+    mesh = (None if k == 1 else
+            make_host_mesh(k, 1, devices=mesh_devices(k)))
+    tr = Trainer(cfg, tcfg, global_batch=MESH_DP_BATCH, seq_len=TRAIN_SEQ,
+                 mesh=mesh, device="cuda")
+    tr.init_state()
+    per_step = train_launches(cfg)
+    losses, step_ms, replicas = [], [], []
+    for i in range(MESH_DP_STEPS):
+        run, launches = counted(lambda: tr.run(1, log_every=1000))
+        losses += run["losses"]
+        step_ms += [s * 1e3 for s in run["step_s"]]
+        check_launches("mesh", f"(c) {MESH_ARCH} K={k} step {i + 1}",
+                       launches, {n: k * v for n, v in per_step.items()},
+                       f"{k} position(s) x ({TRAIN_LAUNCHES_TXT})")
+        if mesh is not None:
+            replicas.append(all(
+                torch.equal(t.to(leaf.pieces.flat[0].device),
+                            leaf.pieces.flat[0])
+                for leaf in tree_leaves({"p": tr.params, "o": tr.opt_state})
+                for t in leaf.pieces.flat))
+    steady = sorted(step_ms[1:])
+    med = statistics.median(steady)
+    data = token_batch(cfg, MESH_DP_BATCH, TRAIN_SEQ, step=MESH_DP_STEPS)
+    _, on_device, wall = profiled(
+        lambda: tr.step_fn(tr.params, tr.opt_state, data))
+    busy_ms = sum(t for t, _ in on_device.values()) / 1e3
+    rec = {"k": k, "losses": losses, "step_ms": step_ms,
+           "step_ms_median": med,
+           "tokens_per_s": MESH_DP_BATCH * TRAIN_SEQ / (med / 1e3),
+           "launches_per_step": {n: k * v for n, v in per_step.items()},
+           "profiled_step_ms": wall * 1e3, "busy_ms": busy_ms,
+           "busy_share": busy_ms / (wall * 1e3)}
+    if mesh is not None:
+        rec["replicas_bitwise_each_step"] = replicas
+    log("mesh", f"(c) {MESH_ARCH} full width and depth, bf16, AdamW, remat, "
+        f"B={MESH_DP_BATCH} S={TRAIN_SEQ}, K={k}: losses "
+        f"{[round(x, 5) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]} (median of steps 2-"
+        f"{MESH_DP_STEPS}: {med:.1f}); {rec['tokens_per_s']:.0f} tokens/s; "
+        f"one more step under torch.profiler {wall * 1e3:.1f} ms, the card "
+        f"busy {busy_ms:.1f} ms ({rec['busy_share']:.1%})"
+        f"{'; replicas bitwise after each step ' + str(replicas) if replicas else ''}"
+        f"; on {card}")
+    if replicas and not all(replicas):
+        raise AssertionError("(c) the DP replicas drifted apart")
+    return rec, tr
+
+
+def mesh_compression(card: str, tr) -> dict:
+    """(d) ``tree_ef_compressed_psum`` of qwen1.5-0.5b's gradient tree (each
+    position's local gradient of its half of a synth batch, from the DP
+    Trainer's state) against the plain ``psum``: each leaf within its
+    quantisation bound, K x s_max / 2 an element for the rounding, plus the
+    pmax-of-scales term the reference keeps (sum over positions of |x_i| x
+    (s_max / s_i - 1)); wall time of each reduction. Then the reference's
+    least-squares convergence case on a (4,) mesh (200 steps, loss <
+    1e-3)."""
+    import torch
+    from repro_torch.distributed.collectives import psum, shard_map
+    from repro_torch.distributed.sharding import P, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.compression import (ef_compressed_psum,
+                                               quantize_int8,
+                                               tree_ef_compressed_psum)
+    from repro_torch.optim.optimizers import tree_leaves
+    mesh, cfg = tr.mesh, tr.cfg
+    data = token_batch(cfg, MESH_DP_BATCH, TRAIN_SEQ, step=MESH_DP_STEPS)
+
+    def local_grads(params, batch):
+        leaves = tree_leaves(params)
+        loss, _ = lm.lm_loss(params, batch, cfg)
+        return [g.float()[None] for g in torch.autograd.grad(loss, leaves)]
+    grads = shard_map(local_grads, mesh=mesh, in_specs=(P(), P("data")),
+                      out_specs=P("data"))(tr.params, data)
+
+    def plain(gs):
+        return [x[None] for x in psum([g[0] for g in gs], "data")]
+
+    def compressed(gs):
+        errs = [torch.zeros_like(g[0]) for g in gs]
+        red, _ = tree_ef_compressed_psum([g[0] for g in gs], errs, "data")
+        return [x[None] for x in red]
+    run_plain = shard_map(plain, mesh=mesh, in_specs=(P("data"),),
+                          out_specs=P("data"))
+    run_comp = shard_map(compressed, mesh=mesh, in_specs=(P("data"),),
+                         out_specs=P("data"))
+    plain_ms, want = wall_ms(lambda: run_plain(grads))
+    comp_ms, got = wall_ms(lambda: run_comp(grads))
+    k, leaves = mesh.size, len(want)
+    worst_share, pmax_share, nbytes = 0.0, 0.0, 0
+    eps = torch.finfo(torch.float32).eps
+    for g, w, r in zip(grads, want, got):
+        xs = [t[0].to("cuda") for t in g.pieces.flat]
+        scales = [quantize_int8(x)[1].double() for x in xs]
+        s_max = torch.stack(scales).max()
+        pmax_term = sum(x.double().abs() * (s_max / s - 1) for x, s in
+                        zip(xs, scales))
+        r = r.pieces.flat[0][0].to("cuda").double()
+        w = w.pieces.flat[0][0].to("cuda").double()
+        # the bound, in float64, plus the float32 roundings of the plain
+        # sum (k of them) and of the rescaling product (one)
+        bound = (k * s_max / 2 + pmax_term
+                 + (k + 1) * eps * (r.abs() + w.abs()))
+        share = float(((r - w).abs() / bound.clamp(min=1e-300)).max())
+        worst_share = max(worst_share, share)
+        pmax_share = max(pmax_share, float((pmax_term / bound).max()))
+        nbytes += xs[0].numel() * 4
+    del grads, want, got
+    torch.cuda.empty_cache()
+    # the reference's convergence case
+    ring = make_mesh((4,), ("pod",), devices=mesh_devices(4))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((64, 8), generator=gen, device="cuda")
+    y = x @ torch.randn(8, generator=gen, device="cuda")
+
+    def local(w, err, xb, yb):
+        w = w.detach().requires_grad_()
+        g, = torch.autograd.grad(torch.mean((xb @ w - yb) ** 2), w)
+        g_sum, e2 = ef_compressed_psum(g, err[0], "pod")
+        return (w - 0.05 * g_sum / 4).detach(), e2[None]
+    step = shard_map(local, mesh=ring,
+                     in_specs=(P(), P("pod"), P("pod"), P("pod")),
+                     out_specs=(P(), P("pod")))
+    w, err = torch.zeros(8, device="cuda"), torch.zeros(4, 8, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(200):
+        w, err = step(w, err, x, y)
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    final = float(torch.mean((x @ w.gather("cuda") - y) ** 2))
+    res = {"leaves": leaves, "grad_bytes": nbytes,
+           "worst_share_of_bound": worst_share,
+           "pmax_term_share_of_bound": pmax_share,
+           "psum_ms": plain_ms, "compressed_psum_ms": comp_ms,
+           "convergence_loss": final, "convergence_s": conv_s}
+    log("mesh", f"(d) tree_ef_compressed_psum of {MESH_ARCH}'s gradients "
+        f"({nbytes / 1e9:.2f} GB float32 a position) over {k} positions: "
+        f"worst error {worst_share:.3f} of its bound (the pmax-of-scales "
+        f"term up to {pmax_share:.3f} of it); wall {comp_ms:.1f} ms against "
+        f"the plain psum's {plain_ms:.1f} ms; least squares on a (4,) mesh: "
+        f"loss {final:.2e} after 200 steps ({conv_s:.2f} s); on {card}")
+    if not worst_share <= 1.0 or not final < 1e-3:
+        raise AssertionError("(d) the compressed reduction is out of bounds "
+                             "or does not converge")
+    return res
+
+
+def mesh_elastic(card: str, tr) -> dict:
+    """(e) The DP Trainer's parameters and AdamW state saved (one unsharded
+    copy, position 0's) and restored through ``elastic_restore`` onto
+    (1, 1) and (4, 1) meshes: every position's piece bitwise the saved
+    leaf; ``remesh_plan`` of llama3-8b's full definitions on the
+    production mesh (meta positions) without error, and an indivisible
+    case's ValueError with the reference's message."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.distributed.elastic import elastic_restore, remesh_plan
+    from repro_torch.distributed.sharding import ParamDef, make_rules, map_defs
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.launch.steps import build_rules
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_leaves
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    state = {"params": tr.params, "opt": tr.opt_state}
+    t0 = time.perf_counter()
+    ckpt.save(MESH_CKPT, tr.step, state, keep_n=1)
+    save_s = time.perf_counter() - t0
+    saved = [leaf.pieces.flat[0] for leaf in tree_leaves(state)]
+    defs = {"params": tr.pdefs, "opt": tr.odefs}
+    like = map_defs(lambda d: torch.empty(0), defs)
+    out = {"save_s": save_s,
+           "bytes": sum(t.numel() * t.element_size() for t in saved)}
+    for shape in ((1, 1), (4, 1)):
+        mesh = make_host_mesh(*shape, devices=mesh_devices(shape[0]))
+        rules = build_rules(tr.cfg, mesh, "train", MESH_DP_BATCH)
+        t0 = time.perf_counter()
+        step, restored, _ = elastic_restore(MESH_CKPT, defs, rules, mesh,
+                                            like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = step == tr.step and all(
+            torch.equal(p.to(s.device), s)
+            for s, leaf in zip(saved, tree_leaves(restored))
+            for p in leaf.pieces.flat)
+        out[f"{shape[0]}x{shape[1]}"] = {"bitwise": same,
+                                         "restore_s": restore_s}
+        del restored
+        torch.cuda.empty_cache()
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    prod = make_production_mesh()
+    llama = ARCHS["llama3-8b"]
+    plan = remesh_plan(lm.lm_param_defs(llama),
+                       build_rules(llama, prod, "train"), prod)
+    out["llama3_8b_production_plan_leaves"] = len(tree_leaves(plan))
+    try:
+        remesh_plan({"w": ParamDef((6, 5), ("embed", "heads"))},
+                    make_rules(), prod)
+        out["indivisible_message"] = None
+    except ValueError as e:
+        out["indivisible_message"] = str(e)
+    want = ("cannot remesh: dim 5 of (6, 5) not divisible by axis product "
+            "16 (('model',)) on mesh {'data': np.int64(16), 'model': "
+            "np.int64(16)}")
+    log("mesh", f"(e) elastic: {out}; on {card}")
+    if (not out["1x1"]["bitwise"] or not out["4x1"]["bitwise"]
+            or out["indivisible_message"] != want):
+        raise AssertionError("(e) the elastic restore or the plan failed")
+    return out
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 11: (a) the collectives, (b) GPipe, (c) data-parallel training
+    (the depth-2 float32 gradient checks, then K=1 and K=MESH_DP_K), (d)
+    compression, (e) elastic restore. Returns the ``[mesh] json`` record;
+    its ``paths`` hold each run's launches."""
+    import torch
+    out = {"card": card, "device_count": torch.cuda.device_count(),
+           "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        out["seconds"][part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    out["collectives"] = mesh_collectives(card)
+    lap("a")
+    out["gpipe"] = mesh_gpipe(card)
+    lap("b")
+    out["dp_grads"] = {arch: mesh_grad_check(card, arch, depth, b, s)
+                       for arch, depth, b, s in TRAIN_CHECK}
+    lap("c_grads")
+    one, tr = mesh_train_run(card, 1)
+    del tr
+    torch.cuda.empty_cache()
+    lap("c_k1")
+    dp, tr = mesh_train_run(card, MESH_DP_K)
+    lap(f"c_k{MESH_DP_K}")
+    dp["loss_abs_diff_vs_k1"] = [abs(a - b) for a, b in
+                                 zip(dp["losses"], one["losses"])]
+    out["dp_train"] = {"k1": one, f"k{MESH_DP_K}": dp}
+    log("mesh", f"(c) K={MESH_DP_K} against K=1 per step: "
+        f"{dp['loss_abs_diff_vs_k1']} (tol {MESH_LOSS_TOL:g})")
+    if max(dp["loss_abs_diff_vs_k1"]) >= MESH_LOSS_TOL:
+        raise AssertionError("(c) the DP losses left the one-position run's")
+    out["compression"] = mesh_compression(card, tr)
+    lap("d")
+    out["elastic"] = mesh_elastic(card, tr)
+    del tr
+    torch.cuda.empty_cache()
+    lap("e")
+    log("mesh", f"seconds by part: {out['seconds']}")
+    out["paths"] = {
+        "mesh_gpipe": {"launches": out["gpipe"]["launches"]},
+        f"mesh_dp_{MESH_ARCH}": {"launches": {
+            n: MESH_DP_STEPS * v
+            for n, v in dp["launches_per_step"].items()}}}
+    return out
+
+
 # what ``--only`` runs after phase 1: the sources it builds (phase 2) and
 # its phase alone, with no result lines
 ONLY_SOURCES = {"wide": ["layer_fused", "mp_pipeline"],
                 "lm_families": ["mp_scatter", "gather_rows",
                                 "flash_attention"],
                 "train": ["flash_attention", "flash_attention_bwd",
-                          "mp_scatter", "gather_rows"]}
+                          "mp_scatter", "gather_rows"],
+                "mesh": ["flash_attention", "flash_attention_bwd",
+                         "mp_scatter", "gather_rows"]}
 
 
 def main(argv=None) -> int:
@@ -6409,6 +6969,11 @@ def main(argv=None) -> int:
         train = train_phase(card)
         log("train", "json " + json.dumps(
             {"rows": train["rows"], "paths": train["paths"]}, default=str))
+        print(smi)
+        return 0
+    if only == "mesh":
+        # phase 11 alone: no result lines
+        log("mesh", "json " + json.dumps(mesh_phase(card), default=str))
         print(smi)
         return 0
     scatter_build = scatter_build_report()
@@ -6476,8 +7041,13 @@ def main(argv=None) -> int:
     log("train", "json " + json.dumps(
         {"rows": train["rows"], "paths": train["paths"]}, default=str))
     paths.update(train["paths"])
+    # 11. the mesh: collectives, GPipe, data-parallel training, compression
+    # and elastic restore on positions of the card
+    mesh = mesh_phase(card)
+    log("mesh", "json " + json.dumps(mesh, default=str))
+    paths.update(mesh["paths"])
 
-    # 10. result: each kernel's row at the largest shape its main path gives
+    # 12. result: each kernel's row at the largest shape its main path gives
     # it (the hep bucket for the GNN kernels), and its launches in its main
     # path's run
     def row(name, source, replaces, cases, main, path, shape):

@@ -37,6 +37,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import NamedSharding, Sharded, shard
+
 MANIFEST = "manifest.json"
 
 
@@ -89,6 +91,8 @@ def _unflatten(like, leaves: List[Any]):
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as the host array whose bytes are written, and the dtype the
     manifest names (``bfloat16`` for a 2-byte opaque array)."""
+    if isinstance(leaf, Sharded):            # one unsharded copy
+        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -134,7 +138,7 @@ def save(root: os.PathLike, step: int, tree: Any, *, keep_n: int = 3,
             "file": fname,
             "shape": list(arr.shape),
             "dtype": dtype,
-            "crc32": zlib.crc32(arr.tobytes()),
+            "crc32": _crc32(arr),
         }
     with open(tmp / MANIFEST, "w") as f:
         json.dump(manifest, f)
@@ -150,19 +154,28 @@ def save(root: os.PathLike, step: int, tree: Any, *, keep_n: int = 3,
     return final
 
 
-def _validate(path: Path) -> Optional[Dict]:
-    """The step's manifest if every leaf is present and its CRC checks,
-    else ``None``."""
+def _crc32(arr: np.ndarray) -> int:
+    """CRC-32 of ``arr.tobytes()``, read from the array's own buffer."""
+    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
+def _validate(path: Path, keep=()) -> Optional[Tuple[Dict, Dict]]:
+    """(the step's manifest, {key: array} for the leaves named in ``keep``)
+    if every leaf is present and its CRC checks, else ``None``: one read
+    of each file validates it and keeps what the caller restores."""
     try:
         manifest = json.loads((path / MANIFEST).read_text())
+        kept = {}
         for key, meta in manifest["leaves"].items():
             f = path / meta["file"]
             if not f.exists():
                 return None
             arr = np.load(f)
-            if zlib.crc32(arr.tobytes()) != meta["crc32"]:
+            if _crc32(arr) != meta["crc32"]:
                 return None
-        return manifest
+            if key in keep:
+                kept[key] = arr
+        return manifest, kept
     except Exception:
         return None
 
@@ -184,7 +197,10 @@ def _to_tensor(arr: np.ndarray, dtype: str, key: str) -> torch.Tensor:
         raise ValueError(f"checkpoint leaf {key}: dtype {dtype} "
                          f"({arr.dtype.itemsize}-byte opaque values) cannot "
                          f"be read into a tensor")
-    return torch.from_numpy(np.array(arr, copy=True))
+    # an array np.load made is the tensor's own; any other is copied
+    return torch.from_numpy(arr if arr.flags.writeable and arr.flags.owndata
+                            and arr.flags.c_contiguous
+                            else np.array(arr, copy=True))
 
 
 def _device_of(leaf) -> torch.device:
@@ -193,37 +209,79 @@ def _device_of(leaf) -> torch.device:
     return torch.device("cpu")
 
 
+def _sharding_leaves(shardings, like) -> List[Any]:
+    """``shardings``' leaf for each leaf of ``like`` (a ``NamedSharding``
+    or ``None``), in ``_leaf_paths`` order; ``ValueError`` where the two
+    trees differ in structure."""
+    out: List[Any] = []
+
+    def walk(s, node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            if not isinstance(s, dict) or sorted(s) != sorted(node):
+                raise ValueError(f"shardings at {path or 'the root'} do not "
+                                 f"match like's keys")
+            for k in sorted(node):
+                walk(s[k], node[k], f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            if not isinstance(s, (list, tuple)) or len(s) != len(node):
+                raise ValueError(f"shardings at {path or 'the root'} do not "
+                                 f"match like's sequence")
+            for i, (a, b) in enumerate(zip(s, node)):
+                walk(a, b, f"{path}/{i}")
+        elif s is None or isinstance(s, NamedSharding):
+            out.append(s)
+        else:
+            raise ValueError(f"shardings at {path}: {type(s).__name__} is "
+                             f"not a NamedSharding")
+    walk(shardings, like, "")
+    return out
+
+
 def restore(root: os.PathLike, step: int, like: Any, *,
             shardings: Any = None) -> Tuple[Any, Dict]:
     """Restore ``step`` into the structure of ``like`` (a tree of tensors),
-    each leaf on the device of ``like``'s leaf (the CPU for a leaf that is
-    not a tensor), in the dtype it was stored in. Returns ``(tree,
-    extra)``. ``shardings`` places leaves on a mesh in the JAX package; one
-    GPU has none, so anything but ``None`` raises ``ValueError``. A step
-    that is missing or fails validation raises ``IOError``."""
-    if shardings is not None:
-        raise ValueError("shardings= has no meaning on one GPU; leaves go "
-                         "to the devices of like's leaves")
+    in the dtype each leaf was stored in. Returns ``(tree, extra)``.
+
+    Without ``shardings`` each leaf goes to the device of ``like``'s leaf
+    (the CPU for a leaf that is not a tensor). ``shardings``, a tree of the
+    same structure as ``like`` (``ValueError`` otherwise), places each leaf
+    on its ``NamedSharding`` with ``device_put``: a ``Sharded`` whose every
+    position owns its block (where the leaf's sharding is ``None``, as
+    without). This is where elastic resharding happens. A step that is
+    missing or fails validation raises ``IOError``."""
     path = Path(root) / f"step_{step:010d}"
-    manifest = _validate(path)
-    if manifest is None:
+    placements = (None if shardings is None
+                  else _sharding_leaves(shardings, like))
+    valid = _validate(path, {key for key, _ in _leaf_paths(like)})
+    if valid is None:
         raise IOError(f"checkpoint at {path} is missing or corrupt")
+    return _read(*valid, like, placements)
+
+
+def _read(manifest: Dict, arrays: Dict, like: Any, placements) -> Tuple[
+        Any, Dict]:
     leaves = []
-    for key, leaf in _leaf_paths(like):
-        meta = manifest["leaves"][key]
-        arr = np.load(path / meta["file"])
-        leaves.append(_to_tensor(arr, meta["dtype"], key).to(
-            _device_of(leaf)))
+    for i, (key, leaf) in enumerate(_leaf_paths(like)):
+        t = _to_tensor(arrays[key], manifest["leaves"][key]["dtype"], key)
+        if placements is not None and placements[i] is not None:
+            leaves.append(shard(t, placements[i]))
+        else:
+            leaves.append(t.to(_device_of(leaf)))
     return _unflatten(like, leaves), manifest["extra"]
 
 
 def restore_latest(root: os.PathLike, like: Any, *, shardings: Any = None
                    ) -> Optional[Tuple[int, Any, Dict]]:
     """Newest valid checkpoint, skipping corrupt ones. None if none exist."""
+    placements = (None if shardings is None
+                  else _sharding_leaves(shardings, like))
+    keys = {key for key, _ in _leaf_paths(like)}
     for step in reversed(list_steps(root)):
-        path = Path(root) / f"step_{step:010d}"
-        if _validate(path) is None:
+        valid = _validate(Path(root) / f"step_{step:010d}", keys)
+        if valid is None:
             continue
-        tree, extra = restore(root, step, like, shardings=shardings)
+        tree, extra = _read(*valid, like, placements)
         return step, tree, extra
     return None

@@ -1,0 +1,414 @@
+"""``shard_map`` and the collectives over named mesh axes.
+
+The twin of ``repro/distributed/sharding.py::compat_shard_map`` and of the
+``jax.lax`` collectives the reference uses inside it (``psum``, ``pmax``,
+``axis_index``, ``axis_size``, ``ppermute``, ``all_gather``).
+
+One controller, one thread a position. ``shard_map(f, mesh=, in_specs=,
+out_specs=)`` splits its inputs by their specs (``distributed/
+sharding.py::NamedSharding``) and runs ``f`` once a position of the mesh,
+each in its own thread: under ``torch.cuda.device`` and
+``torch.cuda.stream`` of the position's own stream on a GPU, in the
+caller's grad (or inference) mode, which PyTorch keeps per thread. The
+outputs come back as ``Sharded`` tensors assembled by ``out_specs``: a
+dimension named there is the positions' pieces side by side, an unnamed
+one is taken as replicated (each position keeps its own piece, as with
+``check_vma=False`` in JAX).
+
+Collectives meet at a rendezvous of the threads of the named axes (the
+positions that differ only in those axes' coordinates), in the order each
+thread calls them. A reduction is done by one thread, the group's first
+position, in fixed position order, and the others take a copy of its
+result: the same bits on the CPU, on one card and on several. A tensor
+handed between two positions on one card is read on the receiver's stream
+after it waits on an event the sender recorded, and is recorded on the
+receiver's stream so that the caching allocator does not hand its memory
+out again before the read; between two devices it is copied on the
+sender's stream. The position streams wait on the caller's stream before
+``f`` starts, and the caller's stream waits on them before ``shard_map``
+returns.
+
+Process-wide settings (TF32, deterministic algorithms, intra-op threads)
+are the caller's to set before ``shard_map``; a position's thread never
+sets them. An exception in one position is raised in the caller once every
+thread has ended: a position waiting at a rendezvous is released (and its
+own work abandoned), and a position that returns without joining a
+collective the others wait at fails them with an error naming it.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from contextlib import ExitStack
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.distributed.sharding import (Mesh, MeshAxis, NamedSharding,
+                                              P, Sharded, axis_names_of,
+                                              shard, tree_leaves,
+                                              tree_unflatten)
+
+_LOCAL = threading.local()
+
+
+class _Abandoned(Exception):
+    """Raised in a position whose ``shard_map`` failed in another one."""
+
+
+class _Call:
+    """One ``shard_map`` call: its rendezvous slots and its first error."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.cond = threading.Condition()
+        self.error: Optional[BaseException] = None
+        self.done: set = set()
+        self.slots: Dict[Tuple, Dict[str, Any]] = {}
+
+
+class _Position:
+    """The thread-local state of one position inside a ``shard_map``."""
+
+    def __init__(self, call: _Call, coord: Tuple[int, ...]):
+        self.call = call
+        self.coord = coord
+        self.device: torch.device = call.mesh.devices[coord]
+        self.stream = call.mesh.streams[coord]
+        self.seqs: Dict[Tuple, int] = {}
+
+
+def _here() -> _Position:
+    pos = getattr(_LOCAL, "position", None)
+    if pos is None:
+        raise RuntimeError("mesh collectives run inside shard_map")
+    return pos
+
+
+def _group(pos: _Position, axis_name: MeshAxis):
+    """(group key, this position's index in it, its members' coordinates in
+    row-major order over the named axes)."""
+    mesh = pos.call.mesh
+    names = axis_names_of(axis_name)
+    unknown = [n for n in names if n not in mesh.shape]
+    if unknown or not names:
+        raise ValueError(f"axis {axis_name!r} is not an axis of {mesh}")
+    coord = dict(zip(mesh.axis_names, pos.coord))
+    idx = 0
+    for n in names:
+        idx = idx * mesh.shape[n] + coord[n]
+    members = []
+    for combo in np.ndindex(*(mesh.shape[n] for n in names)):
+        c = dict(coord)
+        c.update(zip(names, combo))
+        members.append(tuple(c[n] for n in mesh.axis_names))
+    others = tuple((n, coord[n]) for n in mesh.axis_names if n not in names)
+    return (names, others), idx, members
+
+
+def axis_index(axis_name: MeshAxis) -> int:
+    """This position's index along ``axis_name`` (row-major over a tuple of
+    axes)."""
+    return _group(_here(), axis_name)[1]
+
+
+def axis_size(axis_name: MeshAxis) -> int:
+    """The number of positions along ``axis_name`` (the product over a
+    tuple of axes)."""
+    mesh = _here().call.mesh
+    return math.prod(mesh.shape[n] for n in axis_names_of(axis_name))
+
+
+def _exchange(axis_name: MeshAxis, value: Any) -> Tuple[List[Any], int]:
+    """Put ``value`` in this position's slot of the group's next
+    rendezvous and wait for every member's: (each member's (value, event,
+    stream) in group order, this position's index)."""
+    pos = _here()
+    key, idx, members = _group(pos, axis_name)
+    seq = pos.seqs.get(key, 0)
+    pos.seqs[key] = seq + 1
+    event = None
+    if pos.stream is not None:
+        event = torch.cuda.Event()
+        event.record(pos.stream)
+    call = pos.call
+    size = len(members)
+    with call.cond:
+        entry = call.slots.setdefault(
+            (key, seq), {"vals": [None] * size, "n": 0, "left": size})
+        entry["vals"][idx] = (value, event, pos.stream)
+        entry["n"] += 1
+        call.cond.notify_all()
+        while entry["n"] < size:
+            if call.error is not None:
+                raise _Abandoned()
+            gone = [members[j] for j in range(size)
+                    if entry["vals"][j] is None and members[j] in call.done]
+            if gone:
+                raise RuntimeError(
+                    f"position {gone[0]} returned from the shard_map'd "
+                    f"function without joining collective #{seq} over "
+                    f"{key[0]}")
+            call.cond.wait()
+        entry["left"] -= 1
+        if entry["left"] == 0:
+            del call.slots[(key, seq)]
+    return entry["vals"], idx
+
+
+def _received(pos: _Position, t: Any, event, src_stream, *,
+              copy: bool) -> Any:
+    """Another position's tensor ``t``, usable on this position: on this
+    device after this stream waits on the sender's event (a copy with
+    ``copy``, else ``t`` itself, recorded on this stream); from another
+    device copied on the sender's stream."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    if t.device == pos.device:
+        if (pos.stream is not None and src_stream is not None
+                and src_stream != pos.stream):
+            pos.stream.wait_event(event)
+            t.record_stream(pos.stream)
+        return t.clone() if copy else t
+    if src_stream is not None:
+        with torch.cuda.stream(src_stream):
+            return t.to(pos.device)
+    return t.to(pos.device)
+
+
+def _reduce(x: Any, axis_name: MeshAxis, op: Callable) -> Any:
+    leaves = tree_leaves(x)
+    vals, idx = _exchange(axis_name, leaves)
+    if len(vals) == 1:
+        return x
+    pos = _here()
+    totals = None
+    if idx == 0:
+        totals = []
+        for j, own in enumerate(leaves):
+            acc = own
+            for m in range(1, len(vals)):
+                value, event, stream = vals[m]
+                other = _received(pos, value[j], event, stream, copy=False)
+                if acc is own:
+                    acc = op(acc, other)
+                else:
+                    op(acc, other, out=acc)         # in place after the first
+            totals.append(acc)
+    published, _ = _exchange(axis_name, totals)
+    if idx == 0:
+        return tree_unflatten(x, totals)
+    value, event, stream = published[0]
+    return tree_unflatten(x, [_received(pos, t, event, stream, copy=True)
+                              for t in value])
+
+
+def psum(x: Any, axis_name: MeshAxis) -> Any:
+    """The sum of ``x`` (a tensor or a tree of them) over the positions of
+    ``axis_name``, added in position order by the first."""
+    return _reduce(x, axis_name, torch.add)
+
+
+def pmax(x: Any, axis_name: MeshAxis) -> Any:
+    """The elementwise maximum of ``x`` (a tensor or a tree of them) over
+    the positions of ``axis_name``."""
+    return _reduce(x, axis_name, torch.maximum)
+
+
+def ppermute(x: Any, axis_name: MeshAxis,
+             perm: Sequence[Tuple[int, int]]) -> Any:
+    """``x`` sent along the (source, destination) pairs of ``perm`` over
+    ``axis_name``'s indices; a position no pair sends to gets zeros. On one
+    device the received tensor is the sender's own: read it, do not write
+    it."""
+    vals, idx = _exchange(axis_name, tree_leaves(x))
+    src = [s for s, d in perm if d == idx]
+    if not src:
+        return tree_unflatten(x, [torch.zeros_like(t)
+                                  for t in tree_leaves(x)])
+    if src[0] == idx:
+        return x
+    value, event, stream = vals[src[0]]
+    return tree_unflatten(x, [_received(_here(), t, event, stream,
+                                        copy=False) for t in value])
+
+
+def all_gather(x: torch.Tensor, axis_name: MeshAxis) -> torch.Tensor:
+    """Every position's ``x`` over ``axis_name``, stacked on a new leading
+    dimension in index order (``jax.lax.all_gather``, untiled)."""
+    vals, _ = _exchange(axis_name, x)
+    pos = _here()
+    return torch.stack([_received(pos, v, event, stream, copy=False)
+                        for v, event, stream in vals])
+
+
+# ---------------------------------------------------------------------------
+# shard_map
+# ---------------------------------------------------------------------------
+
+def _split(tree: Any, spec: Any, mesh: Mesh) -> Dict[Tuple, Any]:
+    """{position: its part of ``tree``} under ``spec`` (a ``P`` for the
+    whole subtree, or a tree of them matching ``tree``'s prefix)."""
+    positions = mesh.positions()
+    if isinstance(spec, P):
+        leaves = tree_leaves(tree)
+        parts = []
+        for leaf in leaves:
+            if isinstance(leaf, Sharded):
+                if leaf.mesh is mesh and leaf.sharding.spec == spec:
+                    parts.append(leaf.pieces)
+                else:               # resharded: every position owns a piece
+                    parts.append(shard(leaf.gather(),
+                                       NamedSharding(mesh, spec)).pieces)
+            elif isinstance(leaf, torch.Tensor):
+                parts.append(shard(leaf, NamedSharding(mesh, spec),
+                                   copy=False).pieces)
+            else:
+                parts.append(None)
+        return {pos: tree_unflatten(tree, [leaf if part is None else part[pos]
+                                           for leaf, part in zip(leaves,
+                                                                 parts)])
+                for pos in positions}
+    if spec is None:
+        return {pos: tree for pos in positions}
+    if isinstance(spec, dict):
+        subs = {k: _split(tree[k], spec[k], mesh) for k in spec}
+        return {pos: {k: subs[k][pos] for k in tree} for pos in positions}
+    if isinstance(spec, (list, tuple)):
+        if len(spec) != len(tree):
+            raise ValueError(f"spec tree {spec} does not match the value "
+                             f"tree ({len(tree)} entries)")
+        subs = [_split(t, s, mesh) for t, s in zip(tree, spec)]
+        return {pos: type(tree)(*(s[pos] for s in subs))
+                if isinstance(tree, tuple) and hasattr(tree, "_fields")
+                else type(tree)(s[pos] for s in subs)
+                for pos in positions}
+    raise TypeError(f"not a partition spec: {spec!r}")
+
+
+def _global_shape(piece: torch.Tensor, spec: P, mesh: Mesh) -> Tuple:
+    shape = list(piece.shape)
+    for d, entry in enumerate(spec):
+        shape[d] *= mesh.axis_sizes(entry)
+    return tuple(shape)
+
+
+def _assemble(outs: Dict[Tuple, Any], spec: Any, mesh: Mesh) -> Any:
+    """The positions' outputs as one tree of ``Sharded`` leaves under
+    ``spec`` (non-tensor leaves: position 0's)."""
+    positions = mesh.positions()
+    first = outs[positions[0]]
+    if isinstance(spec, P):
+        flat = {pos: tree_leaves(outs[pos]) for pos in positions}
+        leaves = tree_leaves(first)
+        done = []
+        for j, leaf in enumerate(leaves):
+            if not isinstance(leaf, torch.Tensor):
+                done.append(leaf)
+                continue
+            pieces = np.empty(mesh.devices.shape, dtype=object)
+            for pos in positions:
+                pieces[pos] = flat[pos][j]
+            done.append(Sharded(NamedSharding(mesh, spec),
+                                _global_shape(leaf, spec, mesh), pieces))
+        return tree_unflatten(first, done)
+    if isinstance(spec, dict):
+        return {k: _assemble({pos: o[k] for pos, o in outs.items()},
+                             spec[k], mesh) for k in spec}
+    if isinstance(spec, (list, tuple)):
+        return type(spec)(_assemble({pos: o[i] for pos, o in outs.items()},
+                                    s, mesh) for i, s in enumerate(spec))
+    raise TypeError(f"not a partition spec: {spec!r}")
+
+
+def _position_main(call: _Call, coord, f, args, results, grad: bool,
+                   inference: bool, starts) -> None:
+    pos = _Position(call, coord)
+    _LOCAL.position = pos
+    try:
+        with ExitStack() as stack:
+            if pos.stream is not None:
+                stack.enter_context(torch.cuda.device(pos.device))
+                stack.enter_context(torch.cuda.stream(pos.stream))
+                pos.stream.wait_event(starts[pos.device])
+            stack.enter_context(torch.inference_mode() if inference
+                                else torch.set_grad_enabled(grad))
+            results[coord] = f(*args)
+    except _Abandoned:
+        pass
+    except BaseException as e:                      # noqa: BLE001
+        with call.cond:
+            if call.error is None:
+                call.error = e
+            call.cond.notify_all()
+    finally:
+        with call.cond:
+            call.done.add(coord)
+            call.cond.notify_all()
+        _LOCAL.position = None
+
+
+def _run_positions(mesh: Mesh, f: Callable,
+                   args_of: Dict[Tuple, Sequence[Any]]) -> Dict[Tuple, Any]:
+    """``f(*args_of[position])`` once a position of ``mesh``, each in its
+    own thread, as ``shard_map`` runs them: {position: what it returned}.
+    Raises the first position's exception once every thread has ended."""
+    if getattr(_LOCAL, "position", None) is not None:
+        raise RuntimeError("shard_map cannot run inside shard_map")
+    call = _Call(mesh)
+    cuda = {d for d in mesh.devices.flat if d.type == "cuda"}
+    starts = {}
+    for dev in cuda:
+        starts[dev] = torch.cuda.Event()
+        starts[dev].record(torch.cuda.current_stream(dev))
+    results: Dict[Tuple, Any] = {}
+    threads = [threading.Thread(
+        target=_position_main, name=f"shard_map{coord}", daemon=True,
+        args=(call, coord, f, args_of[coord], results,
+              torch.is_grad_enabled(), torch.is_inference_mode_enabled(),
+              starts)) for coord in mesh.positions()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for coord in mesh.positions():
+        stream = mesh.streams[coord]
+        if stream is not None:
+            done = torch.cuda.Event()
+            done.record(stream)
+            torch.cuda.current_stream(stream.device).wait_event(done)
+    if call.error is not None:
+        raise call.error
+    return results
+
+
+def shard_map(f: Callable, *, mesh: Mesh, in_specs: Any,
+              out_specs: Any) -> Callable:
+    """``f`` run once a position of ``mesh`` on its part of the inputs.
+
+    ``in_specs`` has one entry an argument: a ``P`` (for every tensor of
+    that argument's tree) or a tree of them. A tensor is split by its spec
+    (a position on its device gets a view, to read and not to write; others
+    a copy); a ``Sharded`` already on ``mesh`` under the same spec passes
+    its pieces as they are, and one under another spec is resharded, each
+    position owning its new piece.
+    Non-tensor leaves reach every position unchanged. ``out_specs`` says
+    how each output's pieces fit together; every tensor output comes back
+    as a ``Sharded``."""
+    specs = in_specs if isinstance(in_specs, tuple) else (in_specs,)
+
+    def mapped(*args):
+        if len(specs) != len(args):
+            raise ValueError(f"shard_map: {len(args)} arguments, "
+                             f"{len(specs)} in_specs")
+        parts = [_split(a, s, mesh) for a, s in zip(args, specs)]
+        outs = _run_positions(mesh, f, {pos: [p[pos] for p in parts]
+                                        for pos in mesh.positions()})
+        return _assemble(outs, out_specs, mesh)
+    return mapped
+
+
+__all__ = ["all_gather", "axis_index", "axis_size", "pmax", "ppermute",
+           "psum", "shard_map"]

@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -97,3 +98,11 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _LOADED[name] = lib
         return lib
+
+
+def count_launches(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches`` under a lock: the positions of a
+    mesh launch kernels from threads of their own, and a bare ``+=`` there
+    can lose counts."""
+    with _COUNT_LOCK:
+        wrapper.launches += n

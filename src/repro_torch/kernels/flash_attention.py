@@ -301,7 +301,7 @@ def _launch(q, k, v, *, causal, window, softcap, lse=None):
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed with CUDA error "
                            f"{err}")
-    flash_attention.launches += 1
+    build.count_launches(flash_attention)
     return out
 
 
@@ -354,5 +354,5 @@ def _launch_bwd(q, k, v, out, lse, dout, *, causal, window, softcap):
         raise RuntimeError(f"flash_attention_bwd launch failed with CUDA "
                            f"error {err}")
     # two CUDA launches a call: dQ (and delta), then dK / dV
-    flash_attention_bwd.launches += int(sq > 0) + int(sk > 0)
+    build.count_launches(flash_attention_bwd, int(sq > 0) + int(sk > 0))
     return dq, dk, dv, stats

@@ -121,5 +121,5 @@ def _launch(x, w1, b1, w2, b2, senders, receivers, edge_mask, edge_feat,
     if err != 0:
         raise RuntimeError(f"fused_nt_scatter launch failed with CUDA error "
                            f"{err}")
-    fused_nt_scatter.launches += 2 * int(n > 0)
+    build.count_launches(fused_nt_scatter, 2 * int(n > 0))
     return out

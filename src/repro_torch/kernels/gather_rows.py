@@ -123,5 +123,5 @@ def _launch(y, idx, mask):
                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_rows launch failed with CUDA error {err}")
-    gather_rows.launches += int(s > 0)
+    build.count_launches(gather_rows, int(s > 0))
     return out

@@ -299,5 +299,5 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, epilogue,
     err = _kernel()(*args)
     if err != 0:
         raise RuntimeError(f"layer_fused launch failed with CUDA error {err}")
-    layer_fused.launches += 1
+    build.count_launches(layer_fused)
     return out

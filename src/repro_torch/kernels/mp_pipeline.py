@@ -372,5 +372,5 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, stats, heads,
     err = _kernel()(*args)
     if err != 0:
         raise RuntimeError(f"mp_pipeline launch failed with CUDA error {err}")
-    mp_pipeline.launches += 1
+    build.count_launches(mp_pipeline)
     return out

@@ -131,7 +131,7 @@ def _scatter_sum(msg, receivers, edge_mask, num_nodes, rows_per_block):
                               num_nodes).to(msg.dtype)
     out = _launch(msg, receivers, edge_mask, num_nodes, ("sum",),
                   rows_per_block, multi=False)["sum"]
-    mp_scatter.launches += int(num_nodes > 0)
+    build.count_launches(mp_scatter, int(num_nodes > 0))
     return out
 
 
@@ -177,7 +177,7 @@ def mp_scatter_multi(msg: torch.Tensor, receivers: torch.Tensor,
                                     stats)
     out = _launch(msg, receivers, edge_mask, num_nodes, stats,
                   rows_per_block, multi=True)
-    mp_scatter_multi.launches += int(num_nodes > 0)
+    build.count_launches(mp_scatter_multi, int(num_nodes > 0))
     return out
 
 

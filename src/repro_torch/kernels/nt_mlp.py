@@ -128,5 +128,5 @@ def _launch(x, w1, b1, w2, b2, rows_per_block):
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nt_mlp launch failed with CUDA error {err}")
-    nt_mlp.launches += int(n > 0)
+    build.count_launches(nt_mlp, int(n > 0))
     return out

@@ -130,5 +130,5 @@ def _launch(logits, receivers, edge_mask, n_pad, rows_per_block):
                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"seg_softmax launch failed with CUDA error {err}")
-    seg_softmax.launches += int(n_pad > 0 or e > 0)
+    build.count_launches(seg_softmax, int(n_pad > 0 or e > 0))
     return out[:, 0] if squeeze else out

@@ -1,27 +1,90 @@
 """Step builders shared by the trainer and the server.
 
-The twin of the single-device part of ``repro/launch/steps.py``:
-``batch_defs`` and its siblings declare a step's inputs as ``ParamDef``s,
-``make_train_step`` builds the training step (the loss, its gradient by
-autograd, microbatch accumulation, the optimizer), and
+The twin of ``repro/launch/steps.py``: ``build_rules`` picks a
+deployment's rule table, ``batch_defs`` declares a step's inputs as
+``ParamDef``s, ``make_train_step`` builds the training step (the loss, its
+gradient by autograd, microbatch accumulation, the optimizer), and
 ``make_prefill_step`` / ``make_decode_step`` the serving steps (under
-``torch.no_grad``). The reference's ``build_rules`` and
-``lowering_bundle`` lower these steps onto a TPU mesh, with the abstract
-inputs of ``prefill_input_defs`` / ``decode_input_defs``; they are mesh
-tooling, which the port has not reached (ROADMAP).
+``torch.no_grad``).
+
+On a mesh the training step is data parallel: one ``shard_map``
+(``distributed/collectives.py``) in which every position holds the whole
+model and optimizer state, takes its rows of the batch (the rows
+``P('data')`` gives it: position i of K the contiguous rows [i B/K,
+(i+1) B/K)), computes its part of the loss and the gradients, then
+``psum``s over the batch axes the float32 gradients and the loss's parts,
+and makes the same optimizer update as every other replica. The loss is
+the global batch's, as the reference's GSPMD step computes it, not a mean
+of the shards' means: a shard's NLL is divided by the whole microbatch's
+mask sum, a microbatch is a slice of the global batch (the reference's
+reshape), and the MoE routes the global token groups
+(``nn/moe.py::TokenShards``). A rule table that would split a weight
+(tensor, expert or sequence parallelism, FSDP) raises
+``NotImplementedError``: that is a later slice (ROADMAP). The
+reference's ``lowering_bundle`` lowers the steps for its dry-run, which
+the port has not reached either.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
-from repro_torch.distributed.sharding import ParamDef
+from repro_torch.distributed.collectives import (all_gather, axis_index,
+                                                 psum, shard_map)
+from repro_torch.distributed.sharding import (Mesh, NamedSharding, P,
+                                              ParamDef, Sharded,
+                                              ShardingRules, axis_names_of,
+                                              device_put, gather,
+                                              make_dp_only_rules, make_rules,
+                                              map_defs)
+from repro_torch.launch.mesh import data_axis_names
 from repro_torch.models import lm
+from repro_torch.nn.moe import TokenShards
 from repro_torch.optim.optimizers import (get_optimizer, tree_leaves,
                                           tree_map, tree_unflatten)
+
+
+def build_rules(cfg: ModelConfig, mesh: Optional[Mesh], kind: str,
+                global_batch: int = 0) -> ShardingRules:
+    """The rule table of ``cfg``'s sharding profile on ``mesh`` for a
+    ``kind`` step (train / prefill / decode), as the reference picks it."""
+    data_axes = data_axis_names(mesh) if mesh is not None else ("data",)
+    if cfg.sharding_profile == "dp_only":
+        rules = make_dp_only_rules(data_axes=data_axes)
+        if mesh is not None and global_batch:
+            n = mesh.devices.size
+            if global_batch % n:
+                t = dict(rules.table)
+                t["batch"] = data_axes if len(data_axes) > 1 else data_axes[0]
+                rules = ShardingRules(table=t)
+        return rules
+    # KV-cache layout: shard on kv-heads when they divide the model axis
+    # (keeps decode attention collective-free and the cache update local);
+    # otherwise shard on seq (flash-decoding combine via all-reduce).
+    model_size = mesh.shape["model"] if mesh is not None else 1
+    heads_ok = cfg.num_kv_heads and cfg.num_kv_heads % model_size == 0
+    rules = make_rules(
+        data_axes=data_axes,
+        fsdp=cfg.fsdp,
+        expert_fsdp=cfg.expert_fsdp,
+        shard_seq_for_decode=(kind in ("decode", "prefill")
+                              and not heads_ok),
+        seq_parallel=(kind != "decode"),
+    )
+    if mesh is not None and global_batch:
+        n_data = 1
+        for a in data_axes:
+            n_data *= mesh.shape[a]
+        if global_batch % n_data:
+            # batch-1 long-context decode etc: batch cannot shard
+            t = dict(rules.table)
+            t["batch"] = None
+            rules = ShardingRules(table=t)
+    return rules
+
 
 # ---------------------------------------------------------------------------
 # step inputs
@@ -31,12 +94,15 @@ from repro_torch.optim.optimizers import (get_optimizer, tree_leaves,
 def batch_defs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ParamDef]:
     b, s = shape.global_batch, shape.seq_len
     defs = {
-        "tokens": ParamDef((b, s), init="zeros", dtype=torch.int32),
-        "labels": ParamDef((b, s), init="zeros", dtype=torch.int32),
+        "tokens": ParamDef((b, s), ("batch", None), init="zeros",
+                           dtype=torch.int32),
+        "labels": ParamDef((b, s), ("batch", None), init="zeros",
+                           dtype=torch.int32),
     }
     if cfg.prefix_len:
-        defs["prefix_embed"] = ParamDef((b, cfg.prefix_len, cfg.d_model),
-                                        init="zeros", dtype=cfg.dtype)
+        defs["prefix_embed"] = ParamDef(
+            (b, cfg.prefix_len, cfg.d_model), ("batch", None, None),
+            init="zeros", dtype=cfg.dtype)
     return defs
 
 
@@ -44,9 +110,12 @@ def batch_defs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ParamDef]:
 # step functions
 # ---------------------------------------------------------------------------
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    rules: Optional[ShardingRules] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``, with microbatch gradient accumulation.
+    metrics)``, with microbatch gradient accumulation; on ``mesh``, the
+    data-parallel step of ``make_dp_train_step``.
 
     ``params`` is a tree of tensors that require grad. With
     ``tcfg.microbatches`` = k > 1 the batch is cut into k slices along its
@@ -56,6 +125,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     ``opt_state`` in place (``optim/optimizers.py``). ``metrics`` holds
     ``loss``, ``xent``, ``aux``, ``z_loss``, ``lr`` and ``grad_norm``,
     float32 tensors on the device."""
+    if mesh is not None:
+        return make_dp_train_step(cfg, tcfg, rules, mesh)
     opt = get_optimizer(cfg.optimizer)
 
     def value_and_grad(params, mb):
@@ -94,6 +165,117 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     return train_step
 
 
+def check_data_parallel(cfg: ModelConfig, rules: ShardingRules,
+                        mesh: Mesh) -> None:
+    """Raise ``NotImplementedError`` where ``rules`` on ``mesh`` would split
+    a parameter or an optimizer-state leaf: the mesh carries data
+    parallelism only, every weight whole on every position."""
+    pdefs = lm.lm_param_defs(cfg)
+    defs = {"params": pdefs,
+            "opt": get_optimizer(cfg.optimizer).state_defs(pdefs)}
+    split = []
+    map_defs(lambda d: split.append(d) if any(
+        mesh.axis_sizes(e) > 1 for e in rules.spec(*d.logical_axes))
+        else None, defs)
+    if split:
+        d = split[0]
+        raise NotImplementedError(
+            f"{cfg.name} on mesh {mesh.shape}: the rules split "
+            f"{len(split)} weight and optimizer leaves, e.g. {d.shape} with "
+            f"logical axes {d.logical_axes} onto "
+            f"{rules.spec(*d.logical_axes)}. The port's mesh carries data "
+            f"parallelism only; tensor, expert and sequence parallelism and "
+            f"FSDP are the tensor-parallel slice (ROADMAP), not yet ported")
+
+
+def make_dp_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                       rules: Optional[ShardingRules], mesh: Mesh
+                       ) -> Callable:
+    """The data-parallel ``train_step(params, opt_state, batch)`` on
+    ``mesh`` (see the module's docstring). ``params`` and ``opt_state`` are
+    trees of ``Sharded`` leaves replicated on the mesh (plain tensors are
+    copied onto it first), updated in place position by position and
+    returned; ``batch`` holds whole tensors (or ``Sharded`` ones) split by
+    rows over the batch axes. ``metrics`` are position 0's tensors.
+
+    With k = ``tcfg.microbatches`` and K batch shards, either K divides k
+    (each position runs k / K whole microbatches) or k divides K (a
+    microbatch spans K / k positions); other pairs raise
+    ``NotImplementedError``."""
+    rules = rules if rules is not None else build_rules(cfg, mesh, "train")
+    check_data_parallel(cfg, rules, mesh)
+    opt = get_optimizer(cfg.optimizer)
+    batch_axis = rules.axis("batch")
+    names = axis_names_of(batch_axis)
+    shards = mesh.axis_sizes(batch_axis)
+    k = max(tcfg.microbatches, 1)
+    if k % shards and shards % k:
+        raise NotImplementedError(
+            f"{k} microbatches over {shards} batch shards: one must divide "
+            f"the other")
+    per, span = (k // shards, 1) if k % shards == 0 else (1, shards // k)
+    replicated = NamedSharding(mesh, P())
+
+    def local(params, opt_state, batch):
+        i = axis_index(names) if names else 0
+        first = i // span * span
+
+        def group(t: torch.Tensor) -> torch.Tensor:
+            """Every member's ``t`` of this position's microbatch group."""
+            if span == 1:
+                return t[None]
+            return all_gather(t, names)[first:first + span]
+
+        leaves = [p.requires_grad_() for p in tree_leaves(params)]
+        rows = next(iter(batch.values())).shape[0] // per
+        gsum = None
+        sums = {key: torch.zeros((), dtype=torch.float32,
+                                 device=leaves[0].device)
+                for key in ("loss", "xent", "aux", "z_loss")}
+        for m in range(per):
+            mb = {key: v[m * rows:(m + 1) * rows] for key, v in batch.items()}
+            mask = mb.get("mask")
+            mask_sum = (mask.to(torch.float32).sum() if mask is not None
+                        else torch.tensor(float(mb["tokens"].numel()),
+                                          device=leaves[0].device))
+            denom = torch.clamp(group(mask_sum).sum(), min=1.0)
+            nll, z, _, aux = lm.lm_loss_sums(
+                params, mb, cfg,
+                token_shards=TokenShards(span, i - first, group))
+            part = {"xent": nll / denom, "z_loss": 1e-4 * z / denom,
+                    "aux": aux}
+            loss = part["xent"] + part["z_loss"] + cfg.router_aux_coef * aux
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) if g is None
+                     else g.to(torch.float32) for p, g in zip(leaves, grads)]
+            gsum = grads if gsum is None else [
+                s.add_(g) for s, g in zip(gsum, grads)]
+            for key, v in {"loss": loss, **part}.items():
+                sums[key] = sums[key] + v.detach()
+        if names:
+            gsum, sums = psum((gsum, sums), names)
+        if k > 1:
+            gsum = [g / k for g in gsum]
+            sums = {key: v / k for key, v in sums.items()}
+        params, opt_state, om = opt.update(
+            params, tree_unflatten(params, gsum), opt_state, tcfg)
+        return params, opt_state, {**sums, **om}
+
+    mapped = shard_map(local, mesh=mesh, in_specs=(P(), P(), P(batch_axis)),
+                       out_specs=(P(), P(), P()))
+
+    def train_step(params, opt_state, batch):
+        def placed(tree):
+            return tree_map(lambda x: x if isinstance(x, Sharded)
+                            else device_put(x, replicated), tree)
+        params, opt_state, metrics = mapped(placed(params),
+                                            placed(opt_state), batch)
+        return params, opt_state, gather(metrics)
+
+    return train_step
+
+
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """``prefill_step(params, caches, batch) -> (last-position logits,
     caches)``."""
@@ -115,5 +297,6 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     return serve_step
 
 
-__all__ = ["batch_defs", "make_decode_step", "make_prefill_step",
+__all__ = ["batch_defs", "build_rules", "check_data_parallel",
+           "make_decode_step", "make_dp_train_step", "make_prefill_step",
            "make_train_step"]

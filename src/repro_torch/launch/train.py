@@ -1,7 +1,10 @@
 """End-to-end trainer: data -> train step -> metrics -> checkpoints.
 
-The twin of ``repro/launch/train.py`` on one device (the card unless the
-caller passes ``device="cpu"``). Fault tolerance as in the reference:
+The twin of ``repro/launch/train.py``: on one device (the card unless the
+caller passes ``device="cpu"``), or with ``mesh=`` data parallel over the
+mesh's positions (``launch/steps.py::make_dp_train_step``; several
+positions may share one card, each on its own stream). Fault tolerance as
+in the reference:
 
   * auto-resume from the newest *valid* checkpoint (torn or corrupt steps
     are skipped by checksum validation);
@@ -10,19 +13,25 @@ caller passes ``device="cpu"``). Fault tolerance as in the reference:
   * a per-step watchdog: steps slower than ``watchdog_factor`` times the
     rolling median are logged as straggler events;
   * deterministic (seed, step)-keyed data, so a restart never replays
-    tokens.
+    tokens;
+  * elastic: a checkpoint restores onto another mesh (checkpoints hold
+    unsharded arrays; see ``distributed/elastic.py``).
 
 Checkpoints are the JAX package's format (``checkpoint/checkpoint.py``):
-``{"params": ..., "opt": ...}`` with the same leaves, so a JAX
-``Trainer``'s checkpoint resumes here and the reverse. Fresh weights are
-drawn from ``torch.Generator().manual_seed(tcfg.seed)`` by the JAX
-package's init rule; the numbers differ from ``jax.random``'s.
+``{"params": ..., "opt": ...}`` with the same leaves, one unsharded copy
+(position 0's on a mesh), so a JAX ``Trainer``'s checkpoint resumes here
+and the reverse. Fresh weights are drawn from
+``torch.Generator().manual_seed(tcfg.seed)`` by the JAX package's init
+rule (on position 0's device, then copied to every position); the numbers
+differ from ``jax.random``'s.
 
 Usage (from the root of a checkout):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --steps 20 --batch 8 --seq 2048          # full width on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --reduced --data-parallel 2 --model-parallel 2 --device cpu
 """
 
 from __future__ import annotations
@@ -40,20 +49,25 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.archs import ARCHS, REDUCED
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data.tokens import TokenDataConfig, TokenStream
-from repro_torch.distributed.sharding import map_defs, zeros_like_defs
-from repro_torch.launch.steps import make_train_step
+from repro_torch.distributed.sharding import (Sharded, device_put, map_defs,
+                                              param_shardings,
+                                              zeros_like_defs)
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_rules, make_train_step
 from repro_torch.models import lm
 from repro_torch.optim.optimizers import get_optimizer, tree_leaves
 
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *,
-                 global_batch: int, seq_len: int, device: DeviceLike = None,
-                 ckpt_dir: Optional[str] = None,
+                 global_batch: int, seq_len: int, mesh=None,
+                 device: DeviceLike = None, ckpt_dir: Optional[str] = None,
                  watchdog_factor: float = 3.0):
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else resolve_device(device))
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
         self.watchdog_factor = watchdog_factor
         self.straggler_events = 0
@@ -61,7 +75,13 @@ class Trainer:
         self.pdefs = lm.lm_param_defs(cfg)
         self.opt = get_optimizer(cfg.optimizer)
         self.odefs = self.opt.state_defs(self.pdefs)
-        self.step_fn = make_train_step(cfg, tcfg)
+        self.rules = build_rules(cfg, mesh, "train", global_batch=global_batch)
+        self.step_fn = make_train_step(cfg, tcfg, self.rules, mesh)
+        self._shardings = None
+        if mesh is not None:
+            self._shardings = {
+                "params": param_shardings(self.pdefs, self.rules, mesh),
+                "opt": param_shardings(self.odefs, self.rules, mesh)}
         self.data_cfg = TokenDataConfig(
             vocab_size=cfg.vocab_size, seq_len=seq_len,
             global_batch=global_batch, seed=tcfg.seed,
@@ -74,13 +94,19 @@ class Trainer:
     # ----- state ---------------------------------------------------------
     def _set_params(self, params) -> None:
         for p in tree_leaves(params):
-            p.requires_grad_(True)
+            for t in (p.pieces.flat if isinstance(p, Sharded) else [p]):
+                t.requires_grad_(True)
         self.params = params
 
     def init_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        self._set_params(lm.init_params(gen, self.cfg, self.device))
-        self.opt_state = zeros_like_defs(self.odefs, self.device)
+        params = lm.init_params(gen, self.cfg, self.device)
+        opt_state = zeros_like_defs(self.odefs, self.device)
+        if self.mesh is not None:
+            params = device_put(params, self._shardings["params"])
+            opt_state = device_put(opt_state, self._shardings["opt"])
+        self._set_params(params)
+        self.opt_state = opt_state
         self.step = 0
 
     def try_resume(self) -> bool:
@@ -90,7 +116,8 @@ class Trainer:
         # (restore places a leaf on its ``like`` leaf's device)
         like = map_defs(lambda d: torch.empty(0, device=self.device),
                         {"params": self.pdefs, "opt": self.odefs})
-        res = ckpt.restore_latest(self.ckpt_dir, like)
+        res = ckpt.restore_latest(self.ckpt_dir, like,
+                                  shardings=self._shardings)
         if res is None:
             return False
         step, tree, _ = res
@@ -165,18 +192,24 @@ def main(argv=None) -> None:
     ap.add_argument("--data-parallel", type=int, default=1)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--device", default=None,
-                    help="cpu runs the plain PyTorch path; default: cuda")
+                    help="cpu runs the plain PyTorch path (every mesh "
+                    "position on the CPU); default: cuda")
     args = ap.parse_args(argv)
 
-    if args.data_parallel * args.model_parallel > 1:
-        raise SystemExit("--data-parallel / --model-parallel above 1 need "
-                         "the mesh, which the port does not have yet")
     cfg = REDUCED[args.arch] if args.reduced else ARCHS[args.arch]
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 5),
                        checkpoint_every=max(args.steps // 4, 25))
-    trainer = Trainer(cfg, tcfg, global_batch=args.batch, seq_len=args.seq,
-                      device=args.device, ckpt_dir=args.ckpt_dir)
+    mesh = None
+    if args.data_parallel * args.model_parallel > 1:
+        mesh = make_host_mesh(args.data_parallel, args.model_parallel,
+                              devices=args.device)
+    try:
+        trainer = Trainer(cfg, tcfg, global_batch=args.batch,
+                          seq_len=args.seq, mesh=mesh, device=args.device,
+                          ckpt_dir=args.ckpt_dir)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from e
     out = trainer.run(args.steps)
     print(f"done: step={out['final_step']} "
           f"first-loss={out['losses'][0]:.4f} "

@@ -31,12 +31,14 @@ from repro_torch.nn.transformer import (apply_norm, norm_defs, stack_apply,
 def lm_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.vocab_pad
     defs: Dict[str, Any] = {
-        "embed": ParamDef((v, d), scale=d ** -0.5, dtype=cfg.dtype),
+        "embed": ParamDef((v, d), ("vocab", "embed_fsdp"), scale=d ** -0.5,
+                          dtype=cfg.dtype),
         "stack": stack_param_defs(cfg),
         "final_norm": norm_defs(cfg),
     }
     if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((d, v), dtype=cfg.dtype)
+        defs["unembed"] = ParamDef((d, v), ("embed_fsdp", "vocab"),
+                                   dtype=cfg.dtype)
     return defs
 
 
@@ -80,7 +82,8 @@ def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                    prefix_embed: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
-                   caches=None) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+                   caches=None, token_shards=None
+                   ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """tokens: (B, S) -> (hidden (B, S, d), new_caches, aux_loss () float32,
     summed over the layers)."""
     b, s = tokens.shape
@@ -91,7 +94,8 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
     x, new_caches, aux = stack_apply(params["stack"], x, positions, cfg,
-                                     caches=caches)
+                                     caches=caches,
+                                     token_shards=token_shards)
     x = apply_norm(params["final_norm"], x, cfg)
     return x, new_caches, aux
 
@@ -136,10 +140,28 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     (B, S, V) logits never exist whole. Returns (total, {"xent", "aux",
     "z_loss"}), float32: total = xent + 1e-4 * sum((lse * mask)^2) / denom
     + router_aux_coef * aux, denom = max(sum(mask), 1)."""
+    nll_sum, z_sum, mask_sum, aux = lm_loss_sums(params, batch, cfg,
+                                                 loss_chunks=loss_chunks)
+    denom = torch.clamp(mask_sum, min=1.0)
+    xent = nll_sum / denom
+    z_loss = 1e-4 * z_sum / denom
+    total = xent + z_loss + cfg.router_aux_coef * aux
+    return total, {"xent": xent, "aux": aux, "z_loss": z_loss}
+
+
+def lm_loss_sums(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 *, loss_chunks: int = 8, token_shards=None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """``lm_loss``'s parts before the division by the mask's sum: (the
+    masked NLL's sum, the masked squared lse's sum, the mask's sum, the
+    aux), float32. The data-parallel step adds them over the shards of a
+    batch before it divides (``launch/steps.py``); ``token_shards`` is the
+    MoE's share (``nn/moe.py::TokenShards``)."""
     tokens, labels = batch["tokens"], batch["labels"]
     mask = batch.get("mask")
     x, _, aux = forward_hidden(params, tokens, cfg,
-                               prefix_embed=batch.get("prefix_embed"))
+                               prefix_embed=batch.get("prefix_embed"),
+                               token_shards=token_shards)
     b, s, _ = x.shape
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
@@ -162,12 +184,7 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
         else:
             a, z = _chunk_loss(*part, cfg)
         nll_sum, z_sum = nll_sum + a, z_sum + z
-
-    denom = torch.clamp(mask.sum(), min=1.0)
-    xent = nll_sum / denom
-    z_loss = 1e-4 * z_sum / denom
-    total = xent + z_loss + cfg.router_aux_coef * aux
-    return total, {"xent": xent, "aux": aux, "z_loss": z_loss}
+    return nll_sum, z_sum, mask.sum(), aux
 
 
 # ---------------------------------------------------------------------------

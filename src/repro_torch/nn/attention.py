@@ -34,15 +34,20 @@ from repro_torch.nn.layers import apply_rope, softcap
 def attn_param_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     defs = {
-        "wq": ParamDef((d, h * dh), dtype=cfg.dtype),
-        "wk": ParamDef((d, hk * dh), dtype=cfg.dtype),
-        "wv": ParamDef((d, hk * dh), dtype=cfg.dtype),
-        "wo": ParamDef((h * dh, d), dtype=cfg.dtype),
+        "wq": ParamDef((d, h * dh), ("embed_fsdp", "heads"), dtype=cfg.dtype),
+        "wk": ParamDef((d, hk * dh), ("embed_fsdp", "kv_heads"),
+                       dtype=cfg.dtype),
+        "wv": ParamDef((d, hk * dh), ("embed_fsdp", "kv_heads"),
+                       dtype=cfg.dtype),
+        "wo": ParamDef((h * dh, d), ("heads", "embed_fsdp"), dtype=cfg.dtype),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((h * dh,), init="zeros", dtype=cfg.dtype)
-        defs["bk"] = ParamDef((hk * dh,), init="zeros", dtype=cfg.dtype)
-        defs["bv"] = ParamDef((hk * dh,), init="zeros", dtype=cfg.dtype)
+        defs["bq"] = ParamDef((h * dh,), ("heads",), init="zeros",
+                              dtype=cfg.dtype)
+        defs["bk"] = ParamDef((hk * dh,), ("kv_heads",), init="zeros",
+                              dtype=cfg.dtype)
+        defs["bv"] = ParamDef((hk * dh,), ("kv_heads",), init="zeros",
+                              dtype=cfg.dtype)
     return defs
 
 

@@ -22,11 +22,12 @@ def mlp_param_defs(cfg: ModelConfig, *, gated: bool = True,
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
     defs = {
-        "w_up": ParamDef((d, ff), dtype=cfg.dtype),
-        "w_down": ParamDef((ff, d), dtype=cfg.dtype),
+        "w_up": ParamDef((d, ff), ("embed_fsdp", "ff"), dtype=cfg.dtype),
+        "w_down": ParamDef((ff, d), ("ff", "embed_fsdp"), dtype=cfg.dtype),
     }
     if gated:
-        defs["w_gate"] = ParamDef((d, ff), dtype=cfg.dtype)
+        defs["w_gate"] = ParamDef((d, ff), ("embed_fsdp", "ff"),
+                                  dtype=cfg.dtype)
     return defs
 
 

@@ -31,6 +31,17 @@ each token group runs under ``torch.utils.checkpoint`` (non-reentrant), the
 reference's ``jax.checkpoint`` per dispatch group: its buffers are
 recomputed in the backward, the kernels launched again.
 
+Data parallelism (``token_shards``). Under the mesh's data-parallel
+train step (``launch/steps.py``) one forward sees only its position's
+contiguous share of the tokens the unsharded step would route together.
+``TokenShards`` says which share, and ``moe_ffn`` then routes exactly as
+the unsharded step does: the token groups and their capacity come from the
+global token count; a group that lies whole on this position runs as
+before; for a group spread over several positions each position's ranks
+start after the assignments of the positions before it (their per-expert
+counts, exchanged once a layer and kept for the backward's recompute), and
+the aux loss is this position's share of the group's, from the group's
+counts. The outputs of a position's tokens are then the unsharded step's.
 The expert-parallel mesh (``mesh`` / ``rules``, the psum over the model
 axis) is not ported; every expert is local (``bank_start`` 0).
 """
@@ -38,8 +49,9 @@ axis) is not ported; every expert is local (``bank_start`` 0).
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, field
 from functools import partial
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -53,10 +65,13 @@ from repro_torch.nn.layers import activation, needs_grad
 def moe_param_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     return {
-        "router": ParamDef((d, e), dtype=torch.float32),
-        "wg": ParamDef((e, d, ff), dtype=cfg.dtype),
-        "wu": ParamDef((e, d, ff), dtype=cfg.dtype),
-        "wd": ParamDef((e, ff, d), dtype=cfg.dtype),
+        "router": ParamDef((d, e), (None, None), dtype=torch.float32),
+        "wg": ParamDef((e, d, ff), ("experts", None, "expert_ff"),
+                       dtype=cfg.dtype),
+        "wu": ParamDef((e, d, ff), ("experts", None, "expert_ff"),
+                       dtype=cfg.dtype),
+        "wd": ParamDef((e, ff, d), ("experts", "expert_ff", None),
+                       dtype=cfg.dtype),
     }
 
 
@@ -65,13 +80,40 @@ def _capacity(tokens: int, k: int, e: int, cf: float) -> int:
     return max(8, (c + 7) // 8 * 8)
 
 
-def route(xg: torch.Tensor, rw: torch.Tensor, *, k: int, capacity: int
-          ) -> Dict[str, torch.Tensor]:
+@dataclass
+class TokenShards:
+    """This forward's tokens as shard ``index`` of ``count`` contiguous
+    shards of the tokens the unsharded step routes together. ``gather``
+    returns a tensor of every shard, stacked in shard order (a collective
+    across the mesh positions holding the shards)."""
+
+    count: int
+    index: int
+    gather: Callable[[torch.Tensor], torch.Tensor]
+    memo: Dict = field(default_factory=dict)
+
+    def exchange(self, key, t: torch.Tensor) -> torch.Tensor:
+        """``gather(t)`` once for ``key``: a recompute in the backward (on
+        autograd's thread, where no collective can run) reads the value
+        the forward exchanged."""
+        if key not in self.memo:
+            self.memo[key] = self.gather(t)
+        return self.memo[key]
+
+
+def route(xg: torch.Tensor, rw: torch.Tensor, *, k: int, capacity: int,
+          offsets: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """Top-k routing of one token group xg (T, d) by the router rw (d, E),
     binned as the reference bins it. Returns, each (T*k,) in sorted order:
     ``token_ids``, ``slot`` (``E * capacity`` where not owned), ``own``
     (the rank under capacity) and ``weights`` (float32); and, for the aux
-    loss, ``probs`` (T, E) and ``experts`` (T*k,) in router order."""
+    loss, ``probs`` (T, E) and ``experts`` (T*k,) in router order.
+
+    ``offsets``, for a share of a group spread over several shards, maps
+    this share's per-expert assignment counts (E,) to (the counts of the
+    shares before it, the whole group's counts): its ranks start after
+    the earlier shares', and the group's counts are returned as
+    ``group_counts``."""
     t = xg.shape[0]
     e_total = rw.shape[1]
     dev = xg.device
@@ -85,10 +127,17 @@ def route(xg: torch.Tensor, rw: torch.Tensor, *, k: int, capacity: int
     starts = torch.searchsorted(se, torch.arange(e_total, device=dev),
                                 side="left")
     rank = torch.arange(t * k, device=dev) - starts[se]
+    out = {}
+    if offsets is not None:
+        ends = torch.searchsorted(se, torch.arange(e_total, device=dev),
+                                  side="right")
+        before, out["group_counts"] = offsets(ends - starts)
+        rank = rank + before[se]
     own = rank < capacity
     slot = torch.where(own, se * capacity + rank, e_total * capacity)
-    return {"token_ids": st, "slot": slot, "own": own, "weights": sw,
-            "probs": probs, "experts": flat_e}
+    out.update(token_ids=st, slot=slot, own=own, weights=sw, probs=probs,
+               experts=flat_e)
+    return out
 
 
 def expert_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -109,53 +158,99 @@ def aux_loss(r: Dict[str, torch.Tensor], e_total: int) -> torch.Tensor:
     return e_total * torch.sum(counts / t * r["probs"].mean(dim=0))
 
 
+def shared_aux_loss(r: Dict[str, torch.Tensor], e_total: int,
+                    group_tokens: int) -> torch.Tensor:
+    """This share's part of ``aux_loss`` of a group of ``group_tokens``
+    tokens spread over several shards: the group's counts times this
+    share's router probabilities (the shares' parts add up to the
+    group's)."""
+    return e_total * torch.sum(r["group_counts"].to(torch.float32)
+                               / group_tokens * r["probs"].sum(dim=0)
+                               / group_tokens)
+
+
 def _dispatch_compute_combine(xg: torch.Tensor, params, *, k: int,
-                              capacity: int, act
+                              capacity: int, act, offsets=None,
+                              group_tokens: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One token group through the experts. xg: (T, d). Returns (out (T,
-    d) in xg.dtype, aux () float32)."""
+    """One token group (or, with ``offsets``, this shard's share of one)
+    through the experts. xg: (T, d). Returns (out (T, d) in xg.dtype, aux
+    () float32: the group's, or this share's part of it)."""
     t, d = xg.shape
     e_total = params["wg"].shape[0]
     num_slots = e_total * capacity
-    r = route(xg, params["router"], k=k, capacity=capacity)
+    if offsets is None:
+        r = route(xg, params["router"], k=k, capacity=capacity)
+    else:
+        r = route(xg, params["router"], k=k, capacity=capacity,
+                  offsets=offsets)
     st, slot, own, sw = pad_assignments(r["token_ids"], r["slot"], r["own"],
                                         r["weights"], num_slots)
     buf = moe_dispatch(xg, st, slot, own, num_slots)
     y = expert_ffn(buf.reshape(e_total, capacity, d), params["wg"],
                    params["wu"], params["wd"], act)
     out = moe_combine(y.reshape(num_slots, d), st, slot, own, sw, t)
-    return out.to(xg.dtype), aux_loss(r, e_total)
+    aux = (aux_loss(r, e_total) if offsets is None
+           else shared_aux_loss(r, e_total, group_tokens))
+    return out.to(xg.dtype), aux
 
 
 def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
-            cfg: ModelConfig, *, group_size: int = 8192
+            cfg: ModelConfig, *, group_size: int = 8192,
+            token_shards: Optional[TokenShards] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward. x: (B, S, d) -> (out (B, S, d), aux () float32).
 
     The B*S tokens are cut into the reference's groups (at least
     ``ceil(T / group_size)``, raised until they divide T), each with its
-    own capacity; the aux is the mean over groups."""
+    own capacity; the aux is the mean over groups. With ``token_shards``
+    the groups are those of the unsharded tokens (T times the shard
+    count), and the aux is this shard's part of their mean."""
     b, s, d = x.shape
     t = b * s
-    x2 = x.reshape(t, d)
-    groups = max(1, -(-t // group_size))
-    while t % groups:
+    count = token_shards.count if token_shards is not None else 1
+    total = t * count
+    groups = max(1, -(-total // group_size))
+    while total % groups:
         groups += 1
-    tg = t // groups
+    tg = total // groups
     cap = _capacity(tg, cfg.num_experts_per_tok, cfg.num_experts,
                     cfg.capacity_factor)
-    act = activation(cfg.act)
     fn = partial(_dispatch_compute_combine, k=cfg.num_experts_per_tok,
-                 capacity=cap, act=act)
+                 capacity=cap, act=activation(cfg.act))
+    if (tg % t if tg > t else t % tg):
+        raise NotImplementedError(
+            f"MoE token groups of {tg} tokens do not align with data shards "
+            f"of {t} tokens")
+    pieces = x.reshape(max(1, t // tg), min(tg, t), d)
+    if tg > t:
+        # this shard holds a share of one group spread over tg / t shards
+        fn = partial(fn, offsets=_shard_offsets(
+            token_shards, params["router"], tg // t), group_tokens=tg)
     if cfg.moe_inner_remat and needs_grad(x, params):
         res = [checkpoint(fn, xg, params, use_reentrant=False,
-                          preserve_rng_state=False)
-               for xg in x2.reshape(groups, tg, d)]
+                          preserve_rng_state=False) for xg in pieces]
     else:
-        res = [fn(xg, params) for xg in x2.reshape(groups, tg, d)]
-    if groups == 1:
+        res = [fn(xg, params) for xg in pieces]
+    if count > 1:
+        out = torch.cat([r[0] for r in res], dim=0)
+        aux = torch.stack([r[1] for r in res]).sum() / groups
+    elif groups == 1:
         out, aux = res[0]
     else:
         out = torch.cat([r[0] for r in res], dim=0)
         aux = torch.stack([r[1] for r in res]).mean()
     return out.reshape(b, s, d), aux
+
+
+def _shard_offsets(shards: TokenShards, router: torch.Tensor, span: int):
+    """``route``'s ``offsets`` for this shard's share of a group spread over
+    ``span`` shards: the per-expert counts of every shard, exchanged once a
+    layer (keyed by the layer's router)."""
+    first = shards.index // span * span
+
+    def offsets(counts: torch.Tensor):
+        every = shards.exchange(("moe_counts", router.data_ptr()), counts)
+        return (every[first:shards.index].sum(dim=0),
+                every[first:first + span].sum(dim=0))
+    return offsets

@@ -37,18 +37,22 @@ from repro_torch.nn.ssm import put_window
 def rglru_param_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, w = cfg.d_model, cfg.lru_width
     return {
-        "w_y": ParamDef((d, w), dtype=cfg.dtype),
-        "w_x": ParamDef((d, w), dtype=cfg.dtype),
-        "conv_w": ParamDef((cfg.lru_conv, w), scale=0.3, dtype=cfg.dtype),
-        "conv_b": ParamDef((w,), init="zeros", dtype=cfg.dtype),
-        "gate_a": ParamDef((w, w), dtype=cfg.dtype),
-        "gate_a_b": ParamDef((w,), init="zeros", dtype=cfg.dtype),
-        "gate_x": ParamDef((w, w), dtype=cfg.dtype),
-        "gate_x_b": ParamDef((w,), init="zeros", dtype=cfg.dtype),
+        "w_y": ParamDef((d, w), ("embed_fsdp", "lru_width"), dtype=cfg.dtype),
+        "w_x": ParamDef((d, w), ("embed_fsdp", "lru_width"), dtype=cfg.dtype),
+        "conv_w": ParamDef((cfg.lru_conv, w), (None, "lru_width"),
+                           scale=0.3, dtype=cfg.dtype),
+        "conv_b": ParamDef((w,), ("lru_width",), init="zeros",
+                           dtype=cfg.dtype),
+        "gate_a": ParamDef((w, w), (None, "lru_width"), dtype=cfg.dtype),
+        "gate_a_b": ParamDef((w,), ("lru_width",), init="zeros",
+                             dtype=cfg.dtype),
+        "gate_x": ParamDef((w, w), (None, "lru_width"), dtype=cfg.dtype),
+        "gate_x_b": ParamDef((w,), ("lru_width",), init="zeros",
+                             dtype=cfg.dtype),
         # softplus(lambda) = 0.8/c-ish -> a ~ 0.45..0.999 across channels
-        "lam": ParamDef((w,), init="constant", constant=0.1,
+        "lam": ParamDef((w,), ("lru_width",), init="constant", constant=0.1,
                         dtype=torch.float32),
-        "w_out": ParamDef((w, d), dtype=cfg.dtype),
+        "w_out": ParamDef((w, d), ("lru_width", "embed_fsdp"), dtype=cfg.dtype),
     }
 
 

@@ -34,15 +34,18 @@ def mamba_param_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     conv_dim = din + 2 * n
     f32 = torch.float32
     return {
-        "in_proj": ParamDef((d, 2 * din + 2 * n + h), dtype=cfg.dtype),
-        "conv_w": ParamDef((cfg.ssm_conv, conv_dim), scale=0.3,
+        "in_proj": ParamDef((d, 2 * din + 2 * n + h), ("embed_fsdp", None),
+                            dtype=cfg.dtype),
+        "conv_w": ParamDef((cfg.ssm_conv, conv_dim), (None, None),
+                           scale=0.3, dtype=cfg.dtype),
+        "conv_b": ParamDef((conv_dim,), (None,), init="zeros",
                            dtype=cfg.dtype),
-        "conv_b": ParamDef((conv_dim,), init="zeros", dtype=cfg.dtype),
-        "a_log": ParamDef((h,), init="constant", constant=0.5, dtype=f32),
-        "d_skip": ParamDef((h,), init="ones", dtype=f32),
-        "dt_bias": ParamDef((h,), init="zeros", dtype=f32),
-        "norm_scale": ParamDef((din,), init="ones", dtype=cfg.dtype),
-        "out_proj": ParamDef((din, d), dtype=cfg.dtype),
+        "a_log": ParamDef((h,), (None,), init="constant", constant=0.5,
+                          dtype=f32),
+        "d_skip": ParamDef((h,), (None,), init="ones", dtype=f32),
+        "dt_bias": ParamDef((h,), (None,), init="zeros", dtype=f32),
+        "norm_scale": ParamDef((din,), (None,), init="ones", dtype=cfg.dtype),
+        "out_proj": ParamDef((din, d), (None, "embed_fsdp"), dtype=cfg.dtype),
     }
 
 

@@ -57,10 +57,11 @@ from repro_torch.nn.ssm import MambaCache, mamba_mixer, mamba_param_defs
 def norm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d = cfg.d_model
     if cfg.norm == "layernorm":
-        return {"scale": ParamDef((d,), init="ones", dtype=cfg.dtype),
-                "bias": ParamDef((d,), init="zeros", dtype=cfg.dtype)}
+        return {"scale": ParamDef((d,), (None,), init="ones", dtype=cfg.dtype),
+                "bias": ParamDef((d,), (None,), init="zeros",
+                                 dtype=cfg.dtype)}
     init = "zeros" if cfg.norm_plus_one else "ones"
-    return {"scale": ParamDef((d,), init=init, dtype=cfg.dtype)}
+    return {"scale": ParamDef((d,), (None,), init=init, dtype=cfg.dtype)}
 
 
 def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -100,9 +101,10 @@ def block_param_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
 
 def block_apply(params, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, kind: str, *, cache=None
-                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
-    """Returns (x, new_cache, aux_loss () float32)."""
+                cfg: ModelConfig, kind: str, *, cache=None,
+                token_shards=None) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """Returns (x, new_cache, aux_loss () float32). ``token_shards``: the
+    MoE's data-parallel share (``nn/moe.py::TokenShards``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ("attn", "local"):
         window = cfg.local_window if kind == "local" else None
@@ -114,7 +116,8 @@ def block_apply(params, x: torch.Tensor, positions: torch.Tensor,
         x = x + a_out
         h = apply_norm(params["ln2"], x, cfg)
         if cfg.num_experts:
-            f_out, aux = moe_ffn(params["moe"], h, cfg)
+            f_out, aux = moe_ffn(params["moe"], h, cfg,
+                                 token_shards=token_shards)
             if cfg.dense_residual:
                 f_out = f_out + mlp(params["mlp"], h, cfg)
         else:
@@ -143,23 +146,27 @@ def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
     """One block's decode cache: zeros of its kind's shapes, length 0."""
     if kind in ("attn", "local"):
         shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        return KVCache(k=ParamDef(shape, init="zeros", dtype=cfg.dtype),
-                       v=ParamDef(shape, init="zeros", dtype=cfg.dtype),
+        axes = ("batch", "cache_seq", "cache_heads", None)
+        return KVCache(k=ParamDef(shape, axes, init="zeros", dtype=cfg.dtype),
+                       v=ParamDef(shape, axes, init="zeros", dtype=cfg.dtype),
                        length=0)
     if kind == "mamba":
         return MambaCache(
             state=ParamDef((batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                            cfg.ssm_state), init="zeros",
+                            cfg.ssm_state),
+                           ("batch", "ssm_heads", None, None), init="zeros",
                            dtype=torch.float32),
             conv=ParamDef((batch, cfg.ssm_conv - 1,
-                           cfg.d_inner + 2 * cfg.ssm_state), init="zeros",
+                           cfg.d_inner + 2 * cfg.ssm_state),
+                          ("batch", None, None), init="zeros",
                           dtype=cfg.dtype),
             length=0)
     if kind == "rec":
         return RecCache(
-            h=ParamDef((batch, cfg.lru_width), init="zeros",
-                       dtype=torch.float32),
+            h=ParamDef((batch, cfg.lru_width), ("batch", "lru_width"),
+                       init="zeros", dtype=torch.float32),
             conv=ParamDef((batch, cfg.lru_conv - 1, cfg.lru_width),
+                          ("batch", None, "lru_width"),
                           init="zeros", dtype=cfg.dtype),
             length=0)
     raise ValueError(kind)
@@ -202,7 +209,8 @@ def _stack_defs(cfg: ModelConfig, per_layer_fn) -> Dict[str, Any]:
 
     def stacked(defs):
         return map_defs(
-            lambda p: ParamDef((sd.num_groups,) + p.shape, init=p.init,
+            lambda p: ParamDef((sd.num_groups,) + p.shape,
+                               ("layers",) + p.logical_axes, init=p.init,
                                scale=p.scale, constant=p.constant,
                                dtype=p.dtype), defs)
 
@@ -237,7 +245,7 @@ def _cache_at(cache, g: int):
 
 
 def stack_apply(params, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, *, caches=None
+                cfg: ModelConfig, *, caches=None, token_shards=None
                 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Run the full stack. Returns (x, new_caches | None, aux_loss). The
     caches' tensors are written in place; the returned tree holds the same
@@ -250,10 +258,12 @@ def stack_apply(params, x: torch.Tensor, positions: torch.Tensor,
 
     def run(p, x, kind, cache):
         if not remat:
-            return block_apply(p, x, positions, cfg, kind, cache=cache)
+            return block_apply(p, x, positions, cfg, kind, cache=cache,
+                               token_shards=token_shards)
         # the model draws no random numbers: no RNG state to keep
         return checkpoint(partial(block_apply, positions=positions, cfg=cfg,
-                                  kind=kind), p, x, use_reentrant=False,
+                                  kind=kind, token_shards=token_shards),
+                          p, x, use_reentrant=False,
                           preserve_rng_state=False)
 
     lengths: List[Optional[int]] = [None] * len(sd.group)

@@ -25,51 +25,16 @@ that device has no counterpart here.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.distributed.sharding import ParamDef, map_defs
+# tree_map, tree_leaves and tree_unflatten are this module's names too
+from repro_torch.distributed.sharding import (  # noqa: F401
+    ParamDef, map_defs, map_tree as tree_map, tree_leaves, tree_unflatten)
 
 f32 = torch.float32
-
-
-def tree_leaves(tree: Any) -> List[Any]:
-    """The leaves of a tree of dicts (keys sorted, as JAX orders them),
-    lists and tuples."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
-    """``like``'s structure with its leaves replaced by ``leaves``, in
-    ``tree_leaves`` order."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            done = {k: build(node[k]) for k in sorted(node)}
-            return {k: done[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-    return build(like)
-
-
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest`` (trees of the same structure), the structure kept."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)
 
 
 def lr_schedule(step: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
@@ -99,11 +64,11 @@ def clip_by_global_norm(grads: Any, max_norm: float):
 
 
 def _zeros_like_def(d: ParamDef) -> ParamDef:
-    return ParamDef(d.shape, init="zeros", dtype=f32)
+    return ParamDef(d.shape, d.opt_axes or d.axes, init="zeros", dtype=f32)
 
 
 def _step_def() -> ParamDef:
-    return ParamDef((), init="zeros", dtype=torch.int32)
+    return ParamDef((), (), init="zeros", dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -150,12 +115,15 @@ def adafactor_state_defs(param_defs) -> Dict[str, Any]:
     def row_def(d: ParamDef) -> ParamDef:
         if not _factored(d.shape):
             return _zeros_like_def(d)
-        return ParamDef(d.shape[:-1], init="zeros", dtype=f32)
+        return ParamDef(d.shape[:-1], d.logical_axes[:-1], init="zeros",
+                        dtype=f32)
 
     def col_def(d: ParamDef) -> ParamDef:
         if not _factored(d.shape):
-            return ParamDef((1,), init="zeros", dtype=f32)
-        return ParamDef(d.shape[:-2] + d.shape[-1:], init="zeros", dtype=f32)
+            return ParamDef((1,), (None,), init="zeros", dtype=f32)
+        return ParamDef(d.shape[:-2] + d.shape[-1:],
+                        d.logical_axes[:-2] + d.logical_axes[-1:],
+                        init="zeros", dtype=f32)
 
     return {"step": _step_def(),
             "vr": map_defs(row_def, param_defs),

@@ -107,11 +107,33 @@ def test_torn_write_invisible(tmp_path):
 
 
 def test_restore_latest_of_nothing_and_shardings(tmp_path):
+    """``shardings=`` places each restored leaf on its mesh sharding (every
+    position owning its block, bitwise the saved values; a ``None``
+    sharding restores as without); shardings of another structure than
+    ``like`` raise ``ValueError``."""
+    from repro_torch.distributed.sharding import (NamedSharding, P,
+                                                  Sharded, make_mesh)
     t = _tree()
     assert ckpt.restore_latest(tmp_path / "none", t) is None
     ckpt.save(tmp_path, 1, t)
-    with pytest.raises(ValueError, match="shardings"):
-        ckpt.restore(tmp_path, 1, t, shardings=t)
+    mesh = make_mesh((2, 2), ("data", "model"), devices="cpu")
+    rows, whole = NamedSharding(mesh, P("data")), NamedSharding(mesh, P())
+    sh = {"a": rows, "nested": {"b": whole, "c": None},
+          "layers": [whole, NamedSharding(mesh, P("model", "data"))]}
+    tree, _ = ckpt.restore(tmp_path, 1, t, shardings=sh)
+    assert not isinstance(tree["nested"]["c"], Sharded)
+    _assert_bitwise(t, {**tree, "a": tree["a"].gather(),
+                        "nested": {**tree["nested"],
+                                   "b": tree["nested"]["b"].gather()},
+                        "layers": [x.gather() for x in tree["layers"]]})
+    np.testing.assert_array_equal(tree["a"].pieces[1, 0].numpy(),
+                                  t["a"][4:].numpy())
+    np.testing.assert_array_equal(tree["layers"][1].pieces[0, 1].numpy(),
+                                  t["layers"][1][1:, :1].numpy())
+    for wrong in (t, {**sh, "nested": {"b": whole}},
+                  {**sh, "layers": [whole]}):
+        with pytest.raises(ValueError, match="shardings"):
+            ckpt.restore(tmp_path, 1, t, shardings=wrong)
     with pytest.raises(IOError):
         ckpt.restore(tmp_path, 2, t)
 

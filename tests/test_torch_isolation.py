@@ -83,3 +83,17 @@ def test_walker_catches_a_reference_import(tmp_path):
     probe.write_text("import jax.numpy as jnp\nfrom repro.core import x\n"
                      "from repro_torch.core import y\n")
     assert len(_bad_imports(probe)) == 2
+
+
+def test_the_mesh_modules_are_walked():
+    """The mesh and the tools on it stand alone like the rest of the port."""
+    names = set(_module_names())
+    for mod in ("repro_torch.distributed.collectives",
+                "repro_torch.distributed.elastic",
+                "repro_torch.distributed.pipeline",
+                "repro_torch.distributed.sharding",
+                "repro_torch.launch.mesh",
+                "repro_torch.optim.compression"):
+        assert mod in names
+        path = REPO / "src" / (mod.replace(".", "/") + ".py")
+        assert path in SOURCES and _bad_imports(path) == []

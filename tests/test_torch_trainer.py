@@ -105,10 +105,13 @@ def test_trainer_saves_on_a_crash(tmp_path):
 
 
 def test_trainer_main_refuses_a_mesh():
+    """A mesh whose rules would split a weight (here ``--model-parallel 2``
+    on a ``tp``-profile arch) refuses, naming the tensor-parallel slice;
+    nothing trains on one position in its place."""
     from repro_torch.launch import train
-    with pytest.raises(SystemExit, match="mesh"):
-        train.main(["--arch", "qwen1.5-0.5b", "--reduced",
-                    "--data-parallel", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="tensor-parallel slice"):
+        train.main(["--arch", "llama3-8b", "--reduced",
+                    "--model-parallel", "2", "--device", "cpu"])
 
 
 def test_checkpoints_cross_between_the_packages(tmp_path):
