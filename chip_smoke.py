@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only lm_families    # phase 9 alone (the same)
     python3 chip_smoke.py --only train          # phase 10 alone (the same)
     python3 chip_smoke.py --only mesh           # phase 11 alone (the same)
+    python3 chip_smoke.py --only model_parallel # phase 12 alone (the same)
 
 Phases, each printing its own lines:
 
@@ -332,7 +333,30 @@ Phases, each printing its own lines:
                indivisible case's message. One ``[mesh] json`` line;
                ``--only mesh`` runs phases 1, 2 (four sources) and 11
                alone.
-  12. result — one JSON line with every kernel's numbers, the card's
+  12. model_parallel — serving on a model axis ([mp] lines): positions
+               (1, 2) on the card (spread over the cards where there are
+               several), the steps of ``make_prefill_step(cfg, rules, mesh)``
+               / ``make_decode_step(cfg, rules, mesh)``. (a) depth 2 in
+               float32 (TF32 off) at llama3-8b's widths, at its widths with
+               one KV head (the cache split by sequence) and at
+               olmoe-1b-7b's (32 experts a bank): a prefill of 2 x 512 and
+               4 decode steps against the unsharded steps on the same
+               weights, every call's logits and the caches within 1e-5 of
+               the scale. (b) llama3-8b and (c) olmoe-1b-7b at full width
+               and depth in bf16, seed-0 weights, nothing cut, phase 8's
+               traffic: the unsharded serve, then the same weights placed
+               on the mesh and served with the counts from 0 (prefill: 64
+               ``flash_attention``; olmoe 32 / 64 ``mp_scatter`` / 32
+               ``gather_rows``, and 64 / 32 a decode step), each timed
+               after a warm run; a prefill and a decode step under
+               ``torch.profiler`` (the device events must be the
+               launches; busy share); the prefill's logits within 0.05 of
+               the scale of the unsharded serve's, and the greedy first
+               tokens equal wherever the unsharded top-2 margin exceeds
+               twice the logits' largest difference. One ``[mp] json``
+               line; ``--only model_parallel`` runs phases 1, 2 (three
+               sources) and 12 alone.
+  13. result — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -6901,6 +6925,323 @@ def mesh_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: model-parallel serving
+# ---------------------------------------------------------------------------
+
+# (data, model) positions of the phase, all on the card (spread over the
+# cards where there are several)
+MP_SHAPE = (1, 2)
+# the depth-2 float32 checks (TF32 off) against the unsharded steps on the
+# same weights: float32 sums over the positions in another order, of the
+# logits' scale
+MP_F32_TOL = 1e-5
+MP_F32_PROMPT, MP_F32_STEPS = 512, 4
+# (arch, config changes): llama3-8b's heads, ff and vocab split and its
+# cache by KV heads; with one KV head its cache split by sequence (the
+# reference's test_decode_seq_sharded_cache_matches); olmoe's banks
+MP_F32_CASES = (("llama3-8b", {}), ("llama3-8b", {"num_kv_heads": 1}),
+                ("olmoe-1b-7b", {}))
+# the full-width bf16 serves on the mesh against the unsharded ones, last-
+# position logits of the prefill, of the logits' scale: the row pieces'
+# partial products are summed in float32 and rounded once, so what differs
+# is cuBLAS's tilings at half widths and bf16 rounding carried through 32
+# layers, as in phase 8's kernel-vs-plain checks (LM_BF16_TOL)
+MP_BF16_TOL = LM_BF16_TOL
+MP_ARCHS = ("llama3-8b", "olmoe-1b-7b")
+
+
+def mp_steps(cfg, mesh=None):
+    """(prefill step, decode step) of ``cfg``: on ``mesh`` the
+    model-parallel steps of ``build_rules``' tables, else the unsharded
+    ones."""
+    from repro_torch.launch.steps import (build_rules, make_decode_step,
+                                          make_prefill_step)
+    if mesh is None:
+        return make_prefill_step(cfg), make_decode_step(cfg)
+    return (make_prefill_step(cfg, build_rules(cfg, mesh, "prefill",
+                                               global_batch=LM_BATCH), mesh),
+            make_decode_step(cfg, build_rules(cfg, mesh, "decode",
+                                              global_batch=LM_BATCH), mesh))
+
+
+def mp_placed(cfg, params, mesh):
+    """``params`` on ``mesh``: each position's pieces by the prefill's
+    rules (the decode's place the weights alike)."""
+    from repro_torch.distributed.sharding import device_put, param_shardings
+    from repro_torch.launch.steps import build_rules
+    from repro_torch.models import lm
+    rules = build_rules(cfg, mesh, "prefill", global_batch=LM_BATCH)
+    return device_put(params, param_shardings(lm.lm_param_defs(cfg), rules,
+                                              mesh))
+
+
+def mp_run(cfg, params, tokens, prompt: int, steps: int, mesh=None,
+           greedy: bool = False) -> dict:
+    """A prefill of ``tokens[:, :prompt]`` and ``steps`` decode steps, fed
+    ``tokens``' next columns or, ``greedy``, each step's argmax: each
+    call's logits, the tokens fed, the caches, wall ms of the prefill and
+    of the decode loop (the card synchronised)."""
+    import torch
+    from repro_torch.models import lm
+    pre, dec = mp_steps(cfg, mesh)
+    caches = lm.init_caches(cfg, LM_BATCH, prompt + steps, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = pre(params, caches, {"tokens": tokens[:, :prompt]})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, fed = [lg], []
+    for i in range(steps):
+        tok = (torch.argmax(lg[:, :cfg.vocab_size], -1)[:, None] if greedy
+               else tokens[:, prompt + i:prompt + i + 1])
+        fed.append(tok)
+        lg, caches = dec(params, caches, {"token": tok,
+                                          "position": prompt + i})
+        logits.append(lg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"logits": logits, "fed": fed, "caches": caches,
+            "prefill_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3}
+
+
+def mp_on_card(mesh, out) -> None:
+    """Raise unless every position is on the card and the step's logits
+    came back there: no position runs on the CPU."""
+    devs = {str(d) for d in mesh.devices.flat}
+    if any(not d.startswith("cuda") for d in devs) or any(
+            lg.device.type != "cuda" for lg in out["logits"]):
+        raise AssertionError(f"a position or the logits left the card: "
+                             f"{sorted(devs)}")
+
+
+def mp_f32_check(card: str, arch: str, changes: dict) -> dict:
+    """(a) ``arch`` at full width, depth 2, float32 (TF32 off), ``changes``
+    applied: the prefill of MP_F32_PROMPT tokens and MP_F32_STEPS decode
+    steps on MP_SHAPE against the unsharded steps on the same weights and
+    tokens; every call's logits and the caches within MP_F32_TOL of the
+    scale."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    cfg = ARCHS[arch].replace(num_layers=2, dtype=torch.float32, **changes)
+    label = (f"(a) {arch} width, depth 2, float32"
+             + "".join(f", {k}={v}" for k, v in changes.items())
+             + f", mesh {MP_SHAPE}")
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, MP_F32_PROMPT + MP_F32_STEPS))).cuda()
+    want = mp_run(cfg, params, tokens, MP_F32_PROMPT, MP_F32_STEPS)
+    mesh = make_host_mesh(*MP_SHAPE, devices=mesh_devices(
+        MP_SHAPE[0] * MP_SHAPE[1]))
+    got = mp_run(cfg, mp_placed(cfg, params, mesh), tokens, MP_F32_PROMPT,
+                 MP_F32_STEPS, mesh)
+    mp_on_card(mesh, got)
+    rels = []
+    for i, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+        _, rel, ok = close(a[:, :cfg.vocab_size].float(),
+                           b[:, :cfg.vocab_size].float(), rtol=0.0,
+                           atol_of_scale=MP_F32_TOL)
+        rels.append(rel)
+        if not ok:
+            raise AssertionError(f"{label}: call {i}'s logits are "
+                                 f"{rel:.3e} of the scale off")
+    kv_want = want["caches"]["groups"][0]
+    kv_got = got["caches"]["groups"][0]
+    cache_rel = 0.0
+    for a, b in ((kv_got.k, kv_want.k), (kv_got.v, kv_want.v)):
+        _, rel, ok = close(a.gather("cuda").float(), b.float(), rtol=0.0,
+                           atol_of_scale=MP_F32_TOL)
+        cache_rel = max(cache_rel, rel)
+        if not ok:
+            raise AssertionError(f"{label}: the caches are {rel:.3e} of the "
+                                 f"scale off")
+    log("mp", f"{label}: prefill of {LM_BATCH} x {MP_F32_PROMPT} and "
+        f"{MP_F32_STEPS} decode steps against the unsharded steps: logits "
+        f"{max(rels):.3e} of the scale at worst, caches {cache_rel:.3e} "
+        f"(tol {MP_F32_TOL:g}); on {card}")
+    del params, got, want
+    torch.cuda.empty_cache()
+    return {"logits_rel_err": rels, "cache_rel_err": cache_rel}
+
+
+def mp_full(card: str, arch: str) -> dict:
+    """(b) / (c) ``arch`` at full width and depth in bf16, seed-0 weights,
+    phase 8's traffic: the unsharded serve, then the same weights placed on
+    MP_SHAPE and served again with the counts from 0 (prefill and decode
+    apart), each timed after a warm run; a prefill and a decode step again
+    under ``torch.profiler`` (device events by kernel, busy share); the
+    prefill's last-position logits and greedy first tokens against the
+    unsharded serve's."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    full = ARCHS[arch]
+    k = MP_SHAPE[0] * MP_SHAPE[1]
+    label = f"({'b' if arch == 'llama3-8b' else 'c'}) {arch} full width " \
+        f"and depth, bf16, mesh {MP_SHAPE}"
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            full, "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, full.vocab_size, (LM_BATCH, LM_PROMPT))).cuda()
+    steps = LM_GEN - 1
+
+    def serve(p, mesh=None):
+        return mp_run(full, p, tokens, LM_PROMPT, steps, mesh, greedy=True)
+    def profile_steps(pre, dec, p):
+        """A prefill and a decode step of ``p`` under the profiler: the
+        device events of each and the wall seconds of each."""
+        def one_prefill():
+            c = lm.init_caches(full, LM_BATCH, LM_PROMPT + 1, "cuda")
+            return pre(p, c, {"tokens": tokens})
+        (lg1, c1), on_pre, wall_pre = profiled(one_prefill)
+        tok = torch.argmax(lg1[:, :full.vocab_size], -1)[:, None]
+        _, on_dec, wall_dec = profiled(
+            lambda: dec(p, c1, {"token": tok, "position": LM_PROMPT}))
+        return on_pre, wall_pre, on_dec, wall_dec
+
+    def busy_of(on_pre, wall_pre, on_dec, wall_dec):
+        busy = {"prefill": sum(t for t, _ in on_pre.values()) / 1e3,
+                "decode": sum(t for t, _ in on_dec.values()) / 1e3}
+        return busy, {"prefill": busy["prefill"] / (wall_pre * 1e3),
+                      "decode": busy["decode"] / (wall_dec * 1e3)}
+
+    serve(params)
+    one = serve(params)
+    # the unsharded steps profiled in this call, beside the mesh's below
+    one_busy, one_share = busy_of(*profile_steps(*mp_steps(full), params))
+    mesh = make_host_mesh(*MP_SHAPE, devices=mesh_devices(k))
+    placed = mp_placed(full, params, mesh)
+    del params
+    torch.cuda.empty_cache()
+    serve(placed, mesh)
+    want_prefill, want_step = lm_launches(full)
+    want_prefill = {n: k * v for n, v in want_prefill.items()}
+    want_step = {n: k * v for n, v in want_step.items()}
+    pre, dec = mp_steps(full, mesh)
+    caches = lm.init_caches(full, LM_BATCH, LM_PROMPT + steps, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (lg, caches), prefill_launches = counted(
+        lambda: pre(placed, caches, {"tokens": tokens}))
+    t1 = time.perf_counter()
+    state = {"lg": lg, "caches": caches}
+
+    def decode_loop():
+        fed = []
+        for i in range(steps):
+            tok = torch.argmax(state["lg"][:, :full.vocab_size], -1)[:, None]
+            fed.append(tok)
+            state["lg"], state["caches"] = dec(
+                placed, state["caches"],
+                {"token": tok, "position": LM_PROMPT + i})
+        return fed
+    fed, decode_launches = counted(decode_loop)
+    t2 = time.perf_counter()
+    mp = {"logits": [lg, state["lg"]], "fed": fed,
+          "prefill_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3}
+    mp_on_card(mesh, mp)
+    check_launches("mp", f"{label}: prefill", prefill_launches, want_prefill,
+                   f"{LM_LAUNCHES_TXT}; on each of the {k} positions")
+    check_launches("mp", f"{label}: {steps} decode steps", decode_launches,
+                   {n: steps * v for n, v in want_step.items()},
+                   f"{LM_LAUNCHES_TXT}; on each of the {k} positions")
+
+    # the prefill's logits and first tokens against the unsharded serve's
+    a, b = lg[:, :full.vocab_size].float(), one["logits"][0][
+        :, :full.vocab_size].float()
+    err, rel, ok = close(a, b, rtol=0.0, atol_of_scale=MP_BF16_TOL)
+    if not ok or tuple(lg.shape) != (LM_BATCH, full.vocab_pad):
+        raise AssertionError(f"{label}: the prefill's logits {tuple(lg.shape)}"
+                             f" are {rel:.3e} of the scale off")
+    top2 = torch.topk(b, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * err
+    first_mp = torch.argmax(a, -1)
+    first_one = torch.argmax(b, -1)
+    same = first_mp == first_one
+    if not bool(same[decided].all()):
+        raise AssertionError(f"{label}: a first token whose margin exceeds "
+                             f"twice the logits' difference changed")
+    agree = float((torch.cat(mp["fed"], 1) == torch.cat(one["fed"], 1))
+                  .float().mean())
+    log("mp", f"{label}: the prefill's last-position logits against the "
+        f"unsharded serve's: max_abs_err={err:.4e}, {rel:.3e} of the scale "
+        f"(tol {MP_BF16_TOL:g}); greedy first tokens {first_mp.tolist()} vs "
+        f"{first_one.tolist()} (held equal where the unsharded top-2 margin "
+        f"exceeds 2 x max_abs_err: {decided.tolist()}); greedy tokens equal "
+        f"to the unsharded serve's {agree:.3f} of all (not gated)")
+
+    # a prefill and a decode step under the profiler
+    on_pre, wall_pre, on_dec, wall_dec = profile_steps(pre, dec, placed)
+    ev_pre, ev_dec = lm_events(on_pre), lm_events(on_dec)
+    for what, got, want in (("prefill", ev_pre, want_prefill),
+                            ("decode step", ev_dec, want_step)):
+        want = {n: want.get(n, 0) for n in got}
+        log("mp", f"{label}: a {what}'s device events {got} (expected "
+            f"{want})")
+        if got != want:
+            raise AssertionError(f"{label}: the {what}'s device events are "
+                                 f"not the launches")
+    busy, share = busy_of(on_pre, wall_pre, on_dec, wall_dec)
+    tok_s = LM_BATCH * steps / (mp["decode_ms"] / 1e3)
+    one_tok_s = LM_BATCH * steps / (one["decode_ms"] / 1e3)
+    log("mp", f"{label}: B={LM_BATCH} prompts of {LM_PROMPT} tokens, "
+        f"{LM_GEN} generated each: prefill {mp['prefill_ms']:.2f} ms against "
+        f"{one['prefill_ms']:.2f} unsharded; decode {tok_s:.2f} tokens/s "
+        f"against {one_tok_s:.2f}; profiled: prefill {wall_pre * 1e3:.2f} ms "
+        f"wall, busy {busy['prefill']:.2f} ({share['prefill']:.1%}), a "
+        f"decode step {wall_dec * 1e3:.2f} ms wall, busy "
+        f"{busy['decode']:.2f} ({share['decode']:.1%}); unsharded busy "
+        f"{one_busy['prefill']:.2f} ({one_share['prefill']:.1%}) and "
+        f"{one_busy['decode']:.2f} ({one_share['decode']:.1%}); top device "
+        f"ops of the prefill {top(on_pre, 4)}; on {card}")
+    del placed, state, caches
+    torch.cuda.empty_cache()
+    return {"launches": {n: prefill_launches[n] + decode_launches[n]
+                         for n in prefill_launches},
+            "launches_prefill": prefill_launches,
+            "launches_decode": decode_launches,
+            "events_prefill": ev_pre, "events_decode_step": ev_dec,
+            "prefill_ms": mp["prefill_ms"], "decode_tok_per_s": tok_s,
+            "unsharded_prefill_ms": one["prefill_ms"],
+            "unsharded_decode_tok_per_s": one_tok_s,
+            "busy_ms": busy, "busy_share": share,
+            "unsharded_busy_ms": one_busy, "unsharded_busy_share": one_share,
+            "profiled_wall_ms": {"prefill": wall_pre * 1e3,
+                                 "decode": wall_dec * 1e3},
+            "logits_max_abs_err": err, "logits_rel_err": rel,
+            "first_tokens": first_mp.tolist(),
+            "unsharded_first_tokens": first_one.tolist(),
+            "first_token_decided": decided.tolist(),
+            "greedy_agreement": agree}
+
+
+def mp_phase(card: str) -> dict:
+    """Phase 12: (a) the depth-2 float32 checks, (b) llama3-8b and (c)
+    olmoe-1b-7b at full width and depth on MP_SHAPE. Returns the ``[mp]
+    json`` record; its ``paths`` hold each full run's launches."""
+    import torch
+    out = {"card": card, "shape": list(MP_SHAPE),
+           "device_count": torch.cuda.device_count(), "seconds": {}}
+    t0 = time.perf_counter()
+    out["f32"] = {}
+    for arch, changes in MP_F32_CASES:
+        key = arch + "".join(f"_{k}{v}" for k, v in changes.items())
+        out["f32"][key] = mp_f32_check(card, arch, changes)
+    out["seconds"]["a"] = time.perf_counter() - t0
+    for arch in MP_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = mp_full(card, arch)
+        out["seconds"][arch] = time.perf_counter() - t0
+    log("mp", f"seconds by part: {out['seconds']}")
+    out["paths"] = {f"mp_{arch}": {"launches": out[arch]["launches"]}
+                    for arch in MP_ARCHS}
+    return out
+
+
 # what ``--only`` runs after phase 1: the sources it builds (phase 2) and
 # its phase alone, with no result lines
 ONLY_SOURCES = {"wide": ["layer_fused", "mp_pipeline"],
@@ -6909,7 +7250,9 @@ ONLY_SOURCES = {"wide": ["layer_fused", "mp_pipeline"],
                 "train": ["flash_attention", "flash_attention_bwd",
                           "mp_scatter", "gather_rows"],
                 "mesh": ["flash_attention", "flash_attention_bwd",
-                         "mp_scatter", "gather_rows"]}
+                         "mp_scatter", "gather_rows"],
+                "model_parallel": ["flash_attention", "mp_scatter",
+                                   "gather_rows"]}
 
 
 def main(argv=None) -> int:
@@ -6974,6 +7317,11 @@ def main(argv=None) -> int:
     if only == "mesh":
         # phase 11 alone: no result lines
         log("mesh", "json " + json.dumps(mesh_phase(card), default=str))
+        print(smi)
+        return 0
+    if only == "model_parallel":
+        # phase 12 alone: no result lines
+        log("mp", "json " + json.dumps(mp_phase(card), default=str))
         print(smi)
         return 0
     scatter_build = scatter_build_report()
@@ -7046,8 +7394,12 @@ def main(argv=None) -> int:
     mesh = mesh_phase(card)
     log("mesh", "json " + json.dumps(mesh, default=str))
     paths.update(mesh["paths"])
+    # 12. model-parallel serving: llama3-8b and olmoe-1b-7b on a model axis
+    mp = mp_phase(card)
+    log("mp", "json " + json.dumps(mp, default=str))
+    paths.update(mp["paths"])
 
-    # 12. result: each kernel's row at the largest shape its main path gives
+    # 13. result: each kernel's row at the largest shape its main path gives
     # it (the hep bucket for the GNN kernels), and its launches in its main
     # path's run
     def row(name, source, replaces, cases, main, path, shape):

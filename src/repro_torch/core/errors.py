@@ -6,9 +6,10 @@ them: the admission errors (``InvalidRequest``, ``InvalidGraph``,
 ``GraphTooLarge``, ``UnknownQueue``) and ``EngineClosed`` at ``submit``;
 ``PoisonGraph``, ``BatchFailed``, ``DeadlineExceeded`` and
 ``ExecutorDead`` through the futures (DESIGN.md §8); ``ParamUpdateFailed``
-from ``update_params`` (§9). Wide placement, which would raise
-``GraphTooLarge`` for a graph no gang can hold, is not ported. All
-subclass ``RuntimeError`` and carry
+from ``update_params`` (§9). Under wide placement (DESIGN.md §10),
+``GraphTooLarge`` also stands for a graph that no ``wide_k``-way split
+fits the engine's buckets (``core/engine.py``). All subclass
+``RuntimeError`` and carry
 
   * ``request_ids``    — engine request ids of the affected graphs, and
   * ``executor_index`` — the executor involved, when there is one.

@@ -2,7 +2,8 @@
 
 The twin of ``repro/distributed/sharding.py::compat_shard_map`` and of the
 ``jax.lax`` collectives the reference uses inside it (``psum``, ``pmax``,
-``axis_index``, ``axis_size``, ``ppermute``, ``all_gather``).
+``pmean``, ``psum_scatter``, ``axis_index``, ``axis_size``, ``ppermute``,
+``all_gather``, untiled and tiled).
 
 One controller, one thread a position. ``shard_map(f, mesh=, in_specs=,
 out_specs=)`` splits its inputs by their specs (``distributed/
@@ -178,11 +179,16 @@ def _received(pos: _Position, t: Any, event, src_stream, *,
     return t.to(pos.device)
 
 
-def _reduce(x: Any, axis_name: MeshAxis, op: Callable) -> Any:
+def _reduce(x: Any, axis_name: MeshAxis, op: Callable,
+            take: Optional[Callable] = None) -> Any:
+    """``x``'s leaves folded by ``op`` over the positions of ``axis_name``
+    in position order by the first; each position gets ``take(total,
+    its index)`` of every leaf (the whole total without ``take``)."""
     leaves = tree_leaves(x)
     vals, idx = _exchange(axis_name, leaves)
     if len(vals) == 1:
-        return x
+        return x if take is None else tree_unflatten(
+            x, [take(t, 0) for t in leaves])
     pos = _here()
     totals = None
     if idx == 0:
@@ -199,10 +205,12 @@ def _reduce(x: Any, axis_name: MeshAxis, op: Callable) -> Any:
             totals.append(acc)
     published, _ = _exchange(axis_name, totals)
     if idx == 0:
-        return tree_unflatten(x, totals)
+        return tree_unflatten(x, totals if take is None else [
+            take(t, 0).contiguous() for t in totals])
     value, event, stream = published[0]
-    return tree_unflatten(x, [_received(pos, t, event, stream, copy=True)
-                              for t in value])
+    return tree_unflatten(x, [_received(
+        pos, t if take is None else take(t, idx), event, stream, copy=True)
+        for t in value])
 
 
 def psum(x: Any, axis_name: MeshAxis) -> Any:
@@ -215,6 +223,35 @@ def pmax(x: Any, axis_name: MeshAxis) -> Any:
     """The elementwise maximum of ``x`` (a tensor or a tree of them) over
     the positions of ``axis_name``."""
     return _reduce(x, axis_name, torch.maximum)
+
+
+def pmean(x: Any, axis_name: MeshAxis) -> Any:
+    """``psum`` of ``x`` divided by the number of positions of
+    ``axis_name`` (``jax.lax.pmean``)."""
+    n = axis_size(axis_name)
+    total = psum(x, axis_name)
+    return tree_unflatten(total, [t / n for t in tree_leaves(total)])
+
+
+def psum_scatter(x: Any, axis_name: MeshAxis, *,
+                 scatter_dimension: int) -> Any:
+    """``psum`` of ``x`` (a tensor or a tree of them) of which each
+    position keeps its block along ``scatter_dimension``: the tiled
+    ``jax.lax.psum_scatter``, the dimension cut into ``axis_size`` equal
+    blocks, position i keeping block i. The same bits as ``psum`` then the
+    block."""
+    n = axis_size(axis_name)
+    for t in tree_leaves(x):
+        if t.shape[scatter_dimension] % n:
+            raise ValueError(
+                f"psum_scatter over {axis_name!r} ({n} positions): "
+                f"dimension {scatter_dimension} of {tuple(t.shape)} does "
+                f"not divide by {n}")
+
+    def take(t: torch.Tensor, i: int) -> torch.Tensor:
+        size = t.shape[scatter_dimension] // n
+        return t.narrow(scatter_dimension, i * size, size)
+    return _reduce(x, axis_name, torch.add, take)
 
 
 def ppermute(x: Any, axis_name: MeshAxis,
@@ -235,13 +272,24 @@ def ppermute(x: Any, axis_name: MeshAxis,
                                         copy=False) for t in value])
 
 
-def all_gather(x: torch.Tensor, axis_name: MeshAxis) -> torch.Tensor:
-    """Every position's ``x`` over ``axis_name``, stacked on a new leading
-    dimension in index order (``jax.lax.all_gather``, untiled)."""
+def all_gather(x: torch.Tensor, axis_name: MeshAxis, *, axis: int = 0,
+               tiled: bool = False) -> torch.Tensor:
+    """Every position's ``x`` over ``axis_name`` in index order
+    (``jax.lax.all_gather``): untiled, stacked on a new dimension
+    ``axis``; tiled, concatenated along ``axis``."""
     vals, _ = _exchange(axis_name, x)
     pos = _here()
-    return torch.stack([_received(pos, v, event, stream, copy=False)
-                        for v, event, stream in vals])
+    parts = [_received(pos, v, event, stream, copy=False)
+             for v, event, stream in vals]
+    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
+                                                                dim=axis)
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The mesh of the ``shard_map`` this thread is a position of, or
+    ``None`` outside one."""
+    pos = getattr(_LOCAL, "position", None)
+    return None if pos is None else pos.call.mesh
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +345,12 @@ def _global_shape(piece: torch.Tensor, spec: P, mesh: Mesh) -> Tuple:
 
 def _assemble(outs: Dict[Tuple, Any], spec: Any, mesh: Mesh) -> Any:
     """The positions' outputs as one tree of ``Sharded`` leaves under
-    ``spec`` (non-tensor leaves: position 0's)."""
+    ``spec`` (non-tensor leaves, and whatever a ``None`` spec covers:
+    position 0's)."""
     positions = mesh.positions()
     first = outs[positions[0]]
+    if spec is None:
+        return first
     if isinstance(spec, P):
         flat = {pos: tree_leaves(outs[pos]) for pos in positions}
         leaves = tree_leaves(first)
@@ -318,8 +369,11 @@ def _assemble(outs: Dict[Tuple, Any], spec: Any, mesh: Mesh) -> Any:
         return {k: _assemble({pos: o[k] for pos, o in outs.items()},
                              spec[k], mesh) for k in spec}
     if isinstance(spec, (list, tuple)):
-        return type(spec)(_assemble({pos: o[i] for pos, o in outs.items()},
-                                    s, mesh) for i, s in enumerate(spec))
+        parts = [_assemble({pos: o[i] for pos, o in outs.items()}, s, mesh)
+                 for i, s in enumerate(spec)]
+        if isinstance(first, tuple) and hasattr(first, "_fields"):
+            return type(first)(*parts)
+        return type(spec)(parts)
     raise TypeError(f"not a partition spec: {spec!r}")
 
 
@@ -410,5 +464,5 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs: Any,
     return mapped
 
 
-__all__ = ["all_gather", "axis_index", "axis_size", "pmax", "ppermute",
-           "psum", "shard_map"]
+__all__ = ["all_gather", "axis_index", "axis_size", "current_mesh", "pmax",
+           "pmean", "ppermute", "psum", "psum_scatter", "shard_map"]

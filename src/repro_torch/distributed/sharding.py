@@ -401,17 +401,48 @@ def make_dp_only_rules(*, data_axes: Tuple[str, ...] = ("data",),
 
 def logical_constraint(x: torch.Tensor, *logical: Optional[str],
                        rules: Optional[ShardingRules],
-                       mesh: Optional[Mesh]) -> torch.Tensor:
-    """The reference's ``with_sharding_constraint`` by logical axes: a
-    no-op without a mesh. With one it raises ``NotImplementedError``: the
-    port's models take no ``rules`` / ``mesh`` yet, and placing
-    activations inside a model is the tensor-parallel slice's (ROADMAP)."""
+                       mesh: Optional[Mesh],
+                       shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical axes.
+
+    Without a mesh (or rules) a no-op. Inside a position of a
+    ``shard_map`` over ``mesh`` a check that moves no data: ``x`` must be
+    the piece of a tensor of global ``shape`` that ``rules.spec(*logical)``
+    gives a position of the mesh, and a mismatch raises ``ValueError``
+    naming the axes, so that a collective a layer missed is an error and
+    not a wrong number. Outside a ``shard_map`` it raises
+    ``NotImplementedError``: the port places activations only inside its
+    ``shard_map``'d steps, whose layers call the collectives where GSPMD
+    would put them (``launch/steps.py``)."""
     if mesh is None or rules is None:
         return x
-    raise NotImplementedError(
-        "logical_constraint on a mesh: activations are placed inside the "
-        "model by the tensor-parallel slice, which the port has not reached "
-        "(ROADMAP: tensor, expert and sequence parallelism)")
+    from repro_torch.distributed.collectives import current_mesh
+    here = current_mesh()
+    if here is None:
+        raise NotImplementedError(
+            "logical_constraint on a mesh outside shard_map: the port "
+            "places activations only inside its shard_map'd steps")
+    if here is not mesh:
+        raise ValueError(f"logical_constraint on {mesh} inside a shard_map "
+                         f"over {here}")
+    spec = rules.spec(*logical)
+    if shape is None or len(shape) != x.ndim or len(logical) != x.ndim:
+        raise ValueError(f"logical_constraint: logical axes {logical} and "
+                         f"global shape {shape} for a tensor of "
+                         f"{x.ndim} dimensions")
+    want = []
+    for dim, entry in zip(shape, spec):
+        n = mesh.axis_sizes(entry)
+        if dim % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide "
+                             f"by axes {axis_names_of(entry)} ({n})")
+        want.append(dim // n)
+    if tuple(x.shape) != tuple(want):
+        raise ValueError(
+            f"a position holds {tuple(x.shape)}, not the piece "
+            f"{tuple(want)} of {tuple(shape)} that logical axes {logical} "
+            f"give on mesh {mesh.shape} ({spec})")
+    return x
 
 
 # ---------------------------------------------------------------------------

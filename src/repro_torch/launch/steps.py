@@ -18,11 +18,25 @@ the global batch's, as the reference's GSPMD step computes it, not a mean
 of the shards' means: a shard's NLL is divided by the whole microbatch's
 mask sum, a microbatch is a slice of the global batch (the reference's
 reshape), and the MoE routes the global token groups
-(``nn/moe.py::TokenShards``). A rule table that would split a weight
-(tensor, expert or sequence parallelism, FSDP) raises
-``NotImplementedError``: that is a later slice (ROADMAP). The
-reference's ``lowering_bundle`` lowers the steps for its dry-run, which
-the port has not reached either.
+(``nn/moe.py::TokenShards``). A training rule table that would split a
+weight (tensor, expert or sequence parallelism, FSDP) raises
+``NotImplementedError``: training under the model axis is a later slice
+(ROADMAP).
+
+The serving steps on a mesh are tensor, sequence, vocab and expert
+parallel: one ``shard_map`` a step, whose ``in_specs`` are the parameter,
+cache and batch specs of ``rules`` and whose ``out_specs`` are ``P()`` for
+the logits (gathered whole on every position) and the cache specs for the
+caches. Each position holds its pieces of the weights and caches
+(``param_specs(lm_param_defs(cfg), rules)``, ``param_specs(lm_cache_defs(
+...), rules)``) and its layers call the collectives where the reference's
+GSPMD puts them (``distributed/tensor_parallel.py``, ``nn/attention.py``,
+``nn/mlp.py``, ``nn/moe.py``, ``models/lm.py``). The steps return the
+caches as ``Sharded`` trees, and decode takes them back. FSDP (a weight
+split over a data axis of size > 1) and the SSM and hybrid families with
+a split weight raise ``NotImplementedError`` (ROADMAP). The reference's
+``lowering_bundle`` lowers the steps for its dry-run, which the port has
+not reached.
 """
 
 from __future__ import annotations
@@ -39,7 +53,8 @@ from repro_torch.distributed.sharding import (Mesh, NamedSharding, P,
                                               ShardingRules, axis_names_of,
                                               device_put, gather,
                                               make_dp_only_rules, make_rules,
-                                              map_defs)
+                                              map_defs, map_tree,
+                                              param_specs)
 from repro_torch.launch.mesh import data_axis_names
 from repro_torch.models import lm
 from repro_torch.nn.moe import TokenShards
@@ -183,9 +198,10 @@ def check_data_parallel(cfg: ModelConfig, rules: ShardingRules,
             f"{cfg.name} on mesh {mesh.shape}: the rules split "
             f"{len(split)} weight and optimizer leaves, e.g. {d.shape} with "
             f"logical axes {d.logical_axes} onto "
-            f"{rules.spec(*d.logical_axes)}. The port's mesh carries data "
-            f"parallelism only; tensor, expert and sequence parallelism and "
-            f"FSDP are the tensor-parallel slice (ROADMAP), not yet ported")
+            f"{rules.spec(*d.logical_axes)}. The port trains on a mesh with "
+            f"data parallelism only; training under the model axis, with "
+            f"FSDP, is the tensor-parallel slice's training half (ROADMAP), "
+            f"not yet ported")
 
 
 def make_dp_train_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -276,9 +292,22 @@ def make_dp_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig,
+                      rules: Optional[ShardingRules] = None,
+                      mesh: Optional[Mesh] = None) -> Callable:
     """``prefill_step(params, caches, batch) -> (last-position logits,
-    caches)``."""
+    caches)``; on ``mesh``, the model-parallel step (the module's
+    docstring)."""
+    if mesh is not None:
+        rules = rules if rules is not None else build_rules(cfg, mesh,
+                                                            "prefill")
+
+        def run(params, caches, batch, shards):
+            return lm.prefill(params, batch["tokens"], caches, cfg,
+                              prefix_embed=batch.get("prefix_embed"),
+                              rules=rules, mesh=mesh, token_shards=shards)
+        return _serving_step(cfg, rules, mesh, run)
+
     @torch.no_grad()
     def prefill_step(params, caches, batch):
         return lm.prefill(params, batch["tokens"], caches, cfg,
@@ -286,10 +315,22 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig,
+                     rules: Optional[ShardingRules] = None,
+                     mesh: Optional[Mesh] = None) -> Callable:
     """``serve_step(params, caches, inputs) -> (logits, caches)`` for one
     token a sequence; ``inputs["position"]`` is the number of tokens
-    already in the cache."""
+    already in the cache. On ``mesh``, the model-parallel step."""
+    if mesh is not None:
+        rules = rules if rules is not None else build_rules(cfg, mesh,
+                                                            "decode")
+
+        def run(params, caches, inputs, shards):
+            return lm.decode_step(params, inputs["token"], caches, cfg,
+                                  position=inputs["position"], rules=rules,
+                                  mesh=mesh, token_shards=shards)
+        return _serving_step(cfg, rules, mesh, run)
+
     @torch.no_grad()
     def serve_step(params, caches, inputs):
         return lm.decode_step(params, inputs["token"], caches, cfg,
@@ -297,6 +338,80 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     return serve_step
 
 
+def check_model_parallel_serving(cfg: ModelConfig, rules: ShardingRules,
+                                 mesh: Mesh) -> None:
+    """Raise ``NotImplementedError`` where the serving steps on ``mesh``
+    have no form yet: a weight split over a data axis of size > 1 (FSDP),
+    or an SSM or hybrid model with a split weight (their ``ssm_heads`` /
+    ``lru_width`` forms)."""
+    data = set(data_axis_names(mesh))
+    fsdp, split = [], []
+
+    def look(d):
+        entries = rules.spec(*d.logical_axes)
+        if any(mesh.axis_sizes(e) > 1 for e in entries):
+            split.append(d)
+        if any(n in data and mesh.shape[n] > 1
+               for e in entries for n in axis_names_of(e)):
+            fsdp.append(d)
+    map_defs(look, lm.lm_param_defs(cfg))
+    if fsdp:
+        d = fsdp[0]
+        raise NotImplementedError(
+            f"{cfg.name} on mesh {mesh.shape}: the rules split {len(fsdp)} "
+            f"weights over a data axis (FSDP), e.g. {d.shape} with logical "
+            f"axes {d.logical_axes} onto {rules.spec(*d.logical_axes)}; "
+            f"FSDP comes with training under the model axis (ROADMAP §1 "
+            f"item 2), not yet ported")
+    if split and cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on mesh {mesh.shape}: the rules "
+            f"split {len(split)} of its weights; the SSM and hybrid "
+            f"families' model-axis forms (ssm_heads, lru_width) are not yet "
+            f"ported (ROADMAP §1 item 2)")
+
+
+def _serving_step(cfg: ModelConfig, rules: ShardingRules, mesh: Mesh,
+                  run: Callable) -> Callable:
+    """A serving step on ``mesh``: ``run(params, caches, inputs, shards)``
+    once a position under ``torch.no_grad``, in one ``shard_map``. Returns
+    ``step(params, caches, inputs) -> (logits on position 0's device,
+    caches as a tree of Sharded)``. ``params`` and ``caches`` may be whole
+    tensors (split by their specs: a position on their device reads a view,
+    and the caches are written in place there) or ``Sharded`` trees; the
+    inputs' tensors are split by rows over the batch axes."""
+    check_model_parallel_serving(cfg, rules, mesh)
+    pspecs = param_specs(lm.lm_param_defs(cfg), rules)
+    cspecs = map_tree(lambda spec: spec if isinstance(spec, P) else None,
+                      param_specs(lm.lm_cache_defs(cfg, 1, 1), rules))
+    batch_ax = rules.axis("batch")
+    names = axis_names_of(batch_ax)
+    shards = mesh.axis_sizes(batch_ax)
+
+    @torch.no_grad()
+    def local(params, caches, inputs):
+        token_shards = None
+        if cfg.num_experts and shards > 1:
+            token_shards = TokenShards(shards, axis_index(names),
+                                       lambda t: all_gather(t, names))
+        logits, caches = run(params, caches, inputs, token_shards)
+        if shards > 1:
+            logits = all_gather(logits, names, axis=0, tiled=True)
+        return logits, caches
+
+    def step(params, caches, inputs):
+        inputs = {k: int(v) if k == "position" else v
+                  for k, v in inputs.items()}
+        ispecs = {k: None if k == "position" else P(batch_ax)
+                  for k in inputs}
+        logits, caches = shard_map(local, mesh=mesh,
+                                   in_specs=(pspecs, cspecs, ispecs),
+                                   out_specs=(P(), cspecs))(
+            params, caches, inputs)
+        return logits.gather(), caches
+    return step
+
+
 __all__ = ["batch_defs", "build_rules", "check_data_parallel",
-           "make_decode_step", "make_dp_train_step", "make_prefill_step",
-           "make_train_step"]
+           "check_model_parallel_serving", "make_decode_step",
+           "make_dp_train_step", "make_prefill_step", "make_train_step"]

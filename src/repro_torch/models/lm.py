@@ -9,6 +9,16 @@ parameter tree has the JAX nesting and shapes (``lm_param_defs``).
 ``lm_loss`` is the training loss: next-token cross-entropy over sequence
 chunks, each under ``torch.utils.checkpoint`` so that the (B, S, V)
 logits never exist whole, plus the z-loss and the router's aux loss.
+
+On a mesh (``rules`` / ``mesh``, inside a position of the serving step's
+``shard_map``, ``launch/steps.py``) ``forward_hidden``, ``prefill`` and
+``decode_step`` take the position's pieces: the vocab-sharded embedding
+is a lookup of the position's rows, zeros elsewhere, ``psum``med over the
+vocab axis (the reference's one-hot product, the same bits); the
+unembedding computes the position's vocab columns, masks the padding by
+the global column, and ``all_gather``s the logits over the vocab axis.
+The residual between blocks is ("batch", "seq_sp", "embed"): in a prefill
+each position holds its S/K rows (whole where K does not divide S).
 """
 
 from __future__ import annotations
@@ -22,7 +32,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import DeviceLike
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
-from repro_torch.distributed.sharding import ParamDef
+from repro_torch.distributed.collectives import all_gather, axis_index, psum
+from repro_torch.distributed.sharding import (Mesh, ParamDef, ShardingRules,
+                                              logical_constraint)
+from repro_torch.distributed.tensor_parallel import (global_batch, own_rows,
+                                                     residual_rules,
+                                                     split_axis)
 from repro_torch.nn.layers import needs_grad, sinusoidal_pos, softcap
 from repro_torch.nn.transformer import (apply_norm, norm_defs, stack_apply,
                                         stack_cache_defs, stack_param_defs)
@@ -49,11 +64,33 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return sharding.init_params(generator, lm_param_defs(cfg), device)
 
 
+def _vocab_parallel_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                           axis) -> torch.Tensor:
+    """The reference's one-hot lookup (``_onehot_lookup``) from a table
+    split by rows over ``axis``: each position takes its rows where a token
+    falls in its range and zeros elsewhere, and the pieces are ``psum``med.
+    One term of each sum is the row and the others exact zeros: the same
+    bits as a gather from the whole table, and as the one-hot product."""
+    v_loc = table.shape[0]
+    local = tokens.to(torch.int64) - axis_index(axis) * v_loc
+    hit = (local >= 0) & (local < v_loc)
+    rows = table[local.clamp(0, v_loc - 1)]
+    x = torch.where(hit[..., None], rows,
+                    torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return psum(x, axis)
+
+
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
-           prefix_embed: Optional[torch.Tensor]) -> torch.Tensor:
-    # the JAX package's one-hot lookup serves a vocab-sharded table on a TPU
-    # mesh; on one device it takes jnp.take, as this index gather does
-    x = params["embed"][tokens]
+           prefix_embed: Optional[torch.Tensor],
+           rules: Optional[ShardingRules] = None,
+           mesh: Optional[Mesh] = None) -> torch.Tensor:
+    vocab_ax = split_axis(rules, mesh, "vocab")
+    if vocab_ax is None:
+        # the JAX package's one-hot lookup serves a vocab-sharded table; on
+        # a whole table it takes jnp.take, as this index gather does
+        x = params["embed"][tokens]
+    else:
+        x = _vocab_parallel_lookup(params["embed"], tokens, vocab_ax)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -62,40 +99,64 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig,
+                    start: int = 0) -> torch.Tensor:
+    """-1e30 in the padding columns; ``logits`` hold the vocabulary's
+    columns from ``start`` on."""
     if cfg.vocab_pad == cfg.vocab_size:
         return logits
-    valid = torch.arange(cfg.vocab_pad, device=logits.device) < cfg.vocab_size
-    return torch.where(valid, logits,
+    cols = torch.arange(start, start + logits.shape[-1], device=logits.device)
+    return torch.where(cols < cfg.vocab_size, logits,
                        torch.tensor(-1e30, dtype=logits.dtype,
                                     device=logits.device))
 
 
-def _unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _unembed(params, x: torch.Tensor, cfg: ModelConfig,
+             rules: Optional[ShardingRules] = None,
+             mesh: Optional[Mesh] = None) -> torch.Tensor:
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:
         logits = x @ params["unembed"]
-    return _mask_pad_vocab(softcap(logits, cfg.final_softcap), cfg)
+    vocab_ax = split_axis(rules, mesh, "vocab")
+    start = axis_index(vocab_ax) * logits.shape[-1] if vocab_ax else 0
+    logits = _mask_pad_vocab(softcap(logits, cfg.final_softcap), cfg, start)
+    logits = logical_constraint(
+        logits, "batch", None, "vocab", rules=rules, mesh=mesh,
+        shape=(global_batch(x.shape[0], rules, mesh), x.shape[1],
+               cfg.vocab_pad))
+    if vocab_ax is None:
+        return logits
+    return all_gather(logits, vocab_ax, axis=-1, tiled=True)
 
 
 def forward_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                    prefix_embed: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
-                   caches=None, token_shards=None
+                   caches=None, token_shards=None,
+                   rules: Optional[ShardingRules] = None,
+                   mesh: Optional[Mesh] = None
                    ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """tokens: (B, S) -> (hidden (B, S, d), new_caches, aux_loss () float32,
-    summed over the layers)."""
+    summed over the layers). On a mesh the hidden rows are the position's
+    block of the sequence where the residual is split by it."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
-    x = _embed(params, tokens, cfg, prefix_embed)
+    rules = residual_rules(rules, mesh, s)
+    x = _embed(params, tokens, cfg, prefix_embed, rules=rules, mesh=mesh)
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
+    x = own_rows(x, split_axis(rules, mesh, "seq_sp"))
+    x = logical_constraint(x, "batch", "seq_sp" if s > 1 else "seq",
+                           "embed", rules=rules, mesh=mesh,
+                           shape=(global_batch(b, rules, mesh), s,
+                                  cfg.d_model))
     x, new_caches, aux = stack_apply(params["stack"], x, positions, cfg,
                                      caches=caches,
-                                     token_shards=token_shards)
+                                     token_shards=token_shards,
+                                     rules=rules, mesh=mesh)
     x = apply_norm(params["final_norm"], x, cfg)
     return x, new_caches, aux
 
@@ -204,23 +265,45 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                                     device)
 
 
+def _last_logits(params, x: torch.Tensor, cfg: ModelConfig,
+                 rules: Optional[ShardingRules], mesh: Optional[Mesh]
+                 ) -> torch.Tensor:
+    """The last position's logits (B, V) from a forward's hidden rows.
+    Where the residual is split by sequence the last row comes from the
+    position holding it; on a mesh the vocab columns come from every
+    position."""
+    sp = split_axis(rules, mesh, "seq_sp")
+    if sp is not None:
+        x = all_gather(x[:, -1:], sp, axis=1, tiled=True)[:, -1:]
+    return _unembed(params, x, cfg, rules, mesh)[:, -1]
+
+
 def prefill(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
-            prefix_embed: Optional[torch.Tensor] = None
+            prefix_embed: Optional[torch.Tensor] = None,
+            rules: Optional[ShardingRules] = None,
+            mesh: Optional[Mesh] = None, token_shards=None
             ) -> Tuple[torch.Tensor, Any]:
-    """Fill caches from a prompt; return (last-position logits, caches)."""
-    logits, new_caches, _ = forward(params, tokens, cfg,
-                                    prefix_embed=prefix_embed,
-                                    caches=caches)
-    return logits[:, -1], new_caches
+    """Fill caches from a prompt; return (last-position logits, caches).
+    On a mesh: a position's pieces in, its caches' pieces and its batch
+    rows' logits over the whole vocabulary out."""
+    rules = residual_rules(rules, mesh, tokens.shape[1])
+    x, new_caches, _ = forward_hidden(
+        params, tokens, cfg, prefix_embed=prefix_embed, caches=caches,
+        token_shards=token_shards, rules=rules, mesh=mesh)
+    return _last_logits(params, x, cfg, rules, mesh), new_caches
 
 
 def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig, *,
-                position: int) -> Tuple[torch.Tensor, Any]:
+                position: int, rules: Optional[ShardingRules] = None,
+                mesh: Optional[Mesh] = None, token_shards=None
+                ) -> Tuple[torch.Tensor, Any]:
     """One decode step. token: (B, 1); ``position`` is the number of tokens
-    already in the cache."""
+    already in the cache. On a mesh as ``prefill``."""
     b = token.shape[0]
     positions = torch.full((b, 1), position, dtype=torch.int32,
                            device=token.device)
-    logits, new_caches, _ = forward(params, token, cfg,
-                                    positions=positions, caches=caches)
-    return logits[:, -1], new_caches
+    rules = residual_rules(rules, mesh, 1)
+    x, new_caches, _ = forward_hidden(
+        params, token, cfg, positions=positions, caches=caches,
+        token_shards=token_shards, rules=rules, mesh=mesh)
+    return _last_logits(params, x, cfg, rules, mesh), new_caches

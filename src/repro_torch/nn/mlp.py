@@ -1,19 +1,32 @@
 """Feed-forward blocks: gated (SwiGLU/GeGLU) and plain MLP.
 
 The twin of ``repro/nn/mlp.py``. The products are ``torch.matmul``, as the
-JAX package leaves them to XLA; its hand-scheduled sequence-parallel form
-(``_mlp_sp_shardmap``) is a TPU mesh schedule with no counterpart on one
-GPU.
+JAX package leaves them to XLA.
+
+On a mesh (``rules`` / ``mesh``, inside a position of the serving step's
+``shard_map``) a position holds column pieces of ``w_gate`` / ``w_up`` and
+a row piece of ``w_down`` (``ff`` on the model axis). Where the residual
+is whole, the local FFN's product is ``psum``med over the axis in
+float32. Where it is split by sequence (a prefill), ``mlp`` runs the
+reference's Megatron-SP schedule (``_mlp_sp_shardmap``): ``all_gather``
+over the sequence, the local FFN, ``psum_scatter`` back to each
+position's rows. The reference takes that form under its own condition
+(``cfg.sp_shardmap_mlp``, a gated MLP, S > 1, ``seq_sp`` set) and leaves
+other split residuals to GSPMD, whose gather and reduction give the same
+numbers; the port takes it for every split residual.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef
+from repro_torch.distributed.sharding import (Mesh, ParamDef, ShardingRules,
+                                              logical_constraint)
+from repro_torch.distributed.tensor_parallel import (gather_seq, global_batch,
+                                                     row_parallel, split_axis)
 from repro_torch.nn.layers import activation
 
 
@@ -31,12 +44,28 @@ def mlp_param_defs(cfg: ModelConfig, *, gated: bool = True,
     return defs
 
 
-def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
-        cfg: ModelConfig) -> torch.Tensor:
+def _ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
+         cfg: ModelConfig) -> torch.Tensor:
+    """The FFN's hidden layer (before ``w_down``)."""
     act = activation(cfg.act)
     up = x @ params["w_up"]
     if "w_gate" in params:
-        h = act(x @ params["w_gate"]) * up
-    else:
-        h = act(up)
-    return h @ params["w_down"]
+        return act(x @ params["w_gate"]) * up
+    return act(up)
+
+
+def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
+        cfg: ModelConfig, *, rules: Optional[ShardingRules] = None,
+        mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The FFN. On a mesh, where the residual is split by sequence,
+    Megatron-SP: all-gather(seq) -> local FFN -> reduce-scatter(seq) (the
+    reference's ``_mlp_sp_shardmap``); without a mesh every axis is whole
+    and nothing is gathered or added."""
+    sp = split_axis(rules, mesh, "seq_sp")
+    ff_ax = split_axis(rules, mesh, "ff")
+    h = _ffn(params, gather_seq(x, sp), cfg)
+    h = logical_constraint(
+        h, "batch", "seq", "act_ff", rules=rules, mesh=mesh,
+        shape=(global_batch(x.shape[0], rules, mesh), h.shape[1],
+               h.shape[2] * (mesh.axis_sizes(ff_ax) if ff_ax else 1)))
+    return row_parallel(h, params["w_down"], ff_ax, sp, x.dtype)

@@ -42,8 +42,20 @@ start after the assignments of the positions before it (their per-expert
 counts, exchanged once a layer and kept for the backward's recompute), and
 the aux loss is this position's share of the group's, from the group's
 counts. The outputs of a position's tokens are then the unsharded step's.
-The expert-parallel mesh (``mesh`` / ``rules``, the psum over the model
-axis) is not ported; every expert is local (``bank_start`` 0).
+
+Expert parallelism (``rules`` / ``mesh``, inside a position of the
+serving step's ``shard_map``). A position holds the bank of E/K experts
+from ``bank_start = axis_index("model") * e_loc``, as the reference's
+``moe_ffn`` does. Every position routes the whole token group as ``route``
+does, with the same capacity; an assignment outside its bank goes to the
+trash slot, and the dispatch and combine run on the local bank through
+``kernels/moe_dispatch.py`` (``mp_scatter`` and ``gather_rows`` on every
+position). The partial outputs are ``psum``med over the axis in float32
+and cast once; where the residual is split by sequence, the tokens are
+``all_gather``ed over it first and the sum is a ``psum_scatter`` back to
+each position's rows. The aux loss is the same on every position of the
+model axis; over the batch axes it is ``pmean``ed, or, with
+``token_shards``, its shares ``psum``med into the unsharded step's.
 """
 
 from __future__ import annotations
@@ -57,7 +69,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef
+from repro_torch.distributed.collectives import axis_index, pmean, psum
+from repro_torch.distributed.sharding import Mesh, ParamDef, ShardingRules
+from repro_torch.distributed.tensor_parallel import (gather_seq,
+                                                     reduce_partial,
+                                                     split_axis)
 from repro_torch.kernels.moe_dispatch import (moe_combine, moe_dispatch,
                                               pad_assignments)
 from repro_torch.nn.layers import activation, needs_grad
@@ -171,33 +187,44 @@ def shared_aux_loss(r: Dict[str, torch.Tensor], e_total: int,
 
 def _dispatch_compute_combine(xg: torch.Tensor, params, *, k: int,
                               capacity: int, act, offsets=None,
-                              group_tokens: int = 0
+                              group_tokens: int = 0, bank_start: int = 0,
+                              out_dtype: Optional[torch.dtype] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One token group (or, with ``offsets``, this shard's share of one)
-    through the experts. xg: (T, d). Returns (out (T, d) in xg.dtype, aux
-    () float32: the group's, or this share's part of it)."""
+    through the local bank of experts from ``bank_start`` (every expert
+    where the bank is whole). xg: (T, d). Returns (out (T, d) in
+    ``out_dtype`` (xg.dtype by default): the bank's part of the combine;
+    aux () float32: the group's, or this share's part of it)."""
     t, d = xg.shape
-    e_total = params["wg"].shape[0]
-    num_slots = e_total * capacity
+    e_total = params["router"].shape[1]
+    e_loc = params["wg"].shape[0]
+    num_slots = e_loc * capacity
     if offsets is None:
         r = route(xg, params["router"], k=k, capacity=capacity)
     else:
         r = route(xg, params["router"], k=k, capacity=capacity,
                   offsets=offsets)
-    st, slot, own, sw = pad_assignments(r["token_ids"], r["slot"], r["own"],
+    slot, own = r["slot"], r["own"]
+    if e_loc != e_total:            # the bank's slots; the rest to the trash
+        lo = bank_start * capacity
+        own = own & (slot >= lo) & (slot < lo + num_slots)
+        slot = torch.where(own, slot - lo, num_slots)
+    st, slot, own, sw = pad_assignments(r["token_ids"], slot, own,
                                         r["weights"], num_slots)
     buf = moe_dispatch(xg, st, slot, own, num_slots)
-    y = expert_ffn(buf.reshape(e_total, capacity, d), params["wg"],
+    y = expert_ffn(buf.reshape(e_loc, capacity, d), params["wg"],
                    params["wu"], params["wd"], act)
     out = moe_combine(y.reshape(num_slots, d), st, slot, own, sw, t)
     aux = (aux_loss(r, e_total) if offsets is None
            else shared_aux_loss(r, e_total, group_tokens))
-    return out.to(xg.dtype), aux
+    return out.to(out_dtype or xg.dtype), aux
 
 
 def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
             cfg: ModelConfig, *, group_size: int = 8192,
-            token_shards: Optional[TokenShards] = None
+            token_shards: Optional[TokenShards] = None,
+            rules: Optional[ShardingRules] = None,
+            mesh: Optional[Mesh] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward. x: (B, S, d) -> (out (B, S, d), aux () float32).
 
@@ -205,7 +232,30 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
     ``ceil(T / group_size)``, raised until they divide T), each with its
     own capacity; the aux is the mean over groups. With ``token_shards``
     the groups are those of the unsharded tokens (T times the shard
-    count), and the aux is this shard's part of their mean."""
+    count), and the aux is this shard's part of their mean. On a mesh,
+    the position's bank of experts (the module's docstring)."""
+    ex_ax = split_axis(rules, mesh, "experts")
+    sp = split_axis(rules, mesh, "seq_sp")
+    if ex_ax is None:               # every expert here: the combine is whole
+        bank_start, out_dtype = 0, x.dtype
+    else:                           # a partial combine, added in float32
+        bank_start = axis_index(ex_ax) * params["wg"].shape[0]
+        out_dtype = torch.float32
+    out, aux = _moe_groups(params, gather_seq(x, sp), cfg, group_size,
+                           token_shards, bank_start, out_dtype)
+    batch_ax = split_axis(rules, mesh, "batch")
+    if batch_ax is not None:
+        aux = (psum(aux, batch_ax) if token_shards is not None
+               else pmean(aux, batch_ax))
+    return reduce_partial(out, ex_ax, sp, x.dtype), aux
+
+
+def _moe_groups(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                cfg: ModelConfig, group_size: int,
+                token_shards: Optional[TokenShards], bank_start: int,
+                out_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn``'s token groups through the bank from ``bank_start``:
+    (out (B, S, d) in ``out_dtype``, aux)."""
     b, s, d = x.shape
     t = b * s
     count = token_shards.count if token_shards is not None else 1
@@ -217,7 +267,8 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
     cap = _capacity(tg, cfg.num_experts_per_tok, cfg.num_experts,
                     cfg.capacity_factor)
     fn = partial(_dispatch_compute_combine, k=cfg.num_experts_per_tok,
-                 capacity=cap, act=activation(cfg.act))
+                 capacity=cap, act=activation(cfg.act), bank_start=bank_start,
+                 out_dtype=out_dtype)
     if (tg % t if tg > t else t % tg):
         raise NotImplementedError(
             f"MoE token groups of {tg} tokens do not align with data shards "

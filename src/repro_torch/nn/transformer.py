@@ -23,6 +23,14 @@ group index on views of the stacked leaves, and the blocks write their
 caches (K/V, SSM state, recurrent state and conv windows) in place into
 the stacked buffers through those views.
 
+On a mesh (``rules`` / ``mesh``, inside a position of the serving step's
+``shard_map``, ``launch/steps.py``) every block takes its pieces of the
+weights and caches and calls the collectives where GSPMD would put them
+(``distributed/tensor_parallel.py``); between blocks the residual is
+("batch", "seq_sp", "embed"), each position its block of the sequence in
+a prefill, whole in decode. The SSM and hybrid families have no
+model-axis form yet (the step refuses them on one).
+
 Per-layer remat. Under ``cfg.remat`` and grad mode, without caches (a
 training forward), each block runs under ``torch.utils.checkpoint``
 (non-reentrant): its activations are recomputed in the backward, the
@@ -41,7 +49,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef, map_defs
+from repro_torch.distributed.sharding import (Mesh, ParamDef, ShardingRules,
+                                              logical_constraint, map_defs)
+from repro_torch.distributed.tensor_parallel import global_batch
 from repro_torch.nn.attention import KVCache, attention, attn_param_defs
 from repro_torch.nn.layers import layernorm, needs_grad, rmsnorm
 from repro_torch.nn.mlp import mlp, mlp_param_defs
@@ -102,26 +112,31 @@ def block_param_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
 def block_apply(params, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, kind: str, *, cache=None,
-                token_shards=None) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+                token_shards=None, rules: Optional[ShardingRules] = None,
+                mesh: Optional[Mesh] = None
+                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Returns (x, new_cache, aux_loss () float32). ``token_shards``: the
-    MoE's data-parallel share (``nn/moe.py::TokenShards``)."""
+    MoE's data-parallel share (``nn/moe.py::TokenShards``). ``positions``
+    are the whole sequence's, also where ``x`` is a position's block of
+    it."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mp = {"rules": rules, "mesh": mesh}
     if kind in ("attn", "local"):
         window = cfg.local_window if kind == "local" else None
         h = apply_norm(params["ln1"], x, cfg)
         a_out, new_cache = attention(params["attn"], h, positions, cfg,
-                                     layer_window=window, cache=cache)
+                                     layer_window=window, cache=cache, **mp)
         if cfg.post_norms:
             a_out = apply_norm(params["pn1"], a_out, cfg)
         x = x + a_out
         h = apply_norm(params["ln2"], x, cfg)
         if cfg.num_experts:
             f_out, aux = moe_ffn(params["moe"], h, cfg,
-                                 token_shards=token_shards)
+                                 token_shards=token_shards, **mp)
             if cfg.dense_residual:
-                f_out = f_out + mlp(params["mlp"], h, cfg)
+                f_out = f_out + mlp(params["mlp"], h, cfg, **mp)
         else:
-            f_out = mlp(params["mlp"], h, cfg)
+            f_out = mlp(params["mlp"], h, cfg, **mp)
         if cfg.post_norms:
             f_out = apply_norm(params["pn2"], f_out, cfg)
         x = x + f_out
@@ -138,6 +153,11 @@ def block_apply(params, x: torch.Tensor, positions: torch.Tensor,
         x = x + mlp(params["mlp"], h, cfg)
     else:
         raise ValueError(kind)
+    s = positions.shape[1]
+    x = logical_constraint(x, "batch", "seq_sp" if s > 1 else "seq",
+                           "embed", rules=rules, mesh=mesh,
+                           shape=(global_batch(x.shape[0], rules, mesh), s,
+                                  cfg.d_model))
     return x, new_cache, aux
 
 
@@ -245,7 +265,9 @@ def _cache_at(cache, g: int):
 
 
 def stack_apply(params, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, *, caches=None, token_shards=None
+                cfg: ModelConfig, *, caches=None, token_shards=None,
+                rules: Optional[ShardingRules] = None,
+                mesh: Optional[Mesh] = None
                 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Run the full stack. Returns (x, new_caches | None, aux_loss). The
     caches' tensors are written in place; the returned tree holds the same
@@ -259,7 +281,8 @@ def stack_apply(params, x: torch.Tensor, positions: torch.Tensor,
     def run(p, x, kind, cache):
         if not remat:
             return block_apply(p, x, positions, cfg, kind, cache=cache,
-                               token_shards=token_shards)
+                               token_shards=token_shards, rules=rules,
+                               mesh=mesh)
         # the model draws no random numbers: no RNG state to keep
         return checkpoint(partial(block_apply, positions=positions, cfg=cfg,
                                   kind=kind, token_shards=token_shards),
