@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only train          # phase 10 alone (the same)
     python3 chip_smoke.py --only mesh           # phase 11 alone (the same)
     python3 chip_smoke.py --only model_parallel # phase 12 alone (the same)
+    python3 chip_smoke.py --only model_train    # phase 13 alone (the same)
 
 Phases, each printing its own lines:
 
@@ -356,7 +357,30 @@ Phases, each printing its own lines:
                twice the logits' largest difference. One ``[mp] json``
                line; ``--only model_parallel`` runs phases 1, 2 (three
                sources) and 12 alone.
-  13. result — one JSON line with every kernel's numbers, the card's
+  13. model_train — training under the model axis ([mt] lines): the
+               sharded ``make_train_step(cfg, tcfg, rules, mesh)`` of
+               ``build_rules``' table, positions on the card (spread over
+               the cards where there are several), every sharded step
+               under a 60 s rendezvous watchdog (a position waiting
+               longer fails the phase naming the collective). (a) float32
+               (TF32 off), per-layer remat, B=4 x 256, one step at
+               learning rate 0 against the unsharded step on the same
+               card (run first, freed): llama3-8b at depth 2 on (1, 2),
+               olmoe-1b-7b at depth 2 on (1, 2), deepseek-67b at depth 1
+               on (2, 2) (FSDP and the model axis, four positions); the
+               loss within 1e-5 of itself, every gradient (AdamW's first
+               moment) within 1e-5 of the gradients' scale; launches
+               each position's forward, recompute and backward. (b)
+               bf16, AdamW, remat: llama3-8b at depth 4 on (1, 2), B=2 x
+               2048, and deepseek-67b at depth 2 on (2, 2), B=4 x 2048,
+               three steps unsharded then (freed) on the mesh, launches
+               counted from 0 and stated before the run, one more step of
+               each under ``torch.profiler`` (device kernels by symbol
+               equal to the launches, busy share); step ms, tokens/s,
+               the losses within 2e-2 of the unsharded run's. One ``[mt]
+               json`` line; ``--only model_train`` runs phases 1, 2 (four
+               sources) and 13 alone.
+  14. result — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -6722,6 +6746,7 @@ def mesh_compression(card: str, tr) -> dict:
     least-squares convergence case on a (4,) mesh (200 steps, loss <
     1e-3)."""
     import torch
+    from repro_torch.distributed import collectives
     from repro_torch.distributed.collectives import psum, shard_map
     from repro_torch.distributed.sharding import P, make_mesh
     from repro_torch.models import lm
@@ -6733,9 +6758,11 @@ def mesh_compression(card: str, tr) -> dict:
     data = token_batch(cfg, MESH_DP_BATCH, TRAIN_SEQ, step=MESH_DP_STEPS)
 
     def local_grads(params, batch):
+        # a position's remat is recomputed by collectives.grad in its own
+        # thread (torch.autograd.grad stops at the remat's cuts)
         leaves = tree_leaves(params)
         loss, _ = lm.lm_loss(params, batch, cfg)
-        return [g.float()[None] for g in torch.autograd.grad(loss, leaves)]
+        return [g.float()[None] for g in collectives.grad(loss, leaves)]
     grads = shard_map(local_grads, mesh=mesh, in_specs=(P(), P("data")),
                       out_specs=P("data"))(tr.params, data)
 
@@ -7242,6 +7269,268 @@ def mp_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training under the model axis
+# ---------------------------------------------------------------------------
+
+# (a) the float32 checks (TF32 off) against the unsharded step on the same
+# card, from the same seed-0 state and batch, one step at learning rate 0:
+# (arch, depth, (data, model)); float32 sums over the positions in other
+# orders: the loss within MT_F32_TOL of itself, every gradient (AdamW's
+# m = (1 - b1) g) within MT_F32_TOL of the gradients' scale
+MT_F32_CASES = (("llama3-8b", 2, (1, 2)), ("olmoe-1b-7b", 2, (1, 2)),
+                ("deepseek-67b", 1, (2, 2)))
+MT_F32_BATCH, MT_F32_SEQ = 4, 256
+MT_F32_TOL = 1e-5
+# (b) bf16 at full width: (arch, depth, (data, model), batch) of 2048-token
+# sequences, MT_STEPS steps each, sharded and unsharded in one call
+MT_BF16_CASES = (("llama3-8b", 4, (1, 2), 2), ("deepseek-67b", 2, (2, 2), 4))
+MT_SEQ, MT_STEPS = 2048, 3
+# (c) the watchdog: a position waiting longer at one rendezvous fails the
+# phase, naming the collective
+MT_TIMEOUT_S = 60.0
+# the device kernels of a training step by kernel, the backward's two
+# (dQ, dK/dV) included
+MT_EVENT_SYMBOLS = {**LM_EVENT_SYMBOLS, "flash_attention_bwd": ("flash_bwd_",)}
+
+
+def mt_events(on_device: dict) -> dict:
+    return {k: sum(c for name, (_, c) in on_device.items()
+                   if any(sym in name for sym in syms))
+            for k, syms in MT_EVENT_SYMBOLS.items()}
+
+
+def mt_state(cfg, rules=None, mesh=None):
+    """Seed-0 parameters (``init_params``' draws, leaf by leaf) and zero
+    optimizer state on the card: whole tensors (the parameters requiring
+    grad), or with ``rules`` / ``mesh`` each leaf placed on the mesh as
+    it is made, so that the whole tree never exists beside its pieces."""
+    import torch
+    from repro_torch.distributed.sharding import (init_one, map_tree,
+                                                  param_shardings, shard)
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import get_optimizer
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+    pdefs = lm.lm_param_defs(cfg)
+    odefs = get_optimizer(cfg.optimizer).state_defs(pdefs)
+
+    def made(defs, fill):
+        if mesh is None:
+            return map_tree(lambda d: fill(d), defs)
+        return map_tree(lambda d, where: shard(fill(d), where), defs,
+                        param_shardings(defs, rules, mesh))
+    params = made(pdefs, lambda d: init_one(gen, d, dev).requires_grad_(
+        mesh is None))
+    state = made(odefs, lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                              device=dev))
+    return params, state
+
+
+def mt_step(cfg, tcfg, shape, batch: int):
+    """(the train step, its rules, its mesh) of ``cfg``: on a ``shape``
+    mesh of positions of the card (spread over the cards where there are
+    several) by ``build_rules``' table, or unsharded without a shape."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_rules, make_train_step
+    if shape is None:
+        return make_train_step(cfg, tcfg), None, None
+    mesh = make_host_mesh(*shape, devices=mesh_devices(shape[0] * shape[1]))
+    rules = build_rules(cfg, mesh, "train", batch)
+    return make_train_step(cfg, tcfg, rules, mesh), rules, mesh
+
+
+def mt_watched(run):
+    """``run()`` under the rendezvous watchdog: a position waiting more
+    than MT_TIMEOUT_S at one rendezvous fails it, naming the collective."""
+    from repro_torch.distributed.collectives import rendezvous_timeout
+    with rendezvous_timeout(MT_TIMEOUT_S):
+        return run()
+
+
+def mt_f32_check(card: str, arch: str, depth: int, shape: tuple) -> dict:
+    """(a) ``arch`` at full width, ``depth`` layers, float32, per-layer
+    remat: one step at learning rate 0 on ``shape`` against the unsharded
+    step (run first, its state freed but for the moments), the launches
+    each position's forward, recompute and backward."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = ARCHS[arch].replace(num_layers=depth, dtype=torch.float32)
+    tcfg = TrainConfig(learning_rate=0.0, warmup_steps=1, total_steps=10,
+                       grad_clip=1e9)
+    n = shape[0] * shape[1]
+    label = (f"(a) {arch} width, depth {depth}, float32, B={MT_F32_BATCH} "
+             f"S={MT_F32_SEQ}, mesh {shape}")
+    data = token_batch(cfg, MT_F32_BATCH, MT_F32_SEQ)
+    one, _, _ = mt_step(cfg, tcfg, None, MT_F32_BATCH)
+    _, o1, m1 = one(*mt_state(cfg), data)
+    # held on the host while the sharded step runs
+    g1 = [t.detach().cpu() for t in tree_leaves(o1["m"])]
+    loss1 = float(m1["loss"])
+    del o1, _
+    torch.cuda.empty_cache()
+    step, rules, mesh = mt_step(cfg, tcfg, shape, MT_F32_BATCH)
+    want = {k: n * v for k, v in train_launches(cfg).items()}
+    log("mt", f"{label}: expecting launches {want} ({n} positions x "
+        f"({TRAIN_LAUNCHES_TXT}))")
+    t0 = time.perf_counter()
+    (p2, o2, m2), launches = counted(
+        lambda: mt_watched(lambda: step(*mt_state(cfg, rules, mesh),
+                                        data)))
+    wall = time.perf_counter() - t0
+    check_launches("mt", label, launches, want, f"{n} positions x "
+                   f"({TRAIN_LAUNCHES_TXT})")
+    devs = {str(d) for d in mesh.devices.flat}
+    if any(not d.startswith("cuda") for d in devs):
+        raise AssertionError(f"{label}: a position left the card: {devs}")
+    scale = max(float(g.abs().max()) for g in g1)
+    worst, finite = 0.0, True
+    for a, leaf in zip(g1, tree_leaves(o2["m"])):       # leaf by leaf
+        b = leaf.gather("cuda").detach()
+        worst = max(worst, float((a.cuda() - b).abs().max()) / scale)
+        finite &= bool(torch.isfinite(b).all())
+        del b
+    rel_loss = abs(float(m2["loss"]) - loss1) / abs(loss1)
+    split = sum(leaf.pieces.flat[0].shape != tuple(leaf.shape)
+                for leaf in tree_leaves(p2))
+    ok = worst <= MT_F32_TOL and rel_loss <= MT_F32_TOL and finite
+    log("mt", f"{label}: loss {float(m2['loss']):.6f} (unsharded {loss1:.6f},"
+        f" {rel_loss:.2e} apart); {len(g1)} gradients, the worst "
+        f"{worst:.2e} of their scale (tol {MT_F32_TOL:g}); {split} leaves "
+        f"split over the positions; the sharded step {wall:.2f} s; "
+        f"{'ok' if ok else 'FAIL'}; on {card}")
+    if not ok:
+        raise AssertionError(f"{label}: the sharded step disagrees with the "
+                             f"unsharded step")
+    del p2, o2, g1
+    torch.cuda.empty_cache()
+    return {"loss": float(m2["loss"]), "loss_rel_err": rel_loss,
+            "grad_rel_err": worst, "launches": launches,
+            "split_leaves": split, "sharded_step_s": wall}
+
+
+def mt_run(card: str, cfg, shape, batch: int, label: str) -> dict:
+    """MT_STEPS steps of ``cfg`` (bf16, AdamW at lr 1e-3 after a warm-up of
+    5 steps, as phases 10 and 11; remat) on ``shape`` (or unsharded) from
+    the seed-0 state, each timed between two device
+    synchronisations, the counts from 0 before the first; one more step
+    under ``torch.profiler``. The state is freed before it returns."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=5,
+                       total_steps=MT_STEPS + 1, checkpoint_every=0, seed=0)
+    step, rules, mesh = mt_step(cfg, tcfg, shape, batch)
+    n = 1 if shape is None else shape[0] * shape[1]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params, opt_state = mt_state(cfg, rules, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    state = {"p": params, "o": opt_state}
+    del params, opt_state
+
+    def steps():
+        for i in range(MT_STEPS):
+            data = token_batch(cfg, batch, MT_SEQ, step=i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state["p"], state["o"], m = mt_watched(
+                lambda: step(state["p"], state["o"], data))
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    _, launches = counted(steps)
+    want = {k: MT_STEPS * n * v for k, v in train_launches(cfg).items()}
+    check_launches("mt", f"{label}: {MT_STEPS} steps", launches, want,
+                   f"{MT_STEPS} steps x {n} position(s) x "
+                   f"({TRAIN_LAUNCHES_TXT})")
+    peak = torch.cuda.max_memory_allocated()
+    data = token_batch(cfg, batch, MT_SEQ, step=MT_STEPS)
+    result, on_device, wall = profiled(lambda: mt_watched(
+        lambda: step(state["p"], state["o"], data)))
+    del result                  # the state it returned is state's
+    events = mt_events(on_device)
+    per_step = {k: n * v for k, v in train_launches(cfg).items()}
+    if {k: events.get(k, 0) for k in per_step} != per_step:
+        raise AssertionError(f"{label}: a profiled step's device kernels "
+                             f"{events} are not its launches {per_step}")
+    busy_ms = sum(t for t, _ in on_device.values()) / 1e3
+    steady = sorted(step_ms[1:])
+    med = statistics.median(steady)
+    tokens = batch * MT_SEQ
+    rec = {"losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": tokens / (med / 1e3), "launches": launches,
+           "peak_mem_gb": peak / 1e9, "held_before_gb": before / 1e9,
+           "profiled_step_ms": wall * 1e3,
+           "busy_ms": busy_ms, "busy_share": busy_ms / (wall * 1e3),
+           "device_kernels": events, "top_device": top(on_device, 6)}
+    log("mt", f"{label}: losses {[round(x, 5) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]} (median of steps 2-{MT_STEPS}: "
+        f"{med:.1f}); {rec['tokens_per_s']:.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB ({before / 1e9:.2f} GB held before the state "
+        f"was made); one more step under torch.profiler "
+        f"{wall * 1e3:.1f} ms, the card busy {busy_ms:.1f} ms "
+        f"({rec['busy_share']:.1%}, kernel time summed over the positions' "
+        f"streams); device kernels {events}; top {top(on_device, 4)}; on "
+        f"{card}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    del state, step, rules, mesh
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mt_full(card: str, arch: str, depth: int, shape: tuple,
+            batch: int) -> dict:
+    """(b) ``arch`` at full width, ``depth`` layers, bf16: the unsharded
+    steps, then (its state freed) the same on ``shape``; the losses side
+    by side."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.distributed.sharding import param_count
+    from repro_torch.models import lm
+    cfg = ARCHS[arch].replace(num_layers=depth)
+    label = (f"(b) {arch} full width, depth {depth} "
+             f"({param_count(lm.lm_param_defs(cfg)) / 1e9:.2f}B params), "
+             f"bf16, AdamW, remat, B={batch} S={MT_SEQ}")
+    one = mt_run(card, cfg, None, batch, f"{label}, unsharded")
+    mesh = mt_run(card, cfg, shape, batch, f"{label}, mesh {shape}")
+    diff = [abs(a - b) for a, b in zip(mesh["losses"], one["losses"])]
+    ratio = mesh["step_ms_median"] / one["step_ms_median"]
+    log("mt", f"{label}: losses on the mesh against unsharded, per step "
+        f"{diff}; step {mesh['step_ms_median']:.1f} ms against "
+        f"{one['step_ms_median']:.1f} ({ratio:.2f}x)")
+    if max(diff) >= MESH_LOSS_TOL:
+        raise AssertionError(f"{label}: the mesh's losses left the unsharded "
+                             f"run's")
+    return {"mesh": mesh, "unsharded": one, "loss_abs_diff": diff,
+            "shape": list(shape)}
+
+
+def mt_phase(card: str) -> dict:
+    """Phase 13: (a) the float32 checks, (b) the bf16 runs, every sharded
+    step under (c) the watchdog. Returns the ``[mt] json`` record; its
+    ``paths`` hold each run's launches."""
+    import torch
+    out = {"card": card, "device_count": torch.cuda.device_count(),
+           "seconds": {}, "f32": {}}
+    for arch, depth, shape in MT_F32_CASES:
+        t0 = time.perf_counter()
+        out["f32"][arch] = mt_f32_check(card, arch, depth, shape)
+        out["seconds"][f"a_{arch}"] = time.perf_counter() - t0
+    for arch, depth, shape, batch in MT_BF16_CASES:
+        t0 = time.perf_counter()
+        out[arch] = mt_full(card, arch, depth, shape, batch)
+        out["seconds"][f"b_{arch}"] = time.perf_counter() - t0
+    log("mt", f"seconds by part: {out['seconds']}")
+    out["paths"] = {f"mt_f32_{arch}": {"launches": out["f32"][arch][
+        "launches"]} for arch, _, _ in MT_F32_CASES}
+    out["paths"].update({f"mt_{arch}": {"launches": out[arch]["mesh"][
+        "launches"]} for arch, _, _, _ in MT_BF16_CASES})
+    return out
+
+
 # what ``--only`` runs after phase 1: the sources it builds (phase 2) and
 # its phase alone, with no result lines
 ONLY_SOURCES = {"wide": ["layer_fused", "mp_pipeline"],
@@ -7252,7 +7541,9 @@ ONLY_SOURCES = {"wide": ["layer_fused", "mp_pipeline"],
                 "mesh": ["flash_attention", "flash_attention_bwd",
                          "mp_scatter", "gather_rows"],
                 "model_parallel": ["flash_attention", "mp_scatter",
-                                   "gather_rows"]}
+                                   "gather_rows"],
+                "model_train": ["flash_attention", "flash_attention_bwd",
+                                "mp_scatter", "gather_rows"]}
 
 
 def main(argv=None) -> int:
@@ -7322,6 +7613,11 @@ def main(argv=None) -> int:
     if only == "model_parallel":
         # phase 12 alone: no result lines
         log("mp", "json " + json.dumps(mp_phase(card), default=str))
+        print(smi)
+        return 0
+    if only == "model_train":
+        # phase 13 alone: no result lines
+        log("mt", "json " + json.dumps(mt_phase(card), default=str))
         print(smi)
         return 0
     scatter_build = scatter_build_report()
@@ -7398,8 +7694,13 @@ def main(argv=None) -> int:
     mp = mp_phase(card)
     log("mp", "json " + json.dumps(mp, default=str))
     paths.update(mp["paths"])
+    # 13. training under the model axis: llama3-8b, olmoe-1b-7b and
+    # deepseek-67b (FSDP) on (data, model) meshes of positions of the card
+    mt = mt_phase(card)
+    log("mt", "json " + json.dumps(mt, default=str))
+    paths.update(mt["paths"])
 
-    # 13. result: each kernel's row at the largest shape its main path gives
+    # 14. result: each kernel's row at the largest shape its main path gives
     # it (the hep bucket for the GNN kernels), and its launches in its main
     # path's run
     def row(name, source, replaces, cases, main, path, shape):

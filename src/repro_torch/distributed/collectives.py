@@ -29,23 +29,47 @@ sender's stream. The position streams wait on the caller's stream before
 ``f`` starts, and the caller's stream waits on them before ``shard_map``
 returns.
 
+Gradients across positions. Under grad mode a collective whose input
+requires grad is a function of this position's graph only: its output is
+a fresh leaf, and the cut is written on the position's tape with the
+collective's transpose, which ``grad`` calls in the position's own thread
+while it walks the tape backwards, running ``torch.autograd.grad`` over
+each segment between two cuts. No rendezvous therefore ever runs on
+autograd's worker thread, which a card's positions share (a backward that
+waited there would block the other positions' nodes). The transposes are
+those of the collectives as linear maps of every position's value, each
+position's seeded output a term of one global loss: ``psum`` ↔ ``psum``,
+``pmean`` ↔ ``pmean``, the tiled ``all_gather`` ↔ ``psum_scatter``,
+``ppermute`` ↔ its inverse; ``pmax`` has none (it is applied to detached
+values). So a value the positions hold alike carries a part of its
+cotangent on each, and a loss they hold alike is seeded with one over
+their number (``launch/steps.py``). ``checkpoint`` is remat on the same
+tape: the forward runs without a graph and is recomputed in ``grad``, in
+the position's thread, so that its collectives meet again there.
+
 Process-wide settings (TF32, deterministic algorithms, intra-op threads)
 are the caller's to set before ``shard_map``; a position's thread never
 sets them. An exception in one position is raised in the caller once every
 thread has ended: a position waiting at a rendezvous is released (and its
 own work abandoned), and a position that returns without joining a
-collective the others wait at fails them with an error naming it.
+collective the others wait at fails them with an error naming it. With a
+rendezvous timeout set (``rendezvous_timeout``) a position that waits
+longer at a rendezvous fails the call with an error naming the
+collective, and ``shard_map`` raises it even where another position's
+thread never returns.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from contextlib import ExitStack
+import time
+from contextlib import ExitStack, contextmanager
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.distributed.sharding import (Mesh, MeshAxis, NamedSharding,
                                               P, Sharded, axis_names_of,
@@ -53,6 +77,8 @@ from repro_torch.distributed.sharding import (Mesh, MeshAxis, NamedSharding,
                                               tree_unflatten)
 
 _LOCAL = threading.local()
+# seconds a position may wait at one rendezvous (None: no limit)
+_TIMEOUT: Dict[str, Optional[float]] = {"s": None}
 
 
 class _Abandoned(Exception):
@@ -79,6 +105,8 @@ class _Position:
         self.device: torch.device = call.mesh.devices[coord]
         self.stream = call.mesh.streams[coord]
         self.seqs: Dict[Tuple, int] = {}
+        self.tapes: List[_Tape] = [_Tape()]
+        self.recomputing = 0
 
 
 def _here() -> _Position:
@@ -122,10 +150,12 @@ def axis_size(axis_name: MeshAxis) -> int:
     return math.prod(mesh.shape[n] for n in axis_names_of(axis_name))
 
 
-def _exchange(axis_name: MeshAxis, value: Any) -> Tuple[List[Any], int]:
+def _exchange(axis_name: MeshAxis, value: Any,
+              what: str) -> Tuple[List[Any], int]:
     """Put ``value`` in this position's slot of the group's next
-    rendezvous and wait for every member's: (each member's (value, event,
-    stream) in group order, this position's index)."""
+    rendezvous (of the collective ``what``) and wait for every member's:
+    (each member's (value, event, stream) in group order, this position's
+    index)."""
     pos = _here()
     key, idx, members = _group(pos, axis_name)
     seq = pos.seqs.get(key, 0)
@@ -136,6 +166,8 @@ def _exchange(axis_name: MeshAxis, value: Any) -> Tuple[List[Any], int]:
         event.record(pos.stream)
     call = pos.call
     size = len(members)
+    limit = _TIMEOUT["s"]
+    deadline = None if limit is None else time.monotonic() + limit
     with call.cond:
         entry = call.slots.setdefault(
             (key, seq), {"vals": [None] * size, "n": 0, "left": size})
@@ -152,7 +184,14 @@ def _exchange(axis_name: MeshAxis, value: Any) -> Tuple[List[Any], int]:
                     f"position {gone[0]} returned from the shard_map'd "
                     f"function without joining collective #{seq} over "
                     f"{key[0]}")
-            call.cond.wait()
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"position {pos.coord} waited more than {limit:g} s at "
+                    f"{what} (collective #{seq} over {key[0]}): "
+                    f"{size - entry['n']} of its {size} positions never "
+                    f"came")
+            call.cond.wait(None if deadline is None
+                           else max(0.0, deadline - time.monotonic()))
         entry["left"] -= 1
         if entry["left"] == 0:
             del call.slots[(key, seq)]
@@ -179,13 +218,13 @@ def _received(pos: _Position, t: Any, event, src_stream, *,
     return t.to(pos.device)
 
 
-def _reduce(x: Any, axis_name: MeshAxis, op: Callable,
+def _reduce(x: Any, axis_name: MeshAxis, op: Callable, what: str,
             take: Optional[Callable] = None) -> Any:
     """``x``'s leaves folded by ``op`` over the positions of ``axis_name``
     in position order by the first; each position gets ``take(total,
     its index)`` of every leaf (the whole total without ``take``)."""
     leaves = tree_leaves(x)
-    vals, idx = _exchange(axis_name, leaves)
+    vals, idx = _exchange(axis_name, leaves, what)
     if len(vals) == 1:
         return x if take is None else tree_unflatten(
             x, [take(t, 0) for t in leaves])
@@ -203,7 +242,7 @@ def _reduce(x: Any, axis_name: MeshAxis, op: Callable,
                 else:
                     op(acc, other, out=acc)         # in place after the first
             totals.append(acc)
-    published, _ = _exchange(axis_name, totals)
+    published, _ = _exchange(axis_name, totals, what)
     if idx == 0:
         return tree_unflatten(x, totals if take is None else [
             take(t, 0).contiguous() for t in totals])
@@ -213,54 +252,57 @@ def _reduce(x: Any, axis_name: MeshAxis, op: Callable,
         for t in value])
 
 
-def psum(x: Any, axis_name: MeshAxis) -> Any:
-    """The sum of ``x`` (a tensor or a tree of them) over the positions of
-    ``axis_name``, added in position order by the first."""
-    return _reduce(x, axis_name, torch.add)
-
-
-def pmax(x: Any, axis_name: MeshAxis) -> Any:
-    """The elementwise maximum of ``x`` (a tensor or a tree of them) over
-    the positions of ``axis_name``."""
-    return _reduce(x, axis_name, torch.maximum)
-
-
-def pmean(x: Any, axis_name: MeshAxis) -> Any:
-    """``psum`` of ``x`` divided by the number of positions of
-    ``axis_name`` (``jax.lax.pmean``)."""
+def _scatter_sum(x: Any, axis_name: MeshAxis, dim: int, what: str,
+                 wide: bool = False) -> Any:
+    """The tiled ``psum_scatter`` of ``x``'s leaves over ``dim``: each
+    position folds its own block of every member's leaf in position order
+    (the bits of ``psum`` then the block), widened to float32 first and
+    cast back with ``wide``. The members' leaves are read in place: their
+    owners must not write them after the call."""
     n = axis_size(axis_name)
-    total = psum(x, axis_name)
-    return tree_unflatten(total, [t / n for t in tree_leaves(total)])
-
-
-def psum_scatter(x: Any, axis_name: MeshAxis, *,
-                 scatter_dimension: int) -> Any:
-    """``psum`` of ``x`` (a tensor or a tree of them) of which each
-    position keeps its block along ``scatter_dimension``: the tiled
-    ``jax.lax.psum_scatter``, the dimension cut into ``axis_size`` equal
-    blocks, position i keeping block i. The same bits as ``psum`` then the
-    block."""
-    n = axis_size(axis_name)
-    for t in tree_leaves(x):
-        if t.shape[scatter_dimension] % n:
+    leaves = tree_leaves(x)
+    for t in leaves:
+        if t.shape[dim] % n:
             raise ValueError(
                 f"psum_scatter over {axis_name!r} ({n} positions): "
-                f"dimension {scatter_dimension} of {tuple(t.shape)} does "
-                f"not divide by {n}")
+                f"dimension {dim} of {tuple(t.shape)} does not divide by "
+                f"{n}")
+    if n == 1:
+        return x
+    vals, idx = _exchange(axis_name, leaves, what)
+    pos = _here()
+    out = []
+    for j, own in enumerate(leaves):
+        size = own.shape[dim] // n
+        acc = None
+        for m, (value, event, stream) in enumerate(vals):
+            t = own if m == idx else _received(pos, value[j], event, stream,
+                                               copy=False)
+            block = t.narrow(dim, idx * size, size)
+            block = block.to(torch.float32) if wide else block
+            if acc is None:
+                acc = block
+            elif m == 1:
+                acc = acc + block
+            else:
+                acc.add_(block)                 # in place after the first
+        out.append(acc.to(own.dtype).contiguous())
+    return tree_unflatten(x, out)
 
-    def take(t: torch.Tensor, i: int) -> torch.Tensor:
-        size = t.shape[scatter_dimension] // n
-        return t.narrow(scatter_dimension, i * size, size)
-    return _reduce(x, axis_name, torch.add, take)
+
+def _gather(x: torch.Tensor, axis_name: MeshAxis, axis: int, tiled: bool,
+            what: str) -> torch.Tensor:
+    vals, _ = _exchange(axis_name, x, what)
+    pos = _here()
+    parts = [_received(pos, v, event, stream, copy=False)
+             for v, event, stream in vals]
+    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
+                                                                dim=axis)
 
 
-def ppermute(x: Any, axis_name: MeshAxis,
-             perm: Sequence[Tuple[int, int]]) -> Any:
-    """``x`` sent along the (source, destination) pairs of ``perm`` over
-    ``axis_name``'s indices; a position no pair sends to gets zeros. On one
-    device the received tensor is the sender's own: read it, do not write
-    it."""
-    vals, idx = _exchange(axis_name, tree_leaves(x))
+def _permute(x: Any, axis_name: MeshAxis, perm: Sequence[Tuple[int, int]],
+             what: str) -> Any:
+    vals, idx = _exchange(axis_name, tree_leaves(x), what)
     src = [s for s, d in perm if d == idx]
     if not src:
         return tree_unflatten(x, [torch.zeros_like(t)
@@ -272,17 +314,265 @@ def ppermute(x: Any, axis_name: MeshAxis,
                                         copy=False) for t in value])
 
 
+def _in_float32(fn: Callable, x: Any) -> Any:
+    """``fn`` of ``x``'s leaves widened to float32, each result cast back
+    to its leaf's dtype: a sum of cotangents rounded once."""
+    leaves = tree_leaves(x)
+    out = tree_leaves(fn(tree_unflatten(x, [t.to(torch.float32)
+                                            for t in leaves])))
+    return tree_unflatten(x, [o.to(t.dtype) for o, t in zip(out, leaves)])
+
+
+# ---------------------------------------------------------------------------
+# the tape: gradients across positions
+# ---------------------------------------------------------------------------
+
+class _Node:
+    """One cut of a position's graph: the tensors that went in (``None``
+    where one needs no gradient), the leaves that came out, and
+    ``backward(cotangents of the outputs, wrt, acc)`` -> the inputs'
+    cotangents, run in the position's thread by ``grad``."""
+
+    __slots__ = ("inputs", "outputs", "backward")
+
+    def __init__(self, inputs: List, outputs: List, backward: Callable):
+        self.inputs = inputs
+        self.outputs = outputs
+        self.backward = backward
+
+
+class _Tape:
+    """A position's cuts, in the order its forward made them."""
+
+    def __init__(self):
+        self.nodes: List[_Node] = []
+
+
+def _needs(t: Any) -> bool:
+    return isinstance(t, torch.Tensor) and t.requires_grad
+
+
+def _leaf(t: Any) -> Any:
+    """A fresh leaf holding ``t``'s value (floating tensors; others as they
+    are)."""
+    if isinstance(t, torch.Tensor) and t.is_floating_point():
+        return t.detach().requires_grad_()
+    return t
+
+
+def _cut(x: Any, forward: Callable, transpose: Callable) -> Any:
+    """``forward(x)``, a collective. Under grad mode with a leaf of ``x``
+    requiring grad, it runs on ``x``'s values and its output leaves are
+    fresh leaves, the cut written on the position's tape with
+    ``transpose``: cotangents of the output (a tree like it) -> cotangents
+    of ``x`` (a tree like it)."""
+    leaves = tree_leaves(x)
+    if not (torch.is_grad_enabled() and any(_needs(t) for t in leaves)):
+        return forward(x)
+    with torch.no_grad():
+        y = forward(tree_unflatten(x, [
+            t.detach() if isinstance(t, torch.Tensor) else t
+            for t in leaves]))
+    outs = [_leaf(t) for t in tree_leaves(y)]
+
+    def backward(cots, wrt, acc):
+        with torch.no_grad():
+            return tree_leaves(transpose(tree_unflatten(y, cots)))
+    _here().tapes[-1].nodes.append(_Node(
+        [t if _needs(t) else None for t in leaves], outs, backward))
+    return tree_unflatten(y, outs)
+
+
+def _walk(nodes: List[_Node], roots: List, cots: List, wrt: List,
+          acc: Dict[int, torch.Tensor]) -> None:
+    """Add into ``acc`` (by ``id``) the gradients of ``roots`` (seeded
+    with ``cots``) with respect to the tensors of ``wrt`` and to the
+    outputs of ``nodes``: first through the segment after the last cut,
+    then, cut by cut backwards, the cut's transpose (a collective, in this
+    thread) and the segment before it. A cut no gradient reached still
+    runs its transpose, on zeros, so that every position meets every
+    rendezvous."""
+    def through(roots, cots, k):
+        pairs = [(r, c) for r, c in zip(roots, cots)
+                 if _needs(r) and c is not None]
+        if not pairs:
+            return
+        targets = wrt + [o for n in nodes[:k] for o in n.outputs
+                         if _needs(o)]
+        if not targets:
+            return
+        grads = torch.autograd.grad(
+            [r for r, _ in pairs], targets, [c for _, c in pairs],
+            retain_graph=bool(nodes), allow_unused=True)
+        for t, g in zip(targets, grads):
+            if g is not None:
+                key = id(t)
+                acc[key] = g if key not in acc else acc[key] + g
+
+    through(roots, cots, len(nodes))
+    for k in range(len(nodes) - 1, -1, -1):
+        node = nodes[k]
+        outs = [acc.pop(id(o), None) if _needs(o) else None
+                for o in node.outputs]
+        outs = [torch.zeros_like(o) if c is None and isinstance(
+            o, torch.Tensor) else c for c, o in zip(outs, node.outputs)]
+        through(node.inputs, node.backward(outs, wrt, acc), k)
+
+
+def grad(outputs: Any, inputs: Sequence[torch.Tensor],
+         grad_outputs: Any = None) -> List[Optional[torch.Tensor]]:
+    """The gradients of ``outputs`` (a tensor or a list, seeded with
+    ``grad_outputs``, ones by default) with respect to ``inputs``, through
+    this position's graph and, backwards across its collectives, their
+    transposes (the module's docstring); ``None`` where an input is not
+    reached. Consumes the position's tape. Outside ``shard_map``,
+    ``torch.autograd.grad``."""
+    outs = [outputs] if isinstance(outputs, torch.Tensor) else list(outputs)
+    if grad_outputs is None:
+        cots = [torch.ones_like(o) for o in outs]
+    else:
+        cots = ([grad_outputs] if isinstance(grad_outputs, torch.Tensor)
+                else list(grad_outputs))
+    inputs = list(inputs)
+    pos = getattr(_LOCAL, "position", None)
+    nodes: List[_Node] = []
+    if pos is not None:
+        nodes, pos.tapes[-1].nodes = pos.tapes[-1].nodes, []
+    acc: Dict[int, torch.Tensor] = {}
+    _walk(nodes, outs, cots, [t for t in inputs if _needs(t)], acc)
+    return [acc.get(id(t)) for t in inputs]
+
+
+def checkpoint(fn: Callable, *args: Any) -> Any:
+    """``fn(*args)`` with its activations recomputed in the backward
+    (remat), differentiable with respect to the tensors of ``args`` and
+    to the leaves ``fn`` closes over. Inside a position of ``shard_map``
+    under grad mode the forward runs without a graph and is a cut of the
+    position's tape, recomputed by ``grad`` in the position's own thread,
+    where the collectives inside ``fn`` meet again (a ``checkpoint``
+    within the recompute is a plain call); outside one,
+    ``torch.utils.checkpoint`` (non-reentrant, no RNG state: the models
+    draw no random numbers)."""
+    pos = getattr(_LOCAL, "position", None)
+    if pos is None:
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    if pos.recomputing or not torch.is_grad_enabled():
+        return fn(*args)
+    leaves = tree_leaves(list(args))
+    with torch.no_grad():
+        out = fn(*args)
+    outs = [_leaf(t) for t in tree_leaves(out)]
+    inputs = [t if _needs(t) else None for t in leaves]
+
+    def backward(cots, wrt, acc):
+        fresh = [t if i is None else i.detach().requires_grad_()
+                 for t, i in zip(leaves, inputs)]
+        tape = _Tape()
+        pos.tapes.append(tape)
+        pos.recomputing += 1
+        try:
+            with torch.enable_grad():
+                again = fn(*tree_unflatten(list(args), fresh))
+        finally:
+            pos.tapes.pop()
+            pos.recomputing -= 1
+        mine = [f for f, i in zip(fresh, inputs) if i is not None]
+        _walk(tape.nodes, tree_leaves(again), cots, wrt + mine, acc)
+        return [None if i is None else acc.pop(id(f), None)
+                for f, i in zip(fresh, inputs)]
+    pos.tapes[-1].nodes.append(_Node(inputs, outs, backward))
+    return tree_unflatten(out, outs)
+
+
+# ---------------------------------------------------------------------------
+# the collectives
+# ---------------------------------------------------------------------------
+
+def psum(x: Any, axis_name: MeshAxis) -> Any:
+    """The sum of ``x`` (a tensor or a tree of them) over the positions of
+    ``axis_name``, added in position order by the first. Transpose:
+    ``psum`` (of the cotangents, in float32)."""
+    return _cut(x, lambda v: _reduce(v, axis_name, torch.add, "psum"),
+                lambda c: _in_float32(lambda t: _reduce(
+                    t, axis_name, torch.add, "psum's transpose (psum)"), c))
+
+
+def pmax(x: Any, axis_name: MeshAxis) -> Any:
+    """The elementwise maximum of ``x`` (a tensor or a tree of them) over
+    the positions of ``axis_name``. It has no backward: apply it to
+    detached values (under grad mode a tensor that requires grad raises
+    ``ValueError``)."""
+    if torch.is_grad_enabled() and any(_needs(t) for t in tree_leaves(x)):
+        raise ValueError("pmax has no backward: apply it to detached "
+                         "values (the reference uses it under "
+                         "stop_gradient)")
+    return _reduce(x, axis_name, torch.maximum, "pmax")
+
+
+def pmean(x: Any, axis_name: MeshAxis) -> Any:
+    """``psum`` of ``x`` divided by the number of positions of
+    ``axis_name`` (``jax.lax.pmean``). Transpose: ``pmean``."""
+    n = axis_size(axis_name)
+    total = psum(x, axis_name)
+    return tree_unflatten(total, [t / n for t in tree_leaves(total)])
+
+
+def psum_scatter(x: Any, axis_name: MeshAxis, *,
+                 scatter_dimension: int) -> Any:
+    """``psum`` of ``x`` (a tensor or a tree of them) of which each
+    position keeps its block along ``scatter_dimension``: the tiled
+    ``jax.lax.psum_scatter``, the dimension cut into ``axis_size`` equal
+    blocks, position i keeping block i. The same bits as ``psum`` then the
+    block. Transpose: the tiled ``all_gather`` along the same
+    dimension."""
+    return _cut(
+        x, lambda v: _scatter_sum(v, axis_name, scatter_dimension,
+                                  "psum_scatter"),
+        lambda c: tree_unflatten(c, [_gather(
+            t, axis_name, scatter_dimension, True,
+            "psum_scatter's transpose (all_gather)")
+            for t in tree_leaves(c)]))
+
+
+def ppermute(x: Any, axis_name: MeshAxis,
+             perm: Sequence[Tuple[int, int]]) -> Any:
+    """``x`` sent along the (source, destination) pairs of ``perm`` over
+    ``axis_name``'s indices; a position no pair sends to gets zeros. On one
+    device the received tensor is the sender's own: read it, do not write
+    it. Transpose: ``ppermute`` along the pairs reversed."""
+    back = [(d, s) for s, d in perm]
+    return _cut(x, lambda v: _permute(v, axis_name, perm, "ppermute"),
+                lambda c: _permute(c, axis_name, back,
+                                   "ppermute's transpose (ppermute)"))
+
+
 def all_gather(x: torch.Tensor, axis_name: MeshAxis, *, axis: int = 0,
                tiled: bool = False) -> torch.Tensor:
     """Every position's ``x`` over ``axis_name`` in index order
     (``jax.lax.all_gather``): untiled, stacked on a new dimension
-    ``axis``; tiled, concatenated along ``axis``."""
-    vals, _ = _exchange(axis_name, x)
-    pos = _here()
-    parts = [_received(pos, v, event, stream, copy=False)
-             for v, event, stream in vals]
-    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
-                                                                dim=axis)
+    ``axis``; tiled, concatenated along ``axis``. Transpose:
+    ``psum_scatter`` of the cotangent along ``axis`` (in float32)."""
+    def transpose(c: torch.Tensor) -> torch.Tensor:
+        part = _scatter_sum(c, axis_name, axis,
+                            "all_gather's transpose (psum_scatter)",
+                            wide=True)
+        return part if tiled else part.squeeze(axis)
+    return _cut(x, lambda v: _gather(v, axis_name, axis, tiled,
+                                     "all_gather"), transpose)
+
+
+@contextmanager
+def rendezvous_timeout(seconds: Optional[float]):
+    """Within the block, a position that waits more than ``seconds`` at a
+    rendezvous fails its ``shard_map`` with a ``TimeoutError`` naming the
+    collective (``None``: no limit, the default)."""
+    before = _TIMEOUT["s"]
+    _TIMEOUT["s"] = seconds
+    try:
+        yield
+    finally:
+        _TIMEOUT["s"] = before
 
 
 def current_mesh() -> Optional[Mesh]:
@@ -408,7 +698,8 @@ def _run_positions(mesh: Mesh, f: Callable,
                    args_of: Dict[Tuple, Sequence[Any]]) -> Dict[Tuple, Any]:
     """``f(*args_of[position])`` once a position of ``mesh``, each in its
     own thread, as ``shard_map`` runs them: {position: what it returned}.
-    Raises the first position's exception once every thread has ended."""
+    Raises the first position's exception once every thread has ended (or,
+    with a rendezvous timeout, once the others have had that long)."""
     if getattr(_LOCAL, "position", None) is not None:
         raise RuntimeError("shard_map cannot run inside shard_map")
     call = _Call(mesh)
@@ -425,8 +716,21 @@ def _run_positions(mesh: Mesh, f: Callable,
               starts)) for coord in mesh.positions()]
     for t in threads:
         t.start()
+    limit = _TIMEOUT["s"]
+    failed_at = None
     for t in threads:
-        t.join()
+        while t.is_alive():
+            t.join(None if limit is None else 0.5)
+            if limit is None or call.error is None:
+                continue
+            failed_at = failed_at or time.monotonic()
+            if time.monotonic() - failed_at > limit:
+                break                   # a thread that never returns
+    stuck = [c for c, t in zip(mesh.positions(), threads) if t.is_alive()]
+    if stuck:
+        raise RuntimeError(
+            f"shard_map: positions {stuck} did not return {limit:g} s after "
+            f"another failed") from call.error
     for coord in mesh.positions():
         stream = mesh.streams[coord]
         if stream is not None:
@@ -464,5 +768,6 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs: Any,
     return mapped
 
 
-__all__ = ["all_gather", "axis_index", "axis_size", "current_mesh", "pmax",
-           "pmean", "ppermute", "psum", "psum_scatter", "shard_map"]
+__all__ = ["all_gather", "axis_index", "axis_size", "checkpoint",
+           "current_mesh", "grad", "pmax", "pmean", "ppermute", "psum",
+           "psum_scatter", "rendezvous_timeout", "shard_map"]

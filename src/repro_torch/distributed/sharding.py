@@ -314,16 +314,18 @@ def tree_leaves(tree: Any) -> List[Any]:
 def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     """``like``'s structure with its leaves replaced by ``leaves``, in
     ``tree_leaves`` order."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            done = {k: build(node[k]) for k in sorted(node)}
-            return {k: done[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-    return build(like)
+
+def _unflatten(node: Any, it) -> Any:
+    # a module-level recursion: a recursive closure would be a reference
+    # cycle holding ``leaves`` (tensors) until the cyclic collector ran
+    if isinstance(node, dict):
+        done = {k: _unflatten(node[k], it) for k in sorted(node)}
+        return {k: done[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_unflatten(v, it) for v in node)
+    return next(it)
 
 # ---------------------------------------------------------------------------
 # logical -> physical rules

@@ -1,4 +1,4 @@
-"""The model axis inside a ``shard_map``'d serving step.
+"""The model and FSDP axes inside a ``shard_map``'d step.
 
 The reference leaves its tensor, sequence and vocab parallelism to GSPMD:
 inside ``jit`` the rule table places every activation and XLA inserts the
@@ -15,10 +15,19 @@ GSPMD would put one (Megatron's schedule):
     residual is whole, by ``psum_scatter`` over the sequence where it is
     split by sequence (``seq_sp``);
   * a residual split by sequence is ``all_gather``ed over it before the
-    projections (``gather_seq``).
+    projections (``gather_seq``);
+  * a weight split over a data axis (FSDP: ``embed_fsdp``, ``expert_ff``)
+    is ``all_gather``ed over it just before its product and dropped after
+    (``gather_fsdp``), as the reference's ``_mlp_sp_shardmap`` and
+    ``moe_ffn`` do and GSPMD does for attention and the embeddings.
 
-These helpers run inside a position of ``shard_map``; without a mesh they
-are identities.
+The same code serves the training step: each collective's transpose
+(``distributed/collectives.py``) is the backward of its use here, so the
+gather of a split residual returns its cotangent by ``psum_scatter``, a
+row piece's ``psum_scatter`` by ``all_gather``, a ``psum`` by ``psum``,
+and an FSDP weight's gather reduce-scatters its gradient over the data
+axes. These helpers run inside a position of ``shard_map``; without a
+mesh they are identities.
 """
 
 from __future__ import annotations
@@ -76,17 +85,43 @@ def gather_seq(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     return x if axis is None else all_gather(x, axis, axis=1, tiled=True)
 
 
+def gather_fsdp(w: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
+    """The whole of a weight's dimension ``dim`` where FSDP splits it over
+    the data axis (or axes) ``axis`` (``w`` itself without one)."""
+    return w if axis is None else all_gather(w, axis, axis=dim, tiled=True)
+
+
+class _Float32Product(torch.autograd.Function):
+    """``h2 @ w`` of 16-bit operands on the card with a float32 result
+    (cuBLAS through ``mm``'s ``out_dtype`` overload, which has no
+    derivative). The backward takes the cotangent in the operands' dtype,
+    as autograd of their 16-bit product would receive it."""
+
+    @staticmethod
+    def forward(ctx, h2, w):
+        ctx.save_for_backward(h2, w)
+        return torch.ops.aten.mm.dtype(h2, w, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w = ctx.saved_tensors
+        g = g.to(h2.dtype)
+        return (g @ w.T if ctx.needs_input_grad[0] else None,
+                h2.T @ g if ctx.needs_input_grad[1] else None)
+
+
 def float32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``h @ w`` (h (..., k), w (k, n)) with a float32 result: a row
     piece's partial sum before it is added over the axis, so that it is
     rounded once, after the sum, as the whole product is. 16-bit operands
     on the card go through cuBLAS with a float32 output (``mm``'s
-    ``out_dtype`` overload); elsewhere they are widened first."""
+    ``out_dtype`` overload, ``_Float32Product`` under grad); elsewhere
+    they are widened first."""
     if h.dtype == torch.float32 and w.dtype == torch.float32:
         return h @ w
     h2 = h.reshape(-1, h.shape[-1])
     if h.is_cuda:
-        out = torch.ops.aten.mm.dtype(h2, w, torch.float32)
+        out = _Float32Product.apply(h2, w)
     else:
         out = h2.to(torch.float32) @ w.to(torch.float32)
     return out.reshape(*h.shape[:-1], w.shape[-1])
@@ -131,5 +166,5 @@ def global_batch(local: int, rules: Optional[ShardingRules],
     return local * (mesh.axis_sizes(ax) if ax is not None else 1)
 
 
-__all__ = ["float32_product", "gather_seq", "global_batch", "own_rows",
+__all__ = ["float32_product", "gather_fsdp", "gather_seq", "global_batch", "own_rows",
            "reduce_partial", "residual_rules", "row_parallel", "split_axis"]

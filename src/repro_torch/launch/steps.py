@@ -7,54 +7,70 @@ gradient by autograd, microbatch accumulation, the optimizer), and
 ``make_prefill_step`` / ``make_decode_step`` the serving steps (under
 ``torch.no_grad``).
 
-On a mesh the training step is data parallel: one ``shard_map``
-(``distributed/collectives.py``) in which every position holds the whole
-model and optimizer state, takes its rows of the batch (the rows
-``P('data')`` gives it: position i of K the contiguous rows [i B/K,
-(i+1) B/K)), computes its part of the loss and the gradients, then
-``psum``s over the batch axes the float32 gradients and the loss's parts,
-and makes the same optimizer update as every other replica. The loss is
-the global batch's, as the reference's GSPMD step computes it, not a mean
-of the shards' means: a shard's NLL is divided by the whole microbatch's
-mask sum, a microbatch is a slice of the global batch (the reference's
-reshape), and the MoE routes the global token groups
-(``nn/moe.py::TokenShards``). A training rule table that would split a
-weight (tensor, expert or sequence parallelism, FSDP) raises
-``NotImplementedError``: training under the model axis is a later slice
-(ROADMAP).
+On a mesh the training step is one ``shard_map``
+(``distributed/collectives.py``) for any rule table ``build_rules(cfg,
+mesh, "train")`` gives: data parallelism, tensor, sequence and vocab
+parallelism and the experts over ``model``, FSDP over the data axes. Its
+``in_specs`` are the parameter and optimizer-state specs of the rules
+(``param_specs``) and ``P(batch)`` for the batch. Each position holds its
+pieces of the weights and state, takes its rows of the batch (position i
+of K batch shards the contiguous rows [i B/K, (i+1) B/K)) and runs the
+layers' model-axis and FSDP forms (``distributed/tensor_parallel.py``),
+the loss ending in the vocab-parallel cross-entropy
+(``models/lm.py::lm_loss_sums``). The loss is the global batch's, as the
+reference's GSPMD step computes it: a shard's NLL divided by the whole
+microbatch's mask sum, a microbatch a slice of the global batch, the MoE
+routing the global token groups (``nn/moe.py::TokenShards``). Its
+gradient is taken by ``collectives.grad``: autograd over the position's
+graph between its collectives, each collective's transpose in between,
+in the position's own thread (never on autograd's worker thread, which
+the positions on a card share), with remat recomputed there too
+(``collectives.checkpoint``). The loss the positions of the model axis
+hold alike is seeded with one over their number, so that each
+collective's transpose adds every position's part once. Then each leaf's
+gradient is reduced once over the positions that share its piece: a
+``psum`` over the mesh axes its spec does not split it over (the data
+axes for a replicated weight, also ``model`` for one the model axis
+repeats, such as a norm scale or the router); an FSDP leaf's data axes
+are summed already by its gather's transpose (``psum_scatter``). The
+optimizer then updates each position's pieces (``optim/optimizers.py``
+with the specs: the global norm and Adafactor's statistics completed over
+the axes that split a leaf). The SSM and hybrid families with a split
+weight raise ``NotImplementedError`` (their ``ssm_heads`` / ``lru_width``
+forms are the next slice, ROADMAP).
 
 The serving steps on a mesh are tensor, sequence, vocab and expert
-parallel: one ``shard_map`` a step, whose ``in_specs`` are the parameter,
-cache and batch specs of ``rules`` and whose ``out_specs`` are ``P()`` for
-the logits (gathered whole on every position) and the cache specs for the
+parallel, and FSDP where the rules split a weight over a data axis: one
+``shard_map`` a step, whose ``in_specs`` are the parameter, cache and
+batch specs of ``rules`` and whose ``out_specs`` are ``P()`` for the
+logits (gathered whole on every position) and the cache specs for the
 caches. Each position holds its pieces of the weights and caches
 (``param_specs(lm_param_defs(cfg), rules)``, ``param_specs(lm_cache_defs(
 ...), rules)``) and its layers call the collectives where the reference's
 GSPMD puts them (``distributed/tensor_parallel.py``, ``nn/attention.py``,
 ``nn/mlp.py``, ``nn/moe.py``, ``models/lm.py``). The steps return the
-caches as ``Sharded`` trees, and decode takes them back. FSDP (a weight
-split over a data axis of size > 1) and the SSM and hybrid families with
-a split weight raise ``NotImplementedError`` (ROADMAP). The reference's
-``lowering_bundle`` lowers the steps for its dry-run, which the port has
-not reached.
+caches as ``Sharded`` trees, and decode takes them back. The SSM and
+hybrid families with a split weight raise ``NotImplementedError``. The
+reference's ``lowering_bundle`` lowers the steps for its dry-run, which
+the port has not reached.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.distributed import collectives
 from repro_torch.distributed.collectives import (all_gather, axis_index,
                                                  psum, shard_map)
-from repro_torch.distributed.sharding import (Mesh, NamedSharding, P,
-                                              ParamDef, Sharded,
+from repro_torch.distributed.sharding import (Mesh, P, ParamDef, Sharded,
                                               ShardingRules, axis_names_of,
                                               device_put, gather,
                                               make_dp_only_rules, make_rules,
                                               map_defs, map_tree,
-                                              param_specs)
+                                              param_shardings, param_specs)
 from repro_torch.launch.mesh import data_axis_names
 from repro_torch.models import lm
 from repro_torch.nn.moe import TokenShards
@@ -130,7 +146,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     mesh: Optional[Mesh] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, with microbatch gradient accumulation; on ``mesh``, the
-    data-parallel step of ``make_dp_train_step``.
+    sharded step of ``make_sharded_train_step``.
 
     ``params`` is a tree of tensors that require grad. With
     ``tcfg.microbatches`` = k > 1 the batch is cut into k slices along its
@@ -141,7 +157,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``loss``, ``xent``, ``aux``, ``z_loss``, ``lr`` and ``grad_norm``,
     float32 tensors on the device."""
     if mesh is not None:
-        return make_dp_train_step(cfg, tcfg, rules, mesh)
+        return make_sharded_train_step(cfg, tcfg, rules, mesh)
     opt = get_optimizer(cfg.optimizer)
 
     def value_and_grad(params, mb):
@@ -180,47 +196,48 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return train_step
 
 
-def check_data_parallel(cfg: ModelConfig, rules: ShardingRules,
-                        mesh: Mesh) -> None:
-    """Raise ``NotImplementedError`` where ``rules`` on ``mesh`` would split
-    a parameter or an optimizer-state leaf: the mesh carries data
-    parallelism only, every weight whole on every position."""
-    pdefs = lm.lm_param_defs(cfg)
-    defs = {"params": pdefs,
-            "opt": get_optimizer(cfg.optimizer).state_defs(pdefs)}
+def check_model_axis(cfg: ModelConfig, rules: ShardingRules,
+                     mesh: Mesh) -> None:
+    """Raise ``NotImplementedError`` where the steps on ``mesh`` have no
+    form yet: an SSM or hybrid model with a split weight (their
+    ``ssm_heads`` / ``lru_width`` forms)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return
     split = []
     map_defs(lambda d: split.append(d) if any(
         mesh.axis_sizes(e) > 1 for e in rules.spec(*d.logical_axes))
-        else None, defs)
+        else None, lm.lm_param_defs(cfg))
     if split:
-        d = split[0]
         raise NotImplementedError(
-            f"{cfg.name} on mesh {mesh.shape}: the rules split "
-            f"{len(split)} weight and optimizer leaves, e.g. {d.shape} with "
-            f"logical axes {d.logical_axes} onto "
-            f"{rules.spec(*d.logical_axes)}. The port trains on a mesh with "
-            f"data parallelism only; training under the model axis, with "
-            f"FSDP, is the tensor-parallel slice's training half (ROADMAP), "
-            f"not yet ported")
+            f"{cfg.name} ({cfg.family}) on mesh {mesh.shape}: the rules "
+            f"split {len(split)} of its weights; the SSM and hybrid "
+            f"families' model-axis forms (ssm_heads, lru_width) are not yet "
+            f"ported (ROADMAP §1 item 2)")
 
 
-def make_dp_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                       rules: Optional[ShardingRules], mesh: Mesh
-                       ) -> Callable:
-    """The data-parallel ``train_step(params, opt_state, batch)`` on
-    ``mesh`` (see the module's docstring). ``params`` and ``opt_state`` are
-    trees of ``Sharded`` leaves replicated on the mesh (plain tensors are
-    copied onto it first), updated in place position by position and
-    returned; ``batch`` holds whole tensors (or ``Sharded`` ones) split by
-    rows over the batch axes. ``metrics`` are position 0's tensors.
+def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                            rules: Optional[ShardingRules], mesh: Mesh
+                            ) -> Callable:
+    """The ``train_step(params, opt_state, batch)`` of ``rules`` on
+    ``mesh`` (see the module's docstring). ``params`` and ``opt_state``
+    are trees of ``Sharded`` leaves placed by the rules (plain tensors are
+    placed first, each position owning its piece), updated in place
+    position by position and returned; ``batch`` holds whole tensors (or
+    ``Sharded`` ones) split by rows over the batch axes. ``metrics`` are
+    position 0's tensors.
 
     With k = ``tcfg.microbatches`` and K batch shards, either K divides k
     (each position runs k / K whole microbatches) or k divides K (a
     microbatch spans K / k positions); other pairs raise
     ``NotImplementedError``."""
     rules = rules if rules is not None else build_rules(cfg, mesh, "train")
-    check_data_parallel(cfg, rules, mesh)
+    check_model_axis(cfg, rules, mesh)
     opt = get_optimizer(cfg.optimizer)
+    pdefs = lm.lm_param_defs(cfg)
+    odefs = opt.state_defs(pdefs)
+    pspecs, ospecs = param_specs(pdefs, rules), param_specs(odefs, rules)
+    shardings = {"params": param_shardings(pdefs, rules, mesh),
+                 "opt": param_shardings(odefs, rules, mesh)}
     batch_axis = rules.axis("batch")
     names = axis_names_of(batch_axis)
     shards = mesh.axis_sizes(batch_axis)
@@ -230,7 +247,17 @@ def make_dp_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             f"{k} microbatches over {shards} batch shards: one must divide "
             f"the other")
     per, span = (k // shards, 1) if k % shards == 0 else (1, shards // k)
-    replicated = NamedSharding(mesh, P())
+    # the positions holding one batch shard hold the same loss: each seeds
+    # its share, so that every collective's transpose counts it once
+    seed = shards / mesh.size
+    # each leaf's gradient summed over the positions sharing its piece
+    reduce_over: Dict[Tuple[str, ...], list] = {}
+    for j, spec in enumerate(tree_leaves(pspecs)):
+        used = {n for e in spec for n in axis_names_of(e)}
+        axes = tuple(n for n in mesh.axis_names
+                     if mesh.shape[n] > 1 and n not in used)
+        if axes:
+            reduce_over.setdefault(axes, []).append(j)
 
     def local(params, opt_state, batch):
         i = axis_index(names) if names else 0
@@ -243,50 +270,62 @@ def make_dp_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             return all_gather(t, names)[first:first + span]
 
         leaves = [p.requires_grad_() for p in tree_leaves(params)]
+        dev = leaves[0].device
         rows = next(iter(batch.values())).shape[0] // per
         gsum = None
-        sums = {key: torch.zeros((), dtype=torch.float32,
-                                 device=leaves[0].device)
+        sums = {key: torch.zeros((), dtype=torch.float32, device=dev)
                 for key in ("loss", "xent", "aux", "z_loss")}
         for m in range(per):
             mb = {key: v[m * rows:(m + 1) * rows] for key, v in batch.items()}
             mask = mb.get("mask")
             mask_sum = (mask.to(torch.float32).sum() if mask is not None
                         else torch.tensor(float(mb["tokens"].numel()),
-                                          device=leaves[0].device))
+                                          device=dev))
             denom = torch.clamp(group(mask_sum).sum(), min=1.0)
             nll, z, _, aux = lm.lm_loss_sums(
                 params, mb, cfg,
-                token_shards=TokenShards(span, i - first, group))
+                token_shards=TokenShards(span, i - first, group),
+                rules=rules, mesh=mesh)
             part = {"xent": nll / denom, "z_loss": 1e-4 * z / denom,
                     "aux": aux}
             loss = part["xent"] + part["z_loss"] + cfg.router_aux_coef * aux
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) if g is None
-                     else g.to(torch.float32) for p, g in zip(leaves, grads)]
+            grads = collectives.grad(loss, leaves,
+                                     torch.full_like(loss, seed))
+            # microbatches add up in float32; one batch keeps each
+            # gradient in its parameter's dtype, as the unsharded step
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            if k > 1:
+                grads = [g.to(torch.float32) for g in grads]
             gsum = grads if gsum is None else [
                 s.add_(g) for s, g in zip(gsum, grads)]
             for key, v in {"loss": loss, **part}.items():
                 sums[key] = sums[key] + v.detach()
+        for axes, idx in reduce_over.items():           # added in float32
+            for j, g in zip(idx, psum([gsum[j].to(torch.float32)
+                                       for j in idx], axes)):
+                gsum[j] = g
         if names:
-            gsum, sums = psum((gsum, sums), names)
+            sums = psum(sums, names)
         if k > 1:
             gsum = [g / k for g in gsum]
             sums = {key: v / k for key, v in sums.items()}
         params, opt_state, om = opt.update(
-            params, tree_unflatten(params, gsum), opt_state, tcfg)
+            params, tree_unflatten(params, gsum), opt_state, tcfg,
+            specs=pspecs)
         return params, opt_state, {**sums, **om}
 
-    mapped = shard_map(local, mesh=mesh, in_specs=(P(), P(), P(batch_axis)),
-                       out_specs=(P(), P(), P()))
+    mapped = shard_map(local, mesh=mesh,
+                       in_specs=(pspecs, ospecs, P(batch_axis)),
+                       out_specs=(pspecs, ospecs, P()))
 
     def train_step(params, opt_state, batch):
-        def placed(tree):
-            return tree_map(lambda x: x if isinstance(x, Sharded)
-                            else device_put(x, replicated), tree)
-        params, opt_state, metrics = mapped(placed(params),
-                                            placed(opt_state), batch)
+        def placed(tree, where):
+            return map_tree(lambda x, s: x if isinstance(x, Sharded)
+                            else device_put(x, s), tree, where)
+        params, opt_state, metrics = mapped(
+            placed(params, shardings["params"]),
+            placed(opt_state, shardings["opt"]), batch)
         return params, opt_state, gather(metrics)
 
     return train_step
@@ -338,39 +377,6 @@ def make_decode_step(cfg: ModelConfig,
     return serve_step
 
 
-def check_model_parallel_serving(cfg: ModelConfig, rules: ShardingRules,
-                                 mesh: Mesh) -> None:
-    """Raise ``NotImplementedError`` where the serving steps on ``mesh``
-    have no form yet: a weight split over a data axis of size > 1 (FSDP),
-    or an SSM or hybrid model with a split weight (their ``ssm_heads`` /
-    ``lru_width`` forms)."""
-    data = set(data_axis_names(mesh))
-    fsdp, split = [], []
-
-    def look(d):
-        entries = rules.spec(*d.logical_axes)
-        if any(mesh.axis_sizes(e) > 1 for e in entries):
-            split.append(d)
-        if any(n in data and mesh.shape[n] > 1
-               for e in entries for n in axis_names_of(e)):
-            fsdp.append(d)
-    map_defs(look, lm.lm_param_defs(cfg))
-    if fsdp:
-        d = fsdp[0]
-        raise NotImplementedError(
-            f"{cfg.name} on mesh {mesh.shape}: the rules split {len(fsdp)} "
-            f"weights over a data axis (FSDP), e.g. {d.shape} with logical "
-            f"axes {d.logical_axes} onto {rules.spec(*d.logical_axes)}; "
-            f"FSDP comes with training under the model axis (ROADMAP §1 "
-            f"item 2), not yet ported")
-    if split and cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on mesh {mesh.shape}: the rules "
-            f"split {len(split)} of its weights; the SSM and hybrid "
-            f"families' model-axis forms (ssm_heads, lru_width) are not yet "
-            f"ported (ROADMAP §1 item 2)")
-
-
 def _serving_step(cfg: ModelConfig, rules: ShardingRules, mesh: Mesh,
                   run: Callable) -> Callable:
     """A serving step on ``mesh``: ``run(params, caches, inputs, shards)``
@@ -380,7 +386,7 @@ def _serving_step(cfg: ModelConfig, rules: ShardingRules, mesh: Mesh,
     tensors (split by their specs: a position on their device reads a view,
     and the caches are written in place there) or ``Sharded`` trees; the
     inputs' tensors are split by rows over the batch axes."""
-    check_model_parallel_serving(cfg, rules, mesh)
+    check_model_axis(cfg, rules, mesh)
     pspecs = param_specs(lm.lm_param_defs(cfg), rules)
     cspecs = map_tree(lambda spec: spec if isinstance(spec, P) else None,
                       param_specs(lm.lm_cache_defs(cfg, 1, 1), rules))
@@ -412,6 +418,6 @@ def _serving_step(cfg: ModelConfig, rules: ShardingRules, mesh: Mesh,
     return step
 
 
-__all__ = ["batch_defs", "build_rules", "check_data_parallel",
-           "check_model_parallel_serving", "make_decode_step",
-           "make_dp_train_step", "make_prefill_step", "make_train_step"]
+__all__ = ["batch_defs", "build_rules", "check_model_axis",
+           "make_decode_step", "make_prefill_step",
+           "make_sharded_train_step", "make_train_step"]

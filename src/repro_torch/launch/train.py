@@ -1,10 +1,13 @@
 """End-to-end trainer: data -> train step -> metrics -> checkpoints.
 
 The twin of ``repro/launch/train.py``: on one device (the card unless the
-caller passes ``device="cpu"``), or with ``mesh=`` data parallel over the
-mesh's positions (``launch/steps.py::make_dp_train_step``; several
-positions may share one card, each on its own stream). Fault tolerance as
-in the reference:
+caller passes ``device="cpu"``), or with ``mesh=`` over the mesh's
+positions by the rule table of ``cfg``'s profile
+(``launch/steps.py::make_sharded_train_step``: data parallel, the model
+axis, FSDP; several positions may share one card, each on its own
+stream). On a mesh the parameters and optimizer state are split as the
+rules place them, each position holding its pieces. Fault tolerance as in
+the reference:
 
   * auto-resume from the newest *valid* checkpoint (torn or corrupt steps
     are skipped by checksum validation);
@@ -19,10 +22,11 @@ in the reference:
 
 Checkpoints are the JAX package's format (``checkpoint/checkpoint.py``):
 ``{"params": ..., "opt": ...}`` with the same leaves, one unsharded copy
-(position 0's on a mesh), so a JAX ``Trainer``'s checkpoint resumes here
-and the reverse. Fresh weights are drawn from
+(gathered from the positions' pieces on a mesh), so a JAX ``Trainer``'s
+checkpoint resumes here and the reverse, and a mesh's resumes on another
+mesh (``distributed/elastic.py::elastic_restore``). Fresh weights are drawn from
 ``torch.Generator().manual_seed(tcfg.seed)`` by the JAX package's init
-rule (on position 0's device, then copied to every position); the numbers
+rule (on position 0's device, then placed on the positions); the numbers
 differ from ``jax.random``'s.
 
 Usage (from the root of a checkout):
@@ -32,6 +36,8 @@ Usage (from the root of a checkout):
       --steps 20 --batch 8 --seq 2048          # full width on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --reduced --data-parallel 2 --model-parallel 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-67b \
+      --reduced --data-parallel 2 --model-parallel 2 --device cpu  # FSDP
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.archs import ARCHS, REDUCED
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data.tokens import TokenDataConfig, TokenStream
+from repro_torch.distributed.elastic import elastic_restore
 from repro_torch.distributed.sharding import (Sharded, device_put, map_defs,
                                               param_shardings,
                                               zeros_like_defs)
@@ -116,8 +123,12 @@ class Trainer:
         # (restore places a leaf on its ``like`` leaf's device)
         like = map_defs(lambda d: torch.empty(0, device=self.device),
                         {"params": self.pdefs, "opt": self.odefs})
-        res = ckpt.restore_latest(self.ckpt_dir, like,
-                                  shardings=self._shardings)
+        if self.mesh is None:
+            res = ckpt.restore_latest(self.ckpt_dir, like)
+        else:
+            res = elastic_restore(self.ckpt_dir,
+                                  {"params": self.pdefs, "opt": self.odefs},
+                                  self.rules, self.mesh, like)
         if res is None:
             return False
         step, tree, _ = res

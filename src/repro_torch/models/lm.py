@@ -10,15 +10,24 @@ parameter tree has the JAX nesting and shapes (``lm_param_defs``).
 chunks, each under ``torch.utils.checkpoint`` so that the (B, S, V)
 logits never exist whole, plus the z-loss and the router's aux loss.
 
-On a mesh (``rules`` / ``mesh``, inside a position of the serving step's
-``shard_map``, ``launch/steps.py``) ``forward_hidden``, ``prefill`` and
-``decode_step`` take the position's pieces: the vocab-sharded embedding
-is a lookup of the position's rows, zeros elsewhere, ``psum``med over the
-vocab axis (the reference's one-hot product, the same bits); the
-unembedding computes the position's vocab columns, masks the padding by
-the global column, and ``all_gather``s the logits over the vocab axis.
-The residual between blocks is ("batch", "seq_sp", "embed"): in a prefill
-each position holds its S/K rows (whole where K does not divide S).
+On a mesh (``rules`` / ``mesh``, inside a position of a serving or
+training step's ``shard_map``, ``launch/steps.py``) ``forward_hidden``,
+``prefill``, ``decode_step`` and ``lm_loss_sums`` take the position's
+pieces: the vocab-sharded embedding is a lookup of the position's rows,
+zeros elsewhere, ``psum``med over the vocab axis (the reference's one-hot
+product, the same bits; under grad the ``psum``'s transpose hands each
+position every token's cotangent for its rows); the unembedding computes
+the position's vocab columns, masks the padding by the global column, and
+``all_gather``s the logits over the vocab axis; under FSDP both tables'
+``embed_fsdp`` dimension is gathered over the data axes first. The
+residual between blocks is ("batch", "seq_sp", "embed"): in a prefill or
+a training forward each position holds its S/K rows (whole where K does
+not divide S). ``lm_loss_sums`` gathers the rows and runs the
+vocab-parallel cross-entropy (the reference's ``lm_loss`` under GSPMD):
+each position's logits are its vocab columns of the chunk, the row
+maximum is the ``pmax`` of the detached local maxima, the float32
+``sumexp`` and the label's logit (from the position owning its column)
+are ``psum``med, then the lse, the NLL and the z-loss as before.
 """
 
 from __future__ import annotations
@@ -26,16 +35,19 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional, Tuple
 
+from functools import partial
+
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
-from repro_torch.distributed.collectives import all_gather, axis_index, psum
+from repro_torch.distributed.collectives import (all_gather, axis_index,
+                                                 checkpoint, pmax, psum)
 from repro_torch.distributed.sharding import (Mesh, ParamDef, ShardingRules,
                                               logical_constraint)
-from repro_torch.distributed.tensor_parallel import (global_batch, own_rows,
+from repro_torch.distributed.tensor_parallel import (gather_fsdp, gather_seq,
+                                                     global_batch, own_rows,
                                                      residual_rules,
                                                      split_axis)
 from repro_torch.nn.layers import needs_grad, sinusoidal_pos, softcap
@@ -85,18 +97,33 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
            rules: Optional[ShardingRules] = None,
            mesh: Optional[Mesh] = None) -> torch.Tensor:
     vocab_ax = split_axis(rules, mesh, "vocab")
+    table = gather_fsdp(params["embed"], 1,
+                        split_axis(rules, mesh, "embed_fsdp"))
     if vocab_ax is None:
         # the JAX package's one-hot lookup serves a vocab-sharded table; on
         # a whole table it takes jnp.take, as this index gather does
-        x = params["embed"][tokens]
+        x = table[tokens]
     else:
-        x = _vocab_parallel_lookup(params["embed"], tokens, vocab_ax)
+        x = _vocab_parallel_lookup(table, tokens, vocab_ax)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     if prefix_embed is not None and cfg.prefix_len:
-        x[:, :prefix_embed.shape[1]] = prefix_embed.to(x.dtype)
+        n = prefix_embed.shape[1]
+        x = torch.cat([prefix_embed.to(x.dtype), x[:, n:]], dim=1)
     return x
+
+
+def _unembed_table(params, cfg: ModelConfig,
+                   rules: Optional[ShardingRules], mesh: Optional[Mesh]
+                   ) -> torch.Tensor:
+    """The unembedding's weight as the position holds it (the tied
+    embedding (V, d) or ``unembed`` (d, V)), its ``embed_fsdp`` dimension
+    gathered where FSDP splits it."""
+    ef = split_axis(rules, mesh, "embed_fsdp")
+    if cfg.tie_embeddings:
+        return gather_fsdp(params["embed"], 1, ef)
+    return gather_fsdp(params["unembed"], 0, ef)
 
 
 def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig,
@@ -114,10 +141,8 @@ def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig,
 def _unembed(params, x: torch.Tensor, cfg: ModelConfig,
              rules: Optional[ShardingRules] = None,
              mesh: Optional[Mesh] = None) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
-    else:
-        logits = x @ params["unembed"]
+    table = _unembed_table(params, cfg, rules, mesh)
+    logits = x @ table.T if cfg.tie_embeddings else x @ table
     vocab_ax = split_axis(rules, mesh, "vocab")
     start = axis_index(vocab_ax) * logits.shape[-1] if vocab_ax else 0
     logits = _mask_pad_vocab(softcap(logits, cfg.final_softcap), cfg, start)
@@ -173,18 +198,33 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _chunk_loss(xc: torch.Tensor, lc: torch.Tensor, mc: torch.Tensor,
-                unembed: torch.Tensor, cfg: ModelConfig):
+                unembed: torch.Tensor, cfg: ModelConfig, vocab_ax=None):
     """(sum of masked next-token NLL, sum of (lse * mask)^2) over one
     sequence chunk: xc (B, T, d), labels lc (B, T), mask mc (B, T) float32.
     The logits stay in the model's dtype; float32 appears inside the
-    reductions, as in the reference."""
+    reductions, as in the reference. With ``vocab_ax`` the unembedding is
+    the position's vocab columns and the row statistics are combined over
+    the axis (the module's docstring)."""
     logits = xc @ unembed.T if cfg.tie_embeddings else xc @ unembed
-    logits = _mask_pad_vocab(softcap(logits, cfg.final_softcap), cfg)
+    v_loc = logits.shape[-1]
+    start = axis_index(vocab_ax) * v_loc if vocab_ax is not None else 0
+    logits = _mask_pad_vocab(softcap(logits, cfg.final_softcap), cfg, start)
     m = logits.detach().amax(dim=-1, keepdim=True).to(torch.float32)
+    if vocab_ax is not None:
+        m = pmax(m, vocab_ax)
     sumexp = torch.exp(logits.to(torch.float32) - m).sum(dim=-1)
+    if vocab_ax is not None:
+        sumexp = psum(sumexp, vocab_ax)
     lse = m[..., 0] + torch.log(sumexp)
-    ll = torch.gather(logits, -1, lc[..., None].long())[..., 0].to(
-        torch.float32)
+    if vocab_ax is None:
+        ll = torch.gather(logits, -1, lc[..., None].long())[..., 0].to(
+            torch.float32)
+    else:                       # the label's logit from its column's owner
+        local = lc.long() - start
+        hit = (local >= 0) & (local < v_loc)
+        ll = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])
+        ll = psum(torch.where(hit, ll[..., 0].to(torch.float32), 0.0),
+                  vocab_ax)
     return ((lse - ll) * mc).sum(), ((lse * mc) ** 2).sum()
 
 
@@ -211,24 +251,33 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 
 
 def lm_loss_sums(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 *, loss_chunks: int = 8, token_shards=None
-                 ) -> Tuple[torch.Tensor, ...]:
+                 *, loss_chunks: int = 8, token_shards=None,
+                 rules: Optional[ShardingRules] = None,
+                 mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, ...]:
     """``lm_loss``'s parts before the division by the mask's sum: (the
     masked NLL's sum, the masked squared lse's sum, the mask's sum, the
-    aux), float32. The data-parallel step adds them over the shards of a
-    batch before it divides (``launch/steps.py``); ``token_shards`` is the
-    MoE's share (``nn/moe.py::TokenShards``)."""
+    aux), float32. The sharded step adds them over the shards of a batch
+    before it divides (``launch/steps.py``); ``token_shards`` is the MoE's
+    share (``nn/moe.py::TokenShards``). On a mesh (``rules`` / ``mesh``)
+    the position's batch rows, the vocab-parallel cross-entropy (the
+    module's docstring): the sums are the same on every position of the
+    model axis."""
     tokens, labels = batch["tokens"], batch["labels"]
     mask = batch.get("mask")
     x, _, aux = forward_hidden(params, tokens, cfg,
                                prefix_embed=batch.get("prefix_embed"),
-                               token_shards=token_shards)
+                               token_shards=token_shards, rules=rules,
+                               mesh=mesh)
+    rules = residual_rules(rules, mesh, tokens.shape[1])
+    x = gather_seq(x, split_axis(rules, mesh, "seq_sp"))
     b, s, _ = x.shape
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
     mask = mask.to(torch.float32)
-    unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    unembed = _unembed_table(params, cfg, rules, mesh)
     remat = needs_grad(x, unembed)
+    chunk = partial(_chunk_loss, cfg=cfg,
+                    vocab_ax=split_axis(rules, mesh, "vocab"))
 
     nc = loss_chunks
     while s % nc:
@@ -239,11 +288,7 @@ def lm_loss_sums(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     for i in range(nc):
         part = (x[:, i * sc:(i + 1) * sc], labels[:, i * sc:(i + 1) * sc],
                 mask[:, i * sc:(i + 1) * sc], unembed)
-        if remat:
-            a, z = checkpoint(_chunk_loss, *part, cfg, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            a, z = _chunk_loss(*part, cfg)
+        a, z = checkpoint(chunk, *part) if remat else chunk(*part)
         nll_sum, z_sum = nll_sum + a, z_sum + z
     return nll_sum, z_sum, mask.sum(), aux
 

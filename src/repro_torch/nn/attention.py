@@ -16,10 +16,15 @@ builds a new one): ``KVCache.k`` / ``.v`` are (B, Smax, Hk, D) tensors,
 or views of a layer's slice of the stacked cache, and ``length`` is a
 Python int, the same for every layer.
 
-On a mesh (``rules`` / ``mesh``, inside a position of the serving step's
-``shard_map``) a position holds column pieces of ``wq`` / ``wk`` / ``wv``
-(its query heads, and its KV heads where they divide the model axis) and a
-row piece of ``wo``. A residual split by sequence is all-gathered over it
+On a mesh (``rules`` / ``mesh``, inside a position of a serving or
+training step's ``shard_map``) a position holds column pieces of ``wq`` /
+``wk`` / ``wv`` (its query heads, and its KV heads where they divide the
+model axis) and a row piece of ``wo``; under FSDP their ``embed_fsdp``
+rows (``wo``'s columns) are split over the data axes too and gathered
+just before the products (``gather_fsdp``). Under grad the position runs
+the flash kernel on its heads writing lse and ``flash_attention_bwd`` on
+them in the backward (``FlashAttentionFn``), and each collective's
+transpose carries the gradient back. A residual split by sequence is all-gathered over it
 first; the position runs the flash kernel on its own heads, (B, H/K, S, D),
 and its ``wo`` product, a partial sum, is added over the axis in float32
 (``psum``, or ``psum_scatter`` back to each position's rows: Megatron-SP).
@@ -46,7 +51,8 @@ from repro_torch.distributed.collectives import (all_gather, axis_index,
 from repro_torch.distributed.sharding import (Mesh, MeshAxis, ParamDef,
                                               ShardingRules,
                                               logical_constraint)
-from repro_torch.distributed.tensor_parallel import (gather_seq, global_batch,
+from repro_torch.distributed.tensor_parallel import (gather_fsdp, gather_seq,
+                                                     global_batch,
                                                      row_parallel, split_axis)
 from repro_torch.kernels import ops
 from repro_torch.nn.layers import apply_rope, softcap
@@ -168,11 +174,12 @@ def attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     kv_ax = split_axis(rules, mesh, "kv_heads")
     seq_cache = (split_axis(rules, mesh, "cache_seq") if cache is not None
                  else None)
+    ef = split_axis(rules, mesh, "embed_fsdp")
     x = gather_seq(x, sp)
     b, s, _ = x.shape
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = x @ gather_fsdp(params["wq"], 0, ef)
+    k = x @ gather_fsdp(params["wk"], 0, ef)
+    v = x @ gather_fsdp(params["wv"], 0, ef)
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     n_q = q.shape[-1] // dh
@@ -266,7 +273,8 @@ def attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     o = logical_constraint(o, "batch", "seq", "act_heads", None, rules=rules,
                            mesh=mesh, shape=(gb, s, h, dh))
     o = o.reshape(b, s, n_q * dh)
-    return row_parallel(o, params["wo"], head_ax, sp, x.dtype), new_cache
+    return (row_parallel(o, gather_fsdp(params["wo"], 1, ef), head_ax, sp,
+                         x.dtype), new_cache)
 
 
 def _cache_heads(k: torch.Tensor, v: torch.Tensor, cache: KVCache,

@@ -86,15 +86,14 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def needs_grad(*trees) -> bool:
     """Grad mode is on and a tensor of ``trees`` (tensors, or dicts, lists
     and tuples of them) requires grad: autograd will need the graph."""
-    if not torch.is_grad_enabled():
-        return False
+    return torch.is_grad_enabled() and _requires_grad(trees)
 
-    def any_leaf(t):
-        if isinstance(t, torch.Tensor):
-            return t.requires_grad
-        if isinstance(t, dict):
-            return any(any_leaf(v) for v in t.values())
-        if isinstance(t, (list, tuple)):
-            return any(any_leaf(v) for v in t)
-        return False
-    return any_leaf(trees)
+
+def _requires_grad(t) -> bool:
+    if isinstance(t, torch.Tensor):
+        return t.requires_grad
+    if isinstance(t, dict):
+        return any(_requires_grad(v) for v in t.values())
+    if isinstance(t, (list, tuple)):
+        return any(_requires_grad(v) for v in t)
+    return False

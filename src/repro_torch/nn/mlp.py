@@ -3,9 +3,12 @@
 The twin of ``repro/nn/mlp.py``. The products are ``torch.matmul``, as the
 JAX package leaves them to XLA.
 
-On a mesh (``rules`` / ``mesh``, inside a position of the serving step's
-``shard_map``) a position holds column pieces of ``w_gate`` / ``w_up`` and
-a row piece of ``w_down`` (``ff`` on the model axis). Where the residual
+On a mesh (``rules`` / ``mesh``, inside a position of a serving or
+training step's ``shard_map``) a position holds column pieces of
+``w_gate`` / ``w_up`` and a row piece of ``w_down`` (``ff`` on the model
+axis); under FSDP their ``embed_fsdp`` dimension is split over the data
+axes too and gathered just before the products, as
+``_mlp_sp_shardmap`` does (``gather_fsdp``). Where the residual
 is whole, the local FFN's product is ``psum``med over the axis in
 float32. Where it is split by sequence (a prefill), ``mlp`` runs the
 reference's Megatron-SP schedule (``_mlp_sp_shardmap``): ``all_gather``
@@ -25,7 +28,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (Mesh, ParamDef, ShardingRules,
                                               logical_constraint)
-from repro_torch.distributed.tensor_parallel import (gather_seq, global_batch,
+from repro_torch.distributed.tensor_parallel import (gather_fsdp, gather_seq,
+                                                     global_batch,
                                                      row_parallel, split_axis)
 from repro_torch.nn.layers import activation
 
@@ -45,12 +49,13 @@ def mlp_param_defs(cfg: ModelConfig, *, gated: bool = True,
 
 
 def _ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
-         cfg: ModelConfig) -> torch.Tensor:
-    """The FFN's hidden layer (before ``w_down``)."""
+         cfg: ModelConfig, ef=None) -> torch.Tensor:
+    """The FFN's hidden layer (before ``w_down``); ``ef``: the data axes
+    FSDP splits the weights' rows over."""
     act = activation(cfg.act)
-    up = x @ params["w_up"]
+    up = x @ gather_fsdp(params["w_up"], 0, ef)
     if "w_gate" in params:
-        return act(x @ params["w_gate"]) * up
+        return act(x @ gather_fsdp(params["w_gate"], 0, ef)) * up
     return act(up)
 
 
@@ -63,9 +68,11 @@ def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
     and nothing is gathered or added."""
     sp = split_axis(rules, mesh, "seq_sp")
     ff_ax = split_axis(rules, mesh, "ff")
-    h = _ffn(params, gather_seq(x, sp), cfg)
+    ef = split_axis(rules, mesh, "embed_fsdp")
+    h = _ffn(params, gather_seq(x, sp), cfg, ef)
     h = logical_constraint(
         h, "batch", "seq", "act_ff", rules=rules, mesh=mesh,
         shape=(global_batch(x.shape[0], rules, mesh), h.shape[1],
                h.shape[2] * (mesh.axis_sizes(ff_ax) if ff_ax else 1)))
-    return row_parallel(h, params["w_down"], ff_ax, sp, x.dtype)
+    return row_parallel(h, gather_fsdp(params["w_down"], 1, ef), ff_ax, sp,
+                        x.dtype)

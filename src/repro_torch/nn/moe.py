@@ -27,9 +27,11 @@ Training. The dispatch and the combine differentiate through the kernels'
 own backward (``MpScatterFn`` / ``GatherRowsFn``: each kernel's gradient
 is the other kernel), the router through the weights and the aux loss,
 the experts through PyTorch. Under ``cfg.moe_inner_remat`` and grad mode
-each token group runs under ``torch.utils.checkpoint`` (non-reentrant), the
-reference's ``jax.checkpoint`` per dispatch group: its buffers are
-recomputed in the backward, the kernels launched again.
+each token group runs under ``checkpoint`` (``distributed/collectives.py``:
+``torch.utils.checkpoint`` off a mesh, the position's own remat on one),
+the reference's ``jax.checkpoint`` per dispatch group: its buffers are
+recomputed in the backward, the kernels launched again; within a layer's
+remat recompute it is a plain call.
 
 Data parallelism (``token_shards``). Under the mesh's data-parallel
 train step (``launch/steps.py``) one forward sees only its position's
@@ -39,12 +41,15 @@ the unsharded step does: the token groups and their capacity come from the
 global token count; a group that lies whole on this position runs as
 before; for a group spread over several positions each position's ranks
 start after the assignments of the positions before it (their per-expert
-counts, exchanged once a layer and kept for the backward's recompute), and
+counts, exchanged once a layer, again in its recompute: a position
+recomputes in its own thread, ``distributed/collectives.py::checkpoint``),
+and
 the aux loss is this position's share of the group's, from the group's
 counts. The outputs of a position's tokens are then the unsharded step's.
 
-Expert parallelism (``rules`` / ``mesh``, inside a position of the
-serving step's ``shard_map``). A position holds the bank of E/K experts
+Expert parallelism (``rules`` / ``mesh``, inside a position of a
+serving or training step's ``shard_map``). A position holds the bank of
+E/K experts
 from ``bank_start = axis_index("model") * e_loc``, as the reference's
 ``moe_ffn`` does. Every position routes the whole token group as ``route``
 does, with the same capacity; an assignment outside its bank goes to the
@@ -53,25 +58,30 @@ trash slot, and the dispatch and combine run on the local bank through
 position). The partial outputs are ``psum``med over the axis in float32
 and cast once; where the residual is split by sequence, the tokens are
 ``all_gather``ed over it first and the sum is a ``psum_scatter`` back to
-each position's rows. The aux loss is the same on every position of the
-model axis; over the batch axes it is ``pmean``ed, or, with
-``token_shards``, its shares ``psum``med into the unsharded step's.
+each position's rows. Under FSDP of the experts (``expert_ff`` on the
+data axes, arctic-480b) the bank's ``ff`` columns are gathered over them
+first, as the reference's ``moe_ffn`` gathers them. Under grad the
+partial combine's ``psum`` (or ``psum_scatter``) and the tokens' gather
+carry their transposes back, and the router, whose work every position of
+the model axis repeats, gets its gradient's parts from each. The aux loss
+is the same on every position of the model axis and is this position's
+share over the batch axes (with ``token_shards``, the part of the groups'
+aux its tokens carry); the steps add the shares (``launch/steps.py``).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import axis_index, pmean, psum
+from repro_torch.distributed.collectives import axis_index, checkpoint
 from repro_torch.distributed.sharding import Mesh, ParamDef, ShardingRules
-from repro_torch.distributed.tensor_parallel import (gather_seq,
+from repro_torch.distributed.tensor_parallel import (gather_fsdp, gather_seq,
                                                      reduce_partial,
                                                      split_axis)
 from repro_torch.kernels.moe_dispatch import (moe_combine, moe_dispatch,
@@ -106,15 +116,6 @@ class TokenShards:
     count: int
     index: int
     gather: Callable[[torch.Tensor], torch.Tensor]
-    memo: Dict = field(default_factory=dict)
-
-    def exchange(self, key, t: torch.Tensor) -> torch.Tensor:
-        """``gather(t)`` once for ``key``: a recompute in the backward (on
-        autograd's thread, where no collective can run) reads the value
-        the forward exchanged."""
-        if key not in self.memo:
-            self.memo[key] = self.gather(t)
-        return self.memo[key]
 
 
 def route(xg: torch.Tensor, rw: torch.Tensor, *, k: int, capacity: int,
@@ -236,17 +237,18 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
     the position's bank of experts (the module's docstring)."""
     ex_ax = split_axis(rules, mesh, "experts")
     sp = split_axis(rules, mesh, "seq_sp")
+    ef = split_axis(rules, mesh, "expert_ff")
     if ex_ax is None:               # every expert here: the combine is whole
         bank_start, out_dtype = 0, x.dtype
     else:                           # a partial combine, added in float32
         bank_start = axis_index(ex_ax) * params["wg"].shape[0]
         out_dtype = torch.float32
+    if ef is not None:
+        params = dict(params, wg=gather_fsdp(params["wg"], 2, ef),
+                      wu=gather_fsdp(params["wu"], 2, ef),
+                      wd=gather_fsdp(params["wd"], 1, ef))
     out, aux = _moe_groups(params, gather_seq(x, sp), cfg, group_size,
                            token_shards, bank_start, out_dtype)
-    batch_ax = split_axis(rules, mesh, "batch")
-    if batch_ax is not None:
-        aux = (psum(aux, batch_ax) if token_shards is not None
-               else pmean(aux, batch_ax))
     return reduce_partial(out, ex_ax, sp, x.dtype), aux
 
 
@@ -276,11 +278,10 @@ def _moe_groups(params: Dict[str, torch.Tensor], x: torch.Tensor,
     pieces = x.reshape(max(1, t // tg), min(tg, t), d)
     if tg > t:
         # this shard holds a share of one group spread over tg / t shards
-        fn = partial(fn, offsets=_shard_offsets(
-            token_shards, params["router"], tg // t), group_tokens=tg)
+        fn = partial(fn, offsets=_shard_offsets(token_shards, tg // t),
+                     group_tokens=tg)
     if cfg.moe_inner_remat and needs_grad(x, params):
-        res = [checkpoint(fn, xg, params, use_reentrant=False,
-                          preserve_rng_state=False) for xg in pieces]
+        res = [checkpoint(fn, xg, params) for xg in pieces]
     else:
         res = [fn(xg, params) for xg in pieces]
     if count > 1:
@@ -294,14 +295,13 @@ def _moe_groups(params: Dict[str, torch.Tensor], x: torch.Tensor,
     return out.reshape(b, s, d), aux
 
 
-def _shard_offsets(shards: TokenShards, router: torch.Tensor, span: int):
+def _shard_offsets(shards: TokenShards, span: int):
     """``route``'s ``offsets`` for this shard's share of a group spread over
-    ``span`` shards: the per-expert counts of every shard, exchanged once a
-    layer (keyed by the layer's router)."""
+    ``span`` shards: the per-expert counts of every shard, exchanged."""
     first = shards.index // span * span
 
     def offsets(counts: torch.Tensor):
-        every = shards.exchange(("moe_counts", router.data_ptr()), counts)
+        every = shards.gather(counts)
         return (every[first:shards.index].sum(dim=0),
                 every[first:first + span].sum(dim=0))
     return offsets

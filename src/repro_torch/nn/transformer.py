@@ -23,20 +23,24 @@ group index on views of the stacked leaves, and the blocks write their
 caches (K/V, SSM state, recurrent state and conv windows) in place into
 the stacked buffers through those views.
 
-On a mesh (``rules`` / ``mesh``, inside a position of the serving step's
-``shard_map``, ``launch/steps.py``) every block takes its pieces of the
-weights and caches and calls the collectives where GSPMD would put them
-(``distributed/tensor_parallel.py``); between blocks the residual is
-("batch", "seq_sp", "embed"), each position its block of the sequence in
-a prefill, whole in decode. The SSM and hybrid families have no
-model-axis form yet (the step refuses them on one).
+On a mesh (``rules`` / ``mesh``, inside a position of a serving or
+training step's ``shard_map``, ``launch/steps.py``) every block takes its
+pieces of the weights and caches and calls the collectives where GSPMD
+would put them (``distributed/tensor_parallel.py``); between blocks the
+residual is ("batch", "seq_sp", "embed"), each position its block of the
+sequence in a prefill or a training forward, whole in decode. The SSM and
+hybrid families have no model-axis form yet (the steps refuse them on
+one).
 
 Per-layer remat. Under ``cfg.remat`` and grad mode, without caches (a
-training forward), each block runs under ``torch.utils.checkpoint``
-(non-reentrant): its activations are recomputed in the backward, the
+training forward), each block runs under ``distributed/collectives.py::
+checkpoint``: its activations are recomputed in the backward, the
 reference's ``jax.checkpoint(..., nothing_saveable)`` around the group
-body and each remainder block. With remat off, under ``no_grad`` or with
-caches, nothing changes.
+body and each remainder block. Off a mesh that is
+``torch.utils.checkpoint`` (non-reentrant); inside a position it is the
+position's own remat, recomputed in its thread, so that a block's
+collectives never run on autograd's worker thread. With remat off, under
+``no_grad`` or with caches, nothing changes.
 """
 
 from __future__ import annotations
@@ -46,9 +50,9 @@ from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import checkpoint
 from repro_torch.distributed.sharding import (Mesh, ParamDef, ShardingRules,
                                               logical_constraint, map_defs)
 from repro_torch.distributed.tensor_parallel import global_batch
@@ -283,11 +287,9 @@ def stack_apply(params, x: torch.Tensor, positions: torch.Tensor,
             return block_apply(p, x, positions, cfg, kind, cache=cache,
                                token_shards=token_shards, rules=rules,
                                mesh=mesh)
-        # the model draws no random numbers: no RNG state to keep
         return checkpoint(partial(block_apply, positions=positions, cfg=cfg,
-                                  kind=kind, token_shards=token_shards),
-                          p, x, use_reentrant=False,
-                          preserve_rng_state=False)
+                                  kind=kind, token_shards=token_shards,
+                                  rules=rules, mesh=mesh), p, x)
 
     lengths: List[Optional[int]] = [None] * len(sd.group)
     for g in range(sd.num_groups):

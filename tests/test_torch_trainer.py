@@ -105,12 +105,15 @@ def test_trainer_saves_on_a_crash(tmp_path):
 
 
 def test_trainer_main_refuses_a_mesh():
-    """A mesh whose rules would split a weight (here ``--model-parallel 2``
-    on a ``tp``-profile arch) refuses, naming the tensor-parallel slice;
-    nothing trains on one position in its place."""
+    """``--model-parallel 2`` on a ``tp``-profile arch trains on the model
+    axis; an SSM model, whose model-axis form is not ported, refuses by
+    name, and nothing trains on one position in its place."""
     from repro_torch.launch import train
-    with pytest.raises(SystemExit, match="tensor-parallel slice"):
-        train.main(["--arch", "llama3-8b", "--reduced",
+    train.main(["--arch", "llama3-8b", "--reduced", "--model-parallel", "2",
+                "--steps", "2", "--batch", "4", "--seq", "32", "--device",
+                "cpu"])
+    with pytest.raises(SystemExit, match="SSM and hybrid"):
+        train.main(["--arch", "mamba2-2.7b", "--reduced",
                     "--model-parallel", "2", "--device", "cpu"])
 
 
