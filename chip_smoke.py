@@ -337,18 +337,24 @@ Phases, each printing its own lines:
   12. model_parallel — serving on a model axis ([mp] lines): positions
                (1, 2) on the card (spread over the cards where there are
                several), the steps of ``make_prefill_step(cfg, rules, mesh)``
-               / ``make_decode_step(cfg, rules, mesh)``. (a) depth 2 in
-               float32 (TF32 off) at llama3-8b's widths, at its widths with
-               one KV head (the cache split by sequence) and at
-               olmoe-1b-7b's (32 experts a bank): a prefill of 2 x 512 and
-               4 decode steps against the unsharded steps on the same
-               weights, every call's logits and the caches within 1e-5 of
-               the scale. (b) llama3-8b and (c) olmoe-1b-7b at full width
-               and depth in bf16, seed-0 weights, nothing cut, phase 8's
-               traffic: the unsharded serve, then the same weights placed
-               on the mesh and served with the counts from 0 (prefill: 64
-               ``flash_attention``; olmoe 32 / 64 ``mp_scatter`` / 32
-               ``gather_rows``, and 64 / 32 a decode step), each timed
+               / ``make_decode_step(cfg, rules, mesh)``. (a) float32 (TF32
+               off) at full widths: depth 2 at llama3-8b's, at its widths
+               with one KV head (the cache split by sequence), at
+               olmoe-1b-7b's (32 experts a bank) and at mamba2-2.7b's (the
+               SSD's 80 heads and the state split, the mixer repeated);
+               depth 3 (one group) at recurrentgemma-2b's (the RG-LRU's
+               width split, its local layer's cache by sequence): a
+               prefill of 2 x 512 and 4 decode steps against the unsharded
+               steps on the same weights, every call's logits and every
+               tensor of the caches within 1e-5 of the scale. (b)
+               llama3-8b, (c) olmoe-1b-7b, (d) mamba2-2.7b and (e)
+               recurrentgemma-2b at full width and depth in bf16, seed-0
+               weights, nothing cut, phase 8's traffic: the unsharded
+               serve, then the same weights placed on the mesh and served
+               with the counts from 0, stated before the run (prefill:
+               llama 64 ``flash_attention``; olmoe 32 / 64 ``mp_scatter``
+               / 32 ``gather_rows``, and 64 / 32 a decode step; mamba2
+               none; recurrentgemma 16 ``flash_attention``), each timed
                after a warm run; a prefill and a decode step under
                ``torch.profiler`` (the device events must be the
                launches; busy share); the prefill's logits within 0.05 of
@@ -367,13 +373,16 @@ Phases, each printing its own lines:
                learning rate 0 against the unsharded step on the same
                card (run first, freed): llama3-8b at depth 2 on (1, 2),
                olmoe-1b-7b at depth 2 on (1, 2), deepseek-67b at depth 1
-               on (2, 2) (FSDP and the model axis, four positions); the
-               loss within 1e-5 of itself, every gradient (AdamW's first
-               moment) within 1e-5 of the gradients' scale; launches
-               each position's forward, recompute and backward. (b)
-               bf16, AdamW, remat: llama3-8b at depth 4 on (1, 2), B=2 x
-               2048, and deepseek-67b at depth 2 on (2, 2), B=4 x 2048,
-               three steps unsharded then (freed) on the mesh, launches
+               on (2, 2) (FSDP and the model axis, four positions),
+               mamba2-2.7b at depth 2 and recurrentgemma-2b at depth 3 on
+               (1, 2); the loss within 1e-5 of itself, every gradient
+               (AdamW's first moment) within 1e-5 of the gradients'
+               scale; launches each position's forward, recompute and
+               backward. (b) bf16, AdamW, remat: llama3-8b at depth 4 on
+               (1, 2), B=2 x 2048, deepseek-67b at depth 2 on (2, 2), B=4
+               x 2048, mamba2-2.7b at depth 16 and recurrentgemma-2b at
+               depth 12 on (1, 2), B=2 x 2048 (each run's peak under ~60
+               GB), three steps unsharded then (freed) on the mesh, launches
                counted from 0 and stated before the run, one more step of
                each under ``torch.profiler`` (device kernels by symbol
                equal to the launches, busy share); step ms, tokens/s,
@@ -6964,18 +6973,24 @@ MP_SHAPE = (1, 2)
 # logits' scale
 MP_F32_TOL = 1e-5
 MP_F32_PROMPT, MP_F32_STEPS = 512, 4
-# (arch, config changes): llama3-8b's heads, ff and vocab split and its
-# cache by KV heads; with one KV head its cache split by sequence (the
-# reference's test_decode_seq_sharded_cache_matches); olmoe's banks
-MP_F32_CASES = (("llama3-8b", {}), ("llama3-8b", {"num_kv_heads": 1}),
-                ("olmoe-1b-7b", {}))
+# (arch, depth, config changes): llama3-8b's heads, ff and vocab split and
+# its cache by KV heads; with one KV head its cache split by sequence (the
+# reference's test_decode_seq_sharded_cache_matches); olmoe's banks;
+# mamba2's SSD heads and state split, its mixer repeated; recurrentgemma's
+# one group (rec, rec, local): the RG-LRU's width split, its local layer's
+# cache by sequence
+MP_F32_CASES = (("llama3-8b", 2, {}), ("llama3-8b", 2, {"num_kv_heads": 1}),
+                ("olmoe-1b-7b", 2, {}), ("mamba2-2.7b", 2, {}),
+                ("recurrentgemma-2b", 3, {}))
 # the full-width bf16 serves on the mesh against the unsharded ones, last-
 # position logits of the prefill, of the logits' scale: the row pieces'
 # partial products are summed in float32 and rounded once, so what differs
 # is cuBLAS's tilings at half widths and bf16 rounding carried through 32
 # layers, as in phase 8's kernel-vs-plain checks (LM_BF16_TOL)
 MP_BF16_TOL = LM_BF16_TOL
-MP_ARCHS = ("llama3-8b", "olmoe-1b-7b")
+# the full runs, each with its part's letter
+MP_ARCHS = {"llama3-8b": "b", "olmoe-1b-7b": "c", "mamba2-2.7b": "d",
+            "recurrentgemma-2b": "e"}
 
 
 def mp_steps(cfg, mesh=None):
@@ -6990,6 +7005,15 @@ def mp_steps(cfg, mesh=None):
                                                global_batch=LM_BATCH), mesh),
             make_decode_step(cfg, build_rules(cfg, mesh, "decode",
                                               global_batch=LM_BATCH), mesh))
+
+
+def mp_cache_len(tokens: int) -> int:
+    """A KV cache's rows for ``tokens``, rounded up to a multiple of the
+    model axis: a model with fewer KV heads than positions splits its
+    cache by sequence (recurrentgemma's one KV head), and each position
+    holds an equal block. Rows past the tokens are never read."""
+    k = MP_SHAPE[1]
+    return -(-tokens // k) * k
 
 
 def mp_placed(cfg, params, mesh):
@@ -7012,7 +7036,8 @@ def mp_run(cfg, params, tokens, prompt: int, steps: int, mesh=None,
     import torch
     from repro_torch.models import lm
     pre, dec = mp_steps(cfg, mesh)
-    caches = lm.init_caches(cfg, LM_BATCH, prompt + steps, "cuda")
+    caches = lm.init_caches(cfg, LM_BATCH, mp_cache_len(prompt + steps),
+                            "cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lg, caches = pre(params, caches, {"tokens": tokens[:, :prompt]})
@@ -7042,18 +7067,21 @@ def mp_on_card(mesh, out) -> None:
                              f"{sorted(devs)}")
 
 
-def mp_f32_check(card: str, arch: str, changes: dict) -> dict:
-    """(a) ``arch`` at full width, depth 2, float32 (TF32 off), ``changes``
-    applied: the prefill of MP_F32_PROMPT tokens and MP_F32_STEPS decode
-    steps on MP_SHAPE against the unsharded steps on the same weights and
-    tokens; every call's logits and the caches within MP_F32_TOL of the
-    scale."""
+def mp_f32_check(card: str, arch: str, depth: int, changes: dict) -> dict:
+    """(a) ``arch`` at full width, ``depth`` layers, float32 (TF32 off),
+    ``changes`` applied: the prefill of MP_F32_PROMPT tokens and
+    MP_F32_STEPS decode steps on MP_SHAPE against the unsharded steps on
+    the same weights and tokens; every call's logits and every tensor of
+    the caches within MP_F32_TOL of its scale."""
     import torch
     from repro_torch.configs.archs import ARCHS
+    from repro_torch.distributed.sharding import Sharded
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import lm
-    cfg = ARCHS[arch].replace(num_layers=2, dtype=torch.float32, **changes)
-    label = (f"(a) {arch} width, depth 2, float32"
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = ARCHS[arch].replace(num_layers=depth, dtype=torch.float32,
+                              **changes)
+    label = (f"(a) {arch} width, depth {depth}, float32"
              + "".join(f", {k}={v}" for k, v in changes.items())
              + f", mesh {MP_SHAPE}")
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
@@ -7075,27 +7103,31 @@ def mp_f32_check(card: str, arch: str, changes: dict) -> dict:
         if not ok:
             raise AssertionError(f"{label}: call {i}'s logits are "
                                  f"{rel:.3e} of the scale off")
-    kv_want = want["caches"]["groups"][0]
-    kv_got = got["caches"]["groups"][0]
+    leaves = [(a, b) for a, b in zip(tree_leaves(got["caches"]),
+                                     tree_leaves(want["caches"]))
+              if isinstance(a, Sharded)]
+    if not leaves:
+        raise AssertionError(f"{label}: no cache tensor to compare")
     cache_rel = 0.0
-    for a, b in ((kv_got.k, kv_want.k), (kv_got.v, kv_want.v)):
+    for a, b in leaves:
         _, rel, ok = close(a.gather("cuda").float(), b.float(), rtol=0.0,
                            atol_of_scale=MP_F32_TOL)
         cache_rel = max(cache_rel, rel)
         if not ok:
-            raise AssertionError(f"{label}: the caches are {rel:.3e} of the "
-                                 f"scale off")
+            raise AssertionError(f"{label}: a cache tensor {tuple(b.shape)} "
+                                 f"is {rel:.3e} of the scale off")
     log("mp", f"{label}: prefill of {LM_BATCH} x {MP_F32_PROMPT} and "
         f"{MP_F32_STEPS} decode steps against the unsharded steps: logits "
-        f"{max(rels):.3e} of the scale at worst, caches {cache_rel:.3e} "
-        f"(tol {MP_F32_TOL:g}); on {card}")
+        f"{max(rels):.3e} of the scale at worst, the caches' "
+        f"{len(leaves)} tensors {cache_rel:.3e} (tol {MP_F32_TOL:g}); on "
+        f"{card}")
     del params, got, want
     torch.cuda.empty_cache()
     return {"logits_rel_err": rels, "cache_rel_err": cache_rel}
 
 
 def mp_full(card: str, arch: str) -> dict:
-    """(b) / (c) ``arch`` at full width and depth in bf16, seed-0 weights,
+    """(b)-(e) ``arch`` at full width and depth in bf16, seed-0 weights,
     phase 8's traffic: the unsharded serve, then the same weights placed on
     MP_SHAPE and served again with the counts from 0 (prefill and decode
     apart), each timed after a warm run; a prefill and a decode step again
@@ -7108,8 +7140,8 @@ def mp_full(card: str, arch: str) -> dict:
     from repro_torch.models import lm
     full = ARCHS[arch]
     k = MP_SHAPE[0] * MP_SHAPE[1]
-    label = f"({'b' if arch == 'llama3-8b' else 'c'}) {arch} full width " \
-        f"and depth, bf16, mesh {MP_SHAPE}"
+    label = f"({MP_ARCHS[arch]}) {arch} full width and depth, bf16, mesh " \
+        f"{MP_SHAPE}"
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
                             full, "cuda")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
@@ -7122,7 +7154,8 @@ def mp_full(card: str, arch: str) -> dict:
         """A prefill and a decode step of ``p`` under the profiler: the
         device events of each and the wall seconds of each."""
         def one_prefill():
-            c = lm.init_caches(full, LM_BATCH, LM_PROMPT + 1, "cuda")
+            c = lm.init_caches(full, LM_BATCH, mp_cache_len(LM_PROMPT + 1),
+                               "cuda")
             return pre(p, c, {"tokens": tokens})
         (lg1, c1), on_pre, wall_pre = profiled(one_prefill)
         tok = torch.argmax(lg1[:, :full.vocab_size], -1)[:, None]
@@ -7148,8 +7181,12 @@ def mp_full(card: str, arch: str) -> dict:
     want_prefill, want_step = lm_launches(full)
     want_prefill = {n: k * v for n, v in want_prefill.items()}
     want_step = {n: k * v for n, v in want_step.items()}
+    log("mp", f"{label}: expecting launches {want_prefill} a prefill and "
+        f"{want_step} a decode step ({LM_LAUNCHES_TXT}; on each of the {k} "
+        f"positions)")
     pre, dec = mp_steps(full, mesh)
-    caches = lm.init_caches(full, LM_BATCH, LM_PROMPT + steps, "cuda")
+    caches = lm.init_caches(full, LM_BATCH, mp_cache_len(LM_PROMPT + steps),
+                            "cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     (lg, caches), prefill_launches = counted(
@@ -7247,17 +7284,18 @@ def mp_full(card: str, arch: str) -> dict:
 
 
 def mp_phase(card: str) -> dict:
-    """Phase 12: (a) the depth-2 float32 checks, (b) llama3-8b and (c)
-    olmoe-1b-7b at full width and depth on MP_SHAPE. Returns the ``[mp]
-    json`` record; its ``paths`` hold each full run's launches."""
+    """Phase 12: (a) the float32 checks, (b) llama3-8b, (c) olmoe-1b-7b,
+    (d) mamba2-2.7b and (e) recurrentgemma-2b at full width and depth on
+    MP_SHAPE. Returns the ``[mp] json`` record; its ``paths`` hold each
+    full run's launches."""
     import torch
     out = {"card": card, "shape": list(MP_SHAPE),
            "device_count": torch.cuda.device_count(), "seconds": {}}
     t0 = time.perf_counter()
     out["f32"] = {}
-    for arch, changes in MP_F32_CASES:
+    for arch, depth, changes in MP_F32_CASES:
         key = arch + "".join(f"_{k}{v}" for k, v in changes.items())
-        out["f32"][key] = mp_f32_check(card, arch, changes)
+        out["f32"][key] = mp_f32_check(card, arch, depth, changes)
     out["seconds"]["a"] = time.perf_counter() - t0
     for arch in MP_ARCHS:
         t0 = time.perf_counter()
@@ -7279,12 +7317,19 @@ def mp_phase(card: str) -> dict:
 # orders: the loss within MT_F32_TOL of itself, every gradient (AdamW's
 # m = (1 - b1) g) within MT_F32_TOL of the gradients' scale
 MT_F32_CASES = (("llama3-8b", 2, (1, 2)), ("olmoe-1b-7b", 2, (1, 2)),
-                ("deepseek-67b", 1, (2, 2)))
+                ("deepseek-67b", 1, (2, 2)), ("mamba2-2.7b", 2, (1, 2)),
+                ("recurrentgemma-2b", 3, (1, 2)))
 MT_F32_BATCH, MT_F32_SEQ = 4, 256
 MT_F32_TOL = 1e-5
 # (b) bf16 at full width: (arch, depth, (data, model), batch) of 2048-token
-# sequences, MT_STEPS steps each, sharded and unsharded in one call
-MT_BF16_CASES = (("llama3-8b", 4, (1, 2), 2), ("deepseek-67b", 2, (2, 2), 4))
+# sequences, MT_STEPS steps each, sharded and unsharded in one call. Depth
+# the only cut, each run's peak under ~60 GB: mamba2's (1, 2) positions
+# each hold every mixer weight and its AdamW state (the rules repeat them),
+# so 16 of its 64 layers; recurrentgemma's vocabulary table alone is 0.66B
+# parameters, so 12 of its 26 layers (four whole groups)
+MT_BF16_CASES = (("llama3-8b", 4, (1, 2), 2), ("deepseek-67b", 2, (2, 2), 4),
+                 ("mamba2-2.7b", 16, (1, 2), 2),
+                 ("recurrentgemma-2b", 12, (1, 2), 2))
 MT_SEQ, MT_STEPS = 2048, 3
 # (c) the watchdog: a position waiting longer at one rendezvous fails the
 # phase, naming the collective
@@ -7441,8 +7486,9 @@ def mt_run(card: str, cfg, shape, batch: int, label: str) -> dict:
                 lambda: step(state["p"], state["o"], data))
             losses.append(float(m["loss"]))
             step_ms.append((time.perf_counter() - t0) * 1e3)
-    _, launches = counted(steps)
     want = {k: MT_STEPS * n * v for k, v in train_launches(cfg).items()}
+    log("mt", f"{label}: expecting launches {want} over {MT_STEPS} steps")
+    _, launches = counted(steps)
     check_launches("mt", f"{label}: {MT_STEPS} steps", launches, want,
                    f"{MT_STEPS} steps x {n} position(s) x "
                    f"({TRAIN_LAUNCHES_TXT})")
@@ -7690,12 +7736,14 @@ def main(argv=None) -> int:
     mesh = mesh_phase(card)
     log("mesh", "json " + json.dumps(mesh, default=str))
     paths.update(mesh["paths"])
-    # 12. model-parallel serving: llama3-8b and olmoe-1b-7b on a model axis
+    # 12. model-parallel serving: llama3-8b, olmoe-1b-7b, mamba2-2.7b and
+    # recurrentgemma-2b on a model axis
     mp = mp_phase(card)
     log("mp", "json " + json.dumps(mp, default=str))
     paths.update(mp["paths"])
-    # 13. training under the model axis: llama3-8b, olmoe-1b-7b and
-    # deepseek-67b (FSDP) on (data, model) meshes of positions of the card
+    # 13. training under the model axis: llama3-8b, olmoe-1b-7b,
+    # deepseek-67b (FSDP), mamba2-2.7b and recurrentgemma-2b on (data,
+    # model) meshes of positions of the card
     mt = mt_phase(card)
     log("mt", "json " + json.dumps(mt, default=str))
     paths.update(mt["paths"])

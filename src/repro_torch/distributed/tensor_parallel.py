@@ -16,6 +16,10 @@ GSPMD would put one (Megatron's schedule):
     split by sequence (``seq_sp``);
   * a residual split by sequence is ``all_gather``ed over it before the
     projections (``gather_seq``);
+  * an activation split by a rule where the weights are whole (Mamba2's
+    ``ssm_heads``) is cut to the position's block (``own_rows``), and one
+    whose next product needs it whole (the SSD's output, the RG-LRU's
+    conv before the gates) is ``all_gather``ed (``gather_dim``);
   * a weight split over a data axis (FSDP: ``embed_fsdp``, ``expert_ff``)
     is ``all_gather``ed over it just before its product and dropped after
     (``gather_fsdp``), as the reference's ``_mlp_sp_shardmap`` and
@@ -69,26 +73,32 @@ def residual_rules(rules: Optional[ShardingRules], mesh: Optional[Mesh],
     return ShardingRules(table=table)
 
 
-def own_rows(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
-    """This position's block of ``x``'s sequence (dimension 1) over
-    ``axis``; ``x`` itself without one."""
+def own_rows(x: torch.Tensor, axis: MeshAxis, dim: int = 1) -> torch.Tensor:
+    """This position's block of ``x``'s dimension ``dim`` (the sequence by
+    default) over ``axis``; ``x`` itself without one."""
     if axis is None:
         return x
-    size = x.shape[1] // axis_size(axis)
-    start = axis_index(axis) * size
-    return x[:, start:start + size].contiguous()
+    size = x.shape[dim] // axis_size(axis)
+    return x.narrow(dim, axis_index(axis) * size, size).contiguous()
+
+
+def gather_dim(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
+    """The whole of ``x``'s dimension ``dim`` where it is split over
+    ``axis`` (each position its block, in index order); ``x`` itself
+    without one."""
+    return x if axis is None else all_gather(x, axis, axis=dim, tiled=True)
 
 
 def gather_seq(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """The whole sequence (dimension 1) of a residual split over ``axis``;
     ``x`` itself without one."""
-    return x if axis is None else all_gather(x, axis, axis=1, tiled=True)
+    return gather_dim(x, axis, 1)
 
 
 def gather_fsdp(w: torch.Tensor, dim: int, axis: MeshAxis) -> torch.Tensor:
     """The whole of a weight's dimension ``dim`` where FSDP splits it over
     the data axis (or axes) ``axis`` (``w`` itself without one)."""
-    return w if axis is None else all_gather(w, axis, axis=dim, tiled=True)
+    return gather_dim(w, axis, dim)
 
 
 class _Float32Product(torch.autograd.Function):
@@ -166,5 +176,6 @@ def global_batch(local: int, rules: Optional[ShardingRules],
     return local * (mesh.axis_sizes(ax) if ax is not None else 1)
 
 
-__all__ = ["float32_product", "gather_fsdp", "gather_seq", "global_batch", "own_rows",
-           "reduce_partial", "residual_rules", "row_parallel", "split_axis"]
+__all__ = ["float32_product", "gather_dim", "gather_fsdp", "gather_seq",
+           "global_batch", "own_rows", "reduce_partial", "residual_rules",
+           "row_parallel", "split_axis"]

@@ -9,8 +9,9 @@ gradient by autograd, microbatch accumulation, the optimizer), and
 
 On a mesh the training step is one ``shard_map``
 (``distributed/collectives.py``) for any rule table ``build_rules(cfg,
-mesh, "train")`` gives: data parallelism, tensor, sequence and vocab
-parallelism and the experts over ``model``, FSDP over the data axes. Its
+mesh, "train")`` gives, for every family: data parallelism, tensor,
+sequence and vocab parallelism, the experts, Mamba2's SSD heads and the
+RG-LRU's width over ``model``, FSDP over the data axes. Its
 ``in_specs`` are the parameter and optimizer-state specs of the rules
 (``param_specs``) and ``P(batch)`` for the batch. Each position holds its
 pieces of the weights and state, takes its rows of the batch (position i
@@ -35,9 +36,7 @@ repeats, such as a norm scale or the router); an FSDP leaf's data axes
 are summed already by its gather's transpose (``psum_scatter``). The
 optimizer then updates each position's pieces (``optim/optimizers.py``
 with the specs: the global norm and Adafactor's statistics completed over
-the axes that split a leaf). The SSM and hybrid families with a split
-weight raise ``NotImplementedError`` (their ``ssm_heads`` / ``lru_width``
-forms are the next slice, ROADMAP).
+the axes that split a leaf).
 
 The serving steps on a mesh are tensor, sequence, vocab and expert
 parallel, and FSDP where the rules split a weight over a data axis: one
@@ -48,11 +47,10 @@ caches. Each position holds its pieces of the weights and caches
 (``param_specs(lm_param_defs(cfg), rules)``, ``param_specs(lm_cache_defs(
 ...), rules)``) and its layers call the collectives where the reference's
 GSPMD puts them (``distributed/tensor_parallel.py``, ``nn/attention.py``,
-``nn/mlp.py``, ``nn/moe.py``, ``models/lm.py``). The steps return the
-caches as ``Sharded`` trees, and decode takes them back. The SSM and
-hybrid families with a split weight raise ``NotImplementedError``. The
-reference's ``lowering_bundle`` lowers the steps for its dry-run, which
-the port has not reached.
+``nn/mlp.py``, ``nn/moe.py``, ``nn/ssm.py``, ``nn/rglru.py``,
+``models/lm.py``). The steps return the caches as ``Sharded`` trees, and
+decode takes them back. The reference's ``lowering_bundle`` lowers the
+steps for its dry-run, which the port has not reached.
 """
 
 from __future__ import annotations
@@ -69,7 +67,7 @@ from repro_torch.distributed.sharding import (Mesh, P, ParamDef, Sharded,
                                               ShardingRules, axis_names_of,
                                               device_put, gather,
                                               make_dp_only_rules, make_rules,
-                                              map_defs, map_tree,
+                                              map_tree,
                                               param_shardings, param_specs)
 from repro_torch.launch.mesh import data_axis_names
 from repro_torch.models import lm
@@ -196,25 +194,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return train_step
 
 
-def check_model_axis(cfg: ModelConfig, rules: ShardingRules,
-                     mesh: Mesh) -> None:
-    """Raise ``NotImplementedError`` where the steps on ``mesh`` have no
-    form yet: an SSM or hybrid model with a split weight (their
-    ``ssm_heads`` / ``lru_width`` forms)."""
-    if cfg.family not in ("ssm", "hybrid"):
-        return
-    split = []
-    map_defs(lambda d: split.append(d) if any(
-        mesh.axis_sizes(e) > 1 for e in rules.spec(*d.logical_axes))
-        else None, lm.lm_param_defs(cfg))
-    if split:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on mesh {mesh.shape}: the rules "
-            f"split {len(split)} of its weights; the SSM and hybrid "
-            f"families' model-axis forms (ssm_heads, lru_width) are not yet "
-            f"ported (ROADMAP §1 item 2)")
-
-
 def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                             rules: Optional[ShardingRules], mesh: Mesh
                             ) -> Callable:
@@ -231,7 +210,6 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     microbatch spans K / k positions); other pairs raise
     ``NotImplementedError``."""
     rules = rules if rules is not None else build_rules(cfg, mesh, "train")
-    check_model_axis(cfg, rules, mesh)
     opt = get_optimizer(cfg.optimizer)
     pdefs = lm.lm_param_defs(cfg)
     odefs = opt.state_defs(pdefs)
@@ -386,7 +364,6 @@ def _serving_step(cfg: ModelConfig, rules: ShardingRules, mesh: Mesh,
     tensors (split by their specs: a position on their device reads a view,
     and the caches are written in place there) or ``Sharded`` trees; the
     inputs' tensors are split by rows over the batch axes."""
-    check_model_axis(cfg, rules, mesh)
     pspecs = param_specs(lm.lm_param_defs(cfg), rules)
     cspecs = map_tree(lambda spec: spec if isinstance(spec, P) else None,
                       param_specs(lm.lm_cache_defs(cfg, 1, 1), rules))
@@ -418,6 +395,5 @@ def _serving_step(cfg: ModelConfig, rules: ShardingRules, mesh: Mesh,
     return step
 
 
-__all__ = ["batch_defs", "build_rules", "check_model_axis",
-           "make_decode_step", "make_prefill_step",
-           "make_sharded_train_step", "make_train_step"]
+__all__ = ["batch_defs", "build_rules", "make_decode_step",
+           "make_prefill_step", "make_sharded_train_step", "make_train_step"]

@@ -19,6 +19,22 @@ of it outside any Pallas kernel, as the port does in plain PyTorch.
 Caches are updated in place where the caller passes views of a stacked
 buffer: ``RecCache.h`` and ``.conv`` are written, ``length`` is a Python
 int.
+
+On a mesh (``rules`` / ``mesh``, inside a position of a serving or
+training step's ``shard_map``) a position holds its columns of the width
+(``lru_width`` on the model axis): column pieces of ``w_y``, ``w_x``, the
+conv, the gates and their biases and ``lam``, a row piece of ``w_out``,
+its columns of ``RecCache.h`` and of the conv window. ``x`` is gathered
+whole over the sequence where the residual is split; the position's
+columns of the conv output are ``all_gather``ed over the width in the
+model's dtype, since each gate column reads every column of it
+(``gate_a`` / ``gate_x`` are ``(W, W / K)`` pieces), while ``b`` takes
+the position's own columns. The scan runs on the position's columns;
+``w_out``'s partial product is added over the axis in float32 and cast
+once (``row_parallel``), scattered over the sequence where the residual
+is split. Under FSDP the weights' ``embed_fsdp`` dimension is gathered
+just before their products. Without a mesh every split axis is ``None``
+and every helper an identity.
 """
 
 from __future__ import annotations
@@ -29,7 +45,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef
+from repro_torch.distributed.sharding import (Mesh, ParamDef, ShardingRules,
+                                              logical_constraint)
+from repro_torch.distributed.tensor_parallel import (gather_dim, gather_fsdp,
+                                                     gather_seq, global_batch,
+                                                     row_parallel, split_axis)
 from repro_torch.nn.layers import activation
 from repro_torch.nn.ssm import put_window
 
@@ -72,16 +92,19 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out + b
 
 
-def _gates(params, x: torch.Tensor, cfg: ModelConfig):
+def _gates(params, x: torch.Tensor, own: torch.Tensor, cfg: ModelConfig):
     """(a, b) of the recurrence, float32, from the conv output ``x`` (in
-    the model's dtype: the reference rounds it there first)."""
+    the model's dtype: the reference rounds it there first), whole over
+    the width: the gates' products read every column. ``own``: the
+    columns of ``x`` the gates' pieces produce (``x`` itself without a
+    mesh), which ``b`` multiplies."""
     f32 = torch.float32
     r = torch.sigmoid((x @ params["gate_a"]).to(f32)
                       + params["gate_a_b"].to(f32))
     i = torch.sigmoid((x @ params["gate_x"]).to(f32)
                       + params["gate_x_b"].to(f32))
     a = torch.exp(-cfg.lru_c * F.softplus(params["lam"]) * r)
-    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x.to(f32))
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * own.to(f32))
     return a, b
 
 
@@ -125,26 +148,35 @@ def _scan_for_autograd(a: torch.Tensor, b: torch.Tensor,
 
 
 def recurrent_block(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                    cfg: ModelConfig, *, cache: Optional[RecCache] = None
+                    cfg: ModelConfig, *, cache: Optional[RecCache] = None,
+                    rules: Optional[ShardingRules] = None,
+                    mesh: Optional[Mesh] = None
                     ) -> Tuple[torch.Tensor, Optional[RecCache]]:
-    """Griffin's recurrent branch. x: (B, S, d).
+    """Griffin's recurrent branch. x: (B, S, d), a position's rows where
+    the residual is split by sequence.
 
     With a cache and S == 1: one step on the cached state and conv window,
     both written in place. A prefill with a cache writes the last state
     and the last ``lru_conv`` - 1 inputs of the conv (prompts of at least
-    that many tokens, as ``nn/ssm.py::put_window`` says)."""
+    that many tokens, as ``nn/ssm.py::put_window`` says). On a mesh each
+    position runs its columns of the width (the module's docstring)."""
+    sp = split_axis(rules, mesh, "seq_sp")
+    wax = split_axis(rules, mesh, "lru_width")
+    ef = split_axis(rules, mesh, "embed_fsdp")
+    x = gather_seq(x, sp)
     b, s, _ = x.shape
     f32 = torch.float32
-    y_branch = activation("gelu")((x @ params["w_y"]).to(f32))
-    u = x @ params["w_x"]
+    y_branch = activation("gelu")(
+        (x @ gather_fsdp(params["w_y"], 0, ef)).to(f32))
+    u = x @ gather_fsdp(params["w_x"], 0, ef)
 
     new_cache = None
     if cache is not None and s == 1:
         window = torch.cat([cache.conv, u], dim=1)
         conv = (torch.einsum("bwc,wc->bc", window.to(f32),
                              params["conv_w"].to(f32))
-                + params["conv_b"].to(f32))[:, None, :]
-        a, bb = _gates(params, conv.to(x.dtype), cfg)
+                + params["conv_b"].to(f32))[:, None, :].to(x.dtype)
+        a, bb = _gates(params, gather_dim(conv, wax, 2), conv, cfg)
         h = a[:, 0] * cache.h + bb[:, 0]
         hs = h[:, None, :]
         cache.h.copy_(h)
@@ -152,12 +184,17 @@ def recurrent_block(params: Dict[str, torch.Tensor], x: torch.Tensor,
         new_cache = RecCache(cache.h, cache.conv, cache.length + 1)
     else:
         conv = _conv(u, params["conv_w"], params["conv_b"])
-        a, bb = _gates(params, conv.to(x.dtype), cfg)
+        conv = logical_constraint(
+            conv, "batch", "seq", "lru_width", rules=rules, mesh=mesh,
+            shape=(global_batch(b, rules, mesh), s, cfg.lru_width)
+        ).to(x.dtype)
+        a, bb = _gates(params, gather_dim(conv, wax, 2), conv, cfg)
         hs = rglru_scan(a, bb, cache.h if cache is not None else None)
         if cache is not None:
             cache.h.copy_(hs[:, -1])
             put_window(cache.conv, u[:, s - cfg.lru_conv + 1:, :])
             new_cache = RecCache(cache.h, cache.conv, s)
 
-    out = (hs * y_branch).to(x.dtype) @ params["w_out"]
-    return out, new_cache
+    return row_parallel((hs * y_branch).to(x.dtype),
+                        gather_fsdp(params["w_out"], 1, ef), wax, sp,
+                        x.dtype), new_cache

@@ -12,6 +12,22 @@ scan, products by ``torch.einsum``, every intermediate float32.
 Caches are updated in place where the caller passes views of a stacked
 buffer (``nn/transformer.py::stack_apply``): ``MambaCache.state`` and
 ``.conv`` are written, ``length`` is a Python int.
+
+On a mesh (``rules`` / ``mesh``, inside a position of a serving or
+training step's ``shard_map``) the weights are whole, as the reference's
+rules place them (``in_proj`` and ``out_proj`` split only by FSDP's
+``embed_fsdp``, gathered just before their products), and the heads are
+split in the activations (``ssm_heads`` on the model axis). ``x`` is
+gathered whole over the sequence where the residual is split; every
+position runs the input projection, the causal conv, the gated RMSNorm
+and the output projection on every row, and the SSD on its own block of
+heads: its columns of ``xhs`` and ``dt`` and its slices of ``a_log``,
+``d_skip`` and ``dt_bias`` (``bmat`` / ``cmat`` are every head's). The
+decode cache's state is the position's heads, its conv window whole on
+every position. The SSD's output is gathered over the heads before the
+gate; the output projection is then whole on every position, which keeps
+its own rows. Without a mesh every split axis is ``None`` and every helper
+an identity.
 """
 
 from __future__ import annotations
@@ -22,7 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef
+from repro_torch.distributed.sharding import (Mesh, ParamDef, ShardingRules,
+                                              logical_constraint)
+from repro_torch.distributed.tensor_parallel import (gather_dim, gather_fsdp,
+                                                     gather_seq, global_batch,
+                                                     own_rows, split_axis)
 from repro_torch.nn.layers import rmsnorm
 
 
@@ -109,10 +129,16 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     cc = cm.reshape(b, nc, q, n).to(f32)
     cs = torch.cumsum(dtc * a, dim=2)                           # (B,C,Q,H)
 
-    # within a chunk: decay from j to i (j's own decay excluded, dt_j in)
+    # within a chunk: decay from j to i (j's own decay excluded, dt_j in).
+    # The exponent is masked, not its result: above the diagonal diff >= 0
+    # grows with the chunk and exp overflows to inf there (a full-width
+    # chunk of 128), whose masked gradient is 0 * inf = NaN in the
+    # reference's where(tril, exp(diff), 0); exp(-inf) = 0 gives the same
+    # values and a zero gradient
     tril = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
     diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]         # (B,C,i,j,H)
-    decay = torch.where(tril[None, None, :, :, None], torch.exp(diff), 0.0)
+    decay = torch.exp(torch.where(tril[None, None, :, :, None], diff,
+                                  -torch.inf))
     del diff
     g = torch.einsum("bcin,bcjn->bcij", cc, bc)                 # (B,C,Q,Q)
     m = g[..., None] * decay * dtc[:, :, None, :, :]
@@ -160,24 +186,36 @@ def ssd_ref(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def mamba_mixer(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                cfg: ModelConfig, *, cache: Optional[MambaCache] = None
+                cfg: ModelConfig, *, cache: Optional[MambaCache] = None,
+                rules: Optional[ShardingRules] = None,
+                mesh: Optional[Mesh] = None
                 ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
-    """One Mamba2 mixer. x: (B, S, d).
+    """One Mamba2 mixer. x: (B, S, d), a position's rows where the residual
+    is split by sequence.
 
     Without a cache: the chunked SSD over the sequence. With a cache and
     S == 1: one recurrence step on the cached state and conv window, both
     written in place. A prefill with a cache writes the final state and the
     last W-1 inputs of the conv (the reference's slice ``xbc[:, S-W+1:]``:
-    prompts of at least W-1 tokens give a full window)."""
+    prompts of at least W-1 tokens give a full window). On a mesh the SSD
+    and the state run on the position's heads (the module's docstring)."""
+    sp = split_axis(rules, mesh, "seq_sp")
+    hax = split_axis(rules, mesh, "ssm_heads")
+    ef = split_axis(rules, mesh, "embed_fsdp")
+    x = gather_seq(x, sp)
     b, s, _ = x.shape
     din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
     f32 = torch.float32
 
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = x @ gather_fsdp(params["in_proj"], 0, ef)
     z = zxbcdt[..., :din]
     xbc = zxbcdt[..., din:din + din + 2 * n]
-    dt = F.softplus(zxbcdt[..., -h:].to(f32) + params["dt_bias"])
+    # the position's heads of dt and of the per-head vectors
+    dt = F.softplus(own_rows(zxbcdt[..., -h:], hax, 2).to(f32)
+                    + own_rows(params["dt_bias"], hax, 0))
+    a_log = own_rows(params["a_log"], hax, 0)
+    d_skip = own_rows(params["d_skip"], hax, 0)
 
     new_cache = None
     if cache is not None and s == 1:
@@ -186,28 +224,32 @@ def mamba_mixer(params: Dict[str, torch.Tensor], x: torch.Tensor,
         conv = F.silu(torch.einsum("bwc,wc->bc", window.to(f32),
                                    params["conv_w"].to(f32))
                       + params["conv_b"].to(f32))
-        xht = conv[..., :din].reshape(b, h, p)
+        xht = own_rows(conv[..., :din].reshape(b, h, p), hax, 1)
         bmat = conv[..., din:din + n]
         cmat = conv[..., din + n:]
-        a = -torch.exp(params["a_log"].to(f32))
+        a = -torch.exp(a_log.to(f32))
         dt_t = dt[:, 0]                                         # (B, H)
         upd = dt_t[..., None, None] * xht[..., None] * bmat[:, None, None, :]
         state = cache.state * torch.exp(dt_t * a)[..., None, None] + upd
         y = torch.einsum("bhpn,bn->bhp", state, cmat)
-        y = y + params["d_skip"][None, :, None] * xht
-        y = y.reshape(b, 1, din).to(x.dtype)
+        y = y + d_skip[None, :, None] * xht
+        y = gather_dim(y.to(x.dtype), hax, 1).reshape(b, 1, din)
         cache.state.copy_(state)
         cache.conv.copy_(window[:, 1:])
         new_cache = MambaCache(cache.state, cache.conv, cache.length + 1)
     else:
         xbc_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-        xhs = xbc_conv[..., :din].reshape(b, s, h, p)
+        xhs = own_rows(xbc_conv[..., :din].reshape(b, s, h, p), hax, 2)
         bmat = xbc_conv[..., din:din + n]
         cmat = xbc_conv[..., din + n:]
-        y, final = ssd_chunked(xhs, dt, params["a_log"], bmat, cmat,
-                               cfg.ssm_chunk)
-        y = y + params["d_skip"][None, None, :, None] * xhs.to(f32)
-        y = y.reshape(b, s, din).to(x.dtype)
+        gb = global_batch(b, rules, mesh)
+        xhs = logical_constraint(xhs, "batch", "seq", "ssm_heads", None,
+                                 rules=rules, mesh=mesh, shape=(gb, s, h, p))
+        dt = logical_constraint(dt, "batch", "seq", "ssm_heads", rules=rules,
+                                mesh=mesh, shape=(gb, s, h))
+        y, final = ssd_chunked(xhs, dt, a_log, bmat, cmat, cfg.ssm_chunk)
+        y = y + d_skip[None, None, :, None] * xhs.to(f32)
+        y = gather_dim(y.to(x.dtype), hax, 2).reshape(b, s, din)
         if cache is not None:                                   # prefill
             cache.state.copy_(final)
             put_window(cache.conv, xbc[:, s - cfg.ssm_conv + 1:, :])
@@ -215,4 +257,6 @@ def mamba_mixer(params: Dict[str, torch.Tensor], x: torch.Tensor,
 
     y = rmsnorm(y * F.silu(z.to(f32)).to(x.dtype), params["norm_scale"],
                 cfg.norm_eps)
-    return y @ params["out_proj"], new_cache
+    # whole on every position: each keeps its rows of the sequence
+    return own_rows(y @ gather_fsdp(params["out_proj"], 1, ef), sp), \
+        new_cache

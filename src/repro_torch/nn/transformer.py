@@ -28,9 +28,11 @@ training step's ``shard_map``, ``launch/steps.py``) every block takes its
 pieces of the weights and caches and calls the collectives where GSPMD
 would put them (``distributed/tensor_parallel.py``); between blocks the
 residual is ("batch", "seq_sp", "embed"), each position its block of the
-sequence in a prefill or a training forward, whole in decode. The SSM and
-hybrid families have no model-axis form yet (the steps refuse them on
-one).
+sequence in a prefill or a training forward, whole in decode. Every
+family has its form: attention's heads and the MLP's ``ff`` as column and
+row pieces, the MoE's banks of experts, Mamba2's SSD on the position's
+heads (``nn/ssm.py``), the RG-LRU on its columns of the width
+(``nn/rglru.py``).
 
 Per-layer remat. Under ``cfg.remat`` and grad mode, without caches (a
 training forward), each block runs under ``distributed/collectives.py::
@@ -146,15 +148,16 @@ def block_apply(params, x: torch.Tensor, positions: torch.Tensor,
         x = x + f_out
     elif kind == "mamba":
         h = apply_norm(params["ln1"], x, cfg)
-        m_out, new_cache = mamba_mixer(params["mamba"], h, cfg, cache=cache)
+        m_out, new_cache = mamba_mixer(params["mamba"], h, cfg, cache=cache,
+                                       **mp)
         x = x + m_out
     elif kind == "rec":
         h = apply_norm(params["ln1"], x, cfg)
         r_out, new_cache = recurrent_block(params["rec"], h, cfg,
-                                           cache=cache)
+                                           cache=cache, **mp)
         x = x + r_out
         h = apply_norm(params["ln2"], x, cfg)
-        x = x + mlp(params["mlp"], h, cfg)
+        x = x + mlp(params["mlp"], h, cfg, **mp)
     else:
         raise ValueError(kind)
     s = positions.shape[1]

@@ -242,17 +242,26 @@ def test_microbatches_inside_and_across_shards(ref):
 
 
 def test_a_rule_table_that_splits_a_weight_raises():
-    """The SSM and hybrid families, whose model-axis forms are not ported,
-    refuse to train on a model axis by name (the other families train
-    there: tests/test_torch_model_train.py)."""
-    mesh = make_host_mesh(2, 2, devices="cpu")
-    for arch in ("mamba2-2.7b", "recurrentgemma-2b"):
-        cfg = REDUCED[arch]
-        with pytest.raises(NotImplementedError,
-                           match=f"{arch} .*SSM and hybrid"):
-            make_train_step(cfg, TrainConfig(),
-                            build_rules(cfg, mesh, "train", global_batch=B),
-                            mesh)
+    """Every family trains on a model axis (tests/test_torch_model_train.py
+    holds each against the unsharded step); what raises is a rule table
+    whose mesh axis does not divide the dimension it splits. mamba2 with
+    two SSD heads on a model axis of 4: its weights place (the heads are
+    split in the activations), and the step fails with ``ValueError``
+    naming the heads' dimension and the axis, before any update."""
+    mesh = make_host_mesh(1, 4, devices="cpu")
+    cfg = REDUCED["mamba2-2.7b"].replace(ssm_head_dim=64)
+    assert cfg.ssm_heads == 2
+    step = make_train_step(cfg, TrainConfig(),
+                           build_rules(cfg, mesh, "train", global_batch=B),
+                           mesh)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    opt_state = zeros_like_defs(get_optimizer(cfg.optimizer).state_defs(
+        lm.lm_param_defs(cfg)), "cpu")
+    batch = {k: torch.zeros((B, S), dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    with pytest.raises(ValueError, match=r"dim 2 .* does not divide by "
+                                         r"axes \('model',\) \(4\)"):
+        step(params, opt_state, batch)
 
 
 def test_elastic_restore_across_meshes(ref, tmp_path):

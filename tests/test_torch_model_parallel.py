@@ -21,9 +21,15 @@ heads), on (2, 2) (the batch split too), with one KV head (the cache split
 by sequence, the prompt past the first position's rows: flash-decoding
 over the positions), and at a prompt length
 the model axis does not divide (the residual whole); olmoe-1b-7b on
-(1, 4) (two experts a bank). The reference's sharded steps cannot serve
-the indivisible length (its hand-scheduled MLP is a ``shard_map`` over
-the sequence), so that case has no third comparison.
+(1, 4) (two experts a bank); mamba2-2.7b on (1, 4) (the SSD's heads and
+the cached state split, the mixer's weights whole) and recurrentgemma-2b
+on (2, 2) (the RG-LRU's width, its state and conv window split, the local
+attention's one KV head with its cache split by sequence). The caches
+compared are every tensor of the first layer group's: K / V, the SSM
+state and conv window, the RG-LRU state and conv window. The reference's
+sharded steps cannot serve the indivisible length (its hand-scheduled MLP
+is a ``shard_map`` over the sequence), so that case has no third
+comparison.
 
 The JAX side runs in one subprocess with four fake host devices.
 """
@@ -42,10 +48,10 @@ from repro_torch.configs.archs import REDUCED  # noqa: E402
 from repro_torch.distributed.collectives import (all_gather,  # noqa: E402
                                                  axis_index, pmean,
                                                  psum_scatter, shard_map)
-from repro_torch.distributed.sharding import (P, ShardingRules,  # noqa: E402
-                                              device_put, logical_constraint,
-                                              make_mesh, map_defs,
-                                              param_shardings)
+from repro_torch.distributed.sharding import (P, ParamDef,  # noqa: E402
+                                              ShardingRules, device_put,
+                                              logical_constraint, make_mesh,
+                                              map_defs, param_shardings)
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.steps import (build_rules,  # noqa: E402
                                       make_decode_step, make_prefill_step)
@@ -61,16 +67,23 @@ CASES = {
     "seq_cache": ("llama3-8b", (1, 2), 20, {"num_kv_heads": 1}, None),
     "ragged": ("llama3-8b", (1, 2), 15, {}, None),
     "ep": ("olmoe-1b-7b", (1, 4), 16, {}, 64.0),
+    "ssm": ("mamba2-2.7b", (1, 4), 16, {}, None),
+    # the prompt at least the local window and the conv's three rows
+    "hybrid": ("recurrentgemma-2b", (2, 2), 20, {}, None),
 }
 NO_SHARDED_REF = {"ragged"}
 # the sharded steps against the port's unsharded ones, of the scale
 SCALE_TOL = 1e-5
 # against the reference's unsharded steps (ROADMAP)
 REF_TOL = dict(atol=1e-5, rtol=1e-5)
-# against the reference's sharded steps: its own tolerances
-SHARDED_REF_TOL = {"llama3-8b": 3e-3, "olmoe-1b-7b": 2e-3}
-# the cases whose parameter placement is held against the reference's
-PLACEMENT_CASES = ("tp", "ep")
+# against the reference's sharded steps: its own tolerances; its sharded
+# SSM and hybrid steps are its unsharded ones to float32 rounding (7e-7 of
+# the scale on the CPU), so the unsharded tolerance holds there
+SHARDED_REF_TOL = {"llama3-8b": 3e-3, "olmoe-1b-7b": 2e-3,
+                   "mamba2-2.7b": 1e-5, "recurrentgemma-2b": 1e-5}
+# the cases whose parameter and cache placement is held against the
+# reference's
+PLACEMENT_CASES = ("tp", "ep", "ssm")
 
 JAX_SERVE = """
 import json
@@ -85,6 +98,22 @@ root, cases, B, MAX, STEPS = ROOT, CASES, BATCH, MAXLEN, NSTEPS
 no_sharded, placements = NO_SHARDED, PLACEMENTS
 saved, index_maps = set(), {}
 
+def index_map(shardings, leaves, mesh):
+    coords = {d: c for c, d in np.ndenumerate(mesh.devices)}
+    maps = []
+    for sh, leaf in zip(shardings, leaves):
+        per = {}
+        for dev, idx in sh.devices_indices_map(leaf.shape).items():
+            per[','.join(map(str, coords[dev]))] = [
+                [sl.start or 0, leaf.shape[j] if sl.stop is None
+                 else sl.stop] for j, sl in enumerate(idx)]
+        maps.append({'shape': list(leaf.shape), 'pieces': per})
+    return maps
+
+def tensors(cache):
+    return {f: np.asarray(getattr(cache, f)) for f in cache._fields
+            if f != 'length'}
+
 def serve(cfg, toks, s, params, caches, rules=None, mesh=None):
     pre = jax.jit(make_prefill_step(cfg, rules and rules[0], mesh))
     dec = jax.jit(make_decode_step(cfg, rules and rules[1], mesh))
@@ -95,8 +124,7 @@ def serve(cfg, toks, s, params, caches, rules=None, mesh=None):
                          {'token': toks[:, s + i:s + i + 1],
                           'position': jnp.asarray(s + i, jnp.int32)})
         out.append(np.asarray(lg))
-    kv = caches['groups'][0]
-    return out, np.asarray(kv.k), np.asarray(kv.v)
+    return out, tensors(caches['groups'][0])
 
 for name, (arch, shape, s, kw, cf) in cases.items():
     cfg = REDUCED[arch].replace(**kw)
@@ -110,24 +138,23 @@ for name, (arch, shape, s, kw, cf) in cases.items():
     toks = jnp.asarray(rng.integers(0, cfg.vocab_size, (B, s + STEPS)),
                        jnp.int32)
     cdefs = lm.lm_cache_defs(cfg, B, MAX)
-    logits, k, v = serve(cfg, toks, s, params,
-                         init_params(jax.random.PRNGKey(0), cdefs))
-    np.savez(f'{root}/{name}-unsharded.npz', *logits, k=k, v=v)
+    logits, cache = serve(cfg, toks, s, params,
+                          init_params(jax.random.PRNGKey(0), cdefs))
+    np.savez(f'{root}/{name}-unsharded.npz', *logits, **cache)
     mesh = make_host_mesh(*shape)
     if name in placements:
         rules = build_rules(cfg, mesh, 'prefill', global_batch=B)
-        coords = {d: c for c, d in np.ndenumerate(mesh.devices)}
-        maps = []
-        for sh, leaf in zip(jax.tree.leaves(param_shardings(pdefs, rules,
-                                                             mesh)),
-                            jax.tree.leaves(params)):
-            per = {}
-            for dev, idx in sh.devices_indices_map(leaf.shape).items():
-                per[','.join(map(str, coords[dev]))] = [
-                    [sl.start or 0, leaf.shape[j] if sl.stop is None
-                     else sl.stop] for j, sl in enumerate(idx)]
-            maps.append({'shape': list(leaf.shape), 'pieces': per})
-        index_maps[name] = maps
+        zeros = init_params(jax.random.PRNGKey(0), cdefs)
+        flat = jax.tree_util.tree_flatten_with_path(zeros)[0]
+        keep = [getattr(path[-1], 'name', None) != 'length'
+                for path, _ in flat]
+        cmaps = index_map(jax.tree.leaves(param_shardings(cdefs, rules,
+                                                          mesh)),
+                          [leaf for _, leaf in flat], mesh)
+        index_maps[name] = {
+            'params': index_map(jax.tree.leaves(param_shardings(
+                pdefs, rules, mesh)), jax.tree.leaves(params), mesh),
+            'caches': [m for m, k in zip(cmaps, keep) if k]}
     if name in no_sharded:
         continue
     if cf:
@@ -138,8 +165,8 @@ for name, (arch, shape, s, kw, cf) in cases.items():
     caches_s = jax.device_put(init_params(jax.random.PRNGKey(0), cdefs),
                               param_shardings(cdefs, rules[0], mesh))
     with mesh:
-        logits, k, v = serve(cfg, toks, s, params_s, caches_s, rules, mesh)
-    np.savez(f'{root}/{name}-sharded.npz', *logits, k=k, v=v)
+        logits, cache = serve(cfg, toks, s, params_s, caches_s, rules, mesh)
+    np.savez(f'{root}/{name}-sharded.npz', *logits, **cache)
 json.dump(index_maps, open(f'{root}/placements.json', 'w'))
 print('OK')
 """
@@ -181,8 +208,8 @@ def _tokens(cfg, s):
 
 
 def _serve(cfg, params, s, mesh=None):
-    """The port's prefill and STEPS decode steps: ([logits], k, v of the
-    first layer group's cache, whole)."""
+    """The port's prefill and STEPS decode steps: ([logits], {name: every
+    tensor of the first layer group's cache, whole})."""
     rules = (None, None) if mesh is None else (
         build_rules(cfg, mesh, "prefill", global_batch=B),
         build_rules(cfg, mesh, "decode", global_batch=B))
@@ -196,10 +223,11 @@ def _serve(cfg, params, s, mesh=None):
         lg, caches = dec(params, caches, {"token": toks[:, s + i:s + i + 1],
                                           "position": s + i})
         out.append(lg)
-    kv = caches["groups"][0]
-    whole = [t.gather() if mesh is not None else t for t in (kv.k, kv.v)]
-    assert kv.length == s + STEPS
-    return [t.numpy() for t in out], whole[0].numpy(), whole[1].numpy()
+    first = caches["groups"][0]
+    assert first.length == s + STEPS
+    return [t.numpy() for t in out], {
+        f: (t.gather() if mesh is not None else t).numpy()
+        for f, t in zip(first._fields, first) if f != "length"}
 
 
 def _of_scale(got, want, tol):
@@ -214,36 +242,40 @@ def test_sharded_steps_match_unsharded_and_reference(ref, name):
     cfg = _cfg(name)
     params = _params(ref, name)
     mesh = make_host_mesh(*shape, devices="cpu")
-    logits, k, v = _serve(cfg, params, s, mesh)
-    want, wk, wv = _serve(cfg, params, s)
-    for a, b in zip(logits + [k, v], want + [wk, wv]):
+    logits, cache = _serve(cfg, params, s, mesh)
+    want, wcache = _serve(cfg, params, s)
+    assert sorted(cache) == sorted(wcache) and cache
+    for a, b in zip(logits + [cache[f] for f in sorted(cache)],
+                    want + [wcache[f] for f in sorted(cache)]):
         assert a.shape == b.shape and np.all(np.isfinite(a))
         _of_scale(a, b, SCALE_TOL)
     data = np.load(ref / f"{name}-unsharded.npz")
     for i, a in enumerate(logits):
         np.testing.assert_allclose(a, data[f"arr_{i}"], **REF_TOL)
-    np.testing.assert_allclose(k, data["k"], **REF_TOL)
-    np.testing.assert_allclose(v, data["v"], **REF_TOL)
+    for f, a in cache.items():
+        np.testing.assert_allclose(a, data[f], **REF_TOL)
     if name in NO_SHARDED_REF:
         return
     if cf:
-        logits, k, v = _serve(_cfg(name, cf), params, s, mesh)
+        logits, cache = _serve(_cfg(name, cf), params, s, mesh)
     data = np.load(ref / f"{name}-sharded.npz")
     tol = SHARDED_REF_TOL[arch]
     for i, a in enumerate(logits):
         np.testing.assert_allclose(a, data[f"arr_{i}"], atol=tol, rtol=tol)
-    np.testing.assert_allclose(k, data["k"], atol=tol, rtol=tol)
+    for f, a in cache.items():
+        np.testing.assert_allclose(a, data[f], atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("arch", sorted(
-    a for a, c in REDUCED.items() if c.family not in ("ssm", "hybrid")))
+@pytest.mark.parametrize("arch", sorted(REDUCED))
 def test_every_dense_and_moe_arch_serves_on_a_model_axis(arch):
-    """Each dense and MoE arch (qwen's ``dp_only`` profile folds the model
-    axis into the batch; gemma2's windows and softcaps, tied embeddings
-    and post norms; internvl's prefix embeddings; musicgen's sinusoidal
-    positions, layernorm and plain MLP; arctic's dense residual) on
-    (1, 2), its own reduced weights: the prefill and two decode steps
-    within 1e-5 of the scale of its unsharded steps."""
+    """Every arch of every family (qwen's ``dp_only`` profile folds the
+    model axis into the batch; gemma2's windows and softcaps, tied
+    embeddings and post norms; internvl's prefix embeddings; musicgen's
+    sinusoidal positions, layernorm and plain MLP; arctic's dense
+    residual; mamba2's SSD split by heads; recurrentgemma's RG-LRU split
+    by width beside its local attention) on (1, 2), its own reduced
+    weights: the prefill and two decode steps within 1e-5 of the scale of
+    its unsharded steps."""
     cfg = REDUCED[arch]
     params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     mesh = make_host_mesh(1, 2, devices="cpu")
@@ -275,7 +307,10 @@ def test_every_dense_and_moe_arch_serves_on_a_model_axis(arch):
 def test_weights_carried_across_are_the_reference_pieces(ref, name):
     """The JAX ``init`` carried over and placed by the port's rules: every
     position's piece is, bitwise, the block of the whole leaf that the
-    reference's sharding gives the same position."""
+    reference's sharding gives the same position (the weights a rule
+    repeats, such as Mamba2's mixer, whole on every position); each
+    tensor of the caches (K / V, the SSM state and conv window) is split
+    into the reference's blocks. Both trees have a split leaf."""
     arch, shape, _, _, _ = CASES[name]
     cfg = _cfg(name)
     mesh = make_host_mesh(*shape, devices="cpu")
@@ -285,9 +320,9 @@ def test_weights_carried_across_are_the_reference_pieces(ref, name):
                                                 rules, mesh))
     maps = json.loads((ref / "placements.json").read_text())[name]
     leaves, pieces = tree_leaves(params), tree_leaves(placed)
-    assert len(maps) == len(leaves) == len(pieces)
+    assert len(maps["params"]) == len(leaves) == len(pieces)
     split = 0
-    for whole, sharded, m in zip(leaves, pieces, maps):
+    for whole, sharded, m in zip(leaves, pieces, maps["params"]):
         assert list(whole.shape) == m["shape"]
         for pos in mesh.positions():
             block = tuple(slice(a, b) for a, b in
@@ -295,6 +330,18 @@ def test_weights_carried_across_are_the_reference_pieces(ref, name):
             piece = sharded.pieces[pos]
             split += piece.shape != whole.shape
             assert torch.equal(piece, whole[block])
+    assert split > 0
+    cdefs = lm.lm_cache_defs(cfg, B, MAX)
+    cache = [(d.shape, rules.sharding(mesh, *d.logical_axes))
+             for d in tree_leaves(cdefs) if isinstance(d, ParamDef)]
+    assert len(cache) == len(maps["caches"])
+    split = 0
+    for (shape, sharding), m in zip(cache, maps["caches"]):
+        assert list(shape) == m["shape"]
+        for pos, block in sharding.blocks(shape).items():
+            got = [[sl.start, sl.stop] for sl in block]
+            split += got != [[0, n] for n in shape]
+            assert got == m["pieces"][",".join(map(str, pos))]
     assert split > 0
 
 
@@ -404,28 +451,20 @@ def test_vocab_sharded_unembedding_masks_by_the_global_column(tied):
               want[..., :cfg.vocab_size].numpy(), 1e-6)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-67b", "mamba2-2.7b",
-                                  "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["deepseek-67b"])
 def test_serving_steps_refuse_what_is_not_ported(arch):
-    """The SSM and hybrid families with a split weight raise
-    NotImplementedError by name. FSDP is ported: deepseek-67b on (2, 1),
-    its weights split over the data axis and gathered just in time,
-    serves a prefill and two decode steps within 1e-5 of the scale of its
-    unsharded steps, the caches too."""
+    """Nothing is refused any more. FSDP is ported: deepseek-67b on
+    (2, 1), its weights split over the data axis and gathered just in
+    time, serves a prefill and two decode steps within 1e-5 of the scale
+    of its unsharded steps, the caches too."""
     cfg = REDUCED[arch]
-    if cfg.fsdp:
-        params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-        mesh = make_host_mesh(2, 1, devices="cpu")
-        rules = build_rules(cfg, mesh, "prefill", global_batch=B)
-        assert any("data" in rules.spec(*d.logical_axes)
-                   for d in tree_leaves(lm.lm_param_defs(cfg)))
-        logits, k, v = _serve(cfg, params, 16, mesh)
-        want, wk, wv = _serve(cfg, params, 16)
-        for a, b in zip(logits + [k, v], want + [wk, wv]):
-            _of_scale(a, b, SCALE_TOL)
-        return
-    mesh = make_host_mesh(1, 2, devices="cpu")
-    for kind, make in (("prefill", make_prefill_step),
-                       ("decode", make_decode_step)):
-        with pytest.raises(NotImplementedError, match="SSM and hybrid"):
-            make(cfg, build_rules(cfg, mesh, kind, global_batch=B), mesh)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    mesh = make_host_mesh(2, 1, devices="cpu")
+    rules = build_rules(cfg, mesh, "prefill", global_batch=B)
+    assert any("data" in rules.spec(*d.logical_axes)
+               for d in tree_leaves(lm.lm_param_defs(cfg)))
+    logits, cache = _serve(cfg, params, 16, mesh)
+    want, wcache = _serve(cfg, params, 16)
+    for a, b in zip(logits + [cache["k"], cache["v"]],
+                    want + [wcache["k"], wcache["v"]]):
+        _of_scale(a, b, SCALE_TOL)

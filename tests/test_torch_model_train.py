@@ -13,7 +13,8 @@ mesh, "train")``: tensor, sequence, vocab and expert parallelism over
   position's graph only (before it, a position's result held the other
   positions' graphs).
 * The sharded step against the port's unsharded step from the same
-  weights and batch: every dense, MoE, VLM and audio arch on (1, 2),
+  weights and batch: every arch of every family (mamba2's SSD split by
+  heads, recurrentgemma's RG-LRU split by width among them) on (1, 2),
   (2, 1) and (2, 2), the loss at 1e-5 and every gradient within 1e-5 of
   the gradients' scale (AdamW's first moment after a step at learning
   rate 0, m = (1 - b1) g; for Adafactor its factored moments ``vr`` /
@@ -22,13 +23,16 @@ mesh, "train")``: tensor, sequence, vocab and expert parallelism over
 * Against the reference's sharded step (GSPMD, ``tests/
   test_distributed.py::test_sharded_train_step_matches_unsharded``'s
   recipe) from the same weights (the JAX ``init``, carried over as a JAX
-  checkpoint): llama3-8b and deepseek-67b (FSDP) on (2, 2) at 1e-5 on two
-  steps' losses and the grad norm; olmoe-1b-7b on (1, 2) at the capacity
+  checkpoint): llama3-8b and deepseek-67b (FSDP) on (2, 2) and
+  mamba2-2.7b on (1, 2) at 1e-5 on two steps' losses and the grad norm;
+  olmoe-1b-7b on (1, 2) at the capacity
   factor of the reference's expert-parallel test (64: its sharded MoE
   routes each shard's tokens as groups of their own) at its 2e-2.
 * ``global_norm`` and Adafactor on split leaves against the whole leaves.
 * The ``Trainer`` on a (2, 2) mesh with FSDP, its checkpoint resumed on
-  another mesh; a rendezvous that never completes failing by name.
+  another mesh; recurrentgemma-2b's on a (1, 2) model axis restored onto
+  (1, 1) through ``elastic_restore``; a rendezvous that never completes
+  failing by name.
 
 The card's case (two positions on one card) is in
 ``tests/test_torch_model_train_card.py``.
@@ -69,16 +73,16 @@ TOL = 1e-5
 # against the reference's sharded MoE step: the reference's own tolerance
 # for a sharded step (tests/test_distributed.py)
 REF_MOE_TOL = 2e-2
-ARCHS = sorted(a for a, c in REDUCED.items()
-               if c.family not in ("ssm", "hybrid"))
+ARCHS = sorted(REDUCED)
 MESHES = ((1, 2), (2, 1), (2, 2))
 # the two-step cases (arch, mesh shape)
 CASES = (("llama3-8b", (1, 2)), ("llama3-8b", (2, 2)),
          ("deepseek-67b", (2, 2)), ("gemma2-27b", (2, 2)),
-         ("olmoe-1b-7b", (1, 2)), ("arctic-480b", (2, 2)))
+         ("olmoe-1b-7b", (1, 2)), ("arctic-480b", (2, 2)),
+         ("recurrentgemma-2b", (2, 2)), ("mamba2-2.7b", (1, 2)))
 # the comparison with the reference's sharded step: mesh, capacity factor
 REF_CASES = {"llama3-8b": ((2, 2), None), "deepseek-67b": ((2, 2), None),
-             "olmoe-1b-7b": ((1, 2), 64.0)}
+             "olmoe-1b-7b": ((1, 2), 64.0), "mamba2-2.7b": ((1, 2), None)}
 
 JAX_TRAIN = """
 import json, sys
@@ -506,6 +510,36 @@ def test_trainer_with_fsdp_and_a_model_axis(tmp_path):
     assert back.try_resume() and back.step == 2
     for leaf in tree_leaves(back.params):
         assert len({t.data_ptr() for t in leaf.pieces.flat}) == 2
+    last = back.run(1, log_every=100)
+    np.testing.assert_allclose(two["losses"] + last["losses"],
+                               one["losses"], rtol=TOL)
+
+
+def test_trainer_on_a_model_axis_restores_onto_one_position(tmp_path):
+    """recurrentgemma-2b on (1, 2) (the RG-LRU's width, the MLP's ff, the
+    heads and the vocabulary split) trains two steps and saves its split
+    state as one unsharded JAX-format checkpoint; ``elastic_restore``
+    puts it on a (1, 1) mesh bitwise, and that run's next step and the
+    mesh's two give the one-position run's losses at 1e-5."""
+    kw = dict(learning_rate=5e-3, total_steps=20, warmup_steps=2,
+              checkpoint_every=0, seed=3)
+    cfg = REDUCED["recurrentgemma-2b"]
+    one = Trainer(cfg, TrainConfig(**kw), global_batch=4, seq_len=16,
+                  device="cpu").run(3, log_every=100)
+    tr = Trainer(cfg, TrainConfig(**kw), global_batch=4, seq_len=16,
+                 mesh=make_host_mesh(1, 2, devices="cpu"),
+                 ckpt_dir=str(tmp_path))
+    two = tr.run(2, log_every=100)
+    assert any(leaf.pieces.flat[0].shape != leaf.shape
+               for leaf in tree_leaves(tr.params))
+    back = Trainer(cfg, TrainConfig(**kw), global_batch=4, seq_len=16,
+                   mesh=make_host_mesh(1, 1, devices="cpu"),
+                   ckpt_dir=str(tmp_path))
+    assert back.try_resume() and back.step == 2
+    for state in ("params", "opt_state"):
+        for a, b in zip(tree_leaves(getattr(tr, state)),
+                        tree_leaves(getattr(back, state))):
+            assert torch.equal(_whole(a), _whole(b))
     last = back.run(1, log_every=100)
     np.testing.assert_allclose(two["losses"] + last["losses"],
                                one["losses"], rtol=TOL)

@@ -74,6 +74,35 @@ def test_ssd_chunked_with_an_initial_state(s, chunk):
     np.testing.assert_allclose(final.numpy(), np.asarray(rfinal), **TOL)
 
 
+def test_ssd_gradients_stay_finite_where_a_chunks_decay_overflows():
+    """A chunk of 64 steps whose decays sum past float32's exp range (dt
+    up to 3, |a| up to 3.5: |cs| reaches ~500). The reference's masked
+    ``exp`` of the upper triangle is inf there and its gradient NaN; the
+    port's chunked form has the recurrence's values and its finite
+    gradients, at the forms' 2e-4 of each gradient's scale."""
+    r = np.random.default_rng(7)
+    b, s, h, p, n = 1, 64, 2, 4, 3
+    args = [r.normal(size=(b, s, h, p)), r.random((b, s, h)) * 3.0,
+            np.full((h,), 1.25), r.normal(size=(b, s, n)),
+            r.normal(size=(b, s, n))]
+    ts = [torch.tensor(a, dtype=torch.float32, requires_grad=True)
+          for a in args]
+    w = torch.from_numpy(r.normal(size=(b, s, h, p)).astype(np.float32))
+    ja = [jnp.asarray(a, jnp.float32) for a in args]
+    jy, _ = jssm.ssd_chunked(*ja, s)
+    jg = jax.grad(lambda dt: jnp.sum(jssm.ssd_chunked(
+        ja[0], dt, *ja[2:], s)[0] * w.numpy()))(ja[1])
+    assert not np.all(np.isfinite(np.asarray(jg)))     # the reference's NaN
+    y, _ = tssm.ssd_chunked(*ts, s)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **TOL)
+    got = torch.autograd.grad((y * w).sum(), ts)
+    want = torch.autograd.grad((tssm.ssd_ref(*ts) * w).sum(), ts)
+    for g, v in zip(got, want):
+        assert torch.isfinite(g).all()
+        scale = float(v.abs().max())
+        assert float((g - v).abs().max()) <= 2e-4 * scale
+
+
 @pytest.fixture(scope="module")
 def mixer():
     jcfg, tcfg = jarchs.REDUCED["mamba2-2.7b"], tarchs.REDUCED["mamba2-2.7b"]
