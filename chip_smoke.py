@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only mesh           # phase 11 alone (the same)
     python3 chip_smoke.py --only model_parallel # phase 12 alone (the same)
     python3 chip_smoke.py --only model_train    # phase 13 alone (the same)
+    python3 chip_smoke.py --only roofline       # phase 14 alone (the same)
 
 Phases, each printing its own lines:
 
@@ -389,7 +390,29 @@ Phases, each printing its own lines:
                the losses within 2e-2 of the unsharded run's. One ``[mt]
                json`` line; ``--only model_train`` runs phases 1, 2 (four
                sources) and 13 alone.
-  14. result — one JSON line with every kernel's numbers, the card's
+  14. roofline — the dry run's count held against the card ([roof]
+               lines): each step built by ``launch/steps.py::
+               lowering_bundle``, run once under ``counter.py``'s
+               counter on meta positions and once on positions of the
+               card. (a) qwen1.5-0.5b's training step, phase 10's cell
+               (24 layers, B=8 x 2048, bf16, AdamW, remat) on (1, 1): the
+               products' FLOPs, the op bytes and the kernels' launches
+               and declared work equal; the backward counted on
+               autograd's worker thread (its products about three times
+               the forward's: twice, plus remat's recompute); the meta
+               peak at full depth and extrapolated from 1 and 2 layers
+               (``launch/hlo_cost.py``) each within 25% of the card's
+               ``max_memory_allocated``; the step without the counter,
+               median of 5, beside phase 10's ``Trainer`` step, and
+               ``model_flops`` over it at 989 TFLOP/s. (b) llama3-8b's
+               prefill, phase 8's cell (B=2 x 2048, 32 layers, bf16) on
+               (1, 1): the counts equal, timed, its share. (c) llama3-8b
+               at depth 2 prefilling on (1, 2) positions of the card:
+               each position's collective records (kind, group, count,
+               bytes) equal the (1, 2) meta mesh's. One ``[roof] json``
+               line; ``--only roofline`` runs phases 1, 2 (two sources)
+               and 14 alone.
+  15. result — one JSON line with every kernel's numbers, the card's
                ``nvidia-smi`` line, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and exits non-zero; without a CUDA device the script
@@ -413,11 +436,6 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-
-# Published H100 SXM peaks (NVIDIA's data sheet) at the 700 W limit.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12        # dense, on the tensor cores
 
 # kernel vs plain version on the card: both fp32, sums in another order
 # (atomics in index_add_, blocked products in cuBLAS), so agreement to a
@@ -740,15 +758,15 @@ def call(fn, kw, positional=POSITIONAL, **extra):
 # the kernels' per-edge streams: a masked edge contributes nothing, so the
 # function needs these only for the edges whose mask is set
 EDGE_STREAMS = ("senders", "receivers", "src_weight", "edge_term")
-# the function needs int32 indices (the wrappers refuse E or N*D >= 2^31);
-# the port's graphs hold int64, which the bound does not charge
-INDEX_BYTES = 4
 
 
 def input_bytes(kw):
     """Bytes the function must read: the edge mask once, the per-edge
-    streams of the unmasked edges once (indices at INDEX_BYTES), every
+    streams of the unmasked edges once (indices at
+    ``kernels/cost.py::INDEX_BYTES``: the function needs int32 indices,
+    the port's graphs hold int64, which the bound does not charge), every
     node-side input and weight once."""
+    from repro_torch.kernels.cost import INDEX_BYTES
     e = kw["senders"].shape[0]
     valid = int(kw["edge_mask"].sum())
     nbytes = 0
@@ -798,10 +816,7 @@ def lf_bound(kw):
     if two:
         flops += n * d_ff + 2 * n * d_ff * d_out + n * d_out
     flops += n * d_out if kw["out_activation"] == "relu" else 0
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    return work_bound(nbytes, flops)
 
 
 def to_numpy(kw):
@@ -1018,10 +1033,7 @@ def mp_bound(kw):
         lane_ops += sum({"sum": 1, "sumsq": 2, "max": 1, "min": 1}.get(s, 0)
                         for s in kw["stats"])
     flops += valid * d * lane_ops + valid * ("count" in kw["stats"])
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    return work_bound(nbytes, flops)
 
 
 # the rows per block every case of the owner-bucketed kernels must be
@@ -1300,39 +1312,39 @@ def scatter_kernel(kernel, kw, **extra):
     return out
 
 
-def scatter_bound(kernel, kw):
-    """The least time (ms) the card could take for this call, the larger of
-    two. Bytes at the memory rate: the edge mask once, the unmasked edges'
-    message rows (or logits) and receivers (at INDEX_BYTES) once, each
-    output written once (the node statistics; seg_softmax's (E, H)
-    weights). Operations at the fp32 rate: per unmasked edge and lane the
-    statistics (sum 1, sumsq 2, max 1, min 1; count 1 per edge); for
-    seg_softmax per unmasked edge and head the max, the difference, the
-    exponential and the sum (4), then the weight's difference, exponential,
-    clamp and division (4)."""
-    x = kw["logits" if kernel == "seg_softmax" else "msg"]
-    e = x.shape[0]
-    width = x.shape[1] if x.ndim == 2 else 1
-    n = kw["num_nodes"]
-    valid = int(owned(kw).sum())
-    item = x.dtype.itemsize
-    nbytes = e + valid * (INDEX_BYTES + item * width)
-    if kernel == "seg_softmax":
-        nbytes += 4 * e * width
-        flops = 8 * valid * width
-    else:
-        stats = ("sum",) if kernel == "mp_scatter" else stats_of(kw)
-        # mp_scatter writes the messages' dtype, the multi sweep f32
-        out_item = item if kernel == "mp_scatter" else 4
-        nbytes += sum(out_item * n * (1 if s == "count" else width)
-                      for s in stats)
-        flops = valid * (width * sum({"sum": 1, "sumsq": 2, "max": 1,
-                                      "min": 1}.get(s, 0) for s in stats)
-                         + ("count" in stats))
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+def work_bound(nbytes, flops, dtype="float32"):
+    """(least ms, what bounds it, bytes, operations): the larger of the
+    bytes at the card's memory rate and the operations at its peak for
+    ``dtype`` (``launch/roofline.py``: bf16 on the tensor cores, float32
+    outside them)."""
+    from repro_torch.launch import roofline
+    t_bytes = nbytes / roofline.HBM_BW * 1e3
+    t_ops = flops / (roofline.PEAK_FLOPS if dtype == "bfloat16"
+                     else roofline.PEAK_FP32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, flops
+
+
+def scatter_bound(kernel, kw):
+    """The least time (ms) the card could take for this call: the work of
+    ``kernels/cost.py::scatter_work`` for the edges this run keeps
+    (unmasked, receiver in range), its operations at the fp32 rate."""
+    from repro_torch.kernels import cost
+    x = kw["logits" if kernel == "seg_softmax" else "msg"]
+    width = x.shape[1] if x.ndim == 2 else 1
+    return work_bound(*cost.scatter_work(
+        kernel, x.shape[0], width, kw["num_nodes"], x.dtype.itemsize,
+        valid=int(owned(kw).sum()),
+        stats=stats_of(kw) if kernel == "mp_scatter_multi" else ("sum",)))
+
+
+def gather_bound(y, idx, mask):
+    """The least time (ms) of ``gather_rows`` on these inputs: the bytes of
+    ``kernels/cost.py::gather_rows_work`` for the rows whose mask is set, at
+    the memory rate (it does no arithmetic)."""
+    from repro_torch.kernels import cost
+    return work_bound(*cost.gather_rows_work(
+        idx.shape[0], y.shape[1], y.element_size(), valid=int(mask.sum())))
 
 
 INDEX_ADD_TXT = "library index_add_ (atomics, order not fixed)"
@@ -1829,10 +1841,11 @@ def nt_bound(kw):
     """The least time (ms) the card could take for this call, the larger of
     two. Bytes at the memory rate: x and the weights read once (in the
     case's dtype), the edge mask once, the unmasked in-range edges' indices
-    (at INDEX_BYTES) and features once, the output written once (nt_mlp's
-    in x's dtype, fused_nt_scatter's in f32). Operations at the fp32 rate:
-    the MLP's (``mlp_flops``), then per such edge and lane the add, the relu
-    and the sum."""
+    (at ``kernels/cost.py::INDEX_BYTES``) and features once, the output
+    written once (nt_mlp's in x's dtype, fused_nt_scatter's in f32).
+    Operations at the fp32 rate: the MLP's (``mlp_flops``), then per such
+    edge and lane the add, the relu and the sum."""
+    from repro_torch.kernels.cost import INDEX_BYTES
     n = kw["x"].shape[0]
     d = kw["w2"].shape[1]
     elem = NT_ELEM[kw.get("dtype", "float32")]
@@ -1847,10 +1860,7 @@ def nt_bound(kw):
         nbytes += kw["edge_mask"].nbytes + valid * (2 * INDEX_BYTES
                                                     + elem * d)
         flops += 3 * valid * d
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    return work_bound(nbytes, flops)
 
 
 def nt_library_chain(kernel, kw, want):
@@ -2167,8 +2177,6 @@ def moe_phase(card: str):
     dispatch_kw = dict(msg=msg, receivers=slot, edge_mask=own,
                        num_nodes=slots)
     combine_kw = dict(msg=cmsg, receivers=st, edge_mask=own, num_nodes=t)
-    valid = int(own.sum())
-    gather_bytes = s + valid * (INDEX_BYTES + d * y.element_size()) + s * d * 4
     rows = {
         "moe_dispatch_bf16": timed_row(
             card, "moe", "mp_scatter moe_dispatch_bf16",
@@ -2183,7 +2191,7 @@ def moe_phase(card: str):
             card, "moe", "gather_rows moe_gather",
             lambda: gather_rows(y, slot, own),
             lambda: gather_rows_ref(y, slot, own),
-            (gather_bytes / PEAK_BYTES_PER_S * 1e3, "bytes", gather_bytes, 0),
+            gather_bound(y, slot, own),
             err=float((gathered - plain_gathered).abs().max()),
             library=lambda: torch.index_select(y, 0, idx_safe),
             library_txt="library torch.index_select (bf16 rows out, no "
@@ -2359,25 +2367,14 @@ SDPA_TXT = ("library torch.nn.functional.scaled_dot_product_attention "
 
 
 def flash_bound(b, h, sq, sk, d, causal, window, dtype):
-    """The least time (ms): q, k, v and out once each at the memory rate,
-    or the two products (4 D operations per visible (query, key) pair,
-    the pairs this mask leaves) at the peak rate of the inputs' type
-    (bf16 on the tensor cores, float32 outside them); the softmax's few
-    operations per pair are left out (under 2% at D = 128)."""
-    import torch
-    from repro_torch.kernels.flash_attention import visible
-    pairs = int(visible(sq, sk, causal=causal, window=window,
-                        device="cuda").sum()) * b * h
-    size = 2 if dtype == "bfloat16" else 4
-    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * size
-    flops = 4 * d * pairs
-    peak = PEAK_BF16_FLOP_PER_S if dtype == "bfloat16" else \
-        PEAK_FP32_FLOP_PER_S
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    torch.cuda.synchronize()
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    """The least time (ms): the work of ``kernels/cost.py::flash_work`` (q,
+    k, v and out once each; 4 D operations per visible (query, key) pair,
+    the pairs this mask leaves) at the peak rate of the inputs' type (bf16
+    on the tensor cores, float32 outside them)."""
+    from repro_torch.kernels import cost
+    return work_bound(*cost.flash_work(
+        b, h, sq, sk, d, causal=causal, window=window,
+        itemsize=2 if dtype == "bfloat16" else 4), dtype)
 
 
 def flash_instantiation(symbol: str):
@@ -2988,15 +2985,11 @@ def served_call_rows(card: str, arch: str, kept: dict,
             if not ok:
                 raise AssertionError(f"{label}: the kernel disagrees with "
                                      f"its plain version")
-            s, d = idx.shape[0], y.shape[1]
-            valid = int(mask.sum())
-            nbytes = (s + valid * (INDEX_BYTES + d * y.element_size())
-                      + s * d * 4)
             safe = idx.clamp(max=y.shape[0] - 1)
             rows[f"{arch}_{where}_gather"] = timed_row(
                 card, "lm9", label, lambda: gather_rows(y, idx, mask),
                 lambda: gather_rows_ref(y, idx, mask),
-                (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes", nbytes, 0),
+                gather_bound(y, idx, mask),
                 err=float((got - plain).abs().max()),
                 library=lambda: torch.index_select(y, 0, safe),
                 library_txt="library torch.index_select (bf16 rows out, no "
@@ -6133,25 +6126,14 @@ def check_bwd_planted_faults(name, q, k, v, out, lse, dout, grads, plain, *,
 
 
 def flash_bwd_bound(b, h, sq, sk, d, causal, window, dtype):
-    """The least time (ms) of the backward's function: q, k, v, out, dout
-    and lse read once and dq, dk, dv written once at the memory rate, or
-    its five products (10 D operations per visible (query, key) pair, the
-    pairs this mask leaves) at the peak rate of the inputs' type (bf16 on
-    the tensor cores, float32 outside them)."""
-    from repro_torch.kernels.flash_attention import visible
-    pairs = int(visible(sq, sk, causal=causal, window=window,
-                        device="cuda").sum()) * b * h
-    size = 2 if dtype == "bfloat16" else 4
-    # read q, out, dout (Sq rows), k, v (Sk rows), lse; write dq, dk, dv
-    nbytes = ((3 * sq + 2 * sk) + (sq + 2 * sk)) * b * h * d * size \
-        + 4 * b * h * sq
-    flops = 10 * d * pairs
-    peak = PEAK_BF16_FLOP_PER_S if dtype == "bfloat16" else \
-        PEAK_FP32_FLOP_PER_S
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    """The least time (ms) of the backward's function: the work of
+    ``kernels/cost.py::flash_bwd_work`` (q, k, v, out, dout and lse read
+    once, dq, dk, dv written once; its five products, 10 D operations per
+    visible pair) at the peak rate of the inputs' type."""
+    from repro_torch.kernels import cost
+    return work_bound(*cost.flash_bwd_work(
+        b, h, sq, sk, d, causal=causal, window=window,
+        itemsize=2 if dtype == "bfloat16" else 4), dtype)
 
 
 def flash_bwd_phase(card: str):
@@ -7577,6 +7559,281 @@ def mt_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dry run's count held against the card
+# ---------------------------------------------------------------------------
+
+# a counted peak against the card's max_memory_allocated: at most this
+# share apart
+ROOF_PEAK_TOL = 0.25
+# llama3-8b's prefill of (b), phase 8's cell
+ROOF_PREFILL = ("llama3-8b", LM_BATCH, LM_PROMPT)
+# (c): llama3-8b at depth 2 on this mesh of positions of the card
+ROOF_MESH = (1, 2)
+
+
+def roof_inputs(cfg, shape, rules, mesh):
+    """Seed-0 inputs on the card shaped as ``lowering_bundle``'s: the
+    parameters, with the optimizer's zero state for training, placed on
+    ``mesh`` leaf by leaf (a serving step takes whole tensors and splits
+    them by view), and the batch of random tokens (and labels), int32."""
+    import torch
+    from repro_torch.distributed.sharding import (init_one, map_defs,
+                                                  map_tree, param_shardings,
+                                                  shard)
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import get_optimizer
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, s = shape.global_batch, shape.seq_len
+    pdefs = lm.lm_param_defs(cfg)
+
+    def tokens():
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def zeros(d):
+        return torch.zeros(d.shape, dtype=d.dtype, device=dev)
+    if shape.kind == "train":
+        def placed(defs, fill):
+            return map_tree(lambda d, where: shard(fill(d), where), defs,
+                            param_shardings(defs, rules, mesh))
+        params = placed(pdefs, lambda d: init_one(gen, d, dev))
+        state = placed(get_optimizer(cfg.optimizer).state_defs(pdefs),
+                       zeros)
+        return params, state, {"tokens": tokens(), "labels": tokens()}
+    params = map_defs(lambda d: init_one(gen, d, dev), pdefs)
+    caches = map_defs(zeros, lm.lm_cache_defs(cfg, b, s))
+    return params, caches, {"tokens": tokens()}
+
+
+def roof_counted(step, args):
+    """``step(*args)`` once under a counter and the rendezvous watchdog:
+    {position: record}."""
+    import torch
+    from repro_torch.counter import Counter
+    with Counter() as c:
+        mt_watched(lambda: step(*args))
+        torch.cuda.synchronize()
+    return c.records
+
+
+def roof_same(label: str, meta, card, keys) -> None:
+    """Fail unless the meta and the card records agree on ``keys``,
+    printing the ops whose calls, FLOPs or bytes differ."""
+    a, b = meta.as_dict(), card.as_dict()
+    bad = [k for k in keys if a[k] != b[k]]
+    if not bad:
+        log("roof", f"{label}: meta and card equal in {', '.join(keys)}")
+        return
+    ta, tb = meta.op_table(), card.op_table()
+    for name in sorted(set(ta) | set(tb)):
+        if ta.get(name) != tb.get(name):
+            log("roof", f"  {name}: meta {ta.get(name)} card {tb.get(name)}")
+    raise AssertionError(f"{label}: meta and card differ in {bad}: "
+                         f"{ {k: (a[k], b[k]) for k in bad} }")
+
+
+def roof_step(card: str, label: str, cfg, shape, tcfg=None,
+              mesh_shape=(1, 1)) -> dict:
+    """One step of ``cfg``'s ``shape`` built by ``lowering_bundle`` on a
+    ``mesh_shape`` mesh of meta positions and on one of positions of the
+    card, each run once under the counter: the meta and the card records
+    by position, the card step with its inputs, the card's peak above
+    what was allocated before the inputs, and the CUDA launches of each
+    kernel in the counted run. Fails unless those launches, read from the
+    wrappers' own launch counts (set to 0 just before the run), equal the
+    launches the card's records declare, summed over the positions."""
+    import torch
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.kernels.ops import launch_counters
+    from repro_torch.launch.steps import build_rules, lowering_bundle
+    axes = ("data", "model")
+    meta_mesh = make_mesh(mesh_shape, axes, devices="meta")
+    step_m, args_m = lowering_bundle(cfg, shape, meta_mesh, tcfg=tcfg)
+    t0 = time.perf_counter()
+    meta = roof_counted(step_m, args_m)
+    meta_s = time.perf_counter() - t0
+    del step_m, args_m
+    mesh = make_mesh(mesh_shape, axes, devices=mesh_devices(
+        mesh_shape[0] * mesh_shape[1]))
+    rules = build_rules(cfg, mesh, shape.kind,
+                        global_batch=shape.global_batch)
+    step, _ = lowering_bundle(cfg, shape, mesh, tcfg=tcfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = roof_inputs(cfg, shape, rules, mesh)
+    mt_watched(lambda: step(*args))                 # warm: cuBLAS, kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    card_recs = roof_counted(step, args)
+    peak = torch.cuda.max_memory_allocated() - base
+    launched = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    declared = {}
+    for rec in card_recs.values():
+        for n, k in rec.as_dict()["kernels"].items():
+            declared[n] = declared.get(n, 0) + k["launches"]
+    declared = {n: v for n, v in declared.items() if v}
+    if launched != declared:
+        raise AssertionError(f"{label}: the kernels launched {launched} on "
+                             f"the card, the counter declared {declared}")
+    log("roof", f"{label}: counted on {mesh_shape} meta positions in "
+        f"{meta_s:.1f} s and on {mesh_shape} positions of the card; the "
+        f"wrappers' CUDA launches {launched} equal the declared; on {card}")
+    return {"meta": meta, "card": card_recs, "step": step, "args": args,
+            "peak": peak, "launches": launched}
+
+
+def roofline_phase(card: str, trainer_ms=None) -> dict:
+    """Phase 14: the dry run's count (``repro_torch/counter.py``) held
+    against the card. (a) qwen1.5-0.5b's training step (phase 10's cell)
+    and (b) llama3-8b's prefill (phase 8's cell), each built by
+    ``lowering_bundle`` and counted on a (1, 1) meta mesh and on a (1, 1)
+    mesh of the card: products' FLOPs, bytes and the kernels' launches and
+    declared work equal, and the declared launches equal the wrappers'
+    CUDA launch counts in every part (``roof_step``); (a)'s backward seen on autograd's worker thread; (a)'s meta
+    peak, at full depth and extrapolated from 1 and 2 layers
+    (``launch/hlo_cost.py``), within ``ROOF_PEAK_TOL`` of the card's
+    ``max_memory_allocated``; each step timed without the counter (median
+    of 5) and its ``model_flops`` share of the bf16 peak. (c) llama3-8b at
+    depth 2 prefilling on ``ROOF_MESH`` positions of the card: each
+    position's collective records equal the meta mesh's."""
+    import gc
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.launch import hlo_cost, roofline
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    free()
+    out = {"card": card}
+    t_phase = time.perf_counter()
+
+    # (a) qwen1.5-0.5b training, full depth, bf16, AdamW, remat
+    cfg = ARCHS[TRAIN_ARCH]
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=5,
+                       total_steps=TRAIN_STEPS, checkpoint_every=0, seed=0)
+    label = (f"(a) {TRAIN_ARCH} training step, {cfg.num_layers} layers, "
+             f"B={TRAIN_BATCH} x {TRAIN_SEQ}, bf16, AdamW, remat")
+    run = roof_step(card, label, cfg, shape, tcfg)
+    meta, rec = run["meta"][(0, 0)], run["card"][(0, 0)]
+    roof_same(label, meta, rec, ("product_flops", "op_bytes", "kernels"))
+    m, c = meta.as_dict(), rec.as_dict()
+    fwd = c["product_flops"] - c["backward_product_flops"]
+    log("roof", f"{label}: products {c['product_flops']:.4e} FLOP, of "
+        f"which the backward {c['backward_product_flops']:.4e} "
+        f"({c['backward_product_flops'] / max(fwd, 1):.2f}x the forward's "
+        f"{fwd:.4e}: twice, plus remat's recompute); {c['ops_off_thread']} "
+        f"of {c['ops']} ops counted on autograd's worker thread; kernels "
+        f"{c['kernels']}; on {card}")
+    if c["ops_off_thread"] == 0:
+        raise AssertionError(f"{label}: no op counted off the position's "
+                             f"thread: the backward was not seen there")
+    est = hlo_cost.measured_costs(cfg, shape, make_mesh(
+        (1, 1), ("data", "model"), devices="meta"), tcfg)
+    peaks = {"meta_full_depth": m["peak_bytes"],
+             "meta_extrapolated": est["peak_bytes"], "card": run["peak"]}
+    log("roof", f"{label}: peak bytes: meta at full depth "
+        f"{peaks['meta_full_depth'] / 1e9:.2f} GB, extrapolated from 1 and "
+        f"2 layers {peaks['meta_extrapolated'] / 1e9:.2f} GB, the card's "
+        f"max_memory_allocated {peaks['card'] / 1e9:.2f} GB (tolerance "
+        f"{ROOF_PEAK_TOL:.0%}); on {card}")
+    for k in ("meta_full_depth", "meta_extrapolated"):
+        if abs(peaks[k] - peaks["card"]) > ROOF_PEAK_TOL * peaks["card"]:
+            raise AssertionError(f"{label}: the {k} peak is more than "
+                                 f"{ROOF_PEAK_TOL:.0%} from the card's")
+    med, _ = wall_ms(lambda: mt_watched(lambda: run["step"](*run["args"])),
+                     reps=5)
+    mf = roofline.model_flops(cfg, shape)
+    rep = roofline.roofline_report(m, 1, cfg, shape)
+    out["a_train"] = {
+        "label": label, "record": c, "launches": run["launches"],
+        "peaks_bytes": peaks,
+        "step_ms_median": med,
+        "trainer_step_ms_median": trainer_ms, "model_flops": mf,
+        "mfu": mf / (med / 1e3 * roofline.PEAK_FLOPS),
+        "counted_flops_share": c["flops"] / (med / 1e3 * roofline.PEAK_FLOPS),
+        "bound_ms": rep["step_time_lower_bound_s"] * 1e3,
+        "bottleneck": rep["bottleneck"]}
+    trainer = ("not run in this call" if trainer_ms is None
+               else f"{trainer_ms:.1f} ms")
+    log("roof", f"{label}: the step without the counter {med:.1f} ms "
+        f"(median of 5 after a warm-up; phase 10's Trainer step "
+        f"{trainer}); "
+        f"model_flops 6ND = {mf:.4e} FLOP -> {out['a_train']['mfu']:.3f} of "
+        f"989 TFLOP/s; the counted {c['flops']:.4e} FLOP -> "
+        f"{out['a_train']['counted_flops_share']:.3f}; the count's bound "
+        f"{out['a_train']['bound_ms']:.1f} ms ({rep['bottleneck']}); on "
+        f"{card}")
+    del run
+    free()
+
+    # (b) llama3-8b prefill, full depth, bf16
+    arch, b, s = ROOF_PREFILL
+    cfg = ARCHS[arch]
+    shape = ShapeConfig("prefill", s, b, "prefill")
+    label = (f"(b) {arch} prefill, {cfg.num_layers} layers, B={b} x {s}, "
+             f"bf16")
+    run = roof_step(card, label, cfg, shape)
+    meta, rec = run["meta"][(0, 0)], run["card"][(0, 0)]
+    roof_same(label, meta, rec, ("product_flops", "op_bytes", "kernels"))
+    m, c = meta.as_dict(), rec.as_dict()
+    med, _ = wall_ms(lambda: mt_watched(lambda: run["step"](*run["args"])),
+                     reps=5)
+    mf = roofline.model_flops(cfg, shape)
+    rep = roofline.roofline_report(m, 1, cfg, shape)
+    out["b_prefill"] = {
+        "label": label, "record": c, "launches": run["launches"],
+        "step_ms_median": med,
+        "model_flops": mf,
+        "mfu": mf / (med / 1e3 * roofline.PEAK_FLOPS),
+        "counted_flops_share": c["flops"] / (med / 1e3 * roofline.PEAK_FLOPS),
+        "peaks_bytes": {"meta_full_depth": m["peak_bytes"],
+                        "card": run["peak"]},
+        "bound_ms": rep["step_time_lower_bound_s"] * 1e3,
+        "bottleneck": rep["bottleneck"]}
+    log("roof", f"{label}: products {c['product_flops']:.4e} FLOP, kernels "
+        f"{c['kernels']}; the prefill {med:.1f} ms (median of 5 after a "
+        f"warm-up); model_flops 2ND = {mf:.4e} FLOP "
+        f"-> {out['b_prefill']['mfu']:.3f} of 989 TFLOP/s; the counted "
+        f"{c['flops']:.4e} -> {out['b_prefill']['counted_flops_share']:.3f};"
+        f" peak meta {m['peak_bytes'] / 1e9:.2f} GB, card "
+        f"{run['peak'] / 1e9:.2f} GB; the count's bound "
+        f"{out['b_prefill']['bound_ms']:.1f} ms ({rep['bottleneck']}); on "
+        f"{card}")
+    del run
+    free()
+
+    # (c) llama3-8b depth 2 prefill on a model axis of card positions
+    cfg = ARCHS[arch].replace(num_layers=2)
+    label = (f"(c) {arch} depth 2 prefill, B={b} x {s}, bf16, mesh "
+             f"{ROOF_MESH}")
+    run = roof_step(card, label, cfg, shape, mesh_shape=ROOF_MESH)
+    colls = {}
+    for pos, rec in run["card"].items():
+        mine, want = rec.as_dict(), run["meta"][pos].as_dict()
+        if mine["collectives"] != want["collectives"]:
+            raise AssertionError(
+                f"{label}: position {pos}'s collectives differ: card "
+                f"{mine['collectives']}, meta {want['collectives']}")
+        colls[str(pos)] = mine["collectives"]
+    log("roof", f"{label}: each position's collectives equal the meta "
+        f"mesh's: {colls[str((0, 0))]}; on {card}")
+    out["c_mesh"] = {"label": label, "collectives": colls,
+                     "launches": run["launches"]}
+    del run
+    free()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("roof", f"phase 14 took {out['seconds']:.1f} s; on {card}")
+    return out
+
+
 # what ``--only`` runs after phase 1: the sources it builds (phase 2) and
 # its phase alone, with no result lines
 ONLY_SOURCES = {"wide": ["layer_fused", "mp_pipeline"],
@@ -7589,7 +7846,8 @@ ONLY_SOURCES = {"wide": ["layer_fused", "mp_pipeline"],
                 "model_parallel": ["flash_attention", "mp_scatter",
                                    "gather_rows"],
                 "model_train": ["flash_attention", "flash_attention_bwd",
-                                "mp_scatter", "gather_rows"]}
+                                "mp_scatter", "gather_rows"],
+                "roofline": ["flash_attention", "flash_attention_bwd"]}
 
 
 def main(argv=None) -> int:
@@ -7664,6 +7922,11 @@ def main(argv=None) -> int:
     if only == "model_train":
         # phase 13 alone: no result lines
         log("mt", "json " + json.dumps(mt_phase(card), default=str))
+        print(smi)
+        return 0
+    if only == "roofline":
+        # phase 14 alone: no result lines
+        log("roof", "json " + json.dumps(roofline_phase(card), default=str))
         print(smi)
         return 0
     scatter_build = scatter_build_report()
@@ -7747,8 +8010,13 @@ def main(argv=None) -> int:
     mt = mt_phase(card)
     log("mt", "json " + json.dumps(mt, default=str))
     paths.update(mt["paths"])
+    # 14. the dry run's count held against the card: qwen1.5-0.5b's
+    # training step, llama3-8b's prefill, llama3-8b on a model axis
+    roof = roofline_phase(card, train["paths"][f"train_{TRAIN_ARCH}"][
+        "step_ms_median"])
+    log("roof", "json " + json.dumps(roof, default=str))
 
-    # 14. result: each kernel's row at the largest shape its main path gives
+    # 15. result: each kernel's row at the largest shape its main path gives
     # it (the hep bucket for the GNN kernels), and its launches in its main
     # path's run
     def row(name, source, replaces, cases, main, path, shape):

@@ -57,6 +57,14 @@ rendezvous timeout set (``rendezvous_timeout``) a position that waits
 longer at a rendezvous fails the call with an error naming the
 collective, and ``shard_map`` raises it even where another position's
 thread never returns.
+
+Counting. Under an active ``repro_torch/counter.py::Counter`` in the caller,
+each position's thread counts into its own record, and each collective
+over more than one position records itself there (its kind, group size
+and result bytes, as the reference's HLO names them: ``psum`` and ``pmax``
+all-reduce, ``psum_scatter`` reduce-scatter, ``all_gather`` all-gather,
+``ppermute`` collective-permute; a transpose under the kind it runs), its
+inner work kept out of the position's FLOPs and bytes.
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ from repro_torch.distributed.sharding import (Mesh, MeshAxis, NamedSharding,
                                               P, Sharded, axis_names_of,
                                               shard, tree_leaves,
                                               tree_unflatten)
+from repro_torch import counter
 
 _LOCAL = threading.local()
 # seconds a position may wait at one rendezvous (None: no limit)
@@ -203,9 +212,13 @@ def _received(pos: _Position, t: Any, event, src_stream, *,
     """Another position's tensor ``t``, usable on this position: on this
     device after this stream waits on the sender's event (a copy with
     ``copy``, else ``t`` itself, recorded on this stream); from another
-    device copied on the sender's stream."""
+    device copied on the sender's stream. Meta positions stand for cards
+    of their own (the dry run, ``repro_torch/counter.py``): each receives a
+    copy, in its own bytes."""
     if not isinstance(t, torch.Tensor):
         return t
+    if t.device.type == "meta":
+        return t.clone()
     if t.device == pos.device:
         if (pos.stream is not None and src_stream is not None
                 and src_stream != pos.stream):
@@ -224,12 +237,25 @@ def _reduce(x: Any, axis_name: MeshAxis, op: Callable, what: str,
     in position order by the first; each position gets ``take(total,
     its index)`` of every leaf (the whole total without ``take``)."""
     leaves = tree_leaves(x)
+    if counter.active():
+        with counter.collective("all-reduce", _nbytes(leaves),
+                                axis_size(axis_name)):
+            return _reduce_leaves(x, leaves, axis_name, op, what, take)
+    return _reduce_leaves(x, leaves, axis_name, op, what, take)
+
+
+def _nbytes(leaves: List[Any]) -> int:
+    return sum(t.nbytes for t in leaves if isinstance(t, torch.Tensor))
+
+
+def _reduce_leaves(x: Any, leaves: List[Any], axis_name: MeshAxis,
+                   op: Callable, what: str, take: Optional[Callable]) -> Any:
     vals, idx = _exchange(axis_name, leaves, what)
     if len(vals) == 1:
         return x if take is None else tree_unflatten(
             x, [take(t, 0) for t in leaves])
     pos = _here()
-    totals = None
+    totals = value = other = None
     if idx == 0:
         totals = []
         for j, own in enumerate(leaves):
@@ -242,14 +268,20 @@ def _reduce(x: Any, axis_name: MeshAxis, op: Callable, what: str,
                 else:
                     op(acc, other, out=acc)         # in place after the first
             totals.append(acc)
+        del value, other
+    del vals
     published, _ = _exchange(axis_name, totals, what)
     if idx == 0:
-        return tree_unflatten(x, totals if take is None else [
-            take(t, 0).contiguous() for t in totals])
-    value, event, stream = published[0]
-    return tree_unflatten(x, [_received(
-        pos, t if take is None else take(t, idx), event, stream, copy=True)
-        for t in value])
+        out = totals if take is None else [take(t, 0).contiguous()
+                                           for t in totals]
+    else:
+        value, event, stream = published[0]
+        out = [_received(pos, t if take is None else take(t, idx), event,
+                         stream, copy=True) for t in value]
+        del value
+    del published, totals
+    _release(axis_name, what)
+    return tree_unflatten(x, out)
 
 
 def _scatter_sum(x: Any, axis_name: MeshAxis, dim: int, what: str,
@@ -269,16 +301,27 @@ def _scatter_sum(x: Any, axis_name: MeshAxis, dim: int, what: str,
                 f"{n}")
     if n == 1:
         return x
+    if counter.active():
+        with counter.collective("reduce-scatter", _nbytes(leaves) // n, n):
+            return _scatter_leaves(x, leaves, axis_name, dim, what, wide)
+    return _scatter_leaves(x, leaves, axis_name, dim, what, wide)
+
+
+def _scatter_leaves(x: Any, leaves: List[Any], axis_name: MeshAxis,
+                    dim: int, what: str, wide: bool) -> Any:
     vals, idx = _exchange(axis_name, leaves, what)
+    n = len(vals)
     pos = _here()
     out = []
+    value = block = acc = None
     for j, own in enumerate(leaves):
         size = own.shape[dim] // n
         acc = None
         for m, (value, event, stream) in enumerate(vals):
-            t = own if m == idx else _received(pos, value[j], event, stream,
-                                               copy=False)
-            block = t.narrow(dim, idx * size, size)
+            block = (own if m == idx else value[j]).narrow(dim, idx * size,
+                                                           size)
+            if m != idx:
+                block = _received(pos, block, event, stream, copy=False)
             block = block.to(torch.float32) if wide else block
             if acc is None:
                 acc = block
@@ -287,31 +330,70 @@ def _scatter_sum(x: Any, axis_name: MeshAxis, dim: int, what: str,
             else:
                 acc.add_(block)                 # in place after the first
         out.append(acc.to(own.dtype).contiguous())
+    del vals, value, block, acc
+    _release(axis_name, what)
     return tree_unflatten(x, out)
 
 
 def _gather(x: torch.Tensor, axis_name: MeshAxis, axis: int, tiled: bool,
             what: str) -> torch.Tensor:
-    vals, _ = _exchange(axis_name, x, what)
+    if counter.active():
+        n = axis_size(axis_name)
+        with counter.collective("all-gather", x.nbytes * n, n):
+            return _gather_parts(x, axis_name, axis, tiled, what)
+    return _gather_parts(x, axis_name, axis, tiled, what)
+
+
+def _gather_parts(x: torch.Tensor, axis_name: MeshAxis, axis: int,
+                  tiled: bool, what: str) -> torch.Tensor:
+    vals, idx = _exchange(axis_name, x, what)
     pos = _here()
-    parts = [_received(pos, v, event, stream, copy=False)
-             for v, event, stream in vals]
-    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
-                                                                dim=axis)
+    parts = [x if m == idx else _received(pos, v, event, stream, copy=False)
+             for m, (v, event, stream) in enumerate(vals)]
+    del vals
+    out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
+                                                               dim=axis)
+    del parts
+    _release(axis_name, what)
+    return out
 
 
 def _permute(x: Any, axis_name: MeshAxis, perm: Sequence[Tuple[int, int]],
              what: str) -> Any:
+    if counter.active():
+        with counter.collective("collective-permute",
+                                _nbytes(tree_leaves(x)),
+                                axis_size(axis_name)):
+            return _permute_leaves(x, axis_name, perm, what)
+    return _permute_leaves(x, axis_name, perm, what)
+
+
+def _permute_leaves(x: Any, axis_name: MeshAxis,
+                    perm: Sequence[Tuple[int, int]], what: str) -> Any:
     vals, idx = _exchange(axis_name, tree_leaves(x), what)
     src = [s for s, d in perm if d == idx]
     if not src:
-        return tree_unflatten(x, [torch.zeros_like(t)
-                                  for t in tree_leaves(x)])
-    if src[0] == idx:
-        return x
-    value, event, stream = vals[src[0]]
-    return tree_unflatten(x, [_received(_here(), t, event, stream,
-                                        copy=False) for t in value])
+        out = tree_unflatten(x, [torch.zeros_like(t)
+                                 for t in tree_leaves(x)])
+    elif src[0] == idx:
+        out = x
+    else:
+        value, event, stream = vals[src[0]]
+        out = tree_unflatten(x, [_received(_here(), t, event, stream,
+                                           copy=False) for t in value])
+        del value
+    del vals
+    _release(axis_name, what)
+    return out
+
+
+def _release(axis_name: MeshAxis, what: str) -> None:
+    """On meta positions, a rendezvous once each member has dropped the
+    other members' tensors: a position's storages then die when its own
+    references do, so its live bytes (``repro_torch/counter.py``) are its own
+    and the same in every run, whatever the threads' order."""
+    if _here().device.type == "meta":
+        _exchange(axis_name, None, f"{what} (release)")
 
 
 def _in_float32(fn: Callable, x: Any) -> Any:
@@ -439,7 +521,8 @@ def grad(outputs: Any, inputs: Sequence[torch.Tensor],
     if pos is not None:
         nodes, pos.tapes[-1].nodes = pos.tapes[-1].nodes, []
     acc: Dict[int, torch.Tensor] = {}
-    _walk(nodes, outs, cots, [t for t in inputs if _needs(t)], acc)
+    with counter.backward():
+        _walk(nodes, outs, cots, [t for t in inputs if _needs(t)], acc)
     return [acc.get(id(t)) for t in inputs]
 
 
@@ -668,7 +751,7 @@ def _assemble(outs: Dict[Tuple, Any], spec: Any, mesh: Mesh) -> Any:
 
 
 def _position_main(call: _Call, coord, f, args, results, grad: bool,
-                   inference: bool, starts) -> None:
+                   inference: bool, starts, count) -> None:
     pos = _Position(call, coord)
     _LOCAL.position = pos
     try:
@@ -679,7 +762,13 @@ def _position_main(call: _Call, coord, f, args, results, grad: bool,
                 pos.stream.wait_event(starts[pos.device])
             stack.enter_context(torch.inference_mode() if inference
                                 else torch.set_grad_enabled(grad))
-            results[coord] = f(*args)
+            if count is None:
+                results[coord] = f(*args)
+            else:
+                record = stack.enter_context(count())
+                record.arguments(args)
+                results[coord] = f(*args)
+                record.outputs(results[coord])
     except _Abandoned:
         pass
     except BaseException as e:                      # noqa: BLE001
@@ -713,7 +802,8 @@ def _run_positions(mesh: Mesh, f: Callable,
         target=_position_main, name=f"shard_map{coord}", daemon=True,
         args=(call, coord, f, args_of[coord], results,
               torch.is_grad_enabled(), torch.is_inference_mode_enabled(),
-              starts)) for coord in mesh.positions()]
+              starts, counter.open_position(coord)))
+        for coord in mesh.positions()]
     for t in threads:
         t.start()
     limit = _TIMEOUT["s"]

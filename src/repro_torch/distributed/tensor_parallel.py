@@ -125,12 +125,13 @@ def float32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     piece's partial sum before it is added over the axis, so that it is
     rounded once, after the sum, as the whole product is. 16-bit operands
     on the card go through cuBLAS with a float32 output (``mm``'s
-    ``out_dtype`` overload, ``_Float32Product`` under grad); elsewhere
-    they are widened first."""
+    ``out_dtype`` overload, ``_Float32Product`` under grad), and so do
+    meta ones, which plan the card's ops (``repro_torch/counter.py``);
+    elsewhere they are widened first."""
     if h.dtype == torch.float32 and w.dtype == torch.float32:
         return h @ w
     h2 = h.reshape(-1, h.shape[-1])
-    if h.is_cuda:
+    if h.is_cuda or h.is_meta:
         out = _Float32Product.apply(h2, w)
     else:
         out = h2.to(torch.float32) @ w.to(torch.float32)

@@ -17,7 +17,11 @@ output is (B, H, Sq, D) in ``q.dtype``. Per query row i and key j:
 ``flash_attention`` takes its plain version ``flash_attention_ref`` for
 tensors on the CPU. For CUDA tensors it launches the hand-written kernel
 ``csrc/flash_attention.cu`` (float32 or bfloat16, D of 16, 32, ... 256)
-or raises; ``flash_attention.launches`` counts those launches. ``q_tile``
+or raises; ``flash_attention.launches`` counts those launches. For
+``meta`` tensors (the dry run, ``repro_torch/counter.py``) it makes the
+kernel's outputs, checks the kernel's limits and launches nothing. Under
+an active counter each call, on the card or on meta, declares its
+launches and its work (``kernels/cost.py``). ``q_tile``
 and ``kv_tile`` are the reference's contract on the lengths (Sq % q_tile ==
 Sk % kv_tile == 0, else ``ValueError``) and its TPU grid; the CUDA kernel
 tiles by its own constants and masks ragged ends, so they change nothing
@@ -47,8 +51,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.mp_pipeline import launch_ptr
+from repro_torch import counter
 
 # the head widths the CUDA kernel is instantiated for
 CUDA_HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -173,11 +178,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q (B, H, Sq, D) over k, v (B, H, Sk, D), in
     ``q.dtype``. Sq % q_tile == Sk % kv_tile == 0 (``ValueError``
     otherwise). CPU tensors run ``flash_attention_ref``; CUDA tensors
-    launch the kernel. Where autograd needs the graph (grad mode on and q,
-    k or v requiring grad) the call goes through ``FlashAttentionFn``."""
+    launch the kernel; meta tensors get its outputs. Where autograd needs
+    the graph (grad mode on and q, k or v requiring grad) the call goes
+    through ``FlashAttentionFn``."""
     _check(q, k, v, q_tile, kv_tile)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, not "
                          f"{q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -193,7 +199,8 @@ flash_attention.launches = 0
 
 def _forward_with_lse(q, k, v, causal, window, softcap):
     """(out, lse float32 (B, H, Sq)): the plain version for CPU tensors, the
-    forward kernel with its lse output for CUDA ones."""
+    forward kernel with its lse output for CUDA ones (its outputs for meta
+    ones)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, with_lse=True)
@@ -232,14 +239,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     ``flash_attention_bwd_ref``; CUDA tensors launch
     ``csrc/flash_attention_bwd.cu`` (its dQ launch computes delta = rowsum
     (dout * out) in float32 for its rows, its dK / dV launch reads it) or
-    raise."""
+    raise; meta tensors get its outputs."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                        causal=causal, window=window,
                                        softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_bwd runs on cpu, cuda or meta, "
+                         f"not {q.device}")
     return _launch_bwd(q, k, v, out, lse, dout, causal=causal,
                        window=window, softcap=softcap)[:3]
 
@@ -292,6 +299,12 @@ def _launch(q, k, v, *, causal, window, softcap, lse=None):
         raise ValueError("q, k, v must start on 16-byte boundaries")
     lse_ptr = None if lse is None else need(lse, "lse", torch.float32,
                                             (b, h, sq))
+    if counter.active():
+        counter.note_kernel("flash_attention", *cost.flash_work(
+            b, h, sq, sk, d, causal=causal, window=window,
+            itemsize=q.element_size(), lse=lse is not None))
+    if dev.type == "meta":
+        return out
     err = _kernel()(*ptrs, lse_ptr, b * h, sq, sk, d,
                     int(q.dtype == torch.bfloat16),
                     int(causal), int(window is not None), window or 0,
@@ -342,6 +355,13 @@ def _launch_bwd(q, k, v, out, lse, dout, *, causal, window, softcap):
     stats = torch.empty((b * h, 2, -(-sq // 64) * 64), dtype=torch.float32,
                         device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    launches = int(sq > 0) + int(sk > 0)
+    if counter.active():
+        counter.note_kernel("flash_attention_bwd", *cost.flash_bwd_work(
+            b, h, sq, sk, d, causal=causal, window=window,
+            itemsize=q.element_size()), launches=launches)
+    if dev.type == "meta":
+        return dq, dk, dv, stats
     err = _kernel_bwd()(*ptrs, need(lse, "lse", torch.float32, (b, h, sq)),
                         stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                         dv.data_ptr(), b * h, sq, sk, d,
@@ -354,5 +374,5 @@ def _launch_bwd(q, k, v, out, lse, dout, *, causal, window, softcap):
         raise RuntimeError(f"flash_attention_bwd launch failed with CUDA "
                            f"error {err}")
     # two CUDA launches a call: dQ (and delta), then dK / dV
-    build.count_launches(flash_attention_bwd, int(sq > 0) + int(sk > 0))
+    build.count_launches(flash_attention_bwd, launches)
     return dq, dk, dv, stats

@@ -9,7 +9,10 @@ of the JAX package clips it to the nearest row.
 ``gather_rows`` takes its plain version ``gather_rows_ref`` for tensors on
 the CPU. For CUDA tensors it launches the hand-written kernel
 ``csrc/gather_rows.cu`` (y float32 or bfloat16) or raises;
-``gather_rows.launches`` counts those launches. The tile knobs
+``gather_rows.launches`` counts those launches. For ``meta`` tensors (the
+dry run) it makes the kernel's output and launches nothing; under an
+active counter (``repro_torch/counter.py``) each call, on the card or on meta,
+declares its launch and its work (``kernels/cost.py``). The tile knobs
 (``idx_tile``, ``num_banks``) describe the TPU kernel's grid: the result
 does not depend on them, but the reference's padding rules stand.
 
@@ -27,8 +30,9 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.mp_pipeline import launch_ptr
+from repro_torch import counter
 
 # the dtypes the CUDA kernel reads y in
 CUDA_Y_DTYPES = (torch.float32, torch.bfloat16)
@@ -48,15 +52,16 @@ def gather_rows(y: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, *,
     """out[i] = y[idx[i]] (masked or out-of-range rows 0), (S, D) float32.
     S % idx_tile == 0 and N % num_banks == 0, as the reference asks (pad
     at the call site). CPU tensors run ``gather_rows_ref``; CUDA tensors
-    launch the kernel."""
+    launch the kernel; meta tensors get its output."""
     if y.ndim != 2 or idx.ndim != 1 or mask.shape != idx.shape:
         raise ValueError(f"gather_rows expects y (N, D) and idx, mask (S,); "
                          f"got {tuple(y.shape)}, {tuple(idx.shape)}, "
                          f"{tuple(mask.shape)}")
     if idx.shape[0] % idx_tile or y.shape[0] % num_banks:
         raise ValueError("pad S to idx_tile and N to num_banks")
-    if y.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"gather_rows runs on cpu or cuda, not {y.device}")
+    if y.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"gather_rows runs on cpu, cuda or meta, not "
+                         f"{y.device}")
     if torch.is_grad_enabled() and y.requires_grad:
         return GatherRowsFn.apply(y, idx, mask)
     return _gather(y, idx, mask)
@@ -118,6 +123,11 @@ def _launch(y, idx, mask):
             need(idx, "idx", torch.int64, (s,)),
             need(mask, "mask", torch.bool, (s,)))
     out = torch.empty((s, d), dtype=torch.float32, device=dev)
+    if counter.active():
+        counter.note_kernel("gather_rows", *cost.gather_rows_work(
+            s, d, y.element_size()), launches=int(s > 0))
+    if dev.type == "meta":
+        return out
     err = _kernel()(*ptrs, out.data_ptr(), n, s, d,
                     int(y.dtype == torch.bfloat16),
                     torch.cuda.current_stream(dev).cuda_stream)

@@ -46,10 +46,11 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.mp_pipeline import (launch_ptr, no_backward,
                                              owned_stream, seg_extreme_rows,
                                              seg_sum_rows)
+from repro_torch import counter
 
 # Statistic names in the fixed output order of mp_scatter_multi.
 MULTI_STATS = ("sum", "sumsq", "count", "max", "min")
@@ -99,8 +100,9 @@ def _check_msg(msg: torch.Tensor, what: str) -> None:
     if msg.ndim != 2:
         raise ValueError(f"{what} expects (E, D) messages, got "
                          f"{tuple(msg.shape)}")
-    if msg.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} runs on cpu or cuda, not {msg.device}")
+    if msg.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{what} runs on cpu, cuda or meta, not "
+                         f"{msg.device}")
 
 
 def mp_scatter(msg: torch.Tensor, receivers: torch.Tensor,
@@ -131,7 +133,8 @@ def _scatter_sum(msg, receivers, edge_mask, num_nodes, rows_per_block):
                               num_nodes).to(msg.dtype)
     out = _launch(msg, receivers, edge_mask, num_nodes, ("sum",),
                   rows_per_block, multi=False)["sum"]
-    build.count_launches(mp_scatter, int(num_nodes > 0))
+    if msg.device.type == "cuda":
+        build.count_launches(mp_scatter, int(num_nodes > 0))
     return out
 
 
@@ -177,7 +180,8 @@ def mp_scatter_multi(msg: torch.Tensor, receivers: torch.Tensor,
                                     stats)
     out = _launch(msg, receivers, edge_mask, num_nodes, stats,
                   rows_per_block, multi=True)
-    build.count_launches(mp_scatter_multi, int(num_nodes > 0))
+    if msg.device.type == "cuda":
+        build.count_launches(mp_scatter_multi, int(num_nodes > 0))
     return out
 
 
@@ -249,12 +253,18 @@ def _launch(msg, receivers, edge_mask, num_nodes, stats, rows_per_block, *,
     # (N + 1), the edges by row (E)
     scratch = torch.empty(2 * num_nodes + 1 + e, dtype=torch.int32,
                           device=dev)
+    name = "mp_scatter_multi" if multi else "mp_scatter"
+    if counter.active():
+        counter.note_kernel(name, *cost.scatter_work(
+            name, e, d, num_nodes, msg.element_size(), stats=stats),
+            launches=int(num_nodes > 0))
+    if dev.type == "meta":
+        return out
     base = scratch.data_ptr()
     err = _kernel(multi)(*ptrs, *outs, num_nodes, e, d, rows_per_block or 0,
                          int(msg.dtype == torch.bfloat16), base,
                          base + 4 * num_nodes, base + 4 * (2 * num_nodes + 1),
                          torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        name = "mp_scatter_multi" if multi else "mp_scatter"
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     return out

@@ -49,12 +49,17 @@ caches. Each position holds its pieces of the weights and caches
 GSPMD puts them (``distributed/tensor_parallel.py``, ``nn/attention.py``,
 ``nn/mlp.py``, ``nn/moe.py``, ``nn/ssm.py``, ``nn/rglru.py``,
 ``models/lm.py``). The steps return the caches as ``Sharded`` trees, and
-decode takes them back. The reference's ``lowering_bundle`` lowers the
-steps for its dry-run, which the port has not reached.
+decode takes them back.
+
+``lowering_bundle`` gives the dry run (``launch/dryrun.py``) a step on a
+mesh and its whole inputs as ``meta`` tensors: one run of the step on
+meta positions under a ``repro_torch/counter.py::Counter`` is the port's
+lowering, as the reference's ``lowering_bundle`` is lowered and compiled.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -64,8 +69,9 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed.collectives import (all_gather, axis_index,
                                                  psum, shard_map)
 from repro_torch.distributed.sharding import (Mesh, P, ParamDef, Sharded,
-                                              ShardingRules, axis_names_of,
-                                              device_put, gather,
+                                              ShardingRules, abstract_params,
+                                              axis_names_of, device_put,
+                                              gather,
                                               make_dp_only_rules, make_rules,
                                               map_tree,
                                               param_shardings, param_specs)
@@ -132,6 +138,23 @@ def batch_defs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ParamDef]:
         defs["prefix_embed"] = ParamDef(
             (b, cfg.prefix_len, cfg.d_model), ("batch", None, None),
             init="zeros", dtype=cfg.dtype)
+    return defs
+
+
+def decode_input_defs(cfg: ModelConfig, shape: ShapeConfig
+                      ) -> Dict[str, ParamDef]:
+    b = shape.global_batch
+    return {
+        "token": ParamDef((b, 1), ("batch", None), init="zeros",
+                          dtype=torch.int32),
+        "position": ParamDef((), (), init="zeros", dtype=torch.int32),
+    }
+
+
+def prefill_input_defs(cfg: ModelConfig, shape: ShapeConfig
+                       ) -> Dict[str, ParamDef]:
+    defs = batch_defs(cfg, shape)
+    del defs["labels"]
     return defs
 
 
@@ -395,5 +418,51 @@ def _serving_step(cfg: ModelConfig, rules: ShardingRules, mesh: Mesh,
     return step
 
 
-__all__ = ["batch_defs", "build_rules", "make_decode_step",
-           "make_prefill_step", "make_sharded_train_step", "make_train_step"]
+# ---------------------------------------------------------------------------
+# the dry run's bundle: a step on a mesh and its whole inputs on meta
+# ---------------------------------------------------------------------------
+
+def lowering_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
+                    tcfg: Optional[TrainConfig] = None
+                    ) -> Tuple[Callable, tuple]:
+    """(step, args) with ``step(*args)`` the ``shape.kind`` step of
+    ``cfg`` on ``mesh`` under ``build_rules(cfg, mesh, kind,
+    global_batch=...)``, and ``args`` its whole inputs as ``meta`` tensors
+    (``abstract_params``), which the step's ``shard_map`` splits by their
+    specs: (params, opt_state, batch) for training, (params, caches,
+    batch) for prefill, (params, caches, inputs) for decode. Training
+    takes ``cfg.train_microbatches`` where ``tcfg`` asks for one, as the
+    reference does. Decode's ``position`` is a Python int, the cache's last
+    slot: the decode attends over the whole cache under a mask
+    (``nn/attention.py``), so what it does does not depend on it."""
+    kind = shape.kind
+    rules = build_rules(cfg, mesh, kind, global_batch=shape.global_batch)
+    pdefs = lm.lm_param_defs(cfg)
+    p_abs = abstract_params(pdefs)
+    if kind == "train":
+        tcfg = tcfg or TrainConfig()
+        if cfg.train_microbatches > 1 and tcfg.microbatches == 1:
+            tcfg = dataclasses.replace(
+                tcfg, microbatches=cfg.train_microbatches)
+        opt = get_optimizer(cfg.optimizer)
+        step = make_train_step(cfg, tcfg, rules, mesh)
+        return step, (p_abs, abstract_params(opt.state_defs(pdefs)),
+                      abstract_params(batch_defs(cfg, shape)))
+    c_abs = abstract_params(lm.lm_cache_defs(cfg, shape.global_batch,
+                                             shape.seq_len))
+    if kind == "prefill":
+        step = make_prefill_step(cfg, rules, mesh)
+        return step, (p_abs, c_abs,
+                      abstract_params(prefill_input_defs(cfg, shape)))
+    if kind == "decode":
+        idefs = decode_input_defs(cfg, shape)
+        del idefs["position"]
+        inputs = {**abstract_params(idefs), "position": shape.seq_len - 1}
+        return make_decode_step(cfg, rules, mesh), (p_abs, c_abs, inputs)
+    raise ValueError(kind)
+
+
+__all__ = ["batch_defs", "build_rules", "decode_input_defs",
+           "lowering_bundle", "make_decode_step", "make_prefill_step",
+           "make_sharded_train_step", "make_train_step",
+           "prefill_input_defs"]

@@ -30,7 +30,12 @@ and its ``wo`` product, a partial sum, is added over the axis in float32
 (``psum``, or ``psum_scatter`` back to each position's rows: Megatron-SP).
 Where the KV heads do not divide the axis each position holds part of a
 head's columns: K and V are all-gathered whole (the reference's
-``act_kv = None``) and each query head takes its KV head. The cache
+``act_kv = None``) and each query head takes its KV head. Where the query
+heads do not divide it either (recurrentgemma-2b's 10 on a 16-way axis:
+GSPMD pads the heads) Q is all-gathered whole too, every position
+computes every head, and takes its block of the output's columns for its
+row piece of ``wo``: the same values, the placements of the weights
+unchanged. The cache
 follows ``build_rules``: split by KV heads, each position updating its
 own; or, where the heads do not divide, by sequence: the prefill writes
 each position's range, and a decode step computes every query head over
@@ -52,7 +57,7 @@ from repro_torch.distributed.sharding import (Mesh, MeshAxis, ParamDef,
                                               ShardingRules,
                                               logical_constraint)
 from repro_torch.distributed.tensor_parallel import (gather_fsdp, gather_seq,
-                                                     global_batch,
+                                                     global_batch, own_rows,
                                                      row_parallel, split_axis)
 from repro_torch.kernels import ops
 from repro_torch.nn.layers import apply_rope, softcap
@@ -182,8 +187,14 @@ def attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     v = x @ gather_fsdp(params["wv"], 0, ef)
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    # every query head on every position where a position would hold
+    # part of one (the heads do not divide the axis)
+    whole_q = head_ax is not None and h % axis_size(head_ax) != 0
+    if whole_q:
+        q = all_gather(q, head_ax, axis=-1, tiled=True)
     n_q = q.shape[-1] // dh
-    q0 = axis_index(head_ax) * n_q if head_ax is not None else 0
+    q0 = axis_index(head_ax) * n_q if head_ax is not None and not whole_q \
+        else 0
     # every KV head on every position where the KV columns are not split,
     # where a position would hold part of a head, or where the cache is
     # split by sequence (every head over each position's range)
@@ -205,8 +216,9 @@ def attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     gb = global_batch(b, rules, mesh)
-    q = logical_constraint(q, "batch", "seq", "act_heads", None, rules=rules,
-                           mesh=mesh, shape=(gb, s, h, dh))
+    if not whole_q:
+        q = logical_constraint(q, "batch", "seq", "act_heads", None,
+                               rules=rules, mesh=mesh, shape=(gb, s, h, dh))
 
     new_cache = None
     if cache is not None and s == 1:
@@ -221,7 +233,7 @@ def attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
             if start <= at < start + rows:       # the owner of the index
                 cache.k[:, at - start] = k[:, 0].to(cache.k.dtype)
                 cache.v[:, at - start] = v[:, 0].to(cache.v.dtype)
-            q_all = q if head_ax is None else all_gather(
+            q_all = q if head_ax is None or whole_q else all_gather(
                 q.reshape(b, 1, n_q * dh), head_ax, axis=-1,
                 tiled=True).reshape(b, 1, h, dh)
             o = decode_attention(q_all, cache.k, cache.v, at + 1,
@@ -261,18 +273,24 @@ def attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                 n = max(0, min(s - start, rows))
                 for buf, new in ((cache.k, k), (cache.v, v)):
                     buf[:, :n] = new[:, start:start + n].to(buf.dtype)
-                    buf[:, n:] = 0
+                    buf[:, n:].zero_()
             else:
                 k_c, v_c, _ = _cache_heads(k, v, cache, rules, mesh,
                                            whole_kv, kv0)
                 for buf, new in ((cache.k, k_c), (cache.v, v_c)):
                     buf[:, :s] = new.to(buf.dtype)
-                    buf[:, s:] = 0
+                    # zero_, not "= 0": setitem of a scalar decomposes by
+                    # device (fill_ on the card, a scalar tensor copied on
+                    # meta), and the dry run plans the card's ops
+                    buf[:, s:].zero_()
             new_cache = KVCache(cache.k, cache.v, s)
 
-    o = logical_constraint(o, "batch", "seq", "act_heads", None, rules=rules,
-                           mesh=mesh, shape=(gb, s, h, dh))
-    o = o.reshape(b, s, n_q * dh)
+    if whole_q:                     # the columns of wo's row piece
+        o = own_rows(o.reshape(b, s, h * dh), head_ax, dim=2)
+    else:
+        o = logical_constraint(o, "batch", "seq", "act_heads", None,
+                               rules=rules, mesh=mesh, shape=(gb, s, h, dh))
+        o = o.reshape(b, s, n_q * dh)
     return (row_parallel(o, gather_fsdp(params["wo"], 1, ef), head_ax, sp,
                          x.dtype), new_cache)
 

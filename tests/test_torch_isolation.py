@@ -93,7 +93,13 @@ def test_the_mesh_modules_are_walked():
                 "repro_torch.distributed.pipeline",
                 "repro_torch.distributed.sharding",
                 "repro_torch.launch.mesh",
-                "repro_torch.optim.compression"):
+                "repro_torch.optim.compression",
+                "repro_torch.counter",
+                "repro_torch.kernels.cost",
+                "repro_torch.launch.dryrun",
+                "repro_torch.launch.hlo_cost",
+                "repro_torch.launch.report",
+                "repro_torch.launch.roofline"):
         assert mod in names
         path = REPO / "src" / (mod.replace(".", "/") + ".py")
         assert path in SOURCES and _bad_imports(path) == []
