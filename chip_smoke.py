@@ -225,22 +225,26 @@ Phases, each printing its own lines:
                in a CUDA graph and replayed bitwise; the three calls
                timed beside ``index_add_`` / ``index_select``.
   7. flash   — first, per instantiation of csrc/flash_attention.cu (bf16
-               on the tensor cores, float32 FMA, each head width): the
-               registers, shared memory and spill bytes of the build's
-               ``-Xptxas -v`` log and the HGMMA count of its SASS
-               (``cuobjdump -sass``); fails if a bf16 one holds no HGMMA.
-               Then ``flash_attention`` against its plain version at
-               llama3-8b's prefill (B=1 in bf16 and float32; the LM path's
-               B=2 in bf16), gemma2-27b's local layer (8192 tokens, window
-               4096, softcap 50 reached by scaled queries, bf16 and
-               float32), causal Sq > Sk (rows that see no key are 0), bf16
-               at D = 16, 32, 64 (window 128, softcap 30) and 256, and a
-               ragged Sq = Sk = 1000 at D=128 with window 300: bf16 within
-               one bf16 unit, float32 within 2e-5; at each shape the
+               on the tensor cores, float32 on them too, each operand in
+               three bf16 terms; each head width): the registers, shared
+               memory and spill bytes of the build's ``-Xptxas -v`` log
+               and the HGMMA count of its SASS (``cuobjdump -sass``);
+               fails if one holds no HGMMA. Then ``flash_attention``
+               against its plain version at llama3-8b's prefill (B=1 in
+               bf16 and float32; the LM path's B=2 in bf16), gemma2-27b's
+               local layer (8192 tokens, window 4096, softcap 50 reached by
+               scaled queries, bf16 and float32), causal Sq > Sk (rows that
+               see no key are 0), D = 16, 32, 64 (window 128, softcap 30)
+               and 256, and a ragged Sq = Sk = 1000 at D=128 with window
+               300, each in bf16 and float32: bf16 within one bf16 unit,
+               float32 within 2e-5 (and each float32 case's kernel and
+               plain version against a float64 one); at each shape the
                tolerance fails planted faults (one of the kernel's own kv
                tiles skipped, the window or the softcap ignored); bitwise
-               across two runs; times beside the bound and, at the LM
-               shapes, ``scaled_dot_product_attention``.
+               across two runs; times beside the bound (float32: six bf16
+               products a product on the tensor cores, the FMA bound
+               beside it) and, at the LM shapes,
+               ``scaled_dot_product_attention``.
   8. lm      — llama3-8b at full width: depth 2 in float32 against the plain
                attention path; then ``serve_lm(full=True)``, all 32 layers in
                bf16, B=2 prompts of 2048 tokens and 32 generated tokens each,
@@ -275,18 +279,22 @@ Phases, each printing its own lines:
                runs phases 1, 2 (three sources) and 9 alone.
   10. train  — the LM training path ([train] lines). (a) the backward
                kernel ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu:
-               bf16 on wgmma and TMA, float32 on FMAs; dQ and delta, then
-               dK / dV) against its plain version at qwen1.5-0.5b's,
-               llama3-8b's, gemma2-27b's local (softcap 50, q x50) and
+               bf16 on wgmma and TMA, float32 on wgmma too, each operand
+               in three bf16 terms; dQ and delta, then dK / dV) against
+               its plain version at qwen1.5-0.5b's, llama3-8b's,
+               gemma2-27b's local (softcap 50, q x50) and
                recurrentgemma-2b's local (D=256, window 2048) training
-               shapes, float32, Sq < Sk and a ragged 1000 (each gradient
-               within 2^-7 of its scale, float32 within 2e-5), the
-               forward's lse from the forward kernel; bitwise across two
-               runs; planted faults (dq skipping one kv tile, the softcap's
-               derivative dropped) must fail the tolerance; each
-               instantiation's registers, spills and SASS HGMMA count (the
-               wgmma ones must hold HGMMA, none an ATOM or RED); times
-               beside the bound (10 D operations a visible pair) and
+               shapes, Sq < Sk and a ragged 1000, bf16 and float32 (each
+               gradient within 2^-7 of its scale, float32 within 2e-5, and
+               each float32 case's kernel and plain version against a
+               float64 one), the forward's lse from the forward kernel;
+               bitwise across two runs; planted faults (dq skipping one kv
+               tile, the softcap's derivative dropped) must fail the
+               tolerance; each instantiation's registers, spills and SASS
+               HGMMA count (every one must hold HGMMA, none an ATOM or
+               RED); times beside the bound (10 D operations a visible
+               pair; float32 six bf16 products each, the FMA bound beside
+               it) and
                SDPA's backward (with an explicit end-aligned mask under a
                window or Sq < Sk; a refusal is logged). (b) qwen1.5-0.5b and
                olmoe-1b-7b at full width, depth 2, float32: ``lm_loss`` and
@@ -2258,6 +2266,17 @@ FLASH_CASES = {
                     None),
     "k_ragged_1000_window_bf16": (1, 4, 1000, 1000, 128, True, 300, None,
                                   1.0, "bfloat16", None),
+    # the same five in float32 (the three-term kernel at every head width)
+    "l_d16_f32": (1, 4, 512, 512, 16, True, None, None, 1.0, "float32",
+                  None),
+    "m_d32_f32": (1, 4, 512, 512, 32, True, None, None, 1.0, "float32",
+                  None),
+    "n_d64_window_softcap_f32": (1, 4, 512, 512, 64, True, 128, 30.0, 30.0,
+                                 "float32", None),
+    "o_d256_f32": (1, 4, 512, 512, 256, True, None, None, 1.0, "float32",
+                   None),
+    "p_ragged_1000_window_f32": (1, 4, 1000, 1000, 128, True, 300, None,
+                                 1.0, "float32", None),
 }
 
 
@@ -2366,27 +2385,51 @@ SDPA_TXT = ("library torch.nn.functional.scaled_dot_product_attention "
             "kernel's end alignment)")
 
 
+def split_bound(nbytes, flops, dtype):
+    """``work_bound`` of a flash kernel's work on the route it takes: bf16
+    on the tensor cores; float32 by the fp32-accurate route of
+    ``csrc/split3.cuh``, its operations six times over (each product six
+    bf16 products of three-term operands) at the bf16 tensor-core rate, or
+    its bytes where they take longer. ``kernels/cost.py``'s declared work
+    stays the function's own."""
+    if dtype == "bfloat16":
+        return work_bound(nbytes, flops, dtype)
+    return work_bound(nbytes, 6 * flops, "bfloat16")
+
+
+def log_fma_bound(phase, label, bound, dtype):
+    """For float32: the FMA bound (the work at float32's 67 TFLOP/s outside
+    the tensor cores) beside the split bound; returns it (ms), or None."""
+    if dtype != "float32":
+        return None
+    fma = work_bound(bound[2], bound[3] / 6, "float32")
+    log(phase, f"{label}: float32 bounds: split {bound[0] * 1e3:.3f} us "
+        f"(by {bound[1]}; the operations six times over at bf16's 989 "
+        f"TFLOP/s), FMA {fma[0] * 1e3:.3f} us (by {fma[1]}; the "
+        f"operations at float32's 67 TFLOP/s)")
+    return fma[0]
+
+
 def flash_bound(b, h, sq, sk, d, causal, window, dtype):
     """The least time (ms): the work of ``kernels/cost.py::flash_work`` (q,
     k, v and out once each; 4 D operations per visible (query, key) pair,
-    the pairs this mask leaves) at the peak rate of the inputs' type (bf16
-    on the tensor cores, float32 outside them)."""
+    the pairs this mask leaves) by ``split_bound``."""
     from repro_torch.kernels import cost
-    return work_bound(*cost.flash_work(
+    return split_bound(*cost.flash_work(
         b, h, sq, sk, d, causal=causal, window=window,
         itemsize=2 if dtype == "bfloat16" else 4), dtype)
 
 
 def flash_instantiation(symbol: str):
     """(dtype, D) of a mangled kernel name of csrc/flash_attention.cu, or
-    None: ``tc::flash_attention_wgmma<D>`` is bf16, ``flash_attention_
-    kernel<D>`` float32."""
+    None: ``tc::flash_attention_wgmma<D>`` is bf16, ``x3::flash_attention_
+    x3<D>`` float32."""
     import re
-    m = re.search(r"flash_attention_wgmmaILi(\d+)E", symbol)
-    if m:
-        return "bfloat16", int(m.group(1))
-    m = re.search(r"flash_attention_kernelILi(\d+)E", symbol)
-    return ("float32", int(m.group(1))) if m else None
+    m = re.search(r"flash_attention_(wgmma|x3)ILi(\d+)E", symbol)
+    if not m:
+        return None
+    return ("bfloat16" if m.group(1) == "wgmma" else "float32",
+            int(m.group(2)))
 
 
 def flash_build_report() -> dict:
@@ -2394,7 +2437,8 @@ def flash_build_report() -> dict:
     and static shared memory from the build's ``-Xptxas -v`` log, the
     dynamic shared memory a block asks for, and the count of HGMMA (wgmma)
     instructions in the library's SASS (``cuobjdump -sass`` of the toolkit
-    beside nvcc). Raises unless every bf16 instantiation holds HGMMA."""
+    beside nvcc). Raises unless every instantiation, bf16 and float32,
+    holds HGMMA."""
     from repro_torch.kernels import build
     lib = build.library_path("flash_attention")
     report = ptxas_report("flash_attention", flash_instantiation)
@@ -2418,8 +2462,8 @@ def flash_build_report() -> dict:
             f"static, {info.get('hgmma', 0)} HGMMA in its SASS "
             f"(ptxas -v log, cuobjdump -sass)")
         rows[f"{dtype}_d{d}"] = info
-    missing = [f"bf16 D={d}" for (dtype, d) in report
-               if dtype == "bfloat16" and not report[(dtype, d)].get("hgmma")]
+    missing = [f"{dtype} D={d}" for (dtype, d) in report
+               if not report[(dtype, d)].get("hgmma")]
     if missing or len(report) != 10:
         raise AssertionError(f"flash_attention's SASS: {len(report)} "
                              f"instantiations, without HGMMA: {missing}")
@@ -2465,10 +2509,19 @@ def flash_phase(card: str):
                 raise AssertionError(f"flash_attention {name}: rows that "
                                      f"see no key are not 0")
             zero_rows = f"; the {sq - sk} rows that see no key are 0"
+        f64 = ""
+        if dtype == "float32":
+            exact = flash_attention_ref(q.double(), k.double(), v.double(),
+                                        **kw)
+            f64 = (f"; against float64: kernel "
+                   f"{float((out.double() - exact).abs().max()):.3e}, plain "
+                   f"{float((ref.double() - exact).abs().max()):.3e}")
+            del exact
         log("flash", f"flash_attention {name}: B={b} H={h} Sq={sq} Sk={sk} "
             f"D={d} causal={causal} window={window} softcap={cap} "
             f"q x{q_scale:g} {dtype}; max_abs_err={err:.3e} tol: |k-p| <= "
-            f"{atol:g} + {rtol:g}|p|{zero_rows}; {'ok' if ok else 'FAIL'}")
+            f"{atol:g} + {rtol:g}|p|{zero_rows}{f64}; "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention {name} disagrees with its "
                                  f"plain version")
@@ -2487,11 +2540,13 @@ def flash_phase(card: str):
                     q, k, v, is_causal=True)
         # calls over ~1 ms are timed with fewer repetitions
         long = time_ms(plain, reps=1, inner=1)[0] > 1.0
+        bound = flash_bound(b, h, sq, sk, d, causal, window, dtype)
         rows[name] = timed_row(
-            card, "flash", f"flash_attention {name}", kern, plain,
-            flash_bound(b, h, sq, sk, d, causal, window, dtype), err=err,
-            library=library, library_txt=SDPA_TXT,
+            card, "flash", f"flash_attention {name}", kern, plain, bound,
+            err=err, library=library, library_txt=SDPA_TXT,
             **(dict(reps=5, inner=3) if long else {}))
+        rows[name]["fma_bound_ms"] = log_fma_bound(
+            "flash", f"flash_attention {name}", bound, dtype)
         del q, k, v, out, ref, again
         torch.cuda.empty_cache()
     return rows, report
@@ -5941,6 +5996,18 @@ FLASH_BWD_CASES = {
                         "bfloat16", "sdpa_mask"),
     "g_ragged_1000_window_bf16": (1, 4, 1000, 1000, 128, True, 300, None,
                                   1.0, "bfloat16", "sdpa_mask"),
+    # float32 (the three-term kernels) at llama3-8b's D=128, gemma2's
+    # softcap, recurrentgemma's D=256 window, Sq < Sk and a ragged length
+    "h_llama3_8b_train_f32": (1, 32, 2048, 2048, 128, True, None, None, 1.0,
+                              "float32", "sdpa"),
+    "i_gemma2_27b_local_f32": (1, 8, 4096, 4096, 128, True, 4096, 50.0,
+                               50.0, "float32", None),
+    "j_recurrentgemma_2b_local_f32": (1, 10, 4096, 4096, 256, True, 2048,
+                                      None, 1.0, "float32", "sdpa_mask"),
+    "k_sq_lt_sk_f32": (1, 4, 512, 1024, 64, True, None, None, 1.0,
+                       "float32", "sdpa_mask"),
+    "l_ragged_1000_window_f32": (1, 4, 1000, 1000, 128, True, 300, None,
+                                 1.0, "float32", "sdpa_mask"),
 }
 SDPA_BWD_TXT = {"sdpa": "library scaled_dot_product_attention("
                         "is_causal=True)'s backward (torch.autograd.grad "
@@ -5978,14 +6045,13 @@ def flash_bwd_tiling(d: int, dtype: str):
 
 def flash_bwd_instantiation(symbol: str):
     """(launch, D, dtype) of a mangled kernel name of
-    csrc/flash_attention_bwd.cu, or None: the tensor-core kernels
-    (``flash_bwd_{dkv,dq}_wgmma<D>``) run bfloat16, the FMA body
-    (``flash_bwd_{dkv,dq}<D>``) float32."""
-    m = re.search(r"flash_bwd_(dkv|dq)(_wgmma)?ILi(\d+)E", symbol)
+    csrc/flash_attention_bwd.cu, or None: ``tc::flash_bwd_{dkv,dq}_
+    wgmma<D>`` run bfloat16, ``x3::flash_bwd_{dkv,dq}_x3<D>`` float32."""
+    m = re.search(r"flash_bwd_(dkv|dq)_(wgmma|x3)ILi(\d+)E", symbol)
     if not m:
         return None
     return (m.group(1), int(m.group(3)),
-            "bfloat16" if m.group(2) else "float32")
+            "bfloat16" if m.group(2) == "wgmma" else "float32")
 
 
 def flash_bwd_build_report() -> dict:
@@ -5993,8 +6059,8 @@ def flash_bwd_build_report() -> dict:
     spill bytes from the build's ``-Xptxas -v`` log and the count of HGMMA
     (wgmma), ATOM* and RED instructions in the library's SASS (``cuobjdump
     -sass``). Raises unless there are 20 (dQ and dK / dV at five widths
-    for the tensor-core kernels and for the FMA body), every tensor-core
-    one holds HGMMA and none holds an atomic."""
+    for bf16 and for float32), every one holds HGMMA and none holds an
+    atomic."""
     from repro_torch.kernels import build
     report = {f"{dt}_{launch}_d{d}": info for (launch, d, dt), info in
               sorted(ptxas_report("flash_attention_bwd",
@@ -6018,13 +6084,12 @@ def flash_bwd_build_report() -> dict:
             f"{info['spill_loads']} bytes, {info.get('hgmma', 0)} HGMMA and "
             f"{info.get('atomics', 0)} ATOM/RED in its SASS (ptxas -v log, "
             f"cuobjdump -sass)")
-    missing = [k for k, info in report.items()
-               if k.startswith("bfloat16_") and not info.get("hgmma")]
+    missing = [k for k, info in report.items() if not info.get("hgmma")]
     atomics = [k for k, info in report.items() if info.get("atomics")]
     if len(report) != 20 or missing or atomics:
         raise AssertionError(f"flash_attention_bwd's build: {len(report)} "
-                             f"instantiations (not 20), tensor-core ones "
-                             f"without HGMMA: {missing}, with atomics: "
+                             f"instantiations (not 20), without HGMMA: "
+                             f"{missing}, with atomics: "
                              f"{atomics}")
     return report
 
@@ -6073,6 +6138,14 @@ def flash_bwd_close(ours, want, dtype: str):
         ok &= err <= FLASH_BWD_TOL[dtype] * scale and bool(
             torch.isfinite(a).all())
     return max(errs), max(rels), ok
+
+
+def worst_share(got, exact):
+    """The largest share of its own scale (max |exact|) by which a
+    gradient of ``got`` misses ``exact``, in float64."""
+    return max(float((a.double() - e.double()).abs().max())
+               / max(1e-30, float(e.abs().max()))
+               for a, e in zip(got, exact))
 
 
 def check_bwd_planted_faults(name, q, k, v, out, lse, dout, grads, plain, *,
@@ -6129,9 +6202,9 @@ def flash_bwd_bound(b, h, sq, sk, d, causal, window, dtype):
     """The least time (ms) of the backward's function: the work of
     ``kernels/cost.py::flash_bwd_work`` (q, k, v, out, dout and lse read
     once, dq, dk, dv written once; its five products, 10 D operations per
-    visible pair) at the peak rate of the inputs' type."""
+    visible pair) by ``split_bound``."""
     from repro_torch.kernels import cost
-    return work_bound(*cost.flash_bwd_work(
+    return split_bound(*cost.flash_bwd_work(
         b, h, sq, sk, d, causal=causal, window=window,
         itemsize=2 if dtype == "bfloat16" else 4), dtype)
 
@@ -6170,11 +6243,20 @@ def flash_bwd_phase(card: str):
         grads, want = kern(), plain()
         torch.cuda.synchronize()
         err, rel, ok = flash_bwd_close(grads, want, dtype)
+        f64 = ""
+        if dtype == "float32":
+            # the same function in float64 on the same inputs and residuals
+            exact = flash_attention_bwd_ref(
+                *(t.double() for t in (q, k, v, out, lse, dout)), **kw)
+            f64 = (f"; against float64 (share of scale): kernel "
+                   f"{worst_share(grads, exact):.3e}, plain "
+                   f"{worst_share(want, exact):.3e}")
+            del exact
         log("train", f"flash_attention_bwd {name}: B={b} H={h} Sq={sq} "
             f"Sk={sk} D={d} causal={causal} window={window} softcap={cap} "
             f"q x{q_scale:g} {dtype}; dq, dk, dv max_abs_err={err:.3e}, "
             f"{rel:.3e} of the worst gradient's scale (tol "
-            f"{FLASH_BWD_TOL[dtype]:g}); {'ok' if ok else 'FAIL'}")
+            f"{FLASH_BWD_TOL[dtype]:g}){f64}; {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention_bwd {name} disagrees "
                                  f"with its plain version")
@@ -6208,11 +6290,13 @@ def flash_bwd_phase(card: str):
             except RuntimeError as exc:
                 log("train", f"flash_attention_bwd {name}: SDPA refused "
                     f"the shape ({str(exc).splitlines()[0][:200]})")
+        bound = flash_bwd_bound(b, h, sq, sk, d, causal, window, dtype)
         rows[name] = timed_row(
             card, "train", f"flash_attention_bwd {name}", kern, plain,
-            flash_bwd_bound(b, h, sq, sk, d, causal, window, dtype),
-            err=err, rel=rel, library=library,
+            bound, err=err, rel=rel, library=library,
             library_txt=SDPA_BWD_TXT.get(lib, ""), reps=5, inner=3)
+        rows[name]["fma_bound_ms"] = log_fma_bound(
+            "train", f"flash_attention_bwd {name}", bound, dtype)
         # the forward kernel as training calls it (writing lse) and as
         # serving calls it (not), in turns
         fwd = {"serving": lambda: _launch(q, k, v, **kw),

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the bf16 ``flash_attention`` kernel's time goes, on an H100.
+"""Where the ``flash_attention`` kernels' time goes, on an H100.
 
-    python3 experiments/flash_breakdown.py        # from the root of a checkout
+    python3 experiments/flash_breakdown.py [--parent DIR]
+                                          # from the root of a checkout
 
 Builds variants of ``src/repro_torch/kernels/csrc/flash_attention.cu``,
-each a copy of the source with one part taken out (the results are wrong
-by design: these are timing probes, not kernels), and times each at
-llama3-8b's prefill shape (B=2, H=32, S=2048, D=128, bf16), causal and
-not, between CUDA events, in turns (each variant twice, the source as it
-is first and last):
+each a copy of the source with one part changed or taken out (the results
+of most are wrong by design: these are timing probes, not kernels), and
+times them between CUDA events, in turns (each variant twice, the source as
+it is first and last). The bf16 variants at llama3-8b's prefill shape
+(B=2, H=32, S=2048, D=128, bf16), causal and not:
 
   as_is        the committed kernel
   one_p_term   P.V with P_hi alone (what the split of P into two bf16
@@ -21,8 +22,25 @@ is first and last):
   heads_first  blocks start with every head's last q tile (kHeadGroup = 64)
   head_by_head one head's q tiles after another's (kHeadGroup = 1)
 
-Prints one line per variant and the card's ``nvidia-smi`` name and power
-limit. Needs nvcc and one CUDA device; imports nothing of JAX.
+The float32 kernel (``x3``: each operand in three bf16 terms on wgmma),
+``as_is`` and its variants, at llama3-8b's prefill at B=1 (H=32, S=2048,
+D=128, causal) and gemma2-27b's local layer (H=32, S=8192, window 4096,
+softcap 50, q scaled by 50), float32:
+
+  two_terms_f32   two bf16 terms of each operand (three products a
+                  product, not six: what the third term costs)
+  no_fold_f32     P.V straight into O on the tensor cores, no fresh sum a
+                  kv tile folded by FMAs (what the fold costs)
+  split_only_f32  no products: the loads, the split into planes, the
+                  softmax and the stores alone
+
+With ``--parent DIR`` (a ``git archive`` of another commit, e.g. the parent
+under ``build/``), DIR's ``flash_attention.cu`` is built too and timed in
+the same turns as ``parent`` in both groups (its float32 body before this
+design was an FMA one). Prints one line per variant and shape, each
+float32 line with its largest difference from ``as_is``, and the card's
+``nvidia-smi`` name and power limit. Needs nvcc and one CUDA device;
+imports nothing of JAX.
 
 The variants are exact-text edits of the kernel's source: an edit to the
 lines they name makes ``variants()`` raise, and
@@ -32,6 +50,7 @@ applies.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import math
 import subprocess
@@ -86,6 +105,12 @@ def cut(src: str, start: str, end: str, keep_end=True) -> str:
     return src[:i] + (src[j:] if keep_end else src[j + len(end):])
 
 
+TERMS_F32 = "constexpr int kTermsUsed = 3;"
+FRESH_F32 = "constexpr bool kFresh = true;"
+PRODUCTS_F32 = "constexpr bool kProducts = true;"
+F32 = ("two_terms_f32", "no_fold_f32", "split_only_f32")
+
+
 def variants(src: str) -> dict:
     """{name: source}; each edit must apply."""
     def sub(text, old, new):
@@ -107,22 +132,29 @@ def variants(src: str) -> dict:
         "fused_passes": src[:i] + FUSED_PASSES + src[j:],
         "heads_first": sub(src, GROUP, "constexpr int kHeadGroup = 64;"),
         "head_by_head": sub(src, GROUP, "constexpr int kHeadGroup = 1;"),
+        "two_terms_f32": sub(src, TERMS_F32,
+                             "constexpr int kTermsUsed = 2;"),
+        "no_fold_f32": sub(src, FRESH_F32, "constexpr bool kFresh = false;"),
+        "split_only_f32": sub(src, PRODUCTS_F32,
+                              "constexpr bool kProducts = false;"),
     }
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("flash_breakdown: no CUDA device", file=sys.stderr)
-        return 2
+def build_variants(parent=None) -> dict:
+    """{name: the variant's bound launch}, all nvcc runs at once; with
+    ``parent`` (a checkout's root) its source too, as ``parent``."""
     OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    sources = {}
     for name, text in variants(SRC.read_text()).items():
-        src = OUT / f"{name}.cu"
-        header = build.CSRC / "hopper.cuh"
-        src.write_text(text.replace('#include "hopper.cuh"',
-                                    f'#include "{header}"'))
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-               str(OUT / f"{name}.so"), str(src)]
+        sources[name] = OUT / f"{name}.cu"
+        sources[name].write_text(text)
+    if parent is not None:
+        sources["parent"] = (parent / SRC.relative_to(REPO)).resolve()
+    procs = {}
+    for name, src in sources.items():
+        # the source's own directory first, then this checkout's headers
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}",
+               "-o", str(OUT / f"{name}.so"), str(src)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     fns = {}
@@ -131,38 +163,88 @@ def main() -> int:
         if proc.returncode:
             print(log, file=sys.stderr)
             raise RuntimeError(f"nvcc failed on the {name} variant")
+        entry = ""
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            if "spill stores" in line and not line.strip().startswith("0 "):
+                print(f"flash_breakdown {name}: ptxas {entry}: "
+                      f"{line.strip()}")
         fns[name] = bind_launch(ctypes.CDLL(str(OUT / f"{name}.so")))
-    b, h, s, d = 2, 32, 2048, 128
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+    return fns
+
+
+def time_group(fns, names, args, label, reps=20):
+    """Each of ``names`` timed twice in turns on the same inputs; one line
+    each (float32: with its largest difference from as_is)."""
+    q, k, v, causal, window, cap = args
+    b, h, s, d = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+
+    def call(name):
+        err = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), None, b * h, s, s, d,
+                        int(q.dtype == torch.bfloat16), int(causal),
+                        int(window is not None), window or 0,
+                        int(cap is not None), float(cap or 0.0),
+                        1 / math.sqrt(d), stream)
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+    outs = {}
+    for name in names:
+        call(name)
+        outs[name] = out.clone()
+    times = {name: [] for name in names}
+    for name in list(names) + list(names)[::-1]:
+        for _ in range(3):
+            call(name)
+        start.record()
+        for _ in range(reps):
+            call(name)
+        end.record()
+        end.synchronize()
+        times[name].append(start.elapsed_time(end) / reps * 1e3)
+    for name, ts in times.items():
+        diff = ""
+        if q.dtype == torch.float32:
+            diff = (f"; max |out - as_is| "
+                    f"{float((outs[name] - outs['as_is']).abs().max()):.3e}")
+        runs = ", ".join(f"{t:.1f}" for t in ts)
+        print(f"flash_breakdown {label} {name}: {min(ts):.1f} us "
+              f"(runs {runs}){diff}", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout whose flash_attention.cu is timed too")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("flash_breakdown: no CUDA device", file=sys.stderr)
+        return 2
+    fns = build_variants(args.parent)
+    extra = ["parent"] if args.parent is not None else []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, h, s, d = 2, 32, 2048, 128
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    bf16 = [n for n in fns if n not in F32 and n != "parent"] + extra
     for causal in (1, 0):
-        times = {name: [] for name in fns}
-        order = list(fns) + list(fns)[::-1]
-        for name in order:
-            def call():
-                err = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                out.data_ptr(), None, b * h, s, s, d, 1,
-                                causal, 0,
-                                0, 0, 0.0, 1 / math.sqrt(d), stream)
-                if err:
-                    raise RuntimeError(f"{name}: CUDA error {err}")
-            for _ in range(3):
-                call()
-            start.record()
-            for _ in range(20):
-                call()
-            end.record()
-            end.synchronize()
-            times[name].append(start.elapsed_time(end) / 20 * 1e3)
-        for name, ts in times.items():
-            runs = ", ".join(f"{t:.1f}" for t in ts)
-            print(f"flash_breakdown causal={causal} {name}: "
-                  f"{min(ts):.1f} us (runs {runs})")
+        time_group(fns, bf16, (q, k, v, causal, None, None),
+                   f"causal={causal}")
+    del q, k, v
+    f32 = ["as_is", *F32, *extra]
+    for label, (h, s, window, cap, q_scale, reps) in {
+            "f32 llama3-8b B=1": (32, 2048, None, None, 1.0, 20),
+            "f32 gemma2-27b local": (32, 8192, 4096, 50.0, 50.0, 3)}.items():
+        q = torch.randn(1, h, s, d, generator=g, device="cuda") * q_scale
+        k, v = (torch.randn(1, h, s, d, generator=g, device="cuda")
+                for _ in range(2))
+        time_group(fns, f32, (q, k, v, 1, window, cap), label, reps)
+        del q, k, v
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the bf16 ``flash_attention_bwd`` kernels' time goes, on an H100.
+"""Where the ``flash_attention_bwd`` kernels' time goes, on an H100.
 
-    python3 experiments/flash_bwd_breakdown.py           # times
+    python3 experiments/flash_bwd_breakdown.py [--parent DIR]   # times
     python3 experiments/flash_bwd_breakdown.py accuracy  # one term or two
 
 from the root of a checkout.
@@ -28,8 +28,31 @@ last):
   no_ss         without the shared-memory products S and dP (a probe)
 
 The first four compute the same function in the same order: each prints
-whether its gradients equal the source's bit for bit. Prints one line per
-variant and shape and the card's ``nvidia-smi`` name and power limit.
+whether its gradients equal the source's bit for bit.
+
+The float32 kernels (``x3``: each operand in three bf16 terms on wgmma),
+``as_is`` and its variants, at phase 10's float32 training shapes at B=1
+(qwen1.5-0.5b, llama3-8b, gemma2-27b's and recurrentgemma-2b's local
+layers), each line with its worst gradient's largest difference from
+``as_is`` as a share of the gradient's scale:
+
+  two_terms_f32    two bf16 terms of each operand (three products a
+                   product, not six: what the third term costs)
+  no_fold_f32      dQ, dK and dV straight into their accumulators on the
+                   tensor cores, no fresh sum a tile added in float32
+  split_only_f32   no products: the loads, the split into planes, the
+                   softmax's gradients and the stores alone
+  f32_d128_one_wg  at D = 128 one warpgroup owns 64 rows or keys, on
+                   32-row tiles (the kernels' choice: two own the same 64,
+                   each half the columns, on 64-row tiles)
+  f32_d128_two_wg  at D = 128 two warpgroups own 64 rows or keys each, on
+                   16-row tiles
+
+With ``--parent DIR`` (a ``git archive`` of another commit, e.g. the parent
+under ``build/``), DIR's ``flash_attention_bwd.cu`` is built too and timed
+in the same turns as ``parent`` in both groups (its float32 body before
+this design was an FMA one). Prints one line per variant and shape, each
+variant's ptxas spills, and the card's ``nvidia-smi`` name and power limit.
 
 ``accuracy`` builds ``as_is`` and ``two_terms`` alone and holds both against
 the plain ``flash_attention_bwd_ref`` on the card: at every bf16 case of
@@ -49,6 +72,7 @@ applies.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import math
 import subprocess
@@ -83,6 +107,22 @@ SHAPES = {
     "recurrentgemma-2b_local": (1, 10, 4096, 256, 2048, None, 1.0),
 }
 EXACT = ("as_is", "split_d128", "two_stages", "lag0", "head_by_head")
+# the float32 kernels' switches and tiling
+TERMS_F32 = "constexpr int kTermsUsed = 3;"
+FRESH_F32 = "constexpr bool kFresh = true;"
+PRODUCTS_F32 = "constexpr bool kProducts = true;"
+WG_F32 = "static constexpr int kWarpgroups = 2;"
+SPLIT_F32 = "static constexpr bool kSplit = D >= 128;"
+TILE_F32 = "static constexpr int kTile = D == 256 ? 16 : 64;"
+F32 = ("two_terms_f32", "no_fold_f32", "split_only_f32", "f32_d128_one_wg",
+       "f32_d128_two_wg")
+# (B, H, S, D, window, softcap, q scale): phase 10's float32 shapes, B=1
+SHAPES_F32 = {
+    "qwen1.5-0.5b f32": (1, 16, 2048, 64, None, None, 1.0),
+    "llama3-8b f32": (1, 32, 2048, 128, None, None, 1.0),
+    "gemma2-27b_local f32": (1, 8, 4096, 128, 4096, 50.0, 50.0),
+    "recurrentgemma-2b_local f32": (1, 10, 4096, 256, 2048, None, 1.0),
+}
 
 
 def variants(src: str) -> dict:
@@ -103,23 +143,42 @@ def variants(src: str) -> dict:
         "accurate_exp": sub(src, EXP, "    s[i] = expf(s[i] - lse(i));"),
         "no_rs": sub(src, RS, ""),
         "no_ss": sub(src, SS, "      if (false) wgmma_ss<64>("),
+        "two_terms_f32": sub(src, TERMS_F32,
+                             "constexpr int kTermsUsed = 2;"),
+        "no_fold_f32": sub(src, FRESH_F32, "constexpr bool kFresh = false;"),
+        "split_only_f32": sub(src, PRODUCTS_F32,
+                              "constexpr bool kProducts = false;"),
+        "f32_d128_one_wg": sub(sub(sub(src, WG_F32, "static constexpr int "
+                                       "kWarpgroups = D == 128 ? 1 : 2;"),
+                                   SPLIT_F32, "static constexpr bool kSplit "
+                                   "= D > 128;"), TILE_F32,
+                               "static constexpr int kTile = D == 256 ? 16 "
+                               ": D == 128 ? 32 : 64;"),
+        "f32_d128_two_wg": sub(sub(src, SPLIT_F32, "static constexpr bool "
+                                   "kSplit = D > 128;"), TILE_F32,
+                               "static constexpr int kTile = D >= 128 ? 16 "
+                               ": 64;"),
     }
 
 
-def build_variants(only=None) -> dict:
+def build_variants(only=None, parent=None) -> dict:
     """{name: the variant's bound launch} (the names in ``only``, or all),
-    all nvcc runs at once."""
+    all nvcc runs at once; with ``parent`` (a checkout's root) its source
+    too, as ``parent``."""
     OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    sources = {}
     for name, text in variants(SRC.read_text()).items():
         if only is not None and name not in only:
             continue
-        src = OUT / f"{name}.cu"
-        header = build.CSRC / "hopper.cuh"
-        src.write_text(text.replace('#include "hopper.cuh"',
-                                    f'#include "{header}"'))
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-               str(OUT / f"{name}.so"), str(src)]
+        sources[name] = OUT / f"{name}.cu"
+        sources[name].write_text(text)
+    if parent is not None:
+        sources["parent"] = (parent / SRC.relative_to(REPO)).resolve()
+    procs = {}
+    for name, src in sources.items():
+        # the source's own directory first, then this checkout's headers
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}",
+               "-o", str(OUT / f"{name}.so"), str(src)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     fns = {}
@@ -128,9 +187,13 @@ def build_variants(only=None) -> dict:
         if proc.returncode:
             print(log, file=sys.stderr)
             raise RuntimeError(f"nvcc failed on the {name} variant")
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
             if "spill stores" in line and not line.strip().startswith("0 "):
-                print(f"flash_bwd_breakdown {name}: ptxas {line.strip()}")
+                print(f"flash_bwd_breakdown {name}: ptxas {entry}: "
+                      f"{line.strip()}")
         fns[name] = bind_bwd_launch(ctypes.CDLL(str(OUT / f"{name}.so")))
     return fns
 
@@ -143,7 +206,8 @@ def launch(fn, q, k, v, out, lse, dout, causal, window, cap):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, sq,
-             k.shape[2], d, 1, int(causal), int(window is not None),
+             k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal),
+             int(window is not None),
              window or 0, int(cap is not None), float(cap or 0.0),
              1 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
     if err:
@@ -200,6 +264,51 @@ def accuracy() -> None:
               f"scale, {rel / tol:.3f} of the tolerance")
 
 
+def time_shape(fns, names, shape, dtype, exact):
+    """Each of ``names`` timed twice in turns at one shape; one line each,
+    with whether its gradients equal as_is's (``exact``) or, float32, the
+    largest difference from them as a share of each gradient's scale."""
+    b, h, s, d, window, cap, q_scale = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = (torch.randn(b, h, s, d, generator=g, device="cuda")
+         * q_scale).to(dtype)
+    k, v, dout = (torch.randn(b, h, s, d, generator=g, device="cuda")
+                  .to(dtype) for _ in range(3))
+    out, lse = _forward_with_lse(q, k, v, True, window, cap)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def call(name):
+        return launch(fns[name], q, k, v, out, lse, dout, True, window, cap)
+
+    grads = {name: call(name) for name in names}
+    torch.cuda.synchronize()
+    times = {name: [] for name in names}
+    for name in list(names) + list(names)[::-1]:
+        for _ in range(2):
+            call(name)
+        start.record()
+        for _ in range(10):
+            call(name)
+        end.record()
+        end.synchronize()
+        times[name].append(start.elapsed_time(end) / 10 * 1e3)
+    for name, ts in times.items():
+        same = ""
+        if name in exact:
+            same = ("; bitwise as_is" if all(
+                torch.equal(x, y) for x, y in
+                zip(grads[name], grads["as_is"])) else "; NOT bitwise")
+        elif dtype == torch.float32:
+            rel = max(float((x - y).abs().max())
+                      / max(1e-30, float(y.abs().max()))
+                      for x, y in zip(grads[name], grads["as_is"]))
+            same = f"; {rel:.2e} of scale from as_is"
+        print(f"flash_bwd_breakdown {name}: {min(ts):.1f} us "
+              f"(runs {', '.join(f'{t:.1f}' for t in ts)}){same}",
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_bwd_breakdown: no CUDA device", file=sys.stderr)
@@ -210,44 +319,20 @@ def main() -> int:
                               "--format=csv,noheader"], capture_output=True,
                              text=True, check=True).stdout.strip())
         return 0
-    fns = build_variants()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for shape, (b, h, s, d, window, cap, q_scale) in SHAPES.items():
-        q = (torch.randn(b, h, s, d, generator=g, device="cuda")
-             * q_scale).to(torch.bfloat16)
-        k, v, dout = (torch.randn(b, h, s, d, generator=g, device="cuda")
-                      .to(torch.bfloat16) for _ in range(3))
-        out, lse = _forward_with_lse(q, k, v, True, window, cap)
-        grads = {}
-
-        def call(name):
-            return launch(fns[name], q, k, v, out, lse, dout, True, window,
-                          cap)
-
-        for name in fns:
-            grads[name] = call(name)
-        torch.cuda.synchronize()
-        times = {name: [] for name in fns}
-        for name in list(fns) + list(fns)[::-1]:
-            for _ in range(2):
-                call(name)
-            start.record()
-            for _ in range(10):
-                call(name)
-            end.record()
-            end.synchronize()
-            times[name].append(start.elapsed_time(end) / 10 * 1e3)
-        for name, ts in times.items():
-            same = ""
-            if name in EXACT:
-                same = ("; bitwise as_is" if all(
-                    torch.equal(x, y) for x, y in
-                    zip(grads[name], grads["as_is"])) else "; NOT bitwise")
-            print(f"flash_bwd_breakdown {shape} {name}: {min(ts):.1f} us "
-                  f"(runs {', '.join(f'{t:.1f}' for t in ts)}){same}")
-        del q, k, v, dout, out, lse, grads
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout whose flash_attention_bwd.cu is timed "
+                         "too")
+    args = ap.parse_args()
+    fns = build_variants(parent=args.parent)
+    extra = ["parent"] if args.parent is not None else []
+    bf16 = [n for n in fns if n not in F32 and n != "parent"] + extra
+    for shape, dims in SHAPES.items():
+        print(f"flash_bwd_breakdown {shape} bf16:", flush=True)
+        time_shape(fns, bf16, dims, torch.bfloat16, EXACT)
+    for shape, dims in SHAPES_F32.items():
+        print(f"flash_bwd_breakdown {shape}:", flush=True)
+        time_shape(fns, ["as_is", *F32, *extra], dims, torch.float32, ())
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

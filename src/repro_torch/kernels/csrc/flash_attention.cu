@@ -1,7 +1,8 @@
 // Flash attention on Hopper (sm_90a): causal, windowed and softcapped
-// attention with an online softmax, in one launch. bfloat16 inputs run on
-// the tensor cores (wgmma, K and V staged by TMA); float32 inputs run an
-// FMA body.
+// attention with an online softmax, in one launch, on the tensor cores:
+// bfloat16 inputs as they are (wgmma, K and V staged by TMA), float32 inputs
+// with each operand split into three bf16 terms (csrc/split3.cuh; never
+// TF32).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (body _flash_kernel). For q (BH, Sq, D) and k, v (BH, Sk, D), float32 or
@@ -37,7 +38,9 @@
 // once each. At llama3-8b's prefill (B=2, H=32, S=2048, D=128, causal, bf16)
 // that is 68.7 GFLOP against 134 MB: operations bound, 69.5 us at bf16's
 // 989 TFLOP/s on the tensor cores (the bytes alone 40 us). float32 inputs
-// (B=1: 34.4 GFLOP) are bound at 0.51 ms by f32's 67 TFLOP/s outside them.
+// (B=1: 34.4 GFLOP) take six bf16 products a product by the fp32-accurate
+// route: 206 GFLOP on the tensor cores, 0.21 ms (f32's 67 TFLOP/s outside
+// them would take 0.51 ms).
 //
 // bfloat16: the tensor-core kernel (FlashAttention-3's structure, without
 // its warp specialisation and ping-pong scheduling):
@@ -79,14 +82,30 @@
 //     rows < Sq. No atomics and no split over keys: the same bits from run
 //     to run.
 //
-// float32: the FMA body, which keeps fp32 throughout (no TF32): one block
-// of 128 threads per (bh, 64-row q tile); the q tile (scaled by 1/sqrt(D)
-// in f32 first) and each 64-key tile of k and v staged in shared memory as
-// f32, rows padded by 4 floats; thread (rg, cg) = (tid / 8, tid % 8) owns
-// query rows rg + 16 r (r < 4) and keys cg + 8 j (j < 8) of a score tile
-// and column groups cg + 8 c of the output; a row's max and sum are
-// xor-shuffles over its 8 lanes and P.V takes each probability from its
-// lane by a shuffle. Its ceiling is f32's 67 TFLOP/s.
+// float32: the same structure on three-term operands (namespace x3):
+//   * q is scaled by 1/sqrt(D) in f32 first, as the plain version scales
+//     it, then split: hi, mid and lo bf16 planes of Q, K and V in shared
+//     memory, each in the swizzled box layout TMA gives the bf16 kernel
+//     (TMA cannot split, so the block's threads load f32 rows by 16-byte
+//     loads, split them and store the planes; no f32 copy of a tile).
+//   * S = Q K^T is six wgmma products (hi.hi, hi.mid, mid.hi, hi.lo, mid.mid
+//     and lo.hi, the small ones first); the softcap (tanhf), masks and the
+//     online softmax (expf: ex2.approx's ~2^-22 is 4x float32's rounding)
+//     stay f32 on the accumulator fragments; P = exp(s - m) is split into
+//     three terms as A fragments and O += P V is six register-A products.
+//     Each kv tile's P V goes into a fresh accumulator, 64 columns at a
+//     time, folded into O by FMAs (O = O alpha + part): the tensor cores'
+//     f32 sums, which may truncate, never run over more than one tile.
+//   * Shared memory bounds the tiling: three planes of a 128-row Q tile at
+//     D = 128 take 96 KB and a 64-key K or V tile 48 KB. A block of two
+//     warpgroups owns 128 query rows with one K and one V slot of 64 keys
+//     (192 KB at D = 128); at D = 256 both warpgroups own the same 64 rows,
+//     each half of O's columns (each computes the whole S), on 32-key
+//     tiles. Each tile's f32 rows are loaded before the products they
+//     overlap are issued (V's before S, K's next before P V) and split
+//     into their slot while those run; two block barriers a tile.
+//   * out = O / max(l, 1e-30) in f32. The same order every run: bitwise
+//     stable.
 //
 // Both: expf and tanhf, not the fast intrinsics. The launcher returns a
 // CUDA error code (cudaGetLastError() after the launch); it allocates
@@ -98,15 +117,10 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "split3.cuh"
 
 namespace {
 
-// the FMA body's constants (float32)
-constexpr int kThreads = 128;
-constexpr int kBlockQ = 64;       // query rows a block owns
-constexpr int kBlockK = 64;       // keys per staged tile
-constexpr int kRows = 4;          // query rows per thread: rg + 16 r
-constexpr int kCols = 8;          // keys per thread in a score tile: cg + 8 j
 constexpr float kNeg = -1e30f;    // the Pallas kernel's _NEG_INF
 
 struct Args {
@@ -119,215 +133,6 @@ struct Args {
   int causal, has_window, window, has_softcap;
   float softcap, scale;
 };
-
-// rows [row0, row0 + kBlockQ) of a (rows, D) float32 matrix into shared
-// memory (times ``mul``), row stride D + 4; rows past ``rows`` are zeros
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
-                                      int rows, float mul, bool scaled) {
-  constexpr int kPieces = D / 4;                    // float4 pieces a row
-  constexpr int kLd = D + 4;
-  for (int t = threadIdx.x; t < kBlockQ * kPieces; t += kThreads) {
-    const int r = t / kPieces;
-    const int piece = t % kPieces;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) {
-      val = __ldg(reinterpret_cast<const float4*>(
-          src + (size_t)(row0 + r) * D) + piece);
-      if (scaled) {
-        val.x = __fmul_rn(val.x, mul);
-        val.y = __fmul_rn(val.y, mul);
-        val.z = __fmul_rn(val.z, mul);
-        val.w = __fmul_rn(val.w, mul);
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * kLd + piece * 4) = val;
-  }
-}
-
-// N = 4 or 2 floats from 16- or 8-byte aligned shared memory
-template <int N>
-__device__ __forceinline__ void load_vec(const float* src, float* dst) {
-  if constexpr (N == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(src);
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  } else {
-    const float2 v = *reinterpret_cast<const float2*>(src);
-    dst[0] = v.x;
-    dst[1] = v.y;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const __grid_constant__ Args p) {
-  constexpr int kLd = D + 4;
-  constexpr int kVec = D >= 32 ? 4 : D / 8;         // columns a group
-  constexpr int kOut = D / 8;                       // output columns a thread
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBlockQ * kLd;
-  float* vs = ks + kBlockK * kLd;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int rg = tid >> 3;
-  const int cg = tid & 7;
-  // the heaviest causal tiles (the last ones) are launched first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const size_t bh = blockIdx.y;
-  const float* q = static_cast<const float*>(p.q) + bh * p.sq * D;
-  const float* k = static_cast<const float*>(p.k) + bh * p.sk * D;
-  const float* v = static_cast<const float*>(p.v) + bh * p.sk * D;
-  float* out = static_cast<float*>(p.out) + bh * p.sq * D;
-
-  const int offset = p.sk - p.sq;
-  const int q_lo = q0 + offset;                               // first row
-  const int q_hi = min(q0 + kBlockQ, p.sq) - 1 + offset;      // last row
-  // the keys some row of this tile may see
-  const int k_end = p.causal ? min(p.sk, q_hi + 1) : p.sk;
-  const int k_begin = p.has_window ? max(0, q_lo - p.window + 1) : 0;
-
-  stage<D>(qs, q, q0, p.sq, p.scale, true);
-
-  float m[kRows], l[kRows];
-  float acc[kRows][kOut];       // group c, column i at acc[r][c * kVec + i]
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNeg;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int kb = k_begin / kBlockK * kBlockK; kb < k_end; kb += kBlockK) {
-    __syncthreads();                  // the previous tile has been read
-    stage<D>(ks, k, kb, p.sk, 1.f, false);
-    stage<D>(vs, v, kb, p.sk, 1.f, false);
-    __syncthreads();
-
-    // scores of the thread's 4 x 8 (row, key) pairs
-    float s[kRows][kCols];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[r][j] = 0.f;
-    }
-#pragma unroll 2
-    for (int dd = 0; dd < D; dd += 4) {
-      float4 qv[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        qv[r] = *reinterpret_cast<const float4*>(qs + (rg + 16 * r) * kLd + dd);
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(ks + (cg + 8 * j) * kLd + dd);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float a = s[r][j];
-          a = fmaf(qv[r].x, kv.x, a);
-          a = fmaf(qv[r].y, kv.y, a);
-          a = fmaf(qv[r].z, kv.z, a);
-          a = fmaf(qv[r].w, kv.w, a);
-          s[r][j] = a;
-        }
-      }
-    }
-
-    // softcap, mask, and the online softmax of each row
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int q_pos = q0 + rg + 16 * r + offset;
-      uint32_t seen = 0;
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int k_pos = kb + cg + 8 * j;
-        const bool ok = k_pos < p.sk && (!p.causal || k_pos <= q_pos) &&
-                        (!p.has_window || k_pos > q_pos - p.window);
-        float x = s[r][j];
-        if (p.has_softcap) x = __fmul_rn(p.softcap, tanhf(x / p.softcap));
-        x = ok ? x : kNeg;
-        s[r][j] = x;
-        seen |= ok ? (1u << j) : 0u;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float pj = (seen >> j) & 1u ? expf(s[r][j] - m_new) : 0.f;
-        s[r][j] = pj;
-        sum += pj;
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      }
-      l[r] = fmaf(l[r], alpha, sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < kOut; ++c) acc[r][c] *= alpha;
-    }
-
-    // acc += P V over the tile's keys in order; key cg' + 8 j's probability
-    // sits in lane (lane & ~7) | cg' as s[r][j]
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-#pragma unroll
-      for (int src = 0; src < 8; ++src) {
-        float pr[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          pr[r] = __shfl_sync(0xffffffffu, s[r][j], (lane & ~7) | src);
-        }
-        const float* vrow = vs + (src + 8 * j) * kLd + cg * kVec;
-#pragma unroll
-        for (int c = 0; c < kOut / kVec; ++c) {
-          float vv[kVec];
-          load_vec<kVec>(vrow + 8 * kVec * c, vv);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-            for (int i = 0; i < kVec; ++i) {
-              acc[r][c * kVec + i] = fmaf(pr[r], vv[i], acc[r][c * kVec + i]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // out = acc / max(l, 1e-30): 0 for a row that saw no key
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + rg + 16 * r;
-    if (row >= p.sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    // the row's 8 lanes hold the same m and l; the first writes its lse
-    if (p.lse != nullptr && cg == 0) {
-      p.lse[bh * p.sq + row] = m[r] + logf(denom);
-    }
-    float* orow = out + (size_t)row * D + cg * kVec;
-#pragma unroll
-    for (int c = 0; c < kOut / kVec; ++c) {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        orow[8 * kVec * c + i] = acc[r][c * kVec + i] / denom;
-      }
-    }
-  }
-}
 
 // --- bfloat16: the tensor-core kernel --------------------------------------
 
@@ -622,36 +427,224 @@ int launch_d(const Args& p, int bh, int d, cudaStream_t st) {
 
 }  // namespace tc
 
-// --- float32: the FMA body's launch
+// --- float32: the tensor-core kernel, each operand in three bf16 terms ----
 
-// the FMA body's shared memory: the q tile and one k and one v tile, f32
+namespace x3 {
+
+using namespace hopper;
+using namespace split3;
+
+constexpr int kThreads = 256;     // two consumer warpgroups
+constexpr int kTermsUsed = 3;     // bf16 terms of each float32 operand
+constexpr bool kFresh = true;     // each kv tile's P.V into a fresh sum
+constexpr bool kProducts = true;  // the tensor-core products (a probe's off)
+
 template <int D>
-constexpr int fma_smem() {
-  return (kBlockQ + 2 * kBlockK) * (D + 4) * static_cast<int>(sizeof(float));
+struct Cfg {
+  // D = 256: both warpgroups own the same 64 rows and each holds half of
+  // O's columns (each computes the whole S), for registers
+  static constexpr bool kSplit = D == 256;
+  static constexpr int kOwn = kSplit ? 64 : 128;       // query rows a block
+  static constexpr int kBlockK = D == 256 ? 32 : 64;   // keys a tile
+  static constexpr int kCols = kSplit ? D / 2 : D;     // O's, a warpgroup's
+  static constexpr int kFold = kCols < 64 ? kCols : 64;  // a fresh sum's
+  static constexpr int kQBytes = Planes<D>::bytes(kOwn);
+  static constexpr int kKvBytes = Planes<D>::bytes(kBlockK);
+  // Q's planes, then K's and V's; 1024 bytes of slack to align the start
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kKvBytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_x3(const __grid_constant__ Args p) {
+  using C = Cfg<D>;
+  constexpr int BK = C::kBlockK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ks = qs + C::kQBytes;
+  unsigned char* vs = ks + C::kKvBytes;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  // the bf16 kernel's order: heads in groups of kHeadGroup, each group's
+  // q tiles from the last (the heaviest under a causal mask) to the first
+  const int q_tiles = gridDim.y;
+  const int id = blockIdx.x + blockIdx.y * gridDim.x;
+  const int g0 = id / (tc::kHeadGroup * q_tiles) * tc::kHeadGroup;
+  const int g = min(tc::kHeadGroup, static_cast<int>(gridDim.x) - g0);
+  const int bh = g0 + (id - g0 * q_tiles) % g;
+  const int q0 = (q_tiles - 1 - (id - g0 * q_tiles) / g) * C::kOwn;
+  const int offset = p.sk - p.sq;
+  const int q_lo = q0 + offset;                                // first row
+  const int q_hi = min(q0 + C::kOwn, p.sq) - 1 + offset;       // last row
+  // the keys some row of this block may see
+  const int k_end = p.causal ? min(p.sk, q_hi + 1) : p.sk;
+  const int k_begin = p.has_window ? max(0, q_lo - p.window + 1) : 0;
+  const int kb0 = k_begin / BK * BK;
+  const int tiles = k_end > kb0 ? (k_end - kb0 + BK - 1) / BK : 0;
+  const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.sq * D;
+  const float* k = static_cast<const float*>(p.k) + (size_t)bh * p.sk * D;
+  const float* v = static_cast<const float*>(p.v) + (size_t)bh * p.sk * D;
+
+  // this thread's two rows (of the accumulators' layout) and positions
+  const int own = C::kSplit ? 0 : 64 * wg;   // the warpgroup's first row
+  const int row0 = own + 16 * warp + lane / 4;               // in the block
+  const int qp[2] = {q0 + row0 + offset, q0 + row0 + 8 + offset};
+  const int wg_lo = q0 + own + offset;
+  const int c0 = 2 * (lane % 4);             // first column of a chunk
+  const int col0 = C::kSplit ? wg * C::kCols : 0;   // O's columns held
+
+  float o[C::kCols / 2];
+#pragma unroll
+  for (int i = 0; i < C::kCols / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  // q scaled by 1/sqrt(D) in float32 first, then split, as the plain
+  // version scales it; K's first tile
+  if (tiles > 0) {
+    stage3<D, C::kOwn, kThreads>(qs, q, q0, p.sq, p.scale, true);
+    stage3<D, BK, kThreads>(ks, k, kb0, p.sk, 1.f, false);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  for (int j = 0; j < tiles; ++j) {
+    const int kb = kb0 + j * BK;
+    const Operand<D, C::kOwn> qd(qs);
+    const Operand<D, BK> kd(ks), vd(vs);
+    // S = Q K^T, six products; V's tile is loaded before they are issued
+    // and split into its slot while they run
+    Rows<D, BK, kThreads> rows;
+    rows.load(v, kb, p.sk);
+    float s[BK / 2];
+    wgmma_fence();
+    ss_products<BK, D / 16, kTermsUsed, kProducts>(
+        s, [&](int t, int kk) { return qd.kmajor(t, own, kk); },
+        [&](int t, int kk) { return kd.kmajor(t, 0, kk); });
+    wgmma_commit();
+    rows.store(vs, 1.f, false);
+    fence_proxy_async();
+    wgmma_wait0();
+    fence_regs(s);
+
+    // softcap and mask, each a pass behind one uniform branch; a masked key
+    // becomes -inf, which no row max (from -1e30) takes and whose exp is 0
+    if (p.has_softcap) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        s[i] = __fmul_rn(p.softcap, tanhf(s[i] / p.softcap));
+      }
+    }
+    const bool whole = kb + BK <= p.sk &&
+                       (!p.causal || kb + BK - 1 <= wg_lo) &&
+                       (!p.has_window || kb > wg_lo + 63 - p.window);
+    if (!whole) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int h = (i / 2) % 2;
+        const int k_pos = kb + 8 * (i / 4) + c0 + i % 2;
+        const bool ok = k_pos < p.sk && (!p.causal || k_pos <= qp[h]) &&
+                        (!p.has_window || k_pos > qp[h] - p.window);
+        s[i] = ok ? s[i] : -INFINITY;
+      }
+    }
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+    // P = exp(s - m) in float32, then its three terms as A fragments
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = expf(s[i] - m[(i / 2) % 2]);
+      sum[(i / 2) % 2] += s[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = fmaf(l[h], alpha[h], sum[h]);
+    }
+    uint32_t pf[3][BK / 16][4];
+    to_frags3<BK / 16>(s, pf);
+    __syncthreads();      // V's tile is visible; every warpgroup is done
+                          // with K's
+
+    // O = O alpha + P V, six products into a fresh sum per kFold columns;
+    // K's next tile is loaded before they are issued and split into its
+    // slot while the first part runs
+    const bool more = j + 1 < tiles;
+    if (more) rows.load(k, kb + BK, p.sk);
+    rs_products<C::kCols, C::kFold, BK / 16, kTermsUsed, kProducts, kFresh>(
+        o, pf,
+        [&](int t, int c, int kk) { return vd.mnmajor(t, col0 + c, kk); },
+        [&](int i, float x) { return fmaf(o[i], alpha[(i / 2) % 2], x); },
+        [&] {
+          if (more) {
+            rows.store(ks, 1.f, false);
+            fence_proxy_async();
+          }
+        });
+    __syncthreads();      // K's next tile is visible; V's slot is free
+  }
+
+  // out = O / max(l, 1e-30): 0 for a row that saw no key
+  float* out = static_cast<float*>(p.out) + (size_t)bh * p.sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + 8 * h;
+    if (row >= p.sq) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    // the row's 4 lanes (of one warpgroup) hold the same m and l; the
+    // first writes its lse
+    if (p.lse != nullptr && lane % 4 == 0 && (!C::kSplit || wg == 0)) {
+      p.lse[(size_t)bh * p.sq + row] = m[h] + logf(denom);
+    }
+    float* orow = out + (size_t)row * D + col0 + c0;
+#pragma unroll
+    for (int c = 0; c < C::kCols / 8; ++c) {
+      *reinterpret_cast<float2*>(orow + 8 * c) =
+          make_float2(o[4 * c + 2 * h] / denom, o[4 * c + 2 * h + 1] / denom);
+    }
+  }
 }
 
 template <int D>
-int fma_launch(const Args& p, int bh, cudaStream_t st) {
-  const size_t smem = fma_smem<D>();
+int launch(const Args& p, int bh, cudaStream_t st) {
+  using C = Cfg<D>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attention_x3<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + kBlockQ - 1) / kBlockQ, bh);
-  flash_attention_kernel<D><<<grid, kThreads, smem, st>>>(p);
+  const dim3 grid(bh, (p.sq + C::kOwn - 1) / C::kOwn);
+  flash_attention_x3<D><<<grid, kThreads, C::kSmem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int fma_launch_d(const Args& p, int bh, int d, cudaStream_t st) {
+int launch_d(const Args& p, int bh, int d, cudaStream_t st) {
   switch (d) {
-    case 16: return fma_launch<16>(p, bh, st);
-    case 32: return fma_launch<32>(p, bh, st);
-    case 64: return fma_launch<64>(p, bh, st);
-    case 128: return fma_launch<128>(p, bh, st);
-    case 256: return fma_launch<256>(p, bh, st);
+    case 16: return launch<16>(p, bh, st);
+    case 32: return launch<32>(p, bh, st);
+    case 64: return launch<64>(p, bh, st);
+    case 128: return launch<128>(p, bh, st);
+    case 256: return launch<256>(p, bh, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+}  // namespace x3
 
 // the tiling of the kernel that runs inputs of this type at head width D
 template <int D>
@@ -661,9 +654,9 @@ void tiling(int bf16, int* block_q, int* block_k, int* smem_bytes) {
     *block_k = tc::Tile<D>::kBlockK;
     *smem_bytes = tc::Tile<D>::kSmem;
   } else {
-    *block_q = kBlockQ;
-    *block_k = kBlockK;
-    *smem_bytes = fma_smem<D>();
+    *block_q = x3::Cfg<D>::kOwn;
+    *block_k = x3::Cfg<D>::kBlockK;
+    *smem_bytes = x3::Cfg<D>::kSmem;
   }
 }
 
@@ -712,5 +705,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (bh <= 0 || sq <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // a dispatch on the inputs' type: bf16 only ever runs the tensor cores
-  return bf16 ? tc::launch_d(p, bh, d, st) : fma_launch_d(p, bh, d, st);
+  return bf16 ? tc::launch_d(p, bh, d, st) : x3::launch_d(p, bh, d, st);
 }

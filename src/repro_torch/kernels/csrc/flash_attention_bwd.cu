@@ -1,7 +1,8 @@
 // The backward of flash attention on Hopper (sm_90a): dQ, dK and dV of the
 // causal, windowed and softcapped attention of csrc/flash_attention.cu, in
-// two launches and no atomics. bfloat16 inputs run on the tensor cores
-// (wgmma on tiles staged by TMA); float32 inputs run an FMA body.
+// two launches and no atomics, on the tensor cores: bfloat16 inputs as they
+// are (wgmma on tiles staged by TMA), float32 inputs with each operand split
+// into three bf16 terms (csrc/split3.cuh; never TF32).
 //
 // Replaces no Pallas kernel: the TPU path differentiates its attention with
 // nn/flash.py::_bwd, the custom VJP of flash_mha, in jnp outside any kernel.
@@ -46,7 +47,8 @@
 // dk and dv); the bytes are q, k, v, out, dout and lse read once and dq,
 // dk, dv written once. At qwen1.5-0.5b's training shape (B=8, H=16,
 // S=2048, D=64, causal, bf16) that is 172 GFLOP against 269 MB: operations
-// bound, 0.174 ms at bf16's 989 TFLOP/s on the tensor cores.
+// bound, 0.174 ms at bf16's 989 TFLOP/s on the tensor cores. float32 takes
+// six bf16 products a product: at B=1 (21.5 GFLOP) 129 GFLOP, 0.13 ms.
 //
 // bfloat16: the tensor-core kernels (namespace tc), 256 threads, two
 // consumer warpgroups, no producer warp:
@@ -103,21 +105,37 @@
 //     of a group under a causal mask first: the dQ launch's last q tiles,
 //     the dK / dV launch's first key tiles.
 //
-// float32: the FMA body, float32 throughout, no TF32:
-//   * tiles staged in shared memory, rows padded by 4 floats: q (scaled by 1/sqrt(D) as it is staged),
-//     dout, k and v; p and ds of the current (q tile, kv tile) in shared
-//     memory too, with lse and delta of the q tile;
-//   * thread (hi, lo) = (tid / 16, tid % 16) computes the scores of rows
-//     hi + 16 r and keys lo + 16 c, then accumulates dK / dV of keys
-//     hi + 16 a (dkv) or dQ of rows hi + 16 a (dq) over column groups
-//     lo + 16 b of kCW columns, in registers;
-//   * kBlockQ = 64, kBlockK = 64 keys (32 at D = 256).
-//   Its dQ launch computes delta (four threads a row) and writes ``stats``
-//   as the tensor-core one does.
+// float32: the same two launches on three-term operands (namespace x3):
+//   * every operand of the five products is split into hi, mid and lo bf16
+//     planes in shared memory, in the swizzled box layout TMA gives the
+//     bf16 kernels (the block's threads load f32 rows by 16-byte loads,
+//     split them and store the planes: TMA cannot split); q is scaled by
+//     1/sqrt(D) in f32 before its split, as the plain version scales it,
+//     so dK needs no scaling and dQ is scaled once at the end.
+//   * S, dP (and S^T, dP^T) are six wgmma products each from shared
+//     memory, the small ones first; p, ds, the softcap's tanhf and the
+//     masks stay f32 on the accumulators (expf: ex2.approx's ~2^-22 is 4x
+//     float32's rounding); P and dS are split into three terms as A
+//     fragments, and dQ += dS K, dV += P^T dO, dK += dS^T Q are six
+//     register-A products each. Every tile's part goes into a fresh
+//     accumulator, 64 columns at a time, added to the running sum by f32
+//     adds: the tensor cores' f32 sums, which may truncate, never run over
+//     more than one tile.
+//   * Shared memory and registers bound the tiling (Cfg): the owned pair's
+//     planes (Q, dO or K, V) stay, the other pair's tiles are staged, one
+//     while the other's product runs. Two warpgroups own 64 rows or keys
+//     each on 64-row tiles at D <= 64; at D = 128 one warpgroup owns 64 on
+//     32-row tiles (its accumulators, fresh sums and terms fill the
+//     registers); at D = 256 both own the same 64, each half the columns
+//     (S and dP run in each), on 16-row tiles that take turns in one slot
+//     (the owned planes take 192 KB).
+//   * delta is computed in the dQ launch in f32 (columns in a fixed order,
+//     then the row's four lanes) and handed over in ``stats`` as by the
+//     bf16 kernels. The same order every run: bitwise stable.
 //
 // tanhf, not the fast intrinsic (its ~2^-11 would move a capped score by
-// up to cap 2^-11). The exponential: expf in the FMA body; the tensor-core
-// kernels take 2^((s - lse) log2 e) by ex2.approx (relative error ~2^-22,
+// up to cap 2^-11). The exponential: expf in float32; the bf16 kernels
+// take 2^((s - lse) log2 e) by ex2.approx (relative error ~2^-22,
 // far below the bf16 terms' 2^-17), which saved 6-10% of the call at
 // phase 10's bf16 shapes against expf (experiments/flash_bwd_breakdown.py,
 // accurate_exp). The launchers
@@ -130,11 +148,10 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "split3.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlockQ = 64;
 constexpr int kPad = 64;      // Sq_pad: Sq rounded up to this
 
 struct Args {
@@ -152,415 +169,6 @@ struct Args {
   int causal, has_window, window, has_softcap;
   float softcap, scale;
 };
-
-// --- float32: the FMA body -----------------------------------------------
-
-template <int D>
-struct Tile {
-  static constexpr int kBlockK = D == 256 ? 32 : 64;
-  static constexpr int kLd = D + 4;                  // a staged row, floats
-  static constexpr int kPLd = kBlockK + 1;           // a row of p or ds
-  static constexpr int kRQ = kBlockQ / 16;           // score rows a thread
-  static constexpr int kRK = kBlockK / 16;           // score keys a thread
-  static constexpr int kCW = D >= 64 ? 4 : D / 16;   // columns a group
-  static constexpr int kNB = D / (16 * kCW);         // groups a thread
-  static constexpr int kCols = kCW * kNB;            // columns a thread
-  // q, dout, k, v; p, ds; lse, delta
-  static constexpr int kSmem =
-      ((2 * kBlockQ + 2 * kBlockK) * kLd + 2 * kBlockQ * kPLd +
-       2 * kBlockQ) * static_cast<int>(sizeof(float));
-};
-
-__device__ __forceinline__ float4 load4(const float* src) {
-  return __ldg(reinterpret_cast<const float4*>(src));
-}
-
-// rows [row0, row0 + n) of a (rows, D) matrix into shared memory as
-// float32 (times ``mul`` where ``scaled``), row stride D + 4; rows past
-// ``rows`` are zeros
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
-                                      int n, int rows, float mul,
-                                      bool scaled) {
-  constexpr int kPieces = D / 4;
-  constexpr int kLd = D + 4;
-  for (int t = threadIdx.x; t < n * kPieces; t += kThreads) {
-    const int r = t / kPieces;
-    const int piece = t % kPieces;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) {
-      val = load4(src + (size_t)(row0 + r) * D + 4 * piece);
-      if (scaled) {
-        val.x = __fmul_rn(val.x, mul);
-        val.y = __fmul_rn(val.y, mul);
-        val.z = __fmul_rn(val.z, mul);
-        val.w = __fmul_rn(val.w, mul);
-      }
-    }
-    *reinterpret_cast<float4*>(dst + r * kLd + 4 * piece) = val;
-  }
-}
-
-// lse and delta of the q tile's rows (0 past Sq), as the dQ launch wrote
-// them into ``stats``
-__device__ __forceinline__ void stage_rows(float* lse_s, float* delta_s,
-                                           const Args& p, size_t bh,
-                                           int q0) {
-  for (int t = threadIdx.x; t < kBlockQ; t += kThreads) {
-    lse_s[t] = p.stats[bh * 2 * p.sq_pad + q0 + t];
-    delta_s[t] = p.stats[(bh * 2 + 1) * p.sq_pad + q0 + t];
-  }
-}
-
-// delta of the q tile's rows from out and dout, four threads a row in a
-// fixed order, into delta_s; lse and delta into ``stats`` (rows < Sq_pad)
-template <int D>
-__device__ __forceinline__ void row_deltas(float* lse_s, float* delta_s,
-                                           const Args& p, size_t bh,
-                                           int q0) {
-  static_assert(kThreads == 4 * kBlockQ, "four threads a row");
-  const int r = threadIdx.x / 4;
-  const int part = threadIdx.x % 4;
-  const int row = q0 + r;
-  float acc = 0.f;
-  if (row < p.sq) {
-    const float* o = static_cast<const float*>(p.out) + (bh * p.sq + row) * D;
-    const float* g = static_cast<const float*>(p.dout) + (bh * p.sq + row) * D;
-    for (int c = 4 * part; c < D; c += 16) {
-      const float4 a = load4(o + c);
-      const float4 b = load4(g + c);
-      acc = fmaf(a.x, b.x, acc);
-      acc = fmaf(a.y, b.y, acc);
-      acc = fmaf(a.z, b.z, acc);
-      acc = fmaf(a.w, b.w, acc);
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (part == 0) {
-    const float lse = row < p.sq ? p.lse[bh * p.sq + row] : 0.f;
-    lse_s[r] = lse;
-    delta_s[r] = acc;
-    if (row < p.sq_pad) {
-      p.stats[bh * 2 * p.sq_pad + row] = lse;
-      p.stats[(bh * 2 + 1) * p.sq_pad + row] = acc;
-    }
-  }
-}
-
-// p and ds of the staged (q tile at q0, kv tile at kb) into shared memory:
-// thread (hi, lo) computes rows hi + 16 r and keys lo + 16 c
-template <int D>
-__device__ __forceinline__ void scores(const float* qs, const float* dos,
-                                       const float* ks, const float* vs,
-                                       const float* lse_s,
-                                       const float* delta_s, float* ps,
-                                       float* dss, const Args& p, int q0,
-                                       int kb, int hi, int lo) {
-  using T = Tile<D>;
-  float s[T::kRQ][T::kRK], dp[T::kRQ][T::kRK];
-#pragma unroll
-  for (int r = 0; r < T::kRQ; ++r) {
-#pragma unroll
-    for (int c = 0; c < T::kRK; ++c) {
-      s[r][c] = 0.f;
-      dp[r][c] = 0.f;
-    }
-  }
-#pragma unroll 2
-  for (int dd = 0; dd < D; dd += 4) {
-    float4 qv[T::kRQ], ov[T::kRQ];
-#pragma unroll
-    for (int r = 0; r < T::kRQ; ++r) {
-      qv[r] = *reinterpret_cast<const float4*>(qs + (hi + 16 * r) * T::kLd +
-                                               dd);
-      ov[r] = *reinterpret_cast<const float4*>(dos + (hi + 16 * r) * T::kLd +
-                                               dd);
-    }
-#pragma unroll
-    for (int c = 0; c < T::kRK; ++c) {
-      const float4 kv =
-          *reinterpret_cast<const float4*>(ks + (lo + 16 * c) * T::kLd + dd);
-      const float4 vv =
-          *reinterpret_cast<const float4*>(vs + (lo + 16 * c) * T::kLd + dd);
-#pragma unroll
-      for (int r = 0; r < T::kRQ; ++r) {
-        float a = s[r][c];
-        a = fmaf(qv[r].x, kv.x, a);
-        a = fmaf(qv[r].y, kv.y, a);
-        a = fmaf(qv[r].z, kv.z, a);
-        a = fmaf(qv[r].w, kv.w, a);
-        s[r][c] = a;
-        float b = dp[r][c];
-        b = fmaf(ov[r].x, vv.x, b);
-        b = fmaf(ov[r].y, vv.y, b);
-        b = fmaf(ov[r].z, vv.z, b);
-        b = fmaf(ov[r].w, vv.w, b);
-        dp[r][c] = b;
-      }
-    }
-  }
-  const int offset = p.sk - p.sq;
-#pragma unroll
-  for (int r = 0; r < T::kRQ; ++r) {
-    const int i = hi + 16 * r;
-    const int q_pos = q0 + i + offset;
-#pragma unroll
-    for (int c = 0; c < T::kRK; ++c) {
-      const int j = lo + 16 * c;
-      const int k_pos = kb + j;
-      const bool ok = q0 + i < p.sq && k_pos < p.sk &&
-                      (!p.causal || k_pos <= q_pos) &&
-                      (!p.has_window || k_pos > q_pos - p.window);
-      float x = s[r][c];
-      float dcap = 1.f;
-      if (p.has_softcap) {
-        const float t = tanhf(x / p.softcap);
-        x = __fmul_rn(p.softcap, t);
-        dcap = 1.f - t * t;
-      }
-      const float pr = ok ? expf(x - lse_s[i]) : 0.f;
-      float ds = pr * (dp[r][c] - delta_s[i]);
-      if (p.has_softcap) ds *= dcap;
-      ps[i * T::kPLd + j] = pr;
-      dss[i * T::kPLd + j] = ds;
-    }
-  }
-}
-
-// the dK / dV launch: block (x, y) owns keys [x kBlockK, (x + 1) kBlockK)
-// of head y and sweeps the q tiles that can see them
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv(const __grid_constant__ Args p) {
-  using T = Tile<D>;
-  constexpr int BK = T::kBlockK;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kBlockQ * T::kLd;
-  float* ks = dos + kBlockQ * T::kLd;
-  float* vs = ks + BK * T::kLd;
-  float* ps = vs + BK * T::kLd;
-  float* dss = ps + kBlockQ * T::kPLd;
-  float* lse_s = dss + kBlockQ * T::kPLd;
-  float* delta_s = lse_s + kBlockQ;
-
-  const int hi = threadIdx.x / 16;
-  const int lo = threadIdx.x % 16;
-  const int kb = blockIdx.x * BK;
-  const size_t bh = blockIdx.y;
-  const float* q = static_cast<const float*>(p.q) + bh * p.sq * D;
-  const float* k = static_cast<const float*>(p.k) + bh * p.sk * D;
-  const float* v = static_cast<const float*>(p.v) + bh * p.sk * D;
-  const float* dout = static_cast<const float*>(p.dout) + bh * p.sq * D;
-
-  stage<D>(ks, k, kb, BK, p.sk, 1.f, false);
-  stage<D>(vs, v, kb, BK, p.sk, 1.f, false);
-
-  float dk[T::kRK][T::kCols], dv[T::kRK][T::kCols];
-#pragma unroll
-  for (int a = 0; a < T::kRK; ++a) {
-#pragma unroll
-    for (int c = 0; c < T::kCols; ++c) {
-      dk[a][c] = 0.f;
-      dv[a][c] = 0.f;
-    }
-  }
-
-  // the q rows some key of this tile is visible to
-  const int offset = p.sk - p.sq;
-  const int row_begin = p.causal ? max(0, kb - offset) : 0;
-  const int row_end =
-      p.has_window ? min(p.sq, max(0, kb + BK - 1 + p.window - offset))
-                   : p.sq;
-  for (int q0 = row_begin / kBlockQ * kBlockQ; q0 < row_end;
-       q0 += kBlockQ) {
-    __syncthreads();                  // the previous q tile has been read
-    stage<D>(qs, q, q0, kBlockQ, p.sq, p.scale, true);
-    stage<D>(dos, dout, q0, kBlockQ, p.sq, 1.f, false);
-    stage_rows(lse_s, delta_s, p, bh, q0);
-    __syncthreads();
-    scores<D>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, p, q0, kb, hi, lo);
-    __syncthreads();
-    // dv[j] += sum_i p[i, j] dout[i]; dk[j] += sum_i ds[i, j] q_scaled[i]
-#pragma unroll 4
-    for (int i = 0; i < kBlockQ; ++i) {
-      float pa[T::kRK], da[T::kRK];
-#pragma unroll
-      for (int a = 0; a < T::kRK; ++a) {
-        pa[a] = ps[i * T::kPLd + hi + 16 * a];
-        da[a] = dss[i * T::kPLd + hi + 16 * a];
-      }
-#pragma unroll
-      for (int b = 0; b < T::kNB; ++b) {
-        const int col = T::kCW * (lo + 16 * b);
-        float ov[T::kCW], qv[T::kCW];
-#pragma unroll
-        for (int e = 0; e < T::kCW; ++e) {
-          ov[e] = dos[i * T::kLd + col + e];
-          qv[e] = qs[i * T::kLd + col + e];
-        }
-#pragma unroll
-        for (int a = 0; a < T::kRK; ++a) {
-#pragma unroll
-          for (int e = 0; e < T::kCW; ++e) {
-            dv[a][b * T::kCW + e] = fmaf(pa[a], ov[e],
-                                         dv[a][b * T::kCW + e]);
-            dk[a][b * T::kCW + e] = fmaf(da[a], qv[e],
-                                         dk[a][b * T::kCW + e]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dko = static_cast<float*>(p.dk) + bh * p.sk * D;
-  float* dvo = static_cast<float*>(p.dv) + bh * p.sk * D;
-#pragma unroll
-  for (int a = 0; a < T::kRK; ++a) {
-    const int j = kb + hi + 16 * a;
-    if (j >= p.sk) continue;
-#pragma unroll
-    for (int b = 0; b < T::kNB; ++b) {
-      const int col = T::kCW * (lo + 16 * b);
-#pragma unroll
-      for (int e = 0; e < T::kCW; ++e) {
-        dko[(size_t)j * D + col + e] = dk[a][b * T::kCW + e];
-        dvo[(size_t)j * D + col + e] = dv[a][b * T::kCW + e];
-      }
-    }
-  }
-}
-
-// the dQ launch: block (x, y) owns query rows [x kBlockQ, (x + 1) kBlockQ)
-// of head y and sweeps the kv tiles they can see
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq(const __grid_constant__ Args p) {
-  using T = Tile<D>;
-  constexpr int BK = T::kBlockK;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kBlockQ * T::kLd;
-  float* ks = dos + kBlockQ * T::kLd;
-  float* vs = ks + BK * T::kLd;
-  float* ps = vs + BK * T::kLd;
-  float* dss = ps + kBlockQ * T::kPLd;
-  float* lse_s = dss + kBlockQ * T::kPLd;
-  float* delta_s = lse_s + kBlockQ;
-
-  const int hi = threadIdx.x / 16;
-  const int lo = threadIdx.x % 16;
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t bh = blockIdx.y;
-  const float* q = static_cast<const float*>(p.q) + bh * p.sq * D;
-  const float* k = static_cast<const float*>(p.k) + bh * p.sk * D;
-  const float* v = static_cast<const float*>(p.v) + bh * p.sk * D;
-  const float* dout = static_cast<const float*>(p.dout) + bh * p.sq * D;
-
-  stage<D>(qs, q, q0, kBlockQ, p.sq, p.scale, true);
-  stage<D>(dos, dout, q0, kBlockQ, p.sq, 1.f, false);
-  row_deltas<D>(lse_s, delta_s, p, bh, q0);
-
-  float dq[T::kRQ][T::kCols];
-#pragma unroll
-  for (int a = 0; a < T::kRQ; ++a) {
-#pragma unroll
-    for (int c = 0; c < T::kCols; ++c) dq[a][c] = 0.f;
-  }
-
-  // the keys some row of this tile may see (the forward's range)
-  const int offset = p.sk - p.sq;
-  const int q_lo = q0 + offset;
-  const int q_hi = min(q0 + kBlockQ, p.sq) - 1 + offset;
-  const int k_end = p.causal ? min(p.sk, q_hi + 1) : p.sk;
-  const int k_begin = p.has_window ? max(0, q_lo - p.window + 1) : 0;
-  for (int kb = k_begin / BK * BK; kb < k_end; kb += BK) {
-    __syncthreads();                  // the previous kv tile has been read
-    stage<D>(ks, k, kb, BK, p.sk, 1.f, false);
-    stage<D>(vs, v, kb, BK, p.sk, 1.f, false);
-    __syncthreads();
-    scores<D>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, p, q0, kb, hi, lo);
-    __syncthreads();
-    // dq[i] += sum_j ds[i, j] k[j] (times scale at the end)
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float da[T::kRQ];
-#pragma unroll
-      for (int a = 0; a < T::kRQ; ++a) {
-        da[a] = dss[(hi + 16 * a) * T::kPLd + j];
-      }
-#pragma unroll
-      for (int b = 0; b < T::kNB; ++b) {
-        const int col = T::kCW * (lo + 16 * b);
-        float kv[T::kCW];
-#pragma unroll
-        for (int e = 0; e < T::kCW; ++e) kv[e] = ks[j * T::kLd + col + e];
-#pragma unroll
-        for (int a = 0; a < T::kRQ; ++a) {
-#pragma unroll
-          for (int e = 0; e < T::kCW; ++e) {
-            dq[a][b * T::kCW + e] = fmaf(da[a], kv[e],
-                                         dq[a][b * T::kCW + e]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dqo = static_cast<float*>(p.dq) + bh * p.sq * D;
-#pragma unroll
-  for (int a = 0; a < T::kRQ; ++a) {
-    const int i = q0 + hi + 16 * a;
-    if (i >= p.sq) continue;
-#pragma unroll
-    for (int b = 0; b < T::kNB; ++b) {
-      const int col = T::kCW * (lo + 16 * b);
-#pragma unroll
-      for (int e = 0; e < T::kCW; ++e) {
-        dqo[(size_t)i * D + col + e] =
-            __fmul_rn(dq[a][b * T::kCW + e], p.scale);
-      }
-    }
-  }
-}
-
-// the FMA body's two launches: dQ (and stats), then dK / dV
-template <int D>
-int fma_launch(const Args& p, int bh, cudaStream_t st) {
-  using T = Tile<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             T::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (p.sq > 0) {
-    const dim3 grid((p.sq + kBlockQ - 1) / kBlockQ, bh);
-    flash_bwd_dq<D><<<grid, kThreads, T::kSmem, st>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (p.sk > 0) {
-    const dim3 grid((p.sk + T::kBlockK - 1) / T::kBlockK, bh);
-    flash_bwd_dkv<D><<<grid, kThreads, T::kSmem, st>>>(p);
-    err = cudaGetLastError();
-  }
-  return static_cast<int>(err);
-}
-
-int fma_launch_d(const Args& p, int bh, int d, cudaStream_t st) {
-  switch (d) {
-    case 16: return fma_launch<16>(p, bh, st);
-    case 32: return fma_launch<32>(p, bh, st);
-    case 64: return fma_launch<64>(p, bh, st);
-    case 128: return fma_launch<128>(p, bh, st);
-    case 256: return fma_launch<256>(p, bh, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // --- bfloat16: the tensor-core kernels -------------------------------------
 
@@ -1171,6 +779,483 @@ int launch_d(const Args& p, int bh, int d, cudaStream_t st) {
 
 }  // namespace tc
 
+// --- float32: the tensor-core kernels, each operand in three bf16 terms ---
+
+namespace x3 {
+
+using namespace hopper;
+using namespace split3;
+
+constexpr int kTermsUsed = 3;     // bf16 terms of each float32 operand
+constexpr bool kFresh = true;     // each tile's dQ, dK, dV into a fresh sum
+constexpr bool kProducts = true;  // the tensor-core products (a probe's off)
+
+// both launches' tiling at head width D
+template <int D>
+struct Cfg {
+  // D <= 64: two warpgroups own 64 rows or keys each; D >= 128: both own
+  // the same 64 and each holds half of the columns (each computes the
+  // whole S and dP): their accumulators, fresh sums and terms fit the
+  // registers (experiments/flash_bwd_breakdown.py times one warpgroup
+  // owning 64 and two owning 64 each at D = 128)
+  static constexpr int kWarpgroups = 2;
+  static constexpr bool kSplit = D >= 128;
+  static constexpr int kThreads = 128 * kWarpgroups;
+  static constexpr int kOwn = kSplit || kWarpgroups == 1 ? 64 : 128;
+  // keys (dQ) or query rows (dK / dV) a staged tile; at D = 256 the two
+  // staged operands take turns in one slot (the owned pair's planes take
+  // 192 KB)
+  static constexpr int kTile = D == 256 ? 16 : 64;
+  static constexpr bool kShared = D == 256;
+  static constexpr int kCols = kSplit ? D / 2 : D;      // a warpgroup's
+  static constexpr int kFold = kCols < 64 ? kCols : 64;  // a fresh sum's
+  static constexpr int kOwnBytes = Planes<D>::bytes(kOwn);
+  static constexpr int kTileBytes = Planes<D>::bytes(kTile);
+  static constexpr int kStatBytes = 2 * kTile * 4;      // lse, delta (dK / dV)
+  // the owned pair's planes, the staged tiles', the dK / dV launch's
+  // stats; 1024 bytes of slack to align the start
+  static constexpr int kSmem = 1024 + 2 * kOwnBytes +
+                               (kShared ? 1 : 2) * kTileBytes + kStatBytes;
+};
+
+// p = exp(s - lse) and ds = p (dp - delta) (* dcap) on a score
+// accumulator pair, in place (s becomes p, dp becomes ds), as the plain
+// version rounds them; ``lse(i)`` and ``delta(i)`` are element i's row
+// statistics. One uniform branch for the softcap.
+template <int N, typename Lse, typename Delta>
+__device__ __forceinline__ void grads(float (&s)[N], float (&dp)[N],
+                                      const Args& p, Lse&& lse,
+                                      Delta&& delta) {
+  if (p.has_softcap) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float t = tanhf(s[i] / p.softcap);
+      s[i] = expf(__fmul_rn(p.softcap, t) - lse(i));
+      dp[i] = s[i] * (dp[i] - delta(i)) * (1.f - t * t);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      s[i] = expf(s[i] - lse(i));
+      dp[i] = s[i] * (dp[i] - delta(i));
+    }
+  }
+}
+
+// the dQ launch: a block owns kOwn query rows of one (b, h) and sweeps the
+// kv tiles they can see; it computes delta for its rows first
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+    flash_bwd_dq_x3(const __grid_constant__ Args p) {
+  using C = Cfg<D>;
+  constexpr int T = C::kTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* dos = qs + C::kOwnBytes;
+  unsigned char* ks = dos + C::kOwnBytes;
+  unsigned char* vs = C::kShared ? ks : ks + C::kTileBytes;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  int bh, tile;
+  tc::schedule(bh, tile, true);
+  const int q0 = tile * C::kOwn;
+  const int offset = p.sk - p.sq;
+  const int q_lo = q0 + offset;                                // first row
+  const int q_hi = min(q0 + C::kOwn, p.sq) - 1 + offset;       // last row
+  // the keys some row of this block may see
+  const int k_end = p.causal ? min(p.sk, q_hi + 1) : p.sk;
+  const int k_begin = p.has_window ? max(0, q_lo - p.window + 1) : 0;
+  const int kb0 = k_begin / T * T;
+  const int tiles = k_end > kb0 ? (k_end - kb0 + T - 1) / T : 0;
+  const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.sq * D;
+  const float* k = static_cast<const float*>(p.k) + (size_t)bh * p.sk * D;
+  const float* v = static_cast<const float*>(p.v) + (size_t)bh * p.sk * D;
+  const float* dout =
+      static_cast<const float*>(p.dout) + (size_t)bh * p.sq * D;
+
+  // this thread's two rows (of the accumulators' layout), in the block
+  const int own = C::kSplit ? 0 : 64 * wg;     // the warpgroup's first row
+  const int row0 = own + 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);               // first column of a chunk
+  const int col0 = C::kSplit ? wg * C::kCols : 0;   // the dQ columns held
+
+  // delta = rowsum(dout * out) of the two rows (f32, columns in a fixed
+  // order, then the row's four lanes), and lse; one warpgroup writes both
+  // to stats (rows < Sq_pad; 0 past Sq)
+  float lse[2], delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + 8 * h;
+    float acc = 0.f;
+    if (row < p.sq) {
+      const size_t base = ((size_t)bh * p.sq + row) * D + c0;
+      const float* o = static_cast<const float*>(p.out) + base;
+      const float* g = static_cast<const float*>(p.dout) + base;
+#pragma unroll 4
+      for (int c = 0; c < D / 8; ++c) {
+        const float2 a = *reinterpret_cast<const float2*>(o + 8 * c);
+        const float2 b = *reinterpret_cast<const float2*>(g + 8 * c);
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    delta[h] = acc;
+    lse[h] = row < p.sq ? p.lse[(size_t)bh * p.sq + row] : 0.f;
+    if ((!C::kSplit || wg == 0) && lane % 4 == 0 && row < p.sq_pad) {
+      p.stats[(size_t)bh * 2 * p.sq_pad + row] = lse[h];
+      p.stats[((size_t)bh * 2 + 1) * p.sq_pad + row] = delta[h];
+    }
+  }
+
+  const int qp[2] = {q0 + row0 + offset, q0 + row0 + 8 + offset};
+  const int wg_lo = q0 + own + offset;         // the warpgroup's first row
+  float dq[C::kCols / 2];
+#pragma unroll
+  for (int i = 0; i < C::kCols / 2; ++i) dq[i] = 0.f;
+
+  // q scaled by 1/sqrt(D) in float32 first, then split, as the plain
+  // version scales it; dO; V's first tile
+  if (tiles > 0) {
+    stage3<D, C::kOwn, C::kThreads>(qs, q, q0, p.sq, p.scale, true);
+    stage3<D, C::kOwn, C::kThreads>(dos, dout, q0, p.sq, 1.f, false);
+    if constexpr (!C::kShared) {
+      stage3<D, T, C::kThreads>(vs, v, kb0, p.sk, 1.f, false);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  for (int j = 0; j < tiles; ++j) {
+    const int kb = kb0 + j * T;
+    const Operand<D, C::kOwn> qd(qs), dod(dos);
+    const Operand<D, T> kd(ks), vd(vs);
+    if constexpr (C::kShared) {
+      stage3<D, T, C::kThreads>(vs, v, kb, p.sk, 1.f, false);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    // dP = dO V^T; K's tile is loaded before it is issued and split into
+    // its slot while it runs
+    Rows<D, T, C::kThreads> rows;
+    rows.load(k, kb, p.sk);
+    float dp[T / 2];
+    wgmma_fence();
+    ss_products<T, D / 16, kTermsUsed, kProducts>(
+        dp, [&](int t, int kk) { return dod.kmajor(t, own, kk); },
+        [&](int t, int kk) { return vd.kmajor(t, 0, kk); });
+    wgmma_commit();
+    if constexpr (C::kShared) {
+      wgmma_wait0();
+      fence_regs(dp);
+      __syncthreads();          // every warpgroup is done with V's tile
+    }
+    rows.store(ks, 1.f, false);
+    fence_proxy_async();
+    __syncthreads();            // K's tile is visible
+    // S = Q K^T
+    float s[T / 2];
+    wgmma_fence();
+    ss_products<T, D / 16, kTermsUsed, kProducts>(
+        s, [&](int t, int kk) { return qd.kmajor(t, own, kk); },
+        [&](int t, int kk) { return kd.kmajor(t, 0, kk); });
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // element i: row h = (i / 2) % 2 of the thread's two
+    grads(s, dp, p, [&](int i) { return lse[(i / 2) % 2]; },
+          [&](int i) { return delta[(i / 2) % 2]; });
+    const bool whole = kb + T <= p.sk &&
+                       (!p.causal || kb + T - 1 <= wg_lo) &&
+                       (!p.has_window || kb > wg_lo + 63 - p.window);
+    if (!whole) {
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) {
+        const int h = (i / 2) % 2;
+        const int k_pos = kb + 8 * (i / 4) + c0 + i % 2;
+        const bool ok = k_pos < p.sk && (!p.causal || k_pos <= qp[h]) &&
+                        (!p.has_window || k_pos > qp[h] - p.window);
+        dp[i] = ok ? dp[i] : 0.f;
+      }
+    }
+    // dQ += dS K, six products into a fresh sum per kFold columns; K
+    // (keys x D) read MN-major. V's next tile is loaded before they are
+    // issued and split into its slot while the first part runs.
+    uint32_t dsf[3][T / 16][4];
+    to_frags3<T / 16>(dp, dsf);
+    const bool more = !C::kShared && j + 1 < tiles;
+    if (more) rows.load(v, kb + T, p.sk);
+    rs_products<C::kCols, C::kFold, T / 16, kTermsUsed, kProducts, kFresh>(
+        dq, dsf,
+        [&](int t, int c, int kk) { return kd.mnmajor(t, col0 + c, kk); },
+        [&](int i, float x) { return dq[i] + x; },
+        [&] {
+          if constexpr (!C::kShared) {
+            __syncthreads();    // every warpgroup is done with V's tile
+            if (more) {
+              rows.store(vs, 1.f, false);
+              fence_proxy_async();
+            }
+          }
+        });
+    __syncthreads();            // K's slot is free; V's next tile visible
+  }
+
+  // dq * scale, rows < Sq
+  float* out = static_cast<float*>(p.dq) + (size_t)bh * p.sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + 8 * h;
+    if (row >= p.sq) continue;
+    float* orow = out + (size_t)row * D + col0 + c0;
+#pragma unroll
+    for (int c = 0; c < C::kCols / 8; ++c) {
+      *reinterpret_cast<float2*>(orow + 8 * c) =
+          make_float2(__fmul_rn(dq[4 * c + 2 * h], p.scale),
+                      __fmul_rn(dq[4 * c + 2 * h + 1], p.scale));
+    }
+  }
+}
+
+// the dK / dV launch: a block owns kOwn keys of one (b, h) and sweeps the
+// q tiles that can see them, lse and delta from the dQ launch's stats
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+    flash_bwd_dkv_x3(const __grid_constant__ Args p) {
+  using C = Cfg<D>;
+  constexpr int T = C::kTile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* vs = ks + C::kOwnBytes;
+  unsigned char* qs = vs + C::kOwnBytes;
+  unsigned char* dos = C::kShared ? qs : qs + C::kTileBytes;
+  float* stats = reinterpret_cast<float*>(
+      qs + (C::kShared ? 1 : 2) * C::kTileBytes);   // lse, then delta
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  int bh, tile;
+  tc::schedule(bh, tile, false);
+  const int kb = tile * C::kOwn;
+  // the q rows some key of this block is visible to
+  const int offset = p.sk - p.sq;
+  const int row_begin = p.causal ? max(0, kb - offset) : 0;
+  const int row_end =
+      p.has_window ? min(p.sq, max(0, kb + C::kOwn - 1 + p.window - offset))
+                   : p.sq;
+  const int qb0 = row_begin / T * T;
+  const int tiles = row_end > qb0 ? (row_end - qb0 + T - 1) / T : 0;
+  const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.sq * D;
+  const float* k = static_cast<const float*>(p.k) + (size_t)bh * p.sk * D;
+  const float* v = static_cast<const float*>(p.v) + (size_t)bh * p.sk * D;
+  const float* dout =
+      static_cast<const float*>(p.dout) + (size_t)bh * p.sq * D;
+
+  // this thread's two keys (the accumulators' rows), in the block
+  const int own = C::kSplit ? 0 : 64 * wg;     // the warpgroup's first key
+  const int key0 = own + 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);               // first column of a chunk
+  const int col0 = C::kSplit ? wg * C::kCols : 0;   // the dK / dV columns
+  const int kp[2] = {kb + key0, kb + key0 + 8};
+  const int wk = kb + own;                     // the warpgroup's first key
+
+  // a q tile's rows' lse and delta, as the dQ launch wrote them (0 past Sq)
+  auto stage_stats = [&](int q0) {
+    const float* rows = p.stats + (size_t)bh * 2 * p.sq_pad + q0;
+    for (int t = tid; t < T; t += C::kThreads) {
+      stats[t] = rows[t];
+      stats[T + t] = rows[p.sq_pad + t];
+    }
+  };
+
+  float dk[C::kCols / 2], dv[C::kCols / 2];
+#pragma unroll
+  for (int i = 0; i < C::kCols / 2; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+
+  if (tiles > 0) {
+    stage3<D, C::kOwn, C::kThreads>(ks, k, kb, p.sk, 1.f, false);
+    stage3<D, C::kOwn, C::kThreads>(vs, v, kb, p.sk, 1.f, false);
+    if constexpr (!C::kShared) {
+      stage3<D, T, C::kThreads>(dos, dout, qb0, p.sq, 1.f, false);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  for (int j = 0; j < tiles; ++j) {
+    const int q0 = qb0 + j * T;
+    const Operand<D, C::kOwn> kd(ks), vd(vs);
+    const Operand<D, T> qd(qs), dod(dos);
+    if constexpr (C::kShared) {
+      stage3<D, T, C::kThreads>(dos, dout, q0, p.sq, 1.f, false);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    // dP^T = V dO^T: rows are keys, columns query rows; Q's tile is loaded
+    // before it is issued and split (scaled by 1/sqrt(D) first, as the
+    // plain version scales it) into its slot while it runs, with its rows'
+    // statistics
+    Rows<D, T, C::kThreads> rows;
+    rows.load(q, q0, p.sq);
+    float dp[T / 2];
+    wgmma_fence();
+    ss_products<T, D / 16, kTermsUsed, kProducts>(
+        dp, [&](int t, int kk) { return vd.kmajor(t, own, kk); },
+        [&](int t, int kk) { return dod.kmajor(t, 0, kk); });
+    wgmma_commit();
+    if constexpr (C::kShared) {
+      wgmma_wait0();
+      fence_regs(dp);
+      __syncthreads();          // every warpgroup is done with dO's tile
+    }
+    rows.store(qs, p.scale, true);
+    stage_stats(q0);
+    fence_proxy_async();
+    __syncthreads();            // Q's tile and the statistics are visible
+    // S^T = K Q^T
+    float s[T / 2];
+    wgmma_fence();
+    ss_products<T, D / 16, kTermsUsed, kProducts>(
+        s, [&](int t, int kk) { return kd.kmajor(t, own, kk); },
+        [&](int t, int kk) { return qd.kmajor(t, 0, kk); });
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // element i: query column 8 (i / 4) + c0 + i % 2 of the tile
+    grads(s, dp, p,
+          [&](int i) { return stats[8 * (i / 4) + c0 + i % 2]; },
+          [&](int i) { return stats[T + 8 * (i / 4) + c0 + i % 2]; });
+    const bool whole = q0 + T <= p.sq && wk + 64 <= p.sk &&
+                       (!p.causal || wk + 63 <= q0 + offset) &&
+                       (!p.has_window || wk > q0 + T - 1 + offset - p.window);
+    if (!whole) {
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) {
+        const int k_pos = kp[(i / 2) % 2];
+        const int row = q0 + 8 * (i / 4) + c0 + i % 2;
+        const int q_pos = row + offset;
+        const bool ok = row < p.sq && k_pos < p.sk &&
+                        (!p.causal || k_pos <= q_pos) &&
+                        (!p.has_window || k_pos > q_pos - p.window);
+        s[i] = ok ? s[i] : 0.f;
+        dp[i] = ok ? dp[i] : 0.f;
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q, six products each into a fresh sum
+    // per kFold columns; dO and Q (query rows x D) read MN-major
+    uint32_t pf[3][T / 16][4], dsf[3][T / 16][4];
+    auto dv_of = [&](auto&& between) {
+      to_frags3<T / 16>(s, pf);
+      rs_products<C::kCols, C::kFold, T / 16, kTermsUsed, kProducts, kFresh>(
+          dv, pf,
+          [&](int t, int c, int kk) { return dod.mnmajor(t, col0 + c, kk); },
+          [&](int i, float x) { return dv[i] + x; }, between);
+    };
+    auto dk_of = [&](auto&& between) {
+      to_frags3<T / 16>(dp, dsf);
+      rs_products<C::kCols, C::kFold, T / 16, kTermsUsed, kProducts, kFresh>(
+          dk, dsf,
+          [&](int t, int c, int kk) { return qd.mnmajor(t, col0 + c, kk); },
+          [&](int i, float x) { return dk[i] + x; }, between);
+    };
+    if constexpr (C::kShared) {
+      // Q's tile first, then dO's again in the same slot
+      dk_of([] {});
+      __syncthreads();          // every warpgroup is done with Q's tile
+      stage3<D, T, C::kThreads>(dos, dout, q0, p.sq, 1.f, false);
+      fence_proxy_async();
+      __syncthreads();
+      dv_of([] {});
+    } else {
+      dv_of([] {});
+      // dO's next tile is loaded before dK's products are issued and split
+      // into its slot while the first part runs
+      const bool more = j + 1 < tiles;
+      if (more) rows.load(dout, q0 + T, p.sq);
+      dk_of([&] {
+        __syncthreads();        // every warpgroup is done with dO's tile
+        if (more) {
+          rows.store(dos, 1.f, false);
+          fence_proxy_async();
+        }
+      });
+    }
+    __syncthreads();            // the slots are free; dO's next tile visible
+  }
+
+  // dk (q was scaled) and dv, keys < Sk
+  float* dko = static_cast<float*>(p.dk) + (size_t)bh * p.sk * D;
+  float* dvo = static_cast<float*>(p.dv) + (size_t)bh * p.sk * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = kp[h];
+    if (key >= p.sk) continue;
+    const size_t at = (size_t)key * D + col0 + c0;
+#pragma unroll
+    for (int c = 0; c < C::kCols / 8; ++c) {
+      *reinterpret_cast<float2*>(dko + at + 8 * c) =
+          make_float2(dk[4 * c + 2 * h], dk[4 * c + 2 * h + 1]);
+      *reinterpret_cast<float2*>(dvo + at + 8 * c) =
+          make_float2(dv[4 * c + 2 * h], dv[4 * c + 2 * h + 1]);
+    }
+  }
+}
+
+// dQ (and stats), then dK / dV, on ``st``
+template <int D>
+int launch(const Args& p, int bh, cudaStream_t st) {
+  using C = Cfg<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_x3<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(flash_bwd_dkv_x3<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (p.sq > 0) {
+    const dim3 grid(bh, (p.sq + C::kOwn - 1) / C::kOwn);
+    flash_bwd_dq_x3<D><<<grid, C::kThreads, C::kSmem, st>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (p.sk > 0) {
+    const dim3 grid(bh, (p.sk + C::kOwn - 1) / C::kOwn);
+    flash_bwd_dkv_x3<D><<<grid, C::kThreads, C::kSmem, st>>>(p);
+    e = cudaGetLastError();
+  }
+  return static_cast<int>(e);
+}
+
+int launch_d(const Args& p, int bh, int d, cudaStream_t st) {
+  switch (d) {
+    case 16: return launch<16>(p, bh, st);
+    case 32: return launch<32>(p, bh, st);
+    case 64: return launch<64>(p, bh, st);
+    case 128: return launch<128>(p, bh, st);
+    case 256: return launch<256>(p, bh, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace x3
+
 // the tiling of the kernels that run inputs of this type at head width D
 template <int D>
 void tiling(int bf16, int* block_q, int* block_k, int* smem_bytes) {
@@ -1179,9 +1264,9 @@ void tiling(int bf16, int* block_q, int* block_k, int* smem_bytes) {
     *block_k = tc::kTile;
     *smem_bytes = tc::Cfg<D>::kSmem;
   } else {
-    *block_q = kBlockQ;
-    *block_k = Tile<D>::kBlockK;
-    *smem_bytes = Tile<D>::kSmem;
+    *block_q = x3::Cfg<D>::kOwn;
+    *block_k = x3::Cfg<D>::kTile;
+    *smem_bytes = x3::Cfg<D>::kSmem;
   }
 }
 
@@ -1238,6 +1323,6 @@ extern "C" int flash_attention_bwd_launch(
   p.scale = scale;
   if (bh <= 0 || (sq <= 0 && sk <= 0)) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!bf16) return fma_launch_d(p, bh, d, st);
+  if (!bf16) return x3::launch_d(p, bh, d, st);
   return tc::launch_d(p, bh, d, st);
 }

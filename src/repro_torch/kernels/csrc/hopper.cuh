@@ -209,6 +209,35 @@ __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
+// d (64 x 16) = A (64 x 16) B (16 x 16) + (scale_d ? d : 0), A and B
+// K-major in shared memory
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32) = A (64 x 16) B (16 x 32) + (scale_d ? d : 0), A and B
+// K-major in shared memory
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 64) = A (64 x 16) B (16 x 64) + (scale_d ? d : 0), A and B
 // K-major in shared memory
 template <>

@@ -16,8 +16,10 @@ output is (B, H, Sq, D) in ``q.dtype``. Per query row i and key j:
 
 ``flash_attention`` takes its plain version ``flash_attention_ref`` for
 tensors on the CPU. For CUDA tensors it launches the hand-written kernel
-``csrc/flash_attention.cu`` (float32 or bfloat16, D of 16, 32, ... 256)
-or raises; ``flash_attention.launches`` counts those launches. For
+``csrc/flash_attention.cu`` (float32 or bfloat16, D of 16, 32, ... 256;
+both on the tensor cores, float32 with each operand in three bf16 terms,
+``csrc/split3.cuh``, never TF32) or raises; ``flash_attention.launches``
+counts those launches. For
 ``meta`` tensors (the dry run, ``repro_torch/counter.py``) it makes the
 kernel's outputs, checks the kernel's limits and launches nothing. Under
 an active counter each call, on the card or on meta, declares its
@@ -37,7 +39,8 @@ tensors, the hand-written ``csrc/flash_attention_bwd.cu`` for CUDA ones
 (two launches a call, each counted in ``flash_attention_bwd.launches``:
 dQ, which also computes delta = rowsum(dout * out), then dK / dV; bf16 on
 the tensor cores by ``wgmma`` on TMA-staged tiles, P and dS entering them
-as one bf16 term each; float32 on FMAs).
+as one bf16 term each; float32 on ``wgmma`` too, every operand in three
+bf16 terms, six products a product).
 Serving runs under ``torch.no_grad()`` or on tensors that need no grad,
 and takes the forward launch alone, which writes no lse.
 """

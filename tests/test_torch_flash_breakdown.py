@@ -15,7 +15,8 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 VARIANTS = ("as_is", "one_p_term", "no_products", "loads_only", "fast_exp",
-            "fused_passes", "heads_first", "head_by_head")
+            "fused_passes", "heads_first", "head_by_head", "two_terms_f32",
+            "no_fold_f32", "split_only_f32")
 
 
 @pytest.fixture(scope="module")

@@ -16,7 +16,9 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 VARIANTS = ("as_is", "split_d128", "two_stages", "lag0", "head_by_head",
-            "two_terms", "accurate_exp", "no_rs", "no_ss")
+            "two_terms", "accurate_exp", "no_rs", "no_ss", "two_terms_f32",
+            "no_fold_f32", "split_only_f32", "f32_d128_one_wg",
+            "f32_d128_two_wg")
 
 
 @pytest.fixture(scope="module")
