@@ -669,11 +669,7 @@ def out_of_range_case(kernel: str, *, heads: int = 0):
     mp = kernel == "mp_pipeline"
     kw = random_inputs(r, n, e, d, edge_term=not heads,
                        bias=None if heads else ("bias" if mp else "phi_bias"))
-    for stream, past in (("receivers", 12), ("senders", 8)):
-        pick = r.random(e) < 0.25
-        draw = np.where(r.random(e) < 0.5, r.integers(-4, 0, size=e),
-                        r.integers(n, n + past, size=e))
-        kw[stream] = np.where(pick, draw, kw[stream]).astype(np.int64)
+    redraw_out_of_range(r, kw)
     if mp:
         kw["stats"] = ("sum", "count") if heads else ALL_STATS
         kw["activation"] = "none" if heads else "relu"
@@ -687,6 +683,18 @@ def out_of_range_case(kernel: str, *, heads: int = 0):
         kw["out_activation"] = "none"
         kw["self_coeff"] = np.array([1.5], np.float32)
     return kw
+
+
+def redraw_out_of_range(r, kw):
+    """A quarter of ``kw``'s receivers redrawn from [-4, 0) or [N, N+12)
+    and a quarter of its senders from [-4, 0) or [N, N+8), drawn from
+    ``r``, in place."""
+    n, e = kw["num_nodes"], kw["senders"].shape[0]
+    for stream, past in (("receivers", 12), ("senders", 8)):
+        pick = r.random(e) < 0.25
+        draw = np.where(r.random(e) < 0.5, r.integers(-4, 0, size=e),
+                        r.integers(n, n + past, size=e))
+        kw[stream] = np.where(pick, draw, kw[stream]).astype(np.int64)
 
 
 def owned_edges(kw_np):
@@ -865,25 +873,44 @@ def epilogue_rows_check(name, kw, kw_np, layer_fused, layer_fused_ref):
 
 def lf_build_report() -> dict:
     """Per instantiation of csrc/layer_fused.cu's kernel (the scalers form's
-    four accumulators, or one for the self and field forms): registers,
-    spill bytes and static shared memory from the build's ``-Xptxas -v``
-    log."""
+    four accumulators, or one for the self and field forms; the block-local
+    or the grid form): registers, spill bytes and static shared memory from
+    the build's ``-Xptxas -v`` log."""
     import re
 
     def instance(symbol):
-        m = re.search(r"layer_fused_kernelILb(\d)E", symbol)
+        m = re.search(r"layer_fused_kernelILb(\d)ELb(\d)E", symbol)
         return None if m is None else (
-            "scalers" if m.group(1) == "1" else "self_field")
+            ("scalers" if m.group(1) == "1" else "self_field")
+            + ("_grid" if m.group(2) == "1" else "_block"))
     report = ptxas_report("layer_fused", instance)
     for name, info in sorted(report.items()):
         log("kernels", f"layer_fused.cu instantiation {name}: "
             f"{info['registers']} registers, spill stores/loads "
             f"{info['spill_stores']}/{info['spill_loads']} bytes, "
             f"{info['smem']} bytes static shared memory (ptxas -v log)")
-    if len(report) != 2:
+    if len(report) != 4:
         raise AssertionError(f"layer_fused.cu: {len(report)} kernel "
-                             f"instantiations in the ptxas log, expected 2")
+                             f"instantiations in the ptxas log, expected 4")
     return report
+
+
+def lf_hub_case(seed, n, e, d, *, share=0.75):
+    """GIN's self form with ``share`` of the edges into row n // 3: its
+    tile's segment is longer than the grid form's list, so that tile is
+    swept."""
+    kw = lf_case(seed, n, e, d, 200, d)
+    hub = np.random.default_rng(seed + 1).random(e) < share
+    kw["receivers"] = np.where(hub, n // 3, kw["receivers"]).astype(np.int64)
+    return kw
+
+
+def lf_out_of_range(kw, seed):
+    """``kw`` with indices outside [0, N) as ``out_of_range_case`` draws
+    them, from ``default_rng(seed)``."""
+    kw = dict(kw)
+    redraw_out_of_range(np.random.default_rng(seed), kw)
+    return kw
 
 
 # the dense layers' weights and biases, which the kernel stages on chip
@@ -930,7 +957,77 @@ def lf_cases() -> dict:
         # GIN's paper width with weights and biases off 16 bytes
         "h_weights_off_4_bytes": lf_case(9, 1024, 4096, 100, 200, 100,
                                          empty_tail=64),
+        # the grid form (LF_GRID_CASES): the packed buckets of 64 and 1,024
+        # graphs in each epilogue (PNA's w1 through the ring, restaged a
+        # tile), a hub row's tile swept, N > E, indices outside [0, N)
+        "i_gin_grid_n2048": lf_case(21, 2048, 4096, 100, 200, 100,
+                                    empty_tail=64),
+        "i_pna_grid_n2048": lf_scalers_case(22, 2048, 4096, 80,
+                                            empty_tail=64),
+        "i_dgn_grid_n2048": lf_field_case(23, 2048, 4096, 100,
+                                          empty_tail=64),
+        "j_gin_grid_n32768": lf_case(24, 32768, 65536, 100, 200, 100,
+                                     empty_tail=64),
+        "j_pna_grid_n32768": lf_scalers_case(25, 32768, 65536, 80,
+                                             empty_tail=64),
+        "j_dgn_grid_n32768": lf_field_case(26, 32768, 65536, 100,
+                                           empty_tail=64),
+        "k_grid_hub_row_n8192": lf_hub_case(27, 8192, 16384, 100),
+        "k_grid_n_gt_e": lf_case(28, 16384, 4000, 100, 200, 100),
+        "k_grid_out_of_range": lf_out_of_range(
+            lf_case(29, 4096, 8192, 100, 200, 100), 29),
     }
+
+
+# phase 3's cases that must take layer_fused's grid form: "j_" and "k_" by
+# the wrapper's own rule, "i_" (N=2048, E=4096, where the rule keeps the
+# block-local form: the crossover) through its private hook, every call
+LF_GRID_CASES = ("i_", "j_", "k_")
+LF_FORCED_GRID = ("i_",)
+
+
+@contextmanager
+def lf_forced(name):
+    """The grid form forced for a case of LF_FORCED_GRID, else nothing."""
+    from repro_torch.kernels import layer_fused as lf
+    if not name.startswith(LF_FORCED_GRID):
+        yield
+        return
+    lf._force_form = "grid"
+    try:
+        yield
+    finally:
+        lf._force_form = None
+
+
+def lf_form(kw_np) -> str:
+    """The form ``layer_fused`` takes for a case at its own rows per
+    block on this card."""
+    import torch
+    from repro_torch.kernels.layer_fused import launch_form
+    return launch_form(kw_np["x"].shape[0], kw_np["senders"].shape[0], None,
+                       torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+
+
+def other_form_check(label, kw, out, form):
+    """The case in the form it does not take (the wrapper's private
+    hook): bitwise ``out``. These launches are not on the main path."""
+    import torch
+    from repro_torch.kernels import layer_fused as lf
+    other = "block" if form == "grid" else "grid"
+    forced = lf._force_form
+    lf._force_form = other
+    try:
+        again = call(lf.layer_fused, kw)
+    finally:
+        lf._force_form = forced
+    torch.cuda.synchronize()
+    if not torch.equal(again, out):
+        raise AssertionError(f"{label}: the {other} form is not bitwise the "
+                             f"{form} form")
+    log("kernels", f"{label}: the {other} form bitwise equal to the {form} "
+        f"form it takes")
 
 
 def lf_on_device(name, kw_np):
@@ -942,51 +1039,61 @@ def lf_on_device(name, kw_np):
 
 def kernel_phase(card: str, main_inputs):
     """Phase 3: layer_fused against layer_fused_ref on the card."""
-    import torch
-    from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
     cases = lf_cases()
     for name, kw in main_inputs.items():
         cases[name] = to_numpy(kw)
     rows = {}
-    tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
     for name, kw_np in cases.items():
-        kw = lf_on_device(name, kw_np)
-        out = call(layer_fused, kw)
-        plain = call(layer_fused_ref, kw)
-        torch.cuda.synchronize()
-        err, rel, ok = close(out, plain)
-        form = ("scalers" if "scalers" in kw_np else "field"
-                if "field_wsum" in kw_np else "self")
-        log("kernels", f"layer_fused {name}: {form} form, "
-            f"N={kw_np['x'].shape[0]} E={kw_np['senders'].shape[0]} "
-            f"D_x={kw_np['x'].shape[1]} "
-            f"D_in={kw_np['w1'].shape[0]} max_abs_err={err:.3e} "
-            f"max_rel_err={rel:.3e} tol: {tol} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"layer_fused {name} disagrees with its "
-                                 f"plain version")
-        # the output's bytes, to hold against another tree's run
-        log("kernels", f"layer_fused {name}: output sha256 "
-            f"{hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()}")
-        epilogue_rows_check(name, kw, kw_np, layer_fused, layer_fused_ref)
-        label = f"layer_fused {name}"
-        bitwise_stable("kernels", label,
-                       lambda **extra: call(layer_fused, kw, **extra), out,
-                       (1, 3, 8, 16))
-        if name == "a_gin_paper_width":
-            replay = captured(lambda: call(layer_fused, kw))
-            if not torch.equal(replay, out):
-                raise AssertionError(f"{label}: the CUDA graph's replay is "
-                                     f"not bitwise the eager call")
-            log("kernels", f"{label}: one layer captured in a CUDA graph, "
-                f"replayed bitwise equal to the eager call")
-        rows[name] = timed_row(card, "kernels", label,
-                               lambda: call(layer_fused, kw),
-                               lambda: call(layer_fused_ref, kw),
-                               lf_bound(dict(kw_np,
-                                             edge_mask=owned_edges(kw_np))),
-                               err=err, rel=rel)
+        with lf_forced(name):
+            rows[name] = kernel_case(card, name, kw_np)
     return rows
+
+
+def kernel_case(card, name, kw_np) -> dict:
+    """One phase-3 case of layer_fused: its checks, then its timed row."""
+    import torch
+    from repro_torch.kernels import layer_fused as lf
+    from repro_torch.kernels.layer_fused import layer_fused, layer_fused_ref
+    tol = f"|k-p| <= {ATOL_OF_SCALE:g}*max(1,max|p|) + {RTOL:g}*|p|"
+    kw = lf_on_device(name, kw_np)
+    launch = lf._force_form or lf_form(kw_np)
+    if name.startswith(LF_GRID_CASES) and launch != "grid":
+        raise AssertionError(f"layer_fused {name} takes the {launch} "
+                             f"form, not the grid form")
+    out = call(layer_fused, kw)
+    plain = call(layer_fused_ref, kw)
+    torch.cuda.synchronize()
+    err, rel, ok = close(out, plain)
+    form = ("scalers" if "scalers" in kw_np else "field"
+            if "field_wsum" in kw_np else "self")
+    log("kernels", f"layer_fused {name}: {form} form, {launch} launch, "
+        f"N={kw_np['x'].shape[0]} E={kw_np['senders'].shape[0]} "
+        f"D_x={kw_np['x'].shape[1]} "
+        f"D_in={kw_np['w1'].shape[0]} max_abs_err={err:.3e} "
+        f"max_rel_err={rel:.3e} tol: {tol} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"layer_fused {name} disagrees with its "
+                             f"plain version")
+    # the output's bytes, to hold against another tree's run
+    log("kernels", f"layer_fused {name}: output sha256 "
+        f"{hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()}")
+    epilogue_rows_check(name, kw, kw_np, layer_fused, layer_fused_ref)
+    label = f"layer_fused {name}"
+    bitwise_stable("kernels", label,
+                   lambda **extra: call(layer_fused, kw, **extra), out,
+                   (1, 3, 8, 16))
+    other_form_check(label, kw, out, launch)
+    replay = captured(lambda: call(layer_fused, kw))
+    if not torch.equal(replay, out):
+        raise AssertionError(f"{label}: the CUDA graph's replay is "
+                             f"not bitwise the eager call")
+    log("kernels", f"{label}: one layer captured in a CUDA graph, "
+        f"replayed bitwise equal to the eager call")
+    return timed_row(card, "kernels", label,
+                     lambda: call(layer_fused, kw),
+                     lambda: call(layer_fused_ref, kw),
+                     lf_bound(dict(kw_np, edge_mask=owned_edges(kw_np))),
+                     err=err, rel=rel)
 
 
 # ---------------------------------------------------------------------------

@@ -216,11 +216,12 @@ __device__ __forceinline__ void fma_rows(int src_off, int src_stride,
 // at src_off (row stride src_stride, k_dim wide), w the weight stream's
 // chunks of this layer, each slice's sums at o_part (slice ks of row r at
 // (ks rows + r) n_dim). Thread t < S n_dim takes column t % n_dim and slice
-// t / n_dim for every group of 8 rows, and the last rows in groups of 4, 2
-// and 1 (fma_rows, kUnroll passed on). No integer division in the loops:
-// the slot and phase of the ring advance by one a chunk. Returns after the
-// layer's bias has landed and a __syncthreads.
-template <typename W = float, int kUnroll = 1>
+// t / n_dim for every group of 8 rows (kGroup 16: of 16, then of 8), and
+// the last rows in groups of 4, 2 and 1 (fma_rows, kUnroll passed on). No
+// integer division in the loops: the slot and phase of the ring advance by
+// one a chunk. Returns after the layer's bias has landed and a
+// __syncthreads.
+template <typename W = float, int kUnroll = 1, int kGroup = 8>
 __device__ __forceinline__ void fold_chunks(const Tile& p, int layer,
                                             int src_off, int src_stride,
                                             int rows_here, int tid) {
@@ -253,7 +254,11 @@ __device__ __forceinline__ void fold_chunks(const Tile& p, int layer,
         float* part =
             smem + p.o_part + ((size_t)ks * p.rows + r0) * n_dim + j;
         const bool first = ci == 0;
-        if (left >= 8) {
+        if (kGroup >= 16 && left >= 16) {
+          fma_rows<16, kUnroll>(in, src_stride, w, n_dim, j, ks, S, k0,
+                                 k1, k_dim, short_ks, part, first);
+          r0 += 16;
+        } else if (left >= 8) {
           fma_rows<8, kUnroll>(in, src_stride, w, n_dim, j, ks, S, k0,
                                 k1, k_dim, short_ks, part, first);
           r0 += 8;
@@ -334,17 +339,19 @@ __device__ __forceinline__ void dense_layer(const Tile& p, int layer,
   }
 }
 
-// dense_layer with the quads' loop unrolled kUnroll times (fma_rows) and
-// its outputs spread over every thread: output (r, j) to thread (r n_dim +
-// j) % kThreads, so that a thread finishes a few outputs of several rows
-// instead of one a row (the NT tile's form: PERF.md has what each took off
-// nt_mlp). The sums are dense_layer's.
-template <typename W, int kUnroll, typename O>
+// dense_layer with the quads' loop unrolled kUnroll times (fma_rows; rows
+// in groups of kGroup, 8 or 16) and its outputs spread over every thread:
+// output (r, j) to thread (r n_dim + j) % kThreads, so that a thread
+// finishes a few outputs of several rows instead of one a row (the NT
+// tile's form: PERF.md has what each took off nt_mlp). The sums are
+// dense_layer's.
+template <typename W, int kUnroll, int kGroup = 8, typename O>
 __device__ __forceinline__ void dense_layer_spread(
     const Tile& p, int layer, int src_off, int src_stride, int bias_off,
     int dst_off, int dst_stride, bool global, O* out, int row0,
     int rows_here, bool relu, int tid) {
-  fold_chunks<W, kUnroll>(p, layer, src_off, src_stride, rows_here, tid);
+  fold_chunks<W, kUnroll, kGroup>(p, layer, src_off, src_stride, rows_here,
+                                  tid);
   const int n_dim = layer ? p.d_out : p.d_ff;
   const int S = p.split[layer];
   const W* bias = reinterpret_cast<const W*>(smem + bias_off);

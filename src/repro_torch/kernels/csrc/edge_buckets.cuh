@@ -1,8 +1,9 @@
 // Owner bucketing of a materialised edge stream, so that each destination
 // row reads only its own edges, in stream order: bucket_edges for kernels
 // launched cooperatively (cudaLaunchCooperativeKernel, every block
-// resident; mp_scatter.cu), bucket_edges_stable for one block's rows of a
-// tile (mp_pipeline.cuh, seg_softmax.cu).
+// resident; mp_scatter.cu), bucket_edges_keyed for such kernels whose
+// blocks own tiles of rows (layer_fused.cu's grid form), bucket_edges_stable
+// for one block's rows of a tile (mp_pipeline.cuh, seg_softmax.cu).
 //
 // bucket_edges builds the buckets of the rows [lo, hi) in four phases, each
 // followed by a barrier:
@@ -146,12 +147,14 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* sh,
   return out;
 }
 
-// Phases 0-3. kGrid: every thread of the grid calls it; otherwise every
-// thread of one block. Returns after the last barrier, the buckets ready.
-template <bool kGrid>
-__device__ __forceinline__ void bucket_edges(const Edges& g,
-                                             const Buckets& b) {
-  __shared__ int sh[kWarps + 1];
+// Phases 0-3 with the bucket of edge i given by key_of(i) (-1: none),
+// `sh` kWarps + 1 ints of shared memory. kGrid: every thread of the grid
+// calls it; otherwise every thread of one block. Returns after the last
+// barrier, the buckets ready.
+template <bool kGrid, typename Key>
+__device__ __forceinline__ void bucket_edges_by(const Edges& g,
+                                                const Buckets& b,
+                                                Key&& key_of, int* sh) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int blocks = kGrid ? static_cast<int>(gridDim.x) : 1;
@@ -169,7 +172,7 @@ __device__ __forceinline__ void bucket_edges(const Edges& g,
   // loaded at once and kept for phase 3.
   int keys[kKeys];
 #pragma unroll
-  for (int k = 0; k < kKeys; ++k) keys[k] = bucket_of(g, b, first + k * stride + tid);
+  for (int k = 0; k < kKeys; ++k) keys[k] = key_of(first + k * stride + tid);
   const auto count = [&](int key) {
     const unsigned peers = __match_any_sync(kFull, key);
     if (key >= 0 && lane == __ffs(peers) - 1) {
@@ -181,7 +184,7 @@ __device__ __forceinline__ void bucket_edges(const Edges& g,
     if (first + k * stride < g.e) count(keys[k]);
   }
   for (long long base = first + kKeys * stride; base < g.e; base += stride) {
-    count(bucket_of(g, b, base + tid));
+    count(key_of(base + tid));
   }
   barrier<kGrid>();
 
@@ -227,9 +230,35 @@ __device__ __forceinline__ void bucket_edges(const Edges& g,
     if (first + k * stride < g.e) place(keys[k], first + k * stride + tid);
   }
   for (long long base = first + kKeys * stride; base < g.e; base += stride) {
-    place(bucket_of(g, b, base + tid), base + tid);
+    place(key_of(base + tid), base + tid);
   }
   barrier<kGrid>();
+}
+
+// Phases 0-3 by row (b's rows [lo, hi)).
+template <bool kGrid>
+__device__ __forceinline__ void bucket_edges(const Edges& g,
+                                             const Buckets& b) {
+  __shared__ int sh[kWarps + 1];
+  bucket_edges_by<kGrid>(
+      g, b, [&](long long i) { return bucket_of(g, b, i); }, sh);
+}
+
+// Phases 0-3 across the grid by tile: the owned edges of the rows [0, g.n)
+// keyed by row / per_key, b's keys [0, ceil(n / per_key)) (b.lo = 0). A
+// tile of per_key rows then reads its edges as one segment, and phase 2
+// scans n / per_key counts, not n. Every thread of a cooperative grid
+// calls it; `sh` is kWarps + 1 ints of the caller's shared memory.
+__device__ __forceinline__ void bucket_edges_keyed(const Edges& g,
+                                                   const Buckets& b,
+                                                   int per_key, int* sh) {
+  bucket_edges_by<true>(
+      g, b,
+      [&](long long i) {
+        const int r = owned_row(g, i);
+        return r >= 0 ? r / per_key : -1;
+      },
+      sh);
 }
 
 // Ascending sort of 32 * K ints across the warp, element r * 32 + lane in

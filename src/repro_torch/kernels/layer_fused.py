@@ -27,7 +27,13 @@ of ``y`` and still counts.
 ``layer_fused`` takes its plain PyTorch version ``layer_fused_ref`` for
 tensors on the CPU. For CUDA tensors it launches the hand-written kernel
 ``csrc/layer_fused.cu`` or raises; ``layer_fused.launches`` counts those
-launches.
+launches. The kernel has two forms, bitwise equal, and the wrapper picks
+one from the shape (``launch_form``): block-local, where each block sweeps
+the whole edge stream for its rows (the serving buckets), and grid, one
+cooperative launch whose blocks bucket the edges once by tile and then
+take the tiles in turn (packed batches), on int32 scratch the wrapper
+allocates (``scratch_ints``). A grid form the card cannot hold resident
+raises; no other form runs in its place.
 """
 
 from __future__ import annotations
@@ -46,6 +52,41 @@ from repro_torch.kernels.mp_pipeline import (_SW_MODES, BIG,
                                              seg_sum_rows, src_weight_mode)
 
 _EPILOGUES = {"self_mlp": 0, "scalers": 1, "field": 2}
+_FORMS = {"block": 0, "grid": 1}
+# The grid form past this many edge reads of the block-local form's grid
+# (its blocks, one per SM or ceil(N / rows_per_block), times E), measured
+# on an H100 at GIN's width (PERF.md, PR 36): at N=2,048, E=4,096 (128
+# blocks, 524,288 reads) the block-local form is 7% faster, at N=4,096,
+# E=8,192 (1,048,576) the grid form 5%, at N=32,768, E=65,536 1.8x; the
+# serving buckets (N=64, E=1,024: 65,536 reads) stay far below.
+CROSSOVER_READS = 1 << 19
+# Private test hooks: the form every launch takes ("block" or "grid"), and
+# the grid form's blocks (0: as many as the card holds resident).
+_force_form: Optional[str] = None
+_force_grid = 0
+
+
+def launch_form(num_nodes: int, num_edges: int,
+                rows_per_block: Optional[int], sms: int) -> str:
+    """"grid" or "block": the form a launch takes on a card of ``sms``
+    SMs. The block-local grid has ceil(N / rows) blocks (rows one per SM's
+    share, or ``rows_per_block``), each reading all E edges; past
+    ``CROSSOVER_READS`` of those the grid form's buckets cost less."""
+    rows = rows_per_block or max(1, -(-num_nodes // sms))
+    blocks = -(-num_nodes // rows)
+    return "grid" if blocks * num_edges > CROSSOVER_READS else "block"
+
+
+def scratch_ints(num_nodes: int, num_edges: int, form: str) -> int:
+    """int32 values of the grid form's scratch: per-key counts (N), their
+    scan (N + 1), the owned edges by key (E); none for the block-local
+    form."""
+    return 2 * num_nodes + 1 + num_edges if form == "grid" else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_args(x, num_nodes, *, w1, node_input, self_coeff, scalers,
@@ -186,8 +227,9 @@ def layer_fused(x: torch.Tensor, senders: torch.Tensor,
     not bind on Hopper, are accepted with the reference's defaults and
     change nothing.
     ``rows_per_block`` overrides how many destination rows one CUDA block
-    owns, as far as shared memory allows (the kernel's own choice by
-    default; the result does not depend on it).
+    owns (in the grid form, the rows of a tile a block takes), as far as
+    shared memory allows (the kernel's own choice by default); it also
+    enters ``launch_form``. The result does not depend on it.
     """
     d, epilogue = _check_args(
         x, num_nodes, w1=w1, node_input=node_input, self_coeff=self_coeff,
@@ -225,8 +267,8 @@ def _kernel():
     if fn.argtypes is None:
         # without argtypes ctypes passes every int as a 32-bit C int:
         # pointers are cut and the stream slot holds garbage
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 16 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 18 + [
+            ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return fn
 
@@ -269,6 +311,15 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, epilogue,
     n_scalers = 0 if scalers is None else scalers.shape[1]
 
     out = torch.empty((num_nodes, d_out), dtype=f32, device=dev)
+    index = dev.index if dev.index is not None else (
+        torch.cuda.current_device())
+    form = _force_form or launch_form(num_nodes, e, rows_per_block,
+                                      _sm_count(index))
+    # the grid form's buckets, in one allocation (the graph's pool inside
+    # a capture); the kernel clears what it uses
+    scratch = (torch.empty(scratch_ints(num_nodes, e, form),
+                           dtype=torch.int32, device=dev)
+               if form == "grid" else None)
     args = (
         need(x, "x", f32, (num_nodes, d_x)),
         need(y, "node_input", f32, (num_nodes, d)),
@@ -293,7 +344,8 @@ def _launch(x, senders, receivers, edge_mask, num_nodes, d, epilogue,
         _SW_MODES[sw_mode], sw_cols, head_dim, self_mode,
         _EPILOGUES[epilogue], n_scalers,
         int(phi_activation == "relu"), int(out_activation == "relu"),
-        rows_per_block or 0,
+        rows_per_block or 0, _FORMS[form], _force_grid,
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     err = _kernel()(*args)
