@@ -48,12 +48,16 @@ Phases, each printing its own lines:
                mp_scatter and mp_scatter_multi also torch.equal to the
                float32 stream-order fold on the host (``np.add.at`` and
                friends), on a hub row (5,000 of 8,192 edges, bf16 D=2048
-               and f32 D=100), every edge to one row, N > E, E off every
-               chunk, bf16 D=2047, message views off 16 bytes and rows of
-               33-128 edges, each
-               with its cooperative grid printed; first, each of
-               mp_scatter.cu's kernel instantiations' registers, shared
-               memory and spills from the ptxas log.
+               and f32 D=100; 2,500 of 4,096 in the block form), every
+               edge to one row, N > E, E off every chunk, bf16 D=2047,
+               message views off 16 bytes, rows of 33-128 edges and of 129
+               throughout (E=65,536), GAT's packed buckets and olmoe's
+               decode dispatch and combine, each with its launch plan
+               printed, bitwise at 1, 3, 8 and 16 rows per block, in the
+               other form (where it takes the call) and from a CUDA
+               graph's replay; first, each of mp_scatter.cu's kernel
+               instantiations' registers, shared memory and spills from
+               the ptxas log.
                ``mp_pipeline`` (five
                statistics; attention) and ``layer_fused`` (self form) also
                on receivers and senders outside [0, N) (ROADMAP queue 3's
@@ -1273,7 +1277,7 @@ SOFTMAX_TOL = 1e-5
 
 def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
                  mask_p=0.8, out_of_range=False, num_banks=None, hub=0,
-                 dtype="float32"):
+                 dtype="float32", rows_of=0, slots=False):
     """Numpy inputs of one mp_scatter / mp_scatter_multi / seg_softmax call
     (a dict of keyword args, as the model code passes them); ``d`` is the
     message width or the head count (0: (E,) logits). ``out_of_range``
@@ -1283,7 +1287,11 @@ def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
     [N, n_pad) of the JAX kernel's banks (two to row N, three to row
     n_pad - 1), the sixth to row n_pad, past them. ``hub`` edges, at
     random places in the stream, go to row N // 3; with ``dtype``
-    bfloat16 the messages are float32 values a bfloat16 holds exactly."""
+    bfloat16 the messages are float32 values a bfloat16 holds exactly.
+    ``rows_of`` > 0 sends each run of ``rows_of`` edges to one row (rows
+    0, 1, ... in random stream order: rows of exactly that many edges);
+    ``slots`` sends each unmasked edge to a slot of its own, as the MoE
+    dispatch does, and each masked one past the buffer (row N)."""
     r = np.random.default_rng(seed)
     softmax = kernel == "seg_softmax"
     stream = r.normal(size=(e, d) if d else (e,)) * (3 if softmax else 1)
@@ -1296,6 +1304,12 @@ def scatter_case(seed, n, e, d, *, kernel, stats=None, empty_tail=0,
     }
     if hub:
         kw["receivers"][r.choice(e, size=hub, replace=False)] = n // 3
+    if rows_of:
+        kw["receivers"] = (np.arange(e) // rows_of)[r.permutation(e)]
+    if slots:
+        own = kw["edge_mask"]
+        kw["receivers"] = np.full(e, n, np.int64)
+        kw["receivers"][own] = r.permutation(n)[:int(own.sum())]
     if dtype == "bfloat16":
         import torch
         kw["msg"] = torch.from_numpy(kw["msg"]).to(torch.bfloat16).float(
@@ -1318,12 +1332,12 @@ SCATTER_CASES = {
         "d_out_of_range_receivers": dict(n=1024, e=4096, d=100,
                                          out_of_range=True),
         # the owner buckets' edge cases: a hub row (5,000 of 8,192 unmasked
-        # edges; rows longer than 128 are folded by a sweep of the stream),
-        # every edge to one row, N > E with most rows empty, E off every
-        # chunk of the grid, bf16 rows that 16-byte loads cannot take
-        # (D = 2047), message views off 16 bytes (``offset`` elements into
-        # their buffer) and rows of 33-128 edges (sorted in four registers
-        # a lane)
+        # edges; in the grid form a row longer than its warps sort is
+        # folded by blocks, its segment sorted alone), every edge to one
+        # row, N > E with most rows empty, E off every chunk of the grid,
+        # bf16 rows that 16-byte loads cannot take (D = 2047), message
+        # views off 16 bytes (``offset`` elements into their buffer) and
+        # rows of 33-128 edges
         "e_hub_row_bf16_d2048": dict(n=1024, e=8192, d=2048, mask_p=1.0,
                                      hub=5000, dtype="bfloat16"),
         "f_hub_row_d100": dict(n=1024, e=8192, d=100, mask_p=1.0, hub=5000),
@@ -1335,6 +1349,21 @@ SCATTER_CASES = {
         "l_unaligned_view_bf16": dict(n=1024, e=4096, d=2048, offset=1,
                                       dtype="bfloat16"),
         "m_rows_of_33_to_128_edges": dict(n=64, e=4096, d=100),
+        # rows of 129 edges throughout, one past the grid form's warp sort
+        # (its long rows: 508 of them, each folded by a block), a hub row
+        # at E = 4,096 (the block form), GAT impl='kernel' at the packed
+        # buckets of 8 and 64 graphs, and olmoe-1b-7b's decode dispatch (2
+        # tokens x 64 assignments into 512 slots) and combine
+        "n_rows_of_129_edges": dict(n=509, e=65536, d=100, mask_p=1.0,
+                                    rows_of=129),
+        "o_hub_row_block_form": dict(n=1024, e=4096, d=100, mask_p=1.0,
+                                     hub=2500),
+        "p_gat_packed_n256": dict(n=256, e=512, d=64),
+        "q_gat_packed_n2048": dict(n=2048, e=4096, d=64),
+        "r_olmoe_decode_dispatch": dict(n=512, e=128, d=2048, mask_p=0.96,
+                                        slots=True, dtype="bfloat16"),
+        "s_olmoe_decode_combine": dict(n=2, e=128, d=2048, mask_p=0.96,
+                                       rows_of=64),
     },
     "mp_scatter_multi": {
         "a_all_stats": dict(n=1024, e=4096, d=80, stats=ALL_STATS,
@@ -1363,6 +1392,10 @@ SCATTER_CASES = {
                                  offset=1),
         "l_rows_of_33_to_128_edges": dict(n=64, e=4096, d=80,
                                           stats=ALL_STATS),
+        "m_rows_of_129_edges": dict(n=509, e=65536, d=80, stats=ALL_STATS,
+                                    mask_p=1.0, rows_of=129),
+        "n_hub_row_block_form": dict(n=1024, e=4096, d=100, stats=ALL_STATS,
+                                     mask_p=1.0, hub=2500),
     },
     "seg_softmax": {
         "a_gat_heads": dict(n=1024, e=4096, d=4, empty_tail=64),
@@ -1555,15 +1588,18 @@ def check_stream_order(label, out, ref) -> None:
                                  f"stream-order fold ({bad} values differ)")
 
 
-def scatter_grid(kernel, kw) -> str:
-    """How mp_scatter.cu launches this call: its cooperative grid, the rows
-    a block takes per step, where the edges are bucketed."""
+def scatter_grid(kernel, kw, rows_per_block=None) -> str:
+    """How mp_scatter.cu launches this call: its form, its grid, the rows a
+    block takes and its dynamic shared memory."""
     from repro_torch.kernels.mp_scatter import launch_plan
     msg = kw["msg"]
     plan = launch_plan(kw["num_nodes"], msg.shape[0], msg.shape[1],
-                       msg.dtype, multi=kernel == "mp_scatter_multi")
-    return (f"grid {plan['grid']} blocks of {plan['rows']} rows, "
-            f"{plan['buckets']} buckets")
+                       msg.dtype, multi=kernel == "mp_scatter_multi",
+                       rows_per_block=rows_per_block)
+    grid = (f"{plan['grid']} x {plan['chunks']} blocks" if plan["form"] ==
+            "block" else f"{plan['grid']} cooperative blocks")
+    return (f"{plan['form']} form, {grid} of {plan['rows']} rows, "
+            f"{plan['smem']} bytes of shared memory")
 
 
 def ptxas_report(name: str, instance) -> dict:
@@ -1601,27 +1637,30 @@ def ptxas_report(name: str, instance) -> dict:
 
 def scatter_build_report() -> dict:
     """Per instantiation of csrc/mp_scatter.cu's kernel (message type,
-    slices a lane, edges in flight, multi or sum alone): registers, spill
-    bytes and shared memory from the build's ``-Xptxas -v`` log."""
+    multi or sum alone, form; the grid form's slices a lane and edges in
+    flight): registers, spill bytes and shared memory from the build's
+    ``-Xptxas -v`` log."""
     import re
 
     def instance(symbol):
         k = re.search(r"mp_scatter_kernelI(\w+?)Li(\d)ELi(\d)ELb(\d)E"
                       r"Lb(\d)E", symbol)
-        return None if k is None else (
-            f"{'bf16' if 'bfloat16' in k.group(1) else 'f32'} "
-            f"S={k.group(2)} U={k.group(3)} "
-            f"{'multi' if k.group(4) == '1' else 'sum'} "
-            f"{'grid' if k.group(5) == '1' else 'block'}")
+        if k is None:
+            return None
+        grid = k.group(5) == "1"
+        return (f"{'bf16' if 'bfloat16' in k.group(1) else 'f32'} "
+                f"{'multi' if k.group(4) == '1' else 'sum'} "
+                + (f"grid S={k.group(2)} U={k.group(3)}" if grid
+                   else "block"))
     report = ptxas_report("mp_scatter", instance)
     for name, info in sorted(report.items()):
         log("kernels", f"mp_scatter.cu instantiation {name}: "
             f"{info['registers']} registers, spill stores/loads "
             f"{info['spill_stores']}/{info['spill_loads']} bytes, "
             f"{info['smem']} bytes shared memory (ptxas -v log)")
-    if len(report) != 12:
+    if len(report) != 10:
         raise AssertionError(f"mp_scatter.cu: {len(report)} kernel "
-                             f"instantiations in the ptxas log, expected 12")
+                             f"instantiations in the ptxas log, expected 10")
     return report
 
 
@@ -1709,11 +1748,46 @@ def pipeline_build_report() -> dict:
     return report
 
 
+def scatter_forms_check(label, kernel, kw, out) -> str:
+    """mp_scatter / mp_scatter_multi in the form the wrapper did not pick
+    (where that form takes the call: the block form holds at most 4,096
+    edges) and replayed from a CUDA graph: raise unless both are bitwise
+    ``out``; what was checked."""
+    import torch
+    from repro_torch.kernels import mp_scatter as ms
+    msg = kw["msg"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    form = ms.launch_form(kw["num_nodes"], msg.shape[0], msg.shape[1],
+                          msg.dtype, kernel == "mp_scatter_multi", None, sms)
+    other = "grid" if form == "block" else "block"
+    done = []
+    if other == "grid" or msg.shape[0] <= ms.LOCAL_EDGES:
+        ms._force_form = other
+        try:
+            again = scatter_kernel(kernel, kw)
+            plan = scatter_grid(kernel, kw)
+        finally:
+            ms._force_form = None
+        torch.cuda.synchronize()
+        if not all(torch.equal(again[k], out[k]) for k in out):
+            raise AssertionError(f"{label}: the {other} form is not bitwise "
+                                 f"the {form} form")
+        done.append(f"the {other} form ({plan}) bitwise equal")
+    replayed = captured(lambda: scatter_kernel(kernel, kw))
+    if not all(torch.equal(replayed[k], out[k]) for k in out):
+        raise AssertionError(f"{label}: the CUDA graph's replay is not "
+                             f"bitwise the eager call")
+    done.append("captured in a torch.cuda.CUDAGraph and replayed: bitwise "
+                "equal")
+    return "; ".join(done)
+
+
 def scatter_kernel_phase(card: str, kernel: str, main_inputs):
     """Phase 3: one scatter kernel of impl='kernel' against its plain
     version on the card, on synthetic cases and the main path's inputs;
     mp_scatter and mp_scatter_multi also bitwise against the stream-order
-    fold, with their cooperative grid printed."""
+    fold, in the other form and from a CUDA graph's replay, with their
+    launch plan printed."""
     import torch
     cases, layout = {}, {}
     for i, (name, spec) in enumerate(SCATTER_CASES[kernel].items()):
@@ -1784,7 +1858,8 @@ def scatter_kernel_phase(card: str, kernel: str, main_inputs):
             check_stream_order(label, out,
                                stream_order_ref(kernel, kw_np, dtype))
             what += (f"; {STREAM_ORDER_TXT} ({dtype}, {layout_txt}); "
-                     f"{scatter_grid(kernel, kw)}")
+                     f"{scatter_grid(kernel, kw)}; "
+                     f"{scatter_forms_check(label, kernel, kw, out)}")
         shape = tuple(kw_np["logits" if kernel == "seg_softmax"
                             else "msg"].shape)
         log("kernels", f"{label}: N={n} E x width={shape} "
@@ -1792,8 +1867,7 @@ def scatter_kernel_phase(card: str, kernel: str, main_inputs):
             f"max_rel_err={rel:.3e} tol: {tol}; {what}; ok")
         bitwise_stable("kernels", label,
                        lambda **extra: scatter_kernel(kernel, kw, **extra),
-                       out, ROWS_PER_BLOCK if kernel == "seg_softmax"
-                       else (1, 3, 16))
+                       out, ROWS_PER_BLOCK)
         rows[name] = timed_row(card, "kernels", label,
                                lambda: scatter_kernel(kernel, kw),
                                lambda: scatter_plain(kernel, kw),
@@ -2150,7 +2224,7 @@ OLMOE = {"d_model": 2048, "experts": 64, "top_k": 8, "moe_d_ff": 1024,
 def captured(run):
     """``run()`` (one kernel call) captured in a ``torch.cuda.CUDAGraph``
     (after a warm-up call on the capture's side stream), replayed once; its
-    output."""
+    output (a tensor, or a dict of tensors)."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -2160,10 +2234,13 @@ def captured(run):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = run()
-    out.zero_()
+    outs = out if isinstance(out, dict) else {None: out}
+    for v in outs.values():
+        v.zero_()
     graph.replay()
     torch.cuda.synchronize()
-    return out.clone()
+    outs = {k: v.clone() for k, v in outs.items()}
+    return outs if isinstance(out, dict) else outs[None]
 
 
 def moe_phase(card: str):
@@ -8296,7 +8373,11 @@ def main(argv=None) -> int:
     kernels[-1]["instantiations"] = train["build"]
     kernels[-2]["instantiations"] = flash_build
     kernels[0]["instantiations"] = lf_build
-    kernels[2]["instantiations"] = scatter_build
+    # mp_scatter.cu's instantiations: the sum's and the multi sweep's
+    kernels[2]["instantiations"] = {k: v for k, v in scatter_build.items()
+                                    if " sum " in k}
+    kernels[3]["instantiations"] = {k: v for k, v in scatter_build.items()
+                                    if " multi " in k}
     kernels[1]["instantiations"] = {
         k: v for k, v in pipeline_build.items()
         if not k.startswith("seg_softmax")}

@@ -1,9 +1,10 @@
 // Owner bucketing of a materialised edge stream, so that each destination
 // row reads only its own edges, in stream order: bucket_edges for kernels
 // launched cooperatively (cudaLaunchCooperativeKernel, every block
-// resident; mp_scatter.cu), bucket_edges_keyed for such kernels whose
-// blocks own tiles of rows (layer_fused.cu's grid form), bucket_edges_stable
-// for one block's rows of a tile (mp_pipeline.cuh, seg_softmax.cu).
+// resident; mp_scatter.cu's grid form), bucket_edges_keyed for such kernels
+// whose blocks own tiles of rows (layer_fused.cu's grid form),
+// bucket_edges_stable for one block's rows of a tile (mp_pipeline.cuh,
+// seg_softmax.cu, mp_scatter.cu's block form).
 //
 // bucket_edges builds the buckets of the rows [lo, hi) in four phases, each
 // followed by a barrier:
@@ -13,36 +14,30 @@
 //      (__match_any_sync); counts do not depend on the order of the adds.
 //      A thread loads the mask and receiver of its first kKeys edges at
 //      once and keeps their rows in registers for phase 3.
-//   2. exclusive scan of counts into row_start (hi - lo + 1 entries).
+//   2. exclusive scan of counts into row_start (hi - lo + 1 entries); the
+//      caller's `scanned(row, start, count)` sees each row once here
+//      (mp_scatter lists its long rows).
 //   3. place each owned edge's index into order, inside its row's segment
 //      order[row_start[r], row_start[r+1]) (r relative to lo): one atomicSub
 //      on counts[r] per distinct row of a warp (counts end at 0). Lanes of
 //      one warp keep stream order among themselves; warps do not, so a
 //      segment's order is not stream order yet.
-// Two forms, one code:
-//   * kGrid: the whole grid builds the buckets of every row in global
-//     scratch, with grid barriers (cooperative_groups::this_grid().sync();
-//     CUDA 12 needs no -rdc for it). In phase 2 block b scans its chunk of
-//     rows with a block scan, offset by the sum of the counts before the
-//     chunk, which it adds up itself: no second barrier, O(grid * n) reads
-//     from L2 in all. Scratch reads after a barrier go through L2 (__ldcg):
-//     a block's L1 may hold a line that another SM has since rewritten.
-//   * block-local: one block builds the buckets of the rows it is about to
-//     fold, in shared memory, with block barriers, reading the whole
-//     receiver stream itself. At small E (the GNN buckets) that re-read
-//     costs less than four grid barriers.
+// The whole grid builds the buckets of every row in global scratch, with
+// grid barriers (cooperative_groups::this_grid().sync(); CUDA 12 needs no
+// -rdc for it). In phase 2 block b scans its chunk of rows with a block
+// scan, offset by the sum of the counts before the chunk, which it adds up
+// itself: no second barrier, O(grid * n) reads from L2 in all. Scratch
+// reads after a barrier go through L2 (__ldcg): a block's L1 may hold a
+// line that another SM has since rewritten.
 // segment_head reads a row's segment start, length and first edge; one
 // lane a row, so one round trip serves a warp's next 32 work items.
-// The fold order is restored per row by fold_in_stream_order: a segment of
-// at most 32 edges is sorted ascending in one register a lane, one of at
-// most 32 * K in K (a bitonic network over shuffles and registers; the
-// caller picks K); a longer one is not read from order at all: the warp
-// sweeps the stream's receivers and mask, 128 edges a step, and takes the
-// row's edges as it meets them, which is stream order at any length. That
-// sweep costs O(E) reads per row longer than 32 * K, so at most
-// E / (32 * K + 1) rows pay it.
+// fold_sorted restores a short segment's stream order in registers: a
+// segment of at most 32 edges is sorted ascending in one register a lane,
+// one of at most 32 * K in K (a bitonic network over shuffles and
+// registers; the caller picks K). A longer segment is not a warp's: its
+// order comes from long_rows.cuh's block-level sort of that segment alone.
 // bucket_edges_stable (below) keeps stream order as it places the edges,
-// so its segments need neither the sort nor the sweep.
+// so its segments need no sort at all.
 //
 // Atomics count and place edges here, where order cannot change a value;
 // no message is ever added by an atomic.
@@ -59,8 +54,6 @@ namespace buckets {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-// edges a warp examines per step of a long row's sweep (4 per lane)
-constexpr int kSweepGroups = 4;
 // edges a thread keeps in registers from phase 1 to phase 3 (all of them
 // at the GNN buckets and the MoE widths); any further edge is read again
 constexpr int kKeys = 16;
@@ -97,22 +90,11 @@ __device__ __forceinline__ int bucket_of(const Edges& g, const Buckets& b,
   return (r >= b.lo && r < b.hi) ? r - b.lo : -1;
 }
 
-template <bool kGrid>
-__device__ __forceinline__ int load(const int* p) {
-  if constexpr (kGrid) {
-    return __ldcg(p);
-  } else {
-    return *p;
-  }
-}
+// scratch written by other blocks before a grid barrier: read through L2
+__device__ __forceinline__ int load(const int* p) { return __ldcg(p); }
 
-template <bool kGrid>
 __device__ __forceinline__ void barrier() {
-  if constexpr (kGrid) {
-    cooperative_groups::this_grid().sync();
-  } else {
-    __syncthreads();
-  }
+  cooperative_groups::this_grid().sync();
 }
 
 // Block-wide exclusive scan of one int a thread; *total gets the block's
@@ -148,24 +130,26 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* sh,
 }
 
 // Phases 0-3 with the bucket of edge i given by key_of(i) (-1: none),
-// `sh` kWarps + 1 ints of shared memory. kGrid: every thread of the grid
-// calls it; otherwise every thread of one block. Returns after the last
-// barrier, the buckets ready.
-template <bool kGrid, typename Key>
+// `sh` kWarps + 1 ints of shared memory; scanned(key, start, count) is
+// called once for each bucket as phase 2 scans it. Every thread of the
+// cooperative grid calls it. Returns after the last barrier, the buckets
+// ready.
+template <typename Key, typename Scanned>
 __device__ __forceinline__ void bucket_edges_by(const Edges& g,
                                                 const Buckets& b,
-                                                Key&& key_of, int* sh) {
+                                                Key&& key_of, int* sh,
+                                                Scanned&& scanned) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int blocks = kGrid ? static_cast<int>(gridDim.x) : 1;
-  const int me = kGrid ? static_cast<int>(blockIdx.x) : 0;
+  const int blocks = static_cast<int>(gridDim.x);
+  const int me = static_cast<int>(blockIdx.x);
   const long long stride = static_cast<long long>(blocks) * kThreads;
   const long long first = static_cast<long long>(me) * kThreads;
   const int rows = b.hi - b.lo;
 
   // 0. clear
   for (long long i = first + tid; i < rows; i += stride) b.counts[i] = 0;
-  barrier<kGrid>();
+  barrier();
 
   // 1. count; loop bounds are the same for all lanes of a warp, so every
   // lane reaches __match_any_sync. The first kKeys edges of each thread are
@@ -186,7 +170,7 @@ __device__ __forceinline__ void bucket_edges_by(const Edges& g,
   for (long long base = first + kKeys * stride; base < g.e; base += stride) {
     count(key_of(base + tid));
   }
-  barrier<kGrid>();
+  barrier();
 
   // 2. scan: this block takes rows [lo, hi)
   const int chunk = (rows + blocks - 1) / blocks;
@@ -195,21 +179,24 @@ __device__ __forceinline__ void bucket_edges_by(const Edges& g,
   if (lo < hi) {
     int before = 0;
     for (int i = tid; i < lo; i += kThreads) {
-      before += load<kGrid>(b.counts + i);
+      before += load(b.counts + i);
     }
     int offset = 0;
     block_exclusive_scan(before, sh, &offset);
     for (int base = lo; base < hi; base += kThreads) {
       const int i = base + tid;
-      const int v = i < hi ? load<kGrid>(b.counts + i) : 0;
+      const int v = i < hi ? load(b.counts + i) : 0;
       int total = 0;
       const int excl = block_exclusive_scan(v, sh, &total);
-      if (i < hi) b.row_start[i] = offset + excl;
+      if (i < hi) {
+        b.row_start[i] = offset + excl;
+        scanned(i, offset + excl, v);
+      }
       offset += total;
     }
     if (hi == rows && tid == 0) b.row_start[rows] = offset;
   }
-  barrier<kGrid>();
+  barrier();
 
   // 3. place
   const auto place = [&](int key, long long i) {
@@ -221,7 +208,7 @@ __device__ __forceinline__ void bucket_edges_by(const Edges& g,
     left = __shfl_sync(kFull, left, leader);
     if (key >= 0) {
       const int rank = __popc(peers & ((1u << lane) - 1u));
-      b.order[load<kGrid>(b.row_start + key) + left - take + rank] =
+      b.order[load(b.row_start + key) + left - take + rank] =
           static_cast<int>(i);
     }
   };
@@ -232,16 +219,22 @@ __device__ __forceinline__ void bucket_edges_by(const Edges& g,
   for (long long base = first + kKeys * stride; base < g.e; base += stride) {
     place(key_of(base + tid), base + tid);
   }
-  barrier<kGrid>();
+  barrier();
 }
 
-// Phases 0-3 by row (b's rows [lo, hi)).
-template <bool kGrid>
-__device__ __forceinline__ void bucket_edges(const Edges& g,
-                                             const Buckets& b) {
+// A bucketing's phase 2 with nothing to note.
+struct Unscanned {
+  __device__ __forceinline__ void operator()(int, int, int) const {}
+};
+
+// Phases 0-3 by row (b's rows [lo, hi)) across the cooperative grid;
+// scanned(row - lo, start, count) as bucket_edges_by's.
+template <typename Scanned>
+__device__ __forceinline__ void bucket_edges(const Edges& g, const Buckets& b,
+                                             Scanned&& scanned) {
   __shared__ int sh[kWarps + 1];
-  bucket_edges_by<kGrid>(
-      g, b, [&](long long i) { return bucket_of(g, b, i); }, sh);
+  bucket_edges_by(
+      g, b, [&](long long i) { return bucket_of(g, b, i); }, sh, scanned);
 }
 
 // Phases 0-3 across the grid by tile: the owned edges of the rows [0, g.n)
@@ -252,13 +245,13 @@ __device__ __forceinline__ void bucket_edges(const Edges& g,
 __device__ __forceinline__ void bucket_edges_keyed(const Edges& g,
                                                    const Buckets& b,
                                                    int per_key, int* sh) {
-  bucket_edges_by<true>(
+  bucket_edges_by(
       g, b,
       [&](long long i) {
         const int r = owned_row(g, i);
         return r >= 0 ? r / per_key : -1;
       },
-      sh);
+      sh, Unscanned{});
 }
 
 // Ascending sort of 32 * K ints across the warp, element r * 32 + lane in
@@ -292,19 +285,18 @@ __device__ __forceinline__ void warp_sort(int (&v)[K]) {
 // The segment of `row` (in b's rows): its start in order, its length and,
 // when it is not empty, its first edge. Each lane may ask for another row,
 // so that one round trip serves up to 32 work items.
-template <bool kGrid>
 __device__ __forceinline__ void segment_head(const Buckets& b, int row,
                                              int* start, int* len,
                                              int* first) {
-  *start = load<kGrid>(b.row_start + row - b.lo);
-  *len = load<kGrid>(b.row_start + row - b.lo + 1) - *start;
-  *first = *len > 0 ? load<kGrid>(b.order + *start) : 0;
+  *start = load(b.row_start + row - b.lo);
+  *len = load(b.row_start + row - b.lo + 1) - *start;
+  *first = *len > 0 ? load(b.order + *start) : 0;
 }
 
 // Calls fold(ids, cnt) for the segment's edges in ascending order, in
 // batches of at most U: the segment (start, len <= 32 * K) sorted in K
 // registers a lane; a lone edge is `first`, read from no memory.
-template <int K, int U, bool kGrid, typename Fold>
+template <int K, int U, typename Fold>
 __device__ __forceinline__ void fold_sorted(const Buckets& b, int start,
                                             int len, int first, Fold&& fold) {
   const int lane = threadIdx.x & 31;
@@ -313,7 +305,7 @@ __device__ __forceinline__ void fold_sorted(const Buckets& b, int start,
   for (int r = 0; r < K; ++r) {
     const int t = r * 32 + lane;
     v[r] = t >= len ? INT_MAX : len == 1 ? first
-                                         : load<kGrid>(b.order + start + t);
+                                         : load(b.order + start + t);
   }
   if (len > 1) warp_sort<K>(v);
   for (int j = 0; j < len; j += U) {
@@ -330,55 +322,19 @@ __device__ __forceinline__ void fold_sorted(const Buckets& b, int start,
   }
 }
 
-// Calls fold(ids, cnt) for the owned edges of `row` in stream order, in
+// Calls fold(ids, cnt) for the owned edges of a row in stream order, in
 // batches of at most U: ids[0, cnt) ascending, the same in every lane.
-// (start, len, first) is the row's segment_head, the same in every lane;
-// every lane of the warp calls it with the same row. Segments of up to
-// 32 * K edges are sorted in K registers a lane, longer ones swept.
-template <int U, int K, bool kGrid, typename Fold>
-__device__ __forceinline__ void fold_in_stream_order(const Edges& g,
-                                                     const Buckets& b, int row,
+// (start, len <= 32 * K, first) is the row's segment_head, the same in
+// every lane; every lane of the warp calls it. A segment of up to 32 edges
+// is sorted in one register a lane, a longer one in K.
+template <int U, int K, typename Fold>
+__device__ __forceinline__ void fold_in_stream_order(const Buckets& b,
                                                      int start, int len,
                                                      int first, Fold&& fold) {
-  const int lane = threadIdx.x & 31;
-  if (len <= 32) {
-    fold_sorted<1, U, kGrid>(b, start, len, first, fold);
-    return;
-  }
-  if constexpr (K > 1) {
-    if (len <= 32 * K) {
-      fold_sorted<K, U, kGrid>(b, start, len, first, fold);
-      return;
-    }
-  }
-  // a long row: its edges as the stream meets them
-  int done = 0;
-  for (long long base = 0; done < len; base += 32 * kSweepGroups) {
-    unsigned bits[kSweepGroups];
-#pragma unroll
-    for (int k = 0; k < kSweepGroups; ++k) {
-      bits[k] = __ballot_sync(kFull,
-                              owned_row(g, base + 32 * k + lane) == row);
-    }
-#pragma unroll
-    for (int k = 0; k < kSweepGroups; ++k) {
-      unsigned left = bits[k];
-      while (left) {
-        int ids[U];
-        int cnt = 0;
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          ids[u] = 0;
-          if (left) {
-            ids[u] = static_cast<int>(base) + 32 * k + __ffs(left) - 1;
-            left &= left - 1;
-            ++cnt;
-          }
-        }
-        fold(ids, cnt);
-        done += cnt;
-      }
-    }
+  if (K == 1 || len <= 32) {
+    fold_sorted<1, U>(b, start, len, first, fold);
+  } else {
+    fold_sorted<K, U>(b, start, len, first, fold);
   }
 }
 

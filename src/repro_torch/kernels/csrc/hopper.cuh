@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads through a tensor map, 1-d bulk copies and 4-byte cp.async
-// copies that complete on an mbarrier, programmatic dependent launch,
+// TMA tile loads through a tensor map, 1-d bulk copies and 16- and 4-byte
+// cp.async copies that complete on an mbarrier, programmatic dependent launch,
 // widening and rounding of bf16 / f16 values, wgmma shared-memory
 // descriptors and the warpgroup matrix products themselves, plus the host's
 // encoding of a tensor map.
@@ -102,12 +102,31 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// --- cp.async (4 bytes a copy: sources off 16 bytes)
+// --- cp.async
 
+// 16 bytes, both addresses on 16 bytes, through L2 only
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+// 4 bytes (sources off 16 bytes)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(smem_u32(dst)), "l"(__cvta_generic_to_global(src))
                : "memory");
+}
+
+// close this thread's group of cp.async copies issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // the barrier's pending count gains one now and loses it when this thread's

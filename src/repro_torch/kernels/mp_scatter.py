@@ -18,13 +18,24 @@ TPU kernels' grids; they are accepted and the result does not depend on
 them. Each wrapper takes its plain version (``mp_scatter_ref``,
 ``mp_scatter_multi_ref``) for tensors on the CPU. For CUDA tensors it
 launches the hand-written kernel ``csrc/mp_scatter.cu`` or raises; its
-``.launches`` counts those launches: one cooperative launch a call, which
-buckets the edges by owner and folds each row's edges in stream order
-(bitwise a float32 stream-order fold). On the card the messages are
-float32 or bfloat16 (read as such, accumulated in float32);
-``mp_scatter`` writes bfloat16 sums itself, rounded to nearest even. The
-wrapper allocates the kernel's int32 scratch (``counts`` (N), ``row_start``
-(N + 1), ``order`` (E), one ``torch.empty``); the kernel clears it.
+``.launches`` counts those launches, one a call, in one of two forms that
+the wrapper picks from the shape (``launch_form``), both bitwise a float32
+stream-order fold:
+
+  * ``"block"`` (E <= ``LOCAL_EDGES``, the GNN buckets): an ordinary
+    launch; each block buckets its rows' edges in stream order in shared
+    memory and folds each row, 512 bytes of its columns a block, through a
+    ring of asynchronous copies, whatever the row's length;
+  * ``"grid"`` (larger streams, the MoE widths): one cooperative launch
+    whose blocks bucket every edge by row in the wrapper's int32 scratch
+    (``scratch_ints``) between grid barriers; warps fold the short rows
+    (segments sorted in registers), blocks the long ones (each segment
+    sorted alone, then the ring).
+
+On the card the messages are float32 or bfloat16 (read as such,
+accumulated in float32); ``mp_scatter`` writes bfloat16 sums itself,
+rounded to nearest even. A grid form the card cannot hold resident raises;
+no other form runs in its place.
 
 Gradients. Where autograd needs the graph (grad mode on and ``msg``
 requiring grad) ``mp_scatter`` goes through ``MpScatterFn``, whose backward
@@ -58,6 +69,80 @@ MULTI_STATS = ("sum", "sumsq", "count", "max", "min")
 
 # the dtypes the CUDA kernels read messages in
 CUDA_MSG_DTYPES = (torch.float32, torch.bfloat16)
+
+# The block form: at most LOCAL_EDGES edges (one stable bucketing in
+# shared memory) and LOCAL_ROWS rows a block; each block folds CHUNK_BYTES
+# of every message row (csrc/mp_scatter.cu::kBlockChunk), so a row of D
+# elements takes ceil(D * itemsize / CHUNK_BYTES) blocks of columns.
+LOCAL_EDGES = 4096
+LOCAL_ROWS = 1024
+CHUNK_BYTES = 512
+# The grid form past this many edge reads of the block form's grid (its
+# blocks, ceil(N / rows) times the column chunks, each bucketing all E
+# edges). Measured on an H100 (PERF.md, PR 37) at N = 256-2,048, E = 2N,
+# D = 64 and 100, 1-16 rows a block: the block form was faster up to 683
+# blocks x 4,096 edges (2.8M reads: 14.96 us against the grid form's
+# 18.03), the grid form at 2,048 x 4,096 (8.4M: 25.84 against 26.50).
+CROSSOVER_READS = 1 << 22
+# Private test hook: the form every launch takes ("block" or "grid").
+_force_form: Optional[str] = None
+
+
+def chunks(d: int, dtype) -> int:
+    """The block form's blocks of columns for a row of ``d`` elements."""
+    return -(-d * dtype.itemsize // CHUNK_BYTES)
+
+
+def block_rows(num_nodes: int, d: int, dtype, rows_per_block: Optional[int],
+               sms: int) -> int:
+    """Rows a block takes in the block form: ``rows_per_block``, else as
+    many as make two blocks an SM, counting a row's chunks."""
+    return rows_per_block or max(
+        1, -(-num_nodes * chunks(d, dtype) // (2 * sms)))
+
+
+def launch_form(num_nodes: int, num_edges: int, d: int, dtype, multi: bool,
+                rows_per_block: Optional[int], sms: int) -> str:
+    """"block" or "grid": the form a launch takes on a card of ``sms``
+    SMs, the same rule for ``mp_scatter`` and ``mp_scatter_multi``
+    (``multi``). The block form while its stream fits one bucketing
+    (``LOCAL_EDGES``), its rows a block fit ``LOCAL_ROWS`` and its grid's
+    blocks re-read at most ``CROSSOVER_READS`` edges in all."""
+    del multi   # the crossover was measured the same for both sweeps
+    if num_edges > LOCAL_EDGES:
+        return "grid"
+    rows = block_rows(num_nodes, d, dtype, rows_per_block, sms)
+    if rows > LOCAL_ROWS:
+        return "grid"
+    blocks = -(-num_nodes // rows) * chunks(d, dtype)
+    return "grid" if blocks * num_edges > CROSSOVER_READS else "block"
+
+
+def scratch_ints(num_nodes: int, num_edges: int, form: str) -> int:
+    """int32 values of the grid form's scratch: per-row counts (N), their
+    scan (N + 1), the owned edges by row (E), the long rows' two counts
+    and (row, start, length) triples (at most E / 33 rows are longer than
+    the shortest long row); none for the block form."""
+    if form != "grid":
+        return 0
+    return 2 * num_nodes + 1 + num_edges + 2 + 3 * ((num_edges >> 5) + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _form_of(num_nodes, num_edges, d, dtype, multi, rows_per_block, dev):
+    """(form, rows a block) of a launch on ``dev``: the block form's rows
+    resolved here, the grid form's left to the kernel (0) unless given."""
+    sms = _sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    form = _force_form or launch_form(num_nodes, num_edges, d, dtype, multi,
+                                      rows_per_block, sms)
+    if form == "block":
+        return form, block_rows(num_nodes, d, dtype, rows_per_block, sms)
+    return form, rows_per_block or 0
 
 
 def mp_scatter_ref(msg: torch.Tensor, receivers: torch.Tensor,
@@ -195,8 +280,8 @@ def _kernel(multi: bool):
         # without argtypes ctypes passes every int as a 32-bit C int:
         # pointers are cut and the stream slot holds garbage
         outs = 5 if multi else 1
-        fn.argtypes = ([ctypes.c_void_p] * (3 + outs) + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 4)
+        fn.argtypes = ([ctypes.c_void_p] * (3 + outs) + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -204,23 +289,25 @@ def _kernel(multi: bool):
 def launch_plan(num_nodes: int, num_edges: int, d: int, dtype, *,
                 multi: bool, rows_per_block: Optional[int] = None) -> dict:
     """How the kernel launches these sizes on the current CUDA device:
-    ``grid`` (blocks of the cooperative launch, chosen from E, N and D, at
-    most every block the card holds at once), ``rows`` (rows a block takes
-    per step) and ``buckets`` ("block" when each block buckets the edges
-    of its own rows in shared memory, "grid" when the grid buckets them
-    all in the scratch, between grid barriers)."""
+    ``form`` ("block" or "grid", ``launch_form``), ``grid`` (blocks of
+    rows: the block form's ceil(N / rows), the cooperative grid's every
+    block the card holds at once), ``chunks`` (the block form's blocks of
+    columns a row), ``rows`` (rows a block takes, a step of the grid
+    form's phase 4) and ``smem`` (dynamic shared memory, bytes)."""
+    form, rows = _form_of(num_nodes, num_edges, d, dtype, multi,
+                          rows_per_block, torch.device("cuda"))
     fn = build.load("mp_scatter").mp_scatter_plan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 4
         fn.restype = ctypes.c_int
-    grid, rows, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = fn(num_nodes, num_edges, d, rows_per_block or 0,
-             int(dtype == torch.bfloat16), int(multi), ctypes.byref(grid),
-             ctypes.byref(rows), ctypes.byref(local))
+    out = [ctypes.c_int() for _ in range(4)]
+    err = fn(num_nodes, num_edges, d, rows, int(dtype == torch.bfloat16),
+             int(multi), int(form == "grid"), *map(ctypes.byref, out))
     if err != 0:
         raise RuntimeError(f"mp_scatter_plan failed with CUDA error {err}")
-    return {"grid": grid.value, "rows": rows.value,
-            "buckets": "block" if local.value else "grid"}
+    grid, n_chunks, rows, smem = (v.value for v in out)
+    return {"form": form, "grid": grid, "chunks": n_chunks, "rows": rows,
+            "smem": smem}
 
 
 def _launch(msg, receivers, edge_mask, num_nodes, stats, rows_per_block, *,
@@ -249,10 +336,6 @@ def _launch(msg, receivers, edge_mask, num_nodes, stats, rows_per_block, *,
            for s in stats}
     outs = ([out[s].data_ptr() if s in out else None for s in MULTI_STATS]
             if multi else [out["sum"].data_ptr()])
-    # the owner buckets, in one allocation: per-row counts (N), their scan
-    # (N + 1), the edges by row (E)
-    scratch = torch.empty(2 * num_nodes + 1 + e, dtype=torch.int32,
-                          device=dev)
     name = "mp_scatter_multi" if multi else "mp_scatter"
     if counter.active():
         counter.note_kernel(name, *cost.scatter_work(
@@ -260,10 +343,17 @@ def _launch(msg, receivers, edge_mask, num_nodes, stats, rows_per_block, *,
             launches=int(num_nodes > 0))
     if dev.type == "meta":
         return out
-    base = scratch.data_ptr()
-    err = _kernel(multi)(*ptrs, *outs, num_nodes, e, d, rows_per_block or 0,
-                         int(msg.dtype == torch.bfloat16), base,
-                         base + 4 * num_nodes, base + 4 * (2 * num_nodes + 1),
+    form, rows = _form_of(num_nodes, e, d, msg.dtype, multi,
+                          rows_per_block, dev)
+    # the grid form's owner buckets, in one allocation (the block form's
+    # live in shared memory)
+    n_scratch = scratch_ints(num_nodes, e, form)
+    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=dev)
+               if n_scratch else None)
+    err = _kernel(multi)(*ptrs, *outs, num_nodes, e, d, rows,
+                         int(msg.dtype == torch.bfloat16),
+                         int(form == "grid"),
+                         None if scratch is None else scratch.data_ptr(),
                          torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")

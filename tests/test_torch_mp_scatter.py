@@ -298,10 +298,10 @@ def test_plain_versions_fold_in_stream_order(case):
                                   "unaligned_view"])
 def test_cuda_kernel_is_the_stream_order_fold(case):
     """The CUDA kernels are bitwise the float32 stream-order fold: on a hub
-    row (5,000 of 8,192 unmasked edges, longer than a warp sorts: swept),
-    on rows of 33-128 edges (sorted in four registers a lane), and on a
-    message view 4 bytes off 16 (element loads); every statistic, both
-    kernels, bitwise across rows per block."""
+    row (5,000 of 8,192 unmasked edges, longer than a warp sorts: folded
+    by blocks through the ring), on rows of 33-128 edges, and on a message
+    view 4 bytes off 16 (4-byte copies and element loads); every
+    statistic, both kernels, bitwise across rows per block."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     if case in BUCKET_CASES:
@@ -378,3 +378,42 @@ def test_out_of_range_receivers_are_dropped(jops, kernel, masked):
         q = {k: v[keep] for k, v in p.items()}
         inside = tops.mp_scatter(*_torch(q), n)
         np.testing.assert_array_equal(ours["sum"].numpy(), inside.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [None, ALL_STATS], ids=["sum", "multi"])
+def test_cuda_graph_alone_equals_packed_at_an_offset(stats):
+    """A graph's sums on the card are bitwise the same alone and packed at
+    a node and edge offset inside a larger batch (GAT impl='kernel' at the
+    packed bucket of 64 graphs: N=2048, E=4096), in either form and at 1
+    and 16 rows per block: each row folds its own edges in stream order,
+    whatever surrounds them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n, e, d = 37, 301, 64
+    g = _problem(e, d, n, seed=12, empty_tail=3)
+    big_n, big_e, node0, edge0 = 2048, 4096, 1100, 2345
+    big = _problem(big_e, d, big_n, seed=13, empty_tail=0)
+    big["receivers"][(big["receivers"] >= node0)
+                     & (big["receivers"] < node0 + n)] = 0
+    big["msg"][edge0:edge0 + e] = g["msg"]
+    big["receivers"][edge0:edge0 + e] = g["receivers"] + node0
+    big["edge_mask"][edge0:edge0 + e] = g["edge_mask"]
+
+    def run(p, num):
+        args = _torch(p, "cuda")
+        if stats is None:
+            return {"sum": tms.mp_scatter(*args, num, rows_per_block=rpb)}
+        return tms.mp_scatter_multi(*args, num, stats=stats,
+                                    rows_per_block=rpb)
+    for form in (None, "grid"):
+        tms._force_form = form
+        try:
+            for rpb in (None, 1, 16):
+                alone, packed = run(g, n), run(big, big_n)
+                torch.cuda.synchronize()
+                for k, v in alone.items():
+                    assert torch.equal(packed[k][node0:node0 + n], v), \
+                        (form, rpb, k)
+        finally:
+            tms._force_form = None

@@ -1,9 +1,9 @@
 """``experiments/scatter_breakdown.py``'s variants still apply to the kernel.
 
-The probe builds its variants by exact-text edits of ``csrc/mp_scatter.cu``;
-an edit to the lines it names breaks it. This checks on the CPU (no nvcc,
-no card) that every variant applies to the source as it stands and
-changes it.
+The probe builds its variants by exact-text edits of ``csrc/mp_scatter.cu``
+and the ring it includes, ``csrc/long_rows.cuh``; an edit to the lines it
+names breaks it. This checks on the CPU (no nvcc, no card) that every
+variant applies to the sources as they stand and changes them.
 """
 
 import importlib.util
@@ -14,7 +14,8 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
-VARIANTS = ("as_is", "no_fold", "barriers_only", "grid_form")
+VARIANTS = ("as_is", "no_fold", "barriers_only", "grid_form",
+            "no_copies", "sort_only", "no_units", "sort_bits_only")
 
 
 @pytest.fixture(scope="module")
@@ -28,7 +29,8 @@ def breakdown():
 
 @pytest.mark.parametrize("name", VARIANTS)
 def test_variant_applies_to_the_kernel_source(breakdown, name):
-    src = breakdown.SRC.read_text()
-    out = breakdown.variants(src)
+    srcs = breakdown.sources(breakdown.build.CSRC)
+    assert set(srcs) == {"mp_scatter.cu", "long_rows.cuh"}
+    out = breakdown.variants(srcs)
     assert tuple(out) == VARIANTS
-    assert (out[name] == src) == (name == "as_is")
+    assert (out[name] == srcs) == (name == "as_is")
